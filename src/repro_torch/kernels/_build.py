@@ -26,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: Every kernel source of the package, by stem.
-SOURCES = ("zns_event_scan", "zns_fixpoint")
+SOURCES = ("zns_event_scan", "zns_fixpoint", "rmsnorm", "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -15,6 +15,9 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from . import flash_attention as _fa
+from . import ref as _ref
+from . import rmsnorm as _rms
 from . import zns_event_scan as _scan
 from . import zns_fixpoint as _fix
 from .zns_fixpoint import PackedBlocks, pack_blocks
@@ -72,3 +75,32 @@ def zns_fixpoint(comp0: torch.Tensor, svc: torch.Tensor,
     if _resolve(impl, comp0) == "torch":
         return _fix.zns_fixpoint_torch(comp0, svc, blocks, sweeps=sweeps)
     return _fix.zns_fixpoint(comp0, svc, blocks, sweeps=sweeps)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              scale: Optional[float] = None, kv_length=None,
+              impl: Optional[str] = None) -> torch.Tensor:
+    """Attention forward, q ``(B, Hq, Tq, D)``, k/v ``(B, Hkv, Tk, D)``,
+    query positions aligned to the end of the keys.  A ``kv_length``
+    call goes to the dense oracle :func:`ref.attention_ref`, as in the
+    reference."""
+    if kv_length is not None:
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  scale=scale, kv_length=kv_length)
+    _fa.check_inputs(q, k, v, window)
+    if _resolve(impl, q) == "torch":
+        return _fa.attention_torch(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+            impl: Optional[str] = None) -> torch.Tensor:
+    """RMSNorm over the last dim of ``x``: ``x * rsqrt(mean(x^2) + eps)
+    * (1 + w)`` in float32, returned in ``x``'s dtype."""
+    _rms.check_inputs(x, w)
+    if _resolve(impl, x) == "torch":
+        return _rms.rmsnorm_torch(x, w, eps=eps)
+    return _rms.rmsnorm(x, w, eps=eps)

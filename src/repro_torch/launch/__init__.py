@@ -1,0 +1,1 @@
+"""Launch drivers of the port (``python -m repro_torch.launch.serve``)."""

@@ -1,0 +1,11 @@
+"""Models: the port of ``repro.models`` (dense family)."""
+from .config import (  # noqa: F401
+    ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
+    ModelConfig, ShapeConfig, shapes_for,
+)
+from .convert import params_from_reference, params_to_reference  # noqa: F401
+from .model import (  # noqa: F401
+    count_active_params, count_params, decode_step, forward, init_cache,
+    init_params, model_flops, model_spec, prefill,
+)
+from .transformer import DecoderLayer, Transformer  # noqa: F401

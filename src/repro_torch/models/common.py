@@ -1,0 +1,299 @@
+"""Shared model components: parameter specs, initializers, attention,
+MLP, RoPE, norms.
+
+The port of ``repro.models.common`` for one card.  A module is described
+by a spec tree of :class:`P` entries (shape, logical axes, init); the
+same spec gives the initialised parameters and the exact parameter
+counts.  The layer functions take their parameters as mappings of
+tensors (``dict`` or ``nn.ParameterDict``); weights are held in the
+config's ``param_dtype`` and cast to the activations' dtype at use, as
+in the reference.  Norms go through :func:`repro_torch.kernels.ops.rmsnorm`
+and full-sequence attention through
+:func:`repro_torch.kernels.ops.attention` (the CUDA kernels on a card).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from .config import ModelConfig
+
+#: The reference's ``kernel_impl`` names, as the port's ``impl``.
+_IMPL_OF = {"xla": "torch", "interpret": "torch", "pallas": "cuda"}
+
+
+def kernel_impl(cfg: ModelConfig) -> str:
+    """``cfg.kernel_impl`` as an ``impl`` of :mod:`repro_torch.kernels.ops`:
+    the reference's oracle (``xla``) and interpret modes become the plain
+    versions, ``pallas`` the CUDA kernels; ``auto``, ``cuda`` and
+    ``torch`` pass through."""
+    return _IMPL_OF.get(cfg.kernel_impl, cfg.kernel_impl)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` / ``"float32"`` / ... as a :class:`torch.dtype`."""
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """Parameter spec: shape, logical axes (one name per dim), init."""
+
+    shape: tuple
+    axes: tuple
+    init: str = "normal"      # normal | zeros | ones | const_std
+    scale: float = 1.0
+
+    def initialize(self, generator: torch.Generator, dtype: torch.dtype,
+                   device) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dtype, device=device)
+        if self.init == "const_std":
+            std = self.scale
+        else:
+            # the reference's rule: fan_in is shape[-2] for every weight of
+            # two or more dims (the heads axis of a (D, H, Dh) projection)
+            fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+            std = self.scale / np.sqrt(max(fan_in, 1))
+        t = torch.randn(self.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return t.mul_(float(std)).to(dtype)
+
+
+def spec_leaves(spec, prefix=()):
+    """``(path, P)`` pairs of a spec tree, in the reference's leaf order
+    (dict keys sorted, as ``jax.tree.flatten`` orders them)."""
+    if isinstance(spec, P):
+        yield prefix, spec
+        return
+    for key in sorted(spec):
+        yield from spec_leaves(spec[key], prefix + (key,))
+
+
+def init_from_spec(spec, generator: torch.Generator, dtype: torch.dtype,
+                   device) -> dict:
+    """A nested dict of tensors shaped like ``spec``, drawn leaf by leaf
+    from ``generator``."""
+    out: dict = {}
+    for path, p in spec_leaves(spec):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = p.initialize(generator, dtype, device)
+    return out
+
+
+def stack_spec(spec, n: int, axis_name: str = "layers"):
+    """Prepend a stacked dimension to every param in a spec tree."""
+    if isinstance(spec, P):
+        return P((n,) + spec.shape, (axis_name,) + spec.axes, spec.init,
+                 spec.scale)
+    return {k: stack_spec(v, n, axis_name) for k, v in spec.items()}
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers
+# ---------------------------------------------------------------------------
+def rmsnorm(cfg: ModelConfig, w, x):
+    return kops.rmsnorm(x, w, eps=cfg.rms_eps, impl=kernel_impl(cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(dh: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The reference's float32 RoPE frequencies (computed in numpy), on
+    ``device``.  Kept per device: a host-to-device copy on every call
+    waits for the stream and stalls the launch queue twice a layer."""
+    half = dh // 2
+    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / dh))
+    return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+
+
+def rope(x, positions, theta: float):
+    """x: (..., T, H, Dh); positions: (..., T)."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
+    ang = positions[..., None].float() * freqs          # (..., T, half)
+    cos = torch.cos(ang)[..., None, :]                  # (..., T, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# -- attention ----------------------------------------------------------------
+def attn_spec(cfg: ModelConfig) -> dict:
+    D, H, K, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    spec = {
+        "wq": P((D, H, Dh), ("embed", "heads", "head_dim")),
+        "wk": P((D, K, Dh), ("embed", "kv_heads", "head_dim")),
+        "wv": P((D, K, Dh), ("embed", "kv_heads", "head_dim")),
+        "wo": P((H, Dh, D), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = P((Dh,), ("head_dim",), "zeros")
+        spec["k_norm"] = P((Dh,), ("head_dim",), "zeros")
+    return spec
+
+
+def attn_qkv(cfg: ModelConfig, p, x, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    if cfg.qk_norm:
+        # The reference pins its plain op here (impl="xla"); the port runs
+        # the RMSNorm kernel on the (B*S*H, Dh) rows, the same function.
+        q = rmsnorm(cfg, p["q_norm"], q)
+        k = rmsnorm(cfg, p["k_norm"], k)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def full_attention(cfg: ModelConfig, qh, kh, vh, *, window=None):
+    """Head-major full-sequence attention core: (B, H/K, S, Dh) -> (B, H,
+    S, Dh), through the flash-attention kernel on a card."""
+    if cfg.ring_attention:
+        raise NotImplementedError(
+            "ring attention is not ported yet (ROADMAP queue 1, item 11: "
+            "distributed)")
+    return kops.attention(qh, kh, vh, causal=True, window=window,
+                          impl=kernel_impl(cfg))
+
+
+def attention(cfg: ModelConfig, p, x, positions, *, window=None):
+    """Full-sequence (prefill/forward) attention.  x: (B, S, D)."""
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    out = full_attention(cfg, q.movedim(2, 1), k.movedim(2, 1),
+                         v.movedim(2, 1), window=window)
+    out = out.movedim(1, 2)                   # (B, S, H, Dh)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def attention_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos: int, *,
+                     window=None):
+    """Single-token decode.  x: (B, 1, D); cache_{k,v}: (B, K, S, Dh);
+    ``pos``: current position (tokens written so far).
+
+    Returns (out, cache_k, cache_v).  Unlike the reference, the new key
+    and value are written into the given cache tensors in place (the
+    reference donates the cache buffer to the same effect).  Windowed
+    attention keeps a rolling buffer: the slot is ``pos % window`` and key
+    positions are reconstructed for the mask.
+    """
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    s = cache_k.shape[2]
+    slot = pos % s if window is not None else pos
+    slot_w = min(max(slot, 0), s - 1)  # lax.dynamic_update_slice clamps
+    cache_k[:, :, slot_w] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, :, slot_w] = v[:, 0].to(cache_v.dtype)
+    # Grouped-query attention without repeating the KV heads: q heads as
+    # (B, K, rep, Dh) against the (B, K, S, Dh) cache; float32 logits and
+    # accumulation (the reference's preferred_element_type).
+    rep = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, cfg.num_kv_heads, rep, cfg.head_dim)
+    logits = torch.einsum("bkrd,bksd->bkrs", qg.float(), cache_k.float())
+    logits = logits / math.sqrt(cfg.head_dim)
+    kpos = torch.arange(s, device=x.device)
+    if window is None:
+        valid = kpos <= pos
+    else:
+        age = (slot - kpos) % s
+        abs_pos = pos - age
+        valid = (abs_pos >= 0) & (abs_pos > pos - window)
+    logits = torch.where(valid, logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrs,bksd->bkrd", w.to(cache_v.dtype).float(),
+                       cache_v.float())
+    out = out.reshape(b, 1, cfg.num_heads, cfg.head_dim).to(x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return out, cache_k, cache_v
+
+
+# -- MLP ---------------------------------------------------------------------
+def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
+    D = cfg.d_model
+    Fh = d_ff if d_ff is not None else cfg.d_ff
+    return {
+        "w_gate": P((D, Fh), ("embed", "mlp")),
+        "w_up": P((D, Fh), ("embed", "mlp")),
+        "w_down": P((Fh, D), ("mlp", "embed")),
+    }
+
+
+def mlp(p, x):
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+
+
+# -- embeddings / head -------------------------------------------------------
+def embed_spec(cfg: ModelConfig) -> dict:
+    spec = {
+        "embedding": P((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                       "const_std", scale=0.02),
+        "final_norm": P((cfg.d_model,), ("embed",), "zeros"),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = P((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    if cfg.num_codebooks > 1:
+        spec["codebook_embed"] = P(
+            (cfg.num_codebooks - 1, cfg.vocab_size, cfg.d_model),
+            ("codebooks", "vocab", "embed"), "const_std", scale=0.02)
+        spec["codebook_head"] = P(
+            (cfg.num_codebooks - 1, cfg.d_model, cfg.vocab_size),
+            ("codebooks", "embed", "vocab"))
+    if cfg.frontend == "vision_stub":
+        spec["patch_proj"] = P((cfg.d_model, cfg.d_model),
+                               ("embed_in", "embed"))
+    return spec
+
+
+_CODEBOOKS = ("audio codebooks are not ported yet (ROADMAP queue 1, slice "
+              "8: VLM and audio serving)")
+
+
+def embed_tokens(cfg: ModelConfig, p, tokens, dtype):
+    """tokens: (B, S) -> (B, S, D)."""
+    if cfg.num_codebooks > 1:
+        raise NotImplementedError(_CODEBOOKS)
+    return p["embedding"][tokens].to(dtype)
+
+
+def lm_logits(cfg: ModelConfig, p, x):
+    """x: (B, S, D) -> float32 (B, S, V)."""
+    if cfg.num_codebooks > 1:
+        raise NotImplementedError(_CODEBOOKS)
+    head = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    logits = x @ head.to(x.dtype)
+    if cfg.logits_softcap:
+        cap = cfg.logits_softcap
+        logits = torch.tanh(logits / cap) * cap
+    return logits.float()
+
+
+def apply_frontend(cfg: ModelConfig, p, x, frontend_inputs):
+    """Modality frontends (the VLM's patch embeddings) are not ported."""
+    if frontend_inputs is not None:
+        raise NotImplementedError(
+            "modality frontends are not ported yet (ROADMAP queue 1, slice "
+            "8: VLM and audio serving)")
+    return x
+
+
+def constrain_act(x, cfg: "ModelConfig | None" = None):
+    """The reference's sharding hint; the identity on one card."""
+    return x

@@ -1,0 +1,69 @@
+"""Carry parameters between the reference's pytree and the port.
+
+The reference keeps a model's parameters as a nested dict with the
+layers stacked on a leading axis (``params["layers"]["attn"]["wq"]`` is
+``(L, D, H, Dh)``).  :func:`params_from_reference` takes that tree as
+numpy arrays and returns the port's :class:`Transformer` with the same
+values; :func:`params_to_reference` gives the tree back.  The tests use
+them to run both packages on one set of weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.torch_device import DEFAULT_DEVICE, resolve_device
+from . import common as cm
+from .config import ModelConfig
+from .model import model_spec
+from .transformer import Transformer
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes arrays: via float32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)   # a writable copy
+
+
+def params_from_reference(cfg: ModelConfig, tree, *,
+                          device=DEFAULT_DEVICE) -> Transformer:
+    """The port's parameters from the reference's tree (nested dicts of
+    numpy arrays, ``layers`` axis first).  Raises ``ValueError`` when a
+    leaf is missing or its shape differs from the config's spec."""
+    dev = resolve_device(device)
+    out: dict = {}
+    for path, p in cm.spec_leaves(model_spec(cfg)):
+        node = tree
+        for key in path:
+            if key not in node:
+                raise ValueError(f"reference tree has no {'/'.join(path)}")
+            node = node[key]
+        if tuple(np.shape(node)) != p.shape:
+            raise ValueError(f"{'/'.join(path)}: shape {np.shape(node)}, "
+                             f"expected {p.shape}")
+        dst = out
+        for key in path[:-1]:
+            dst = dst.setdefault(key, {})
+        dst[path[-1]] = _tensor(node, dev)
+    return Transformer(cfg, out)
+
+
+def params_to_reference(params: Transformer) -> dict:
+    """The reference's tree layout (numpy, ``layers`` stacked) of a
+    :class:`Transformer`'s parameters."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    layers = [{"ln1": ly.ln1, "ln2": ly.ln2, "attn": dict(ly.attn.items()),
+               "mlp": dict(ly.mlp.items())} for ly in params.layers]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([host(n) for n in nodes])
+
+    return {"embed": {k: host(v) for k, v in params.embed.items()},
+            "layers": stack(layers)}

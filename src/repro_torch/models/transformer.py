@@ -1,0 +1,206 @@
+"""Dense decoder-only transformer: forward, prefill and decode.
+
+The port of ``repro.models.transformer`` for the dense family (tinyllama,
+qwen3-4b/8b, llama3-405b).  :class:`Transformer` holds the parameters,
+one :class:`DecoderLayer` per layer, and layers run in a plain Python
+loop (the reference's ``lax.scan`` and rematerialisation have no
+counterpart here).  The functions :func:`forward`, :func:`prefill` and
+:func:`decode_step` take the config explicitly, so one set of weights
+serves configs that differ only in ``kernel_impl`` or ``dtype``.
+Decoding writes the KV cache in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core.torch_device import DEFAULT_DEVICE, resolve_device
+from . import common as cm
+from .config import ModelConfig
+from .specs import moe_spec
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+def layer_spec(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    spec = {
+        "ln1": cm.P((D,), ("embed",), "zeros"),
+        "attn": cm.attn_spec(cfg),
+        "ln2": cm.P((D,), ("embed",), "zeros"),
+    }
+    if cfg.moe_num_experts:
+        spec["moe"] = moe_spec(cfg)
+        if cfg.moe_dense_parallel:
+            spec["dense_mlp"] = cm.mlp_spec(cfg)
+    else:
+        spec["mlp"] = cm.mlp_spec(cfg)
+    return spec
+
+
+def model_spec(cfg: ModelConfig) -> dict:
+    return {
+        "embed": cm.embed_spec(cfg),
+        "layers": cm.stack_spec(layer_spec(cfg), cfg.num_layers),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class DecoderLayer(nn.Module):
+    """One pre-norm decoder layer: attention then SwiGLU MLP, each with a
+    residual.  ``p`` is the layer's parameter dict (reference layout)."""
+
+    def __init__(self, p: dict):
+        super().__init__()
+        self.ln1 = _frozen(p["ln1"])
+        self.attn = nn.ParameterDict({k: _frozen(v)
+                                      for k, v in p["attn"].items()})
+        self.ln2 = _frozen(p["ln2"])
+        self.mlp = nn.ParameterDict({k: _frozen(v)
+                                     for k, v in p["mlp"].items()})
+
+    def forward(self, cfg: ModelConfig, x, positions):
+        h = cm.attention(cfg, self.attn, cm.rmsnorm(cfg, self.ln1, x),
+                         positions, window=cfg.window)
+        x = x + h
+        return x + cm.mlp(self.mlp, cm.rmsnorm(cfg, self.ln2, x))
+
+    def prefill(self, cfg: ModelConfig, x, positions):
+        """:meth:`forward` that also returns the layer's keys and values,
+        head-major ``(B, K, S, Dh)``."""
+        q, k, v = cm.attn_qkv(cfg, self.attn, cm.rmsnorm(cfg, self.ln1, x),
+                              positions)
+        kh, vh = k.movedim(2, 1), v.movedim(2, 1)
+        att = cm.full_attention(cfg, q.movedim(2, 1), kh, vh,
+                                window=cfg.window).movedim(1, 2)
+        x = x + torch.einsum("bshk,hkd->bsd", att,
+                             self.attn["wo"].to(x.dtype))
+        x = x + cm.mlp(self.mlp, cm.rmsnorm(cfg, self.ln2, x))
+        return x, kh, vh
+
+    def decode(self, cfg: ModelConfig, x, cache_k, cache_v, pos: int):
+        """One token; writes this layer's ``(B, K, S, Dh)`` cache in place."""
+        h, _, _ = cm.attention_decode(cfg, self.attn,
+                                      cm.rmsnorm(cfg, self.ln1, x), cache_k,
+                                      cache_v, pos, window=cfg.window)
+        x = x + h
+        return x + cm.mlp(self.mlp, cm.rmsnorm(cfg, self.ln2, x))
+
+
+class Transformer(nn.Module):
+    """The dense model's parameters: ``embed`` (embedding, final norm, LM
+    head) and ``layers``, built from a reference-layout tree (layers
+    stacked on a leading axis; each layer's tensors are views of it)."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__()
+        if cfg.family != "dense" or cfg.moe_num_experts:
+            raise NotImplementedError(f"family {cfg.family!r}: only the "
+                                      f"dense transformer is ported")
+        self.embed = nn.ParameterDict({k: _frozen(v)
+                                       for k, v in tree["embed"].items()})
+        stacked = tree["layers"]
+
+        def layer(i, node):
+            return ({k: layer(i, v) for k, v in node.items()}
+                    if isinstance(node, dict) else node[i])
+
+        self.layers = nn.ModuleList(DecoderLayer(layer(i, stacked))
+                                    for i in range(cfg.num_layers))
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward(cfg: ModelConfig, params: Transformer, tokens,
+            frontend_inputs=None):
+    """tokens: (B, S) integer -> (float32 logits (B, S, V), aux 0.0)."""
+    with torch.inference_mode():
+        x = cm.embed_tokens(cfg, params.embed, tokens,
+                            cm.torch_dtype(cfg.dtype))
+        x = cm.apply_frontend(cfg, params.embed, x, frontend_inputs)
+        positions = _positions(x.shape[0], x.shape[1], x.device)
+        for layer in params.layers:
+            x = layer(cfg, x, positions)
+        x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
+        return cm.lm_logits(cfg, params.embed, x), 0.0
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                *, device=DEFAULT_DEVICE) -> Transformer:
+    """Random init from the spec tree, in ``cfg.param_dtype``, on
+    ``device``; ``generator`` (on that device) defaults to seed 0."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    tree = cm.init_from_spec(model_spec(cfg), generator,
+                             cm.torch_dtype(cfg.param_dtype), dev)
+    return Transformer(cfg, tree)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+def cache_len(cfg: ModelConfig, max_seq: int) -> int:
+    """Cache slots per layer: windowed models keep a rolling window."""
+    return min(max_seq, cfg.window) if cfg.window else max_seq
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device=DEFAULT_DEVICE) -> dict:
+    """Zero KV cache ``{"k", "v"}``, each (L, B, K, S, Dh) in ``cfg.dtype``."""
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, cache_len(cfg, max_seq),
+             cfg.head_dim)
+    dev = resolve_device(device)
+    dtype = cm.torch_dtype(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def prefill(cfg: ModelConfig, params: Transformer, tokens, max_seq: int,
+            frontend_inputs=None):
+    """Run the full prompt; returns (last logits (B, 1, V), cache).  Each
+    layer's keys and values fill the first S cache slots (zeros after),
+    or, when the cache is shorter than the prompt, it keeps the last
+    ones."""
+    with torch.inference_mode():
+        x = cm.embed_tokens(cfg, params.embed, tokens,
+                            cm.torch_dtype(cfg.dtype))
+        x = cm.apply_frontend(cfg, params.embed, x, frontend_inputs)
+        b, s = x.shape[0], x.shape[1]
+        positions = _positions(b, s, x.device)
+        cache = init_cache(cfg, b, max_seq, device=x.device)
+        n = min(cache_len(cfg, max_seq), s)
+        for i, layer in enumerate(params.layers):
+            x, kh, vh = layer.prefill(cfg, x, positions)
+            cache["k"][i, :, :, :n] = kh[:, :, s - n:]
+            cache["v"][i, :, :, :n] = vh[:, :, s - n:]
+        x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
+        return cm.lm_logits(cfg, params.embed, x[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params: Transformer, cache: dict, tokens,
+                pos):
+    """One decode step.  tokens: (B,); pos: the position written.  Returns
+    (logits (B, V), cache), the cache updated in place."""
+    pos = int(pos)
+    with torch.inference_mode():
+        x = cm.embed_tokens(cfg, params.embed, tokens[:, None],
+                            cm.torch_dtype(cfg.dtype))
+        for i, layer in enumerate(params.layers):
+            x = layer.decode(cfg, x, cache["k"][i], cache["v"][i], pos)
+        x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
+        return cm.lm_logits(cfg, params.embed, x)[:, 0], cache

@@ -334,6 +334,8 @@ def test_import_loads_neither_jax_nor_reference():
     src = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src")
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels\n"
+            "import repro_torch.models, repro_torch.serve\n"
+            "import repro_torch.launch.serve, repro_torch.configs\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

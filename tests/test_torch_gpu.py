@@ -1,5 +1,6 @@
 """The port's CUDA kernels held against their plain PyTorch versions on
-the card.  Every test here is marked ``gpu`` and skips without a CUDA
+the card, and the serving path with the kernels against it with the plain
+versions.  Every test here is marked ``gpu`` and skips without a CUDA
 device; the file imports only ``repro_torch``, so it runs on a machine
 without JAX::
 
@@ -9,14 +10,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import models as M
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import KiB, OpType, WorkloadSpec, ZnsDevice, \
     compile_program
+from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import ops, zns_event_scan as pscan
+from repro_torch.kernels import rmsnorm as prms
 from repro_torch.kernels import zns_fixpoint as pfix
+from repro_torch.serve import greedy_generate
 
 F32_SCAN = dict(rtol=1e-5, atol=1e-2)
 F32_FIX = dict(rtol=2e-5, atol=1e-2)
 F64 = dict(rtol=1e-12, atol=1e-9)
+#: The reference kernel tests' tolerances (tests/test_kernels.py).
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+RMS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 pytestmark = pytest.mark.gpu
 
@@ -106,3 +115,89 @@ def test_device_run_matches_host_loop_on_card(cuda_device):
                    scan_backend="numpy")
     assert got.solve_stats.driver == "cuda" and got.converged
     np.testing.assert_allclose(got.sim.complete, want.sim.complete, **F64)
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,window", [
+    (1, 4, 4, 128, 128, 64, None),     # causal, tq == tk
+    (2, 8, 2, 100, 100, 64, None),     # GQA, ragged tiles
+    (1, 4, 1, 64, 256, 128, None),     # tq < tk, end-aligned
+    (1, 2, 2, 1, 300, 128, None),      # one decode-like query
+    (2, 4, 2, 37, 37, 32, None),
+    (1, 4, 2, 200, 200, 16, None),
+    (1, 8, 2, 512, 512, 64, 256),      # local window
+    (1, 4, 2, 100, 160, 32, 16),       # window with tq < tk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_on_card(cuda_device, b, hq, hkv,
+                                                      tq, tk, d, window,
+                                                      dtype):
+    rng = np.random.default_rng(tq * 7 + tk + d)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+               .to(cuda_device, dtype) for s in
+               ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+    before = pfa.flash_attention.launches
+    got = ops.attention(q, k, v, window=window, impl="cuda")
+    want = ops.attention(q, k, v, window=window, impl="torch")
+    torch.cuda.synchronize()
+    assert pfa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=ATTN_TOL[dtype])
+
+
+def test_flash_attention_kernel_takes_strided_views_on_card(cuda_device):
+    """The model's (B, S, H, D) -> (B, H, S, D) views go in uncopied and
+    the output comes back in the same layout."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+               .to(cuda_device).movedim(2, 1) for s in
+               ((2, 70, 8, 64), (2, 70, 2, 64), (2, 70, 2, 64)))
+    got = ops.attention(q, k, v, impl="cuda")
+    want = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         impl="torch")
+    assert got.stride() == q.stride()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("shape", [(4096, 128), (2, 9, 2560), (3, 2048),
+                                   (5, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda_device, shape, dtype):
+    rng = np.random.default_rng(shape[-1])
+    x = torch.as_tensor(rng.standard_normal(shape),
+                        dtype=torch.float32).to(cuda_device, dtype)
+    w = torch.as_tensor(rng.standard_normal(shape[-1]) * 0.1,
+                        dtype=torch.float32).to(cuda_device)
+    before = prms.rmsnorm.launches
+    got = ops.rmsnorm(x, w, impl="cuda")
+    want = ops.rmsnorm(x, w, impl="torch")
+    torch.cuda.synchronize()
+    assert prms.rmsnorm.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=RMS_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "tinyllama-1.1b"])
+def test_greedy_generate_kernels_match_plain_on_card(cuda_device, arch):
+    """A 2-layer smoke config in float32: prefill logits and the greedy
+    tokens with the CUDA kernels equal those with the plain versions."""
+    cfg = get_smoke_config(arch, dtype="float32", kernel_impl="cuda")
+    plain = get_smoke_config(arch, dtype="float32", kernel_impl="torch")
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           device=cuda_device)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 24)), device=cuda_device)
+    before = (pfa.flash_attention.launches, prms.rmsnorm.launches)
+    got = greedy_generate(cfg, params, prompt, steps=6, max_seq=32)
+    assert pfa.flash_attention.launches > before[0]
+    assert prms.rmsnorm.launches > before[1]
+    want = greedy_generate(plain, params, prompt, steps=6, max_seq=32)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    lg, _ = M.prefill(cfg, params, prompt, 32)
+    lw, _ = M.prefill(plain, params, prompt, 32)
+    np.testing.assert_allclose(lg.cpu().numpy(), lw.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
