@@ -22,19 +22,39 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    tokens, then the same prefill with the kernels' plain versions and in
    float32, and times prefill and decode;
 8. runs the continuous-batching driver ``repro_torch.launch.serve`` on
-   qwen3-4b (16 requests, batch 4, max_seq 128, 32 new tokens).
+   qwen3-4b (16 requests, batch 4, max_seq 128, 32 new tokens);
+9. runs ``greedy_generate`` on mamba2-370m at full width and depth (48
+   layers, random weights from seed 0): 4 prompts of 2,000 tokens (not a
+   multiple of the chunk of 128: the padded path), 16 new tokens, then
+   the same prefill with the kernels' plain versions and in float32, and
+   times prefill and decode;
+10. the same on recurrentgemma-9b at full width and depth (38 blocks,
+   9.6e9 float32 parameters): 2 prompts of 3,072 tokens, longer than the
+   window of 2,048;
+11. runs the serving driver on mamba2-370m (16 requests, batch 4,
+   max_seq 128, 32 new tokens).
 
 Phase 2 also holds the flash-attention and RMSNorm kernels against their
 plain versions at qwen3-4b's shapes, in bfloat16 and float32 at the
 reference kernel tests' tolerances (attention atol 2e-2 / 2e-4, RMSNorm
 2e-2 / 1e-4), and times them beside one PyTorch library call computing the
-same function.  Phases 3-6 go through the public entry points on
-``device="cuda"`` and are compared with the port's host float64
-``fixpoint="loop"`` driver (or the host numpy scan) at rtol 1e-12.
-Phase 7 compares the last logits with the kernels against those with
-the plain versions (atol 0.25).  Every kernel's launch counter is set to
-0 just before each of the runs of phases 3-8 and read just after; a
-kernel of the path that was never launched fails the script.  The line
+same function; likewise flash attention at recurrentgemma-9b's prefill
+shape (head dim 256, window 2,048), the SSD chunk scan at mamba2-370m's
+prefill shape (y and the final state; bfloat16 y rtol 1e-2 / atol 2e-2,
+state atol 1e-3) and the linear recurrence at recurrentgemma-9b's (rtol
+1e-3 / atol 2e-3, the reference kernel test's).  Phases 3-6 go through
+the public entry points on ``device="cuda"`` and are compared with the
+port's host float64 ``fixpoint="loop"`` driver (or the host numpy scan)
+at rtol 1e-12.  Phases 7, 9 and 10 first run the model's 2-layer smoke
+config in float32 and require equal greedy tokens with the kernels and
+with the plain versions.  Phase 7 then compares the bfloat16 model's last
+logits with the kernels against those with the plain versions (atol
+0.25), phase 9 the float32 model's (atol 1e-3); phases 7, 9 and 10 print
+both differences, the bfloat16 model's distance from the float32 model,
+and the float32 model's own sensitivity (its first norm's scale moved by
+one float32 step).  Every kernel's launch counter is set to 0 just
+before each of the runs of phases 3-11 and read just after; a kernel of
+the path that was never launched fails the script.  The line
 before the last is a JSON object with every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
 CUDA device or without the repository's ``src/`` beside this file.
@@ -63,6 +83,18 @@ RMS_TOL = {"bfloat16": dict(rtol=0.0, atol=2e-2),
 #: by rounding flips of one bfloat16 step (2^-8 relative) carried
 #: through 36 layers.
 LOGITS_ATOL = 0.25
+#: Phase 9: the float32 model's last logits with the kernels against the
+#: plain versions, which differ in summation order only (qwen3-4b's
+#: float32 model measured 5.5e-6 in phase 7).  The bfloat16 difference is
+#: reported beside the bfloat16 model's own distance from float32.
+F32_LOGITS_ATOL = 1e-3
+#: Phase 2, SSD chunk scan: kernel and plain version compute in float32 and
+#: differ in summation order (the reference kernel test's atol 1e-3 for y
+#: and the state); bfloat16 y may differ by one rounding step (2^-7).
+SSD_TOL = {"bfloat16": dict(rtol=1e-2, atol=2e-2),
+           "float32": dict(rtol=0.0, atol=1e-3)}
+#: Phase 2, linear recurrence: the reference kernel test's tolerance.
+LR_TOL = dict(rtol=1e-3, atol=2e-3)
 
 F64 = dict(rtol=1e-12, atol=1e-9)
 F32 = dict(rtol=2e-5, atol=1e-2)
@@ -115,7 +147,10 @@ def time_ms(fn, reps: int = 5, flush=None) -> float:
 def kernel_group(name: str) -> str:
     """A CUDA kernel's name as the part of the model it serves."""
     for key, group in (("flash_fwd", "flash_attention"),
-                       ("rmsnorm", "rmsnorm"), ("nvjet", "matmul"),
+                       ("rmsnorm", "rmsnorm"),
+                       ("ssd_chunk_scan", "ssd_chunk_scan"),
+                       ("linear_recurrence", "linear_recurrence"),
+                       ("nvjet", "matmul"),
                        ("gemm", "matmul"), ("gemv", "matmul"),
                        ("xmma", "matmul"), ("cutlass", "matmul"),
                        ("copy_kernel", "copy/cast"), ("Memcpy", "copy/cast"),
@@ -183,8 +218,10 @@ def main() -> int:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import linear_recurrence as klr
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.kernels import ssd_chunk_scan as kssd
     from repro_torch.kernels import zns_event_scan as kscan
     from repro_torch.kernels import zns_fixpoint as kfix
     from repro_torch.launch import serve as lserve
@@ -216,6 +253,8 @@ def main() -> int:
         "zns_fixpoint": kfix.zns_fixpoint,
         "flash_attention": kfa.flash_attention,
         "rmsnorm": krms.rmsnorm,
+        "ssd_chunk_scan": kssd.ssd_chunk_scan,
+        "linear_recurrence": klr.linear_recurrence,
     }
     launches = {k: 0 for k in counters}
 
@@ -342,7 +381,8 @@ def main() -> int:
     for case, (b, hq, hkv, tq, tk, d), window in (
             ("prefill", (1, 32, 8, 2048, 2048, 128), None),
             ("decode", (1, 32, 8, 1, 2048, 128), None),
-            ("window", (1, 8, 2, 512, 512, 64), 256)):
+            ("window", (1, 8, 2, 512, 512, 64), 256),
+            ("d256", (2, 16, 1, 3072, 3072, 256), 2048)):
         for dname in ("bfloat16", "float32"):
             dtype = getattr(torch, dname)
             q = randn((b, hq, tq, d), dtype)
@@ -370,12 +410,13 @@ def main() -> int:
                   f"{err:.3e} (library {lib_err:.3e}), kernel {ms:.4f} ms, "
                   f"plain {pms:.4f} ms, library {lms:.4f} ms, bound "
                   f"{bnd:.4f} ms ({by})")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd,
+                       bound_by=by, library_ms=lms,
+                       shape=[list(q.shape), list(k.shape)], dtype=dname)
             if case == "prefill" and dname == "bfloat16":
-                report["flash_attention"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd,
-                    bound_by=by, library_ms=lms, shape=[list(q.shape),
-                                                        list(k.shape)],
-                    dtype=dname)
+                report["flash_attention"] = row
+            if case == "d256" and dname == "bfloat16":
+                d256 = dict(row, window=window)
             del q, k, v, got, want
 
     for rows, d in ((2048, 2560), (2048 * 32, 128)):
@@ -405,6 +446,66 @@ def main() -> int:
                     bound_by=by, library_ms=lms, shape=[rows, d],
                     dtype=dname)
             del x, got, want
+
+    report["flash_attention"]["d256"] = d256
+
+    # -- phase 2, recurrent kernels: SSD chunk scan, linear recurrence ------
+    bb, t2, h2, p2, g2, n2, chunk = 4, 2048, 32, 64, 1, 128, 128
+    x = randn((bb, t2, h2, p2), torch.bfloat16, 0.5)
+    dt = torch.rand((bb, t2, h2), generator=gen, device=cuda) * 0.099 + 0.001
+    A = -(torch.rand((h2,), generator=gen, device=cuda) * 1.5 + 0.5)
+    Bm = randn((bb, t2, g2, n2), torch.bfloat16, 0.3)
+    Cm = randn((bb, t2, g2, n2), torch.bfloat16, 0.3)
+    args = (x, dt, A, Bm, Cm)
+    y, st = ops.ssd_scan(*args, chunk=chunk, impl="cuda")
+    yw, sw = ops.ssd_scan(*args, chunk=chunk, impl="torch")
+    torch.cuda.synchronize()
+    err = close(y.float().cpu().numpy(), yw.float().cpu().numpy(),
+                SSD_TOL["bfloat16"], "ssd_chunk_scan y")
+    serr = close(st.cpu().numpy(), sw.cpu().numpy(), SSD_TOL["float32"],
+                 "ssd_chunk_scan final state")
+    ms = time_ms(lambda: ops.ssd_scan(*args, chunk=chunk, impl="cuda"),
+                 flush=flush)
+    pms = time_ms(lambda: ops.ssd_scan(*args, chunk=chunk, impl="torch"),
+                  reps=3, flush=flush)
+    # the causal pairs (j <= i) of each chunk, per (batch, head): C.B^T and
+    # the scores times x, then the inter-chunk term and the state update
+    pairs = chunk * (chunk + 1) // 2
+    nflop = 2.0 * bb * h2 * (t2 // chunk) * (
+        pairs * n2 + pairs * p2 + 2 * chunk * n2 * p2)
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
+              + 2 * Bm.numel() * Bm.element_size() + st.numel() * 4)
+    bnd, by = bound_ms(nbytes, nflop, "bfloat16")
+    print(f"[2] ssd_chunk_scan x {tuple(x.shape)} B/C {tuple(Bm.shape)} "
+          f"chunk {chunk} bfloat16: max abs err y {err:.3e}, state "
+          f"{serr:.3e}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {nflop / 1e9:.2f} "
+          f"GFLOP)")
+    report["ssd_chunk_scan"] = dict(
+        max_abs_err=err, state_max_abs_err=serr, ms=ms, plain_ms=pms,
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        shape=[list(x.shape), list(Bm.shape)], dtype="bfloat16")
+    del x, dt, A, Bm, Cm, args, y, st, yw, sw
+
+    a = torch.rand((2, 3072, 4096), generator=gen, device=cuda) * 0.399 + 0.6
+    xb = randn((2, 3072, 4096), torch.float32)
+    got = ops.linear_recurrence(a, xb, impl="cuda")
+    want = ops.linear_recurrence(a, xb, impl="torch")
+    torch.cuda.synchronize()
+    err = close(got.cpu().numpy(), want.cpu().numpy(), LR_TOL,
+                "linear_recurrence")
+    ms = time_ms(lambda: ops.linear_recurrence(a, xb, impl="cuda"),
+                 flush=flush)
+    pms = time_ms(lambda: ops.linear_recurrence(a, xb, impl="torch"), reps=3,
+                  flush=flush)
+    bnd, by = bound_ms(3.0 * a.numel() * 4, 2.0 * a.numel(), "float32")
+    print(f"[2] linear_recurrence {tuple(a.shape)} float32: max abs err "
+          f"{err:.3e}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by})")
+    report["linear_recurrence"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by,
+        library_ms=None, shape=list(a.shape), dtype="float32")
+    del a, xb, got, want
 
     # -- phases 3-5: vectorized runs through the public entry points -------
     def run_phase(phase, run, ref_run, *, fleet):
@@ -519,93 +620,142 @@ def main() -> int:
     print(f"[6] sequential completions: chain of {n6}, 16 rows "
           f"{min(lens)}..{max(lens)}, max abs err vs numpy {err6:.3e}")
 
-    # -- phase 7: greedy_generate on qwen3-4b, full width and depth ----------
-    # first a small input: the 2-layer smoke config in float32, kernels
-    # against plain versions, equal greedy tokens
-    small = get_smoke_config("qwen3-4b", dtype="float32", kernel_impl="cuda")
-    sparams = M.init_params(small, torch.Generator(cuda).manual_seed(0),
-                            device=cuda)
-    sprompt = torch.as_tensor(np.random.default_rng(0).integers(
-        1, small.vocab_size, (2, 40)), device=cuda)
-    stoks = greedy_generate(small, sparams, sprompt, steps=8, max_seq=64)
-    ptoks = greedy_generate(dataclasses.replace(small, kernel_impl="torch"),
-                            sparams, sprompt, steps=8, max_seq=64)
-    check(torch.equal(stoks, ptoks), f"phase 7 smoke config: tokens "
-          f"{stoks.tolist()} (kernels) vs {ptoks.tolist()} (plain)")
-    del sparams
+    # -- phases 7, 9, 10: greedy_generate at full width and depth -----------
+    def generation_phase(phase, arch, batch, plen, max_seq, need,
+                         logits_atol, f32_atol):
+        """The model's 2-layer smoke config in float32 first (kernels
+        against plain versions, equal greedy tokens), then the published
+        config from seed 0: greedy_generate (launches counted), prefill and
+        decode times, peak memory, a profile, and the last logits with the
+        kernels against those with the plain versions, in bfloat16
+        (checked at ``logits_atol`` unless None) and in the float32 model
+        (checked at ``f32_atol`` unless None), and against the float32
+        model's."""
+        small = get_smoke_config(arch, dtype="float32", kernel_impl="cuda")
+        sparams = M.init_params(small, torch.Generator(cuda).manual_seed(0),
+                                device=cuda)
+        sprompt = torch.as_tensor(np.random.default_rng(0).integers(
+            1, small.vocab_size, (2, 40)), device=cuda)
+        stoks = greedy_generate(small, sparams, sprompt, steps=8, max_seq=64)
+        ptoks = greedy_generate(dataclasses.replace(small,
+                                                    kernel_impl="torch"),
+                                sparams, sprompt, steps=8, max_seq=64)
+        check(torch.equal(stoks, ptoks), f"phase {phase} smoke config: "
+              f"tokens {stoks.tolist()} (kernels) vs {ptoks.tolist()} "
+              f"(plain)")
+        del sparams
 
-    cfg = get_config("qwen3-4b")
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
-                           device=cuda)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
-    prompt = torch.as_tensor(np.random.default_rng(0).integers(
-        1, cfg.vocab_size, (2, 1024)), device=cuda)
-    zero_counts()
-    t = time.perf_counter()
-    toks = greedy_generate(cfg, params, prompt, steps=16, max_seq=2048)
-    torch.cuda.synchronize()
-    gen_ms = (time.perf_counter() - t) * 1e3
-    read_counts("7", ["flash_attention", "rmsnorm"])
-    check(tuple(toks.shape) == (2, 16), f"phase 7: tokens {tuple(toks.shape)}")
-    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          "phase 7: token out of the vocabulary")
-    t = time.perf_counter()
-    logits, cache = M.prefill(cfg, params, prompt, 2048)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    tok = logits[:, -1].argmax(-1)
-    step_ms = []
-    for i in range(8):
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        step_logits, cache = M.decode_step(cfg, params, cache, tok, 1024 + i)
-        tok = step_logits.argmax(-1)
+        params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                               device=cuda)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-    step_ms.sort()
-    decode_ms = step_ms[len(step_ms) // 2]
-    check(torch.equal(tok, toks[:, 8]), f"phase 7: decode after prefill "
-          f"gave {tok.tolist()}, greedy_generate {toks[:, 8].tolist()}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for what, fn in (("prefill 2 x 1024", lambda: M.prefill(
-                          cfg, params, prompt, 2048)),
-                     ("decode step, batch 2", lambda: M.decode_step(
-                         cfg, params, cache, tok, 1032))):
-        brk = device_breakdown(fn)
-        if brk is None:
-            print(f"[7] {what}: profiler recorded no device time "
-                  f"(breakdown not measured)")
-            continue
-        wall, busy, n, groups = brk
-        print(f"[7] {what} under torch.profiler: wall {wall:.1f} ms, "
-              f"{n} device events, kernels {busy:.1f} ms, device idle "
-              f"{max(0.0, 1 - busy / wall):.1%}; " + ", ".join(
-                  f"{g} {ms:.2f} ms" for g, ms in groups))
-    del cache
-    plain, _ = M.prefill(dataclasses.replace(cfg, kernel_impl="torch"),
-                         params, prompt, 2048)
-    exact, _ = M.prefill(dataclasses.replace(cfg, dtype="float32"), params,
-                         prompt, 2048)
-    got7 = logits[:, -1].cpu().numpy()
-    err7 = close(got7, plain[:, -1].cpu().numpy(),
-                 dict(rtol=0.0, atol=LOGITS_ATOL),
-                 "phase 7 last logits, kernels vs plain")
-    to_f32 = float(np.abs(got7 - exact[:, -1].cpu().numpy()).max())
-    plain_f32 = float((plain - exact).abs().max())
-    print(f"[7] qwen3-4b: {M.count_params(cfg):,} params, init "
-          f"{init_s:.1f} s, greedy_generate 2 x 1024 + 16 tokens "
-          f"{gen_ms:.1f} ms, prefill {prefill_ms:.1f} ms, decode "
-          f"{decode_ms:.2f} ms/token (batch 2; median of 8 steps, "
-          f"{step_ms[0]:.2f}..{step_ms[-1]:.2f}), peak memory "
-          f"{peak_gb:.2f} GB")
-    print(f"[7] last logits max |logit| {float(np.abs(got7).max()):.3f}; "
-          f"kernels vs plain {err7:.3e} (atol {LOGITS_ATOL}); bfloat16 vs "
-          f"float32 model: kernels {to_f32:.3e}, plain {plain_f32:.3e}; "
-          f"tokens {toks[0].tolist()}")
-    del params, logits, plain, exact, step_logits
-    torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t
+        prompt = torch.as_tensor(np.random.default_rng(0).integers(
+            1, cfg.vocab_size, (batch, plen)), device=cuda)
+        zero_counts()
+        t = time.perf_counter()
+        toks = greedy_generate(cfg, params, prompt, steps=16,
+                               max_seq=max_seq)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t) * 1e3
+        read_counts(phase, need)
+        check(tuple(toks.shape) == (batch, 16),
+              f"phase {phase}: tokens {tuple(toks.shape)}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"phase {phase}: token out of the vocabulary")
+        t = time.perf_counter()
+        logits, cache = M.prefill(cfg, params, prompt, max_seq)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        tok = logits[:, -1].argmax(-1)
+        step_ms = []
+        for i in range(8):
+            t = time.perf_counter()
+            step_logits, cache = M.decode_step(cfg, params, cache, tok,
+                                               plen + i)
+            tok = step_logits.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        step_ms.sort()
+        decode_ms = step_ms[len(step_ms) // 2]
+        check(torch.equal(tok, toks[:, 8]), f"phase {phase}: decode after "
+              f"prefill gave {tok.tolist()}, greedy_generate "
+              f"{toks[:, 8].tolist()}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        shape = f"{batch} x {plen}"
+        for what, fn in ((f"prefill {shape}", lambda: M.prefill(
+                              cfg, params, prompt, max_seq)),
+                         (f"decode step, batch {batch}", lambda: M.decode_step(
+                             cfg, params, cache, tok, plen + 8))):
+            brk = device_breakdown(fn)
+            if brk is None:
+                print(f"[{phase}] {what}: profiler recorded no device time "
+                      f"(breakdown not measured)")
+                continue
+            wall, busy, n, groups = brk
+            print(f"[{phase}] {what} under torch.profiler: wall {wall:.1f} "
+                  f"ms, {n} device events, kernels {busy:.1f} ms, device "
+                  f"idle {max(0.0, 1 - busy / wall):.1%}; " + ", ".join(
+                      f"{g} {ms:.2f} ms" for g, ms in groups))
+        del cache
+        plain, _ = M.prefill(dataclasses.replace(cfg, kernel_impl="torch"),
+                             params, prompt, max_seq)
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        exact, _ = M.prefill(f32, params, prompt, max_seq)
+        f32_plain = dataclasses.replace(f32, kernel_impl="torch")
+        exact_plain, _ = M.prefill(f32_plain, params, prompt, max_seq)
+        # the float32 model's own sensitivity: the first layer norm's scale
+        # (1 + w, w = 0 at init) moved by one float32 step
+        w = next(p for n, p in params.named_parameters()
+                 if n.rsplit(".", 1)[-1] in ("ln", "ln1"))
+        with torch.no_grad():
+            w.add_(2.0 ** -23)
+        nudged, _ = M.prefill(f32_plain, params, prompt, max_seq)
+        with torch.no_grad():
+            w.sub_(2.0 ** -23)
+        nudge = float((nudged - exact_plain).abs().max())
+        got = logits[:, -1].cpu().numpy()
+        want = plain[:, -1].cpu().numpy()
+        got32 = exact[:, -1].cpu().numpy()
+        want32 = exact_plain[:, -1].cpu().numpy()
+        check(bool(np.isfinite(got).all() and np.isfinite(got32).all())
+              and got.shape == want.shape == got32.shape,
+              f"phase {phase}: last logits not finite or misshapen")
+        err = float(np.abs(got - want).max())
+        to_f32 = float(np.abs(got - got32).max())
+        plain_f32 = float(np.abs(want - got32).max())
+        f32_err = float(np.abs(got32 - want32).max())
+        print(f"[{phase}] {arch}: {M.count_params(cfg):,} params, init "
+              f"{init_s:.1f} s, greedy_generate {shape} + 16 tokens "
+              f"{gen_ms:.1f} ms, prefill {prefill_ms:.1f} ms, decode "
+              f"{decode_ms:.2f} ms/token (batch {batch}; median of 8 steps, "
+              f"{step_ms[0]:.2f}..{step_ms[-1]:.2f}), peak memory "
+              f"{peak_gb:.2f} GB")
+        print(f"[{phase}] last logits max |logit| "
+              f"{float(np.abs(got).max()):.3f}; kernels vs plain {err:.3e} "
+              f"(mean {float(np.abs(got - want).mean()):.3e}, atol "
+              f"{logits_atol}); bfloat16 vs float32 model: kernels "
+              f"{to_f32:.3e}, plain {plain_f32:.3e}; float32 model, kernels "
+              f"vs plain {f32_err:.3e} (atol {f32_atol}); float32 plain "
+              f"model with its first norm's scale moved one step "
+              f"{nudge:.3e}; tokens {toks[0].tolist()}")
+        if logits_atol is not None:
+            close(got, want, dict(rtol=0.0, atol=logits_atol),
+                  f"phase {phase} last logits, kernels vs plain")
+        if f32_atol is not None:
+            close(got32, want32, dict(rtol=0.0, atol=f32_atol),
+                  f"phase {phase} float32 last logits, kernels vs plain")
+        del params, logits, plain, exact, exact_plain, nudged, step_logits
+        torch.cuda.empty_cache()
+        return dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                    peak_gb=peak_gb, logits_err=err, f32_err=f32_err,
+                    nudge=nudge)
+
+    generation_phase("7", "qwen3-4b", 2, 1024, 2048,
+                     ["flash_attention", "rmsnorm"], LOGITS_ATOL, None)
 
     # -- phase 8: the continuous-batching driver on qwen3-4b -----------------
     zero_counts()
@@ -616,6 +766,28 @@ def main() -> int:
     read_counts("8", ["rmsnorm"])
     check(stats["done"] == 16, f"phase 8: {stats['done']}/16 requests")
     print(f"[8] serve driver: {stats['done']} requests, {stats['steps']} "
+          f"decode steps in {stats['seconds']:.2f} s, "
+          f"{stats['tok_per_s']:.1f} tok/s (batch 4), "
+          f"{stats['seconds'] / stats['steps'] * 1e3:.2f} ms/step")
+
+    # -- phase 9: greedy_generate on mamba2-370m ------------------------------
+    generation_phase("9", "mamba2-370m", 4, 2000, 2048,
+                     ["ssd_chunk_scan", "rmsnorm"], None, F32_LOGITS_ATOL)
+
+    # -- phase 10: greedy_generate on recurrentgemma-9b -----------------------
+    generation_phase("10", "recurrentgemma-9b", 2, 3072, 4096,
+                     ["linear_recurrence", "flash_attention", "rmsnorm"],
+                     None, None)
+
+    # -- phase 11: the continuous-batching driver on mamba2-370m -------------
+    zero_counts()
+    stats = lserve.main(["--arch", "mamba2-370m", "--requests", "16",
+                         "--batch", "4", "--max-seq", "128", "--max-new",
+                         "32", "--seed", "0"])
+    torch.cuda.synchronize()
+    read_counts("11", ["rmsnorm"])
+    check(stats["done"] == 16, f"phase 11: {stats['done']}/16 requests")
+    print(f"[11] serve driver: {stats['done']} requests, {stats['steps']} "
           f"decode steps in {stats['seconds']:.2f} s, "
           f"{stats['tok_per_s']:.1f} tok/s (batch 4), "
           f"{stats['seconds'] / stats['steps'] * 1e3:.2f} ms/step")
@@ -632,6 +804,10 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:77"),
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:28"),
+        "ssd_chunk_scan": ("src/repro_torch/csrc/ssd_chunk_scan.cu",
+                           "src/repro/kernels/ssd_chunk_scan.py:76"),
+        "linear_recurrence": ("src/repro_torch/csrc/linear_recurrence.cu",
+                              "src/repro/kernels/linear_recurrence.py:45"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -641,10 +817,12 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms"),
-            shape=r.get("shape"), dtype=r["dtype"]))
+            **{k: v for k, v in r.items() if k not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was never launched on the main path: {launches}")
-    print(f"[9] total {time.perf_counter() - t0:.1f} s")
+    print(f"[12] total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,13 @@
 // shared-memory reads along D) and the same 4 rows x D/16 columns of the
 // output, so the row max and sum are 16-lane shuffles and the rescale of
 // the accumulator needs no exchange.  Key tiles wholly outside the causal
-// or window band are skipped.  Next steps: bf16 mma (wgmma) for the two
-// products, cp.async/TMA double buffering of the K/V tiles.
+// or window band are skipped.  Head dims 16-128 run two blocks an SM
+// (__launch_bounds__(256, 2): at most 128 registers a thread).  D = 256
+// (recurrentgemma-9b) holds 4 x 16 accumulators a thread and 139,776 bytes
+// of shared memory a block, so it is compiled for one block an SM, which
+// lifts the register cap to 255 and avoids spills.  Next steps: bf16 mma
+// (wgmma) for the two products, cp.async/TMA double buffering of the K/V
+// tiles.
 #include <cuda_bf16.h>
 
 namespace {
@@ -78,8 +83,14 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * D + BK * (D + 4) + BK * D + BQ * BK);
 }
 
+// Blocks an SM the instance is compiled for (caps registers a thread).
+template <int D>
+constexpr int min_blocks() {
+  return D > 128 ? 1 : 2;
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, Strides st, int hq,
               int hkv, int tq, int tk, int causal, int window, float scale) {
@@ -244,6 +255,7 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
     case 32: return launch<T, 32>(q, k, v, o, st, b, hq, hkv, tq, tk, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, st, b, hq, hkv, tq, tk, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, st, b, hq, hkv, tq, tk, causal, window, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, st, b, hq, hkv, tq, tk, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,7 +26,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: Every kernel source of the package, by stem.
-SOURCES = ("zns_event_scan", "zns_fixpoint", "rmsnorm", "flash_attention")
+SOURCES = ("zns_event_scan", "zns_fixpoint", "rmsnorm", "flash_attention",
+           "linear_recurrence", "ssd_chunk_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

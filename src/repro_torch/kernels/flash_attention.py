@@ -29,7 +29,7 @@ from . import _build
 from .ref import NEG_INF, attention_mask
 
 #: Head dims the CUDA kernel is compiled for.
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -16,8 +16,10 @@ import numpy as np
 import torch
 
 from . import flash_attention as _fa
+from . import linear_recurrence as _lr
 from . import ref as _ref
 from . import rmsnorm as _rms
+from . import ssd_chunk_scan as _ssd
 from . import zns_event_scan as _scan
 from . import zns_fixpoint as _fix
 from .zns_fixpoint import PackedBlocks, pack_blocks
@@ -104,3 +106,25 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     if _resolve(impl, x) == "torch":
         return _rms.rmsnorm_torch(x, w, eps=eps)
     return _rms.rmsnorm(x, w, eps=eps)
+
+
+def linear_recurrence(a: torch.Tensor, b: torch.Tensor, *,
+                      impl: Optional[str] = None) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + b_t`` over ``(B, T, D)`` from ``h_0 = 0``, in
+    float32, returned in b's dtype."""
+    _lr.check_inputs(a, b)
+    if _resolve(impl, a) == "torch":
+        return _lr.linear_recurrence_torch(a, b)
+    return _lr.linear_recurrence(a, b)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+             impl: Optional[str] = None):
+    """Mamba2 SSD scan; returns ``(y, final state)``.  The CUDA kernel
+    needs T to be a multiple of ``chunk`` (the model pads), as the
+    reference's kernel does."""
+    _ssd.check_inputs(x, dt, A, B, C)
+    if _resolve(impl, x) == "torch":
+        return _ssd.ssd_torch(x, dt, A, B, C, chunk=chunk)
+    return _ssd.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)

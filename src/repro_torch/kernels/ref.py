@@ -1,11 +1,13 @@
 """Plain PyTorch oracles of the model kernels.
 
 The port's counterparts of ``repro.kernels.ref`` (``attention_ref``,
-``attention_xla_chunked``, ``rmsnorm_ref``): the same finite ``NEG_INF``
-sentinel, query positions aligned to the end of the keys, GQA by head
-repeat.  They are the semantic ground truth the tests hold the kernels'
-plain versions against, and :func:`repro_torch.kernels.ops.attention`
-sends a ``kv_length`` call here, as the reference does.
+``attention_xla_chunked``, ``rmsnorm_ref``, ``linear_recurrence_ref``,
+``ssd_ref``): the same finite ``NEG_INF`` sentinel, query positions
+aligned to the end of the keys, GQA by head repeat, and the two
+recurrences as sequential scans over time in float32.  They are the
+semantic ground truth the tests hold the kernels' plain versions
+against, and :func:`repro_torch.kernels.ops.attention` sends a
+``kv_length`` call here, as the reference does.
 """
 from __future__ import annotations
 
@@ -94,3 +96,42 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def linear_recurrence_ref(a, b, h0=None):
+    """``h_t = a_t * h_{t-1} + b_t`` over ``(B, T, D)``, one time step at a
+    time from ``h0`` (zeros by default), in float32; returned in b's
+    dtype."""
+    a32, b32 = a.float(), b.float()
+    h = (torch.zeros_like(a32[:, 0]) if h0 is None else h0.float())
+    out = torch.empty_like(b32)
+    for t in range(a.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        out[:, t] = h
+    return out.to(b.dtype)
+
+
+def ssd_ref(x, dt, A, B, C, *, init_state=None):
+    """Sequential Mamba2 SSD oracle.
+
+    x: (Bb, T, H, P); dt: (Bb, T, H) positive steps; A: (H,) negative;
+    B, C: (Bb, T, G, N), group ``h // (H // G)`` per head.  Per step
+    ``S = exp(dt A) S + (x dt) B^T`` and ``y = S C``, in float32.
+    Returns y (Bb, T, H, P) in x's dtype and the final state (Bb, H, P, N)
+    in float32.
+    """
+    bb, t, h, p = x.shape
+    n = B.shape[3]
+    rep = h // B.shape[2]
+    Bh = B.repeat_interleave(rep, dim=2).float()
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    S = (torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    ys = torch.empty_like(xf)
+    for i in range(t):
+        decay = torch.exp(dtf[:, i] * Af)[..., None, None]
+        S = S * decay + torch.einsum("bhp,bhn->bhpn",
+                                     xf[:, i] * dtf[:, i, :, None], Bh[:, i])
+        ys[:, i] = torch.einsum("bhpn,bhn->bhp", S, Ch[:, i])
+    return ys.to(x.dtype), S

@@ -2,15 +2,20 @@
 full config, on one card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --requests 4 --batch 2 --max-new 4
 
-The port of ``repro.launch.serve``: the same request stream (prompt
-lengths and tokens from ``numpy.random.default_rng(seed)``), the same
-admission, and one decode step per position for the whole batch.  Like
-the reference, each step passes one ``pos`` (the oldest slot's age) for
-every slot, prompts are fed one token per step, and a recycled slot's KV
-cache is not cleared.  Weights are a random init from ``--seed``.
+The port of ``repro.launch.serve`` for the dense, ssm and hybrid
+families: the same request stream (prompt lengths and tokens from
+``numpy.random.default_rng(seed)``), the same admission, and one decode
+step per position for the whole batch.  The cache each step returns is
+the one the next step takes (the dense family writes its KV cache in
+place; the recurrent families return new states).  Like the reference,
+each step passes one ``pos`` (the oldest slot's age) for every slot,
+prompts are fed one token per step, and a recycled slot's cache (KV or
+recurrent state) is not cleared.  Weights are a random init from
+``--seed``.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Models: the port of ``repro.models`` (dense family)."""
+"""Models: the port of ``repro.models`` (dense, ssm and hybrid families)."""
 from .config import (  # noqa: F401
     ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
     ModelConfig, ShapeConfig, shapes_for,
@@ -8,4 +8,6 @@ from .model import (  # noqa: F401
     count_active_params, count_params, decode_step, forward, init_cache,
     init_params, model_flops, model_spec, prefill,
 )
+from .mamba2 import Mamba2  # noqa: F401
+from .rglru import RecurrentGemma  # noqa: F401
 from .transformer import DecoderLayer, Transformer  # noqa: F401

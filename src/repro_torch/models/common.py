@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.kernels import ops as kops
 from .config import ModelConfig
@@ -101,6 +102,45 @@ def stack_spec(spec, n: int, axis_name: str = "layers"):
         return P((n,) + spec.shape, (axis_name,) + spec.axes, spec.init,
                  spec.scale)
     return {k: stack_spec(v, n, axis_name) for k, v in spec.items()}
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as frozen parameters, keyed as in the
+    reference's tree: ``node["key"]`` is a tensor or a sub-tree."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def tree(self) -> dict:
+        """The nested dict of tensors back."""
+        out: dict = dict(self.named_parameters(recurse=False))
+        out.update({k: m.tree() for k, m in self.named_children()})
+        return out
+
+
+def index_tree(tree: dict, i: int) -> dict:
+    """Entry ``i`` of every leaf of a tree stacked on its first axis
+    (views, not copies)."""
+    return {k: index_tree(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def stack_trees(trees) -> dict:
+    """The trees' leaves stacked on a new first axis (the reference's
+    stacked layout)."""
+    return {k: (stack_trees([t[k] for t in trees])
+                if isinstance(trees[0][k], dict)
+                else torch.stack([t[k] for t in trees]))
+            for k in trees[0]}
 
 
 # ---------------------------------------------------------------------------

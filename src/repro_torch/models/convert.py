@@ -2,10 +2,13 @@
 
 The reference keeps a model's parameters as a nested dict with the
 layers stacked on a leading axis (``params["layers"]["attn"]["wq"]`` is
-``(L, D, H, Dh)``).  :func:`params_from_reference` takes that tree as
-numpy arrays and returns the port's :class:`Transformer` with the same
-values; :func:`params_to_reference` gives the tree back.  The tests use
-them to run both packages on one set of weights.
+``(L, D, H, Dh)``; the hybrid stacks its pattern groups,
+``params["groups"]["b0_rec"]``, beside unstacked ``tail{t}`` blocks).
+:func:`params_from_reference` takes that tree as numpy arrays and returns
+the port's model (:class:`Transformer`, :class:`Mamba2` or
+:class:`RecurrentGemma`, by family) with the same values;
+:func:`params_to_reference` gives the tree back.  The tests use them to
+run both packages on one set of weights.
 """
 from __future__ import annotations
 
@@ -15,8 +18,12 @@ import torch
 from repro_torch.core.torch_device import DEFAULT_DEVICE, resolve_device
 from . import common as cm
 from .config import ModelConfig
+from .mamba2 import Mamba2
 from .model import model_spec
+from .rglru import RecurrentGemma
 from .transformer import Transformer
+
+_CLASSES = {"dense": Transformer, "ssm": Mamba2, "hybrid": RecurrentGemma}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -27,11 +34,10 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy
 
 
-def params_from_reference(cfg: ModelConfig, tree, *,
-                          device=DEFAULT_DEVICE) -> Transformer:
+def params_from_reference(cfg: ModelConfig, tree, *, device=DEFAULT_DEVICE):
     """The port's parameters from the reference's tree (nested dicts of
-    numpy arrays, ``layers`` axis first).  Raises ``ValueError`` when a
-    leaf is missing or its shape differs from the config's spec."""
+    numpy arrays, stacked axes first).  Raises ``ValueError`` when a leaf
+    is missing or its shape differs from the config's spec."""
     dev = resolve_device(device)
     out: dict = {}
     for path, p in cm.spec_leaves(model_spec(cfg)):
@@ -47,15 +53,25 @@ def params_from_reference(cfg: ModelConfig, tree, *,
         for key in path[:-1]:
             dst = dst.setdefault(key, {})
         dst[path[-1]] = _tensor(node, dev)
-    return Transformer(cfg, out)
+    if cfg.family not in _CLASSES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return _CLASSES[cfg.family](cfg, out)
 
 
-def params_to_reference(params: Transformer) -> dict:
-    """The reference's tree layout (numpy, ``layers`` stacked) of a
-    :class:`Transformer`'s parameters."""
+def params_to_reference(params) -> dict:
+    """The reference's tree layout (numpy, stacked axes first) of a port
+    model's parameters."""
     def host(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def to_host(node):
+        if isinstance(node, dict):
+            return {k: to_host(v) for k, v in node.items()}
+        return host(node)
+
+    if not isinstance(params, Transformer):
+        return to_host(params.reference_tree())
 
     layers = [{"ln1": ly.ln1, "ln2": ly.ln2, "attn": dict(ly.attn.items()),
                "mlp": dict(ly.mlp.items())} for ly in params.layers]

@@ -1,13 +1,18 @@
 """Family dispatch: one API over the architectures.
 
-    init_params(cfg, generator, device=)  -> Transformer (dense family)
+    init_params(cfg, generator, device=)  -> Transformer (dense family),
+                                             Mamba2 (ssm), RecurrentGemma
+                                             (hybrid)
     forward(cfg, params, tokens)          -> (logits, aux)
     init_cache / prefill / decode_step    -> serving entry points
     count_params(cfg)                     -> exact (spec tree, no alloc)
 
-The dense family is ported; the others raise ``NotImplementedError``
-naming the ROADMAP slice that brings them.  Parameter counts work for all
-ten configurations.
+The dense, ssm and hybrid families are ported; the others raise
+``NotImplementedError`` naming the ROADMAP slice that brings them.
+Parameter counts work for all ten configurations.  For the recurrent
+families ``prefill`` returns the reference's zeroed cache for the prompt
+(``repro.models.model.prefill``): decoding after it starts from a blank
+state.
 """
 from __future__ import annotations
 
@@ -15,22 +20,22 @@ import numpy as np
 
 from repro_torch.core.torch_device import DEFAULT_DEVICE
 from . import common as cm
-from . import specs, transformer
+from . import mamba2, rglru, specs, transformer
 from .config import ModelConfig
 
 #: Families whose compute is not ported yet, with their ROADMAP slice.
 NOT_PORTED = {
     "moe": "MoE serving (ROADMAP queue 1, slice 4)",
-    "ssm": "Mamba2 serving (ROADMAP queue 1, slice 5)",
-    "hybrid": "RG-LRU serving (ROADMAP queue 1, slice 6)",
     "vlm": "VLM and audio serving (ROADMAP queue 1, slice 8)",
     "audio": "VLM and audio serving (ROADMAP queue 1, slice 8)",
 }
 
+_MODULES = {"dense": transformer, "ssm": mamba2, "hybrid": rglru}
+
 
 def _module(cfg: ModelConfig):
-    if cfg.family == "dense":
-        return transformer
+    if cfg.family in _MODULES:
+        return _MODULES[cfg.family]
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
                                   f"{NOT_PORTED[cfg.family]}")

@@ -1,11 +1,12 @@
-"""Parameter layouts of the families whose compute is not ported yet.
+"""Parameter layouts of the MoE, Mamba2 and RG-LRU families.
 
 The MoE FFN (``repro.models.moe.moe_spec``), Mamba2
 (``repro.models.mamba2.model_spec``) and the RG-LRU hybrid
 (``repro.models.rglru.model_spec``), shape for shape, so that
 :func:`repro_torch.models.count_params` and ``count_active_params`` give
-the reference's exact counts for all ten configurations.  Their forward
-passes come with their own slices (ROADMAP queue 1).
+the reference's exact counts for all ten configurations.  Mamba2 and the
+hybrid are ported (``mamba2.py``, ``rglru.py``); the MoE forward pass
+comes with its own slice (ROADMAP queue 1).
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Serve-step factories: prefill and single-token greedy decode.
 
 The port of ``repro.serve.step``.  The steps run under
-``torch.inference_mode``; the decode step updates the KV cache in place
-(the reference donates the cache buffer).
+``torch.inference_mode`` and return the cache the next step takes: the
+dense family updates its KV cache in place (the reference donates the
+cache buffer), the recurrent families return new states.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, cache, tokens, pos) -> (next tokens, cache): one
-    new token per sequence against the existing KV cache."""
+    new token per sequence against the existing KV or recurrent cache."""
     @torch.inference_mode()
     def serve_step(params, cache, tokens, pos):
         logits, cache = M.decode_step(cfg, params, cache, tokens, pos)

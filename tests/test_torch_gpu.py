@@ -15,8 +15,10 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import KiB, OpType, WorkloadSpec, ZnsDevice, \
     compile_program
 from repro_torch.kernels import flash_attention as pfa
-from repro_torch.kernels import ops, zns_event_scan as pscan
+from repro_torch.kernels import linear_recurrence as plr
+from repro_torch.kernels import ops, ref, zns_event_scan as pscan
 from repro_torch.kernels import rmsnorm as prms
+from repro_torch.kernels import ssd_chunk_scan as pssd
 from repro_torch.kernels import zns_fixpoint as pfix
 from repro_torch.serve import greedy_generate
 
@@ -26,6 +28,13 @@ F64 = dict(rtol=1e-12, atol=1e-9)
 #: The reference kernel tests' tolerances (tests/test_kernels.py).
 ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 RMS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: SSD scan, kernel against plain version: both compute in float32 and
+#: differ in summation order only (the reference's atol 1e-3); in
+#: bfloat16 y may differ by one rounding step (2^-7 relative).
+SSD_TOL = {torch.float32: dict(rtol=0.0, atol=1e-3),
+           torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+#: Linear recurrence: the reference kernel test's tolerance.
+LR_TOL = dict(rtol=1e-3, atol=2e-3)
 
 pytestmark = pytest.mark.gpu
 
@@ -126,6 +135,8 @@ def test_device_run_matches_host_loop_on_card(cuda_device):
     (1, 4, 2, 200, 200, 16, None),
     (1, 8, 2, 512, 512, 64, 256),      # local window
     (1, 4, 2, 100, 160, 32, 16),       # window with tq < tk
+    (2, 4, 1, 200, 200, 256, None),    # recurrentgemma's head dim
+    (1, 4, 1, 300, 300, 256, 128),     # ... with a local window
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain_on_card(cuda_device, b, hq, hkv,
@@ -199,5 +210,114 @@ def test_greedy_generate_kernels_match_plain_on_card(cuda_device, arch):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     lg, _ = M.prefill(cfg, params, prompt, 32)
     lw, _ = M.prefill(plain, params, prompt, 32)
+    np.testing.assert_allclose(lg.cpu().numpy(), lw.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _ssd_inputs(rng, b, t, h, p, g, n, dtype, device):
+    x = rng.standard_normal((b, t, h, p)) * 0.5
+    dt = rng.uniform(0.001, 0.1, (b, t, h))
+    A = -rng.uniform(0.5, 2.0, h)
+    B = rng.standard_normal((b, t, g, n)) * 0.3
+    C = rng.standard_normal((b, t, g, n)) * 0.3
+    cast = [dtype, torch.float32, torch.float32, dtype, dtype]
+    return [torch.as_tensor(u, dtype=torch.float32).to(device, c)
+            for u, c in zip((x, dt, A, B, C), cast)]
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n,chunk", [
+    (1, 128, 4, 32, 2, 64, 64),
+    (2, 256, 2, 16, 1, 32, 128),
+    (1, 64, 2, 64, 2, 128, 32),
+    (4, 2048, 32, 64, 1, 128, 128),    # mamba2-370m's prefill shape
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_on_card(cuda_device, b, t, h, p, g, n,
+                                          chunk, dtype):
+    args = _ssd_inputs(np.random.default_rng(t + p), b, t, h, p, g, n,
+                       dtype, cuda_device)
+    before = pssd.ssd_chunk_scan.launches
+    y, s = ops.ssd_scan(*args, chunk=chunk, impl="cuda")
+    yw, sw = ops.ssd_scan(*args, chunk=chunk, impl="torch")
+    torch.cuda.synchronize()
+    assert pssd.ssd_chunk_scan.launches == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yw.float().cpu().numpy(), **SSD_TOL[dtype])
+    np.testing.assert_allclose(s.cpu().numpy(), sw.cpu().numpy(),
+                               **SSD_TOL[torch.float32])
+    if t <= 256:       # the sequential oracle, at the reference's atol
+        yr, sr = ref.ssd_ref(*args)
+        np.testing.assert_allclose(y.float().cpu().numpy(),
+                                   yr.float().cpu().numpy(),
+                                   **SSD_TOL[dtype])
+        np.testing.assert_allclose(s.cpu().numpy(), sr.cpu().numpy(),
+                                   atol=1e-3)
+
+
+def test_ssd_kernel_refuses_unsupported_shapes_on_card(cuda_device):
+    args = _ssd_inputs(np.random.default_rng(0), 1, 96, 2, 16, 1, 16,
+                       torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(*args, chunk=64, impl="cuda")       # 96 % 64 != 0
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(*args, chunk=48, impl="cuda")
+
+
+@pytest.mark.parametrize("b,t,d", [(2, 64, 32), (1, 300, 16), (3, 1024, 8),
+                                   (2, 3072, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_recurrence_kernel_matches_plain_on_card(cuda_device, b, t, d,
+                                                        dtype):
+    rng = np.random.default_rng(t + d)
+    a = torch.as_tensor(rng.uniform(0.6, 0.999, (b, t, d)),
+                        dtype=torch.float32).to(cuda_device, dtype)
+    x = torch.as_tensor(rng.standard_normal((b, t, d)),
+                        dtype=torch.float32).to(cuda_device, dtype)
+    before = plr.linear_recurrence.launches
+    got = ops.linear_recurrence(a, x, impl="cuda")
+    want = ops.linear_recurrence(a, x, impl="torch")
+    torch.cuda.synchronize()
+    assert plr.linear_recurrence.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = LR_TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=2e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+    if dtype == torch.float32 and t <= 1024:
+        # one rounded multiply and one rounded add a step, in the order of
+        # the sequential oracle: equal to the last bit
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), ref.linear_recurrence_ref(a, x).cpu().numpy())
+
+
+@pytest.mark.parametrize("arch,need", [
+    ("mamba2-370m", ("ssd_chunk_scan", "rmsnorm")),
+    ("recurrentgemma-9b", ("linear_recurrence", "flash_attention",
+                           "rmsnorm")),
+])
+def test_recurrent_greedy_generate_kernels_match_plain_on_card(cuda_device,
+                                                               arch, need):
+    """The smoke configs in float32 on a 40-token prompt (mamba2: no chunk
+    multiple; recurrentgemma: longer than the window): the prompt's
+    kernels launch, and greedy tokens and prefill logits with the CUDA
+    kernels equal those with the plain versions."""
+    counters = {"ssd_chunk_scan": pssd.ssd_chunk_scan,
+                "linear_recurrence": plr.linear_recurrence,
+                "flash_attention": pfa.flash_attention,
+                "rmsnorm": prms.rmsnorm}
+    cfg = get_smoke_config(arch, dtype="float32", kernel_impl="cuda")
+    plain = get_smoke_config(arch, dtype="float32", kernel_impl="torch")
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           device=cuda_device)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 40)), device=cuda_device)
+    before = {k: counters[k].launches for k in need}
+    got = greedy_generate(cfg, params, prompt, steps=6, max_seq=64)
+    for k in need:
+        assert counters[k].launches > before[k], k
+    want = greedy_generate(plain, params, prompt, steps=6, max_seq=64)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    lg, _ = M.prefill(cfg, params, prompt, 64)
+    lw, _ = M.prefill(plain, params, prompt, 64)
     np.testing.assert_allclose(lg.cpu().numpy(), lw.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)

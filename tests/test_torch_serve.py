@@ -181,7 +181,8 @@ def test_kernel_build_failure_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_LIBS", {})
-    for name in ("rmsnorm", "flash_attention"):
+    for name in ("rmsnorm", "flash_attention", "linear_recurrence",
+                 "ssd_chunk_scan"):
         with pytest.raises(RuntimeError, match="build failed"):
             _build.load(name)
 
@@ -241,8 +242,7 @@ def test_init_follows_reference_rule():
 
 
 def test_unported_families_and_features_raise():
-    for arch in ("qwen2-moe-a2.7b", "mamba2-370m", "recurrentgemma-9b",
-                 "internvl2-26b", "musicgen-large"):
+    for arch in ("qwen2-moe-a2.7b", "internvl2-26b", "musicgen-large"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             M.init_params(get_smoke_config(arch), device="cpu")
     cfg = get_smoke_config("qwen3-4b", ring_attention=True)
@@ -332,14 +332,23 @@ def test_serve_driver_runs_on_cpu():
     assert "[serve] 4/4 requests" in out.stdout
 
 
-def test_serve_driver_matches_reference_driver(monkeypatch, capsys):
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-370m",
+                                  "recurrentgemma-9b"])
+def test_serve_driver_matches_reference_driver(monkeypatch, capsys, arch):
     """The same request stream, admission and decode steps as the
-    reference driver on the smoke config."""
+    reference driver on the smoke config, on the reference driver's
+    weights (its init from ``PRNGKey(seed)``, carried across), so that an
+    end-of-sequence token ends a request at the same step in both."""
     from repro.launch import serve as rserve
-    argv = ["--smoke", "--requests", "5", "--batch", "2", "--max-new", "3"]
+    argv = ["--arch", arch, "--smoke", "--requests", "5", "--batch", "2",
+            "--max-new", "3"]
     monkeypatch.setattr(sys, "argv", ["serve"] + argv)
     rserve.main()
     want = capsys.readouterr().out
+    tree = jax.tree.map(np.asarray, RM.init_params(r_smoke(arch),
+                                                   jax.random.PRNGKey(0)))
+    monkeypatch.setattr(pserve.M, "init_params", lambda cfg, gen, device:
+                        M.params_from_reference(cfg, tree, device=device))
     stats = pserve.main(argv + ["--device", "cpu"])
     assert stats["done"] == 5
     assert f"5/5 requests, {stats['steps']} decode steps" in want, want
