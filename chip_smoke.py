@@ -34,11 +34,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 11. runs the serving driver on mamba2-370m (16 requests, batch 4,
    max_seq 128, 32 new tokens).
 
+Phase 1 prints each built kernel's registers and spills (``ptxas -v``).
 Phase 2 also holds the flash-attention and RMSNorm kernels against their
 plain versions at qwen3-4b's shapes, in bfloat16 and float32 at the
 reference kernel tests' tolerances (attention atol 2e-2 / 2e-4, RMSNorm
 2e-2 / 1e-4), and times them beside one PyTorch library call computing the
-same function; likewise flash attention at recurrentgemma-9b's prefill
+same function (attention: TFLOP/s over the visible pairs and the ratio to
+SDPA; RMSNorm: GB/s), and counts the ``HGMMA`` (``wgmma``) instructions of
+the built flash-attention library (``cuobjdump -sass``; none fails the
+script); likewise flash attention at recurrentgemma-9b's prefill
 shape (head dim 256, window 2,048), the SSD chunk scan at mamba2-370m's
 prefill shape (y and the final state; bfloat16 y rtol 1e-2 / atol 2e-2,
 state atol 1e-3) and the linear recurrence at recurrentgemma-9b's (rtol
@@ -62,6 +66,7 @@ CUDA device or without the repository's ``src/`` beside this file.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -187,6 +192,42 @@ def device_breakdown(fn):
                                                  key=lambda kv: -kv[1])
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` from an Itanium-mangled kernel name (nested-name
+    components, then integer, ``bf16`` and ``f32`` template arguments)."""
+    i = mangled.find("_ZN")
+    if i < 0:
+        return mangled
+    i, name = i + 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        n = re.match(r"\d+", mangled[i:]).group()
+        i += len(n)
+        name, i = mangled[i:i + int(n)], i + int(n)
+    if mangled[i:i + 1] != "I":
+        return name
+    args = []
+    for lit, bf, f in re.findall(r"Li(-?\d+)E|(13__nv_bfloat16)|(f)",
+                                 mangled[i + 1:].split("EE", 1)[0] + "E"):
+        args.append(lit or ("bf16" if bf else "f32"))
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_lines(log: str):
+    """``(kernel, registers, spill line)`` for every kernel of an ``nvcc
+    -Xptxas -v`` log."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = kernel_name(line.rsplit(" ", 1)[-1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append((name, int(regs.group(1)) if regs else -1, spill))
+            name = None
+    return out
+
+
 def bound_ms(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -243,9 +284,9 @@ def main() -> int:
     libs = _build.build()
     print(f"[1] built {sorted(libs)} in {time.perf_counter() - tb:.1f} s")
     for name, path in libs.items():
-        for line in (path.parent / "build.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[1]   {name}: {line.strip()}")
+        for kern, regs, spill in ptxas_lines(
+                (path.parent / "build.log").read_text()):
+            print(f"[1]   {name}: {kern}: {regs} registers; {spill}")
 
     counters = {
         "zns_event_scan": kscan.zns_event_scan,
@@ -404,14 +445,17 @@ def main() -> int:
             pairs = int(kref.attention_mask(tq, tk, True, window,
                                             cuda).sum())
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-            bnd, by = bound_ms(nbytes, 4.0 * b * hq * d * pairs, dname)
+            flop = 4.0 * b * hq * d * pairs
+            bnd, by = bound_ms(nbytes, flop, dname)
             print(f"[2] flash_attention {case} q {tuple(q.shape)} k "
                   f"{tuple(k.shape)} window {window} {dname}: max abs err "
-                  f"{err:.3e} (library {lib_err:.3e}), kernel {ms:.4f} ms, "
+                  f"{err:.3e} (library {lib_err:.3e}), kernel {ms:.4f} ms "
+                  f"({flop / ms / 1e9:.1f} TFLOP/s, {ms / lms:.2f}x SDPA), "
                   f"plain {pms:.4f} ms, library {lms:.4f} ms, bound "
                   f"{bnd:.4f} ms ({by})")
             row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd,
                        bound_by=by, library_ms=lms,
+                       tflops=flop / ms / 1e9, vs_library=ms / lms,
                        shape=[list(q.shape), list(k.shape)], dtype=dname)
             if case == "prefill" and dname == "bfloat16":
                 report["flash_attention"] = row
@@ -435,19 +479,30 @@ def main() -> int:
             wl = (1.0 + w).to(dtype)
             lms = time_ms(lambda: F.rms_norm(x, (d,), weight=wl, eps=1e-6),
                           flush=flush)
-            bnd, by = bound_ms(2.0 * x.numel() * x.element_size() + 4 * d,
-                               4.0 * x.numel(), dname)
+            nbytes = 2.0 * x.numel() * x.element_size() + 4 * d
+            bnd, by = bound_ms(nbytes, 4.0 * x.numel(), dname)
             print(f"[2] rmsnorm ({rows}, {d}) {dname}: max abs err "
-                  f"{err:.3e}, kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"library {lms:.4f} ms, bound {bnd:.4f} ms ({by})")
+                  f"{err:.3e}, kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} "
+                  f"GB/s), plain {pms:.4f} ms, library {lms:.4f} ms, bound "
+                  f"{bnd:.4f} ms ({by})")
             if (rows, d) == (2048, 2560) and dname == "bfloat16":
                 report["rmsnorm"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd,
-                    bound_by=by, library_ms=lms, shape=[rows, d],
-                    dtype=dname)
+                    bound_by=by, library_ms=lms, gbps=nbytes / ms / 1e6,
+                    shape=[rows, d], dtype=dname)
             del x, got, want
 
     report["flash_attention"]["d256"] = d256
+    # the bf16 attention kernel runs on the tensor cores: count its wgmma
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300)
+    hgmma = sum("HGMMA" in line for line in sass.stdout.splitlines())
+    print(f"[2] flash_attention library: {hgmma} HGMMA (wgmma) instructions "
+          f"(cuobjdump -sass)")
+    check(hgmma > 0, "flash_attention: no HGMMA instruction in the library")
+    report["flash_attention"]["hgmma"] = hgmma
 
     # -- phase 2, recurrent kernels: SSD chunk scan, linear recurrence ------
     bb, t2, h2, p2, g2, n2, chunk = 4, 2048, 32, 64, 1, 128, 128

@@ -8,49 +8,94 @@
 //   * scale multiplies q.k (the wrapper passes 1/sqrt(D) by default);
 //   * the query at index i has position i + (Tk - Tq) (ends aligned);
 //     causal keeps keys kpos <= qpos, a window keeps kpos > qpos - window;
-//   * masked scores are the finite -1e30, never -inf, and their weights are
-//     0, so a row with no visible key has l == 0 and writes 0;
+//   * masked keys weigh 0 (the reference's scores are the finite -1e30;
+//     the bf16 kernel uses -inf with guards), so a row with no visible key
+//     has l == 0 and writes 0;
 //   * GQA reads KV head h / (Hq / Hkv) without repeating K/V.
-// Inputs are float32 or bfloat16, converted to float32 in shared memory;
-// the products and sums are float32 as in the TPU kernel.
 //
-// Bound on the card: at the main path's shapes (Tq = Tk = 1024..2048,
-// D = 128) the bf16 tensor-core rate bounds the work; this first kernel
-// runs on the float32 cores instead (the TPU kernel's float32 dots), so it
-// sits far above that bound.  Design: one block of 256 threads per
-// (q tile of 64 rows, head, batch); K/V tiles of 32 keys staged in shared
-// memory; each thread owns 4 query rows x 2 keys of the score tile (float4
-// shared-memory reads along D) and the same 4 rows x D/16 columns of the
-// output, so the row max and sum are 16-lane shuffles and the rescale of
-// the accumulator needs no exchange.  Key tiles wholly outside the causal
-// or window band are skipped.  Head dims 16-128 run two blocks an SM
-// (__launch_bounds__(256, 2): at most 128 registers a thread).  D = 256
-// (recurrentgemma-9b) holds 4 x 16 accumulators a thread and 139,776 bytes
-// of shared memory a block, so it is compiled for one block an SM, which
-// lifts the register cap to 255 and avoids spills.  Next steps: bf16 mma
-// (wgmma) for the two products, cp.async/TMA double buffering of the K/V
-// tiles.
+// Bound on the card: the bf16 tensor-core rate (989 TFLOP/s dense): at the
+// main path's shapes (Tq = Tk = 2,048-3,072, D = 128 or 256) a head's work
+// is 4 * D flops per visible (query, key) pair against 2 * D * 2 bytes per
+// key read once, far above the card's 295 flops a byte.
+//
+// bfloat16 inputs: `flash_fwd_wgmma`, FlashAttention-3's basic structure
+// without its warp specialisation or ping-pong.
+//   * Two consumer warpgroups (128 threads each) a block, 64 query rows
+//     each (BQ = 128), sharing every K/V tile.  Tiles of BK = 128 keys at
+//     D = 128, 64 at D <= 64 and 32 at D = 256 (see Cfg).  Two warpgroups
+//     sharing a tile halve the K/V traffic from L2 a flop, which bounds a
+//     block of one warpgroup at D = 256.
+//   * The Q tile is loaded once; K/V tiles stream through a ring of STAGES
+//     (3 at D = 128, else 4) with 16-byte cp.async.cg copies straight from
+//     the strided views: tile j + STAGES - 2 is issued while tile j is
+//     used.  The ring runs on mbarriers (full: every thread's copies of
+//     the stage landed; empty: every thread is done with it), not on block
+//     barriers.  Every tile is stored as 64-column panels of 128-byte rows
+//     with the 128-byte swizzle (chunk ^ row % 8) that the wgmma
+//     descriptors name.  Rows past Tq / Tk are zero-filled by the copy;
+//     head dims below 64 are zero-padded to one panel (zeroed once).
+//   * S = Q K^T: wgmma m64n{BK}k16, Q and K both K-major from shared
+//     memory, float32 accumulators (bf16 products are exact in float32).
+//   * O += P V: P is rounded to bf16 in registers and is the register A
+//     operand of wgmma m64n{64,128}k16 (the S fragment's layout is the A
+//     fragment's); V (keys x D, MN-major) is B from shared memory with the
+//     transpose bit.  Rounding P to bf16 adds about 2^-9 relative error
+//     per weight against the TPU kernel's float32 p.
+//   * Pipeline a warpgroup: S_j and the previous tile's PV are issued
+//     together; the online softmax of S_j waits only for S_j and overlaps
+//     PV_{j-1}; then O is rescaled by 2^(m_old - m_new) per row.
+//   * Online softmax on the accumulator fragment: a thread holds rows r and
+//     r + 8 of its warp's 16, each row in the 4 lanes of a quad, so the row
+//     max is two xor-shuffles; the row sum is kept per thread and reduced
+//     once at the end.  Scores are scaled by scale * log2(e) in one multiply
+//     and exponentiated on the SFU (ex2.approx).  Only tiles that straddle
+//     the causal diagonal, the window's edge or the end of Tk evaluate the
+//     mask (two compares an element); tiles outside the block's band are
+//     never loaded.
+//   * No branch depends on the thread: ptxas serialises every wgmma of a
+//     kernel (a wait after each, warning C7518) once it must place a wgmma
+//     wait in divergent code.  So both warpgroups walk all of the block's
+//     tiles (a tile one cannot see is masked whole), tile 0 issues a PV of
+//     P = 0, and the copy loops are unrolled.
+//   * Descriptors are built once a tile; k-steps add constants to them.
+//   * Epilogue: O / l (1 where l == 0), rounded to bf16, staged through the
+//     Q tile's shared memory and stored as 16-byte row chunks by q's
+//     strides (the wrapper makes every row start 16-byte aligned).
+//   * Grid (q tiles, Hq, B), q tiles visited heaviest first.
+//   Shared memory a block (+1 KB to align to 1,024 bytes): Q + STAGES x
+//   (K + V) = 224 KB at D = 128, 192 KB at D = 256, 80 KB at D <= 64.
+//   Registers (ptxas -v, sm_90a, no spills): 234 at D = 128 and 194 at
+//   D = 256 (one block an SM), 113-115 at D <= 64 (two blocks an SM).
+//
+// float32 inputs run a SIMT kernel on the float32 cores (`flash_fwd`,
+// namespace simt): TF32 wgmma would keep about three decimal digits, which
+// cannot meet the float32 checks (atol 2e-4 per kernel call, 1e-3 on a
+// model's logits); the float32 path serves only those checks.  One block of
+// 256 threads per (q tile of 64 rows, head, batch); K/V tiles of 32 keys
+// staged in shared memory as float32; each thread owns 4 query rows x 2
+// keys of the score tile and the same 4 rows x D/16 columns of the output.
+// D = 256 is compiled for one block an SM (206 registers, no spills), D
+// 16-128 for two (at most 128 registers).
 #include <cuda_bf16.h>
+
+#include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 32;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16: ty owns rows, tx owns keys/columns
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+// ---------------------------------------------------------------------------
+// float32: the SIMT kernel.
+namespace simt {
+
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 32;        // keys per tile
+constexpr int THREADS = 256;  // 16 x 16: ty owns rows, tx owns keys/columns
 
 // 16-lane reductions: the 16 threads sharing ty are lanes 0-15 or 16-31.
 __device__ __forceinline__ float half_warp_max(float v) {
@@ -89,11 +134,12 @@ constexpr int min_blocks() {
   return D > 128 ? 1 : 2;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, min_blocks<D>())
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, Strides st, int hq,
-              int hkv, int tq, int tk, int causal, int window, float scale) {
+    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides st,
+              int hq, int hkv, int tq, int tk, int causal, int window,
+              float scale) {
   constexpr int KS = D + 4;               // padded K row: conflict-free float4
   constexpr int NC = D / 16;              // output columns per thread
   constexpr int VEC = NC < 4 ? NC : 4;    // their vector width
@@ -108,14 +154,14 @@ __global__ void __launch_bounds__(THREADS, min_blocks<D>())
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
   const int off = tk - tq;
-  const T* qb = q + b * st.q_b + h * st.q_h;
-  const T* kb = k + b * st.k_b + hk * st.k_h;
-  const T* vb = v + b * st.v_b + hk * st.v_h;
-  T* ob = o + b * st.o_b + h * st.o_h;
+  const float* qb = q + b * st.q_b + h * st.q_h;
+  const float* kb = k + b * st.k_b + hk * st.k_h;
+  const float* vb = v + b * st.v_b + hk * st.v_h;
+  float* ob = o + b * st.o_b + h * st.o_h;
 
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int r = idx / D, c = idx % D, row = q0 + r;
-    sQ[idx] = row < tq ? to_f32(qb[row * st.q_s + c]) : 0.f;
+    sQ[idx] = row < tq ? qb[row * st.q_s + c] : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -142,8 +188,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks<D>())
     for (int idx = tid; idx < BK * D; idx += THREADS) {
       const int r = idx / D, c = idx % D, row = kt + r;
       const bool in = row < tk;
-      sK[r * KS + c] = in ? to_f32(kb[row * st.k_s + c]) : 0.f;
-      sV[idx] = in ? to_f32(vb[row * st.v_s + c]) : 0.f;
+      sK[r * KS + c] = in ? kb[row * st.k_s + c] : 0.f;
+      sV[idx] = in ? vb[row * st.v_s + c] : 0.f;
     }
     __syncthreads();
 
@@ -221,49 +267,679 @@ __global__ void __launch_bounds__(THREADS, min_blocks<D>())
     const int qi = q0 + ty + 16 * i;
     if (qi >= tq) continue;
     const float safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = ob + qi * st.o_s;
+    float* orow = ob + qi * st.o_s;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        store(orow + g * 16 * VEC + tx * VEC + e, acc[i][g * VEC + e] / safe);
+        orow[g * 16 * VEC + tx * VEC + e] = acc[i][g * VEC + e] / safe;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Strides& st, int b, int hq, int hkv, int tq, int tk,
            int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_fwd<T, D>;
+  auto kern = flash_fwd<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((tq + BQ - 1) / BQ, hq, b);
-  kern<<<grid, THREADS, smem, stream>>>((const T*)q, (const T*)k,
-                                        (const T*)v, (T*)o, st, hq, hkv, tq,
-                                        tk, causal, window, scale);
+  kern<<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, st, hq,
+      hkv, tq, tk, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             const Strides& st, int b, int hq, int hkv, int tq, int tk,
-             int causal, int window, float scale, cudaStream_t stream) {
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernel.
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int ROW_BYTES = 128;  // one swizzled row of a panel: 64 bf16
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int DP = D < 64 ? 64 : D;  // head dim padded to a panel
+  static constexpr int THREADS = 256;         // two warpgroups
+  static constexpr int BQ = 128;              // query rows a block
+  // Keys a K/V tile: 128 at D = 128 (S = Q K^T as m64n128 halves the
+  // shared-memory reads of Q a flop against m64n64, which reads Q and K
+  // at the full 128 bytes a cycle); 32 at D = 256 (registers, shared
+  // memory); 64 below.
+  static constexpr int BK = D > 128 ? 32 : D == 128 ? 128 : 64;
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;  // one K or one V tile
+  // K/V ring: tile j + STAGES - 2 is issued while tile j is used.
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + STAGES * 2 * 8 + 1024;
+  static constexpr int MIN_BLOCKS = D > 64 ? 1 : 2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c (8 bf16 along the row) of row r in a tile
+// of ROWS rows, stored as 64-column panels of ROWS x 128 bytes with the
+// 128-byte swizzle.  Tiles start 1,024-byte aligned.
+template <int ROWS>
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (uint32_t)((c >> 3) * ROWS * ROW_BYTES + r * ROW_BYTES +
+                    (((c & 7) ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0));
+}
+// Waits for every cp.async copy this thread has issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+// Arrives on bar once all of this thread's earlier cp.async copies land.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+      ::"r"(bar)
+      : "memory");
+}
+// Waits until the phase with the given parity of bar has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// Makes this thread's generic-proxy (and cp.async) writes to shared memory
+// visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + ROWS) of a (T, D) bf16 view with row stride ld
+// (elements) into the swizzled tile at dst; rows >= limit are zero-filled.
+// Branch-free: surplus threads repeat a chunk another thread copies.
+template <int ROWS, int D, int NTHREADS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long ld, int row0, int limit,
+                                          int tid) {
+  constexpr int CPR = D / 8, N = ROWS * CPR;  // 16-byte chunks a row, a tile
+  constexpr int STEP = NTHREADS / CPR;           // rows an iteration
+  if constexpr (N % NTHREADS == 0 && NTHREADS % CPR == 0 && STEP % 8 == 0) {
+    // A thread keeps its chunk column; its row advances by STEP, a
+    // multiple of the swizzle's 8 rows, so the offsets are hoisted.
+    const int c = tid % CPR, r0 = tid / CPR;
+    const bf16* g = src + (row0 + r0) * ld + c * 8;
+    const uint32_t d0 = dst + sw128<ROWS>(r0, c);
+#pragma unroll
+    for (int it = 0; it < N / NTHREADS; ++it) {
+      const bool in = row0 + r0 + it * STEP < limit;
+      cp_async16(d0 + it * STEP * ROW_BYTES, in ? g + it * STEP * ld : src,
+                 in);
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < (N + NTHREADS - 1) / NTHREADS; ++it) {
+      const int idx = (tid + it * NTHREADS) % N;
+      const int r = idx / CPR, c = idx % CPR, row = row0 + r;
+      const bool in = row < limit;
+      cp_async16(dst + sw128<ROWS>(r, c), in ? src + row * ld + c * 8 : src,
+                 in);
+    }
+  }
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  lbo: byte stride
+// between 64-column panels along M/N (MN-major operands only); sbo: byte
+// stride between groups of 8 rows (1,024).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving register reads or writes of a wgmma
+// operand across the asynchronous wgmma that owns it, and from reusing an
+// A-operand register while the wgmma still reads it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&p)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < 4 * K; ++i)
+    asm volatile("" : "+r"(p[i / 4][i % 4])::"memory");
+}
+
+#define FA_D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FA_R16                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+  "%8, %9, %10, %11, %12, %13, %14, %15"
+#define FA_R32                                                            \
+  FA_R16 ", "                                                             \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define FA_R64                                                            \
+  FA_R32 ", "                                                             \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                              \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                              \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                              \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// d[64] += A (64 x 16, K-major, smem) . B (128 x 16, K-major, smem)^T.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" FA_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40),
+        FA_D8(48), FA_D8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[16] += A (64 x 16, K-major, smem) . B (32 x 16, K-major, smem)^T.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{" FA_R16 "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[32] += A (64 x 16, K-major, smem) . B (64 x 16, K-major, smem)^T.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" FA_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[32] += A (64 x 16, registers) . B (16 x 64, MN-major, smem).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" FA_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A (64 x 16, registers) . B (16 x 128, MN-major, smem).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" FA_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40),
+        FA_D8(48), FA_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef FA_D8
+#undef FA_R16
+#undef FA_R32
+#undef FA_R64
+
+// Issues s = Q_wg . K^T as one wgmma group (qw: the warpgroup's first row
+// in a Q tile of QROWS rows; sk: a K tile of BK keys).  s is valid after
+// the group's wait.
+template <int DP, int QROWS, int BK>
+__device__ __forceinline__ void qk_issue(float (&s)[BK / 2], uint32_t qw,
+                                         uint32_t sk) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  fence_regs<BK / 2>(s);
+  wgmma_fence();
+  // k-step kk starts (kk >> 2) panels and (kk & 3) * 32 bytes in: constant
+  // additions to the address field (addresses stay below 2^18 bytes).
+  const uint64_t da0 = desc_sw128(qw, 16, 1024);
+  const uint64_t db0 = desc_sw128(sk, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int step = (kk & 3) * 32;
+    const uint64_t da = da0 + (((kk >> 2) * QROWS * ROW_BYTES + step) >> 4);
+    const uint64_t db = db0 + (((kk >> 2) * BK * ROW_BYTES + step) >> 4);
+    if constexpr (BK == 128)
+      wgmma_ss_n128(s, da, db);
+    else if constexpr (BK == 64)
+      wgmma_ss_n64(s, da, db);
+    else
+      wgmma_ss_n32(s, da, db);
+  }
+  wgmma_commit();
+}
+
+// Issues o += P . V as one wgmma group: p holds the bf16 A fragments of
+// the BK / 16 key steps (left untouched until the group's wait); sv is a
+// (BK keys x DP) V tile.
+template <int DP, int BK>
+__device__ __forceinline__ void pv_issue(float (&o)[DP / 2],
+                                         const uint32_t (&p)[BK / 16][4],
+                                         uint32_t sv) {
+  constexpr int NCH = DP < 128 ? DP : 128;  // columns a wgmma
+  fence_regs<DP / 2>(o);
+  wgmma_fence();
+  const uint64_t db0 = desc_sw128(sv, BK * ROW_BYTES, 1024);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int n0 = 0; n0 < DP; n0 += NCH) {
+      const uint64_t db =
+          db0 + (((n0 / 64) * BK * ROW_BYTES + kk * 16 * ROW_BYTES) >> 4);
+      if constexpr (NCH == 128)
+        wgmma_rs_n128(o + n0 / 2, p[kk], db);
+      else
+        wgmma_rs_n64(o + n0 / 2, p[kk], db);
+    }
+  }
+  wgmma_commit();
+}
+
+// 2^x on the SFU (ex2.approx: relative error about 2^-22; 2^-1e30 is 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragments of P for the BK / 16 key steps, from the S fragment.
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
+                                       uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// Accumulator fragment of wgmma m64nNk16 (f32): register i of thread t
+// (warp w = t / 32 of the warpgroup, lane l) holds row
+// 16 w + l / 4 + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 (l & 3) + (i & 1).
+__device__ __forceinline__ int frag_row(int i) { return 8 * ((i >> 1) & 1); }
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i >> 2) + (i & 1);
+}
+
+// Aligns the dynamic shared memory to 1,024 bytes (the swizzle's period).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023) & ~1023u) - a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+    flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    Strides st, int hq, int hkv, int tq, int tk, int causal,
+                    int window, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int DP = C::DP, BQ = C::BQ, BK = C::BK, THREADS = C::THREADS;
+  constexpr int NS = BK / 2;  // S registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sKV = sQ + C::Q_BYTES;  // stage s: K, then V
+
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int off = tk - tq;
+  const bf16* qb = q + b * st.q_b + h * st.q_h;
+  const bf16* kb = k + b * st.k_b + hk * st.k_h;
+  const bf16* vb = v + b * st.v_b + hk * st.v_h;
+  bf16* ob = o + b * st.o_b + h * st.o_h;
+
+  if constexpr (DP != D) {  // zero the pad columns of every tile once
+    uint4* p = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < C::BAR_OFF / 16; i += THREADS)
+      p[i] = make_uint4(0, 0, 0, 0);
+  }
+  // full[s]: stage s holds its tile (every thread's copies landed);
+  // empty[s]: every thread is done with the tile in stage s.
+  const uint32_t full = sQ + C::BAR_OFF, empty = full + 8 * C::STAGES;
+  if (tid == 0)
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(full + 8 * i, THREADS);
+      mbar_init(empty + 8 * i, THREADS);
+    }
+  __syncthreads();
+
+  load_tile<BQ, D, THREADS>(sQ, qb, st.q_s, q0, tq, tid);
+
+  // Key tiles any row of the block can see ...
+  const int last_row = min(q0 + BQ, tq) - 1;
+  const int kend = causal ? min(tk, last_row + off + 1) : tk;
+  int kbeg = 0;
+  if (window > 0) {
+    const int kmin = q0 + off - window + 1;
+    kbeg = kmin > 0 ? (kmin / BK) * BK : 0;
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  const int wq0 = q0 + 64 * wgi;
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int r_q = wq0 + 16 * warp + (lane >> 2);  // this thread's first row
+  const int c_k = 2 * (lane & 3);                 // and first column
+
+  constexpr int S = C::STAGES;
+  auto stage = [&](int j) { return sKV + (j % S) * 2 * C::KV_BYTES; };
+  auto load_kv = [&](int j) {  // tile j into its stage; arrives on full
+    if (j < ntiles) {
+      if (j >= S)  // the stage's previous tile, j - S, is done everywhere
+        mbar_wait(empty + 8 * (j % S), ((j - S) / S) & 1);
+      const int kt = kbeg + j * BK;
+      load_tile<BK, D, THREADS>(stage(j), kb, st.k_s, kt, tk, tid);
+      load_tile<BK, D, THREADS>(stage(j) + C::KV_BYTES, vb, st.v_s, kt, tk,
+                                tid);
+      cp_async_arrive(full + 8 * (j % S));
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < S - 2; ++j) load_kv(j);
+
+  // Software pipeline of one warpgroup: at tile j, S_j = Q K_j^T and the
+  // previous tile's O += P_{j-1} V_{j-1} run on the tensor cores while the
+  // softmax of S_j waits only for the first; O is rescaled once both are
+  // done.  The K/V ring runs on mbarriers, not on block barriers, so the
+  // two warpgroups drift apart and one's softmax overlaps the other's
+  // products: tile j + S - 2 is issued at tile j, into the stage of tile
+  // j - 2, once every thread has arrived on that stage's empty barrier.
+  // No branch depends on the thread (ptxas serialises every wgmma of a
+  // kernel whose waits it must place in divergent code): both warpgroups
+  // walk all of the block's tiles, a tile a warpgroup cannot see is masked
+  // whole, and tile 0 issues a PV of P = 0.
+  uint32_t p[BK / 16][4] = {};  // P_{-1} = 0: the first PV adds nothing
+  const uint32_t qw = sQ + wgi * 64 * ROW_BYTES;
+  for (int j = 0; j < ntiles; ++j) {
+    const int kt = kbeg + j * BK;
+    mbar_wait(full + 8 * (j % S), (j / S) & 1);  // tile j (and Q) landed
+    fence_async_smem();
+    load_kv(j + S - 2);
+
+    float s[NS];
+    qk_issue<DP, BQ, BK>(s, qw, stage(j));
+    pv_issue<DP, BK>(acc, p, stage(j > 0 ? j - 1 : 0) + C::KV_BYTES);
+    wgmma_wait<1>();
+    fence_regs<NS>(s);
+
+    // Scores in units of scale * log2(e): p = 2^(s - m).  A masked score
+    // is -inf here, so its weight 2^(-inf - m) is 0 with no select; m stays
+    // -inf while a row has seen no key, and then stands in as 0.
+    const bool need_mask = kt + BK > tk ||
+                           (causal && kt + BK - 1 > q0 + off) ||
+                           (window > 0 && kt <= q0 + BQ - 1 + off - window);
+    if (need_mask) {
+      // Visible columns of this thread's two rows, relative to its first
+      // column of the tile: lo[r] <= frag_col(i) <= hi[r].
+      int lo[2], hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = r_q + 8 * r + off, base = kt + c_k;
+        hi[r] = (causal ? min(qpos, tk - 1) : tk - 1) - base;
+        lo[r] = window > 0 ? qpos - window + 1 - base : -BK;
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int r = (i >> 1) & 1, c = frag_col(i);
+        s[i] = c >= lo[r] && c <= hi[r] ? s[i] * scale_log2 : -INFINITY;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] *= scale_log2;
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int r = (i >> 1) & 1;
+      mx[r] = fmaxf(mx[r], s[i]);
+    }
+    float corr[2], base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // O and l are 0 until a row sees a key: any finite factor will do
+      corr[r] = m[r] == -INFINITY ? 0.f : exp2_approx(m[r] - mx[r]);
+      m[r] = mx[r];
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2_approx(s[i] - base[r]);
+      l[r] += s[i];
+    }
+
+    wgmma_wait<0>();  // PV_{j-1}: O is final for the old max, p is free
+    fence_regs(p);
+    fence_regs<DP / 2>(acc);
+    if (j > 0) mbar_arrive(empty + 8 * ((j - 1) % S));
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    pack_p<BK>(s, p);
+  }
+  if (ntiles > 0) {  // the last tile's PV (its stage is never refilled)
+    pv_issue<DP, BK>(acc, p, stage(ntiles - 1) + C::KV_BYTES);
+    wgmma_wait<0>();
+    fence_regs(p);
+    fence_regs<DP / 2>(acc);
+  }
+
+  // Epilogue: O / l in bf16, staged through this warpgroup's Q rows.
+  cp_async_wait_all();  // Q's copies, when no tile was loaded
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = l[r] == 0.f ? 1.f : l[r];
+  }
+  const int r_local = 64 * wgi + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int r = r_local + frag_row(i), c = frag_col(i) + c_k;
+    const float dl = l[(i >> 1) & 1];
+    *reinterpret_cast<uint32_t*>(smem + sw128<BQ>(r, c >> 3) +
+                                 2 * (c & 7)) =
+        pack_bf16(acc[i] / dl, acc[i + 1] / dl);
+  }
+  __syncthreads();
+  constexpr int CPR = D / 8;
+  for (int idx = tid; idx < BQ * CPR; idx += THREADS) {
+    const int r = idx / CPR, c = idx % CPR, row = q0 + r;
+    if (row < tq)
+      *reinterpret_cast<uint4*>(ob + row * st.o_s + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + sw128<BQ>(r, c));
+  }
+}
+
+// Rows of the K and V tiles of tile_products.
+template <int D>
+constexpr int TILE_KEYS = Cfg<D>::BK > 64 ? Cfg<D>::BK : 64;
+
+// One warpgroup's two products on a single 64-row tile, for the card
+// tests: q, k, v contiguous (64, D) bf16; s = q k^T (64 x 64 float32),
+// o = bf16(s) v (64 x D float32), through the kernel's own loads and wgmma
+// calls, over the 64 keys in K/V tiles of the instance's BK.
+template <int D>
+__global__ void __launch_bounds__(128)
+    tile_products(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, float* __restrict__ s_out,
+                  float* __restrict__ o_out) {
+  // K/V tiles of BK keys cover the 64 keys (a tile of 128 has 64 zero
+  // rows, whose columns of s are not written).
+  constexpr int DP = Cfg<D>::DP, BK = Cfg<D>::BK;
+  constexpr int NT = BK < 64 ? 64 / BK : 1, TB = TILE_KEYS<D> * DP * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t sQ = smem_u32(smem), sK = sQ + 64 * DP * 2, sV = sK + TB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if constexpr (DP != D) {
+    uint4* p = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < (64 * DP * 2 + 2 * TB) / 16; i += 128)
+      p[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
+  load_tile<64, D, 128>(sQ, q, D, 0, 64, tid);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    load_tile<BK, D, 128>(sK + t * BK * DP * 2, k, D, t * BK, 64, tid);
+    load_tile<BK, D, 128>(sV + t * BK * DP * 2, v, D, t * BK, 64, tid);
+  }
+  cp_async_wait_all();
+  fence_async_smem();
+  __syncthreads();
+  const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    float s[BK / 2];
+    qk_issue<DP, 64, BK>(s, sQ, sK + t * BK * DP * 2);
+    wgmma_wait<0>();
+    fence_regs<BK / 2>(s);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int c = t * BK + frag_col(i) + c0;
+      if (c < 64) s_out[(r0 + frag_row(i)) * 64 + c] = s[i];
+    }
+    uint32_t p[BK / 16][4];
+    pack_p<BK>(s, p);
+    pv_issue<DP, BK>(acc, p, sV + t * BK * DP * 2);
+    wgmma_wait<0>();
+    fence_regs(p);
+    fence_regs<DP / 2>(acc);
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) {
+    const int c = frag_col(i) + c0;
+    if (c < D) o_out[(r0 + frag_row(i)) * D + c] = acc[i];
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Strides& st, int b, int hq, int hkv, int tq, int tk,
+           int causal, int window, float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  auto kern = flash_fwd_wgmma<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((tq + C::BQ - 1) / C::BQ, hq, b);
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, st, hq, hkv,
+      tq, tk, causal, window, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tile(const void* q, const void* k, const void* v, void* s,
+                void* o, cudaStream_t stream) {
+  constexpr int smem = (64 + 2 * TILE_KEYS<D>) * Cfg<D>::DP * 2 + 1024;
+  auto kern = tile_products<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, 128, smem, stream>>>((const bf16*)q, (const bf16*)k,
+                                 (const bf16*)v, (float*)s, (float*)o);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+// One switch over the head dims for every launcher (L::run<D>).
+template <typename L, typename... A>
+int dispatch_d(int d, A... args) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, st, b, hq, hkv, tq, tk, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, st, b, hq, hkv, tq, tk, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, st, b, hq, hkv, tq, tk, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, st, b, hq, hkv, tq, tk, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, st, b, hq, hkv, tq, tk, causal, window, scale, stream);
+    case 16: return L::template run<16>(args...);
+    case 32: return L::template run<32>(args...);
+    case 64: return L::template run<64>(args...);
+    case 128: return L::template run<128>(args...);
+    case 256: return L::template run<256>(args...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+struct SimtLaunch {
+  template <int D, typename... A>
+  static int run(A... args) { return simt::launch<D>(args...); }
+};
+struct WgmmaLaunch {
+  template <int D, typename... A>
+  static int run(A... args) { return wg::launch<D>(args...); }
+};
+struct TileLaunch {
+  template <int D, typename... A>
+  static int run(A... args) { return wg::launch_tile<D>(args...); }
+};
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  strides: 12 element strides, (batch, head,
-// sequence) of q, k, v and out in turn.  window <= 0: no window.
+// sequence) of q, k, v and out in turn.  window <= 0: no window.  bfloat16
+// needs every row start 16-byte aligned (pointers and the three strides).
 extern "C" int flash_attention_fwd(int dtype, int d, const void* q,
                                    const void* k, const void* v, void* o,
                                    const long long* strides, int b, int hq,
@@ -277,10 +953,26 @@ extern "C" int flash_attention_fwd(int dtype, int d, const void* q,
                    strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_d<float>(d, q, k, v, o, st, b, hq, hkv, tq, tk, causal,
-                           window, scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, st, b, hq, hkv, tq, tk,
+    return dispatch_d<SimtLaunch>(d, q, k, v, o, st, b, hq, hkv, tq, tk,
+                                  causal, window, scale, s);
+  if (dtype == 1) {
+    for (int i = 0; i < 12; ++i)
+      if (strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
+    const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) |
+                          reinterpret_cast<uintptr_t>(o);
+    if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;
+    return dispatch_d<WgmmaLaunch>(d, q, k, v, o, st, b, hq, hkv, tq, tk,
                                    causal, window, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 kernel's two wgmma products on one (64, d) tile (card tests):
+// s = q k^T (64, 64) and o = bf16(s) v (64, d), both float32.
+extern "C" int flash_attention_tile_products(int d, const void* q,
+                                             const void* k, const void* v,
+                                             void* s, void* o, void* stream) {
+  return dispatch_d<TileLaunch>(d, q, k, v, s, o, (cudaStream_t)stream);
 }

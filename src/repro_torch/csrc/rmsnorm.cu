@@ -7,17 +7,31 @@
 //
 // Bound on the card: memory.  Each element is read once and written once
 // (4 bytes a value in bf16, 8 in f32) for about four flops; w stays in L1.
-// The TPU kernel normalised 256-row blocks resident in VMEM.  Here a warp
-// owns a row when D <= 256 (the q/k-norm rows of 128: eight rows to a
-// block), and a block of 256 threads owns a row otherwise (D = 2048..4096:
-// 8-16 elements a thread).  The sum of squares is a warp-shuffle reduction,
-// then (block path) one pass over the warp totals in shared memory.  The
-// second pass re-reads the row, which the first left in L1.  Weakness:
-// scalar loads (2 bytes a thread in bf16); 16-byte vector loads are the
-// next step.
+// The TPU kernel normalised 256-row blocks resident in VMEM.  Here each
+// thread loads its share of a row once, as 16-byte vectors (8 bf16 or 4
+// f32) held in registers, with the matching float4s of w (so that their
+// latency overlaps the reduction), reduces the sum of squares, normalises
+// from the registers and stores 16-byte vectors: one pass over device
+// memory.
+//   * Rows of at most 32 vectors (bf16 D <= 256: the (B*S*H, 128) q/k-norm
+//     rows): LPR = 2..32 lanes a row, one vector a lane, 32 / LPR rows a
+//     warp (16 lanes and two rows a warp at D = 128 bf16), 256-thread
+//     blocks; the sum is a shuffle over the row's lanes.
+//   * Longer rows, up to 2,048 vectors (16,384 bf16): a block a row of at
+//     most 256 threads (a multiple of 32), NV = 2, 4 or 8 vectors a thread:
+//     2,560 bf16 is 320 vectors, 160 threads x 2; 4,096 bf16 is 256 x 2.
+//     Warp shuffles, then each thread sums the warp totals from shared
+//     memory after one barrier.  More, shorter warps a row keep more
+//     loads in flight than a warp a row with ten vectors a lane.
+//   Registers (ptxas -v): 32 (bf16 rows of 128) and 40 (bf16 rows of
+//   2,560), at most 125 (bf16, 8 vectors a thread); no spills.
+// Rows whose length or base is not 16-byte aligned (x, w or out), or longer
+// than 2,048 vectors, take the scalar two-pass kernels: a warp a row for
+// D <= 256, a block a row above.
 #include <cuda_bf16.h>
 
 #include <climits>
+#include <cstdint>
 
 namespace {
 
@@ -38,6 +52,164 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 constexpr int WARP_ROWS = 8;        // rows per block on the warp path
 constexpr int BLOCK_THREADS = 256;  // threads per row on the block path
+
+// ---------------------------------------------------------------------------
+// Vector path: 16-byte loads and stores, the row held in registers.
+
+// Elements of T in 16 bytes, and their conversion to and from float.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ float2 pair(uint32_t u) {
+    __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
+    return __bfloat1622float2(h);
+  }
+  static __device__ __forceinline__ uint32_t word(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    const float2 a = pair(u.x), b = pair(u.y), c = pair(u.z), d = pair(u.w);
+    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+    f[4] = c.x; f[5] = c.y; f[6] = d.x; f[7] = d.y;
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(word(f[0], f[1]), word(f[2], f[3]), word(f[4], f[5]),
+                      word(f[6], f[7]));
+  }
+};
+
+// Sum of squares of the vectors a thread holds (absent ones are zero).
+template <typename T, int NV>
+__device__ __forceinline__ float sum_squares(const uint4 (&raw)[NV]) {
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float f[Vec<T>::N];
+    Vec<T>::unpack(raw[i], f);
+#pragma unroll
+    for (int e = 0; e < Vec<T>::N; ++e) ss = fmaf(f[e], f[e], ss);
+  }
+  return ss;
+}
+
+// The N weights of vector v, loaded with x so that their latency
+// overlaps the reduction.
+template <typename T>
+struct Weights {
+  float4 g[Vec<T>::N / 4];
+  __device__ __forceinline__ void load(const float* __restrict__ w, int v) {
+#pragma unroll
+    for (int i = 0; i < Vec<T>::N / 4; ++i)
+      g[i] = __ldg(reinterpret_cast<const float4*>(w + v * Vec<T>::N) + i);
+  }
+};
+
+// y = x * r * (1 + w) for one held vector v of the row, stored to yr.
+template <typename T>
+__device__ __forceinline__ void normalise_store(const uint4& raw,
+                                                const Weights<T>& wv, int v,
+                                                T* yr, float r) {
+  constexpr int N = Vec<T>::N;
+  float f[N];
+  Vec<T>::unpack(raw, f);
+#pragma unroll
+  for (int g = 0; g < N / 4; ++g) {
+    f[4 * g + 0] = f[4 * g + 0] * r * (1.f + wv.g[g].x);
+    f[4 * g + 1] = f[4 * g + 1] * r * (1.f + wv.g[g].y);
+    f[4 * g + 2] = f[4 * g + 2] * r * (1.f + wv.g[g].z);
+    f[4 * g + 3] = f[4 * g + 3] * r * (1.f + wv.g[g].w);
+  }
+  *reinterpret_cast<uint4*>(yr + v * N) = Vec<T>::pack(f);
+}
+
+// LPR lanes a row (32 / LPR rows a warp), NV vectors a lane: vector
+// li + LPR * i of the row for lane li of its group.
+template <typename T, int LPR, int NV>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    rmsnorm_vec_warp(const T* __restrict__ x, const float* __restrict__ w,
+                     T* __restrict__ out, long long rows, int d, float eps) {
+  constexpr int N = Vec<T>::N, RPW = 32 / LPR;
+  const int lane = threadIdx.x & 31, li = lane % LPR;
+  const long long row =
+      ((long long)blockIdx.x * (BLOCK_THREADS / 32) + (threadIdx.x >> 5)) *
+          RPW + lane / LPR;
+  const bool live = row < rows;  // dead lanes still join the shuffles
+  const int nvec = d / N;
+  const T* xr = x + (live ? row : 0) * d;
+  uint4 raw[NV];
+  Weights<T> wv[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = li + LPR * i;
+    raw[i] = live && v < nvec
+                 ? __ldg(reinterpret_cast<const uint4*>(xr + v * N))
+                 : make_uint4(0, 0, 0, 0);
+    if (v < nvec) wv[i].load(w, v);
+  }
+  float ss = sum_squares<T, NV>(raw);
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (!live) return;
+  const float r = rsqrtf(ss / (float)d + eps);
+  T* yr = out + row * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = li + LPR * i;
+    if (v < nvec) normalise_store<T>(raw[i], wv[i], v, yr, r);
+  }
+}
+
+// A block a row: blockDim.x threads (a multiple of 32, at most 256), NV
+// vectors a thread (vector tid + blockDim.x * i).
+template <typename T, int NV>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    rmsnorm_vec_block(const T* __restrict__ x, const float* __restrict__ w,
+                      T* __restrict__ out, int d, float eps) {
+  constexpr int N = Vec<T>::N;
+  __shared__ float warp_tot[BLOCK_THREADS / 32];
+  const int tid = threadIdx.x, nt = blockDim.x, nvec = d / N;
+  const T* xr = x + (long long)blockIdx.x * d;
+  uint4 raw[NV];
+  Weights<T> wv[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = tid + nt * i;
+    raw[i] = v < nvec ? __ldg(reinterpret_cast<const uint4*>(xr + v * N))
+                      : make_uint4(0, 0, 0, 0);
+    if (v < nvec) wv[i].load(w, v);
+  }
+  const float ss = warp_sum(sum_squares<T, NV>(raw));
+  if ((tid & 31) == 0) warp_tot[tid >> 5] = ss;
+  __syncthreads();
+  float tot = 0.f;
+  for (int i = 0; i < nt / 32; ++i) tot += warp_tot[i];
+  const float r = rsqrtf(tot / (float)d + eps);
+  T* yr = out + (long long)blockIdx.x * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = tid + nt * i;
+    if (v < nvec) normalise_store<T>(raw[i], wv[i], v, yr, r);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Scalar path (any length and alignment): two passes over the row.
 
 template <typename T>
 __global__ void rmsnorm_warp_rows(const T* __restrict__ x,
@@ -89,12 +261,64 @@ __global__ void rmsnorm_block_rows(const T* __restrict__ x,
     store(yr + i, to_f32(xr[i]) * r * (1.f + w[i]));
 }
 
+// ---------------------------------------------------------------------------
+
+template <typename T, int LPR, int NV>
+int launch_warp(const T* x, const float* w, T* out, long long rows, int d,
+                float eps, cudaStream_t s) {
+  constexpr long long per_block = (BLOCK_THREADS / 32) * (32 / LPR);
+  const long long blocks = (rows + per_block - 1) / per_block;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  rmsnorm_vec_warp<T, LPR, NV>
+      <<<(unsigned)blocks, BLOCK_THREADS, 0, s>>>(x, w, out, rows, d, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NV>
+int launch_block(const T* x, const float* w, T* out, long long rows, int d,
+                 float eps, cudaStream_t s) {
+  if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int nvec = d / Vec<T>::N;
+  const int threads = (nvec + 32 * NV - 1) / (32 * NV) * 32;
+  rmsnorm_vec_block<T, NV>
+      <<<(unsigned)rows, threads, 0, s>>>(x, w, out, d, eps);
+  return (int)cudaGetLastError();
+}
+
+// The vector path for nvec = d / Vec<T>::N vectors a row; -1 when the row
+// is too long for it.
+template <typename T>
+int launch_vec(const T* x, const float* w, T* out, long long rows, int d,
+               float eps, cudaStream_t s) {
+  const int nvec = d / Vec<T>::N;
+  if (nvec <= 2) return launch_warp<T, 2, 1>(x, w, out, rows, d, eps, s);
+  if (nvec <= 4) return launch_warp<T, 4, 1>(x, w, out, rows, d, eps, s);
+  if (nvec <= 8) return launch_warp<T, 8, 1>(x, w, out, rows, d, eps, s);
+  if (nvec <= 16) return launch_warp<T, 16, 1>(x, w, out, rows, d, eps, s);
+  if (nvec <= 32) return launch_warp<T, 32, 1>(x, w, out, rows, d, eps, s);
+  if (nvec <= 2 * BLOCK_THREADS)
+    return launch_block<T, 2>(x, w, out, rows, d, eps, s);
+  if (nvec <= 4 * BLOCK_THREADS)
+    return launch_block<T, 4>(x, w, out, rows, d, eps, s);
+  if (nvec <= 8 * BLOCK_THREADS)
+    return launch_block<T, 8>(x, w, out, rows, d, eps, s);
+  return -1;
+}
+
 template <typename T>
 int launch(const void* x, const void* w, void* out, long long rows, int d,
            float eps, void* stream) {
   if (rows <= 0) return 0;
   if (d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(w) |
+                          reinterpret_cast<uintptr_t>(out);
+  if (d % Vec<T>::N == 0 && bases % 16 == 0) {
+    const int rc = launch_vec<T>((const T*)x, (const float*)w, (T*)out, rows,
+                                 d, eps, s);
+    if (rc >= 0) return rc;
+  }
   if (d <= 256) {
     const long long blocks = (rows + WARP_ROWS - 1) / WARP_ROWS;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;

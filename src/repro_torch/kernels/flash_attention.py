@@ -8,11 +8,17 @@ position ``i + (Tk - Tq)``; ``causal`` keeps keys at or before it,
 head ``h // (Hq // Hkv)``; a row that sees no key is 0.
 
 * :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
-  tensors (D in :data:`HEAD_DIMS`).  It takes q/k/v by their strides, so
-  the ``(B, H, S, D)`` views that the model makes with ``movedim`` are not
-  copied; the output has q's strides.  It replaces the TPU kernel
+  tensors (D in :data:`HEAD_DIMS`): bfloat16 on the tensor cores
+  (``wgmma``), float32 on the float32 cores.  It takes q/k/v by their
+  strides, so the ``(B, H, S, D)`` views that the model makes with
+  ``movedim`` are not copied; the output has q's strides.  In bfloat16
+  every row must start 16-byte aligned (the kernel's ``cp.async`` copies):
+  a tensor whose pointer or strides break that is copied to contiguous
+  first.  It replaces the TPU kernel
   ``src/repro/kernels/flash_attention.py::flash_attention`` and counts its
   launches in ``flash_attention.launches``.
+* :func:`tile_products` runs the bfloat16 kernel's two ``wgmma`` products
+  on one 64-row tile, for the card tests.
 * :func:`attention_torch` is the plain version: a masked softmax in
   float32 over chunks of queries, GQA by head grouping.  The wrapper uses
   it only for tensors on the CPU.
@@ -78,13 +84,25 @@ def attention_torch(q, k, v, *, causal: bool = True,
     return out
 
 
+def _fits(t: torch.Tensor) -> bool:
+    """Whether the kernel takes ``t`` as it is: unit stride along D and,
+    in bfloat16, 16-byte aligned rows (pointer and strides)."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
 def _launch(q, k, v, causal: bool, window: Optional[int],
             scale: float) -> torch.Tensor:
     """Run the CUDA kernel on CUDA tensors (raises on any failure)."""
     d = q.shape[3]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    # a fresh copy: .contiguous() returns a misaligned contiguous view as is
+    q, k, v = (t if _fits(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     out = torch.empty_like(q)     # q's strides when dense, else contiguous
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (q, k, v, out) for s in t.stride()[:3]])
@@ -123,3 +141,26 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+
+
+def tile_products(q, k, v):
+    """``(q k^T, bf16(q k^T) v)`` in float32 for contiguous ``(64, D)``
+    bfloat16 CUDA tensors, through the bfloat16 kernel's shared-memory
+    tiles and ``wgmma`` calls (a check of its descriptors and fragment
+    layouts against ``torch.matmul``)."""
+    d = q.shape[1]
+    if (q.shape != (64, d) or k.shape != q.shape or v.shape != q.shape
+            or d not in HEAD_DIMS or not q.is_cuda):
+        raise ValueError("tile_products: q, k, v (64, D) CUDA tensors")
+    q, k, v = (t.to(torch.bfloat16).clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))     # fresh, so 16-byte aligned
+    s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, d), dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_attention").flash_attention_tile_products
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    rc = fn(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+            o.data_ptr(), _build.stream_handle(q.device))
+    if rc != 0:
+        raise RuntimeError(f"tile_products launch failed: CUDA error {rc}")
+    return s, o

@@ -4,10 +4,13 @@
 view of ``x`` (``(..., D)``), in float32, written in ``x``'s dtype
 (float32 or bfloat16); ``w`` is ``(D,)`` float32.
 
-* :func:`rmsnorm` launches ``csrc/rmsnorm.cu`` for CUDA tensors (a warp
-  per row for D <= 256, a block per row above; see the source's note).
-  It replaces the TPU kernel ``src/repro/kernels/rmsnorm.py::rmsnorm``.
-  It counts its launches in ``rmsnorm.launches``.
+* :func:`rmsnorm` launches ``csrc/rmsnorm.cu`` for CUDA tensors: one
+  pass with 16-byte vectors held in registers where the rows, ``w`` and
+  the output start 16-byte aligned and ``D`` fills whole vectors, the
+  scalar two-pass kernels otherwise (the source's launcher picks from
+  ``D`` and the pointers; see its note).  It replaces the TPU kernel
+  ``src/repro/kernels/rmsnorm.py::rmsnorm``.  It counts its launches in
+  ``rmsnorm.launches``.
 * :func:`rmsnorm_torch` is the plain version, a float32 row reduction
   (the oracle :func:`repro_torch.kernels.ref.rmsnorm_ref` itself).  The
   wrapper uses it only for tensors on the CPU.

@@ -137,6 +137,12 @@ def test_device_run_matches_host_loop_on_card(cuda_device):
     (1, 4, 2, 100, 160, 32, 16),       # window with tq < tk
     (2, 4, 1, 200, 200, 256, None),    # recurrentgemma's head dim
     (1, 4, 1, 300, 300, 256, 128),     # ... with a local window
+    (1, 2, 1, 129, 129, 128, None),    # one row past a 128-row q tile
+    (1, 4, 2, 191, 320, 64, None),     # ragged q and k tiles, tq < tk
+    (1, 4, 2, 300, 300, 128, 100),     # window edge inside a K tile
+    (1, 2, 1, 129, 190, 256, None),    # D 256, ragged lengths
+    (2, 2, 1, 191, 191, 256, 77),      # D 256, ragged, window mid-tile
+    (1, 4, 2, 200, 70, 64, None),      # tq > tk: the first rows see no key
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain_on_card(cuda_device, b, hq, hkv,
@@ -172,8 +178,103 @@ def test_flash_attention_kernel_takes_strided_views_on_card(cuda_device):
                                atol=2e-4)
 
 
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_flash_attention_tile_products_match_matmul_on_card(cuda_device, d):
+    """The bfloat16 kernel's two wgmma products on one 64-row tile (its
+    swizzled tiles, descriptors and fragment layouts) against float32
+    torch.matmul: S = q k^T (bf16 products are exact in float32; the sums
+    differ in order), and O = bf16(S) v from the kernel's own S, so that a
+    rounding flip of S cannot move O.  A layout fault moves values by
+    O(1)."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.as_tensor(rng.standard_normal((64, d)),
+                               dtype=torch.float32).to(cuda_device,
+                                                       torch.bfloat16)
+               for _ in range(3))
+    s, o = pfa.tile_products(q, k, v)
+    torch.cuda.synchronize()
+    s_want = q.float() @ k.float().T
+    o_want = s.to(torch.bfloat16).float() @ v.float()
+    np.testing.assert_allclose(s.cpu().numpy(), s_want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(o.cpu().numpy(), o_want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-2)
+
+
+def test_flash_attention_rows_before_the_keys_are_zero_on_card(cuda_device):
+    """tq > tk, causal: queries at positions below 0 see no key and write
+    exactly 0 in bfloat16 as in float32."""
+    rng = np.random.default_rng(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.as_tensor(rng.standard_normal(s),
+                                   dtype=torch.float32).to(cuda_device, dtype)
+                   for s in ((1, 4, 200, 128), (1, 2, 70, 128),
+                             (1, 2, 70, 128)))
+        got = ops.attention(q, k, v, impl="cuda")
+        torch.cuda.synchronize()
+        assert bool((got[:, :, :130] == 0).all())
+        assert bool(got[:, :, 130:].abs().amax(-1).gt(0).all())
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_kernel_takes_bf16_strided_views_on_card(cuda_device,
+                                                                 d):
+    """bfloat16 (B, S, H, D) -> (B, H, S, D) views go in uncopied (16-byte
+    aligned rows) and the output comes back in the same layout."""
+    rng = np.random.default_rng(d + 1)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+               .to(cuda_device, torch.bfloat16).movedim(2, 1) for s in
+               ((2, 150, 8, d), (2, 150, 2, d), (2, 150, 2, d)))
+    assert pfa._fits(q) and pfa._fits(k) and pfa._fits(v)
+    got = ops.attention(q, k, v, impl="cuda")
+    want = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         impl="torch")
+    assert got.stride() == q.stride()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=ATTN_TOL[torch.bfloat16])
+
+
+def test_flash_attention_copies_misaligned_bf16_views_on_card(cuda_device):
+    """A bfloat16 view whose rows do not start 16-byte aligned is copied to
+    contiguous before the launch, and the result is unchanged."""
+    rng = np.random.default_rng(3)
+    flat = torch.as_tensor(rng.standard_normal(1 + 2 * 4 * 96 * 64),
+                           dtype=torch.float32).to(cuda_device,
+                                                   torch.bfloat16)
+    q = flat[1:].view(2, 4, 96, 64)
+    k = torch.as_tensor(rng.standard_normal((2, 2, 96, 64)),
+                        dtype=torch.float32).to(cuda_device, torch.bfloat16)
+    v = k.flip(2)
+    assert not pfa._fits(q)
+    got = ops.attention(q, k, v, window=40, impl="cuda")
+    want = ops.attention(q, k, v, window=40, impl="torch")
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_takes_misaligned_rows_on_card(cuda_device, dtype):
+    """x whose storage starts one element past a 16-byte boundary (the
+    scalar path) matches the plain version."""
+    rng = np.random.default_rng(9)
+    flat = torch.as_tensor(rng.standard_normal(1 + 6 * 2560),
+                           dtype=torch.float32).to(cuda_device, dtype)
+    x = flat[1:].view(6, 2560)
+    assert x.data_ptr() % 16 != 0
+    w = torch.as_tensor(rng.standard_normal(2560) * 0.1,
+                        dtype=torch.float32).to(cuda_device)
+    got = ops.rmsnorm(x, w, impl="cuda")
+    want = ops.rmsnorm(x, w, impl="torch")
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=RMS_TOL[dtype])
+
+
 @pytest.mark.parametrize("shape", [(4096, 128), (2, 9, 2560), (3, 2048),
-                                   (5, 100)])
+                                   (5, 100), (7, 2568), (3, 4096),
+                                   (2, 9, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     rng = np.random.default_rng(shape[-1])
