@@ -44,12 +44,14 @@ SDPA; RMSNorm: GB/s), and counts the ``HGMMA`` (``wgmma``) instructions of
 the built flash-attention library (``cuobjdump -sass``; none fails the
 script); likewise flash attention at recurrentgemma-9b's prefill
 shape (head dim 256, window 2,048), the SSD chunk scan at mamba2-370m's
-prefill shape (y and the final state; bfloat16 y rtol 1e-2 / atol 2e-2,
-state atol 1e-3) and the linear recurrence at recurrentgemma-9b's (rtol
-1e-3 / atol 2e-3, the reference kernel test's).  Phases 3-6 go through
-the public entry points on ``device="cuda"`` and are compared with the
-port's host float64 ``fixpoint="loop"`` driver (or the host numpy scan)
-at rtol 1e-12.  Phases 7, 9 and 10 first run the model's 2-layer smoke
+prefill shape and at batch 1 (y and the final state; bfloat16 y rtol
+1e-2 / atol 2e-2, state atol 1e-3; TFLOP/s and the multiple of the bound;
+the ``HMMA`` (``mma.sync``) count of its library, none fails the script)
+and the linear recurrence at recurrentgemma-9b's, in float32 and bfloat16
+(rtol 1e-3 / atol 2e-3, the reference kernel test's; GB/s).  Phases
+3-6 go through the public entry points on ``device="cuda"`` and are
+compared with the port's host float64 ``fixpoint="loop"`` driver (or the
+host numpy scan) at rtol 1e-12.  Phases 7, 9 and 10 first run the model's 2-layer smoke
 config in float32 and require equal greedy tokens with the kernels and
 with the plain versions.  Phase 7 then compares the bfloat16 model's last
 logits with the kernels against those with the plain versions (atol
@@ -58,7 +60,9 @@ both differences, the bfloat16 model's distance from the float32 model,
 and the float32 model's own sensitivity (its first norm's scale moved by
 one float32 step).  Every kernel's launch counter is set to 0 just
 before each of the runs of phases 3-11 and read just after; a kernel of
-the path that was never launched fails the script.  The line
+the path that was never launched fails the script, and phase 9 fails
+unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
+instance (``ssd_chunk_scan.mma_launches``).  The line
 before the last is a JSON object with every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
 CUDA device or without the repository's ``src/`` beside this file.
@@ -154,6 +158,7 @@ def kernel_group(name: str) -> str:
     for key, group in (("flash_fwd", "flash_attention"),
                        ("rmsnorm", "rmsnorm"),
                        ("ssd_chunk_scan", "ssd_chunk_scan"),
+                       ("ssd_mma", "ssd_chunk_scan"),
                        ("linear_recurrence", "linear_recurrence"),
                        ("nvjet", "matmul"),
                        ("gemm", "matmul"), ("gemv", "matmul"),
@@ -298,15 +303,19 @@ def main() -> int:
         "linear_recurrence": klr.linear_recurrence,
     }
     launches = {k: 0 for k in counters}
+    phase_counts = {}
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
+        kssd.ssd_chunk_scan.mma_launches = 0
 
     def read_counts(phase: str, need):
         got = {k: fn.launches for k, fn in counters.items()}
         for k, v in got.items():
             launches[k] += v
+        got["ssd_chunk_scan.mma"] = kssd.ssd_chunk_scan.mma_launches
+        phase_counts[phase] = got
         print(f"[{phase}] launches {got}")
         for k in need:
             check(got[k] > 0, f"phase {phase}: kernel {k} never launched")
@@ -505,62 +514,94 @@ def main() -> int:
     report["flash_attention"]["hgmma"] = hgmma
 
     # -- phase 2, recurrent kernels: SSD chunk scan, linear recurrence ------
-    bb, t2, h2, p2, g2, n2, chunk = 4, 2048, 32, 64, 1, 128, 128
-    x = randn((bb, t2, h2, p2), torch.bfloat16, 0.5)
-    dt = torch.rand((bb, t2, h2), generator=gen, device=cuda) * 0.099 + 0.001
-    A = -(torch.rand((h2,), generator=gen, device=cuda) * 1.5 + 0.5)
-    Bm = randn((bb, t2, g2, n2), torch.bfloat16, 0.3)
-    Cm = randn((bb, t2, g2, n2), torch.bfloat16, 0.3)
-    args = (x, dt, A, Bm, Cm)
-    y, st = ops.ssd_scan(*args, chunk=chunk, impl="cuda")
-    yw, sw = ops.ssd_scan(*args, chunk=chunk, impl="torch")
-    torch.cuda.synchronize()
-    err = close(y.float().cpu().numpy(), yw.float().cpu().numpy(),
-                SSD_TOL["bfloat16"], "ssd_chunk_scan y")
-    serr = close(st.cpu().numpy(), sw.cpu().numpy(), SSD_TOL["float32"],
-                 "ssd_chunk_scan final state")
-    ms = time_ms(lambda: ops.ssd_scan(*args, chunk=chunk, impl="cuda"),
-                 flush=flush)
-    pms = time_ms(lambda: ops.ssd_scan(*args, chunk=chunk, impl="torch"),
-                  reps=3, flush=flush)
-    # the causal pairs (j <= i) of each chunk, per (batch, head): C.B^T and
-    # the scores times x, then the inter-chunk term and the state update
-    pairs = chunk * (chunk + 1) // 2
-    nflop = 2.0 * bb * h2 * (t2 // chunk) * (
-        pairs * n2 + pairs * p2 + 2 * chunk * n2 * p2)
-    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
-              + 2 * Bm.numel() * Bm.element_size() + st.numel() * 4)
-    bnd, by = bound_ms(nbytes, nflop, "bfloat16")
-    print(f"[2] ssd_chunk_scan x {tuple(x.shape)} B/C {tuple(Bm.shape)} "
-          f"chunk {chunk} bfloat16: max abs err y {err:.3e}, state "
-          f"{serr:.3e}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {nflop / 1e9:.2f} "
-          f"GFLOP)")
-    report["ssd_chunk_scan"] = dict(
-        max_abs_err=err, state_max_abs_err=serr, ms=ms, plain_ms=pms,
-        bound_ms=bnd, bound_by=by, library_ms=None,
-        shape=[list(x.shape), list(Bm.shape)], dtype="bfloat16")
-    del x, dt, A, Bm, Cm, args, y, st, yw, sw
+    t2, h2, p2, g2, n2, chunk = 2048, 32, 64, 1, 128, 128
+    for bb in (4, 1):        # mamba2-370m's prefill; batch 1 fills 32 SMs
+        x = randn((bb, t2, h2, p2), torch.bfloat16, 0.5)
+        dt = (torch.rand((bb, t2, h2), generator=gen, device=cuda) * 0.099
+              + 0.001)
+        A = -(torch.rand((h2,), generator=gen, device=cuda) * 1.5 + 0.5)
+        Bm = randn((bb, t2, g2, n2), torch.bfloat16, 0.3)
+        Cm = randn((bb, t2, g2, n2), torch.bfloat16, 0.3)
+        args = (x, dt, A, Bm, Cm)
+        y, st = ops.ssd_scan(*args, chunk=chunk, impl="cuda")
+        yw, sw = ops.ssd_scan(*args, chunk=chunk, impl="torch")
+        torch.cuda.synchronize()
+        err = close(y.float().cpu().numpy(), yw.float().cpu().numpy(),
+                    SSD_TOL["bfloat16"], f"ssd_chunk_scan y, batch {bb}")
+        serr = close(st.cpu().numpy(), sw.cpu().numpy(), SSD_TOL["float32"],
+                     f"ssd_chunk_scan final state, batch {bb}")
+        ms = time_ms(lambda: ops.ssd_scan(*args, chunk=chunk, impl="cuda"),
+                     flush=flush)
+        pms = time_ms(lambda: ops.ssd_scan(*args, chunk=chunk,
+                                           impl="torch"),
+                      reps=3, flush=flush)
+        # the causal pairs (j <= i) of each chunk, per (batch, head): C.B^T
+        # and the scores times x, then the inter-chunk term and the state
+        # update
+        pairs = chunk * (chunk + 1) // 2
+        nflop = 2.0 * bb * h2 * (t2 // chunk) * (
+            pairs * n2 + pairs * p2 + 2 * chunk * n2 * p2)
+        nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
+                  + 2 * Bm.numel() * Bm.element_size() + st.numel() * 4)
+        bnd, by = bound_ms(nbytes, nflop, "bfloat16")
+        kind = kssd.instance(x.dtype, n2)
+        stages = kssd.mma_stages(chunk, p2, n2)
+        print(f"[2] ssd_chunk_scan x {tuple(x.shape)} B/C {tuple(Bm.shape)} "
+              f"chunk {chunk} bfloat16 ({kind} instance, {stages} stages): "
+              f"max abs err y {err:.3e}, state {serr:.3e}, kernel {ms:.4f} "
+              f"ms ({nflop / ms / 1e9:.1f} TFLOP/s, {ms / bnd:.2f}x the "
+              f"bound), plain {pms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {nflop / 1e9:.2f} GFLOP)")
+        row = dict(max_abs_err=err, state_max_abs_err=serr, ms=ms,
+                   plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
+                   tflops=nflop / ms / 1e9, vs_bound=ms / bnd,
+                   instance=kind, stages=stages,
+                   shape=[list(x.shape), list(Bm.shape)], dtype="bfloat16")
+        if bb == 4:
+            report["ssd_chunk_scan"] = row
+        else:
+            report["ssd_chunk_scan"]["batch1"] = row
+        del x, dt, A, Bm, Cm, args, y, st, yw, sw
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path("ssd_chunk_scan"))],
+                          capture_output=True, text=True, timeout=300)
+    hmma = sum("HMMA" in line for line in sass.stdout.splitlines())
+    print(f"[2] ssd_chunk_scan library: {hmma} HMMA (mma.sync) instructions "
+          f"(cuobjdump -sass)")
+    check(hmma > 0, "ssd_chunk_scan: no HMMA instruction in the library")
+    report["ssd_chunk_scan"]["hmma"] = hmma
 
-    a = torch.rand((2, 3072, 4096), generator=gen, device=cuda) * 0.399 + 0.6
-    xb = randn((2, 3072, 4096), torch.float32)
-    got = ops.linear_recurrence(a, xb, impl="cuda")
-    want = ops.linear_recurrence(a, xb, impl="torch")
-    torch.cuda.synchronize()
-    err = close(got.cpu().numpy(), want.cpu().numpy(), LR_TOL,
-                "linear_recurrence")
-    ms = time_ms(lambda: ops.linear_recurrence(a, xb, impl="cuda"),
-                 flush=flush)
-    pms = time_ms(lambda: ops.linear_recurrence(a, xb, impl="torch"), reps=3,
-                  flush=flush)
-    bnd, by = bound_ms(3.0 * a.numel() * 4, 2.0 * a.numel(), "float32")
-    print(f"[2] linear_recurrence {tuple(a.shape)} float32: max abs err "
-          f"{err:.3e}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by})")
-    report["linear_recurrence"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by,
-        library_ms=None, shape=list(a.shape), dtype="float32")
-    del a, xb, got, want
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        a = (torch.rand((2, 3072, 4096), generator=gen, device=cuda) * 0.399
+             + 0.6).to(dtype)
+        xb = randn((2, 3072, 4096), dtype)
+        got = ops.linear_recurrence(a, xb, impl="cuda")
+        want = ops.linear_recurrence(a, xb, impl="torch")
+        torch.cuda.synchronize()
+        tol = LR_TOL if dname == "float32" else dict(rtol=1e-2, atol=2e-2)
+        err = close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    tol, f"linear_recurrence {dname}")
+        ms = time_ms(lambda: ops.linear_recurrence(a, xb, impl="cuda"),
+                     flush=flush)
+        pms = time_ms(lambda: ops.linear_recurrence(a, xb, impl="torch"),
+                      reps=3, flush=flush)
+        nbytes = 3.0 * a.numel() * a.element_size()
+        bnd, by = bound_ms(nbytes, 2.0 * a.numel(), "float32")
+        print(f"[2] linear_recurrence {tuple(a.shape)} {dname}: max abs err "
+              f"{err:.3e}, kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+              f"{bnd / ms:.1%} of the bound), plain {pms:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by})")
+        if dname == "float32":
+            report["linear_recurrence"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd,
+                bound_by=by, library_ms=None, gbps=nbytes / ms / 1e6,
+                shape=list(a.shape), dtype=dname)
+        else:
+            report["linear_recurrence"]["bfloat16"] = dict(
+                max_abs_err=err, ms=ms, bound_ms=bnd,
+                gbps=nbytes / ms / 1e6)
+        del a, xb, got, want
 
     # -- phases 3-5: vectorized runs through the public entry points -------
     def run_phase(phase, run, ref_run, *, fleet):
@@ -828,6 +869,12 @@ def main() -> int:
     # -- phase 9: greedy_generate on mamba2-370m ------------------------------
     generation_phase("9", "mamba2-370m", 4, 2000, 2048,
                      ["ssd_chunk_scan", "rmsnorm"], None, F32_LOGITS_ATOL)
+    # the bfloat16 prefill's SSD launches (one a layer) all took the
+    # tensor-core instance
+    got9 = phase_counts["9"]
+    check(got9["ssd_chunk_scan"] == 48 and got9["ssd_chunk_scan.mma"] == 48,
+          f"phase 9: ssd_chunk_scan launches {got9['ssd_chunk_scan']}, "
+          f"tensor-core instance {got9['ssd_chunk_scan.mma']} (want 48, 48)")
 
     # -- phase 10: greedy_generate on recurrentgemma-9b -----------------------
     generation_phase("10", "recurrentgemma-9b", 2, 3072, 4096,

@@ -8,25 +8,41 @@
 // (repro_torch.kernels.ref.linear_recurrence_ref) computes it.
 //
 // Bound on the card: memory.  Each element of a and b is read once and of
-// out written once (12 bytes a step in float32) for two flops.  The TPU
+// out written once (12 bytes a step in float32) for two flops: 302 MB at
+// recurrentgemma-9b's (2, 3072, 4096), 0.090 ms at 3.35 TB/s.  The TPU
 // kernel scanned 256-step time blocks in VMEM (Hillis-Steele, log2(256)
 // passes over the block) and carried h across the sequential time grid.
-// Here the carry is a register: one thread owns one (batch, channel) and
-// walks T, so the only serial chain is one multiply-add a step.  Loads do
-// not depend on h, so each thread issues the next U steps' loads before it
-// computes the current U (a register double buffer), keeping 2 * U loads
-// in flight per thread; neighbouring threads own neighbouring channels, so
-// every load and store coalesces along D.  Steps past T are the identity
-// map (a = 1, b = 0), the TPU wrapper's padding, and are not stored.
-// Weakness: B * D threads (8,192 at recurrentgemma-9b's width) are few
-// for the card, so the memory pipe is not full; a chunked scan over T
-// with a carry pass is the next step.
+// Here one thread owns one (batch, channel) and walks T, so the only
+// serial chain is one multiply and one add a step, in the oracle's order:
+// the float32 kernel equals it bit for bit.  A chunked scan over T (more
+// threads, a carry pass) was not taken: it reorders the products and loses
+// that equality, and the thread count is not what bounds the kernel.
+//
+// What bounds it is Little's law: streaming at 3.35 TB/s with ~600 ns of
+// latency needs ~2 MB of loads in flight.  A register prefetch of 16 steps
+// of a and b a thread is 128 bytes, ~1 MB over the 8,192 threads of the
+// model's shape, and registers cannot hold much more (two arrays, double
+// buffered, at 64 steps is 256 registers).  So the bytes wait in shared
+// memory: a block of CH = 64 channels stages tiles of (TS steps x 64
+// channels) of a and b, 32 KB a tile (TS = 64 in float32, 128 in
+// bfloat16), into a ring of 4 stages with 16-byte cp.async copies
+// coalesced along D, issued by all 64 threads.  Three tiles are in flight
+// while the fourth is consumed: 96 KB a block, 12 MB over the 128 blocks
+// at the model's shape.  The threads read their steps from shared memory
+// and store h straight to out (coalesced along D).
+// Rows that are not 16-byte aligned (D * element size not a multiple of
+// 16, or an offset view) are copied element by element in the same place.
+// Steps past T are the identity map and are neither computed nor stored.
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int TPB = 32;  // threads (channels) per block
-constexpr int U = 16;    // time steps per prefetch group
+constexpr int CH = 64;                // channels (threads) a block
+constexpr int STAGES = 4;             // tiles in the ring
+constexpr int TILE_BYTES = 32768;     // a and b of one tile
+constexpr int SMEM = STAGES * TILE_BYTES;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -37,45 +53,94 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename T>
-__device__ __forceinline__ void load_group(const T* __restrict__ a,
-                                           const T* __restrict__ b, int t0,
-                                           int t_len, long long d,
-                                           float* ga, float* gb) {
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int t = t0 + u;
-    const bool in = t < t_len;
-    ga[u] = in ? to_f32(a[t * d]) : 1.f;
-    gb[u] = in ? to_f32(b[t * d]) : 0.f;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <typename T>
-__global__ void __launch_bounds__(TPB)
+__global__ void __launch_bounds__(CH)
     linear_recurrence_kernel(const T* __restrict__ a,
                              const T* __restrict__ b, T* __restrict__ out,
-                             int t_len, int d) {
-  const int c = blockIdx.x * TPB + threadIdx.x;
-  if (c >= d) return;
-  const long long base = (long long)blockIdx.y * t_len * d + c;
-  const T* ap = a + base;
-  const T* bp = b + base;
-  T* op = out + base;
-  float ca[U], cb[U], na[U], nb[U];
-  load_group(ap, bp, 0, t_len, d, ca, cb);
-  float h = 0.f;
-  for (int t0 = 0; t0 < t_len; t0 += U) {
-    load_group(ap, bp, t0 + U, t_len, d, na, nb);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      h = ca[u] * h + cb[u];
-      if (t0 + u < t_len) store(op + (long long)(t0 + u) * d, h);
+                             int t_len, int d, int vec) {
+  constexpr int TS = TILE_BYTES / (2 * CH * (int)sizeof(T));  // steps
+  constexpr int VEC = 16 / (int)sizeof(T);   // elements a 16-byte copy
+  constexpr int CPR = CH / VEC;              // copies a tile row
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);     // stage s: a (TS x CH), b
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * CH;
+  const long long base = (long long)blockIdx.y * t_len * d;
+  const int ntiles = (t_len + TS - 1) / TS;
+
+  // Tile k into stage k % STAGES; one copy group a tile, empty past the end.
+  auto issue = [&](int k) {
+    if (k < ntiles) {
+      T* sa = ring + (k % STAGES) * 2 * TS * CH;
+      T* sb = sa + TS * CH;
+      const int t0 = k * TS;
+      if (vec) {
+        for (int i = tid; i < TS * CPR; i += CH) {
+          const int r = i / CPR, q = (i - r * CPR) * VEC;
+          const int t = t0 + r, c = c0 + q;
+          if (t < t_len && c < d) {  // d % VEC == 0: the copy is in range
+            const long long off = base + (long long)t * d + c;
+            cp_async16(smem_u32(sa + r * CH + q), a + off);
+            cp_async16(smem_u32(sb + r * CH + q), b + off);
+          }
+        }
+      } else {  // rows not 16-byte aligned: element by element
+        const int c = c0 + tid;
+        for (int r = 0; r < TS; ++r) {
+          const int t = t0 + r;
+          if (t < t_len && c < d) {
+            const long long off = base + (long long)t * d + c;
+            sa[r * CH + tid] = a[off];
+            sb[r * CH + tid] = b[off];
+          }
+        }
+      }
     }
+    cp_async_commit();
+  };
+
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      ca[u] = na[u];
-      cb[u] = nb[u];
+  for (int k = 0; k < STAGES - 1; ++k) issue(k);
+  const int c = c0 + tid;
+  T* op = out + base + c;
+  float h = 0.f;
+  for (int k = 0; k < ntiles; ++k) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile k landed
+    __syncthreads();              // everyone's; and tile k - 1 is consumed
+    issue(k + STAGES - 1);        // into tile k - 1's stage
+    const T* sa = ring + (k % STAGES) * 2 * TS * CH + tid;
+    const T* sb = sa + TS * CH;
+    const int t0 = k * TS;
+    if (c < d) {
+      if (t0 + TS <= t_len) {
+#pragma unroll 16
+        for (int u = 0; u < TS; ++u) {
+          h = to_f32(sa[u * CH]) * h + to_f32(sb[u * CH]);
+          store(op + (long long)(t0 + u) * d, h);
+        }
+      } else {
+        for (int u = 0; u < t_len - t0; ++u) {
+          h = to_f32(sa[u * CH]) * h + to_f32(sb[u * CH]);
+          store(op + (long long)(t0 + u) * d, h);
+        }
+      }
     }
   }
 }
@@ -85,9 +150,15 @@ int launch(const void* a, const void* b, void* out, int batch, int t_len,
            int d, void* stream) {
   if (batch <= 0 || t_len <= 0 || d <= 0) return 0;
   if (batch > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((d + TPB - 1) / TPB, batch);
-  linear_recurrence_kernel<T><<<grid, TPB, 0, (cudaStream_t)stream>>>(
-      (const T*)a, (const T*)b, (T*)out, t_len, d);
+  const bool vec = (d * sizeof(T)) % 16 == 0 &&
+                   (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
+  auto kern = linear_recurrence_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((d + CH - 1) / CH, batch);
+  kern<<<grid, CH, SMEM, (cudaStream_t)stream>>>(
+      (const T*)a, (const T*)b, (T*)out, t_len, d, vec ? 1 : 0);
   return (int)cudaGetLastError();
 }
 

@@ -9,28 +9,77 @@
 //   y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j      (intra)
 //       + (C_i exp(cum_i)) . S_prev^T                             (inter)
 //   S   = exp(cum_L) S_prev + sum_j exp(cum_L - cum_j) dt_j x_j B_j^T
-// All products and sums in float32, in the TPU kernel's order of the
-// scalar factors.  Terms j > i are skipped, never multiplied by a 0 mask:
-// exp(cum_i - cum_j) overflows there (cum falls along the chunk).
+// Terms j > i are selected away before the exp, never multiplied by a 0
+// mask: exp(cum_i - cum_j) overflows there (cum falls along the chunk).
+// For the same reason the decay is never factored into the operands as
+// e^{cum_i} on C and e^{-cum_j} on B: e^{-cum_j} overflows float32 once
+// cum < -88 (dt ~ 1, |A| >= 0.7 over a 128-step chunk).
 //
-// Bound on the card: at mamba2-370m's shapes (L = N = 128, P = 64) about
-// 10.5 MFLOP per chunk and head against 50 KB read and 16 KB written, so
-// the operations bound it (tensor-core rate in bf16).  This first kernel
-// runs on the float32 cores.  Design: the TPU kernel's grid was (batch,
-// head, chunk) with the chunk axis sequential and the (P, N) state in VMEM
-// scratch.  Here one block of 256 threads owns one (batch, head) and walks
-// the chunks itself, the state in shared memory.  The L x L score matrix
-// does not fit beside x, B and the state in float32 (227 KB), so each
-// chunk is done in row tiles of 32: the tile's C rows and its 32 x L
-// score tile live in shared memory, and only the columns j < i0 + 32 that
-// the causal mask keeps are computed.  Warp w owns rows 4w..4w+3 of a
-// tile; its lanes own score columns (lane + 32k) and output columns
-// (lane + 32k), so C and score reads are broadcasts and B, x and state
-// reads are conflict-free (rows padded to N + 4 floats, float4 along N).
-// The state update gives each thread 4 rows of P x 4 columns of N.
-// Weakness: float32 SIMT products and one block an SM (Bb * H = 128 blocks
-// at the model's shape); bf16 mma for the four products is the next step.
+// Two kernels, both one block of 256 threads per (batch, head) walking
+// the chunks in order, so the (P, N) state never leaves the SM and the
+// scan moves no bytes beyond x, dt, B, C, y and the final state (76 MB at
+// mamba2-370m's prefill, x (4, 2048, 32, 64) bf16: 0.0228 ms at 3.35
+// TB/s).  Its 15.1 GFLOP take 0.015 ms on the bf16 tensor cores but 0.225
+// ms on the float32 cores, so only the tensor cores can reach the bound.
+//
+// ssd_mma_kernel, the bfloat16 instance: the four products on the tensor
+// cores (mma.sync m16n8k16, bf16 in, float32 accumulators), P and N
+// padded with zeros in shared memory to PP, NP in {16, 32, 64, 128}.
+// What bounded the float32-core kernel, and what this one does about it:
+//  1. float32 SIMT products -> mma.sync.  Warp w owns a 16-row block of
+//     the chunk (at L < 128 several warps share a row block and split the
+//     P columns, each recomputing its C B^T); the two warps of an SM
+//     sub-partition (w, w + 4) take row blocks of equal total causal
+//     length.  C B^T runs only over the causal 16 x 16 tiles; each tile's
+//     float32 accumulator gets exp(cum_i - cum_j) dt_j element by element
+//     (select before exp; ex2.approx of pre-scaled cum, as the tile is
+//     rounded to bf16 next) and becomes, in registers, the bf16 A operand
+//     of scores x X (FlashAttention-2's reuse: the accumulator layout of
+//     m16n8k16 is its A layout).  C S^T is accumulated first and its rows
+//     scaled by e^{cum_i} <= 1 (an exact factoring).  The state is a
+//     float32 register accumulator spread over the 8 warps (32 floats a
+//     thread at P = 64, N = 128): S <- e^{cum_L} S + (x w)^T B, with x w
+//     formed in registers from the x fragments and split into bf16 hi +
+//     lo (two products), so the state keeps ~16 bits a term (one bf16
+//     rounding of x w misses the state's atol 1e-3 under strong decay).
+//     Its k-steps are issued between the causal tiles' steps, which wait
+//     on their own products and exps.  Each chunk leaves a bf16 copy of S
+//     in shared memory as the operand of the next chunk's C S^T.
+//  2. one thread's cumsum -> warp 0 scans the chunk with shuffles (L / 32
+//     steps a lane, then a 5-step warp scan) while the other warps run
+//     C S^T.  The chunk's sum is taken in another order than the TPU
+//     kernel's jnp.cumsum; the tolerances (atol 1e-3 on the float32
+//     state) cover that.
+//  3. no overlap of loads with compute -> the next chunk's x, B, C (16-byte
+//     cp.async) and dt (4-byte cp.async) go into a second shared-memory
+//     stage while the current chunk computes; two block barriers a chunk.
+//     Shapes whose two stages do not fit (P = N = 128 at L = 128) run one
+//     stage and load after the chunk (a third barrier).  Rows that are
+//     not 16-byte aligned (P or N not a multiple of 8, or an offset view)
+//     are copied element by element in the same place.
+//  4. one block an SM (Bb * H = 128 blocks) stays: a chunk-parallel split
+//     would write and read (Bb, H, chunks, P, N) float32 states (~270 MB
+//     at the model's shape, >= 0.08 ms).
+// What holds it back now: ~2,400 mma.sync a chunk (the state's hi/lo split
+// is 512 of them) issued by 8 warps an SM, 2 a sub-partition, with little
+// to hide their latency; wgmma (its operands in the layouts it reads) is
+// the next step.
+// Rows padded by 8 bf16 keep ldmatrix free of bank conflicts.
+//
+// ssd_chunk_scan_kernel, the float32 instance (and bfloat16 at N > 128):
+// the products on the float32 cores, as the float32 model is held to
+// float32 logits and tf32 would not be float32.  Each chunk is done in
+// row tiles of 32: the tile's C rows and its 32 x L score tile live in
+// shared memory, and only the columns j < i0 + 32 that the causal mask
+// keeps are computed.  Warp w owns rows 4w..4w+3 of a tile; its lanes own
+// score columns (lane + 32k) and output columns (lane + 32k), so C and
+// score reads are broadcasts and B, x and state reads are conflict-free
+// (rows padded to N + 4 floats, float4 along N).  The state update gives
+// each thread 4 rows of P x 4 columns of N.
 #include <cuda_bf16.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -289,6 +338,532 @@ int launch(const void* x, const void* dt, const void* A, const void* B,
   return (int)cudaGetLastError();
 }
 
+
+// ---- the bfloat16 tensor-core instance -------------------------------------
+
+using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ldmatrix: lane l gives the address of row (l & 7) of matrix l >> 3.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+// d (16 x 8, float32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 2^x, one MUFU.EX2 (relative error ~2^-22): the scores' decay, which is
+// rounded to bf16 next.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  bf162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x * w) of a bf16 pair, split as hi + lo in bf16 (hi the rounded
+// product, lo the rounded rest).
+__device__ __forceinline__ void split_scaled(uint32_t xv, float2 w,
+                                             uint32_t& hi, uint32_t& lo) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const bf162*>(&xv));
+  const float px = f.x * w.x, py = f.y * w.y;
+  const bf162 h = __floats2bfloat162_rn(px, py);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(px - hf.x, py - hf.y);
+}
+
+struct MmaDims {
+  int t_len, h, p, g, n, l, stages, vec;
+};
+
+// Shared memory, in bytes, rows padded by 8 bf16 (XS = PP + 8, BS = NP +
+// 8): `stages` x [x (L x XS) | B (L x BS) | C (L x BS) | dt (L floats)],
+// then the bf16 state (PP x BS), cum, cum log2(e), e^cum and w (L floats
+// each).  Every part is a multiple of 16 bytes.
+__host__ __device__ inline long long mma_stage_bytes(int l, int pp, int np) {
+  return 2LL * l * (pp + 8) + 4LL * l * (np + 8) + 4LL * l;
+}
+__host__ __device__ inline long long mma_smem_bytes(int l, int pp, int np,
+                                                    int stages) {
+  return stages * mma_stage_bytes(l, pp, np) + 2LL * pp * (np + 8) +
+         16LL * l;
+}
+
+template <int PP, int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+    ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ A, const bf16* __restrict__ B,
+                   const bf16* __restrict__ C, bf16* __restrict__ y,
+                   float* __restrict__ s_out, MmaDims dm) {
+  constexpr int XS = PP + 8, BS = NP + 8;
+  constexpr int KC = NP / 16;   // k-steps of C B^T and C S^T
+  constexpr int PT = PP / 8;    // 8-column tiles of y
+  constexpr int NT = NP / 8;    // 8-column tiles of the state
+  constexpr int WM = PP / 16;   // state: warps along P ...
+  constexpr int WN = 8 / WM;    // ... and along N
+  constexpr int ST = (NT + WN - 1) / WN;  // state tiles a warp
+  const int H = dm.h, P = dm.p, N = dm.n, L = dm.l, G = dm.g;
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  const int stage_bytes = (int)mma_stage_bytes(L, PP, NP);
+  bf16* sS = reinterpret_cast<bf16*>(base + dm.stages * stage_bytes);
+  float* scum = reinterpret_cast<float*>(sS + PP * BS);
+  float* scum2 = scum + L;  // cum log2(e)
+  float* se = scum2 + L;
+  float* sw = se + L;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;  // accumulator row, column pair
+  const float a_h = A[h];
+  const long long x_t = (long long)H * P;
+  const long long bc_t = (long long)G * N;
+  const bf16* xb = x + (long long)b * dm.t_len * x_t + (long long)h * P;
+  bf16* yb = y + (long long)b * dm.t_len * x_t + (long long)h * P;
+  const bf16* Bb = B + (long long)b * dm.t_len * bc_t + (long long)g * N;
+  const bf16* Cb = C + (long long)b * dm.t_len * bc_t + (long long)g * N;
+  const float* dtb = dt + (long long)b * dm.t_len * H + h;
+
+  // Padding columns of x, B, C and the state stay 0: loads write only
+  // columns < P, N.
+  const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < dm.stages * stage_bytes / 16; i += THREADS)
+    smem4[i] = z4;
+  float4* sS4 = reinterpret_cast<float4*>(sS);
+  for (int i = tid; i < PP * BS * 2 / 16; i += THREADS) sS4[i] = z4;
+  __syncthreads();
+
+  auto stage_x = [&](int st) {
+    return reinterpret_cast<bf16*>(base + st * stage_bytes);
+  };
+  auto load_chunk = [&](int ci, int st) {
+    bf16* sx = stage_x(st);
+    bf16* sB = sx + L * XS;
+    bf16* sC = sB + L * BS;
+    float* sdt = reinterpret_cast<float*>(sC + L * BS);
+    const long long c0 = (long long)ci * L;
+    if (dm.vec) {  // 16-byte pieces over the padded widths, skipping pads
+      for (int i = tid; i < L * (PP / 8); i += THREADS) {
+        const int j = i / (PP / 8), c = 8 * (i % (PP / 8));
+        if (c < P)
+          cp_async16(smem_u32(sx + j * XS + c), xb + (c0 + j) * x_t + c);
+      }
+      for (int i = tid; i < L * (NP / 8); i += THREADS) {
+        const int j = i / (NP / 8), c = 8 * (i % (NP / 8));
+        if (c < N) {
+          cp_async16(smem_u32(sB + j * BS + c), Bb + (c0 + j) * bc_t + c);
+          cp_async16(smem_u32(sC + j * BS + c), Cb + (c0 + j) * bc_t + c);
+        }
+      }
+    } else {  // rows not 16-byte aligned: element by element
+      for (int i = tid; i < L * P; i += THREADS) {
+        const int j = i / P, q = i - j * P;
+        sx[j * XS + q] = xb[(c0 + j) * x_t + q];
+      }
+      for (int i = tid; i < L * N; i += THREADS) {
+        const int j = i / N, q = i - j * N;
+        sB[j * BS + q] = Bb[(c0 + j) * bc_t + q];
+        sC[j * BS + q] = Cb[(c0 + j) * bc_t + q];
+      }
+    }
+    for (int j = tid; j < L; j += THREADS)
+      cp_async4(smem_u32(sdt + j), dtb + (c0 + j) * H);
+    cp_async_commit();
+  };
+
+  // This warp's state tiles: rows 16 smt.., column tiles snt0 + s.
+  const int smt = warp % WM, snt0 = (warp / WM) * ST;
+  constexpr bool SFULL = NT % WN == 0;  // every warp's ST tiles exist
+  float st[ST][4];
+#pragma unroll
+  for (int s = 0; s < ST; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[s][e] = 0.f;
+
+  // One chunk for this warp: y for its 16 rows (products 1-3) and its
+  // tiles of the state (product 4).  WPC warps share a row block (WPC = 8
+  // / (L / 16)) and split y's column tiles; each recomputes the row
+  // block's C B^T.  The two warps of an SM sub-partition (w, w + 4) take
+  // row blocks whose causal lengths add up to the same total.  The state
+  // update does not depend on products 1-2, so its k-steps are issued
+  // between theirs and fill their latency.
+  auto chunk = [&](auto wp_c, const bf16* sx, const bf16* sB,
+                   const bf16* sC, const float* sdt, long long c0) {
+    constexpr int WPC = decltype(wp_c)::value;
+    constexpr int YT = (PT + WPC - 1) / WPC;  // y column tiles a warp
+    constexpr bool YFULL = PT % WPC == 0;     // every warp's YT tiles exist
+    int rb, cg;
+    if (WPC == 1) {
+      rb = warp < 4 ? warp : 11 - warp;
+      cg = 0;
+    } else if (WPC == 2) {
+      rb = warp < 4 ? warp : 7 - warp;
+      cg = warp >> 2;
+    } else {
+      rb = (warp + (warp >> 2)) & 1;
+      cg = warp >> 1;
+    }
+    const int i0 = 16 * rb, pt0 = cg * YT;
+
+    // C fragments of rows i0..i0+15 over all of N (A of C B^T and C S^T)
+    uint32_t cf[KC][4];
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk)
+      ldsm_x4(smem_u32(sC + (i0 + (lane & 7) + ((lane >> 3) & 1) * 8) * BS +
+                       16 * kk + (lane >> 4) * 8),
+              cf[kk]);
+    float yacc[YT][4];
+#pragma unroll
+    for (int s = 0; s < YT; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[s][e] = 0.f;
+
+    // inter-chunk: y = e^{cum_i} (C S_prev^T), while warp 0 scans; a
+    // k-step's operands are loaded before its products, which go to
+    // different accumulators
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      uint32_t bb[YT][2];
+#pragma unroll
+      for (int s = 0; s < YT; ++s)
+        if (YFULL || pt0 + s < PT)
+          ldsm_x2(smem_u32(sS + (8 * (pt0 + s) + (lane & 7)) * BS + 16 * kk +
+                           ((lane >> 3) & 1) * 8),
+                  bb[s]);
+#pragma unroll
+      for (int s = 0; s < YT; ++s)
+        if (YFULL || pt0 + s < PT)
+          mma16816(yacc[s], cf[kk], bb[s][0], bb[s][1]);
+    }
+    __syncthreads();  // warp 0's cum, e^cum and w written; sS reads done
+    const int ilo = i0 + gr, ihi = ilo + 8;
+    const float cum_lo = scum2[ilo], cum_hi = scum2[ihi];
+    {
+      const float e_lo = se[ilo], e_hi = se[ihi];
+#pragma unroll
+      for (int s = 0; s < YT; ++s) {
+        yacc[s][0] *= e_lo;
+        yacc[s][1] *= e_lo;
+        yacc[s][2] *= e_hi;
+        yacc[s][3] *= e_hi;
+      }
+    }
+    // state: S = e^{cum_L} S + (x w)^T B, x w = x_j exp(cum_L - cum_j) dt_j
+    // split into bf16 hi + lo in registers, so the sum keeps ~16 bits
+    {
+      const float el = expf(scum[L - 1]);
+#pragma unroll
+      for (int s = 0; s < ST; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[s][e] *= el;
+    }
+
+    // step kb: the causal 16 x 16 score tile (kb <= rb), decayed in
+    // float32 (j > i selected to 0 before the exp), then times x; and
+    // the state's k-step kb
+    for (int kb = 0; kb < L / 16; ++kb) {
+      const bool intra = kb <= rb;
+      float sc[2][2][4];  // [8-column tile][k-step parity]
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[u][v][e] = 0.f;
+      if (intra) {
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          uint32_t bb[4];
+          ldsm_x4(smem_u32(sB + (16 * kb + (lane & 7) + (lane >> 4) * 8) * BS +
+                           16 * kk + ((lane >> 3) & 1) * 8),
+                  bb);
+          mma16816(sc[0][kk & 1], cf[kk], bb[0], bb[1]);
+          mma16816(sc[1][kk & 1], cf[kk], bb[2], bb[3]);
+        }
+      }
+      {  // the state's k-step kb: rows j = 16 kb .. 16 kb + 15
+        uint32_t xf[4], hi[4], lo[4];
+        ldsm_x4_t(smem_u32(sx + (16 * kb + (lane & 7) + (lane >> 4) * 8) * XS +
+                           16 * smt + ((lane >> 3) & 1) * 8),
+                  xf);
+        const float2 w0 =
+            *reinterpret_cast<const float2*>(sw + 16 * kb + 2 * tq);
+        const float2 w1 =
+            *reinterpret_cast<const float2*>(sw + 16 * kb + 8 + 2 * tq);
+        split_scaled(xf[0], w0, hi[0], lo[0]);
+        split_scaled(xf[1], w0, hi[1], lo[1]);
+        split_scaled(xf[2], w1, hi[2], lo[2]);
+        split_scaled(xf[3], w1, hi[3], lo[3]);
+        const bf16* br = sB + (16 * kb + (lane & 15)) * BS;
+        uint32_t bq[ST][2];
+        if constexpr (SFULL && ST % 2 == 0) {
+#pragma unroll
+          for (int s = 0; s < ST; s += 2) {  // two column tiles a load
+            uint32_t t4[4];
+            ldsm_x4_t(smem_u32(br + 8 * (snt0 + s) + (lane >> 4) * 8), t4);
+            bq[s][0] = t4[0];
+            bq[s][1] = t4[1];
+            bq[s + 1][0] = t4[2];
+            bq[s + 1][1] = t4[3];
+          }
+        } else {
+#pragma unroll
+          for (int s = 0; s < ST; ++s)
+            if (SFULL || snt0 + s < NT)
+              ldsm_x2_t(smem_u32(br + 8 * (snt0 + s)), bq[s]);
+        }
+        // all hi products, then all lo: no two neighbours share an
+        // accumulator
+#pragma unroll
+        for (int s = 0; s < ST; ++s)
+          if (SFULL || snt0 + s < NT) mma16816(st[s], hi, bq[s][0], bq[s][1]);
+#pragma unroll
+        for (int s = 0; s < ST; ++s)
+          if (SFULL || snt0 + s < NT) mma16816(st[s], lo, bq[s][0], bq[s][1]);
+      }
+      if (intra) {
+        float q[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = 16 * kb + 8 * u + 2 * tq;
+          const float2 cj = *reinterpret_cast<const float2*>(scum2 + j);
+          const float2 dj = *reinterpret_cast<const float2*>(sdt + j);
+          float a[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = sc[u][0][e] + sc[u][1][e];
+          q[u][0] = j <= ilo ? a[0] * ex2(cum_lo - cj.x) * dj.x : 0.f;
+          q[u][1] = j < ilo ? a[1] * ex2(cum_lo - cj.y) * dj.y : 0.f;
+          q[u][2] = j <= ihi ? a[2] * ex2(cum_hi - cj.x) * dj.x : 0.f;
+          q[u][3] = j < ihi ? a[3] * ex2(cum_hi - cj.y) * dj.y : 0.f;
+        }
+        const uint32_t pa[4] = {pack_bf16(q[0][0], q[0][1]),
+                                pack_bf16(q[0][2], q[0][3]),
+                                pack_bf16(q[1][0], q[1][1]),
+                                pack_bf16(q[1][2], q[1][3])};
+        const bf16* xr = sx + (16 * kb + (lane & 15)) * XS;
+        if constexpr (YFULL && YT % 2 == 0) {
+          uint32_t bb[YT / 2][4];  // two column tiles a load
+#pragma unroll
+          for (int s = 0; s < YT; s += 2)
+            ldsm_x4_t(smem_u32(xr + 8 * (pt0 + s) + (lane >> 4) * 8),
+                      bb[s / 2]);
+#pragma unroll
+          for (int s = 0; s < YT; s += 2) {
+            mma16816(yacc[s], pa, bb[s / 2][0], bb[s / 2][1]);
+            mma16816(yacc[s + 1], pa, bb[s / 2][2], bb[s / 2][3]);
+          }
+        } else {
+#pragma unroll
+          for (int s = 0; s < YT; ++s)
+            if (YFULL || pt0 + s < PT) {
+              uint32_t bb[2];
+              ldsm_x2_t(smem_u32(xr + 8 * (pt0 + s)), bb);
+              mma16816(yacc[s], pa, bb[0], bb[1]);
+            }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < YT; ++s) {
+      const int p = 8 * (pt0 + s) + 2 * tq;
+      if ((YFULL || pt0 + s < PT) && p < P) {
+        *reinterpret_cast<bf162*>(yb + (c0 + ilo) * x_t + p) =
+            __floats2bfloat162_rn(yacc[s][0], yacc[s][1]);
+        *reinterpret_cast<bf162*>(yb + (c0 + ihi) * x_t + p) =
+            __floats2bfloat162_rn(yacc[s][2], yacc[s][3]);
+      }
+    }
+  };
+
+  const int nch = dm.t_len / L;
+  if (nch > 0) load_chunk(0, 0);
+  for (int ci = 0; ci < nch; ++ci) {
+    const int cur = dm.stages == 2 ? (ci & 1) : 0;
+    cp_async_wait_all();
+    __syncthreads();  // chunk ci landed; every reader of chunk ci-1 done
+    if (dm.stages == 2 && ci + 1 < nch) load_chunk(ci + 1, cur ^ 1);
+    const bf16* sx = stage_x(cur);
+    const bf16* sB = sx + L * XS;
+    const bf16* sC = sB + L * BS;
+    const float* sdt = reinterpret_cast<const float*>(sC + L * BS);
+    const long long c0 = (long long)ci * L;
+
+    if (warp == 0) {  // cumsum(dt * A): L / 32 steps a lane, then a scan
+      const int E = L / 32;
+      float v[4], run = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e < E) {
+          run += sdt[E * lane + e] * a_h;
+          v[e] = run;
+        }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e < E) v[e] = excl + v[e];
+      float mine = v[0];
+#pragma unroll
+      for (int e = 1; e < 4; ++e)
+        if (e < E) mine = v[e];
+      const float last = __shfl_sync(0xffffffffu, mine, 31);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e < E) {
+          const int j = E * lane + e;
+          scum[j] = v[e];
+          scum2[j] = v[e] * 1.4426950408889634f;
+          se[j] = expf(v[e]);
+          sw[j] = expf(last - v[e]) * sdt[j];
+        }
+    }
+
+    const int RB = L / 16;  // 16-row blocks of the chunk: 8, 4 or 2
+    if (RB == 8)
+      chunk(std::integral_constant<int, 1>{}, sx, sB, sC, sdt, c0);
+    else if (RB == 4)
+      chunk(std::integral_constant<int, 2>{}, sx, sB, sC, sdt, c0);
+    else
+      chunk(std::integral_constant<int, 4>{}, sx, sB, sC, sdt, c0);
+    // the bf16 copy of the new state, the next chunk's C S^T operand (every
+    // reader of the old copy passed the barrier inside chunk())
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      const int nt = snt0 + s;
+      if (SFULL || nt < NT) {
+        const int n = 8 * nt + 2 * tq, p = 16 * smt + gr;
+        *reinterpret_cast<bf162*>(sS + p * BS + n) =
+            __floats2bfloat162_rn(st[s][0], st[s][1]);
+        *reinterpret_cast<bf162*>(sS + (p + 8) * BS + n) =
+            __floats2bfloat162_rn(st[s][2], st[s][3]);
+      }
+    }
+    if (dm.stages == 1 && ci + 1 < nch) {
+      __syncthreads();  // every reader of the one stage done
+      load_chunk(ci + 1, 0);
+    }
+  }
+
+  float* so = s_out + ((long long)b * H + h) * P * N;
+#pragma unroll
+  for (int s = 0; s < ST; ++s) {
+    const int nt = snt0 + s;
+    const int n = 8 * nt + 2 * tq, p = 16 * smt + gr;
+    if (nt < NT && n < N) {
+      if (p < P)
+        *reinterpret_cast<float2*>(so + (long long)p * N + n) =
+            make_float2(st[s][0], st[s][1]);
+      if (p + 8 < P)
+        *reinterpret_cast<float2*>(so + (long long)(p + 8) * N + n) =
+            make_float2(st[s][2], st[s][3]);
+    }
+  }
+}
+
+// P and N padded to the tile: 16, 32, 64 or 128.
+inline int padded(int v) {
+  return v <= 16 ? 16 : v <= 32 ? 32 : v <= 64 ? 64 : 128;
+}
+
+// Two stages where they fit, else one; 0 where one does not fit either.
+inline int mma_stages(int l, int p, int n) {
+  const int pp = padded(p), np = padded(n);
+  if (mma_smem_bytes(l, pp, np, 2) <= MAX_SMEM) return 2;
+  return mma_smem_bytes(l, pp, np, 1) <= MAX_SMEM ? 1 : 0;
+}
+
+template <int PP, int NP>
+int launch_mma(const void* x, const void* dt, const void* A, const void* B,
+               const void* C, void* y, void* s_out, int batch,
+               const MmaDims& dm, cudaStream_t stream) {
+  const long long smem = mma_smem_bytes(dm.l, PP, NP, dm.stages);
+  auto kern = ssd_mma_kernel<PP, NP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(dm.h, batch);
+  kern<<<grid, THREADS, smem, stream>>>(
+      (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)B,
+      (const bf16*)C, (bf16*)y, (float*)s_out, dm);
+  return (int)cudaGetLastError();
+}
+
+template <int PP>
+int launch_mma_n(int np, const void* x, const void* dt, const void* A,
+                 const void* B, const void* C, void* y, void* s_out,
+                 int batch, const MmaDims& dm, cudaStream_t s) {
+  switch (np) {
+    case 16:
+      return launch_mma<PP, 16>(x, dt, A, B, C, y, s_out, batch, dm, s);
+    case 32:
+      return launch_mma<PP, 32>(x, dt, A, B, C, y, s_out, batch, dm, s);
+    case 64:
+      return launch_mma<PP, 64>(x, dt, A, B, C, y, s_out, batch, dm, s);
+    default:
+      return launch_mma<PP, 128>(x, dt, A, B, C, y, s_out, batch, dm, s);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (x, B, C and y).  chunk in 32 / 64 / 128
@@ -310,4 +885,40 @@ extern "C" int ssd_chunk_scan_fwd(int dtype, const void* x, const void* dt,
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, dt, A, B, C, y, s_out, batch, dm, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bfloat16 tensor-core instance: x, B, C, y bfloat16; same shapes as
+// ssd_chunk_scan_fwd, and n <= 128.  Two shared-memory stages where they
+// fit (ssd_chunk_scan_mma_stages), else one.
+extern "C" int ssd_chunk_scan_mma_stages(int chunk, int p, int n) {
+  return mma_stages(chunk, p, n);
+}
+
+extern "C" int ssd_chunk_scan_mma_fwd(const void* x, const void* dt,
+                                      const void* A, const void* B,
+                                      const void* C, void* y, void* s_out,
+                                      int batch, int t_len, int h, int p,
+                                      int g, int n, int chunk, void* stream) {
+  if (batch <= 0 || h <= 0) return 0;
+  if (chunk <= 0 || chunk % 32 != 0 || chunk > 128 || t_len % chunk != 0 ||
+      p <= 0 || p % 4 != 0 || p > 128 || n <= 0 || n % 4 != 0 || n > 128 ||
+      g <= 0 || h % g != 0 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int stages = mma_stages(chunk, p, n);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const bool vec = p % 8 == 0 && n % 8 == 0 &&
+                   (((uintptr_t)x | (uintptr_t)B | (uintptr_t)C) & 15) == 0;
+  const MmaDims dm{t_len, h, p, g, n, chunk, stages, vec ? 1 : 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int np = padded(n);
+  switch (padded(p)) {
+    case 16:
+      return launch_mma_n<16>(np, x, dt, A, B, C, y, s_out, batch, dm, s);
+    case 32:
+      return launch_mma_n<32>(np, x, dt, A, B, C, y, s_out, batch, dm, s);
+    case 64:
+      return launch_mma_n<64>(np, x, dt, A, B, C, y, s_out, batch, dm, s);
+    default:
+      return launch_mma_n<128>(np, x, dt, A, B, C, y, s_out, batch, dm, s);
+  }
 }

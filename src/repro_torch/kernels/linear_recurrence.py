@@ -6,7 +6,9 @@ computed in float32 and written in b's dtype; a and b are float32 or
 bfloat16, of one dtype.
 
 * :func:`linear_recurrence` launches ``csrc/linear_recurrence.cu`` for
-  CUDA tensors (one thread per (batch, channel) walking T).  It replaces
+  CUDA tensors (one thread per (batch, channel) walking T in the
+  sequential oracle's order, fed from a four-stage shared-memory ring of
+  32 KB tiles of a and b).  It replaces
   the TPU kernel ``src/repro/kernels/linear_recurrence.py::linear_recurrence``
   and counts its launches in ``linear_recurrence.launches``.
 * :func:`linear_recurrence_torch` is the plain version, the TPU kernel's

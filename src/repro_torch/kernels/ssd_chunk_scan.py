@@ -17,7 +17,11 @@ dtype.  Per chunk of ``L`` steps, with ``cum`` the inclusive cumsum of
   of the chunk, L in 32 / 64 / 128, P <= 128 and P, N multiples of 4).
   It replaces the TPU kernel
   ``src/repro/kernels/ssd_chunk_scan.py::ssd_chunk_scan`` and counts its
-  launches in ``ssd_chunk_scan.launches``.
+  launches in ``ssd_chunk_scan.launches``.  Two instances, chosen by
+  :func:`instance` from dtype and shape before the launch: bfloat16 with
+  N <= 128 runs the tensor-core kernel (``mma.sync``; counted again in
+  ``ssd_chunk_scan.mma_launches``), float32 and bfloat16 with N > 128 the
+  float32-core kernel.
 * :func:`ssd_torch` is the plain version: the same chunked maths as
   batched matrix products over (batch, head), with a loop over chunks
   only.  It takes any T (zero steps pad it to a chunk multiple: dt = 0
@@ -63,10 +67,38 @@ def check_inputs(x, dt, A, B, C) -> None:
 
 
 def smem_bytes(chunk: int, p: int, n: int) -> int:
-    """The kernel's shared memory per block (see the source's layout)."""
+    """The float32-core kernel's shared memory per block (see the
+    source's layout)."""
     nb = n + 4
     return 4 * (chunk * p + chunk * nb + 32 * nb + p * nb + 32 * chunk
                 + 4 * chunk)
+
+
+def padded(v: int) -> int:
+    """P or N padded to the tensor-core kernel's tile: 16, 32, 64, 128."""
+    return next(k for k in (16, 32, 64, 128) if v <= k)
+
+
+def mma_smem_bytes(chunk: int, p: int, n: int, stages: int) -> int:
+    """The tensor-core kernel's shared memory per block (see the source's
+    layout): ``stages`` copies of x, B, C (rows padded by 8 bf16) and dt,
+    the bf16 state, and four float vectors of the chunk."""
+    pp, np_ = padded(p), padded(n)
+    stage = 2 * chunk * (pp + 8) + 4 * chunk * (np_ + 8) + 4 * chunk
+    return stages * stage + 2 * pp * (np_ + 8) + 16 * chunk
+
+
+def mma_stages(chunk: int, p: int, n: int) -> int:
+    """Shared-memory stages of the tensor-core kernel: 2 where they fit,
+    else 1 (the next chunk loads after the current one)."""
+    return 2 if mma_smem_bytes(chunk, p, n, 2) <= SMEM_LIMIT else 1
+
+
+def instance(dtype: torch.dtype, n: int) -> str:
+    """The kernel a launch takes, from dtype and N alone: ``"mma"`` (the
+    bfloat16 tensor-core kernel, N <= 128) or ``"simt"`` (the float32-core
+    kernel: float32, or bfloat16 with N > 128)."""
+    return "mma" if dtype == torch.bfloat16 and n <= 128 else "simt"
 
 
 def ssd_torch(x, dt, A, B, C, *, chunk: int = 128
@@ -118,7 +150,8 @@ def _launch(x, dt, A, B, C, chunk: int):
     if p % 4 or p > 128 or n % 4:
         raise ValueError(f"ssd_chunk_scan: P <= 128 and P, N multiples of "
                          f"4; got P {p}, N {n}")
-    if smem_bytes(chunk, p, n) > SMEM_LIMIT:
+    kind = instance(x.dtype, n)
+    if kind == "simt" and smem_bytes(chunk, p, n) > SMEM_LIMIT:
         raise ValueError(f"ssd_chunk_scan: chunk {chunk}, P {p}, N {n} need "
                          f"{smem_bytes(chunk, p, n)} bytes of shared memory "
                          f"(limit {SMEM_LIMIT})")
@@ -126,18 +159,24 @@ def _launch(x, dt, A, B, C, chunk: int):
     y = torch.empty_like(x)
     state = torch.empty((bb, h, p, n), dtype=torch.float32, device=x.device)
     lib = _build.load("ssd_chunk_scan")
-    fn = lib.ssd_chunk_scan_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    ptrs = [u.data_ptr() for u in (x, dt, A, B, C, y, state)]
+    dims = [bb, t, h, p, g, n, chunk, _build.stream_handle(x.device)]
+    if kind == "mma":
+        fn = lib.ssd_chunk_scan_mma_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        args = ptrs + dims
+    else:
+        fn = lib.ssd_chunk_scan_fwd
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        args = [1 if x.dtype == torch.bfloat16 else 0] + ptrs + dims
     fn.restype = ctypes.c_int
-    rc = fn(1 if x.dtype == torch.bfloat16 else 0, x.data_ptr(),
-            dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), state.data_ptr(), bb, t, h, p, g, n, chunk,
-            _build.stream_handle(x.device))
+    rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"ssd_chunk_scan kernel launch failed: CUDA "
-                           f"error {rc}")
-    return y, state
+        raise RuntimeError(f"ssd_chunk_scan ({kind}) kernel launch failed: "
+                           f"CUDA error {rc}")
+    return y, state, kind
 
 
 def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 128
@@ -147,9 +186,12 @@ def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 128
     check_inputs(x, dt, A, B, C)
     if not x.is_cuda:
         return ssd_torch(x, dt, A, B, C, chunk=chunk)
-    out = _launch(x, dt, A, B, C, chunk)
+    y, state, kind = _launch(x, dt, A, B, C, chunk)
     ssd_chunk_scan.launches += 1
-    return out
+    if kind == "mma":
+        ssd_chunk_scan.mma_launches += 1
+    return y, state
 
 
 ssd_chunk_scan.launches = 0
+ssd_chunk_scan.mma_launches = 0

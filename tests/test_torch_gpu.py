@@ -6,6 +6,8 @@ without JAX::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from repro_torch import models as M
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import KiB, OpType, WorkloadSpec, ZnsDevice, \
     compile_program
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import linear_recurrence as plr
 from repro_torch.kernels import ops, ref, zns_event_scan as pscan
@@ -365,6 +368,79 @@ def test_ssd_kernel_refuses_unsupported_shapes_on_card(cuda_device):
         ops.ssd_scan(*args, chunk=48, impl="cuda")
 
 
+@pytest.mark.parametrize("b,t,h,p,g,n,chunk,stages", [
+    (1, 128, 2, 128, 1, 128, 128, 1),   # P = 128: the one-stage layout
+    (1, 320, 2, 64, 1, 64, 64, 2),      # N = 64, T of 5 chunks
+    (2, 64, 8, 32, 2, 32, 32, 2),       # G = 2 with H = 8, chunk 32
+    (1, 64, 8, 64, 2, 128, 64, 2),      # T of 1 chunk, chunk 64
+    (1, 160, 4, 20, 2, 36, 32, 2),      # P, N not multiples of 8
+])
+def test_ssd_mma_kernel_matches_plain_on_card(cuda_device, b, t, h, p, g, n,
+                                              chunk, stages):
+    """bfloat16 shapes of every layout go through the tensor-core
+    instance (its own counter moves) and match the plain version and the
+    sequential oracle."""
+    args = _ssd_inputs(np.random.default_rng(t + p + n), b, t, h, p, g, n,
+                       torch.bfloat16, cuda_device)
+    assert pssd.instance(torch.bfloat16, n) == "mma"
+    assert pssd.mma_stages(chunk, p, n) == stages
+    before = (pssd.ssd_chunk_scan.launches, pssd.ssd_chunk_scan.mma_launches)
+    y, s = ops.ssd_scan(*args, chunk=chunk, impl="cuda")
+    yw, sw = ops.ssd_scan(*args, chunk=chunk, impl="torch")
+    torch.cuda.synchronize()
+    assert (pssd.ssd_chunk_scan.launches,
+            pssd.ssd_chunk_scan.mma_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yw.float().cpu().numpy(),
+                               **SSD_TOL[torch.bfloat16])
+    np.testing.assert_allclose(s.cpu().numpy(), sw.cpu().numpy(),
+                               **SSD_TOL[torch.float32])
+    yr, sr = ref.ssd_ref(*args)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yr.float().cpu().numpy(),
+                               **SSD_TOL[torch.bfloat16])
+    np.testing.assert_allclose(s.cpu().numpy(), sr.cpu().numpy(), atol=1e-3)
+
+
+def test_ssd_mma_stages_match_the_source_on_card(cuda_device):
+    fn = _build.load("ssd_chunk_scan").ssd_chunk_scan_mma_stages
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    for chunk in pssd.CHUNKS:
+        for p in (4, 16, 36, 64, 100, 128):
+            for n in (4, 16, 40, 64, 128):
+                assert fn(chunk, p, n) == pssd.mma_stages(chunk, p, n), (
+                    chunk, p, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_strong_decay_on_card(cuda_device, dtype):
+    """dt up to 1 and A down to -16: cum falls below -1,000 inside a
+    128-step chunk, where exp(-cum) overflows float32.  y and the state
+    stay finite and match the plain version in both dtypes."""
+    rng = np.random.default_rng(16)
+    b, t, h, p, g, n = 2, 384, 4, 64, 1, 128
+    x = rng.standard_normal((b, t, h, p)) * 0.5
+    dt = rng.uniform(0.001, 1.0, (b, t, h))
+    A = -np.linspace(0.5, 16.0, h)
+    B = rng.standard_normal((b, t, g, n)) * 0.3
+    C = rng.standard_normal((b, t, g, n)) * 0.3
+    cum = np.cumsum((dt * A).reshape(b, t // 128, 128, h), axis=2)
+    assert cum.min() < -1000.0
+    cast = [dtype, torch.float32, torch.float32, dtype, dtype]
+    args = [torch.as_tensor(u, dtype=torch.float32).to(cuda_device, c)
+            for u, c in zip((x, dt, A, B, C), cast)]
+    y, s = ops.ssd_scan(*args, chunk=128, impl="cuda")
+    yw, sw = ops.ssd_scan(*args, chunk=128, impl="torch")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yw.float().cpu().numpy(), **SSD_TOL[dtype])
+    np.testing.assert_allclose(s.cpu().numpy(), sw.cpu().numpy(),
+                               **SSD_TOL[torch.float32])
+
+
 @pytest.mark.parametrize("b,t,d", [(2, 64, 32), (1, 300, 16), (3, 1024, 8),
                                    (2, 3072, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -384,11 +460,66 @@ def test_linear_recurrence_kernel_matches_plain_on_card(cuda_device, b, t, d,
     tol = LR_TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=2e-2)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
-    if dtype == torch.float32 and t <= 1024:
+    if dtype == torch.float32:
         # one rounded multiply and one rounded add a step, in the order of
         # the sequential oracle: equal to the last bit
         np.testing.assert_array_equal(
             got.cpu().numpy(), ref.linear_recurrence_ref(a, x).cpu().numpy())
+
+
+@pytest.mark.parametrize("b,t,d,dtype", [
+    (1, 3000, 4099, torch.float32),     # rows not 16-byte aligned
+    (1, 3000, 4101, torch.bfloat16),
+    (2, 3000, 4096, torch.float32),     # T not a multiple of the tile
+    (2, 3000, 4096, torch.bfloat16),
+])
+def test_linear_recurrence_kernel_takes_ragged_shapes_on_card(cuda_device, b,
+                                                              t, d, dtype):
+    rng = np.random.default_rng(d)
+    a = torch.as_tensor(rng.uniform(0.6, 0.999, (b, t, d)),
+                        dtype=torch.float32).to(cuda_device, dtype)
+    x = torch.as_tensor(rng.standard_normal((b, t, d)),
+                        dtype=torch.float32).to(cuda_device, dtype)
+    got = ops.linear_recurrence(a, x, impl="cuda")
+    want = ops.linear_recurrence(a, x, impl="torch")
+    torch.cuda.synchronize()
+    tol = LR_TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=2e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+    if dtype == torch.float32:
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), ref.linear_recurrence_ref(a, x).cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_recurrence_kernel_takes_offset_and_strided_views_on_card(
+        cuda_device, dtype):
+    """A contiguous view one element past an aligned start (the kernel's
+    element-wise copies) and a strided view (copied by the wrapper)."""
+    b, t, d = 2, 700, 256
+    rng = np.random.default_rng(7)
+    flat_a = torch.as_tensor(rng.uniform(0.6, 0.999, b * t * d + 1),
+                             dtype=torch.float32).to(cuda_device, dtype)
+    flat_x = torch.as_tensor(rng.standard_normal(b * t * d + 1),
+                             dtype=torch.float32).to(cuda_device, dtype)
+    a = flat_a[1:].view(b, t, d)
+    x = flat_x[1:].view(b, t, d)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    wide_a = torch.as_tensor(rng.uniform(0.6, 0.999, (b, t, 2 * d)),
+                             dtype=torch.float32).to(cuda_device, dtype)
+    wide_x = torch.as_tensor(rng.standard_normal((b, t, 2 * d)),
+                             dtype=torch.float32).to(cuda_device, dtype)
+    tol = LR_TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=2e-2)
+    for u, v in ((a, x), (wide_a[:, :, 1::2], wide_x[:, :, 1::2])):
+        got = ops.linear_recurrence(u, v, impl="cuda")
+        want = ops.linear_recurrence(u, v, impl="torch")
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+        if dtype == torch.float32:
+            np.testing.assert_array_equal(
+                got.cpu().numpy(),
+                ref.linear_recurrence_ref(u, v).cpu().numpy())
 
 
 @pytest.mark.parametrize("arch,need", [

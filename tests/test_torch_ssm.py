@@ -88,6 +88,32 @@ def test_ssd_plain_matches_pallas_interpret(b, t, h, p, g, n, chunk, dtype):
     assert pssd.ssd_chunk_scan.launches == before
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_plain_matches_pallas_interpret_under_strong_decay(dtype):
+    """dt up to 1 and A down to -16: cum falls below -1,000 inside a
+    128-step chunk, where exp(-cum) overflows float32 (the inputs of the
+    card test ``test_ssd_kernel_strong_decay_on_card``, at a smaller
+    width).  The plain version agrees with the Pallas kernel and y stays
+    finite."""
+    rng = np.random.default_rng(16)
+    b, t, h, p, g, n = 1, 256, 4, 16, 1, 32
+    arrays = (rng.standard_normal((b, t, h, p)).astype(np.float32) * 0.5,
+              rng.uniform(0.001, 1.0, (b, t, h)).astype(np.float32),
+              -np.linspace(0.5, 16.0, h).astype(np.float32),
+              rng.standard_normal((b, t, g, n)).astype(np.float32) * 0.3,
+              rng.standard_normal((b, t, g, n)).astype(np.float32) * 0.3)
+    cum = np.cumsum((arrays[1] * arrays[2]).reshape(b, 2, 128, h), axis=2)
+    assert cum.min() < -1000.0
+    rargs, args = _both(arrays, dtype)
+    yr, sr = rops.ssd_scan(*rargs, chunk=128, impl="interpret")
+    y, s = ops.ssd_scan(*args, chunk=128, impl="torch")
+    assert bool(torch.isfinite(y.float()).all())
+    assert bool(torch.isfinite(s).all())
+    np.testing.assert_allclose(_f32(y), _f32(yr), **SSD_TOL[dtype])
+    np.testing.assert_allclose(s.numpy(), np.asarray(sr),
+                               **SSD_TOL["float32"])
+
+
 @pytest.mark.parametrize("t,g", [(40, 1), (70, 2)])
 def test_ssd_oracle_and_ragged_plain_match_reference_oracle(t, g):
     """The torch oracle against ``repro.kernels.ref.ssd_ref``, and the
@@ -117,6 +143,30 @@ def test_ssd_ops_check_inputs():
     with pytest.raises(ValueError, match="chunk"):
         pssd._launch(x, dt, A, B, C, 48)
     assert pssd.smem_bytes(128, 64, 128) <= pssd.SMEM_LIMIT
+
+
+def test_ssd_instance_is_chosen_by_dtype_and_shape():
+    """bfloat16 with N <= 128 takes the tensor-core kernel, in two
+    shared-memory stages where they fit (mamba2-370m's P = 64, N = 128)
+    and one otherwise; every such shape fits one.  On CPU tensors the
+    wrapper counts no launch of either instance."""
+    assert pssd.instance(torch.bfloat16, 128) == "mma"
+    assert pssd.instance(torch.bfloat16, 132) == "simt"
+    assert pssd.instance(torch.float32, 64) == "simt"
+    assert pssd.mma_stages(128, 64, 128) == 2
+    assert pssd.mma_stages(128, 128, 128) == 1
+    assert pssd.mma_stages(32, 128, 128) == 2
+    for chunk in pssd.CHUNKS:
+        for p in range(4, 129, 4):
+            for n in range(4, 129, 4):
+                assert (pssd.mma_smem_bytes(chunk, p, n, 1)
+                        <= pssd.SMEM_LIMIT), (chunk, p, n)
+    _, args = _both(_ssd_inputs(np.random.default_rng(2), 1, 64, 2, 16, 1,
+                                16), "bfloat16")
+    before = (pssd.ssd_chunk_scan.launches, pssd.ssd_chunk_scan.mma_launches)
+    pssd.ssd_chunk_scan(*args, chunk=32)
+    assert (pssd.ssd_chunk_scan.launches,
+            pssd.ssd_chunk_scan.mma_launches) == before
 
 
 # -- the model on shared weights ---------------------------------------------
