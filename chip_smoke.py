@@ -10,7 +10,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 2. holds every kernel against its plain PyTorch version on the card at
    the main path's shapes, in float64 (rtol 1e-12 / atol 1e-9, equal
    sweeps and convergence) and float32 (rtol 2e-5 / atol 1e-2), and
-   times kernel and plain version with CUDA events;
+   times kernel and plain version with CUDA events: the max-plus scan at
+   1,600,000 and 100,000 elements and (16, 100,000), also held against
+   the host's sequential float64 loop and timed beside the same scan as
+   ``torch.cumsum`` + ``torch.cummax`` (the library yardstick, with its
+   float64 error); the fixpoint at the programs of phases 4, 3 and 5
+   with their sweep budgets (8, 8, 64), with each solve's device
+   kernels counted by ``torch.profiler`` (one a solve, or the script
+   fails); each line gives the kernel's device time, grid and
+   registers;
 3. runs the README ``ZnsDevice`` quickstart (200,100 requests);
 4. runs the README fleet quickstart (16 devices, 1,600,000 events);
 5. runs a contended heterogeneous fleet (``ours`` / ``nvmevirt`` /
@@ -32,7 +40,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    9.6e9 float32 parameters): 2 prompts of 3,072 tokens, longer than the
    window of 2,048;
 11. runs the serving driver on mamba2-370m (16 requests, batch 4,
-   max_seq 128, 32 new tokens).
+   max_seq 128, 32 new tokens);
+12. solves the 12 non-sharded cells of the exactness matrix
+   (``repro_torch.core.exactness``: 3 workloads x {jitter-free,
+   jittered} x the ``cols`` / ``rows`` layouts) with the ``cuda``
+   driver, each exact, converged and within rtol 1e-9 / 1e-8 of the
+   event engine.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``).
 Phase 2 also holds the flash-attention and RMSNorm kernels against their
@@ -59,7 +72,7 @@ logits with the kernels against those with the plain versions (atol
 both differences, the bfloat16 model's distance from the float32 model,
 and the float32 model's own sensitivity (its first norm's scale moved by
 one float32 step).  Every kernel's launch counter is set to 0 just
-before each of the runs of phases 3-11 and read just after; a kernel of
+before each of the runs of phases 3-12 and read just after; a kernel of
 the path that was never launched fails the script, and phase 9 fails
 unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
 instance (``ssd_chunk_scan.mma_launches``).  The line
@@ -151,6 +164,31 @@ def time_ms(fn, reps: int = 5, flush=None) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, key: str, reps: int = 5):
+    """``(median device ms of the CUDA kernels whose name holds key in
+    one call of fn, device kernels a call)`` from ``torch.profiler``
+    (copies and memsets are not kernels; the L2 is not flushed), after
+    one warm-up call; the time is None when the profiler records no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    times, counts = [], []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset"))]
+        counts.append(len(ev))
+        t = sum(e.time_range.elapsed_us() for e in ev if key in e.name)
+        if t:
+            times.append(t / 1e3)
+    return (sorted(times)[len(times) // 2] if times else None), max(counts)
 
 
 def kernel_group(name: str) -> str:
@@ -257,7 +295,7 @@ def main() -> int:
     import numpy as np
 
     import repro_torch.core as P
-    from repro_torch.core import KiB, OpType
+    from repro_torch.core import KiB, OpType, exactness
     import torch.nn.functional as F
 
     from repro_torch import models as M
@@ -334,8 +372,30 @@ def main() -> int:
                 torch.as_tensor(svc, dtype=dtype, device=cuda),
                 torch.as_tensor(seg, device=cuda))
 
+    def scan_library(issue, svc, seg):
+        """The same scan as PyTorch library calls (the yardstick of the
+        scan kernel; the port never calls it): within each segment c_i =
+        V_i + max_{j <= i} (s_j - V_{j-1}), V the running sum of svc
+        (torch.cumsum), the maximum a torch.cummax over keys lifted by the
+        segment's number times the keys' span, so that no segment sees an
+        earlier one's keys.  The lift costs float64 digits."""
+        v = torch.cumsum(svc, -1)
+        y = issue - (v - svc)
+        lift = torch.cumsum(seg, -1, dtype=svc.dtype) * (y.max() - y.min()
+                                                          + 1.0)
+        return v + (torch.cummax(y + lift, -1).values - lift)
+
+    def host_oracle(issue, svc, seg):
+        """The sequential float64 loop on the host, row by row."""
+        rows = [x.reshape(-1, x.shape[-1]).cpu().numpy()
+                for x in (issue, svc, seg)]
+        return np.stack([P.zone_sequential_completions(i, s, g,
+                                                       backend="python")
+                         for i, s, g in zip(*rows)]).reshape(issue.shape)
+
     for name, shape, op in (
             ("zns_event_scan", (1_600_000,), ops.zns_event_scan),
+            ("zns_event_scan", (100_000,), ops.zns_event_scan),
             ("zns_event_scan_batched", (16, 100_000),
              ops.zns_event_scan_batched)):
         for dtype in (torch.float32, torch.float64):
@@ -346,17 +406,42 @@ def main() -> int:
             tol = F64 if dtype == torch.float64 else F32
             err = close(got.cpu().numpy(), want.cpu().numpy(), tol,
                         f"{name} {shape} {dtype}")
+            wrapper = kscan.zns_event_scan if op is ops.zns_event_scan \
+                else kscan.zns_event_scan_batched
+            launch = dict(wrapper.last_launch)
             ms = time_ms(lambda: op(*args, impl="cuda"), flush=flush)
+            kms, nk = device_ms(lambda: op(*args, impl="cuda"),
+                                "scan_tiles_kernel")
             pms = time_ms(lambda: op(*args, impl="torch"), reps=3,
                           flush=flush)
-            print(f"[2] {name} {shape} {dtype}: max abs err {err:.3e}, "
-                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
-            if dtype == torch.float64:
-                n = int(np.prod(shape))
-                b, by = bound_ms(25.0 * n, 3.0 * n, "float64")
-                report[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                    bound_ms=b, bound_by=by,
-                                    shape=list(shape), dtype="float64")
+            lms = time_ms(lambda: scan_library(*args), flush=flush)
+            line = (f"[2] {name} {shape} {dtype}: max abs err {err:.3e}, "
+                    f"kernel {ms:.4f} ms (device {kms} ms, {nk} device "
+                    f"kernel a call; grid {launch['grid']} of "
+                    f"{launch['resident_blocks']} resident blocks, "
+                    f"{launch['registers']} registers), plain {pms:.4f} "
+                    f"ms, library (cumsum + cummax) {lms:.4f} ms")
+            if dtype != torch.float64:
+                print(line)
+                continue
+            oracle = host_oracle(*args)
+            kerr = close(got.cpu().numpy(), oracle, F64,
+                         f"{name} {shape} against the sequential oracle")
+            lib_err = float(np.abs(scan_library(*args).cpu().numpy()
+                                   - oracle).max())
+            print(f"{line}; against the sequential oracle: kernel "
+                  f"{kerr:.3e}, library {lib_err:.3e}")
+            n = int(np.prod(shape))
+            b, by = bound_ms(25.0 * n, 3.0 * n, "float64")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                       bound_by=by, library_ms=lms, kernel_ms=kms,
+                       kernels_per_call=nk, oracle_err=kerr,
+                       library_err=lib_err, shape=list(shape),
+                       dtype="float64", **launch)
+            if name in report:
+                report[name]["at_100k"] = row
+            else:
+                report[name] = row
 
     def readme_fleet_workload():
         return (P.WorkloadSpec()
@@ -372,42 +457,89 @@ def main() -> int:
     svc4 = np.concatenate([
         P.compute_service_times(traces[b], fleet16.devices[b].lat,
                                 seed=b)[prog4.orders[b]] for b in range(16)])
-    blocks = [blk.rows_view() for blk in prog4.families]
-    print(f"[2] phase-4 program: n={prog4.n_flat}, blocks "
-          f"{[tuple(g.shape) for g, _ in blocks]}")
-    packed = kfix.pack_blocks(blocks, prog4.n_flat, cuda)
-    for dtype in (torch.float32, torch.float64):
-        c0 = torch.as_tensor(prog4.issue_flat + svc4, dtype=dtype,
-                             device=cuda)
-        s = torch.as_tensor(svc4, dtype=dtype, device=cuda)
-        got = ops.zns_fixpoint(c0, s, packed, sweeps=8, impl="cuda")
-        log = []
-        want = kfix.zns_fixpoint_torch(c0, s, packed, sweeps=8,
-                                       active_log=log)
-        tol = F64 if dtype == torch.float64 else F32
-        err = close(got[0].cpu().numpy(), want[0].cpu().numpy(), tol,
-                    f"zns_fixpoint {dtype}")
-        check(got[2] == want[2] and got[2],
-              f"zns_fixpoint {dtype}: converged {got[2]} vs {want[2]}")
-        if dtype == torch.float64:
-            check(got[1] == want[1], f"zns_fixpoint float64: sweeps "
-                                     f"{got[1]} vs {want[1]}")
-        ms = time_ms(lambda: ops.zns_fixpoint(c0, s, packed, sweeps=8,
-                                              impl="cuda"), flush=flush)
-        pms = time_ms(lambda: ops.zns_fixpoint(c0, s, packed, sweeps=8,
-                                               impl="torch"), reps=3,
-                      flush=flush)
-        lanes = sum(packed.shapes[f][1] * packed.shapes[f][2]
-                    for sweep in log for f in sweep)
-        print(f"[2] zns_fixpoint {dtype}: sweeps {got[1]} (plain "
-              f"{want[1]}), converged {got[2]}, active blocks per sweep "
-              f"{[len(x) for x in log]}, lanes {lanes}, max abs err "
-              f"{err:.3e}, kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        if dtype == torch.float64:
+    # phase 3's and phase 5's programs, for the same kernel comparison
+    dev = P.ZnsDevice(device=cuda)
+    wl3 = (P.WorkloadSpec()
+           .writes(n=100_000, size=4 * KiB, qd=4, zone=0)
+           .reads(n=100_000, size=4 * KiB, qd=16, zone=100, nzones=64)
+           .resets(n=100, occupancy=1.0, io_ctx=OpType.WRITE))
+    prog3 = P.compile_program(wl3.build(), dev.spec, dev.lat, jitter=True,
+                              seed=0, cache=False)
+    svc3 = P.compute_service_times(wl3.build(), dev.lat,
+                                   seed=0)[prog3.orders[0]]
+    wl5 = P.WorkloadSpec()
+    for t in range(4):
+        wl5 = wl5.appends(n=5000, size=8 * KiB, qd=4, zone=t * 4, nzones=4)
+        wl5 = wl5.appends(n=5000, size=64 * KiB, qd=4, zone=t * 4, nzones=4)
+    wl5 = wl5.resets(n=200, occupancy=1.0, nzones=200,
+                     io_ctx=OpType.APPEND, zone=500)
+    fleet5 = P.DeviceFleet.from_profiles(["ours", "nvmevirt", "femu"],
+                                         device=cuda)
+    traces5 = fleet5._lower(wl5, "replicate")
+    prog5 = P.compile_fleet_program(traces5, fleet5.specs,
+                                    [d.lat for d in fleet5.devices],
+                                    jitter=True, seeds=[0, 1, 2],
+                                    cache=False)
+    svc5 = np.concatenate([
+        P.compute_service_times(traces5[b], fleet5.devices[b].lat,
+                                seed=b)[prog5.orders[b]] for b in range(3)])
+
+    for label, prog, svcp, budget in (("phase-4", prog4, svc4, 8),
+                                      ("phase-3", prog3, svc3, 8),
+                                      ("phase-5", prog5, svc5, 64)):
+        blocks = [blk.rows_view() for blk in prog.families]
+        print(f"[2] {label} program: n={prog.n_flat}, blocks "
+              f"{[tuple(g.shape) for g, _ in blocks]}, sweep budget "
+              f"{budget}")
+        packed = kfix.pack_blocks(blocks, prog.n_flat, cuda)
+        for dtype in (torch.float32, torch.float64):
+            c0 = torch.as_tensor(prog.issue_flat + svcp, dtype=dtype,
+                                 device=cuda)
+            s = torch.as_tensor(svcp, dtype=dtype, device=cuda)
+
+            def solve(impl, c0=c0, s=s, packed=packed, budget=budget):
+                return ops.zns_fixpoint(c0, s, packed, sweeps=budget,
+                                        impl=impl)
+
+            got = solve("cuda")
+            launch = dict(kfix.zns_fixpoint.last_launch)
+            log = []
+            want = kfix.zns_fixpoint_torch(c0, s, packed, sweeps=budget,
+                                           active_log=log)
+            tol = F64 if dtype == torch.float64 else F32
+            err = close(got[0].cpu().numpy(), want[0].cpu().numpy(), tol,
+                        f"zns_fixpoint {label} {dtype}")
+            check(got[2] == want[2] and got[2],
+                  f"zns_fixpoint {label} {dtype}: converged {got[2]} vs "
+                  f"{want[2]}")
+            if dtype == torch.float64:
+                check(got[1] == want[1], f"zns_fixpoint {label} float64: "
+                                         f"sweeps {got[1]} vs {want[1]}")
+            ms = time_ms(lambda: solve("cuda"), flush=flush)
+            kms, nk = device_ms(lambda: solve("cuda"), "fp_solve_kernel")
+            check(nk == 1, f"zns_fixpoint {label}: {nk} device kernels a "
+                           f"solve")
+            pms = time_ms(lambda: solve("torch"), reps=3, flush=flush)
+            lanes = sum(packed.shapes[f][1] * packed.shapes[f][2]
+                        for sweep in log for f in sweep)
+            print(f"[2] zns_fixpoint {label} {dtype}: sweeps {got[1]} "
+                  f"(plain {want[1]}), converged {got[2]}, active blocks "
+                  f"per sweep {[len(x) for x in log]}, lanes {lanes}, max "
+                  f"abs err {err:.3e}, kernel {ms:.4f} ms (device {kms} "
+                  f"ms, {nk} device kernel a solve; grid {launch['grid']} "
+                  f"of {launch['resident_blocks']} resident blocks, "
+                  f"{launch['registers']} registers), plain {pms:.4f} ms")
+            if dtype != torch.float64:
+                continue
             b, by = bound_ms(29.0 * lanes, 4.0 * lanes, "float64")
-            report["zns_fixpoint"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                bound_by=by, sweeps=got[1], lanes=lanes, dtype="float64")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                       bound_by=by, library_ms=None, kernel_ms=kms,
+                       kernels_per_solve=nk, sweeps=got[1], budget=budget,
+                       lanes=lanes, dtype="float64", **launch)
+            if label == "phase-4":
+                report["zns_fixpoint"] = row
+            else:
+                report["zns_fixpoint"][label] = row
 
     # -- phase 2, serving kernels: flash attention and RMSNorm --------------
     gen = torch.Generator(cuda).manual_seed(1)
@@ -627,19 +759,10 @@ def main() -> int:
                                                device=cuda), reps=3)
 
     # phase 3: README ZnsDevice quickstart
-    dev = P.ZnsDevice(device=cuda)
-    wl3 = (P.WorkloadSpec()
-           .writes(n=100_000, size=4 * KiB, qd=4, zone=0)
-           .reads(n=100_000, size=4 * KiB, qd=16, zone=100, nzones=64)
-           .resets(n=100, occupancy=1.0, io_ctx=OpType.WRITE))
     res3, wall3, err3 = run_phase(
         "3", lambda: dev.run(wl3, backend="vectorized", seed=0),
         lambda: dev.run(wl3, backend="vectorized", seed=0, fixpoint="loop",
                         scan_backend="numpy"), fleet=False)
-    prog3 = P.compile_program(res3.trace, dev.spec, dev.lat, jitter=True,
-                              seed=0)
-    svc3 = P.compute_service_times(res3.trace, dev.lat,
-                                   seed=0)[prog3.orders[0]]
     ms3 = solve_ms(prog3, svc3)
     print(f"[3] ZnsDevice quickstart: n={len(res3)}, IOPS {res3.iops:.1f}, "
           f"read p99 {res3.latency_stats(OpType.READ).p99_us:.3f} us, "
@@ -663,14 +786,6 @@ def main() -> int:
           f"run {wall4:.1f} ms, max abs err vs loop {err4:.3e}")
 
     # phase 5: contended heterogeneous fleet
-    wl5 = P.WorkloadSpec()
-    for t in range(4):
-        wl5 = wl5.appends(n=5000, size=8 * KiB, qd=4, zone=t * 4, nzones=4)
-        wl5 = wl5.appends(n=5000, size=64 * KiB, qd=4, zone=t * 4, nzones=4)
-    wl5 = wl5.resets(n=200, occupancy=1.0, nzones=200,
-                     io_ctx=OpType.APPEND, zone=500)
-    fleet5 = P.DeviceFleet.from_profiles(["ours", "nvmevirt", "femu"],
-                                         device=cuda)
     res5, wall5, err5 = run_phase(
         "5", lambda: fleet5.run(wl5, policy="replicate",
                                 backend="vectorized", sweeps=64),
@@ -678,13 +793,6 @@ def main() -> int:
                            sweeps=64, fixpoint="loop", scan_backend="numpy"),
         fleet=True)
     check(res5.exact, "phase 5: fleet result is not exact")
-    traces5 = fleet5._lower(wl5, "replicate")
-    prog5 = P.compile_fleet_program(traces5, fleet5.specs,
-                                    [d.lat for d in fleet5.devices],
-                                    jitter=True, seeds=[0, 1, 2])
-    svc5 = np.concatenate([
-        P.compute_service_times(traces5[b], fleet5.devices[b].lat,
-                                seed=b)[prog5.orders[b]] for b in range(3)])
     ms5 = solve_ms(prog5, svc5, sweeps=64)
     print(f"[5] contended fleet: n={sum(len(r) for r in res5)}, blocks "
           f"{len(prog5.families)}, exact {res5.exact}, total IOPS "
@@ -894,6 +1002,28 @@ def main() -> int:
           f"{stats['tok_per_s']:.1f} tok/s (batch 4), "
           f"{stats['seconds'] / stats['steps'] * 1e3:.2f} ms/step")
 
+    # -- phase 12: the exactness matrix on the cuda driver -------------------
+    cells = exactness.cells()
+    zero_counts()
+    worst = 0.0
+    for cell in cells:
+        comp, used, conv = P.solve_program(
+            cell.program, cell.svc_flat, sweeps=exactness.SWEEPS,
+            fixpoint="cuda", warn=False, device=cuda)
+        check(cell.program.exact, f"phase 12: {cell.name} is not exact")
+        check(conv, f"phase 12: {cell.name} did not converge")
+        err = cell.max_rel_err(comp)
+        check(err <= cell.tol, f"phase 12: {cell.name} max rel err "
+                               f"{err:.3e} over rtol {cell.tol}")
+        worst = max(worst, err)
+    torch.cuda.synchronize()
+    read_counts("12", ["zns_fixpoint"])
+    print(f"[12] exactness matrix: {len(cells)} cells (scale "
+          f"{exactness.SCALE}) on the cuda driver, all exact and converged, "
+          f"max rel err against the event engine {worst:.3e} (rtol "
+          f"{exactness.TOL_JITTER_FREE:g} jitter-free, "
+          f"{exactness.TOL_JITTERED:g} jittered)")
+
     # -- report -----------------------------------------------------------------
     sources = {
         "zns_event_scan": ("src/repro_torch/csrc/zns_event_scan.cu",
@@ -924,7 +1054,7 @@ def main() -> int:
                 "library_ms")}))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was never launched on the main path: {launches}")
-    print(f"[12] total {time.perf_counter() - t0:.1f} s")
+    print(f"[13] total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ Every op takes ``impl``: ``"cuda"`` launches the hand-written CUDA kernel
 on whatever device the tensors are on, and ``None`` / ``"auto"`` picks
 ``"cuda"`` for CUDA tensors and ``"torch"`` for CPU tensors.  This is the
 counterpart of the reference package's ``pallas | interpret | xla``
-dispatch.  Nothing falls back: a CUDA kernel that fails to build or
-launch raises.
+dispatch.  The two scans also take ``impl="ref"``, the sequential
+oracles of :mod:`repro_torch.kernels.ref`, as the reference's
+``impl="xla"`` takes its oracles.  Nothing falls back: a CUDA kernel
+that fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ def zns_event_scan(issue: torch.Tensor, svc: torch.Tensor,
                    ) -> torch.Tensor:
     """1-D segmented max-plus scan (per-zone serialized completions)."""
     _scan.check_inputs(issue, svc, seg, 1)
+    if impl == "ref":
+        return _ref.zns_event_scan_ref(issue, svc, seg)
     if _resolve(impl, issue) == "torch":
         return _scan.rows_maxplus_torch(issue[None], svc[None], seg[None])[0]
     return _scan.zns_event_scan(issue, svc, seg)
@@ -54,6 +58,8 @@ def zns_event_scan_batched(issue: torch.Tensor, svc: torch.Tensor,
                            ) -> torch.Tensor:
     """``(B, N)`` device-batched max-plus scan (the fleet's scan)."""
     _scan.check_inputs(issue, svc, seg, 2)
+    if impl == "ref":
+        return _ref.zns_event_scan_batched_ref(issue, svc, seg)
     if _resolve(impl, issue) == "torch":
         return _scan.rows_maxplus_torch(issue, svc, seg)
     return _scan.zns_event_scan_batched(issue, svc, seg)
@@ -73,8 +79,8 @@ def zns_fixpoint(comp0: torch.Tensor, svc: torch.Tensor,
     """
     if not isinstance(blocks, PackedBlocks):
         blocks = pack_blocks(blocks, comp0.shape[0], comp0.device, adj)
-    _fix.check_inputs(comp0, svc, blocks)
     if _resolve(impl, comp0) == "torch":
+        _fix.check_inputs(comp0, svc, blocks)
         return _fix.zns_fixpoint_torch(comp0, svc, blocks, sweeps=sweeps)
     return _fix.zns_fixpoint(comp0, svc, blocks, sweeps=sweeps)
 

@@ -1,13 +1,18 @@
-"""Plain PyTorch oracles of the model kernels.
+"""Plain PyTorch oracles of the kernels.
 
 The port's counterparts of ``repro.kernels.ref`` (``attention_ref``,
 ``attention_xla_chunked``, ``rmsnorm_ref``, ``linear_recurrence_ref``,
-``ssd_ref``): the same finite ``NEG_INF`` sentinel, query positions
-aligned to the end of the keys, GQA by head repeat, and the two
-recurrences as sequential scans over time in float32.  They are the
-semantic ground truth the tests hold the kernels' plain versions
-against, and :func:`repro_torch.kernels.ops.attention` sends a
-``kv_length`` call here, as the reference does.
+``ssd_ref``, ``zns_event_scan_ref``, ``zns_event_scan_batched_ref``,
+``zns_fixpoint_ref``, ``affine_scan_pairs_ref``): the same finite
+``NEG_INF`` sentinel, query positions aligned to the end of the keys, GQA
+by head repeat, and the recurrences as sequential scans, the model
+kernels' in float32.  The ZNS oracles keep their inputs' dtype: float32
+with the finite sentinel and the float32 progress thresholds, as the
+reference's, or float64 with ``-inf`` and the float64 thresholds.  They
+are the semantic ground truth the tests hold the kernels' plain versions
+against; :func:`repro_torch.kernels.ops.attention` sends a ``kv_length``
+call here, and ``ops.zns_event_scan(..., impl="ref")`` the scans, as
+the reference's ``impl="xla"`` does.
 """
 from __future__ import annotations
 
@@ -15,6 +20,9 @@ import math
 from typing import Optional
 
 import torch
+
+from .zns_event_scan import pad_value
+from .zns_fixpoint import moved_tol
 
 NEG_INF = -1e30
 
@@ -135,3 +143,90 @@ def ssd_ref(x, dt, A, B, C, *, init_state=None):
                                      xf[:, i] * dtf[:, i, :, None], Bh[:, i])
         ys[:, i] = torch.einsum("bhpn,bhn->bhp", S, Ch[:, i])
     return ys.to(x.dtype), S
+
+
+# ---------------------------------------------------------------------------
+# ZNS event scan: c_i = max(c_{i-1}, s_i) + v_i with segment resets
+# ---------------------------------------------------------------------------
+def zns_event_scan_batched_ref(issue, svc, seg_start):
+    """Sequential max-plus recurrence along the last axis, one element
+    at a time (the rows of a batch advance together, each with its own
+    carry): ``c = sentinel`` at a segment head, then ``c = max(c, s) +
+    v``."""
+    ninf = pad_value(issue.dtype)
+    c = torch.full(issue.shape[:-1], ninf, dtype=issue.dtype,
+                   device=issue.device)
+    out = torch.empty_like(issue)
+    for i in range(issue.shape[-1]):
+        c = torch.where(seg_start[..., i], torch.full_like(c, ninf), c)
+        c = torch.maximum(c, issue[..., i]) + svc[..., i]
+        out[..., i] = c
+    return out
+
+
+def zns_event_scan_ref(issue, svc, seg_start):
+    """Max-plus linear recurrence oracle on ``(N,)`` inputs (the one-row
+    case of :func:`zns_event_scan_batched_ref`)."""
+    return zns_event_scan_batched_ref(issue, svc, seg_start)
+
+
+def zns_fixpoint_ref(comp0, svc, blocks, *, sweeps: int = 8):
+    """Chain-program fixpoint oracle (eager Gauss–Seidel sweeps).
+
+    ``comp0``/``svc``: flat (n,) vectors; ``blocks``: ``(gidx, heads)``
+    (R, L) index/head pairs with padding indexed at ``n`` (a dead slot).
+    Every sweep gathers each block's completions, runs the sequential
+    scan oracle and writes the maximum back; it stops after a sweep in
+    which nothing moved.  No active set: every block runs every sweep.
+    Returns ``(comp (n,), sweeps_used, converged)``.
+    """
+    dt = comp0.dtype
+    ninf = pad_value(dt)
+    rtol, atol = moved_tol(dt)
+    comp = torch.cat([comp0, comp0.new_full((1,), ninf)])
+    svc_e = torch.cat([svc, svc.new_zeros(1)])
+    dead = comp.shape[0] - 1
+    used, moved = 0, True
+    for s in range(max(int(sweeps), 1)):
+        moved = False
+        for gidx, heads in blocks:
+            gidx = gidx.long()
+            svc_m = svc_e[gidx]
+            cur = comp[gidx]
+            out = zns_event_scan_batched_ref(cur - svc_m, svc_m, heads)
+            # padding gathers the sentinel, which would trivially pass
+            # the relative-progress test: mask it
+            moved = moved or bool(((out > cur * (1.0 + rtol) + atol)
+                                   & (gidx < dead)).any())
+            # a real index appears at most once in a block
+            comp[gidx] = torch.maximum(cur, out)
+            comp[dead] = ninf
+        used = s + 1
+        if not moved:
+            break
+    return comp[:-1], used, not moved
+
+
+# ---------------------------------------------------------------------------
+# shared helper: affine scans as (a, b) pair composition
+# ---------------------------------------------------------------------------
+def affine_scan_pairs_ref(a, b, *, semiring: str):
+    """Inclusive scan of affine maps ``f_i(c) = a_i (*) c (+) b_i`` along
+    axis 0, one map at a time.
+
+    ``semiring='mul_add'``: ``f(c) = a*c + b`` (linear recurrence);
+    ``semiring='max_plus'``: ``f(c) = max(c + a, b)`` (ZNS event
+    recurrence).  Returns the composed ``(A_i, B_i)`` such that ``c_i =
+    f_i(...f_1(c_0))``.
+    """
+    if semiring not in ("mul_add", "max_plus"):
+        raise ValueError(semiring)
+    A, B = a.clone(), b.clone()
+    for i in range(1, a.shape[0]):
+        if semiring == "mul_add":
+            A[i] = A[i - 1] * a[i]
+            B[i] = B[i - 1] * a[i] + b[i]
+        else:
+            A[i] = A[i - 1] + a[i]
+            B[i] = torch.maximum(B[i - 1] + a[i], b[i])
+    return A, B

@@ -9,9 +9,11 @@ parallel.  Segment heads set ``a_i`` to the padding sentinel, which drops
 the carry.
 
 * :func:`zns_event_scan_batched` / :func:`zns_event_scan` launch
-  ``csrc/zns_event_scan.cu`` (one thread block per row, chunked
-  warp-shuffle scans with a register carry; see the source's note) for
-  CUDA tensors, in float32 or float64.  They replace the TPU kernels
+  ``csrc/zns_event_scan.cu`` for CUDA tensors, in float32 or float64: one
+  cooperative launch spreads the 2,048-element tiles of all rows over the
+  card, scans each tile in registers, and composes each tile's carry-in
+  from the earlier tiles' aggregates after one grid-wide barrier (see the
+  source's note).  They replace the TPU kernels
   ``src/repro/kernels/zns_event_scan.py`` (``zns_event_scan_batched``
   and ``zns_event_scan``).
 * :func:`rows_maxplus_torch` is the plain version: a doubling ladder of
@@ -19,7 +21,9 @@ the carry.
   for tensors on the CPU.
 
 Sentinels follow the reference kernels: ``-1e30`` in float32, ``-inf``
-in float64.  Each wrapper counts its kernel launches in ``.launches``.
+in float64.  Each wrapper counts its kernel launches in ``.launches``
+and keeps the last launch's grid, resident-block capacity and registers
+in ``.last_launch``.
 """
 from __future__ import annotations
 
@@ -79,26 +83,55 @@ def check_inputs(issue, svc, seg, ndim: int) -> None:
         raise ValueError("zns_event_scan: inputs on different devices")
 
 
-def _launch(issue, svc, seg) -> torch.Tensor:
-    """Run the CUDA kernel on ``(B, N)`` CUDA tensors (raises on any
-    failure)."""
+def launch_info(info) -> dict:
+    """The ``(grid, resident blocks, registers)`` a launcher reports."""
+    return dict(grid=int(info[0]), resident_blocks=int(info[1]),
+                registers=int(info[2]))
+
+
+_LIB = None
+
+
+def _lib():
+    """The built library, its C signatures set once."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("zns_event_scan")
+        for fn in (lib.zns_scan_rows_f32, lib.zns_scan_rows_f64):
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 \
+                + [ctypes.c_void_p] * 2
+            fn.restype = ctypes.c_int
+        lib.zns_scan_error.restype = ctypes.c_char_p
+        lib.tile = lib.zns_scan_tile()
+        _LIB = lib
+    return _LIB
+
+
+def _launch(issue, svc, seg):
+    """Run the CUDA kernel on ``(B, N)`` CUDA tensors; returns the output
+    and :func:`launch_info`.  Raises on any failure, naming the CUDA
+    error (a refused cooperative launch among them)."""
     issue = issue.contiguous()
     svc = svc.contiguous()
     seg = seg.contiguous()
-    out = torch.empty_like(issue)
     rows, n = issue.shape
-    lib = _build.load("zns_event_scan")
+    lib = _lib()
+    tiles = rows * -(-n // lib.tile)
+    # one allocation: the output, then the per-tile aggregates
+    buf = torch.empty(rows * n + 2 * tiles, dtype=issue.dtype,
+                      device=issue.device)
+    out, agg = buf[:rows * n].view(rows, n), buf[rows * n:]
     fn = lib.zns_scan_rows_f64 if issue.dtype == torch.float64 \
         else lib.zns_scan_rows_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 3)()
     rc = fn(issue.data_ptr(), svc.data_ptr(), seg.data_ptr(),
-            out.data_ptr(), rows, n, _build.stream_handle(issue.device))
+            out.data_ptr(), agg.data_ptr(), rows, n,
+            _build.stream_handle(issue.device), info)
     if rc != 0:
-        raise RuntimeError(f"zns_event_scan kernel launch failed: CUDA "
-                           f"error {rc}")
-    return out
+        raise RuntimeError(f"zns_event_scan kernel launch failed: "
+                           f"{lib.zns_scan_error(rc).decode()} (CUDA "
+                           f"error {rc})")
+    return out, launch_info(info)
 
 
 def zns_event_scan_batched(issue: torch.Tensor, svc: torch.Tensor,
@@ -109,12 +142,13 @@ def zns_event_scan_batched(issue: torch.Tensor, svc: torch.Tensor,
     check_inputs(issue, svc, seg, 2)
     if not issue.is_cuda:
         return rows_maxplus_torch(issue, svc, seg)
-    out = _launch(issue, svc, seg)
+    out, zns_event_scan_batched.last_launch = _launch(issue, svc, seg)
     zns_event_scan_batched.launches += 1
     return out
 
 
 zns_event_scan_batched.launches = 0
+zns_event_scan_batched.last_launch = None
 
 
 def zns_event_scan(issue: torch.Tensor, svc: torch.Tensor,
@@ -124,9 +158,11 @@ def zns_event_scan(issue: torch.Tensor, svc: torch.Tensor,
     check_inputs(issue, svc, seg, 1)
     if not issue.is_cuda:
         return rows_maxplus_torch(issue[None], svc[None], seg[None])[0]
-    out = _launch(issue[None], svc[None], seg[None])[0]
+    out, zns_event_scan.last_launch = _launch(issue[None], svc[None],
+                                              seg[None])
     zns_event_scan.launches += 1
-    return out
+    return out[0]
 
 
 zns_event_scan.launches = 0
+zns_event_scan.last_launch = None

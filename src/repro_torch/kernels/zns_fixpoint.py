@@ -9,7 +9,9 @@ active-set mask over the block adjacency skips converged blocks, and the
 solve stops once no block is active.
 
 * :func:`zns_fixpoint` launches ``csrc/zns_fixpoint.cu`` for CUDA
-  tensors (float32 or float64); it replaces the TPU kernel
+  tensors (float32 or float64): one persistent cooperative launch a
+  solve, which runs the sweeps, the active set and the early exit on the
+  device and returns once no block is active.  It replaces the TPU kernel
   ``src/repro/kernels/zns_fixpoint.py::zns_fixpoint``.
 * :func:`zns_fixpoint_torch` is the plain version of the same loop
   (``_fixpoint_core`` of the reference).  The wrapper uses it only for
@@ -30,7 +32,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .zns_event_scan import NEG_INF, pad_value, rows_maxplus_torch  # noqa: F401
+from .zns_event_scan import (NEG_INF, launch_info, pad_value,  # noqa: F401
+                             rows_maxplus_torch)
 
 #: Progress thresholds of the float32 early-exit test (looser than the
 #: float64 1e-12 / 1e-9).
@@ -81,16 +84,18 @@ class PackedBlocks:
     """Family blocks of one program, packed for the fixpoint.
 
     ``gidx`` (int32) and ``heads`` (bool) hold every block's rows view
-    back to back; ``shapes[f] = (offset, R, L)`` locates block ``f``.
-    Padding lanes index the dead slot ``n``.  ``adj`` is the host
-    adjacency, ``adj_dev`` the same matrix as uint8 on the blocks'
-    device.
+    back to back; ``shapes[f] = (offset, R, L)`` locates block ``f``, and
+    ``table`` holds the same triples as an int64 ``(F, 3)`` tensor on the
+    blocks' device.  Padding lanes index the dead slot ``n``.  ``adj`` is
+    the host adjacency, ``adj_dev`` the same matrix as uint8 on the
+    blocks' device.
     """
 
     n: int
     gidx: torch.Tensor
     heads: torch.Tensor
     shapes: Tuple[Tuple[int, int, int], ...]
+    table: torch.Tensor
     adj: np.ndarray
     adj_dev: torch.Tensor
 
@@ -140,8 +145,10 @@ def pack_blocks(blocks: Sequence, n: int, device,
         n=int(n),
         gidx=torch.from_numpy(cat(gs, np.int32)).to(device),
         heads=torch.from_numpy(cat(hs, bool)).to(device),
-        shapes=tuple(shapes), adj=adj,
-        adj_dev=torch.from_numpy(adj.astype(np.uint8)).to(device))
+        shapes=tuple(shapes),
+        table=torch.tensor(shapes, dtype=torch.int64).reshape(-1, 3).to(
+            device),
+        adj=adj, adj_dev=torch.from_numpy(adj.astype(np.uint8)).to(device))
 
 
 def _extend(comp0: torch.Tensor, svc: torch.Tensor):
@@ -220,41 +227,70 @@ def check_inputs(comp0, svc, blocks) -> None:
                          f"{svc.device}, blocks on {blocks.device}")
 
 
+_LIB = None
+
+
+def _lib():
+    """The built library, its C signatures set once."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("zns_fixpoint")
+        for fn in (lib.zns_fixpoint_f32, lib.zns_fixpoint_f64):
+            fn.argtypes = [ctypes.c_void_p] * 6 + [
+                ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_longlong] \
+                + [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+        lib.zns_fixpoint_error.restype = ctypes.c_char_p
+        lib.tile = lib.zns_fixpoint_tile()
+        _LIB = lib
+    return _LIB
+
+
 def zns_fixpoint(comp0: torch.Tensor, svc: torch.Tensor,
                  blocks: PackedBlocks, *, sweeps: int = 8
                  ) -> Tuple[torch.Tensor, int, bool]:
     """Fused Gauss–Seidel fixpoint; returns ``(comp (n,), sweeps_used,
-    converged)``.  CUDA tensors launch the kernel (every sweep enqueued
-    on the current stream, one device-to-host read at the end); CPU
-    tensors run :func:`zns_fixpoint_torch`."""
+    converged)``.  CUDA tensors launch the kernel once (the whole solve
+    on the current stream; the library waits for it and reads its sweep
+    count and active set back, and the wrapper launches no other device
+    kernel); CPU tensors run :func:`zns_fixpoint_torch`.  A refused
+    cooperative launch raises ``RuntimeError`` naming the CUDA error."""
     check_inputs(comp0, svc, blocks)
     if not comp0.is_cuda:
         return zns_fixpoint_torch(comp0, svc, blocks, sweeps=sweeps)
     n = comp0.shape[0]
     nf = len(blocks.shapes)
-    comp, svc_ext = _extend(comp0.contiguous(), svc.contiguous())
-    state = torch.zeros(2 + 3 * nf, dtype=torch.int32, device=comp.device)
+    comp0 = comp0.contiguous()
+    svc = svc.contiguous()
+    lib = _lib()
     table = (ctypes.c_longlong * max(3 * nf, 1))(
         *[v for shape in blocks.shapes for v in shape])
-    lib = _build.load("zns_fixpoint")
-    fn = lib.zns_fixpoint_f64 if comp.dtype == torch.float64 \
+    # the largest block's tile count (at least 1), as the library sizes it
+    most = max([1] + [r * -(-l // lib.tile) for _, r, l in blocks.shapes])
+    # one allocation: the completions, the per-tile aggregates, and the
+    # int32 state in the words after them
+    words = -(-(2 + nf) * 4 // comp0.element_size())
+    buf = torch.empty(n + 1 + 2 * most + words, dtype=comp0.dtype,
+                      device=comp0.device)
+    comp, agg = buf[:n + 1], buf[n + 1:n + 1 + 2 * most]
+    state = buf[n + 1 + 2 * most:].view(torch.int32)
+    fn = lib.zns_fixpoint_f64 if comp0.dtype == torch.float64 \
         else lib.zns_fixpoint_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(comp.data_ptr(), svc_ext.data_ptr(), blocks.gidx.data_ptr(),
-            blocks.heads.data_ptr(), table, blocks.adj_dev.data_ptr(), nf,
-            max(int(sweeps), 1), n, state.data_ptr(),
-            _build.stream_handle(comp.device))
+    info = (ctypes.c_int * 5)()
+    rc = fn(comp.data_ptr(), comp0.data_ptr(), svc.data_ptr(),
+            blocks.gidx.data_ptr(), blocks.heads.data_ptr(),
+            blocks.table.data_ptr(), table, blocks.adj_dev.data_ptr(), nf,
+            max(int(sweeps), 1), n, agg.data_ptr(), state.data_ptr(),
+            _build.stream_handle(comp.device), info)
     if rc != 0:
-        raise RuntimeError(f"zns_fixpoint kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"zns_fixpoint kernel launch failed: "
+                           f"{lib.zns_fixpoint_error(rc).decode()} (CUDA "
+                           f"error {rc})")
     zns_fixpoint.launches += 1
-    st = state.cpu()
-    used = int(st[1])
-    converged = not bool(st[2:2 + nf].any())
-    return comp[:n], used, converged
+    zns_fixpoint.last_launch = launch_info(info)
+    return comp[:n], int(info[3]), bool(info[4])
 
 
 zns_fixpoint.launches = 0
+zns_fixpoint.last_launch = None

@@ -14,8 +14,8 @@ import torch
 
 from repro_torch import models as M
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import KiB, OpType, WorkloadSpec, ZnsDevice, \
-    compile_program
+from repro_torch.core import DeviceFleet, KiB, OpType, WorkloadSpec, \
+    ZnsDevice, compile_fleet_program, compile_program, compute_service_times
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import linear_recurrence as plr
@@ -114,6 +114,206 @@ def test_fixpoint_kernel_matches_plain_on_card(cuda_device, case, dtype):
     assert got[2] == want[2] and got[2]
     if dtype == torch.float64:
         assert got[1] == want[1]
+
+
+#: Elements a tile of the CUDA scan (``csrc/zns_event_scan.cu``).
+SCAN_TILE = 2048
+
+
+def _heads(kind, n, rng):
+    seg = np.zeros(n, dtype=bool)
+    if kind == "every":
+        seg[:] = True
+    elif kind == "tile_starts":
+        seg[::SCAN_TILE] = True
+    elif kind == "first_only":
+        seg[0] = True
+    else:
+        seg = rng.uniform(size=n) < 0.01
+    return seg
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_SCAN),
+                                       (torch.float64, F64)])
+@pytest.mark.parametrize("heads", ["every", "tile_starts", "first_only",
+                                   "random"])
+@pytest.mark.parametrize("n", [1, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1,
+                               5_000_000])
+def test_scan_kernel_tile_edges_match_plain_on_card(cuda_device, n, heads,
+                                                    dtype, tol):
+    """Rows of one element, one tile +- 1, and longer than one resident
+    round of the grid (5M elements: 2,442 tiles on 792 resident blocks);
+    heads everywhere (in float32 the -1e30 sentinel then sums over every
+    element), at tile starts only, or at element 0 only.  The 1-D call
+    equals the batched call's row bit for bit, and two calls are
+    bit-equal."""
+    rng = np.random.default_rng(n)
+    issue = np.sort(rng.uniform(0, 1e6, (2, n)), axis=-1)
+    svc = rng.uniform(1, 50, (2, n))
+    seg = np.stack([_heads("random", n, rng), _heads(heads, n, rng)])
+    args = [torch.as_tensor(x, dtype=dtype, device=cuda_device)
+            for x in (issue, svc)] + [torch.as_tensor(seg,
+                                                      device=cuda_device)]
+    got = ops.zns_event_scan_batched(*args, impl="cuda")
+    want = ops.zns_event_scan_batched(*args, impl="torch")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+    row = ops.zns_event_scan(*[a[-1] for a in args], impl="cuda")
+    assert torch.equal(row, got[-1])
+    assert torch.equal(ops.zns_event_scan(*[a[-1] for a in args],
+                                          impl="cuda"), row)
+    launch = pscan.zns_event_scan.last_launch
+    assert launch["grid"] == min(-(-n // SCAN_TILE),
+                                 launch["resident_blocks"])
+
+
+def test_scan_kernel_matches_sequential_oracle_on_card(cuda_device):
+    """Float64 against the port's sequential oracle, not the doubling
+    plain version."""
+    rng = np.random.default_rng(3)
+    issue = np.sort(rng.uniform(0, 1e5, 20_000))
+    svc = rng.uniform(1, 50, 20_000)
+    seg = rng.uniform(size=20_000) < 0.003
+    args = [torch.as_tensor(x, device=cuda_device) for x in (issue, svc, seg)]
+    got = ops.zns_event_scan(*args, impl="cuda")
+    want = ops.zns_event_scan(*[a.cpu() for a in args], impl="ref")
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **F64)
+
+
+def _contended_fleet_program():
+    """Phase 5's program of chip_smoke.py: a contended ours / nvmevirt /
+    femu fleet of multi-class append pools with resets (5 blocks)."""
+    wl = WorkloadSpec()
+    for t in range(4):
+        wl = wl.appends(n=5000, size=8 * KiB, qd=4, zone=t * 4, nzones=4)
+        wl = wl.appends(n=5000, size=64 * KiB, qd=4, zone=t * 4, nzones=4)
+    wl = wl.resets(n=200, occupancy=1.0, nzones=200, io_ctx=OpType.APPEND,
+                   zone=500)
+    fleet = DeviceFleet.from_profiles(["ours", "nvmevirt", "femu"],
+                                      device="cpu")
+    traces = fleet._lower(wl, "replicate")
+    prog = compile_fleet_program(traces, fleet.specs,
+                                 [d.lat for d in fleet.devices], jitter=True,
+                                 seeds=[0, 1, 2], cache=False)
+    svc = np.concatenate([
+        compute_service_times(traces[b], fleet.devices[b].lat,
+                              seed=b)[prog.orders[b]] for b in range(3)])
+    return prog.issue_flat, svc, [b.rows_view() for b in prog.families]
+
+
+def _chains(rows, length, start, stride):
+    """(rows, length) gather indices start + stride * k of disjoint
+    chains, heads at every row start."""
+    g = start + stride * np.arange(rows * length).reshape(rows, length)
+    h = np.zeros((rows, length), dtype=bool)
+    h[:, 0] = True
+    return g.astype(np.int32), h
+
+
+def _hand_program(case, rng):
+    """Small programs built by hand: ``one-sweep`` (two blocks over
+    disjoint slots, so no block re-activates another), ``single`` (one
+    block), ``empty-family`` (a block of zero rows between two real
+    ones, which share slots)."""
+    if case == "one-sweep":
+        n = 2 * 40 * 50
+        blocks = [_chains(40, 50, 0, 2), _chains(40, 50, 1, 2)]
+    elif case == "single":
+        n = 64 * 300
+        blocks = [_chains(64, 300, 0, 1)]
+    else:
+        n = 30 * 70
+        # rows of 70 consecutive slots, and a second block linking slot 60
+        # of rows 0-2 to slot 5 of the next row (re-activating block 0)
+        links = (70 * np.arange(3)[:, None] + [60, 75]).astype(np.int32)
+        hl = np.array([[True, False]] * 3)
+        blocks = [_chains(30, 70, 0, 1),
+                  (np.zeros((0, 5), np.int32), np.zeros((0, 5), bool)),
+                  (links, hl)]
+    issue = np.sort(rng.uniform(0, 1e4, n))
+    svc = rng.uniform(1, 50, n)
+    return issue, svc, blocks
+
+
+def _solve_both(cuda_device, issue, svc, blocks, sweeps, dtype):
+    packed = pfix.pack_blocks(blocks, len(issue), cuda_device)
+    c0 = torch.as_tensor(issue + svc, dtype=dtype, device=cuda_device)
+    s = torch.as_tensor(svc, dtype=dtype, device=cuda_device)
+    got = ops.zns_fixpoint(c0, s, packed, sweeps=sweeps, impl="cuda")
+    want = ops.zns_fixpoint(c0, s, packed, sweeps=sweeps, impl="torch")
+    tol = F64 if dtype == torch.float64 else F32_FIX
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               **tol)
+    if dtype == torch.float64:
+        assert (got[1], got[2]) == (want[1], want[2])
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fixpoint_kernel_contended_fleet_program_on_card(cuda_device, dtype):
+    """Phase 5's program at its budget of 64 sweeps: the same sweeps and
+    convergence as the plain version, converged."""
+    issue, svc, blocks = _contended_fleet_program()
+    got, want = _solve_both(cuda_device, issue, svc, blocks, 64, dtype)
+    assert got[2] and want[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["one-sweep", "single", "empty-family"])
+def test_fixpoint_kernel_hand_programs_on_card(cuda_device, case, dtype):
+    got, want = _solve_both(cuda_device,
+                            *_hand_program(case, np.random.default_rng(7)),
+                            16, dtype)
+    assert got[2]
+    if case in ("one-sweep", "single"):
+        assert got[1] == want[1] == 1
+
+
+def test_fixpoint_kernel_budget_runs_out_on_card(cuda_device):
+    """One sweep of a program that needs two: not converged, and equal to
+    the plain version's one sweep (completions, sweeps, flag)."""
+    prog = _program("readme-mix")
+    svc = prog.svc0_flat
+    blocks = [b.rows_view() for b in prog.families]
+    full, _ = _solve_both(cuda_device, prog.issue_flat, svc, blocks, 16,
+                          torch.float64)
+    assert full[1] >= 2
+    got, want = _solve_both(cuda_device, prog.issue_flat, svc, blocks, 1,
+                            torch.float64)
+    assert got[1] == 1 and not got[2] and not want[2]
+
+
+def test_fixpoint_kernel_block_counts_in_any_order_on_card(cuda_device):
+    """Solves of 5, 1, 3 and again 5 blocks in one process: each launch
+    fits its shared memory (the kernel's opt-in is not narrowed by an
+    earlier, smaller solve)."""
+    rng = np.random.default_rng(9)
+    progs = [_contended_fleet_program(), _hand_program("single", rng),
+             _hand_program("empty-family", rng)]
+    for issue, svc, blocks in progs + progs[:1]:
+        got, _ = _solve_both(cuda_device, issue, svc, blocks, 64,
+                             torch.float64)
+        assert got[2]
+
+
+@pytest.mark.parametrize("sweeps", [8, 64])
+def test_fixpoint_solve_is_one_device_kernel_on_card(cuda_device, sweeps):
+    """torch.profiler sees one device kernel a solve, whatever the sweep
+    budget (the state read back is a copy, not a kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    issue, svc, blocks = _contended_fleet_program()
+    packed = pfix.pack_blocks(blocks, len(issue), cuda_device)
+    c0 = torch.as_tensor(issue + svc, device=cuda_device)
+    s = torch.as_tensor(svc, device=cuda_device)
+    ops.zns_fixpoint(c0, s, packed, sweeps=sweeps, impl="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.zns_fixpoint(c0, s, packed, sweeps=sweeps, impl="cuda")
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(kernels) == 1 and "fp_solve_kernel" in kernels[0], kernels
 
 
 def test_device_run_matches_host_loop_on_card(cuda_device):
