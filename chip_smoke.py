@@ -14,8 +14,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    1,600,000 and 100,000 elements and (16, 100,000), also held against
    the host's sequential float64 loop and timed beside the same scan as
    ``torch.cumsum`` + ``torch.cummax`` (the library yardstick, with its
-   float64 error); the fixpoint at the programs of phases 4, 3 and 5
-   with their sweep budgets (8, 8, 64), with each solve's device
+   float64 error); the fixpoint at the programs of phases 4, 3, 5 and 13
+   with their sweep budgets (8, 8, 64, 8), with each solve's device
    kernels counted by ``torch.profiler`` (one a solve, or the script
    fails); each line gives the kernel's device time, grid and
    registers;
@@ -45,7 +45,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    (``repro_torch.core.exactness``: 3 workloads x {jitter-free,
    jittered} x the ``cols`` / ``rows`` layouts) with the ``cuda``
    driver, each exact, converged and within rtol 1e-9 / 1e-8 of the
-   event engine.
+   event engine;
+13. runs the experiment runner, ``ExperimentRunner(backend="vectorized",
+   device="cuda").run()``: all 15 paper observations as one
+   ``DeviceFleet`` call (46 members, 14 family blocks) solved by one
+   launch of the fixpoint kernel (one launch in each run, and
+   ``torch.profiler`` sees exactly one ``fp_solve_kernel`` in a run, the
+   most of 3 profiled runs), every observation passed and converged, every
+   metric within rtol 1e-9 of ``results/experiments/obs*.json``
+   (``oracle_max_rel_diff`` absolutely, <= 1e-9) and every check's name
+   and verdict the fixture's; it times the run, a second (cached) run
+   and the solve, and then runs ``python -m repro_torch.experiments run
+   --all --out build/experiments``, which must exit with 0.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``).
 Phase 2 also holds the flash-attention and RMSNorm kernels against their
@@ -71,8 +82,17 @@ logits with the kernels against those with the plain versions (atol
 0.25), phase 9 the float32 model's (atol 1e-3); phases 7, 9 and 10 print
 both differences, the bfloat16 model's distance from the float32 model,
 and the float32 model's own sensitivity (its first norm's scale moved by
-one float32 step).  Every kernel's launch counter is set to 0 just
-before each of the runs of phases 3-12 and read just after; a kernel of
+one float32 step).  Phase 10 also holds recurrentgemma-9b's first four
+blocks (rec, rec, attention, rec) one by one: each block is given the
+plain chain's input and run with the kernels and with the plain
+versions: the recurrent blocks in bfloat16 at the bfloat16 block
+tolerance of ``tests/test_torch_rglru.py`` (rtol 2e-2, atol 8e-2); the
+attention block, whose random-init logits of about 3,000 put it beyond
+that tolerance for any two implementations, in float32 against a
+float64 block, within that tolerance plus the plain float32 block's own
+largest error (its kernels-vs-plain differences are printed).  Every kernel's
+launch counter is set to 0 just before each of the runs of phases 3-13
+and read just after; a kernel of
 the path that was never launched fails the script, and phase 9 fails
 unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
 instance (``ssd_chunk_scan.mma_launches``).  The line
@@ -81,6 +101,7 @@ line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
 CUDA device or without the repository's ``src/`` beside this file.
 """
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -120,6 +141,17 @@ LR_TOL = dict(rtol=1e-3, atol=2e-3)
 
 F64 = dict(rtol=1e-12, atol=1e-9)
 F32 = dict(rtol=2e-5, atol=1e-2)
+#: Phase 10, recurrentgemma-9b's blocks one by one in bfloat16, kernels
+#: against plain versions on the same input: the block tolerance of
+#: tests/test_torch_rglru.py (a few bfloat16 steps, 2^-8 relative each).
+BF16_BLOCK_TOL = dict(rtol=2e-2, atol=8e-2)
+#: Phase 13, the experiment runner against results/experiments/obs*.json
+#: (written by the event engine): the float64 solve agrees to 1e-12 and
+#: the metrics derived from it are held at the exactness matrix's
+#: jitter-free rtol; obs14's ``oracle_max_rel_diff`` is itself a relative
+#: difference and is held absolutely at its own check's bound.
+RUNNER_RTOL = 1e-9
+RUNNER_ORACLE_ATOL = 1e-9
 
 
 def fail(msg: str) -> None:
@@ -300,6 +332,7 @@ def main() -> int:
 
     from repro_torch import models as M
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.experiments import ExperimentRunner
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import linear_recurrence as klr
@@ -483,10 +516,20 @@ def main() -> int:
     svc5 = np.concatenate([
         P.compute_service_times(traces5[b], fleet5.devices[b].lat,
                                 seed=b)[prog5.orders[b]] for b in range(3)])
+    # phase 13's program: the experiment runner's one fleet, a member per
+    # sweep point of the 15 observations, jitter-free
+    runner13 = ExperimentRunner(backend="vectorized", device=cuda)
+    fleet13, wls13, seeds13 = runner13.fleet()
+    prog13 = P.compile_fleet_program([w.build() for w in wls13],
+                                     fleet13.specs,
+                                     [d.lat for d in fleet13.devices],
+                                     seeds=seeds13, cache=False)
+    svc13 = prog13.svc0_flat
 
     for label, prog, svcp, budget in (("phase-4", prog4, svc4, 8),
                                       ("phase-3", prog3, svc3, 8),
-                                      ("phase-5", prog5, svc5, 64)):
+                                      ("phase-5", prog5, svc5, 64),
+                                      ("phase-13", prog13, svc13, 8)):
         blocks = [blk.rows_view() for blk in prog.families]
         print(f"[2] {label} program: n={prog.n_flat}, blocks "
               f"{[tuple(g.shape) for g, _ in blocks]}, sweep budget "
@@ -826,7 +869,7 @@ def main() -> int:
 
     # -- phases 7, 9, 10: greedy_generate at full width and depth -----------
     def generation_phase(phase, arch, batch, plen, max_seq, need,
-                         logits_atol, f32_atol):
+                         logits_atol, f32_atol, blocks=None):
         """The model's 2-layer smoke config in float32 first (kernels
         against plain versions, equal greedy tokens), then the published
         config from seed 0: greedy_generate (launches counted), prefill and
@@ -834,7 +877,8 @@ def main() -> int:
         kernels against those with the plain versions, in bfloat16
         (checked at ``logits_atol`` unless None) and in the float32 model
         (checked at ``f32_atol`` unless None), and against the float32
-        model's."""
+        model's.  ``blocks(cfg, params, prompt)``, when given, holds the
+        model block by block."""
         small = get_smoke_config(arch, dtype="float32", kernel_impl="cuda")
         sparams = M.init_params(small, torch.Generator(cuda).manual_seed(0),
                                 device=cuda)
@@ -952,11 +996,12 @@ def main() -> int:
         if f32_atol is not None:
             close(got32, want32, dict(rtol=0.0, atol=f32_atol),
                   f"phase {phase} float32 last logits, kernels vs plain")
+        block_errs = blocks(cfg, params, prompt) if blocks else None
         del params, logits, plain, exact, exact_plain, nudged, step_logits
         torch.cuda.empty_cache()
         return dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
                     peak_gb=peak_gb, logits_err=err, f32_err=f32_err,
-                    nudge=nudge)
+                    nudge=nudge, block_errs=block_errs)
 
     generation_phase("7", "qwen3-4b", 2, 1024, 2048,
                      ["flash_attention", "rmsnorm"], LOGITS_ATOL, None)
@@ -985,9 +1030,127 @@ def main() -> int:
           f"tensor-core instance {got9['ssd_chunk_scan.mma']} (want 48, 48)")
 
     # -- phase 10: greedy_generate on recurrentgemma-9b -----------------------
+    def attn_block64(cfg, p, x, pos):
+        """recurrentgemma's attention block in float64 from the plain
+        float32 path's q, k and v (the float32 block's own accuracy), and
+        the largest |q|, |k|, |v| and |logit|."""
+        from repro_torch.models import common as mc
+        f64 = torch.float64
+
+        def norm(w, y):
+            return y * torch.rsqrt(y.pow(2).mean(-1, keepdim=True)
+                                   + cfg.rms_eps) * (1.0 + w.to(f64))
+
+        q, k, v = mc.attn_qkv(cfg, p["attn"], mc.rmsnorm(cfg, p["ln"], x),
+                              pos)
+        bsz, t, hq, dh = q.shape
+        rep = hq // k.shape[2]
+        core = torch.empty(q.shape, dtype=f64, device=cuda)
+        kpos = torch.arange(t, device=cuda)
+        top = 0.0
+        for b in range(bsz):
+            for c0 in range(0, t, 512):
+                qc = q[b, c0:c0 + 512].to(f64)                # (c, H, Dh)
+                qpos = kpos[c0:c0 + qc.shape[0], None]
+                vis = (kpos[None] <= qpos) & (kpos[None] > qpos - cfg.window)
+                for h in range(hq):
+                    kk = k[b, :, h // rep].to(f64)
+                    s = ((qc[:, h] @ kk.T) / dh ** 0.5).masked_fill(
+                        ~vis, -float("inf"))
+                    top = max(top, float(s.abs().masked_fill(~vis, 0).max()))
+                    w = torch.softmax(s, -1)
+                    core[b, c0:c0 + qc.shape[0], h] = w @ v[b, :, h // rep].to(
+                        f64)
+        y = x.to(f64) + torch.einsum("bshk,hkd->bsd", core,
+                                     p["attn"]["wo"].to(f64))
+        z = norm(p["ln2"], y)
+        m = p["mlp"]
+        out = y + (torch.nn.functional.silu(z @ m["w_gate"].to(f64))
+                   * (z @ m["w_up"].to(f64))) @ m["w_down"].to(f64)
+        return out, [float(a.abs().max()) for a in (q, k, v)] + [top]
+
+    def rglru_blocks(cfg, params, prompt):
+        """The first four blocks (rec, rec, attention, rec) one by one,
+        each given the bfloat16 plain chain's input, with the kernels and
+        with the plain versions, held at BF16_BLOCK_TOL: the recurrent
+        blocks in bfloat16.  The attention block does not hold at that
+        tolerance for any two implementations: the random init's q, k
+        and v reach a few hundred and its logits about 3,000, so in
+        bfloat16 one rounding step of the attention output (about 2),
+        summed through the output projection, exceeds it, and in float32
+        a softmax whose two largest logits nearly tie moves with the
+        logits' rounding (the plain float32 block is itself about 0.28
+        from the float64 one).  So the attention block is held in float32
+        against the block computed in float64 from the plain path's q, k
+        and v: every element of the kernels' block within the tolerance
+        plus the plain versions' largest error.  Its kernels-vs-plain
+        differences, in float32 and bfloat16, are printed."""
+        from repro_torch.models import common as mc
+        from repro_torch.models import rglru as mr
+        plain = dataclasses.replace(cfg, kernel_impl="torch")
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        f32_plain = dataclasses.replace(f32, kernel_impl="torch")
+        group = [(f"group 0 b{i}_{kind}", kind, params.groups[0][
+            f"b{i}_{kind}"]) for i, kind in enumerate(cfg.block_pattern)]
+        kind1 = cfg.block_pattern[0]
+        group.append((f"group 1 b0_{kind1}", kind1,
+                      params.groups[1][f"b0_{kind1}"]))
+        kinds = [k for _, k, _ in group]
+        check("rec" in kinds and "attn" in kinds,
+              f"phase 10: blocks {kinds}")
+        tol = BF16_BLOCK_TOL
+        errs = []
+        with torch.inference_mode():
+            x = mc.embed_tokens(cfg, params.embed, prompt,
+                                mc.torch_dtype(cfg.dtype))
+            pos = torch.arange(prompt.shape[1], dtype=torch.int32,
+                               device=cuda).expand(*prompt.shape)
+            for name, kind, p in group:
+                if kind == "rec":
+                    got, want = (mr.rec_block(c, p, x) for c in (cfg, plain))
+                    x = want
+                    err = close(got.float().cpu().numpy(),
+                                want.float().cpu().numpy(), tol,
+                                f"phase 10 {name}, kernels vs plain")
+                    print(f"[10] {name} (rec) {tuple(got.shape)} "
+                          f"{got.dtype}: kernels vs plain max abs err "
+                          f"{err:.3e} (max |x| "
+                          f"{float(want.float().abs().max()):.3f}; {tol})")
+                    errs.append(err)
+                    continue
+                got, want = (mr.attn_block(c, p, x.float(), pos)
+                             for c in (f32, f32_plain))
+                exact, mags = attn_block64(f32_plain, p, x.float(), pos)
+                e_plain = float((want.double() - exact).abs().max())
+                e_kern = (got.double() - exact).abs()
+                excess = float((e_kern - tol["atol"] - tol["rtol"]
+                                * exact.abs()).max()) - e_plain
+                agree = ((got - want).abs() <= tol["atol"] + tol["rtol"]
+                         * want.abs()).all(-1)
+                err = float((got - want).abs().max())
+                nxt = mr.attn_block(plain, p, x, pos)
+                bf16 = mr.attn_block(cfg, p, x, pos)
+                print(f"[10] {name} (attn) {tuple(got.shape)} float32: "
+                      f"against the float64 block, kernels "
+                      f"{float(e_kern.max()):.3e}, plain {e_plain:.3e} "
+                      f"(excess over the plain error and {tol}: "
+                      f"{excess:.3e}); kernels vs plain {err:.3e}, within "
+                      f"{tol} on {int(agree.sum())}/{agree.numel()} tokens; "
+                      f"in bfloat16 kernels vs plain "
+                      f"{float((bf16 - nxt).abs().max()):.3e} (max |x| "
+                      f"{float(nxt.float().abs().max()):.3f}); max |q|, "
+                      f"|k|, |v|, |logit| {[round(a, 1) for a in mags]}")
+                check(excess <= 0, f"phase 10 {name}: the kernels' float32 "
+                                   f"block is {excess:.3e} farther from the "
+                                   f"float64 block than the plain versions' "
+                                   f"error and {tol} allow")
+                errs.append(err)
+                x = nxt
+        return errs
+
     generation_phase("10", "recurrentgemma-9b", 2, 3072, 4096,
                      ["linear_recurrence", "flash_attention", "rmsnorm"],
-                     None, None)
+                     None, None, blocks=rglru_blocks)
 
     # -- phase 11: the continuous-batching driver on mamba2-370m -------------
     zero_counts()
@@ -1024,6 +1187,115 @@ def main() -> int:
           f"{exactness.TOL_JITTER_FREE:g} jitter-free, "
           f"{exactness.TOL_JITTERED:g} jittered)")
 
+    # -- phase 13: the experiment runner ------------------------------------
+    fixtures = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "results", "experiments",
+                                              "obs*.json"))):
+        with open(path) as f:
+            data = json.load(f)
+        fixtures[data["name"]] = data
+    check(len(fixtures) == 15, f"phase 13: {len(fixtures)} fixtures")
+    zero_counts()
+    t = time.perf_counter()
+    results13 = runner13.run()
+    torch.cuda.synchronize()
+    run13_ms = (time.perf_counter() - t) * 1e3
+    read_counts("13", ["zns_fixpoint"])
+    fres13 = runner13.last_fleet
+    launch13 = dict(kfix.zns_fixpoint.last_launch)
+    cstats, sstats = fres13.compile_stats, fres13.solve_stats
+    check(len(results13) == 15, f"phase 13: {len(results13)} results")
+    check(phase_counts["13"]["zns_fixpoint"] == 1,
+          f"phase 13: {phase_counts['13']['zns_fixpoint']} fixpoint "
+          f"launches for one fleet call")
+    check(sstats.driver == "cuda" and sstats.converged,
+          f"phase 13: driver {sstats.driver}, converged {sstats.converged}")
+    worst13 = 0.0
+    for r in results13:
+        want = fixtures.get(r.name)
+        check(want is not None, f"phase 13: no fixture for {r.name}")
+        check(r.passed and r.converged and r.backend == "vectorized",
+              f"phase 13: {r.name} passed {r.passed}, converged "
+              f"{r.converged}, backend {r.backend}: "
+              f"{[str(c) for c in r.checks if not c.ok]}")
+        verdicts = [(c.name, bool(c.ok)) for c in r.checks]
+        check(verdicts == [(c["name"], c["ok"]) for c in want["checks"]],
+              f"phase 13: {r.name} checks {verdicts}")
+        check(set(r.metrics) == set(want["metrics"]),
+              f"phase 13: {r.name} metric names differ from the fixture")
+        for k, v in r.metrics.items():
+            w = want["metrics"][k]
+            if k == "oracle_max_rel_diff":
+                check(abs(v) <= RUNNER_ORACLE_ATOL,
+                      f"phase 13: {r.name} {k} = {v:.3e}")
+                continue
+            if w is None:          # the fixture's non-finite value
+                check(not np.isfinite(v), f"phase 13: {r.name} {k} = {v}")
+                continue
+            rel = abs(v - w) / abs(w) if w else abs(v)
+            check(abs(v - w) <= RUNNER_RTOL * abs(w),
+                  f"phase 13: {r.name} {k} = {v!r}, fixture {w!r} (rel "
+                  f"{rel:.3e} over {RUNNER_RTOL})")
+            worst13 = max(worst13, rel)
+    # a second run of the same selection: the compiled program is cached
+    t = time.perf_counter()
+    again = runner13.run()
+    torch.cuda.synchronize()
+    rerun13_ms = (time.perf_counter() - t) * 1e3
+    check([r.metrics for r in again] == [r.metrics for r in results13],
+          "phase 13: a second run gave other metrics")
+    # the device kernels of one whole run: exactly one fixpoint solve (the
+    # most any of 3 profiled runs recorded, as device_ms counts them: a
+    # profiled window can miss a kernel), and one launch in each run
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for _ in range(3):
+        before = kfix.zns_fixpoint.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            runner13.run()
+            torch.cuda.synchronize()
+        check(kfix.zns_fixpoint.launches == before + 1,
+              f"phase 13: {kfix.zns_fixpoint.launches - before} fixpoint "
+              f"launches in one run")
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        seen.append((sum("fp_solve_kernel" in k for k in names), len(names)))
+    n_fp, n_kern = max(seen)
+    check(n_fp == 1, f"phase 13: torch.profiler saw (fixpoint kernels, "
+                     f"device kernels) {seen} in 3 runs")
+    solve13 = solve_ms(prog13, svc13)
+    print(f"[13] experiment runner: {len(results13)}/15 observations passed "
+          f"and converged in one fleet call: {cstats.n_devices} members "
+          f"({cstats.n_unique} unique), {prog13.n_flat} requests, "
+          f"{sstats.n_blocks} blocks, {sstats.sweeps} sweeps, lowering "
+          f"{cstats.lowering_ms:.1f} ms, solve {solve13:.4f} ms; run "
+          f"{run13_ms:.1f} ms, second (cached) run {rerun13_ms:.1f} ms; "
+          f"(fixpoint, all) device kernels in 3 profiled runs {seen}; "
+          f"kernel grid {launch13['grid']} of "
+          f"{launch13['resident_blocks']} resident blocks, "
+          f"{launch13['registers']} registers; worst metric rel diff "
+          f"from the fixtures {worst13:.3e}")
+    out13 = subprocess.run(
+        [sys.executable, "-m", "repro_torch.experiments", "run", "--all",
+         "--out", os.path.join("build", "experiments")], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=600)
+    tail = [line for line in (out13.stdout + out13.stderr).splitlines()
+            if line.strip()][-2:]
+    check(out13.returncode == 0, f"phase 13: python -m "
+          f"repro_torch.experiments run --all exited with "
+          f"{out13.returncode}: {tail}")
+    print(f"[13] python -m repro_torch.experiments run --all: exit 0; "
+          f"{' '.join(tail)}")
+    report["zns_fixpoint"]["runner"] = dict(
+        members=cstats.n_devices, unique=cstats.n_unique,
+        requests=prog13.n_flat, blocks=sstats.n_blocks,
+        sweeps=sstats.sweeps, lowering_ms=cstats.lowering_ms,
+        solve_ms=solve13, run_ms=run13_ms, rerun_ms=rerun13_ms,
+        device_kernels=n_kern, **launch13)
+
     # -- report -----------------------------------------------------------------
     sources = {
         "zns_event_scan": ("src/repro_torch/csrc/zns_event_scan.cu",
@@ -1054,7 +1326,7 @@ def main() -> int:
                 "library_ms")}))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was never launched on the main path: {launches}")
-    print(f"[13] total {time.perf_counter() - t0:.1f} s")
+    print(f"[14] total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

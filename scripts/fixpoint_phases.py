@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Where one fixpoint solve spends its device time, pass by pass.
 
-    PYTHONPATH=src python scripts/fixpoint_phases.py
+    PYTHONPATH=src python scripts/fixpoint_phases.py [--source FILE.cu]
 
-Needs a CUDA card and ``nvcc``.  Builds ``csrc/zns_fixpoint.cu`` with
-``-DFP_TRACE`` (block 0 stamps ``%globaltimer`` at each grid barrier)
-into ``build/kernels/zns_fixpoint-trace/``, solves the float64 programs
-of ``chip_smoke.py`` phases 4 and 5 through the port's wrapper, and
-prints for the warm solve: the initial copy, the first barrier, and for
+Needs a CUDA card and ``nvcc``.  Builds ``csrc/zns_fixpoint.cu`` (or
+``--source``, another version of it, e.g. an earlier commit's, with the
+headers of ``csrc/``) with ``-DFP_TRACE`` (block 0 stamps
+``%globaltimer`` at each grid barrier) into
+``build/kernels/zns_fixpoint-trace-<hash>/``, solves the float64
+programs of ``chip_smoke.py`` phases 4, 5 and 13 (the experiment
+runner's fleet) through the port's wrapper, and prints for the warm
+solve: the initial copy, the first barrier, and for
 every family pass the microseconds of phase A (gather, stage, aggregate),
 barrier 1, phase B (carry, apply, store) and barrier 2, as block 0 saw
 them; then the kernel's device time from ``torch.profiler``.  The card's
 name and power limit lead the output.
 """
+import argparse
 import ctypes
+import hashlib
 import os
 import subprocess
 import sys
@@ -66,7 +71,23 @@ def contended_program():
     return prog, svc, 64
 
 
-def main() -> int:
+def runner_program():
+    """Phase 13: the experiment runner's fleet (all 15 observations)."""
+    from repro_torch.experiments import ExperimentRunner
+    fleet, workloads, seeds = ExperimentRunner(device="cpu").fleet()
+    prog = P.compile_fleet_program([w.build() for w in workloads],
+                                   fleet.specs,
+                                   [d.lat for d in fleet.devices],
+                                   seeds=seeds, cache=False)
+    return prog, prog.svc0_flat, 8
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--source", default=str(_build.CSRC / "zns_fixpoint.cu"),
+                    help="the fixpoint source to build (default: the "
+                         "package's)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fixpoint_phases: needs a CUDA device", file=sys.stderr)
         return 2
@@ -74,12 +95,15 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip())
-    out = _build.BUILD_DIR / "zns_fixpoint-trace"
+    with open(args.source, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    print(f"source {os.path.relpath(args.source, ROOT)} ({digest})")
+    out = _build.BUILD_DIR / f"zns_fixpoint-trace-{digest}"
     out.mkdir(parents=True, exist_ok=True)
     lib_path = out / "libzns_fixpoint.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DFP_TRACE", "-o",
-                    str(lib_path), str(_build.CSRC / "zns_fixpoint.cu")],
-                   check=True, capture_output=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DFP_TRACE",
+                    "-I", str(_build.CSRC), "-o", str(lib_path),
+                    args.source], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     _build._LIBS["zns_fixpoint"] = lib       # the wrapper loads this build
     kfix._LIB = None
@@ -88,16 +112,25 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for name, (prog, svc, budget) in (("phase 4", fleet_program()),
-                                      ("phase 5", contended_program())):
+                                      ("phase 5", contended_program()),
+                                      ("phase 13", runner_program())):
         packed = kfix.pack_blocks([b.rows_view() for b in prog.families],
                                   prog.n_flat, cuda)
         c0 = torch.as_tensor(prog.issue_flat + svc, device=cuda)
         s = torch.as_tensor(svc, device=cuda)
         log = []
         kfix.zns_fixpoint_torch(c0, s, packed, sweeps=budget, active_log=log)
+        want = kfix.zns_fixpoint_torch(c0, s, packed, sweeps=budget)
         ops.zns_fixpoint(c0, s, packed, sweeps=budget, impl="cuda")
         used = ops.zns_fixpoint(c0, s, packed, sweeps=budget, impl="cuda")
         lib.fp_trace_read(stamps)
+        err = float(((used[0] - want[0]).abs()
+                     / want[0].abs().clamp_min(1.0)).max())
+        if (used[1], used[2]) != (want[1], want[2]) or err > 1e-12:
+            print(f"{name}: the kernel disagrees with its plain version "
+                  f"(sweeps {used[1]} / {want[1]}, converged {used[2]} / "
+                  f"{want[2]}, max rel err {err:.3e})", file=sys.stderr)
+            return 1
         passes = sum(len(x) for x in log)
         t = [stamps[i] for i in range(3 + 4 * passes)]
         d = [(t[i + 1] - t[i]) / 1e3 for i in range(len(t) - 1)]
@@ -117,7 +150,19 @@ def main() -> int:
         dev = [e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and "fp_solve" in e.name]
-        print(f"  kernel device time (torch.profiler): {dev} us")
+        times = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            ops.zns_fixpoint(c0, s, packed, sweeps=budget, impl="cuda")
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        print(f"  kernel device time (torch.profiler): {dev} us; wrapper "
+              f"call (CUDA events, median of 5) "
+              f"{sorted(times)[2] * 1e3:.1f} us; max rel err against the "
+              f"plain version {err:.3e}")
     return 0
 
 

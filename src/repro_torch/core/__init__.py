@@ -1,11 +1,12 @@
 """Core: the calibrated ZNS device model (zone state machine + latency
-model + event engine) and its chain-program solver, ported to PyTorch.
+model + event engine), its chain-program solver, and the
+conventional-SSD GC baseline it is compared against, ported to PyTorch.
 Lowering runs on the host in numpy; solves run on the selected device
 (``device=``, CUDA by default)."""
 from .spec import (  # noqa: F401
     KiB, MiB, GiB,
     ConvDeviceSpec, LBAFormat, OpType, Stack, ZNSDeviceSpec, ZoneState,
-    SN640, ZN540, spec_from_dict,
+    SN640, ZN540, conv_spec_from_dict, spec_from_dict,
 )
 from .state_machine import ZoneError, ZoneManager, transition_array  # noqa: F401
 from .latency import (  # noqa: F401
@@ -27,6 +28,7 @@ from .chain_program import (  # noqa: F401
     program_chains, set_program_cache_dir, solve_program,
     unjustified_slots, verify_fixpoint,
 )
+from .conventional import ConventionalSSD, zns_write_pressure_series  # noqa: F401
 from .metrics import (  # noqa: F401
     LatencyStats, available_metrics, bandwidth_bytes, extract_metrics, iops,
     register_metric, slo_violations, throughput_timeseries,
@@ -39,7 +41,8 @@ from .arrival import (  # noqa: F401
 from .workload import StreamSpec, WorkloadSpec  # noqa: F401
 from .fleet import batched_sequential_completions, simulate_fleet_vectorized  # noqa: F401
 from .device import (  # noqa: F401
-    DeviceFleet, FleetRunResult, RunResult, ZnsDevice, available_backends,
-    register_backend, unregister_backend,
+    ConvDevice, DeviceFleet, FleetRunResult, PressureResult, RunResult,
+    ZnsDevice, available_backends, available_pressure_backends,
+    register_backend, register_pressure_backend, unregister_backend,
 )
-from . import calibration, emulator_models  # noqa: F401
+from . import calibration, emulator_models, workloads  # noqa: F401

@@ -1,4 +1,5 @@
-"""Unified device-session API: ``ZnsDevice`` / ``DeviceFleet`` facades.
+"""Unified device-session API: ``ZnsDevice`` / ``ConvDevice`` /
+``DeviceFleet`` facades.
 
 The paper's artifact is a calibrated ZN540 performance model; this module
 is its single entry point.  A :class:`ZnsDevice` owns the device spec, the
@@ -28,7 +29,12 @@ Third parties can add backends with :func:`register_backend`.
 the default raises, and ``device="cpu"`` runs the plain versions.
 :class:`DeviceFleet` scales the same session API to N heterogeneous
 devices: all members' traces lower into one program and solve as one
-fixpoint (`repro_torch.core.fleet`).
+fixpoint (`repro_torch.core.fleet`).  :class:`ConvDevice` exposes the
+conventional-SSD (SN640) baseline through the same facade, with its
+write-pressure path registered on the shared pressure-backend registry
+(:func:`register_pressure_backend`) returning the same
+:class:`PressureResult` type.  The pressure scenarios are closed-form
+host numpy and never touch the session's device.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ import numpy as np
 
 from .chain_program import CompileStats, SolveStats, last_compile_stats, \
     last_solve_stats
+from .conventional import ConventionalSSD, PressureResult, \
+    zns_write_pressure_series
 from .engine import (
     SimResult, SteadyStateResult, ThroughputModel, Trace, simulate,
     simulate_vectorized, zone_sequential_completions,
@@ -48,7 +56,8 @@ from .fleet import batched_sequential_completions, simulate_fleet_vectorized
 from .latency import LatencyModel, LatencyParams, stack_latency_params
 from .metrics import LatencyStats, bandwidth_bytes, extract_metrics, iops, \
     throughput_timeseries
-from .spec import LBAFormat, OpType, Stack, ZNSDeviceSpec
+from .spec import ConvDeviceSpec, LBAFormat, MiB, OpType, Stack, \
+    ZNSDeviceSpec
 from .state_machine import ZoneManager
 from .torch_device import DEFAULT_DEVICE, resolve_device
 from .workload import WorkloadSpec
@@ -199,10 +208,13 @@ class RunResult:
 
 
 # ---------------------------------------------------------------------------
-# Backend registry (trace simulation)
+# Backend registries (trace simulation + write-pressure scenarios)
 # ---------------------------------------------------------------------------
 BackendFn = Callable[..., SimResult]
 _BACKENDS: Dict[str, BackendFn] = {}
+
+PressureBackendFn = Callable[..., PressureResult]
+_PRESSURE_BACKENDS: Dict[str, PressureBackendFn] = {}
 
 
 def _register_into(registry: Dict, what: str, name: str, fn, replace: bool):
@@ -244,6 +256,15 @@ def register_backend(name: str, fn: Optional[BackendFn] = None, *,
     return _register_into(_BACKENDS, "backend", name, fn, replace)
 
 
+def register_pressure_backend(name: str,
+                              fn: Optional[PressureBackendFn] = None, *,
+                              replace: bool = False):
+    """Register a write-pressure scenario backend ``fn(device, *,
+    rate_mibs, duration_s, bin_s, ...) -> PressureResult``."""
+    return _register_into(_PRESSURE_BACKENDS, "pressure backend", name, fn,
+                          replace)
+
+
 def unregister_backend(name: str) -> None:
     """Remove a backend; ``"auto"`` degrades gracefully (see
     :func:`_resolve_backend`)."""
@@ -252,6 +273,17 @@ def unregister_backend(name: str) -> None:
 
 def available_backends() -> tuple:
     return tuple(sorted(_BACKENDS))
+
+
+def available_pressure_backends() -> tuple:
+    return tuple(sorted(_PRESSURE_BACKENDS))
+
+
+def _run_pressure(dev, backend: str, **kw) -> PressureResult:
+    if backend not in _PRESSURE_BACKENDS:
+        raise KeyError(f"unknown pressure backend {backend!r}; "
+                       f"available: {available_pressure_backends()}")
+    return _PRESSURE_BACKENDS[backend](dev, **kw)
 
 
 @register_backend("event")
@@ -404,6 +436,14 @@ class ZnsDevice:
         return self.throughput.read_latency_under_write_pressure_us(
             write_utilization, qd)
 
+    def run_write_pressure(self, *, rate_mibs: float, duration_s: float = 60.0,
+                           bin_s: float = 1.0, seed: int = 0,
+                           backend: str = "zns", **opts) -> PressureResult:
+        """Fig. 6 scenario through the shared pressure-backend registry."""
+        return _run_pressure(self, backend, rate_mibs=rate_mibs,
+                             duration_s=duration_s, bin_s=bin_s, seed=seed,
+                             **opts)
+
     # -- kernels -------------------------------------------------------------
     def sequential_completions(self, issue, svc, segment_starts, *,
                                backend: str = "auto"):
@@ -416,6 +456,63 @@ class ZnsDevice:
 
     def __repr__(self) -> str:
         return f"ZnsDevice({self.spec.name}, zones={self.spec.num_zones})"
+
+
+@register_pressure_backend("zns")
+def _zns_pressure_backend(dev: "ZnsDevice", *, rate_mibs: float,
+                          duration_s: float = 60.0, bin_s: float = 1.0,
+                          seed: int = 0) -> PressureResult:
+    """ZNS side of the Fig. 6 scenario: flat writes, stable reads."""
+    if not isinstance(dev, ZnsDevice):
+        raise TypeError(f"pressure backend 'zns' needs a ZnsDevice, got "
+                        f"{type(dev).__name__}")
+    t, w = zns_write_pressure_series(rate_mibs=rate_mibs,
+                                     duration_s=duration_s, bin_s=bin_s,
+                                     seed=seed)
+    u = rate_mibs / (dev.spec.peak_write_bw_bytes / MiB)
+    mean, p95 = dev.read_latency_under_write_pressure_us(u)
+    return PressureResult(t_s=t, write_mibs=w, read_lat_mean_us=mean,
+                          read_lat_p95_us=p95)
+
+
+# ---------------------------------------------------------------------------
+# Conventional-SSD facade (§III-F baseline)
+# ---------------------------------------------------------------------------
+class ConvDevice:
+    """Conventional (non-zoned) SSD session sharing the ZnsDevice shape
+    (host numpy; no solve runs on a device)."""
+
+    def __init__(self, spec: Optional[ConvDeviceSpec] = None, *,
+                 seed: int = 0):
+        self.spec = spec if spec is not None else ConvDeviceSpec()
+        self.model = ConventionalSSD(self.spec, seed=seed)
+        self.lat = self.model.lat
+
+    def write_amplification(self, utilization: float) -> float:
+        return self.model.write_amplification(utilization)
+
+    def run_write_pressure(self, *, rate_mibs: float, duration_s: float = 60.0,
+                           bin_s: float = 1.0, backend: str = "conventional",
+                           **opts) -> PressureResult:
+        return _run_pressure(self, backend, rate_mibs=rate_mibs,
+                             duration_s=duration_s, bin_s=bin_s, **opts)
+
+    def __repr__(self) -> str:
+        return f"ConvDevice({self.spec.name})"
+
+
+@register_pressure_backend("conventional")
+def _conv_pressure_backend(dev: "ConvDevice", *, rate_mibs: float,
+                           duration_s: float = 60.0, utilization: float = 0.85,
+                           read_qd: int = 32, bin_s: float = 1.0,
+                           seed: int = 0) -> PressureResult:
+    """FTL-GC baseline (Fig. 6a sawtooth + Obs#11 read inflation)."""
+    if not isinstance(dev, ConvDevice):
+        raise TypeError(f"pressure backend 'conventional' needs a "
+                        f"ConvDevice, got {type(dev).__name__}")
+    return dev.model.simulate_write_pressure(
+        rate_mibs=rate_mibs, duration_s=duration_s, utilization=utilization,
+        read_qd=read_qd, bin_s=bin_s)
 
 
 # ---------------------------------------------------------------------------

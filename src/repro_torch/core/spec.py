@@ -128,5 +128,17 @@ def spec_from_dict(d) -> ZNSDeviceSpec:
     return ZNSDeviceSpec(**kw)
 
 
+
+def conv_spec_from_dict(d) -> ConvDeviceSpec:
+    """Build a :class:`ConvDeviceSpec` from a ``{field: value}`` mapping,
+    as :func:`spec_from_dict` does for the ZNS spec."""
+    names = {f.name for f in dataclasses.fields(ConvDeviceSpec)}
+    if set(d) != names:
+        raise ValueError(f"conventional spec fields: missing "
+                         f"{sorted(names - set(d))}, unexpected "
+                         f"{sorted(set(d) - names)}")
+    return ConvDeviceSpec(**d)
+
+
 ZN540 = ZNSDeviceSpec()
 SN640 = ConvDeviceSpec()

@@ -23,10 +23,14 @@
 // family are independent (every real index appears at most once in a
 // block), so a family pass is the tiled scan of maxplus.cuh over all of
 // the family's tiles at once, in tiles of 512 threads x 4 lanes (2 blocks
-// an SM, 540K lanes a round on 132 SMs): phase A gathers each tile and
-// stages its maps, its gathered completions and its indices in shared
-// memory (56 KB a block in float64; in registers they would spill), grid
-// barrier, phase B composes the carry, stores max(cur, c) on real lanes
+// an SM, 540K lanes a round on 132 SMs).  A row longer than a tile spans
+// several; shorter rows pack TILE / L to a tile (fp_shape), each row's
+// first lane made a segment head so that no carry crosses rows: a family
+// of many short chains (33,094 rows of one lane in the experiment
+// runner's program) takes a few tiles, not a tile a row.  Phase A gathers
+// each tile and stages its maps, its gathered completions and its indices
+// in shared memory (56 KB a block in float64; in registers they would
+// spill), grid barrier, phase B composes the carry, stores max(cur, c) on real lanes
 // without atomics (only where it grew: the stores are scattered too) and
 // ORs the movement test into one flag tagged with the pass number (no
 // reset pass), grid barrier.  Every block then applies the adjacency
@@ -67,6 +71,34 @@ struct FpSolve {
   int sweeps;               // the sweep budget
 };
 
+// How a block of `rows` rows of length L at offset `off` cuts into tiles:
+// a row longer than a tile spans tpr tiles; shorter rows pack rpt =
+// TILE / L to a tile.  nt: the block's tiles.
+struct FpShape {
+  long long off, rows, L;
+  long long tpr;   // tiles a row (1 when rows pack)
+  long long rpt;   // rows a tile (1 when a row spans tiles)
+  long long nt;
+};
+
+__host__ __device__ inline FpShape fp_shape(long long off, long long rows,
+                                            long long L) {
+  FpShape s;
+  s.off = off;
+  s.rows = rows;
+  s.L = L;
+  if (L >= 1 && L <= TILE) {
+    s.tpr = 1;
+    s.rpt = TILE / L;
+    s.nt = (rows + s.rpt - 1) / s.rpt;
+  } else {
+    s.tpr = (L + TILE - 1) / TILE;   // 0 for an empty row: no tile
+    s.rpt = 1;
+    s.nt = rows * s.tpr;
+  }
+  return s;
+}
+
 #define ST_USED 0    // sweeps run
 #define ST_MOVED 1   // number of the last pass that moved
 #define ST_ACTIVE 2  // F flags: blocks active after the last sweep
@@ -97,30 +129,37 @@ extern "C" int fp_trace_read(unsigned long long* out) {
 #define TRACE()
 #endif
 
-// Stage tile t of a block of rows of length L at offset off: gather each
-// lane's completion and service time, four lanes' loads in flight at a
-// time.  Lanes past the row end or on the dead slot get g = -1 and never
-// store.
+// Stage tile t of a block (its FpShape s): gather each lane's completion
+// and service time, four lanes' loads in flight at a time.  Lanes past a
+// row's end or on the dead slot get g = -1 and never store.  The rows of a
+// packed tile lie back to back, so lane i of the tile is lane i after the
+// tile's first row's start; a packed row's first lane is a segment head
+// (the carry entering a row is the sentinel, as for a row of its own).
 template <typename T>
-__device__ __forceinline__ void fp_stage(const FpSolve<T>& p, long long off,
-                                         long long L, long long tpr,
-                                         long long t, pair_t<T>* tile,
-                                         T* cur_s, int* g_s, T ninf) {
-  const long long row = t / tpr;
-  const long long base = off + row * L;
-  const long long i0 = (t - row * tpr) * TILE;
+__device__ __forceinline__ void fp_stage(const FpSolve<T>& p,
+                                         const FpShape& s, long long t,
+                                         pair_t<T>* tile, T* cur_s, int* g_s,
+                                         T ninf) {
+  const bool packed = s.rpt > 1;
+  const long long row = packed ? t * s.rpt : t / s.tpr;
+  const long long base = s.off + row * s.L;
+  const long long i0 = packed ? 0 : (t - row * s.tpr) * TILE;
+  const int Lp = packed ? (int)s.L : TILE;     // a packed row's length
 #pragma unroll
   for (int h = 0; h < ITEMS; h += 4) {
     int g[4];
-    bool head[4];
+    bool head[4], real[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const long long i = i0 + tile_pos<ITEMS>(h + u);
+      const int pos = tile_pos<ITEMS>(h + u);
+      const long long i = i0 + pos;
+      const int r = pos / Lp;                  // the row within the tile
+      real[u] = packed ? (r < s.rpt && row + r < s.rows) : i < s.L;
       g[u] = -1;
       head[u] = false;
-      if (i < L) {
+      if (real[u]) {
         g[u] = __ldg(p.gidx + base + i);
-        head[u] = __ldg(p.heads + base + i) != 0;
+        head[u] = __ldg(p.heads + base + i) != 0 || (packed && pos == r * Lp);
       }
     }
     T cur[4], sv[4];
@@ -137,10 +176,10 @@ __device__ __forceinline__ void fp_stage(const FpSolve<T>& p, long long off,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int pos = tile_pos<ITEMS>(h + u);
-      const bool real = i0 + pos < L;
       // identity map past the row end
-      tile_put<ITEMS>(tile, h + u, real ? (head[u] ? ninf : sv[u]) : T(0),
-                      real ? (cur[u] - sv[u]) + sv[u] : ninf);
+      tile_put<ITEMS>(tile, h + u,
+                      real[u] ? (head[u] ? ninf : sv[u]) : T(0),
+                      real[u] ? (cur[u] - sv[u]) + sv[u] : ninf);
       cur_s[pos] = cur[u];
       g_s[pos] = g[u];
     }
@@ -220,15 +259,13 @@ __global__ void __launch_bounds__(THREADS, 2)
   while (used < p.sweeps && any) {
     for (int f = 0; f < p.F; ++f) {
       if (!act_now[f]) continue;
-      const long long off = __ldg(p.table + 3 * f);
-      const long long rows = __ldg(p.table + 3 * f + 1);
-      const long long L = __ldg(p.table + 3 * f + 2);
-      const long long tpr = (L + TILE - 1) / TILE;
-      const long long nt = rows * tpr;
-      if (nt == 0) continue;                // an empty block never moves
+      const FpShape s = fp_shape(__ldg(p.table + 3 * f),
+                                 __ldg(p.table + 3 * f + 1),
+                                 __ldg(p.table + 3 * f + 2));
+      if (s.nt == 0) continue;              // an empty block never moves
       long long held = -1;
-      for (long long t = blockIdx.x; t < nt; t += gridDim.x) {
-        fp_stage(p, off, L, tpr, t, tile, cur_s, g_s, ninf);
+      for (long long t = blockIdx.x; t < s.nt; t += gridDim.x) {
+        fp_stage(p, s, t, tile, cur_s, g_s, ninf);
         T ta, tb;
         tile_aggregate<THREADS, ITEMS>(tile, ta, tb, sh_a, sh_b);
         if (threadIdx.x == 0) {
@@ -244,13 +281,13 @@ __global__ void __launch_bounds__(THREADS, 2)
       if (held >= 0) {
         // the last tile is still staged; the block's earlier ones are
         // gathered again (no other tile of the block writes their lanes)
-        moved = fp_finish(p, tpr, held, tile, cur_s, g_s, sh_a, sh_b, sh_c,
-                          ninf, one_plus_rtol, atol);
+        moved = fp_finish(p, s.tpr, held, tile, cur_s, g_s, sh_a, sh_b,
+                          sh_c, ninf, one_plus_rtol, atol);
         for (long long t = blockIdx.x; t < held; t += gridDim.x) {
           __syncwarp();
-          fp_stage(p, off, L, tpr, t, tile, cur_s, g_s, ninf);
-          moved |= fp_finish(p, tpr, t, tile, cur_s, g_s, sh_a, sh_b, sh_c,
-                             ninf, one_plus_rtol, atol);
+          fp_stage(p, s, t, tile, cur_s, g_s, ninf);
+          moved |= fp_finish(p, s.tpr, t, tile, cur_s, g_s, sh_a, sh_b,
+                             sh_c, ninf, one_plus_rtol, atol);
         }
       }
       if (__syncthreads_or(moved) && threadIdx.x == 0)
@@ -324,8 +361,8 @@ static int run_fixpoint(void* comp, const void* comp0, const void* svc,
   if (err) return err;
   long long most = 0;
   for (int f = 0; f < F; ++f) {
-    const long long nt = table[3 * f + 1] * ((table[3 * f + 2] + TILE - 1)
-                                             / TILE);
+    const long long nt =
+        fp_shape(table[3 * f], table[3 * f + 1], table[3 * f + 2]).nt;
     if (nt > most) most = nt;
   }
   const int grid = most < 1 ? 1 : (most < cap ? (int)most : cap);

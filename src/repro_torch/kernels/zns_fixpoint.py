@@ -227,6 +227,18 @@ def check_inputs(comp0, svc, blocks) -> None:
                          f"{svc.device}, blocks on {blocks.device}")
 
 
+def block_tiles(rows: int, length: int, tile: int) -> int:
+    """Tiles of ``tile`` lanes the CUDA kernel cuts a ``(rows, length)``
+    block into, as its ``fp_shape`` does: a row longer than a tile spans
+    ``ceil(length / tile)`` tiles; shorter rows pack ``tile // length`` to
+    a tile."""
+    if length < 1:
+        return 0
+    if length <= tile:
+        return -(-rows // (tile // length))
+    return rows * -(-length // tile)
+
+
 _LIB = None
 
 
@@ -266,8 +278,8 @@ def zns_fixpoint(comp0: torch.Tensor, svc: torch.Tensor,
     lib = _lib()
     table = (ctypes.c_longlong * max(3 * nf, 1))(
         *[v for shape in blocks.shapes for v in shape])
-    # the largest block's tile count (at least 1), as the library sizes it
-    most = max([1] + [r * -(-l // lib.tile) for _, r, l in blocks.shapes])
+    most = max([1] + [block_tiles(r, l, lib.tile)
+                      for _, r, l in blocks.shapes])
     # one allocation: the completions, the per-tile aggregates, and the
     # int32 state in the words after them
     words = -(-(2 + nf) * 4 // comp0.element_size())

@@ -336,12 +336,17 @@ def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels\n"
             "import repro_torch.models, repro_torch.serve\n"
             "import repro_torch.launch.serve, repro_torch.configs\n"
+            "import repro_torch.host, repro_torch.experiments\n"
+            "import repro_torch.experiments.__main__\n"
+            "import torch\n"
+            "assert not torch.cuda.is_available()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
             "print(bad)\n"
             "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=src)
+    # a host without CUDA: importing needs no device
+    env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -268,6 +268,35 @@ def test_fixpoint_kernel_hand_programs_on_card(cuda_device, case, dtype):
         assert got[1] == want[1] == 1
 
 
+#: Block shapes around the fixpoint kernel's 2,048-lane tile: rows of up
+#: to a tile pack ``2048 // L`` to a tile, longer rows span tiles.
+PACKED_SHAPES = ((5000, 1), (3000, 2), (1000, 3), (77, 5), (9, 700),
+                 (5, 1023), (4, 1024), (3, 1025), (2, 2047), (2, 2048),
+                 (2, 2049), (1, 4097))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fixpoint_kernel_packed_rows_on_card(cuda_device, dtype):
+    """Blocks of every shape around the tile, each over its own slots in
+    a random order, with random segment heads (a row's first lane not
+    always one): the kernel packs the short rows, and its completions,
+    sweeps and convergence equal the plain version's.  (The runner's
+    program, above, has packed blocks that re-activate each other.)"""
+    rng = np.random.default_rng(17)
+    blocks, n = [], 0
+    for rows, length in PACKED_SHAPES:
+        g = n + rng.permutation(rows * length).reshape(rows, length)
+        n += rows * length
+        blocks.append((g.astype(np.int32),
+                       rng.uniform(size=(rows, length)) < 0.05))
+    issue = np.sort(rng.uniform(0, 1e5, n))
+    svc = rng.uniform(1, 50, n)
+    got, want = _solve_both(cuda_device, issue, svc, blocks, 64, dtype)
+    assert got[2] and want[2]
+    assert pfix.zns_fixpoint.last_launch["grid"] == max(
+        pfix.block_tiles(r, l, 2048) for r, l in PACKED_SHAPES)
+
+
 def test_fixpoint_kernel_budget_runs_out_on_card(cuda_device):
     """One sweep of a program that needs two: not converged, and equal to
     the plain version's one sweep (completions, sweeps, flag)."""
@@ -753,3 +782,90 @@ def test_recurrent_greedy_generate_kernels_match_plain_on_card(cuda_device,
     lw, _ = M.prefill(plain, params, prompt, 64)
     np.testing.assert_allclose(lg.cpu().numpy(), lw.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# -- the experiment runner on the card ---------------------------------------------
+#: The runner against the fixtures of results/experiments (written by the
+#: event engine): float64 solves agree to 1e-12, the metrics derived from
+#: them are held at the exactness matrix's jitter-free rtol; obs14's
+#: ``oracle_max_rel_diff`` is itself a relative difference, held
+#: absolutely at the bound of its own check.
+RUNNER_RTOL = 1e-9
+RUNNER_ORACLE_ATOL = 1e-9
+
+
+def _fixture_results():
+    import glob
+    import json
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {}
+    for path in glob.glob(os.path.join(root, "results", "experiments",
+                                       "obs*.json")):
+        with open(path) as f:
+            data = json.load(f)
+        out[data["name"]] = data
+    return out
+
+
+def test_experiment_runner_matches_fixtures_on_card(cuda_device):
+    """All 15 observations in one fleet call on the CUDA fixpoint: one
+    kernel launch, every check passed with the fixture's verdicts, every
+    metric within rtol 1e-9 of the fixture."""
+    from repro_torch.experiments import ExperimentRunner
+    fixtures = _fixture_results()
+    runner = ExperimentRunner(backend="vectorized", device=cuda_device)
+    before = pfix.zns_fixpoint.launches
+    results = runner.run()
+    assert pfix.zns_fixpoint.launches == before + 1
+    stats = runner.last_fleet.solve_stats
+    assert stats.driver == "cuda" and stats.converged
+    assert stats.n_blocks == 14
+    assert len(results) == 15 == len(fixtures)
+    for r in results:
+        want = fixtures[r.name]
+        assert r.backend == "vectorized" and r.passed and r.converged
+        assert [(c.name, bool(c.ok)) for c in r.checks] \
+            == [(c["name"], c["ok"]) for c in want["checks"]]
+        assert set(r.metrics) == set(want["metrics"])
+        for k, v in r.metrics.items():
+            if k == "oracle_max_rel_diff":
+                assert abs(v) <= RUNNER_ORACLE_ATOL
+            else:
+                np.testing.assert_allclose(v, want["metrics"][k],
+                                           rtol=RUNNER_RTOL, atol=0,
+                                           err_msg=f"{r.name}: {k}")
+
+
+def _runner_program():
+    from repro_torch.experiments import ExperimentRunner
+    fleet, workloads, seeds = ExperimentRunner(device="cpu").fleet()
+    prog = compile_fleet_program([w.build() for w in workloads],
+                                 fleet.specs, [d.lat for d in fleet.devices],
+                                 seeds=seeds, cache=False)
+    return prog.issue_flat, prog.svc0_flat, [b.rows_view()
+                                             for b in prog.families]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fixpoint_kernel_runner_program_on_card(cuda_device, dtype):
+    """The runner's fleet program (46 members, 14 blocks, many short
+    chains) at the runner's budget of 8 sweeps: the same sweeps and
+    convergence as the plain version on the card, converged."""
+    issue, svc, blocks = _runner_program()
+    assert len(blocks) == 14
+    got, want = _solve_both(cuda_device, issue, svc, blocks, 8, dtype)
+    assert got[2] and want[2]
+
+
+def test_fixpoint_kernel_14_blocks_between_3_block_solves_on_card(
+        cuda_device):
+    """A 3-block solve, the runner's 14-block solve, and a 3-block solve
+    again in one process: the dynamic shared memory grows with the block
+    count, and neither solve narrows the other's opt-in."""
+    small = _hand_program("empty-family", np.random.default_rng(9))
+    assert len(small[2]) == 3
+    for issue, svc, blocks in (small, _runner_program(), small):
+        got, _ = _solve_both(cuda_device, issue, svc, blocks, 8,
+                             torch.float64)
+        assert got[2]

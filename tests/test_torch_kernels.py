@@ -209,3 +209,18 @@ def test_pack_blocks_validates():
         pfix.pack_blocks([(g, h[:, :2])], 5, "cpu")
     packed = pfix.pack_blocks([(g, h)], 5, "cpu")
     assert packed.gidx.dtype == torch.int32 and packed.shapes == ((0, 1, 3),)
+
+
+@pytest.mark.parametrize("rows,length,tiles", [
+    (33_094, 1, 17),          # one-lane chains pack 2,048 to a tile
+    (192, 79, 8),             # 25 rows a tile
+    (5, 2048, 5),             # a row fills a tile
+    (4, 1025, 4),             # one row a tile
+    (16, 50_000, 400),        # a row spans 25 tiles
+    (3, 0, 0), (0, 7, 0),     # empty blocks take no tile
+])
+def test_fixpoint_block_tiles(rows, length, tiles):
+    """How the CUDA fixpoint cuts a block into tiles of 2,048 lanes (its
+    grid is the largest block's count, and its scratch two values a
+    tile)."""
+    assert pfix.block_tiles(rows, length, 2048) == tiles
