@@ -18,7 +18,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    with their sweep budgets (8, 8, 64, 8), with each solve's device
    kernels counted by ``torch.profiler`` (one a solve, or the script
    fails); each line gives the kernel's device time, grid and
-   registers;
+   registers; and the stacked fixpoint (``zns_fixpoint_sharded``, every
+   shard of a plan in one launch) on the signature plans of phases 13
+   (16 shards) and 5 (2 shards), shard by shard against its plain
+   version and against the single-program kernel (completions, sweeps,
+   convergence), timed beside the single-program kernel on the whole
+   program;
 3. runs the README ``ZnsDevice`` quickstart (200,100 requests);
 4. runs the README fleet quickstart (16 devices, 1,600,000 events);
 5. runs a contended heterogeneous fleet (``ours`` / ``nvmevirt`` /
@@ -41,11 +46,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    window of 2,048;
 11. runs the serving driver on mamba2-370m (16 requests, batch 4,
    max_seq 128, 32 new tokens);
-12. solves the 12 non-sharded cells of the exactness matrix
+12. solves the 18 cells of the exactness matrix
    (``repro_torch.core.exactness``: 3 workloads x {jitter-free,
-   jittered} x the ``cols`` / ``rows`` layouts) with the ``cuda``
-   driver, each exact, converged and within rtol 1e-9 / 1e-8 of the
-   event engine;
+   jittered} x the ``cols`` / ``rows`` / ``sharded`` layouts) with the
+   ``cuda`` driver (the sharded cells on the ``mesh`` executor), each
+   exact, converged and within rtol 1e-9 / 1e-8 of the event engine;
 13. runs the experiment runner, ``ExperimentRunner(backend="vectorized",
    device="cuda").run()``: all 15 paper observations as one
    ``DeviceFleet`` call (46 members, 14 family blocks) solved by one
@@ -56,7 +61,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    (``oracle_max_rel_diff`` absolutely, <= 1e-9) and every check's name
    and verdict the fixture's; it times the run, a second (cached) run
    and the solve, and then runs ``python -m repro_torch.experiments run
-   --all --out build/experiments``, which must exit with 0.
+   --all --out build/experiments``, which must exit with 0;
+14. runs ``repro_torch.host.compare_policies(device="cuda")`` at scale
+   1.0: 9 (scenario, policy) combinations, 41,093 requests, as one
+   ``DeviceFleet`` call and one launch of the fixpoint kernel, every row
+   within rtol 1e-9 of the port's host ``event`` backend with the same
+   ranking; the three ``tests/golden/*__greedy-open.json`` workloads
+   reproduce (trace digest) and their completions hold on the card's
+   vectorized backend (rtol 1e-9, atol 1e-6); then ``python -m
+   repro_torch.experiments host --out build/host`` must exit with 0;
+15. solves the programs of phases 13 and 5 with ``fixpoint="sharded"``
+   (the mesh executor: one stacked launch each) against
+   ``fixpoint="cuda"`` at rtol 1e-12, and the 1,000,000-request
+   open-loop entry of ``benchmarks/mega_fleet.py``'s windowed row
+   windowed at 131,072 events (8 windows, 8 launches of the fixpoint
+   kernel) against its unwindowed ``cuda`` solve at rtol 1e-12, with
+   each one's time and peak device memory; then that one-entry program
+   with ``fixpoint="sharded"`` (a 1-shard plan: one launch of the
+   single-program kernel) against ``cuda`` at rtol 1e-12.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``).
 Phase 2 also holds the flash-attention and RMSNorm kernels against their
@@ -91,7 +113,7 @@ attention block, whose random-init logits of about 3,000 put it beyond
 that tolerance for any two implementations, in float32 against a
 float64 block, within that tolerance plus the plain float32 block's own
 largest error (its kernels-vs-plain differences are printed).  Every kernel's
-launch counter is set to 0 just before each of the runs of phases 3-13
+launch counter is set to 0 just before each of the runs of phases 3-15
 and read just after; a kernel of
 the path that was never launched fails the script, and phase 9 fails
 unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
@@ -102,6 +124,7 @@ CUDA device or without the repository's ``src/`` beside this file.
 """
 import dataclasses
 import glob
+import hashlib
 import json
 import os
 import re
@@ -152,6 +175,11 @@ BF16_BLOCK_TOL = dict(rtol=2e-2, atol=8e-2)
 #: difference and is held absolutely at its own check's bound.
 RUNNER_RTOL = 1e-9
 RUNNER_ORACLE_ATOL = 1e-9
+#: Phase 14, the host goldens (event-engine completions) against the
+#: card's vectorized backend: the reference golden test's tolerance.
+GOLDEN_TOL = dict(rtol=1e-9, atol=1e-6)
+#: Phase 15's issue-time window, as benchmarks/mega_fleet.py's windowed row.
+WINDOW_EVENTS = 131_072
 
 
 def fail(msg: str) -> None:
@@ -328,6 +356,7 @@ def main() -> int:
 
     import repro_torch.core as P
     from repro_torch.core import KiB, OpType, exactness
+    from repro_torch.core import shard as pshard
     import torch.nn.functional as F
 
     from repro_torch import models as M
@@ -368,6 +397,7 @@ def main() -> int:
         "zns_event_scan": kscan.zns_event_scan,
         "zns_event_scan_batched": kscan.zns_event_scan_batched,
         "zns_fixpoint": kfix.zns_fixpoint,
+        "zns_fixpoint_sharded": kfix.zns_fixpoint_sharded,
         "flash_attention": kfa.flash_attention,
         "rmsnorm": krms.rmsnorm,
         "ssd_chunk_scan": kssd.ssd_chunk_scan,
@@ -583,6 +613,113 @@ def main() -> int:
                 report["zns_fixpoint"] = row
             else:
                 report["zns_fixpoint"][label] = row
+
+    # -- phase 2, the stacked fixpoint: every shard of a plan in one launch --
+    def stack_inputs(prog, svcp, plan, packed, dtype):
+        """The flat (total,) init and service vectors of a plan's shards,
+        every shard's dead slot the sentinel / 0 (as the mesh executor
+        builds them)."""
+        init = np.full(packed.total, -np.inf)
+        sv = np.zeros(packed.total)
+        for sh, b in zip(plan.shards, packed.base):
+            init[b:b + len(sh.perm)] = (prog.issue_flat[sh.perm]
+                                        + svcp[sh.perm])
+            sv[b:b + len(sh.perm)] = svcp[sh.perm]
+        return (torch.as_tensor(init, dtype=dtype, device=cuda),
+                torch.as_tensor(sv, dtype=dtype, device=cuda))
+
+    for label, prog, svcp, budget in (("phase-13", prog13, svc13, 8),
+                                      ("phase-5", prog5, svc5, 64)):
+        plan = pshard.shard_program(prog)
+        packed = kfix.pack_shards(
+            [([b.rows_view() for b in sh.program.families],
+              sh.program.n_flat, P.block_adjacency(sh.program))
+             for sh in plan.shards], cuda)
+        print(f"[2] {label} signature plan: {plan.n_shards} shards, events "
+              f"{[sh.n_events for sh in plan.shards]}, blocks "
+              f"{[len(sh.program.families) for sh in plan.shards]}, "
+              f"{packed.tiles(2048)} tiles in the widest "
+              f"slot")
+        for dtype in (torch.float32, torch.float64):
+            c0, sv = stack_inputs(prog, svcp, plan, packed, dtype)
+
+            def stacked(impl, c0=c0, sv=sv, packed=packed, budget=budget):
+                return ops.zns_fixpoint_sharded(c0, sv, packed,
+                                                sweeps=budget, impl=impl)
+
+            got = stacked("cuda")
+            launch = dict(kfix.zns_fixpoint_sharded.last_launch)
+            want = stacked("torch")
+            tol = F64 if dtype == torch.float64 else F32
+            err, lanes = 0.0, 0
+            for k, (sh, b) in enumerate(zip(plan.shards, packed.base)):
+                n = len(sh.perm)
+                log = []
+                kfix.zns_fixpoint_torch(c0[b:b + n], sv[b:b + n],
+                                        packed.shard(k), sweeps=budget,
+                                        active_log=log)
+                lanes += sum(packed.shapes[k][f][1] * packed.shapes[k][f][2]
+                             for sweep in log for f in sweep)
+                one = ops.zns_fixpoint(c0[b:b + n], sv[b:b + n],
+                                       packed.shard(k), sweeps=budget,
+                                       impl="cuda")
+                for other, what in ((want[0][b:b + n], "plain version"),
+                                    (one[0], "single-program kernel")):
+                    err = max(err, close(
+                        got[0][b:b + n].cpu().numpy(), other.cpu().numpy(),
+                        tol, f"zns_fixpoint_sharded {label} {dtype} shard "
+                             f"{k} against the {what}"))
+                check(bool(got[2][k]) == bool(want[2][k]) == one[2]
+                      and one[2],
+                      f"zns_fixpoint_sharded {label} {dtype} shard {k}: "
+                      f"converged {got[2][k]}, plain {want[2][k]}, single "
+                      f"{one[2]}")
+                if dtype == torch.float64:
+                    check(got[1][k] == want[1][k] == one[1],
+                          f"zns_fixpoint_sharded {label} float64 shard {k}: "
+                          f"sweeps {got[1][k]}, plain {want[1][k]}, single "
+                          f"{one[1]}")
+            ms = time_ms(lambda: stacked("cuda"), flush=flush)
+            kms, nk = device_ms(lambda: stacked("cuda"), "fp_stack_kernel")
+            check(nk == 1, f"zns_fixpoint_sharded {label}: {nk} device "
+                           f"kernels a solve")
+            pms = time_ms(lambda: stacked("torch"), reps=3, flush=flush)
+            # the yardstick: the single-program kernel on the whole program
+            w0 = torch.as_tensor(prog.issue_flat + svcp, dtype=dtype,
+                                 device=cuda)
+            w1 = torch.as_tensor(svcp, dtype=dtype, device=cuda)
+            whole = kfix.pack_blocks([blk.rows_view()
+                                      for blk in prog.families],
+                                     prog.n_flat, cuda)
+            sms = time_ms(lambda: ops.zns_fixpoint(w0, w1, whole,
+                                                   sweeps=budget,
+                                                   impl="cuda"),
+                          flush=flush)
+            skms, _ = device_ms(lambda: ops.zns_fixpoint(
+                w0, w1, whole, sweeps=budget, impl="cuda"),
+                "fp_solve_kernel")
+            print(f"[2] zns_fixpoint_sharded {label} {dtype}: {plan.n_shards} "
+                  f"shards in one launch, sweeps {got[1].tolist()} (plain "
+                  f"{want[1].tolist()}), all converged, lanes {lanes}, max "
+                  f"abs err {err:.3e} (plain and single kernel shard by "
+                  f"shard), kernel {ms:.4f} ms (device {kms} ms, {nk} device "
+                  f"kernel a solve; grid {launch['grid']} of "
+                  f"{launch['resident_blocks']} resident blocks, "
+                  f"{launch['registers']} registers), plain {pms:.4f} ms; "
+                  f"the single-program kernel on the whole program "
+                  f"{sms:.4f} ms (device {skms} ms)")
+            if dtype != torch.float64:
+                continue
+            b, by = bound_ms(29.0 * lanes, 4.0 * lanes, "float64")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                       bound_by=by, library_ms=None, kernel_ms=kms,
+                       kernels_per_solve=nk, single_ms=sms,
+                       single_kernel_ms=skms, sweeps=got[1].tolist(), budget=budget, lanes=lanes,
+                       dtype="float64", **launch)
+            if label == "phase-13":
+                report["zns_fixpoint_sharded"] = row
+            else:
+                report["zns_fixpoint_sharded"][label] = row
 
     # -- phase 2, serving kernels: flash attention and RMSNorm --------------
     gen = torch.Generator(cuda).manual_seed(1)
@@ -1170,9 +1307,7 @@ def main() -> int:
     zero_counts()
     worst = 0.0
     for cell in cells:
-        comp, used, conv = P.solve_program(
-            cell.program, cell.svc_flat, sweeps=exactness.SWEEPS,
-            fixpoint="cuda", warn=False, device=cuda)
+        comp, used, conv = cell.solve("cuda", device=cuda)
         check(cell.program.exact, f"phase 12: {cell.name} is not exact")
         check(conv, f"phase 12: {cell.name} did not converge")
         err = cell.max_rel_err(comp)
@@ -1182,7 +1317,8 @@ def main() -> int:
     torch.cuda.synchronize()
     read_counts("12", ["zns_fixpoint"])
     print(f"[12] exactness matrix: {len(cells)} cells (scale "
-          f"{exactness.SCALE}) on the cuda driver, all exact and converged, "
+          f"{exactness.SCALE}) on the cuda driver (the sharded ones on the "
+          f"mesh executor), all exact and converged, "
           f"max rel err against the event engine {worst:.3e} (rtol "
           f"{exactness.TOL_JITTER_FREE:g} jitter-free, "
           f"{exactness.TOL_JITTERED:g} jittered)")
@@ -1296,6 +1432,191 @@ def main() -> int:
         solve_ms=solve13, run_ms=run13_ms, rerun_ms=rerun13_ms,
         device_kernels=n_kern, **launch13)
 
+    # -- phase 14: host scenarios x placement policies on the card -----------
+    from repro_torch.host import (HOST_SCENARIO_SPEC, build_scenario,
+                                  compare_policies, rank_policies)
+    zero_counts()
+    t = time.perf_counter()
+    rows14 = compare_policies(device=cuda)
+    torch.cuda.synchronize()
+    run14_ms = (time.perf_counter() - t) * 1e3
+    read_counts("14", ["zns_fixpoint"])
+    check(phase_counts["14"]["zns_fixpoint"] == 1,
+          f"phase 14: {phase_counts['14']['zns_fixpoint']} fixpoint "
+          f"launches for one fleet call")
+    sstats14 = P.last_solve_stats()
+    check(sstats14.driver == "cuda" and sstats14.converged,
+          f"phase 14: driver {sstats14.driver}, converged "
+          f"{sstats14.converged}")
+    ev14 = compare_policies(backend="event", device="cpu")
+    check(rank_policies(rows14) == rank_policies(ev14),
+          f"phase 14: ranking {rank_policies(rows14)} against the event "
+          f"backend's {rank_policies(ev14)}")
+    worst14 = 0.0
+    for a, b in zip(rows14, ev14):
+        check((a["scenario"], a["policy"], a["n_requests"])
+              == (b["scenario"], b["policy"], b["n_requests"]),
+              f"phase 14: row {a['scenario']}/{a['policy']} against "
+              f"{b['scenario']}/{b['policy']}")
+        for k, v in a.items():
+            if isinstance(v, float):
+                rel = abs(v - b[k]) / abs(b[k]) if b[k] else abs(v)
+                check(abs(v - b[k]) <= RUNNER_RTOL * abs(b[k]),
+                      f"phase 14: {a['scenario']}/{a['policy']} {k} = "
+                      f"{v!r}, event backend {b[k]!r}")
+                worst14 = max(worst14, rel)
+    # the profiler can miss every device event of a window: up to 3 tries
+    prof14 = None
+    for _ in range(3):
+        prof14 = prof14 or device_breakdown(
+            lambda: compare_policies(device=cuda))
+    gold_err = 0.0
+    for scen in ("lsm", "circular-log", "cache"):
+        with open(os.path.join(ROOT, "tests", "golden",
+                               f"{scen}__greedy-open.json")) as f:
+            want = json.load(f)
+        trace = build_scenario(scen, policy="greedy-open", seed=0,
+                               scale=0.5, device=cuda).workload.build()
+        h = hashlib.sha256()
+        for field in ("op", "zone", "size", "issue", "thread", "qd",
+                      "occupancy", "was_finished", "io_ctx"):
+            h.update(np.ascontiguousarray(getattr(trace, field)).tobytes())
+        check(len(trace) == want["n_requests"]
+              and h.hexdigest() == want["workload_sha256"],
+              f"phase 14: golden {scen} workload differs")
+        res = P.ZnsDevice(HOST_SCENARIO_SPEC, device=cuda).run(
+            trace, backend="vectorized", seed=0, jitter=False)
+        gold_err = max(gold_err, close(
+            res.sim.complete, want["complete_us"], GOLDEN_TOL,
+            f"phase 14: golden {scen} on the card's vectorized backend"))
+    print(f"[14] compare_policies: {len(rows14)} combinations, "
+          f"{sum(r['n_requests'] for r in rows14)} requests in one fleet "
+          f"call on the cuda driver ({sstats14.sweeps} sweeps), "
+          f"{run14_ms:.1f} ms; rows within {worst14:.3e} of the host event "
+          f"backend, ranking {rank_policies(rows14)}; profiled "
+          + ("(no device time recorded)" if prof14 is None else
+             f"{prof14[0]:.1f} ms wall, {prof14[1]:.4f} ms of device "
+             f"kernels in {prof14[2]} device events ({prof14[3]})")
+          + f"; the three greedy-open goldens reproduce on the card "
+          f"(max abs err {gold_err:.3e})")
+    out14 = subprocess.run(
+        [sys.executable, "-m", "repro_torch.experiments", "host", "--out",
+         os.path.join("build", "host")], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=600)
+    tail = [line for line in (out14.stdout + out14.stderr).splitlines()
+            if line.strip()][-1:]
+    check(out14.returncode == 0, f"phase 14: python -m "
+          f"repro_torch.experiments host exited with {out14.returncode}: "
+          f"{tail}")
+    print(f"[14] python -m repro_torch.experiments host: exit 0; "
+          f"{' '.join(tail)}")
+
+    # -- phase 15: the sharded and windowed drivers -------------------------
+    wl15 = P.WorkloadSpec()
+    for k in range(4):
+        kw = dict(n=250_000, size=4 * KiB, qd=0, zone=k * 16, nzones=16,
+                  arrival=P.PoissonArrivals(rate_per_s=2e5, seed=k))
+        wl15 = wl15.writes(**kw) if k % 2 == 0 else wl15.reads(**kw)
+    t = time.perf_counter()
+    prog15 = P.compile_fleet_program([wl15.build()], [dev.spec], [dev.lat],
+                                     cache=False)
+    svc15 = prog15.svc0_flat
+    lower15_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    wp15 = pshard.window_program(prog15, window_events=WINDOW_EVENTS)
+    window15_ms = (time.perf_counter() - t) * 1e3
+    check(wp15.n_windows == 8, f"phase 15: {wp15.n_windows} windows")
+    zero_counts()
+    sharded15 = {label: P.solve_program(prog, svcp, sweeps=budget,
+                                        fixpoint="sharded", device=cuda)
+                 for label, prog, svcp, budget in (
+                     ("phase-13", prog13, svc13, 8),
+                     ("phase-5", prog5, svc5, 64))}
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    win15 = pshard.solve_program_windowed(prog15, svc15, sweeps=64,
+                                          window_events=WINDOW_EVENTS,
+                                          device=cuda)
+    torch.cuda.synchronize()
+    win15_ms = (time.perf_counter() - t) * 1e3
+    win15_mem = torch.cuda.max_memory_allocated() - base_mem
+    read_counts("15", ["zns_fixpoint", "zns_fixpoint_sharded"])
+    check(phase_counts["15"]["zns_fixpoint_sharded"] == 2,
+          f"phase 15: {phase_counts['15']['zns_fixpoint_sharded']} stacked "
+          f"launches for two sharded solves")
+    check(phase_counts["15"]["zns_fixpoint"] == 8,
+          f"phase 15: {phase_counts['15']['zns_fixpoint']} fixpoint "
+          f"launches for 8 windows")
+    check(win15[2], "phase 15: the windowed solve did not converge")
+    for label, prog, svcp, budget in (("phase-13", prog13, svc13, 8),
+                                      ("phase-5", prog5, svc5, 64)):
+        got, used, conv = sharded15[label]
+        want, wused, wconv = P.solve_program(prog, svcp, sweeps=budget,
+                                             fixpoint="cuda", device=cuda)
+        check(conv and wconv, f"phase 15: {label} sharded converged {conv}")
+        err = close(got, want, dict(rtol=1e-12, atol=0.0),
+                    f"phase 15: {label} sharded against cuda")
+        ms_s = time_ms(lambda: P.solve_program(
+            prog, svcp, sweeps=budget, fixpoint="sharded", device=cuda),
+            reps=3)
+        ms_c = time_ms(lambda: P.solve_program(
+            prog, svcp, sweeps=budget, fixpoint="cuda", device=cuda), reps=3)
+        print(f"[15] fixpoint='sharded' on {label}'s program "
+              f"({pshard.shard_program(prog).n_shards} shards): sweeps "
+              f"{used} (cuda {wused}), max abs err against cuda {err:.3e}; "
+              f"solve {ms_s:.4f} ms, cuda {ms_c:.4f} ms")
+        report["zns_fixpoint_sharded"].setdefault("solve", {})[label] = dict(
+            sharded_ms=ms_s, cuda_ms=ms_c, max_abs_err=err)
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    full15 = P.solve_program(prog15, svc15, sweeps=64, fixpoint="cuda",
+                             device=cuda)
+    torch.cuda.synchronize()
+    full15_ms = (time.perf_counter() - t) * 1e3
+    full15_mem = torch.cuda.max_memory_allocated() - base_mem
+    check(full15[2], "phase 15: the unwindowed solve did not converge")
+    err15 = close(win15[0], full15[0], dict(rtol=1e-12, atol=0.0),
+                  "phase 15: windowed against the unwindowed cuda solve")
+    # the entry is one signature group: a 1-shard plan, which the sharded
+    # driver solves with one launch of the single-program kernel (after
+    # the unwindowed first call, so that it does not warm that one's
+    # caches)
+    before = kfix.zns_fixpoint.launches
+    one15 = P.solve_program(prog15, svc15, sweeps=64, fixpoint="sharded",
+                            device=cuda)
+    check(kfix.zns_fixpoint.launches == before + 1,
+          f"phase 15: {kfix.zns_fixpoint.launches - before} single-program "
+          f"launches for the 1-shard sharded solve")
+    check(one15[2] and one15[1] == full15[1],
+          f"phase 15: the 1-shard sharded solve took {one15[1]} sweeps "
+          f"(cuda {full15[1]}), converged {one15[2]}")
+    err_one = close(one15[0], full15[0], dict(rtol=1e-12, atol=0.0),
+                    "phase 15: the 1-shard sharded solve against cuda")
+    print(f"[15] fixpoint='sharded' on the open-loop entry (1 shard): one "
+          f"single-program launch, max abs err against cuda {err_one:.3e}")
+    warm_win = time_ms(lambda: pshard.solve_program_windowed(
+        prog15, svc15, sweeps=64, window_events=WINDOW_EVENTS, device=cuda),
+        reps=3)
+    warm_full = time_ms(lambda: P.solve_program(
+        prog15, svc15, sweeps=64, fixpoint="cuda", device=cuda), reps=3)
+    print(f"[15] windowed open-loop entry: {prog15.n_flat} requests, blocks "
+          f"{[b.shape for b in prog15.families]}, lowering "
+          f"{lower15_ms:.1f} ms, windowing {window15_ms:.1f} ms, "
+          f"{wp15.n_windows} windows of {[len(w.perm) for w in wp15.windows]} "
+          f"events, sweeps {win15[1]} (unwindowed {full15[1]}), max abs err "
+          f"against the unwindowed cuda solve {err15:.3e}; first call "
+          f"{win15_ms:.1f} ms and {win15_mem / 1e6:.1f} MB of peak device "
+          f"memory (unwindowed {full15_ms:.1f} ms, {full15_mem / 1e6:.1f} "
+          f"MB); warm {warm_win:.3f} ms (unwindowed {warm_full:.3f} ms)")
+    report["zns_fixpoint"]["windowed"] = dict(
+        requests=prog15.n_flat, windows=wp15.n_windows,
+        first_ms=win15_ms, peak_bytes=win15_mem, warm_ms=warm_win,
+        full_first_ms=full15_ms, full_peak_bytes=full15_mem,
+        full_warm_ms=warm_full, max_abs_err=err15)
+
     # -- report -----------------------------------------------------------------
     sources = {
         "zns_event_scan": ("src/repro_torch/csrc/zns_event_scan.cu",
@@ -1304,6 +1625,8 @@ def main() -> int:
                                    "src/repro/kernels/zns_event_scan.py:86"),
         "zns_fixpoint": ("src/repro_torch/csrc/zns_fixpoint.cu",
                          "src/repro/kernels/zns_fixpoint.py:225"),
+        "zns_fixpoint_sharded": ("src/repro_torch/csrc/zns_fixpoint.cu",
+                                 "src/repro/kernels/zns_fixpoint.py:301"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:77"),
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
@@ -1326,7 +1649,7 @@ def main() -> int:
                 "library_ms")}))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was never launched on the main path: {launches}")
-    print(f"[14] total {time.perf_counter() - t0:.1f} s")
+    print(f"[16] total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

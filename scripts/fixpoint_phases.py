@@ -13,7 +13,8 @@ runner's fleet) through the port's wrapper, and prints for the warm
 solve: the initial copy, the first barrier, and for
 every family pass the microseconds of phase A (gather, stage, aggregate),
 barrier 1, phase B (carry, apply, store) and barrier 2, as block 0 saw
-them; then the kernel's device time from ``torch.profiler``.  The card's
+them; then the kernel's device time from ``torch.profiler`` (the median
+of 7 profiled solves).  The card's
 name and power limit lead the output.
 """
 import argparse
@@ -145,11 +146,13 @@ def main(argv=None) -> int:
         print(f"  block 0 from start to the last barrier: "
               f"{(t[-1] - t[0]) / 1e3:.2f} us")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ops.zns_fixpoint(c0, s, packed, sweeps=budget, impl="cuda")
+            for _ in range(7):
+                ops.zns_fixpoint(c0, s, packed, sweeps=budget, impl="cuda")
             torch.cuda.synchronize()
-        dev = [e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and "fp_solve" in e.name]
+        dev = sorted(round(e.time_range.elapsed_us(), 3)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "fp_solve" in e.name)
         times = []
         for _ in range(5):
             a = torch.cuda.Event(enable_timing=True)
@@ -159,7 +162,9 @@ def main(argv=None) -> int:
             b.record()
             torch.cuda.synchronize()
             times.append(a.elapsed_time(b))
-        print(f"  kernel device time (torch.profiler): {dev} us; wrapper "
+        print(f"  kernel device time (torch.profiler, 7 solves): median "
+              f"{dev[len(dev) // 2] if dev else float('nan'):.3f} us of "
+              f"{dev} us; wrapper "
               f"call (CUDA events, median of 5) "
               f"{sorted(times)[2] * 1e3:.1f} us; max rel err against the "
               f"plain version {err:.3e}")

@@ -28,6 +28,11 @@ from .chain_program import (  # noqa: F401
     program_chains, set_program_cache_dir, solve_program,
     unjustified_slots, verify_fixpoint,
 )
+from .shard import (  # noqa: F401
+    Shard, ShardedProgram, Window, WindowedProgram, clear_shard_plans,
+    shard_program, solve_program_sharded, solve_program_windowed,
+    window_program,
+)
 from .conventional import ConventionalSSD, zns_write_pressure_series  # noqa: F401
 from .metrics import (  # noqa: F401
     LatencyStats, available_metrics, bandwidth_bytes, extract_metrics, iops,

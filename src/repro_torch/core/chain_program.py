@@ -1514,9 +1514,15 @@ def solve_program(program: ChainProgram, svc_flat: np.ndarray, *,
     CPU.  ``"loop"`` iterates family blocks in Python on the host
     around the batched scan (float64; ``scan_backend`` as in
     :func:`repro_torch.core.engine.zone_sequential_completions_batched`,
-    on ``device``).  The sharded and windowed drivers are not ported
-    yet.  Every driver records :class:`SolveStats` telemetry, readable
-    via :func:`last_solve_stats`.  When the sweep budget is exhausted
+    on ``device``).  ``"sharded"`` partitions the entry axis into
+    signature groups (:mod:`repro_torch.core.shard`), each with its own
+    convergence: on a CUDA device every shard is solved in one launch of
+    the stacked fixpoint kernel, on the CPU each by the ``loop`` driver;
+    ``"windowed"`` partitions the *request* axis of a single mega-entry
+    into issue-time windows solved as a pipeline
+    (:func:`repro_torch.core.shard.solve_program_windowed`), one fixpoint
+    solve a window.  Every driver records :class:`SolveStats` telemetry,
+    readable via :func:`last_solve_stats`.  When the sweep budget is exhausted
     while constraints are still moving the result is a documented
     under-approximation -- a :class:`RuntimeWarning` is emitted unless
     ``warn=False``.
@@ -1545,10 +1551,18 @@ def solve_program(program: ChainProgram, svc_flat: np.ndarray, *,
             program, np.asarray(svc_flat, dtype=np.float64),
             sweeps=sweeps, scan_backend=scan_backend, comp0=comp0,
             device=dev)
-    elif fixpoint in ("sharded", "windowed"):
-        raise NotImplementedError(
-            f"fixpoint={fixpoint!r} (core/shard.py) is not ported yet: "
-            f"ROADMAP queue 1 item 6")
+    elif fixpoint == "sharded":
+        from .shard import solve_program_sharded
+        comp, used, converged = solve_program_sharded(
+            program, np.asarray(svc_flat, dtype=np.float64),
+            sweeps=sweeps, scan_backend=scan_backend, comp0=comp0,
+            warn=False, device=dev)
+    elif fixpoint == "windowed":
+        from .shard import solve_program_windowed
+        comp, used, converged = solve_program_windowed(
+            program, np.asarray(svc_flat, dtype=np.float64),
+            sweeps=sweeps, scan_backend=scan_backend, comp0=comp0,
+            warn=False, device=dev)
     elif fixpoint in ("cuda", "torch"):
         comp, used, converged = _solve_kernel(
             program, np.asarray(svc_flat, dtype=np.float64),
@@ -1559,7 +1573,7 @@ def solve_program(program: ChainProgram, svc_flat: np.ndarray, *,
             n_blocks=len(program.families))
     else:
         raise ValueError(f"unknown fixpoint driver {fixpoint!r}; expected "
-                         f"auto | cuda | torch | loop")
+                         f"auto | cuda | torch | loop | sharded | windowed")
     if not converged and warn:
         warnings.warn(
             f"chain-program fixpoint exhausted its sweep budget "

@@ -1,15 +1,15 @@
-"""The exactness matrix's non-sharded cells, built with the port's API.
+"""The exactness matrix, built with the port's API.
 
-The port's counterpart of ``benchmarks/exactness_matrix.py`` without its
-sharded layout (the sharded solver is not ported yet).  Each cell is a
-2-device fleet program of one of three append-pool workloads,
-jitter-free or jittered, pinned to the ``cols`` or ``rows`` family
-layout, with the event engine's per-device completions as the oracle.  A
-cell holds when ``ChainProgram.exact`` is true, the solve converges, and
-every completion is within rtol ``TOL_JITTER_FREE`` (jitter-free) or
-``TOL_JITTERED`` (jittered) of the event engine, relative to
-``max(|event|, 1 us)``.  The constants are the benchmark's, kept equal
-to it by the tests.
+The port's counterpart of ``benchmarks/exactness_matrix.py``.  Each cell
+is a 2-device fleet program of one of three append-pool workloads,
+jitter-free or jittered, solved three ways: pinned to the ``cols`` or
+``rows`` family layout, or through the entry-sharded solver
+(``sharded``), with the event engine's per-device completions as the
+oracle.  A cell holds when ``ChainProgram.exact`` is true, the solve
+converges, and every completion is within rtol ``TOL_JITTER_FREE``
+(jitter-free) or ``TOL_JITTERED`` (jittered) of the event engine,
+relative to ``max(|event|, 1 us)``.  The constants are the benchmark's,
+kept equal to it by the tests.
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ from typing import List
 
 import numpy as np
 
-from .chain_program import ChainProgram, compile_fleet_program, force_layout
+from .chain_program import (ChainProgram, compile_fleet_program,
+                            force_layout, solve_program)
 from .engine import compute_service_times, simulate
 from .latency import LatencyModel
 from .spec import KiB, OpType, ZNSDeviceSpec
@@ -30,9 +31,13 @@ TOL_JITTER_FREE = 1e-9
 TOL_JITTERED = 1e-8
 #: The matrix's workload rows, each jitter-free and jittered.
 WORKLOADS = ("single_class", "multi_class", "reset_mixed")
-#: The family layouts held here (the benchmark's third, "sharded", needs
-#: the sharded solver).
-LAYOUTS = ("cols", "rows")
+#: The matrix's solve paths: the two pinned family layouts and the
+#: entry-sharded solver.
+LAYOUTS = ("cols", "rows", "sharded")
+#: The shard executor of a sharded cell for each driver: the host
+#: executor runs the ``loop`` driver, the mesh executor the fixpoint
+#: kernel's stacked form (its plain version under ``torch``).
+SHARD_EXECUTORS = {"loop": "host", "torch": "mesh", "cuda": "mesh"}
 #: The benchmark's sweep budget, device seeds and full scale.
 SWEEPS = 256
 SEEDS = (3, 4)
@@ -79,6 +84,21 @@ class Cell:
     svc_flat: np.ndarray
     events: tuple
     tol: float
+    layout: str = "rows"
+
+    def solve(self, driver: str, *, device):
+        """``(comp, sweeps_used, converged)`` of this cell with
+        ``driver`` (``"loop"``, ``"torch"`` or ``"cuda"``) on
+        ``device``; a sharded cell goes through
+        :func:`repro_torch.core.shard.solve_program_sharded` on the
+        executor of ``SHARD_EXECUTORS[driver]``."""
+        if self.layout == "sharded":
+            from .shard import solve_program_sharded
+            return solve_program_sharded(
+                self.program, self.svc_flat, sweeps=SWEEPS,
+                executor=SHARD_EXECUTORS[driver], warn=False, device=device)
+        return solve_program(self.program, self.svc_flat, sweeps=SWEEPS,
+                             fixpoint=driver, warn=False, device=device)
 
     def max_rel_err(self, comp: np.ndarray) -> float:
         """Largest ``|comp - event| / max(|event|, 1)`` over both
@@ -91,9 +111,10 @@ class Cell:
 
 
 def cells(scale: int = SCALE) -> List[Cell]:
-    """The 12 cells: ``WORKLOADS`` x {jitter-free, jittered} x
+    """The 18 cells: ``WORKLOADS`` x {jitter-free, jittered} x
     ``LAYOUTS``, each a fleet of two devices running the same trace with
-    the seeds ``SEEDS``, named ``workload/jitter/layout``."""
+    the seeds ``SEEDS``, named ``workload/jitter/layout`` (a sharded
+    cell's program keeps the compiler's layouts)."""
     spec = ZNSDeviceSpec()
     lat = LatencyModel(spec)
     out = []
@@ -116,7 +137,9 @@ def cells(scale: int = SCALE) -> List[Cell]:
             for layout in LAYOUTS:
                 out.append(Cell(
                     name=f"{wname}/{jname}/{layout}",
-                    program=force_layout(prog, layout), svc_flat=svc,
+                    program=prog if layout == "sharded"
+                    else force_layout(prog, layout), svc_flat=svc,
                     events=events,
-                    tol=TOL_JITTERED if jitter else TOL_JITTER_FREE))
+                    tol=TOL_JITTERED if jitter else TOL_JITTER_FREE,
+                    layout=layout))
     return out

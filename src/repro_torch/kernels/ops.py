@@ -24,7 +24,8 @@ from . import rmsnorm as _rms
 from . import ssd_chunk_scan as _ssd
 from . import zns_event_scan as _scan
 from . import zns_fixpoint as _fix
-from .zns_fixpoint import PackedBlocks, pack_blocks
+from .zns_fixpoint import PackedBlocks, PackedShards, pack_blocks, \
+    pack_stacked
 
 IMPLS = ("cuda", "torch")
 
@@ -83,6 +84,40 @@ def zns_fixpoint(comp0: torch.Tensor, svc: torch.Tensor,
         _fix.check_inputs(comp0, svc, blocks)
         return _fix.zns_fixpoint_torch(comp0, svc, blocks, sweeps=sweeps)
     return _fix.zns_fixpoint(comp0, svc, blocks, sweeps=sweeps)
+
+
+def zns_fixpoint_sharded(comp0: torch.Tensor, svc: torch.Tensor,
+                         blocks: Union[PackedShards, Sequence], *,
+                         sweeps: int = 8, impl: Optional[str] = None,
+                         adj: Optional[np.ndarray] = None):
+    """S independent chain-program fixpoints in one solve; returns
+    ``(completions, sweeps_used (S,), converged (S,))``, each shard under
+    its own sweep budget and early exit.
+
+    ``blocks``: a :class:`PackedShards`, with ``comp0`` / ``svc`` its flat
+    ``(total,)`` vectors (the completions come back the same); or the
+    reference's stacked signature, ``comp0`` / ``svc`` ``(S, n_max + 1)``
+    (one row a shard, dead slot last) and ``blocks`` the family slots
+    ``(gidx (S, R_f, L_f), heads (S, R_f, L_f))`` with padding indexed at
+    ``n_max`` and ``adj`` an optional ``(S, F, F)`` adjacency (the
+    completions come back ``(S, n_max + 1)``).
+    """
+    stacked = not isinstance(blocks, PackedShards)
+    if stacked:
+        if comp0.dim() != 2:
+            raise ValueError(f"zns_fixpoint_sharded: stacked comp0 must be "
+                             f"(S, n_max + 1), got {tuple(comp0.shape)}")
+        shape = comp0.shape
+        blocks = pack_stacked(blocks, shape[1] - 1, comp0.device, adj)
+        comp0, svc = comp0.reshape(-1), svc.reshape(-1)
+    if _resolve(impl, comp0) == "torch":
+        _fix.check_inputs(comp0, svc, blocks)
+        comp, used, conv = _fix.zns_fixpoint_sharded_torch(
+            comp0, svc, blocks, sweeps=sweeps)
+    else:
+        comp, used, conv = _fix.zns_fixpoint_sharded(comp0, svc, blocks,
+                                                     sweeps=sweeps)
+    return (comp.view(shape) if stacked else comp), used, conv
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

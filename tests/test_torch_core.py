@@ -275,10 +275,14 @@ def test_sequential_completions_match_reference():
 def test_solve_program_driver_names():
     dev = P.ZnsDevice(device="cpu")
     prog = P.compile_program(_workload(P, "mgmt").build(), dev.spec, dev.lat)
-    for name in ("sharded", "windowed"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            P.solve_program(prog, prog.svc0_flat, fixpoint=name,
-                            device="cpu")
+    want, _, _ = P.solve_program(prog, prog.svc0_flat, fixpoint="loop",
+                                 device="cpu")
+    for name, driver in (("sharded", "sharded/host"),
+                         ("windowed", "windowed")):
+        got, _, conv = P.solve_program(prog, prog.svc0_flat, fixpoint=name,
+                                       device="cpu")
+        assert conv and P.last_solve_stats().driver == driver
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0.0)
     with pytest.raises(ValueError, match="unknown fixpoint"):
         P.solve_program(prog, prog.svc0_flat, fixpoint="pallas",
                         device="cpu")

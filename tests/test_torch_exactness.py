@@ -1,13 +1,15 @@
-"""The exactness matrix's 12 non-sharded cells on the port's host
-drivers.
+"""The exactness matrix's 18 cells on the port's host drivers.
 
 ``repro_torch.core.exactness`` builds the cells of
 ``benchmarks/exactness_matrix.py`` with the port's API: its three
-workloads x {jitter-free, jittered} x the ``cols`` and ``rows`` layouts,
-two devices each, at the benchmark's full scale.  Every cell is solved
-with the port's ``loop`` driver and with its ``torch`` driver (the plain
-version of the fixpoint kernel) against the port's own event engine, and
-must be exact, converged and within the matrix's tolerances.  The
+workloads x {jitter-free, jittered} x the ``cols``, ``rows`` and
+``sharded`` layouts, two devices each, at the benchmark's full scale.
+Every cell is solved with the port's ``loop`` driver and with its
+``torch`` driver (the plain version of the fixpoint kernel; a sharded
+cell takes the host executor under ``loop`` and the mesh executor, the
+stacked fixpoint's plain version, under ``torch``) against the port's
+own event engine, and must be exact, converged and within the matrix's
+tolerances.  The
 benchmark module is only read: its constants are held equal to the
 port's, and its workload builder (which drives ``repro``) to the port's
 on the traces it makes.  ``chip_smoke.py`` solves the same cells with the
@@ -21,7 +23,6 @@ import numpy as np
 import pytest
 
 from repro_torch.core import exactness as ex
-from repro_torch.core import solve_program
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 from benchmarks import exactness_matrix as bench  # noqa: E402
@@ -39,7 +40,7 @@ def test_constants_match_the_benchmark():
     assert ex.TOL_JITTER_FREE == bench.TOL_JITTER_FREE
     assert ex.TOL_JITTERED == bench.TOL_JITTERED
     assert ex.WORKLOADS == bench.WORKLOADS
-    assert set(ex.LAYOUTS) == set(bench.LAYOUTS) - {"sharded"}
+    assert ex.LAYOUTS == bench.LAYOUTS
     assert ex.SWEEPS == bench._SWEEPS
 
 
@@ -57,16 +58,14 @@ def test_workload_traces_match_the_benchmark(name):
 
 def test_cells_cover_the_matrix(cells):
     assert sorted(cells) == sorted(NAMES)
-    assert len(cells) == 12
+    assert len(cells) == 18
 
 
 @pytest.mark.parametrize("driver", ["loop", "torch"])
 @pytest.mark.parametrize("name", NAMES)
 def test_cell_is_exact_on_host_drivers(cells, name, driver):
     cell = cells[name]
-    comp, used, converged = solve_program(
-        cell.program, cell.svc_flat, sweeps=ex.SWEEPS, fixpoint=driver,
-        warn=False, device="cpu")
+    comp, used, converged = cell.solve(driver, device="cpu")
     assert cell.program.exact
     assert converged and used < ex.SWEEPS
     err = cell.max_rel_err(comp)

@@ -348,7 +348,8 @@ def test_cli_reports_failure_nonzero(tmp_path):
         unregister_experiment("always_fails")
 
 
-@pytest.mark.parametrize("cmd", [["host"], ["host", "--scenarios", "lsm"],
+@pytest.mark.parametrize("cmd", [["cluster", "--stripe-widths", "2"],
+                                 ["cluster", "--schemes", "ec4+2"],
                                  ["cluster"], ["cluster", "--list"]])
 def test_cli_unported_subcommands_exit_2(cmd, capsys):
     assert cli_main(cmd) == 2

@@ -345,6 +345,38 @@ def test_fixpoint_solve_is_one_device_kernel_on_card(cuda_device, sweeps):
     assert len(kernels) == 1 and "fp_solve_kernel" in kernels[0], kernels
 
 
+def test_sharded_solve_is_one_device_kernel_on_card(cuda_device):
+    """One stacked solve is one launch and one device kernel.  The
+    profiler can miss every device event of a profiled window (seen on
+    the card), so three solves are profiled: none may show more than one
+    kernel, and at least one must show exactly the fixpoint kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(2)
+    shards = _shards_of_shapes(rng, [PACKED_SHAPES[:4], PACKED_SHAPES[4:]],
+                               (True, True))
+    packed = pfix.pack_shards([(b, len(i), None) for i, _, b in shards],
+                              cuda_device)
+    c0 = torch.zeros(packed.total, dtype=torch.float64, device=cuda_device)
+    for (i, s, _), b in zip(shards, packed.base):
+        c0[b:b + len(i)] = torch.as_tensor(i + s)
+    sv = torch.ones_like(c0)
+    ops.zns_fixpoint_sharded(c0, sv, packed, sweeps=16, impl="cuda")
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        before = pfix.zns_fixpoint_sharded.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops.zns_fixpoint_sharded(c0, sv, packed, sweeps=16, impl="cuda")
+            torch.cuda.synchronize()
+        assert pfix.zns_fixpoint_sharded.launches == before + 1
+        seen.append([e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset"))])
+    assert all(len(k) <= 1 for k in seen), seen
+    assert any(len(k) == 1 and "fp_stack_kernel" in k[0] for k in seen), seen
+
+
 def test_device_run_matches_host_loop_on_card(cuda_device):
     dev = ZnsDevice(device=cuda_device)
     wl = (WorkloadSpec()
@@ -869,3 +901,178 @@ def test_fixpoint_kernel_14_blocks_between_3_block_solves_on_card(
         got, _ = _solve_both(cuda_device, issue, svc, blocks, 8,
                              torch.float64)
         assert got[2]
+
+
+# -- the stacked fixpoint: every shard of a plan in one launch ----------------
+def _shards_of_shapes(rng, groups, links=()):
+    """Shards whose blocks take the shapes of ``groups`` (one list of
+    ``(rows, length)`` a shard; unequal block counts), each block over its
+    own slots of the shard in a random order with random segment heads;
+    ``links[s]`` adds to shard s a block of rows of 2 that tie the last
+    lane of a row of its second block to the first lane of a row of its
+    first, later issues feeding earlier ones (so the shard takes several
+    sweeps)."""
+    shards = []
+    for s, shapes in enumerate(groups):
+        blocks, n = [], 0
+        for rows, length in shapes:
+            g = n + rng.permutation(rows * length).reshape(rows, length)
+            n += rows * length
+            blocks.append((g.astype(np.int32),
+                           rng.uniform(size=(rows, length)) < 0.05))
+        if s < len(links) and links[s]:
+            a, b = blocks[0][0], blocks[1][0]
+            k = min(a.shape[0], b.shape[0], 40)
+            pairs = np.stack([b[:k, -1], a[:k, 0]], axis=1)
+            blocks.append((pairs.astype(np.int32),
+                           np.array([[True, False]] * k)))
+        issue = np.sort(rng.uniform(0, 1e5, n))
+        svc = rng.uniform(1, 50, n)
+        shards.append((issue, svc, blocks))
+    return shards
+
+
+def _solve_stack(cuda_device, shards, sweeps, dtype):
+    """Stacked kernel, its plain version, and the single-program kernel on
+    each shard: completions, sweeps and convergence agree shard by
+    shard.  Returns the kernel's (used, converged)."""
+    packed = pfix.pack_shards([(b, len(i), None) for i, _, b in shards],
+                              cuda_device)
+    init = np.full(packed.total, -np.inf)
+    svc = np.zeros(packed.total)
+    for (i, s, _), b in zip(shards, packed.base):
+        init[b:b + len(i)] = i + s
+        svc[b:b + len(i)] = s
+    c0 = torch.as_tensor(init, dtype=dtype, device=cuda_device)
+    sv = torch.as_tensor(svc, dtype=dtype, device=cuda_device)
+    before = pfix.zns_fixpoint_sharded.launches
+    got = ops.zns_fixpoint_sharded(c0, sv, packed, sweeps=sweeps, impl="cuda")
+    assert pfix.zns_fixpoint_sharded.launches == before + 1
+    want = ops.zns_fixpoint_sharded(c0, sv, packed, sweeps=sweeps,
+                                    impl="torch")
+    tol = F64 if dtype == torch.float64 else F32_FIX
+    for k, ((i, s, blocks), b) in enumerate(zip(shards, packed.base)):
+        n = len(i)
+        one = ops.zns_fixpoint(c0[b:b + n], sv[b:b + n], blocks,
+                               sweeps=sweeps, impl="cuda")
+        for other, what in ((want[0][b:b + n], "plain"),
+                            (one[0], "single kernel")):
+            np.testing.assert_allclose(
+                got[0][b:b + n].cpu().numpy(), other.cpu().numpy(), **tol,
+                err_msg=f"shard {k} against the {what}")
+        assert bool(got[2][k]) == bool(want[2][k]) == one[2]
+        if dtype == torch.float64:
+            assert got[1][k] == want[1][k] == one[1]
+    return got[1], got[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_kernel_matches_plain_on_card(cuda_device, dtype):
+    """Three shards of 5, 3 and 6 blocks (1 to 4,097 lanes; two with a
+    linking block, so they take several sweeps) in one launch: each
+    shard equals the plain version and the single-program kernel."""
+    rng = np.random.default_rng(23)
+    groups = [PACKED_SHAPES[:5], PACKED_SHAPES[5:7], PACKED_SHAPES[6:]]
+    used, conv = _solve_stack(cuda_device,
+                              _shards_of_shapes(rng, groups, (True, False,
+                                                              True)),
+                              64, dtype)
+    assert conv.all() and used[0] > 1 and used[2] > 1
+    launch = pfix.zns_fixpoint_sharded.last_launch
+    assert launch["shards"] == 3 and launch["slots"] == 7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_kernel_one_shard_on_card(cuda_device, dtype):
+    """A stack of one shard is the single solve."""
+    rng = np.random.default_rng(5)
+    _solve_stack(cuda_device, _shards_of_shapes(rng, [PACKED_SHAPES[3:9]],
+                                                (True,)), 16, dtype)
+
+
+def test_sharded_kernel_shards_stop_on_their_own_on_card(cuda_device):
+    """One shard converges in one sweep, one after several, and one runs
+    out of a budget of 2 sweeps: every shard keeps its own count and
+    convergence (the reference's lax.map of one while_loop a shard)."""
+    rng = np.random.default_rng(11)
+    easy = _shards_of_shapes(rng, [[(30, 50)]])[0]
+    hand = _hand_program("empty-family", rng)
+    hard = _contended_fleet_program()
+    used, conv = _solve_stack(cuda_device, [easy, hand, hard], 2,
+                              torch.float64)
+    assert used[0] == 1 and conv[0]
+    assert not conv[2] and used[2] == 2
+    used, conv = _solve_stack(cuda_device, [easy, hand, hard], 64,
+                              torch.float64)
+    assert conv.all() and used[0] == 1 and used[2] > 2
+
+
+def test_sharded_kernel_limits_match_the_library_on_card(cuda_device):
+    lib = pfix._lib()
+    assert lib.zns_fixpoint_max_shards() == pfix.MAX_SHARDS
+    assert lib.zns_fixpoint_max_flags() == pfix.MAX_FLAGS
+
+
+def test_sharded_and_windowed_solves_match_cuda_on_card(cuda_device):
+    """solve_program's sharded driver (the mesh executor: one stacked
+    launch for the runner's 16-shard plan) and windowed driver (one
+    launch a window) against the single-program kernel."""
+    from repro_torch.core import solve_program
+    from repro_torch.core import shard as pshard
+    from repro_torch.experiments import ExperimentRunner
+    fleet, workloads, seeds = ExperimentRunner(device="cpu").fleet()
+    prog = compile_fleet_program([w.build() for w in workloads],
+                                 fleet.specs, [d.lat for d in fleet.devices],
+                                 seeds=seeds, cache=False)
+    assert pshard.shard_program(prog).n_shards == 16
+    want, _, conv = solve_program(prog, prog.svc0_flat, fixpoint="cuda",
+                                  device=cuda_device)
+    assert conv
+    before = pfix.zns_fixpoint_sharded.launches
+    got, _, conv = solve_program(prog, prog.svc0_flat, fixpoint="sharded",
+                                 device=cuda_device)
+    assert conv and pfix.zns_fixpoint_sharded.launches == before + 1
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0.0)
+    before = pfix.zns_fixpoint.launches
+    got, _, conv = pshard.solve_program_windowed(
+        prog, prog.svc0_flat, n_windows=4, device=cuda_device)
+    assert conv and pfix.zns_fixpoint.launches == before + 4
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0.0)
+
+
+def test_sharded_single_entry_program_runs_the_kernel_on_card(cuda_device):
+    """fixpoint="sharded" on a one-entry program (the README quickstart's
+    shape: a 1-shard plan) launches the single-program kernel on the card,
+    bit-identical to fixpoint="cuda", and never the host loop."""
+    from repro_torch.core import ZnsDevice, solve_program
+    from repro_torch.core import shard as pshard
+    wl = (WorkloadSpec().writes(n=20_000, size=4 * KiB, qd=4)
+          .reads(n=20_000, size=4 * KiB, qd=16, zone=100, nzones=64))
+    dev = ZnsDevice(device=cuda_device)
+    prog = compile_fleet_program([wl.build()], [dev.spec], [dev.lat],
+                                 cache=False)
+    assert prog.n_devices == 1
+    assert pshard.shard_program(prog).n_shards == 1
+    want, u_want, conv = solve_program(prog, prog.svc0_flat,
+                                       fixpoint="cuda", device=cuda_device)
+    assert conv
+    before = pfix.zns_fixpoint.launches
+    got, u_got, conv = solve_program(prog, prog.svc0_flat,
+                                     fixpoint="sharded", device=cuda_device)
+    assert conv and pfix.zns_fixpoint.launches == before + 1
+    assert u_got == u_want
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0.0)
+
+
+def test_host_policies_one_launch_on_card(cuda_device):
+    """compare_policies on the card: one fleet call, one fixpoint
+    launch, rows within rtol 1e-9 of the host event engine's."""
+    from repro_torch.host import compare_policies, rank_policies
+    before = pfix.zns_fixpoint.launches
+    rows = compare_policies(device=cuda_device)
+    assert pfix.zns_fixpoint.launches == before + 1
+    ev = compare_policies(backend="event", device="cpu")
+    assert rank_policies(rows) == rank_policies(ev)
+    for a, b in zip(rows, ev):
+        for k in ("makespan_s", "user_bandwidth_mibs"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-9, atol=0)
