@@ -3,15 +3,16 @@ full config, on one card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --requests 4 --batch 2 --max-new 4
 
-The port of ``repro.launch.serve`` for the dense, ssm and hybrid
-families: the same request stream (prompt lengths and tokens from
+The port of ``repro.launch.serve`` for the dense, moe, ssm and hybrid
+families (arctic-480b fits no card: ``--smoke`` only): the same request stream (prompt lengths and tokens from
 ``numpy.random.default_rng(seed)``), the same admission, and one decode
 step per position for the whole batch.  The cache each step returns is
-the one the next step takes (the dense family writes its KV cache in
-place; the recurrent families return new states).  Like the reference,
+the one the next step takes (the dense and moe families write their KV
+cache in place; the recurrent families return new states).  Like the reference,
 each step passes one ``pos`` (the oldest slot's age) for every slot,
 prompts are fed one token per step, and a recycled slot's cache (KV or
 recurrent state) is not cleared.  Weights are a random init from

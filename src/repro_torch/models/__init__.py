@@ -1,4 +1,5 @@
-"""Models: the port of ``repro.models`` (dense, ssm and hybrid families)."""
+"""Models: the port of ``repro.models`` (dense, moe, ssm and hybrid
+families)."""
 from .config import (  # noqa: F401
     ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
     ModelConfig, ShapeConfig, shapes_for,

@@ -5,8 +5,8 @@ layers stacked on a leading axis (``params["layers"]["attn"]["wq"]`` is
 ``(L, D, H, Dh)``; the hybrid stacks its pattern groups,
 ``params["groups"]["b0_rec"]``, beside unstacked ``tail{t}`` blocks).
 :func:`params_from_reference` takes that tree as numpy arrays and returns
-the port's model (:class:`Transformer`, :class:`Mamba2` or
-:class:`RecurrentGemma`, by family) with the same values;
+the port's model (:class:`Transformer` for the dense and MoE families,
+:class:`Mamba2` or :class:`RecurrentGemma`) with the same values;
 :func:`params_to_reference` gives the tree back.  The tests use them to
 run both packages on one set of weights.
 """
@@ -23,7 +23,8 @@ from .model import model_spec
 from .rglru import RecurrentGemma
 from .transformer import Transformer
 
-_CLASSES = {"dense": Transformer, "ssm": Mamba2, "hybrid": RecurrentGemma}
+_CLASSES = {"dense": Transformer, "moe": Transformer, "ssm": Mamba2,
+            "hybrid": RecurrentGemma}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -70,16 +71,4 @@ def params_to_reference(params) -> dict:
             return {k: to_host(v) for k, v in node.items()}
         return host(node)
 
-    if not isinstance(params, Transformer):
-        return to_host(params.reference_tree())
-
-    layers = [{"ln1": ly.ln1, "ln2": ly.ln2, "attn": dict(ly.attn.items()),
-               "mlp": dict(ly.mlp.items())} for ly in params.layers]
-
-    def stack(nodes):
-        if isinstance(nodes[0], dict):
-            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
-        return np.stack([host(n) for n in nodes])
-
-    return {"embed": {k: host(v) for k, v in params.embed.items()},
-            "layers": stack(layers)}
+    return to_host(params.reference_tree())

@@ -1,13 +1,13 @@
 """Family dispatch: one API over the architectures.
 
-    init_params(cfg, generator, device=)  -> Transformer (dense family),
-                                             Mamba2 (ssm), RecurrentGemma
-                                             (hybrid)
+    init_params(cfg, generator, device=)  -> Transformer (dense and moe
+                                             families), Mamba2 (ssm),
+                                             RecurrentGemma (hybrid)
     forward(cfg, params, tokens)          -> (logits, aux)
     init_cache / prefill / decode_step    -> serving entry points
     count_params(cfg)                     -> exact (spec tree, no alloc)
 
-The dense, ssm and hybrid families are ported; the others raise
+The dense, moe, ssm and hybrid families are ported; the others raise
 ``NotImplementedError`` naming the ROADMAP slice that brings them.
 Parameter counts work for all ten configurations.  For the recurrent
 families ``prefill`` returns the reference's zeroed cache for the prompt
@@ -25,12 +25,12 @@ from .config import ModelConfig
 
 #: Families whose compute is not ported yet, with their ROADMAP slice.
 NOT_PORTED = {
-    "moe": "MoE serving (ROADMAP queue 1, slice 4)",
     "vlm": "VLM and audio serving (ROADMAP queue 1, slice 8)",
     "audio": "VLM and audio serving (ROADMAP queue 1, slice 8)",
 }
 
-_MODULES = {"dense": transformer, "ssm": mamba2, "hybrid": rglru}
+_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
+            "hybrid": rglru}
 
 
 def _module(cfg: ModelConfig):

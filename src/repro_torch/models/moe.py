@@ -1,0 +1,173 @@
+"""Mixture-of-Experts FFN with sort-based dispatch.
+
+The port of ``repro.models.moe``.  Tokens are sorted by expert id (a
+stable sort), scattered into a static ``(Et, capacity, D)`` buffer,
+processed by three batched expert products (``torch.bmm`` over the
+expert axis) and combined back with their top-k gate weights.  Tokens
+past an expert's capacity are dropped (capacity-factor semantics); the
+load-balancing loss ``aux`` is returned beside the output.
+
+Where the port could silently differ from the reference, it does what
+the reference does:
+
+* top-k on float32 probabilities, ties broken toward the lower expert
+  index as ``jax.lax.top_k`` does, renormalised over the k picks;
+* a stable sort, so the order of an expert's tokens (and so which pass
+  ``rank < capacity``) is the reference's;
+* dropped entries are written to the extra row ``Et * cap`` only, which
+  is thrown away; real slots are unique;
+* the combine adds a token's k contributions one by one in ``x.dtype``,
+  in the reference's scatter-add order (ascending expert id), never with
+  atomics, so a bfloat16 sum rounds where the reference's does;
+* padded experts (``moe_expert_pad``) keep their weights and their rows
+  of the buffer but receive no token.
+
+Variants: arctic-480b (128 experts, top-2, a dense FFN in parallel,
+``moe_dense_parallel``) and qwen2-moe-a2.7b (60 routed experts, top-4,
+an always-on shared expert, ``moe_shared_d_ff``).  Expert parallelism
+(``moe_impl="ep"`` under a mesh) is not ported: with no distributed
+context the reference runs :func:`moe_ffn` too, and so does the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import common as cm
+from .common import P
+from .config import ModelConfig
+
+
+def moe_spec(cfg: ModelConfig) -> dict:
+    D, E, Fe = cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff
+    Et = E + cfg.moe_expert_pad      # padded experts never receive tokens
+    spec = {
+        "router": P((D, E), ("embed", "experts_r")),
+        "w_gate": P((Et, D, Fe), ("experts", "embed", "expert_mlp")),
+        "w_up": P((Et, D, Fe), ("experts", "embed", "expert_mlp")),
+        "w_down": P((Et, Fe, D), ("experts", "expert_mlp", "embed")),
+    }
+    if cfg.moe_shared_d_ff:
+        spec["shared"] = cm.mlp_spec(cfg, cfg.moe_shared_d_ff)
+    return spec
+
+
+def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    cap = int(np.ceil(n_tokens * cfg.moe_top_k / cfg.moe_num_experts
+                      * cfg.moe_capacity_factor))
+    return max(int(np.ceil(cap / 8)) * 8, 8)   # pad for TPU tiling
+
+
+@dataclasses.dataclass
+class Routing:
+    """One call's routing: each token's experts and gates ``(T, k)``, and
+    the dispatch of the ``T * k`` (token, expert) entries in sorted
+    order: ``order`` (the stable sort by expert), each entry's buffer
+    ``slot`` (``Et * cap`` when dropped) and ``valid`` (kept)."""
+
+    expert_idx: torch.Tensor
+    gate_vals: torch.Tensor
+    order: torch.Tensor
+    slot: torch.Tensor
+    valid: torch.Tensor
+    cap: int
+
+
+def route(cfg: ModelConfig, p, xf) -> tuple:
+    """Router, top-k, aux loss and sort-based dispatch of ``xf`` (T, D):
+    returns ``(Routing, aux)``."""
+    T = xf.shape[0]
+    k, E = cfg.moe_top_k, cfg.moe_num_experts
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)                      # (T, E)
+    # top-k as jax.lax.top_k: largest first, ties to the lower index
+    # (torch.topk leaves the order of ties open; a stable sort fixes it)
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+    gate_vals, expert_idx = gate_vals[:, :k], expert_idx[:, :k]  # (T, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+
+    # Aux load-balancing loss (Switch-style): E * sum_e f_e * p_e.
+    me = probs.mean(0)                                         # (E,)
+    fe = torch.bincount(expert_idx[:, 0], minlength=E).float() / T
+    aux = E * torch.sum(me * fe)
+
+    flat_e = expert_idx.reshape(-1)                            # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    e_s = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=E)               # (E,)
+    starts = torch.cumsum(counts, 0) - counts                  # exclusive
+    rank = torch.arange(T * k, device=xf.device) - starts[e_s]
+    cap = _capacity(cfg, T)
+    Et = E + cfg.moe_expert_pad
+    valid = rank < cap
+    slot = torch.where(valid, e_s * cap + rank,
+                       torch.full_like(rank, Et * cap))        # drop row
+    return Routing(expert_idx, gate_vals, order, slot, valid, cap), aux
+
+
+def moe_ffn(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
+    """x: (B, S, D) -> (y, aux).  ``record``, when a list, receives this
+    call's :class:`Routing`."""
+    B, S, D = x.shape
+    T, k = B * S, cfg.moe_top_k
+    Et = cfg.moe_num_experts + cfg.moe_expert_pad
+    xf = x.reshape(T, D)
+    r, aux = route(cfg, p, xf)
+    if record is not None:
+        record.append(r)
+    cap = r.cap
+    tok_s = r.order // k                  # the token of each sorted entry
+
+    # ---- dispatch: real slots are unique; dropped rows land on row Et*cap
+    buf = xf.new_zeros((Et * cap + 1, D))
+    buf[r.slot] = xf[tok_s]
+    h = buf[: Et * cap].view(Et, cap, D)
+
+    # ---- expert compute (batched over the expert axis) ------------------
+    g = torch.bmm(h, p["w_gate"].to(x.dtype))
+    u = torch.bmm(h, p["w_up"].to(x.dtype))
+    out = torch.bmm(F.silu(g) * u, p["w_down"].to(x.dtype))
+
+    # ---- combine --------------------------------------------------------
+    out_flat = out.reshape(Et * cap, D)
+    gathered = torch.where(r.valid[:, None],
+                           out_flat[r.slot.clamp(max=Et * cap - 1)],
+                           out_flat.new_zeros(()))
+    gate_s = r.gate_vals.reshape(-1)[r.order]
+    contrib = gathered * gate_s[:, None].to(x.dtype)
+    return combine(contrib, r).reshape(B, S, D), aux
+
+
+def combine(contrib, r: Routing):
+    """Each token's sum of its sorted entries' contributions ``(T * k,
+    D)``: ``(T, D)`` in ``contrib.dtype``.  The reference scatter-adds
+    the sorted entries in order, so a token's k contributions are added
+    one by one in ascending expert order (a token's experts are
+    distinct), each sum rounded to the dtype; so are they here."""
+    T, k = r.expert_idx.shape
+    per_tok = torch.empty_like(contrib)
+    per_tok[r.order] = contrib                        # (token, pick) order
+    per_tok = per_tok.view(T, k, -1)
+    by_expert = torch.argsort(r.expert_idx, dim=-1)
+    per_tok = torch.gather(per_tok, 1,
+                           by_expert[..., None].expand_as(per_tok))
+    y = per_tok[:, 0]
+    for j in range(1, k):
+        y = y + per_tok[:, j]
+    return y
+
+
+def moe_block(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
+    """The full FFN half of an MoE layer (routed + shared/dense paths).
+    ``p`` maps ``"moe"`` (and ``"dense_mlp"``) to the layer's parameters."""
+    y, aux = moe_ffn(cfg, p["moe"], x, record=record)
+    if cfg.moe_shared_d_ff:
+        y = y + cm.mlp(p["moe"]["shared"], x)
+    if cfg.moe_dense_parallel:
+        y = y + cm.mlp(p["dense_mlp"], x)
+    return y, aux

@@ -1,32 +1,18 @@
-"""Parameter layouts of the MoE, Mamba2 and RG-LRU families.
+"""Parameter layouts of the Mamba2 and RG-LRU families.
 
-The MoE FFN (``repro.models.moe.moe_spec``), Mamba2
-(``repro.models.mamba2.model_spec``) and the RG-LRU hybrid
+Mamba2 (``repro.models.mamba2.model_spec``) and the RG-LRU hybrid
 (``repro.models.rglru.model_spec``), shape for shape, so that
 :func:`repro_torch.models.count_params` and ``count_active_params`` give
-the reference's exact counts for all ten configurations.  Mamba2 and the
-hybrid are ported (``mamba2.py``, ``rglru.py``); the MoE forward pass
-comes with its own slice (ROADMAP queue 1).
+the reference's exact counts for all ten configurations.  The MoE FFN's
+layout, :func:`moe_spec`, lives with its forward pass in ``moe.py`` and
+is re-exported here.
 """
 from __future__ import annotations
 
 from . import common as cm
 from .common import P
 from .config import ModelConfig
-
-
-def moe_spec(cfg: ModelConfig) -> dict:
-    D, E, Fe = cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff
-    Et = E + cfg.moe_expert_pad      # padded experts never receive tokens
-    spec = {
-        "router": P((D, E), ("embed", "experts_r")),
-        "w_gate": P((Et, D, Fe), ("experts", "embed", "expert_mlp")),
-        "w_up": P((Et, D, Fe), ("experts", "embed", "expert_mlp")),
-        "w_down": P((Et, Fe, D), ("experts", "expert_mlp", "embed")),
-    }
-    if cfg.moe_shared_d_ff:
-        spec["shared"] = cm.mlp_spec(cfg, cfg.moe_shared_d_ff)
-    return spec
+from .moe import moe_spec  # noqa: F401
 
 
 def mamba2_model_spec(cfg: ModelConfig) -> dict:

@@ -1,7 +1,9 @@
-"""Dense decoder-only transformer: forward, prefill and decode.
+"""Dense and MoE decoder-only transformer: forward, prefill and decode.
 
 The port of ``repro.models.transformer`` for the dense family (tinyllama,
-qwen3-4b/8b, llama3-405b).  :class:`Transformer` holds the parameters,
+qwen3-4b/8b, llama3-405b) and the MoE family (qwen2-moe-a2.7b,
+arctic-480b; the FFN half is :func:`repro_torch.models.moe.moe_block`).
+:class:`Transformer` holds the parameters,
 one :class:`DecoderLayer` per layer, and layers run in a plain Python
 loop (the reference's ``lax.scan`` and rematerialisation have no
 counterpart here).  The functions :func:`forward`, :func:`prefill` and
@@ -19,7 +21,7 @@ from torch import nn
 from repro_torch.core.torch_device import DEFAULT_DEVICE, resolve_device
 from . import common as cm
 from .config import ModelConfig
-from .specs import moe_spec
+from .moe import moe_block, moe_spec
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +58,12 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: attention then SwiGLU MLP, each with a
-    residual.  ``p`` is the layer's parameter dict (reference layout)."""
+    """One pre-norm decoder layer: attention then the FFN half (a SwiGLU
+    MLP, or for MoE configs the routed experts with the shared expert or
+    the parallel dense MLP), each with a residual.  ``p`` is the layer's
+    parameter dict (reference layout).  ``routing``, when set to a list,
+    receives the :class:`repro_torch.models.moe.Routing` of every MoE
+    call of this layer."""
 
     def __init__(self, p: dict):
         super().__init__()
@@ -65,14 +71,32 @@ class DecoderLayer(nn.Module):
         self.attn = nn.ParameterDict({k: _frozen(v)
                                       for k, v in p["attn"].items()})
         self.ln2 = _frozen(p["ln2"])
-        self.mlp = nn.ParameterDict({k: _frozen(v)
-                                     for k, v in p["mlp"].items()})
+        for name in ("mlp", "dense_mlp"):
+            if name in p:
+                setattr(self, name, nn.ParameterDict(
+                    {k: _frozen(v) for k, v in p[name].items()}))
+        if "moe" in p:
+            self.moe = cm.ParamTree(p["moe"])
+        self.routing: Optional[list] = None
+
+    def ffn(self, cfg: ModelConfig, x):
+        """The FFN half on the normed input: ``(out, aux)``, aux None for
+        a dense layer."""
+        if cfg.moe_num_experts:
+            return moe_block(cfg, {"moe": self.moe,
+                                   "dense_mlp": getattr(self, "dense_mlp",
+                                                        None)},
+                             x, record=self.routing)
+        return cm.mlp(self.mlp, x), None
 
     def forward(self, cfg: ModelConfig, x, positions):
+        """``(x, aux)``: the layer's output and its MoE aux loss (None for
+        a dense layer)."""
         h = cm.attention(cfg, self.attn, cm.rmsnorm(cfg, self.ln1, x),
                          positions, window=cfg.window)
         x = x + h
-        return x + cm.mlp(self.mlp, cm.rmsnorm(cfg, self.ln2, x))
+        h, aux = self.ffn(cfg, cm.rmsnorm(cfg, self.ln2, x))
+        return x + h, aux
 
     def prefill(self, cfg: ModelConfig, x, positions):
         """:meth:`forward` that also returns the layer's keys and values,
@@ -84,7 +108,7 @@ class DecoderLayer(nn.Module):
                                 window=cfg.window).movedim(1, 2)
         x = x + torch.einsum("bshk,hkd->bsd", att,
                              self.attn["wo"].to(x.dtype))
-        x = x + cm.mlp(self.mlp, cm.rmsnorm(cfg, self.ln2, x))
+        x = x + self.ffn(cfg, cm.rmsnorm(cfg, self.ln2, x))[0]
         return x, kh, vh
 
     def decode(self, cfg: ModelConfig, x, cache_k, cache_v, pos: int):
@@ -93,19 +117,32 @@ class DecoderLayer(nn.Module):
                                       cm.rmsnorm(cfg, self.ln1, x), cache_k,
                                       cache_v, pos, window=cfg.window)
         x = x + h
-        return x + cm.mlp(self.mlp, cm.rmsnorm(cfg, self.ln2, x))
+        return x + self.ffn(cfg, cm.rmsnorm(cfg, self.ln2, x))[0]
+
+    def reference_tree(self) -> dict:
+        """This layer's parameters in the reference's layout."""
+        tree = {"ln1": self.ln1, "ln2": self.ln2,
+                "attn": dict(self.attn.items())}
+        for name in ("mlp", "dense_mlp"):
+            if hasattr(self, name):
+                tree[name] = dict(getattr(self, name).items())
+        if hasattr(self, "moe"):
+            tree["moe"] = self.moe.tree()
+        return tree
 
 
 class Transformer(nn.Module):
-    """The dense model's parameters: ``embed`` (embedding, final norm, LM
-    head) and ``layers``, built from a reference-layout tree (layers
-    stacked on a leading axis; each layer's tensors are views of it)."""
+    """The dense or MoE model's parameters: ``embed`` (embedding, final
+    norm, LM head) and ``layers``, built from a reference-layout tree
+    (layers stacked on a leading axis; each layer's tensors are views of
+    it)."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe_num_experts:
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(f"family {cfg.family!r}: only the "
-                                      f"dense transformer is ported")
+                                      f"dense and MoE transformers are "
+                                      f"ported")
         self.embed = nn.ParameterDict({k: _frozen(v)
                                        for k, v in tree["embed"].items()})
         stacked = tree["layers"]
@@ -117,6 +154,13 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(layer(i, stacked))
                                     for i in range(cfg.num_layers))
 
+    def reference_tree(self) -> dict:
+        """The parameters in the reference's layout (layers stacked: a
+        copy)."""
+        return {"embed": dict(self.embed.items()),
+                "layers": cm.stack_trees([ly.reference_tree()
+                                          for ly in self.layers])}
+
 
 # ---------------------------------------------------------------------------
 # Full model
@@ -127,16 +171,22 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params: Transformer, tokens,
             frontend_inputs=None):
-    """tokens: (B, S) integer -> (float32 logits (B, S, V), aux 0.0)."""
+    """tokens: (B, S) integer -> (float32 logits (B, S, V), aux): aux is
+    the layers' summed MoE load-balancing loss (a float32 scalar tensor),
+    0.0 for a dense model."""
     with torch.inference_mode():
         x = cm.embed_tokens(cfg, params.embed, tokens,
                             cm.torch_dtype(cfg.dtype))
         x = cm.apply_frontend(cfg, params.embed, x, frontend_inputs)
         positions = _positions(x.shape[0], x.shape[1], x.device)
+        auxs = []
         for layer in params.layers:
-            x = layer(cfg, x, positions)
+            x, aux = layer(cfg, x, positions)
+            if aux is not None:
+                auxs.append(aux)
         x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
-        return cm.lm_logits(cfg, params.embed, x), 0.0
+        aux = torch.stack(auxs).sum() if auxs else 0.0
+        return cm.lm_logits(cfg, params.embed, x), aux
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,

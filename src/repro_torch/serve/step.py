@@ -2,7 +2,7 @@
 
 The port of ``repro.serve.step``.  The steps run under
 ``torch.inference_mode`` and return the cache the next step takes: the
-dense family updates its KV cache in place (the reference donates the
+dense and MoE families update their KV cache in place (the reference donates the
 cache buffer), the recurrent families return new states.
 """
 from __future__ import annotations

@@ -1076,3 +1076,85 @@ def test_host_policies_one_launch_on_card(cuda_device):
     for a, b in zip(rows, ev):
         for k in ("makespan_s", "user_bandwidth_mibs"):
             np.testing.assert_allclose(a[k], b[k], rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "arctic-480b"])
+def test_moe_greedy_generate_kernels_match_plain_on_card(cuda_device, arch):
+    """The MoE smoke configs in float32 on the card: the greedy tokens with
+    the CUDA kernels (attention, RMSNorm; the dispatch and expert products
+    are torch ops) equal those with the plain versions, the prefill
+    logits agree, and both runs route every token alike."""
+    cfg = get_smoke_config(arch, dtype="float32", kernel_impl="cuda")
+    plain = get_smoke_config(arch, dtype="float32", kernel_impl="torch")
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           device=cuda_device)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 24)), device=cuda_device)
+    before = (pfa.flash_attention.launches, prms.rmsnorm.launches)
+    got = greedy_generate(cfg, params, prompt, steps=6, max_seq=32)
+    assert pfa.flash_attention.launches > before[0]
+    assert prms.rmsnorm.launches > before[1]
+    want = greedy_generate(plain, params, prompt, steps=6, max_seq=32)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    routes = []
+    for c in (cfg, plain):
+        for layer in params.layers:
+            layer.routing = []
+        lg, _ = M.prefill(c, params, prompt, 32)
+        routes.append([ly.routing[0].expert_idx.cpu() for ly in params.layers])
+        routes[-1].append(lg.cpu().numpy())
+    for a, b in zip(routes[0][:-1], routes[1][:-1]):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(routes[0][-1], routes[1][-1], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_checkpoint_save_is_one_batched_scan_on_card(cuda_device, tmp_path):
+    """ZonedCheckpointStore.save on the card: one launch of the batched
+    scan kernel for all hosts, a manifest (bytes, zones, sha256, modeled
+    seconds) equal to the same save on the CPU, a bit-exact restore; and
+    one host's payload write is one launch of the scan kernel, within
+    1e-12 of the CPU's."""
+    from repro_torch.core import MiB
+    from repro_torch.runtime import ZnsHostDevice, ZonedCheckpointStore
+    rng = np.random.default_rng(0)
+    tree = {"w": torch.as_tensor(rng.standard_normal((64, 1000)),
+                                 dtype=torch.float32, device=cuda_device),
+            "b": torch.as_tensor(rng.standard_normal((10, 7)),
+                                 device=cuda_device).to(torch.bfloat16),
+            "n": {"s": torch.arange(5, device=cuda_device)}}
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        store = ZonedCheckpointStore(str(tmp_path / str(dev)), 4,
+                                     stripe_bytes=64 * 1024, device=dev)
+        before = (pscan.zns_event_scan_batched.launches,
+                  pscan.zns_event_scan.launches)
+        out[str(dev)] = store.save(1, tree)["manifest"]
+        after = (pscan.zns_event_scan_batched.launches,
+                 pscan.zns_event_scan.launches)
+        if dev is cuda_device:
+            assert after == (before[0] + 1, before[1])
+            restored, _ = store.restore(1, tree)
+            for k in ("w", "b"):
+                t = tree[k].cpu()
+                if t.dtype == torch.bfloat16:
+                    t = t.view(torch.int16)
+                assert restored[k].tobytes() == t.numpy().tobytes()
+        else:
+            assert after == before
+    got, want = out[str(cuda_device)], out["cpu"]
+    for h, info in want["hosts"].items():
+        assert got["hosts"][h] == info
+    np.testing.assert_allclose(got["modeled_host_seconds"],
+                               want["modeled_host_seconds"], rtol=1e-12,
+                               atol=0)
+    for kw in (dict(stripe_bytes=4 * 1024, append_qd=1),
+               dict(stripe_bytes=1 * MiB, append_qd=4)):
+        before = pscan.zns_event_scan.launches
+        t, n = ZnsHostDevice(0, device=cuda_device,
+                             **kw).simulate_payload_write(256 * MiB)
+        assert pscan.zns_event_scan.launches == before + 1
+        t_cpu, n_cpu = ZnsHostDevice(0, device="cpu",
+                                     **kw).simulate_payload_write(256 * MiB)
+        assert n == n_cpu
+        np.testing.assert_allclose(t, t_cpu, rtol=1e-12, atol=0)
