@@ -95,7 +95,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    mamba2-370m's full-size parameters (1.47 GB): one launch of the
    batched scan kernel, a manifest (bytes, zones, sha256, modeled
    seconds) equal to the same save on the CPU, a bit-exact restore, a
-   second save and ``gc(keep_last=1)``; the directory is removed.
+   second save and ``gc(keep_last=1)``; the directory is removed;
+18. trains tinyllama-1.1b at full width and depth (22 layers, 1.1e9
+   float32 parameters from seed 0, every weight matrix N(0, 0.02),
+   bfloat16 activations, remat full) through ``repro_torch.launch.train``:
+   8 steps of 4 x 2,048 tokens from ``TokenPipeline`` at lr 3e-3 with 2
+   warmup steps; every loss finite and the mean of the last 2 below the
+   first 2's; each kernel launched exactly as a step needs (forward
+   RMSNorm and attention for each layer forward and recompute,
+   ``models.common.layer_forward_runs``; each backward once a layer)
+   and no other kernel; it prints the step time, tokens/s, peak memory,
+   and a profiled step's device idle share and kernel groups (which must
+   include both backward kernels).  Then the first step's gradients at
+   full width and depth in float32, kernels against plain versions, each
+   leaf's error to a float64 plain step within the plain float32 step's
+   plus ``GRAD_F64_FRAC`` of its scale (the bfloat16 gap printed only);
+   then at full width and 2 layers a checkpoint at step 3 into the ZNS
+   store (one batched scan launch), restored into a fresh state (seed
+   99) and replayed through step 6: parameters, m and v equal an
+   uninterrupted run's bit for bit.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``).
 Phase 2 also holds the flash-attention and RMSNorm kernels against their
@@ -103,7 +121,13 @@ plain versions at qwen3-4b's shapes, in bfloat16 and float32 at the
 reference kernel tests' tolerances (attention atol 2e-2 / 2e-4, RMSNorm
 2e-2 / 1e-4), and times them beside one PyTorch library call computing the
 same function (attention: TFLOP/s over the visible pairs and the ratio to
-SDPA; RMSNorm: GB/s), and counts the ``HGMMA`` (``wgmma``) instructions of
+SDPA; RMSNorm: GB/s); the two backward kernels against their plain
+versions (``BWD_TOL``; two runs bit-equal) at tinyllama-1.1b's training
+shape (4 x 32/4 heads x 2,048, D 64) and qwen3-4b's (D 128) for
+attention, and at (8,192, 2,048) and the qk-norm rows (262,144, 128) for
+RMSNorm, timed beside SDPA's and ``F.rms_norm``'s backward through
+autograd, and the attention forward with and without ``lse``; and counts
+the ``HGMMA`` (``wgmma``) instructions of
 the built flash-attention library (``cuobjdump -sass``; none fails the
 script); likewise flash attention at recurrentgemma-9b's prefill
 shape (head dim 256, window 2,048), the SSD chunk scan at mamba2-370m's
@@ -143,7 +167,7 @@ output against a float32 expert-by-expert computation (the same top-k,
 drops and shared expert) at the block tolerance; and the MoE block
 kernels vs plain on every token both runs route alike (the others are
 counted).  Every kernel's
-launch counter is set to 0 just before each of the runs of phases 3-17
+launch counter is set to 0 just before each of the runs of phases 3-18
 and read just after; a kernel of
 the path that was never launched fails the script, and phase 9 fails
 unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
@@ -192,6 +216,20 @@ SSD_TOL = {"bfloat16": dict(rtol=1e-2, atol=2e-2),
            "float32": dict(rtol=0.0, atol=1e-3)}
 #: Phase 2, linear recurrence: the reference kernel test's tolerance.
 LR_TOL = dict(rtol=1e-3, atol=2e-3)
+#: Phase 2, the backward kernels against their plain versions on the same
+#: forward outputs: both compute in float32 and differ in summation order
+#: (gradients sum over thousands of rows), and bfloat16 results by their
+#: last rounding (2^-8 relative): rtol, and atol as a fraction of the
+#: tensor's largest magnitude.
+BWD_TOL = {"bfloat16": (2e-2, 2e-3), "float32": (1e-3, 1e-4)}
+#: Phase 18: the kernels' float32 gradients against a float64 plain step:
+#: within the plain float32 step's own error plus this fraction of each
+#: leaf's largest magnitude (float32 errors are ~1e-6 of it; a wrong
+#: gradient is off by O(1) of it).
+GRAD_F64_FRAC = 1e-4
+#: Phase 18's forward time of the attention kernel at qwen3-4b's prefill
+#: shape without lse (PR 19's phase 2, bfloat16).
+ATTN_FWD_PR19_MS = 0.1203
 
 F64 = dict(rtol=1e-12, atol=1e-9)
 F32 = dict(rtol=2e-5, atol=1e-2)
@@ -290,6 +328,11 @@ def device_ms(fn, key: str, reps: int = 5):
 def kernel_group(name: str) -> str:
     """A CUDA kernel's name as the part of the model it serves."""
     for key, group in (("flash_fwd", "flash_attention"),
+                       ("bwd_dkdv", "flash_attention_bwd"),
+                       ("bwd_dq", "flash_attention_bwd"),
+                       ("bwd_delta", "flash_attention_bwd"),
+                       ("rmsnorm_bwd", "rmsnorm_bwd"),
+                       ("rmsnorm_dw", "rmsnorm_bwd"),
                        ("rmsnorm", "rmsnorm"),
                        ("ssd_chunk_scan", "ssd_chunk_scan"),
                        ("ssd_mma", "ssd_chunk_scan"),
@@ -444,7 +487,9 @@ def main() -> int:
         "zns_fixpoint": kfix.zns_fixpoint,
         "zns_fixpoint_sharded": kfix.zns_fixpoint_sharded,
         "flash_attention": kfa.flash_attention,
+        "flash_attention_bwd": kfa.flash_attention_bwd,
         "rmsnorm": krms.rmsnorm,
+        "rmsnorm_bwd": krms.rmsnorm_bwd,
         "ssd_chunk_scan": kssd.ssd_chunk_scan,
         "linear_recurrence": klr.linear_recurrence,
     }
@@ -860,6 +905,125 @@ def main() -> int:
                     bound_by=by, library_ms=lms, gbps=nbytes / ms / 1e6,
                     shape=[rows, d], dtype=dname)
             del x, got, want
+
+
+    # -- phase 2, the backward kernels: attention and RMSNorm ---------------
+    def bwd_close(got, want, dname, what):
+        rtol, frac = BWD_TOL[dname]
+        scale = float(want.float().abs().max())
+        return close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                     dict(rtol=rtol, atol=frac * scale), what)
+
+    fwd_ms = {}
+    for case, (b, hq, hkv, tq, tk, d) in (
+            ("tinyllama", (4, 32, 4, 2048, 2048, 64)),
+            ("qwen3", (1, 32, 8, 2048, 2048, 128))):
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            q = randn((b, hq, tq, d), dtype)
+            k = randn((b, hkv, tk, d), dtype)
+            v = randn((b, hkv, tk, d), dtype)
+            do = randn((b, hq, tq, d), dtype)
+            out, lse = kfa.flash_attention(q, k, v, return_lse=True)
+            check(torch.equal(out, kfa.flash_attention(q, k, v)),
+                  f"flash_attention {case} {dname}: the output with lse "
+                  f"differs from the one without")
+            got = kfa.flash_attention_bwd(q, k, v, out, do, lse)
+            want = kfa.attention_bwd_torch(q, k, v, out, do, lse)
+            torch.cuda.synchronize()
+            err = max(bwd_close(g, w, dname, f"flash_attention_bwd {case} "
+                                             f"{dname} d{n}")
+                      for g, w, n in zip(got, want, "qkv"))
+            again = kfa.flash_attention_bwd(q, k, v, out, do, lse)
+            check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                  f"flash_attention_bwd {case} {dname}: two runs differ")
+            ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, out, do,
+                                                         lse), flush=flush)
+            pms = time_ms(lambda: kfa.attention_bwd_torch(q, k, v, out, do,
+                                                          lse),
+                          reps=3, flush=flush)
+            # the library: SDPA's backward through autograd
+            ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                enable_gqa=True)
+            lms = time_ms(lambda: torch.autograd.grad(
+                lo, (ql, kl, vl), do, retain_graph=True), flush=flush)
+            lib_err = max(float((a.float() - g.float()).abs().max())
+                          for a, g in zip(torch.autograd.grad(
+                              lo, (ql, kl, vl), do), got))
+            if dname == "bfloat16" and case == "qwen3":
+                fwd_ms = dict(
+                    plain=time_ms(lambda: kfa.flash_attention(q, k, v),
+                                  flush=flush),
+                    lse=time_ms(lambda: kfa.flash_attention(
+                        q, k, v, return_lse=True), flush=flush))
+            pairs = int(kref.attention_mask(tq, tk, True, None,
+                                            cuda).sum())
+            flop = 2.5 * 4.0 * b * hq * d * pairs
+            nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+                      + 4.0 * lse.numel())
+            bnd, by = bound_ms(nbytes, flop, dname)
+            print(f"[2] flash_attention_bwd {case} q {tuple(q.shape)} k "
+                  f"{tuple(k.shape)} causal {dname}: max abs err {err:.3e} "
+                  f"(SDPA's gradients {lib_err:.3e} from the kernel's), two "
+                  f"runs bit-equal, kernel {ms:.4f} ms ({flop / ms / 1e9:.1f}"
+                  f" TFLOP/s, {ms / lms:.2f}x SDPA's backward), plain "
+                  f"{pms:.4f} ms, library {lms:.4f} ms, bound {bnd:.4f} ms "
+                  f"({by})")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd,
+                       bound_by=by, library_ms=lms, library_err=lib_err,
+                       tflops=flop / ms / 1e9, vs_library=ms / lms,
+                       shape=[list(q.shape), list(k.shape)], dtype=dname)
+            if dname == "bfloat16" and case == "tinyllama":
+                report["flash_attention_bwd"] = row
+            elif dname == "bfloat16":
+                qwen3_bwd = row
+            del q, k, v, do, out, lse, got, want, again, ql, kl, vl, lo
+    report["flash_attention_bwd"]["qwen3"] = qwen3_bwd
+    print(f"[2] flash_attention forward at qwen3's prefill, bfloat16: "
+          f"without lse {fwd_ms['plain']:.4f} ms (PR 19: "
+          f"{ATTN_FWD_PR19_MS} ms), with lse {fwd_ms['lse']:.4f} ms")
+
+    for rows, d in ((8192, 2048), (4 * 2048 * 32, 128)):
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            x = randn((rows, d), dtype)
+            dy = randn((rows, d), dtype)
+            w = randn((d,), torch.float32, 0.1)
+            dx, dw = krms.rmsnorm_bwd(x, w, dy)
+            dx_p, dw_p = krms.rmsnorm_bwd_torch(x, w, dy)
+            torch.cuda.synchronize()
+            err = bwd_close(dx, dx_p, dname, f"rmsnorm_bwd ({rows}, {d}) "
+                                             f"{dname} dx")
+            err_w = close(dw.cpu().numpy(), dw_p.cpu().numpy(),
+                          dict(rtol=1e-3, atol=1e-4 * rows ** 0.5),
+                          f"rmsnorm_bwd ({rows}, {d}) {dname} dw")
+            again = krms.rmsnorm_bwd(x, w, dy)
+            check(torch.equal(again[0], dx) and torch.equal(again[1], dw),
+                  f"rmsnorm_bwd ({rows}, {d}) {dname}: two runs differ")
+            ms = time_ms(lambda: krms.rmsnorm_bwd(x, w, dy), flush=flush)
+            pms = time_ms(lambda: krms.rmsnorm_bwd_torch(x, w, dy), reps=3,
+                          flush=flush)
+            xl = x.detach().requires_grad_(True)
+            wl = (1.0 + w).to(dtype).requires_grad_(True)
+            lo = F.rms_norm(xl, (d,), weight=wl, eps=1e-6)
+            lms = time_ms(lambda: torch.autograd.grad(
+                lo, (xl, wl), dy, retain_graph=True), flush=flush)
+            nbytes = 3.0 * x.numel() * x.element_size() + 8 * d
+            bnd, by = bound_ms(nbytes, 8.0 * x.numel(), dname)
+            print(f"[2] rmsnorm_bwd ({rows}, {d}) {dname}: max abs err dx "
+                  f"{err:.3e}, dw {err_w:.3e}, two runs bit-equal, kernel "
+                  f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), plain "
+                  f"{pms:.4f} ms, library (F.rms_norm's backward) {lms:.4f} "
+                  f"ms, bound {bnd:.4f} ms ({by})")
+            row = dict(max_abs_err=max(err, err_w), ms=ms, plain_ms=pms,
+                       bound_ms=bnd, bound_by=by, library_ms=lms,
+                       gbps=nbytes / ms / 1e6, shape=[rows, d], dtype=dname)
+            if (rows, d) == (8192, 2048) and dname == "bfloat16":
+                report["rmsnorm_bwd"] = row
+            elif dname == "bfloat16":
+                report["rmsnorm_bwd"]["qk_norm"] = row
+            del x, dy, dx, dw, dx_p, dw_p, again, xl, wl, lo
 
     report["flash_attention"]["d256"] = d256
     report["flash_attention"]["moe"] = moe_attn
@@ -1901,7 +2065,7 @@ def main() -> int:
     cfg17 = get_config("mamba2-370m")
     params17 = M.init_params(cfg17, torch.Generator(cuda).manual_seed(0),
                              device=cuda)
-    tree17 = params17.reference_tree()
+    tree17 = params17.param_tree()
     del params17
     root17 = os.path.join(ROOT, "build", "chip_smoke_store")
     shutil.rmtree(root17, ignore_errors=True)
@@ -1955,6 +2119,202 @@ def main() -> int:
     del tree17, restored17
     torch.cuda.empty_cache()
 
+
+    # -- phase 18: training tinyllama-1.1b at full size ----------------------
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import common as mc
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    cfg18 = get_config("tinyllama-1.1b")
+    L18 = cfg18.num_layers
+    runs18 = mc.layer_forward_runs(cfg18, L18)
+    # a step's launches: every layer forward (and recompute) runs its two
+    # norms and its attention; the final norm runs once; each backward once
+    per_step18 = {"rmsnorm": 2 * runs18 + 1, "rmsnorm_bwd": 2 * L18 + 1,
+                  "flash_attention": runs18, "flash_attention_bwd": L18}
+    # the llama family's initializer_range: the reference's fan-in rule
+    # makes tinyllama's gradients ~1e16 at 22 layers, kernels and plain
+    # versions alike (launch.train's docstring)
+    INIT_STD = 0.02
+    train_args = ["--arch", "tinyllama-1.1b", "--batch", "4", "--seq-len",
+                  "2048", "--lr", "3e-3", "--warmup", "2", "--log-every",
+                  "1", "--init-std", str(INIT_STD)]
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res18 = ltrain.main(train_args + ["--steps", "8", "--seed", "0"])
+    torch.cuda.synchronize()
+    wall18 = time.perf_counter() - t
+    peak18 = torch.cuda.max_memory_allocated() / 1e9
+    read_counts("18", list(per_step18))
+    got18 = phase_counts["18"]
+    for k, v in got18.items():
+        want = 8 * per_step18.get(k, 0)
+        check(v == want, f"phase 18: {k} launched {v} times in 8 steps, "
+                         f"want {want} ({per_step18} a step)")
+    losses18 = res18["losses"]
+    check(len(losses18) == 8 and bool(np.isfinite(losses18).all()),
+          f"phase 18: losses {losses18}")
+    check(np.mean(losses18[-2:]) < np.mean(losses18[:2]),
+          f"phase 18: the loss did not fall: {losses18}")
+    state18 = res18["state"]
+    step18 = make_train_step(cfg18, AdamWConfig(lr=3e-3, warmup_steps=2,
+                                                total_steps=8))
+    data18 = TokenPipeline(DataConfig(cfg18.vocab_size, 2048, 4))
+    batch18 = data18.batch_at(8)
+    step_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state18, _ = step18(state18, batch18)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    brk = device_breakdown(lambda: step18(state18, batch18))
+    check(brk is not None, "phase 18: torch.profiler recorded no device time")
+    wall_p, busy, nev, groups = brk
+    names = dict(groups)
+    for g in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+              "rmsnorm_bwd"):
+        check(names.get(g, 0.0) > 0, f"phase 18: the profiler saw no "
+                                     f"{g} kernel in a step")
+    tok_s = 4 * 2048 / (min(step_ms) / 1e3)
+    print(f"[18] tinyllama-1.1b at full size ({M.count_params(cfg18) / 1e9:.3f}"
+          f"e9 float32 parameters from seed 0, weights N(0, {INIT_STD}), "
+          f"bfloat16 activations, remat full, 4 x 2,048 tokens): 8 steps through launch.train in {wall18:.2f} s, "
+          f"losses {[round(x, 4) for x in losses18]}; step "
+          f"{min(step_ms):.1f} ms ({step_ms}), {tok_s:.0f} tokens/s, peak "
+          f"memory {peak18:.2f} GB; launches a step {per_step18} "
+          f"({runs18} layer forwards a step)")
+    print(f"[18] one step under torch.profiler: wall {wall_p:.1f} ms, {nev} "
+          f"device events, kernels {busy:.1f} ms, device idle "
+          f"{max(0.0, 1 - busy / wall_p):.1%}; " + ", ".join(
+              f"{g} {ms:.2f} ms" for g, ms in groups))
+    report18 = dict(step_ms=min(step_ms), tokens_per_s=tok_s, peak_gb=peak18,
+                    losses=losses18, idle=max(0.0, 1 - busy / wall_p),
+                    groups=groups)
+    del res18, state18, step18
+    torch.cuda.empty_cache()
+
+    # gradients on the first step: kernels against plain versions, float32,
+    # each held against a float64 plain step
+    gen18 = torch.Generator(cuda).manual_seed(0)
+    base18 = M.init_params(cfg18, gen18, device=cuda, weight_std=INIT_STD)
+    tree18 = base18.param_tree()
+    first18 = {"tokens": torch.as_tensor(data18.batch_at(0)["tokens"],
+                                         device=cuda)}
+
+    def grads18(cfg, tree):
+        params = type(base18)(cfg, tree)
+        params.requires_grad_(True)
+        g = M.bind_grads(cfg, params)
+        loss, _ = M.loss_fn(cfg, params, first18)
+        loss.backward()
+        for p in params.parameters():
+            p.grad = None
+        return float(loss), g
+
+    def tree_as(tree, dtype):
+        return {k: tree_as(v, dtype) if isinstance(v, dict) else v.to(dtype)
+                for k, v in tree.items()}
+
+    f32_18 = dataclasses.replace(cfg18, dtype="float32")
+    zero_counts()
+    l_k, g_k = grads18(f32_18, tree18)
+    check(kfa.flash_attention_bwd.launches == L18
+          and krms.rmsnorm_bwd.launches == 2 * L18 + 1,
+          "phase 18: the float32 kernel step did not run the backward "
+          "kernels")
+    l_p, g_p = grads18(dataclasses.replace(f32_18, kernel_impl="torch"),
+                       tree18)
+    check(kfa.flash_attention_bwd.launches == L18,
+          "phase 18: the plain step launched a kernel")
+    f64_18 = dataclasses.replace(cfg18, dtype="float64",
+                                 param_dtype="float64", kernel_impl="torch")
+    torch.cuda.reset_peak_memory_stats()
+    l_64, g_64 = grads18(f64_18, tree_as(tree18, torch.float64))
+    peak64 = torch.cuda.max_memory_allocated() / 1e9
+    worst, excess_max = [], -1.0
+    paths18 = [p for p, _ in mc.spec_leaves(M.model_spec(cfg18))]
+    for path, gk, gp, g64 in zip(paths18, tree_leaves(g_k), tree_leaves(g_p),
+                                 tree_leaves(g_64)):
+        scale = float(g64.abs().max())
+        e_k = float((gk.double() - g64).abs().max())
+        e_p = float((gp.double() - g64).abs().max())
+        excess = e_k - e_p - GRAD_F64_FRAC * scale
+        excess_max = max(excess_max, excess / max(scale, 1e-30))
+        worst.append((e_k / max(scale, 1e-30), e_p / max(scale, 1e-30),
+                      "/".join(path)))
+        check(excess <= 0, f"phase 18: gradient {'/'.join(path)}: the "
+                           f"kernels' float32 error to float64 {e_k:.3e} "
+                           f"exceeds the plain float32 error {e_p:.3e} plus "
+                           f"{GRAD_F64_FRAC} of its scale {scale:.3e}")
+    worst.sort(reverse=True)
+    print(f"[18] first-step gradients, full width and depth, 4 x 2,048 "
+          f"tokens: loss kernels {l_k!r}, plain {l_p!r}, float64 {l_64!r}; "
+          f"every leaf's float32 error to the float64 step (relative to "
+          f"its largest magnitude) within the plain float32 step's plus "
+          f"{GRAD_F64_FRAC}; largest kernels / plain: " + "; ".join(
+              f"{p} {a:.2e} / {b:.2e}" for a, b, p in worst[:4])
+          + f"; peak of the float64 step {peak64:.2f} GB")
+    del g_p, g_64
+    torch.cuda.empty_cache()
+    l_kb, g_kb = grads18(cfg18, tree18)
+    l_pb, g_pb = grads18(dataclasses.replace(cfg18, kernel_impl="torch"),
+                         tree18)
+    gaps = sorted(((float((a - b).norm() / b.norm().clamp_min(1e-30)),
+                    "/".join(p)) for p, a, b in zip(
+                        paths18, tree_leaves(g_kb), tree_leaves(g_pb))),
+                  reverse=True)
+    print(f"[18] bfloat16 first-step gradients, kernels vs plain (not "
+          f"held): loss {l_kb!r} vs {l_pb!r}; largest relative gaps " +
+          "; ".join(f"{p} {g:.2e}" for g, p in gaps[:4]))
+    report18["grad_excess"] = excess_max
+    del g_k, g_kb, g_pb, base18, tree18
+    torch.cuda.empty_cache()
+
+    # restart: full width, 2 layers; checkpoint at step 3 into the ZNS
+    # store, restore into a fresh state, replay steps 3-5
+    root18 = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(root18, ignore_errors=True)
+    two = train_args + ["--d-model", "2048", "--d-ff", "5632", "--layers",
+                        "2"]
+    whole = ltrain.main(two + ["--steps", "6", "--seed", "0"])
+    zero_counts()
+    first = ltrain.main(two + ["--steps", "3", "--seed", "0", "--ckpt-dir",
+                               root18, "--ckpt-every", "3"])
+    check(kscan.zns_event_scan_batched.launches == 1
+          and kscan.zns_event_scan.launches == 0,
+          f"phase 18: the save launched the batched scan "
+          f"{kscan.zns_event_scan_batched.launches} and the scan "
+          f"{kscan.zns_event_scan.launches} times (want 1 and 0)")
+    read_counts("18 restart", ["zns_event_scan_batched",
+                               "flash_attention_bwd", "rmsnorm_bwd"])
+    resumed = ltrain.main(two + ["--steps", "6", "--seed", "99",
+                                 "--ckpt-dir", root18, "--ckpt-every",
+                                 "100"])
+    check(resumed["steps"] == 3 and resumed["state"].step == 6,
+          f"phase 18: the restored run took {resumed['steps']} steps to "
+          f"step {resumed['state'].step}")
+    equal = [torch.equal(a, b) for a, b in zip(
+        tree_leaves(whole["state"].tree()), tree_leaves(
+            resumed["state"].tree())) if isinstance(a, torch.Tensor)]
+    check(all(equal), f"phase 18: {equal.count(False)} of {len(equal)} "
+                      f"leaves of the restored run differ from the "
+                      f"uninterrupted run's")
+    nbytes18 = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(root18) for f in fs)
+    print(f"[18] restart at full width, 2 layers: checkpoint at step 3 "
+          f"({nbytes18 / 1e9:.2f} GB on disk, one batched scan launch), "
+          f"restored into a fresh state (seed 99), steps 3-5 replayed: "
+          f"params, m and v ({len(equal)} leaves) equal the uninterrupted "
+          f"run's bit for bit; losses {[round(x, 4) for x in whole['losses']]}"
+          f" vs {[round(x, 4) for x in first['losses'] + resumed['losses']]}")
+    shutil.rmtree(root18)
+    del whole, first, resumed
+    torch.cuda.empty_cache()
+    report["flash_attention_bwd"]["training"] = report18
+
     # -- report -----------------------------------------------------------------
     sources = {
         "zns_event_scan": ("src/repro_torch/csrc/zns_event_scan.cu",
@@ -1967,8 +2327,12 @@ def main() -> int:
                                  "src/repro/kernels/zns_fixpoint.py:301"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:77"),
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:77"),
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:28"),
+        "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm.py:28"),
         "ssd_chunk_scan": ("src/repro_torch/csrc/ssd_chunk_scan.cu",
                            "src/repro/kernels/ssd_chunk_scan.py:76"),
         "linear_recurrence": ("src/repro_torch/csrc/linear_recurrence.cu",
@@ -1987,7 +2351,7 @@ def main() -> int:
                 "library_ms")}))
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was never launched on the main path: {launches}")
-    print(f"[18] total {time.perf_counter() - t0:.1f} s")
+    print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -76,10 +76,37 @@
 // keys of the score tile and the same 4 rows x D/16 columns of the output.
 // D = 256 is compiled for one block an SM (206 registers, no spills), D
 // 16-128 for two (at most 128 registers).
+//
+// Either forward can also write each row's natural log-sum-exp of its
+// scaled scores, lse (float32 (B, Hq, Tq); -inf for a row that sees no
+// key), which the backward takes; serving passes a null pointer.
+//
+// The backward (`flash_attention_bwd`; the TPU package has no backward
+// kernel: its gradients are XLA's autodiff of the plain attention) is
+// FlashAttention-2's scheme, in float32 on the float32 cores for both
+// dtypes, head dims 16-128:
+//   * `bwd_delta`: delta_i = sum_d dO_i,d O_i,d, a warp a row;
+//   * `bwd_dkdv`: a block a (key tile of 32, KV head, batch) holds K and V
+//     in shared memory, walks the Hq / Hkv query heads of its group and
+//     the query tiles of 64 rows that see the tile, recomputes
+//     P = exp(S scale - lse) and dS = P (dP - delta), dP = dO V^T, and
+//     accumulates dV += P^T dO and dK += dS^T Q scale in registers;
+//   * `bwd_dq`: a block a (query tile of 64, head, batch) walks the forward's
+//     key tiles and accumulates dQ += dS K scale.
+// No floating-point atomics: every gradient element is summed by one thread
+// in a fixed order (the GQA sum inside the dK/dV block), so a backward gives
+// the same bits in every run.  Masks as the forward's (causal, window, ends
+// aligned); a row that sees no key has P = 0 and contributes nothing.
+// Bound on the card: the float32 core rate here (67 TFLOP/s; 2.5x the
+// forward's products over the visible pairs, S and dP computed twice); the
+// same work on the bf16 tensor cores (989 TFLOP/s) is the later target.
+// Shared memory a block: 2 x 64 x D + 2 x 32 x (D + 4) + 2 x 64 x 33 floats
+// (113 KB at D = 128), one block an SM.
 #include <cuda_bf16.h>
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -137,9 +164,9 @@ constexpr int min_blocks() {
 template <int D>
 __global__ void __launch_bounds__(THREADS, min_blocks<D>())
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, Strides st,
-              int hq, int hkv, int tq, int tk, int causal, int window,
-              float scale) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, Strides st, int hq, int hkv, int tq,
+              int tk, int causal, int window, float scale) {
   constexpr int KS = D + 4;               // padded K row: conflict-free float4
   constexpr int NC = D / 16;              // output columns per thread
   constexpr int VEC = NC < 4 ? NC : 4;    // their vector width
@@ -266,6 +293,9 @@ __global__ void __launch_bounds__(THREADS, min_blocks<D>())
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= tq) continue;
+    if (lse != nullptr && tx == 0)  // -inf: the row sees no key
+      lse[((long long)b * hq + h) * tq + qi] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     const float safe = l[i] == 0.f ? 1.f : l[i];
     float* orow = ob + qi * st.o_s;
 #pragma unroll
@@ -277,7 +307,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<D>())
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides& st, int b, int hq, int hkv, int tq, int tk,
            int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -287,8 +317,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((tq + BQ - 1) / BQ, hq, b);
   kern<<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, st, hq,
-      hkv, tq, tk, causal, window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, st,
+      hq, hkv, tq, tk, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -302,6 +332,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int ROW_BYTES = 128;  // one swizzled row of a panel: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
@@ -624,8 +655,9 @@ template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
     flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                    Strides st, int hq, int hkv, int tq, int tk, int causal,
-                    int window, float scale_log2) {
+                    float* __restrict__ lse, Strides st, int hq, int hkv,
+                    int tq, int tk, int causal, int window,
+                    float scale_log2) {
   using C = Cfg<D>;
   constexpr int DP = C::DP, BQ = C::BQ, BK = C::BK, THREADS = C::THREADS;
   constexpr int NS = BK / 2;  // S registers a thread
@@ -792,6 +824,12 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // the natural log-sum-exp of the row's scaled scores (m is in units of
+    // log2); -inf for a row that sees no key
+    const int row = r_q + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && row < tq)
+      lse[((long long)b * hq + h) * tq + row] =
+          l[r] > 0.f ? m[r] * LN2 + logf(l[r]) : -INFINITY;
     l[r] = l[r] == 0.f ? 1.f : l[r];
   }
   const int r_local = 64 * wgi + 16 * warp + (lane >> 2);
@@ -879,7 +917,7 @@ __global__ void __launch_bounds__(128)
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides& st, int b, int hq, int hkv, int tq, int tk,
            int causal, int window, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
@@ -889,8 +927,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((tq + C::BQ - 1) / C::BQ, hq, b);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, st, hq, hkv,
-      tq, tk, causal, window, scale * LOG2E);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, st, hq,
+      hkv, tq, tk, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -908,6 +946,304 @@ int launch_tile(const void* q, const void* k, const void* v, void* s,
 }
 
 }  // namespace wg
+
+
+// ---------------------------------------------------------------------------
+// Backward, both dtypes: FlashAttention-2's scheme on the float32 cores.
+namespace bwd {
+
+constexpr int BQ = 64;        // query rows a tile
+constexpr int BK = 32;        // keys a tile
+constexpr int THREADS = 256;  // 16 x 16 for the score tile (ty rows, tx keys)
+constexpr int PS = BK + 1;    // padded row of the P / dS tiles
+
+struct Strides {  // (batch, head, sequence) of each tensor, in elements
+  long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s,
+      do_b, do_h, do_s, dq_b, dq_h, dq_s, dk_b, dk_h, dk_s, dv_b, dv_h,
+      dv_s;
+};
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// delta_i = sum_d dO_i,d O_i,d (float32), a warp a row of (B, Hq, Tq).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+              float* __restrict__ delta, Strides s, int hq, int tq, int d,
+              long long rows) {
+  const long long row =
+      (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31, i = (int)(row % tq);
+  const long long bh = row / tq;
+  const int h = (int)(bh % hq), b = (int)(bh / hq);
+  const T* orow = o + b * s.o_b + h * s.o_h + i * s.o_s;
+  const T* grow = dout + b * s.do_b + h * s.do_h + i * s.do_s;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc = fmaf(ld(orow + c), ld(grow + c), acc);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) delta[row] = acc;
+}
+
+// Rows [row0, row0 + ROWS) of a (T, D) view with row stride ls into a
+// float tile of row stride LDS; rows outside [0, limit) are zero.
+template <int ROWS, int D, int LDS, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          long long ls, int row0, int limit,
+                                          int tid) {
+  for (int idx = tid; idx < ROWS * D; idx += THREADS) {
+    const int r = idx / D, c = idx % D, row = row0 + r;
+    dst[r * LDS + c] = row < limit ? ld(src + row * ls + c) : 0.f;
+  }
+}
+
+// The tile's shared memory, in floats: Q and dO (BQ x D), K and V (BK x
+// (D + 4), conflict-free float4 rows), P and dS (BQ x PS), lse and delta.
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (2 * BQ * D + 2 * BK * (D + 4) + 2 * BQ * PS + 2 * BQ);
+}
+
+// One (query tile q0, key tile k0) pair: S = Q K^T and dP = dO V^T for the
+// thread's rows ty + 16 i and keys tx + 16 j, then P = exp(S scale - lse)
+// (0 where masked) and dS = P (dP - delta) into sP and sdS.
+template <int D>
+__device__ __forceinline__ void p_ds(const float* sQ, const float* sdO,
+                                     const float* sK, const float* sV,
+                                     const float* sL, const float* sDl,
+                                     float* sP, float* sdS, int ty, int tx,
+                                     int q0, int k0, int tq, int tk, int off,
+                                     int causal, int window, float scale) {
+  constexpr int KS = D + 4;
+  float s[4][2], dp[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float qv[4][4], gv[4][4], kv[2][4], vv[2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      simt::lds<4>(sQ + (ty + 16 * i) * D + d, qv[i]);
+      simt::lds<4>(sdO + (ty + 16 * i) * D + d, gv[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      simt::lds<4>(sK + (tx + 16 * j) * KS + d, kv[j]);
+      simt::lds<4>(sV + (tx + 16 * j) * KS + d, vv[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][j] = fmaf(qv[i][e], kv[j][e], s[i][j]);
+          dp[i][j] = fmaf(gv[i][e], vv[j][e], dp[i][j]);
+        }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i, qi = q0 + r, qpos = qi + off;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = tx + 16 * j, kpos = k0 + c;
+      // a visible key implies a finite lse for its row
+      const bool ok = qi < tq && kpos < tk && (!causal || kpos <= qpos) &&
+                      (window <= 0 || kpos > qpos - window);
+      const float p = ok ? expf(s[i][j] * scale - sL[r]) : 0.f;
+      sP[r * PS + c] = p;
+      sdS[r * PS + c] = p * (dp[i][j] - sDl[r]);
+    }
+  }
+}
+
+// dK and dV of one key tile of one KV head: one block a (key tile, KV head,
+// batch).  It walks the Hq / Hkv query heads of its group and, for each, the
+// query tiles that see the tile, so the GQA sum stays in the block (no
+// atomics: the same inputs give the same bits).  Thread t accumulates key
+// t / 8 and columns t % 8 + 8 c of both.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dk, T* __restrict__ dv, Strides s, int hq,
+             int hkv, int tq, int tk, int causal, int window, float scale) {
+  constexpr int KS = D + 4, NC = D / 8;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sdO = sQ + BQ * D;
+  float* sK = sdO + BQ * D;
+  float* sV = sK + BK * KS;
+  float* sP = sV + BK * KS;
+  float* sdS = sP + BQ * PS;
+  float* sL = sdS + BQ * PS;
+  float* sDl = sL + BQ;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int kk = tid >> 3, c0 = tid & 7;
+  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  const int rep = hq / hkv, off = tk - tq;
+  load_rows<BK, D, KS>(sK, k + b * s.k_b + hk * s.k_h, s.k_s, k0, tk, tid);
+  load_rows<BK, D, KS>(sV, v + b * s.v_b + hk * s.v_h, s.v_s, k0, tk, tid);
+
+  float adk[NC], adv[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) adk[c] = adv[c] = 0.f;
+  // query rows that see a key of the tile: qpos >= k0 (causal) and
+  // qpos < last key + window
+  const int klast = min(k0 + BK, tk) - 1;
+  const int qbeg = causal ? max(0, k0 - off) / BQ * BQ : 0;
+  const int qend = window > 0 ? min(tq, klast + window - off) : tq;
+  for (int hi = 0; hi < rep; ++hi) {
+    const int h = hk * rep + hi;
+    const T* qb = q + b * s.q_b + h * s.q_h;
+    const T* gb = dout + b * s.do_b + h * s.do_h;
+    const float* lb = lse + ((long long)b * hq + h) * tq;
+    const float* db = delta + ((long long)b * hq + h) * tq;
+    for (int q0 = qbeg; q0 < qend; q0 += BQ) {
+      __syncthreads();  // the previous tile's readers are done
+      load_rows<BQ, D, D>(sQ, qb, s.q_s, q0, tq, tid);
+      load_rows<BQ, D, D>(sdO, gb, s.do_s, q0, tq, tid);
+      if (tid < BQ) {
+        const bool in = q0 + tid < tq;
+        sL[tid] = in ? lb[q0 + tid] : 0.f;
+        sDl[tid] = in ? db[q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      p_ds<D>(sQ, sdO, sK, sV, sL, sDl, sP, sdS, ty, tx, q0, k0, tq, tk, off,
+              causal, window, scale);
+      __syncthreads();
+      for (int r = 0; r < BQ; ++r) {
+        const float p = sP[r * PS + kk], ds = sdS[r * PS + kk];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          adv[c] = fmaf(p, sdO[r * D + c0 + 8 * c], adv[c]);
+          adk[c] = fmaf(ds, sQ[r * D + c0 + 8 * c], adk[c]);
+        }
+      }
+    }
+  }
+  const int key = k0 + kk;
+  if (key < tk) {
+    T* kr = dk + b * s.dk_b + hk * s.dk_h + key * s.dk_s;
+    T* vr = dv + b * s.dv_b + hk * s.dv_h + key * s.dv_s;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      st(kr + c0 + 8 * c, adk[c] * scale);
+      st(vr + c0 + 8 * c, adv[c]);
+    }
+  }
+}
+
+// dQ of one query tile of one head: one block a (query tile, head, batch),
+// over the key tiles the tile sees (the forward's range).  Thread t
+// accumulates row t / 4 and columns t % 4 + 4 c.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const T* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           T* __restrict__ dq, Strides s, int hq, int hkv, int tq, int tk,
+           int causal, int window, float scale) {
+  constexpr int KS = D + 4, NC = D / 4;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sdO = sQ + BQ * D;
+  float* sK = sdO + BQ * D;
+  float* sV = sK + BK * KS;
+  float* sP = sV + BK * KS;
+  float* sdS = sP + BQ * PS;
+  float* sL = sdS + BQ * PS;
+  float* sDl = sL + BQ;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int row = tid >> 2, c0 = tid & 3;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv), off = tk - tq;
+  const T* kb = k + b * s.k_b + hk * s.k_h;
+  const T* vb = v + b * s.v_b + hk * s.v_h;
+  load_rows<BQ, D, D>(sQ, q + b * s.q_b + h * s.q_h, s.q_s, q0, tq, tid);
+  load_rows<BQ, D, D>(sdO, dout + b * s.do_b + h * s.do_h, s.do_s, q0, tq,
+                      tid);
+  if (tid < BQ) {
+    const bool in = q0 + tid < tq;
+    const long long i = ((long long)b * hq + h) * tq + q0 + tid;
+    sL[tid] = in ? lse[i] : 0.f;
+    sDl[tid] = in ? delta[i] : 0.f;
+  }
+  float adq[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) adq[c] = 0.f;
+  const int last_row = min(q0 + BQ, tq) - 1;
+  const int kend = causal ? min(tk, last_row + off + 1) : tk;
+  int kbeg = 0;
+  if (window > 0) kbeg = max(0, q0 + off - window + 1) / BK * BK;
+  for (int kt = kbeg; kt < kend; kt += BK) {
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<BK, D, KS>(sK, kb, s.k_s, kt, tk, tid);
+    load_rows<BK, D, KS>(sV, vb, s.v_s, kt, tk, tid);
+    __syncthreads();
+    p_ds<D>(sQ, sdO, sK, sV, sL, sDl, sP, sdS, ty, tx, q0, kt, tq, tk, off,
+            causal, window, scale);
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      const float ds = sdS[row * PS + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        adq[c] = fmaf(ds, sK[j * KS + c0 + 4 * c], adq[c]);
+    }
+  }
+  if (q0 + row < tq) {
+    T* qr = dq + b * s.dq_b + h * s.dq_h + (q0 + row) * s.dq_s;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) st(qr + c0 + 4 * c, adq[c] * scale);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, const Strides& s, int b, int hq, int hkv,
+           int tq, int tk, int causal, int window, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  const long long rows = (long long)b * hq * tq;
+  const long long dblocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
+  if (dblocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bwd_delta<T><<<(unsigned)dblocks, THREADS, 0, stream>>>(
+      (const T*)o, (const T*)dout, delta, s, hq, tq, D, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  auto kv_kern = bwd_dkdv<T, D>;
+  auto q_kern = bwd_dq<T, D>;
+  e = cudaFuncSetAttribute(kv_kern,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kv_kern<<<dim3((tk + BK - 1) / BK, hkv, b), THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      (T*)dk, (T*)dv, s, hq, hkv, tq, tk, causal, window, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  q_kern<<<dim3((tq + BQ - 1) / BQ, hq, b), THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      (T*)dq, s, hq, hkv, tq, tk, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
 
 // One switch over the head dims for every launcher (L::run<D>).
 template <typename L, typename... A>
@@ -934,15 +1270,29 @@ struct TileLaunch {
   template <int D, typename... A>
   static int run(A... args) { return wg::launch_tile<D>(args...); }
 };
+template <typename T>
+struct BwdLaunch {
+  template <int D, typename... A>
+  static int run(A... args) {
+    if constexpr (D > 128)  // the backward is compiled for D <= 128
+      return (int)cudaErrorInvalidValue;
+    else
+      return bwd::launch<T, D>(args...);
+  }
+};
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  strides: 12 element strides, (batch, head,
 // sequence) of q, k, v and out in turn.  window <= 0: no window.  bfloat16
 // needs every row start 16-byte aligned (pointers and the three strides).
+// lse: null, or a contiguous float32 (B, Hq, Tq) that receives each row's
+// natural log-sum-exp of its scaled scores (-inf where it sees no key),
+// which the backward takes.
 extern "C" int flash_attention_fwd(int dtype, int d, const void* q,
                                    const void* k, const void* v, void* o,
-                                   const long long* strides, int b, int hq,
+                                   float* lse, const long long* strides,
+                                   int b, int hq,
                                    int hkv, int tq, int tk, int causal,
                                    int window, float scale, void* stream) {
   if (b <= 0 || tq <= 0 || tk <= 0) return 0;
@@ -953,8 +1303,8 @@ extern "C" int flash_attention_fwd(int dtype, int d, const void* q,
                    strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_d<SimtLaunch>(d, q, k, v, o, st, b, hq, hkv, tq, tk,
-                                  causal, window, scale, s);
+    return dispatch_d<SimtLaunch>(d, q, k, v, o, lse, st, b, hq, hkv, tq,
+                                  tk, causal, window, scale, s);
   if (dtype == 1) {
     for (int i = 0; i < 12; ++i)
       if (strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
@@ -963,8 +1313,8 @@ extern "C" int flash_attention_fwd(int dtype, int d, const void* q,
                           reinterpret_cast<uintptr_t>(v) |
                           reinterpret_cast<uintptr_t>(o);
     if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;
-    return dispatch_d<WgmmaLaunch>(d, q, k, v, o, st, b, hq, hkv, tq, tk,
-                                   causal, window, scale, s);
+    return dispatch_d<WgmmaLaunch>(d, q, k, v, o, lse, st, b, hq, hkv, tq,
+                                   tk, causal, window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -975,4 +1325,34 @@ extern "C" int flash_attention_tile_products(int d, const void* q,
                                              const void* k, const void* v,
                                              void* s, void* o, void* stream) {
   return dispatch_d<TileLaunch>(d, q, k, v, s, o, (cudaStream_t)stream);
+}
+
+// The backward: dq in q's layout, dk / dv in k's / v's (24 element strides,
+// (batch, head, sequence) of q, k, v, o, dout, dq, dk, dv in turn), in the
+// input dtype, from the forward's o and lse (contiguous float32 (B, Hq, Tq)).
+// delta: float32 (B, Hq, Tq) scratch.  Head dims 16-128; 256 is refused.
+extern "C" int flash_attention_bwd(int dtype, int d, const void* q,
+                                   const void* k, const void* v,
+                                   const void* o, const void* dout,
+                                   const float* lse, float* delta, void* dq,
+                                   void* dk, void* dv,
+                                   const long long* strides, int b, int hq,
+                                   int hkv, int tq, int tk, int causal,
+                                   int window, float scale, void* stream) {
+  if (b <= 0 || tq <= 0 || tk <= 0) return 0;
+  if (hkv <= 0 || hq % hkv != 0 || b > 65535 || hq > 65535 || d > 128)
+    return (int)cudaErrorInvalidValue;
+  static_assert(sizeof(bwd::Strides) == 24 * sizeof(long long), "strides");
+  bwd::Strides st;
+  memcpy(&st, strides, sizeof st);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return dispatch_d<BwdLaunch<float>>(d, q, k, v, o, dout, lse, delta, dq,
+                                        dk, dv, st, b, hq, hkv, tq, tk,
+                                        causal, window, scale, s);
+  if (dtype == 1)
+    return dispatch_d<BwdLaunch<__nv_bfloat16>>(
+        d, q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, tq, tk,
+        causal, window, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

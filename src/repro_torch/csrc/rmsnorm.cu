@@ -343,3 +343,135 @@ extern "C" int rmsnorm_bf16(const void* x, const void* w, void* out,
                             long long rows, int d, float eps, void* stream) {
   return launch<__nv_bfloat16>(x, w, out, rows, d, eps, stream);
 }
+
+// ---------------------------------------------------------------------------
+// Backward (the TPU package has no backward kernel: its gradients are XLA's
+// autodiff of the plain RMSNorm).  With r = rsqrt(mean(x^2) + eps), per row:
+//   dx = r (1 + w) dy - x r^3 / D * sum_d (dy (1 + w) x)     (x's dtype)
+//   dw = sum_rows dy x r                                      (float32)
+// `rmsnorm_bwd_rows`: WARPS warps a block, a warp a row at a time over the
+// rows blockIdx.x * WARPS + warp + k * gridDim.x * WARPS; two passes over the
+// row (the sums, then dx), each lane accumulating its columns' dw into the
+// warp's own row of shared memory (no two threads update one element).  The
+// block then sums its warps' rows in order into its partial row.
+// `rmsnorm_dw_sum` sums the partial rows in block order.  No atomics, and
+// the grid depends on the shape only, so the same inputs give the same bits.
+// Bound on the card: memory (x and dy read, dx written; the second pass
+// hits L1 / L2 for rows of a few KB).
+
+namespace {
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_MAX_BLOCKS = 264;          // 2 an SM
+constexpr int BWD_SMEM = 64 * 1024;          // the warps' dw rows, at most
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+    rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ w,
+                     const T* __restrict__ dy, T* __restrict__ dx,
+                     float* __restrict__ part, long long rows, int d,
+                     float eps) {
+  extern __shared__ float sdw[];  // warps x d
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  float* mine = sdw + (long long)warp * d;
+  for (int c = lane; c < d; c += 32) mine[c] = 0.f;
+  const long long stride = (long long)gridDim.x * warps;
+  for (long long row = (long long)blockIdx.x * warps + warp; row < rows;
+       row += stride) {
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    float ss = 0.f, dot = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float xv = to_f32(xr[c]), gv = to_f32(gr[c]);
+      ss = fmaf(xv, xv, ss);
+      dot = fmaf(gv * (1.f + w[c]), xv, dot);
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    const float r = rsqrtf(ss / (float)d + eps);
+    const float k = dot * r * r * r / (float)d;
+    T* dr = dx + row * d;
+    for (int c = lane; c < d; c += 32) {
+      const float xv = to_f32(xr[c]), gv = to_f32(gr[c]);
+      store(dr + c, r * (1.f + w[c]) * gv - xv * k);
+      mine[c] += gv * xv * r;
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float t = 0.f;
+    for (int i = 0; i < warps; ++i) t += sdw[i * d + c];
+    part[(long long)blockIdx.x * d + c] = t;
+  }
+}
+
+__global__ void rmsnorm_dw_sum(const float* __restrict__ part,
+                               float* __restrict__ dw, int nparts, int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float t = 0.f;
+  for (int i = 0; i < nparts; ++i) t += part[(long long)i * d + c];
+  dw[c] = t;
+}
+
+// Warps a block of the backward for rows of d: 8, or fewer so that their
+// dw rows fit BWD_SMEM; 0 when one row does not.
+inline int bwd_warps(int d) {
+  int warps = BWD_THREADS / 32;
+  while (warps > 0 && (long long)warps * d * 4 > BWD_SMEM) warps >>= 1;
+  return warps;
+}
+
+// Blocks of the backward's grid (the partial rows the wrapper allocates).
+inline long long bwd_blocks(long long rows, int d) {
+  const int warps = bwd_warps(d);
+  if (warps == 0) return 0;
+  const long long need = (rows + warps - 1) / warps;
+  return need < BWD_MAX_BLOCKS ? need : BWD_MAX_BLOCKS;
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+               float* part, float* dw, long long rows, int d, float eps,
+               void* stream) {
+  if (rows <= 0) return 0;
+  const int warps = bwd_warps(d);
+  if (d <= 0 || warps == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto kern = rmsnorm_bwd_rows<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = bwd_blocks(rows, d);
+  kern<<<(unsigned)blocks, warps * 32, (size_t)warps * d * 4, s>>>(
+      (const T*)x, (const float*)w, (const T*)dy, (T*)dx, part, rows, d, eps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rmsnorm_dw_sum<<<(d + 255) / 256, 256, 0, s>>>(part, dw, (int)blocks, d);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The number of float32 partial rows of d the backward needs (its grid).
+extern "C" long long rmsnorm_bwd_parts(long long rows, int d) {
+  return bwd_blocks(rows, d);
+}
+
+// x, dy, dx: contiguous (rows, d) of one dtype; w: float32 (d,); part:
+// float32 (rmsnorm_bwd_parts(rows, d), d) scratch; dw: float32 (d,).
+extern "C" int rmsnorm_bwd_f32(const void* x, const void* w, const void* dy,
+                               void* dx, float* part, float* dw,
+                               long long rows, int d, float eps,
+                               void* stream) {
+  return launch_bwd<float>(x, w, dy, dx, part, dw, rows, d, eps, stream);
+}
+
+extern "C" int rmsnorm_bwd_bf16(const void* x, const void* w, const void* dy,
+                                void* dx, float* part, float* dw,
+                                long long rows, int d, float eps,
+                                void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, w, dy, dx, part, dw, rows, d, eps,
+                                   stream);
+}

@@ -22,6 +22,19 @@ head ``h // (Hq // Hkv)``; a row that sees no key is 0.
 * :func:`attention_torch` is the plain version: a masked softmax in
   float32 over chunks of queries, GQA by head grouping.  The wrapper uses
   it only for tensors on the CPU.
+* With ``return_lse=True`` the forward also returns each row's natural
+  log-sum-exp of its scaled scores, float32 ``(B, Hq, Tq)``, ``-inf`` for
+  a row that sees no key (the kernel writes it; serving asks for none).
+* :func:`flash_attention_bwd` launches the backward kernels of the same
+  source (FlashAttention-2's scheme in float32, head dims in
+  :data:`BWD_HEAD_DIMS`; no atomics, so a backward gives the same bits in
+  every run) and counts ``flash_attention_bwd.launches``;
+  :func:`attention_bwd_torch` is its plain version.  The reference has no
+  backward kernel: its gradients are XLA's autodiff of the plain
+  attention.
+* :class:`FlashAttentionFunction` is the ``torch.autograd.Function``
+  (forward with ``lse``, backward :func:`flash_attention_bwd`) that
+  ``ops.attention(..., impl="cuda")`` uses when a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -32,17 +45,30 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import NEG_INF, attention_mask
+from .ref import NEG_INF, attention_mask, compute_dtype
 
 #: Head dims the CUDA kernel is compiled for.
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: Head dims of the backward kernel.
+BWD_HEAD_DIMS = (16, 32, 64, 128)
+#: Why the backward refuses other head dims.
+BWD_D256 = ("the attention backward kernel takes head dims 16-128; D 256 "
+            "(recurrentgemma-9b, with its window) waits for ROADMAP queue 1, "
+            "item 6b: recurrent-family training on the card")
+#: The kernels' dtypes; float64 runs the plain version only, when it is
+#: asked for by name.
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def check_inputs(q, k, v, window: Optional[int] = None) -> None:
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+def check_inputs(q, k, v, window: Optional[int] = None, *,
+                 plain: bool = False) -> None:
+    """Raises on inputs the kernel does not take (``plain``: the plain
+    version is asked for, and float64 is taken too)."""
+    dtypes = DTYPES + ((torch.float64,) if plain else ())
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention: q, k, v of one dtype, float32 or "
-                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+                        f"bfloat16 (float64: impl='torch' only); got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"attention: q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D);"
                          f" got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -60,28 +86,74 @@ def check_inputs(q, k, v, window: Optional[int] = None) -> None:
 def attention_torch(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None,
-                    q_chunk: int = 512) -> torch.Tensor:
-    """Plain version: per chunk of ``q_chunk`` queries, float32 logits,
-    masked weights ``exp(s - max)`` (0 where masked), divided by their
-    sum (1 where the sum is 0)."""
+                    q_chunk: int = 512, return_lse: bool = False):
+    """Plain version: per chunk of ``q_chunk`` queries, float32 logits
+    (float64 for float64 inputs), masked weights ``exp(s - max)`` (0
+    where masked), divided by their sum (1 where the sum is 0).
+    ``return_lse``: also the rows' log-sum-exp, ``(out, lse)``."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     rep = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    kt = k.float().unsqueeze(2).transpose(-1, -2)     # (B, Hkv, 1, D, Tk)
-    vf = v.float().unsqueeze(2)                       # (B, Hkv, 1, Tk, D)
+    ct = compute_dtype(q)
+    kt = k.to(ct).unsqueeze(2).transpose(-1, -2)      # (B, Hkv, 1, D, Tk)
+    vf = v.to(ct).unsqueeze(2)                        # (B, Hkv, 1, Tk, D)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, tq), dtype=ct, device=q.device)
+           if return_lse else None)
     for c0 in range(0, tq, q_chunk):
-        qc = q[:, :, c0:c0 + q_chunk].float()
+        qc = q[:, :, c0:c0 + q_chunk].to(ct)
         cq = qc.shape[2]
         s = torch.matmul(qc.reshape(b, hkv, rep, cq, d), kt) * scale
         mask = attention_mask(tq, tk, causal, window, q.device, c0, cq)
         s = s.masked_fill(~mask, NEG_INF)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+        mx = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - mx) * mask
         den = p.sum(dim=-1, keepdim=True)
         o = torch.matmul(p, vf) / torch.where(den == 0, 1.0, den)
         out[:, :, c0:c0 + cq] = o.reshape(b, hq, cq, d).to(q.dtype)
-    return out
+        if return_lse:
+            row = torch.where(den > 0, mx + torch.log(den), -math.inf)
+            lse[:, :, c0:c0 + cq] = row.reshape(b, hq, cq).detach()
+    return (out, lse) if return_lse else out
+
+
+def attention_bwd_torch(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None, q_chunk: int = 512):
+    """Plain backward, FlashAttention-2's arithmetic in float32 (or
+    float64 for float64 inputs) per chunk of queries: ``delta = rowsum(dO
+    O)``, ``P = exp(S scale - lse)`` (0 where masked), ``dS = P (dO V^T -
+    delta)``; ``dQ = dS K scale``, ``dK = dS^T Q scale``, ``dV = P^T dO``,
+    the GQA group summed.  Returns ``(dq, dk, dv)`` in the inputs'
+    dtypes."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    ct = compute_dtype(q)
+    kf = k.to(ct).unsqueeze(2)                         # (B, Hkv, 1, Tk, D)
+    vf = v.to(ct).unsqueeze(2)
+    delta = (do.to(ct) * o.to(ct)).sum(-1)             # (B, Hq, Tq)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(kf.shape[:2] + kf.shape[3:], dtype=ct, device=q.device)
+    dv = torch.zeros_like(dk)
+    for c0 in range(0, tq, q_chunk):
+        qc = q[:, :, c0:c0 + q_chunk].to(ct)
+        cq = qc.shape[2]
+        qg = qc.reshape(b, hkv, rep, cq, d)
+        gg = do[:, :, c0:c0 + cq].to(ct).reshape(b, hkv, rep, cq, d)
+        lg = lse[:, :, c0:c0 + cq].to(ct).reshape(b, hkv, rep, cq, 1)
+        dg = delta[:, :, c0:c0 + cq].reshape(b, hkv, rep, cq, 1)
+        mask = attention_mask(tq, tk, causal, window, q.device, c0, cq)
+        s = torch.matmul(qg, kf.transpose(-1, -2)) * scale
+        p = torch.where(mask, torch.exp(s - lg), 0.0)
+        ds = p * (torch.matmul(gg, vf.transpose(-1, -2)) - dg)
+        dv += torch.matmul(p.transpose(-1, -2), gg).sum(2)
+        dk += torch.matmul(ds.transpose(-1, -2), qg).sum(2) * scale
+        dq[:, :, c0:c0 + cq] = (torch.matmul(ds, kf) * scale).reshape(
+            b, hq, cq, d).to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _fits(t: torch.Tensor) -> bool:
@@ -94,9 +166,10 @@ def _fits(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
 
 
-def _launch(q, k, v, causal: bool, window: Optional[int],
-            scale: float) -> torch.Tensor:
-    """Run the CUDA kernel on CUDA tensors (raises on any failure)."""
+def _launch(q, k, v, causal: bool, window: Optional[int], scale: float,
+            return_lse: bool = False):
+    """Run the CUDA kernel on CUDA tensors (raises on any failure);
+    ``(out, lse)``, lse None unless asked for."""
     d = q.shape[3]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
@@ -104,43 +177,127 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
     q, k, v = (t if _fits(t) else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
     out = torch.empty_like(q)     # q's strides when dense, else contiguous
+    b, hq, tq, _ = q.shape
+    lse = (torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (q, k, v, out) for s in t.stride()[:3]])
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                    + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    b, hq, tq, _ = q.shape
     rc = fn(1 if q.dtype == torch.bfloat16 else 0, d, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides,
+            None if lse is None else lse.data_ptr(), strides,
             b, hq, k.shape[1], tq, k.shape[2], int(causal),
             -1 if window is None else int(window), float(scale),
             _build.stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    return out
+    return out, lse
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    return_lse: bool = False):
     """Attention forward.  CUDA tensors launch the kernel; CPU tensors
-    run :func:`attention_torch`."""
+    run :func:`attention_torch`.  ``return_lse``: ``(out, lse)``."""
     check_inputs(q, k, v, window)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
     if not q.is_cuda:
         return attention_torch(q, k, v, causal=causal, window=window,
-                               scale=scale)
-    out = _launch(q, k, v, causal, window, scale)
+                               scale=scale, return_lse=return_lse)
+    out, lse = _launch(q, k, v, causal, window, scale, return_lse)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def _unit(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the backward takes it: unit stride along D (an expanded
+    gradient is copied)."""
+    return t if t.stride(-1) == 1 and t.numel() else t.contiguous()
+
+
+def _launch_bwd(q, k, v, o, do, lse, causal: bool, window: Optional[int],
+                scale: float):
+    d = q.shape[3]
+    q, k, v, o, do = (_unit(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    b, hq, tq, _ = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *[s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+    fn = _build.load("flash_attention").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                   + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rc = fn(1 if q.dtype == torch.bfloat16 else 0, d, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), strides, b, hq, k.shape[1], tq, k.shape[2],
+            int(causal), -1 if window is None else int(window), float(scale),
+            _build.stream_handle(q.device))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {rc}")
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """Attention backward from the forward's ``o`` and ``lse``: ``(dq, dk,
+    dv)`` in q's and k's / v's layouts and dtype.  CUDA tensors launch the
+    kernel (head dims in :data:`BWD_HEAD_DIMS`; D 256 raises
+    ``NotImplementedError``); CPU tensors run :func:`attention_bwd_torch`."""
+    check_inputs(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be q's {tuple(q.shape)}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    if not q.is_cuda:
+        return attention_bwd_torch(q, k, v, o, do, lse, causal=causal,
+                                   window=window, scale=scale)
+    if q.shape[3] not in BWD_HEAD_DIMS:
+        raise NotImplementedError(BWD_D256)
+    out = _launch_bwd(q, k, v, o, do.to(q.dtype), lse, causal, window, scale)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with the backward kernel: forward :func:`flash_attention`
+    with ``lse``, backward :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                scale: Optional[float]):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse,
+                                         causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None
 
 
 def tile_products(q, k, v):

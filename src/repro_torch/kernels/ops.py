@@ -9,6 +9,14 @@ dispatch.  The two scans also take ``impl="ref"``, the sequential
 oracles of :mod:`repro_torch.kernels.ref`, as the reference's
 ``impl="xla"`` takes its oracles.  Nothing falls back: a CUDA kernel
 that fails to build or launch raises.
+
+Gradients: ``impl="torch"`` is plain autograd through the plain
+versions.  On ``impl="cuda"``, :func:`rmsnorm` and :func:`attention` go
+through ``torch.autograd.Function`` objects whose backward launches the
+backward kernels whenever an input requires a gradient (the plain kernel
+call otherwise, as in serving); :func:`linear_recurrence` and
+:func:`ssd_scan` have no backward kernel yet, and their backward raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -28,6 +36,32 @@ from .zns_fixpoint import PackedBlocks, PackedShards, pack_blocks, \
     pack_stacked
 
 IMPLS = ("cuda", "torch")
+
+
+#: Why the recurrent kernels have no backward on the card.
+NO_RECURRENT_BWD = ("{} has no backward kernel yet: training the ssm and "
+                    "hybrid families on the card waits for ROADMAP queue 1, "
+                    "item 6b (backward kernels for linear_recurrence and "
+                    "ssd_chunk_scan); train them on the CPU or with "
+                    "kernel_impl='xla'")
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _NoBackward(torch.autograd.Function):
+    """A CUDA kernel's forward whose backward raises (no backward kernel
+    exists, and nothing falls back to the plain version)."""
+
+    @staticmethod
+    def forward(ctx, name, fn, *args):
+        ctx.name = name
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(NO_RECURRENT_BWD.format(ctx.name))
 
 
 def _resolve(impl: Optional[str], t: torch.Tensor) -> str:
@@ -131,10 +165,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_length is not None:
         return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                   scale=scale, kv_length=kv_length)
-    _fa.check_inputs(q, k, v, window)
+    _fa.check_inputs(q, k, v, window, plain=impl == "torch")
     if _resolve(impl, q) == "torch":
         return _fa.attention_torch(q, k, v, causal=causal, window=window,
                                    scale=scale)
+    if _wants_grad(q, k, v):
+        if q.shape[3] not in _fa.BWD_HEAD_DIMS:
+            raise NotImplementedError(_fa.BWD_D256)
+        return _fa.FlashAttentionFunction.apply(q, k, v, causal, window,
+                                                scale)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
 
@@ -143,9 +182,11 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             impl: Optional[str] = None) -> torch.Tensor:
     """RMSNorm over the last dim of ``x``: ``x * rsqrt(mean(x^2) + eps)
     * (1 + w)`` in float32, returned in ``x``'s dtype."""
-    _rms.check_inputs(x, w)
+    _rms.check_inputs(x, w, plain=impl == "torch")
     if _resolve(impl, x) == "torch":
         return _rms.rmsnorm_torch(x, w, eps=eps)
+    if _wants_grad(x, w):
+        return _rms.RMSNormFunction.apply(x, w, eps)
     return _rms.rmsnorm(x, w, eps=eps)
 
 
@@ -156,6 +197,9 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor, *,
     _lr.check_inputs(a, b)
     if _resolve(impl, a) == "torch":
         return _lr.linear_recurrence_torch(a, b)
+    if _wants_grad(a, b):
+        return _NoBackward.apply("linear_recurrence", _lr.linear_recurrence,
+                                 a, b)
     return _lr.linear_recurrence(a, b)
 
 
@@ -168,4 +212,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _ssd.check_inputs(x, dt, A, B, C)
     if _resolve(impl, x) == "torch":
         return _ssd.ssd_torch(x, dt, A, B, C, chunk=chunk)
+    if _wants_grad(x, dt, A, B, C):
+        return _NoBackward.apply(
+            "ssd_chunk_scan",
+            lambda *a: _ssd.ssd_chunk_scan(*a, chunk=chunk), x, dt, A, B, C)
     return _ssd.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)

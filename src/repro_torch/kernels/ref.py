@@ -98,12 +98,20 @@ def attention_xla_chunked(q, k, v, *, causal: bool = True,
     return torch.cat(outs, dim=2)
 
 
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type for ``x``: float32, or float64
+    for float64 inputs (the arbiter the kernels' float32 results are held
+    against)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def rmsnorm_ref(x, w, *, eps: float = 1e-6):
     """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` over the last dim, in
-    float32, returned in ``x``'s dtype."""
-    xf = x.float()
+    float32 (float64 for float64 x), returned in ``x``'s dtype."""
+    ct = compute_dtype(x)
+    xf = x.to(ct)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.to(ct))).to(x.dtype)
 
 
 def linear_recurrence_ref(a, b, h0=None):

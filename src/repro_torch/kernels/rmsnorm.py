@@ -14,6 +14,14 @@ view of ``x`` (``(..., D)``), in float32, written in ``x``'s dtype
 * :func:`rmsnorm_torch` is the plain version, a float32 row reduction
   (the oracle :func:`repro_torch.kernels.ref.rmsnorm_ref` itself).  The
   wrapper uses it only for tensors on the CPU.
+* :func:`rmsnorm_bwd` launches the backward kernel of the same source
+  (``rmsnorm_bwd_f32`` / ``_bf16``: dx, and dw summed without atomics
+  through per-block partial rows) and counts ``rmsnorm_bwd.launches``;
+  :func:`rmsnorm_bwd_torch` is its plain version.  The reference has no
+  backward kernel (its gradient is XLA's autodiff of the plain RMSNorm).
+* :class:`RMSNormFunction` is the ``torch.autograd.Function`` whose
+  forward is :func:`rmsnorm` and whose backward is :func:`rmsnorm_bwd`;
+  ``ops.rmsnorm(..., impl="cuda")`` uses it when a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -22,14 +30,20 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import rmsnorm_ref as rmsnorm_torch
+from .ref import compute_dtype, rmsnorm_ref as rmsnorm_torch
 
+#: The kernels' dtypes; float64 runs the plain versions only, when they
+#: are asked for by name.
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def check_inputs(x: torch.Tensor, w: torch.Tensor) -> None:
-    if x.dtype not in DTYPES:
-        raise TypeError(f"rmsnorm: float32 or bfloat16 input, got {x.dtype}")
+def check_inputs(x: torch.Tensor, w: torch.Tensor, *,
+                 plain: bool = False) -> None:
+    """Raises on inputs the kernel does not take (``plain``: the plain
+    version is asked for, and float64 is taken too)."""
+    if x.dtype not in DTYPES + ((torch.float64,) if plain else ()):
+        raise TypeError(f"rmsnorm: float32 or bfloat16 input (float64: "
+                        f"impl='torch' only), got {x.dtype}")
     if x.dim() < 1 or w.shape != (x.shape[-1],):
         raise ValueError(f"rmsnorm: x (..., D) and w (D,), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -68,3 +82,86 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
 
 
 rmsnorm.launches = 0
+
+
+def rmsnorm_bwd_torch(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                      eps: float = 1e-6):
+    """Plain backward of :func:`rmsnorm_torch`: ``(dx, dw)``, dx in x's
+    dtype and dw float32 (float64 for float64 x), computed in float32
+    with r = rsqrt(mean(x^2) +
+    eps): ``dx = r (1 + w) dy - x r^3 / D * sum(dy (1 + w) x)``, ``dw =
+    sum over rows of dy x r``."""
+    d = x.shape[-1]
+    ct = compute_dtype(x)
+    xf, gf = x.to(ct), dy.to(ct)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    gw = gf * (1.0 + w.to(ct))
+    dot = torch.sum(gw * xf, dim=-1, keepdim=True)
+    dx = r * gw - xf * (r * r * r) * dot / d
+    dw = (gf * xf * r).reshape(-1, d).sum(0)
+    return dx.to(x.dtype), dw
+
+
+def _launch_bwd(x, w, dy, eps: float):
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d).contiguous()
+    g2 = dy.reshape(-1, d).contiguous()
+    w32 = w.float().contiguous()
+    lib = _build.load("rmsnorm")
+    lib.rmsnorm_bwd_parts.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.rmsnorm_bwd_parts.restype = ctypes.c_longlong
+    parts = lib.rmsnorm_bwd_parts(x2.shape[0], d)
+    if parts <= 0 and x2.shape[0] > 0:
+        raise ValueError(f"rmsnorm_bwd: rows of {d} are too long for the "
+                         f"kernel (at most 16,384)")
+    dx = torch.empty_like(x2)
+    part = torch.empty((max(parts, 1), d), dtype=torch.float32,
+                       device=x.device)
+    dw = torch.zeros((d,), dtype=torch.float32, device=x.device)
+    fn = lib.rmsnorm_bwd_bf16 if x.dtype == torch.bfloat16 \
+        else lib.rmsnorm_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(x2.data_ptr(), w32.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), dw.data_ptr(), x2.shape[0], d, float(eps),
+            _build.stream_handle(x.device))
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm_bwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    return dx.view(x.shape), dw
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6):
+    """Backward of :func:`rmsnorm`: ``(dx, dw)``.  CUDA tensors launch the
+    kernel; CPU tensors run :func:`rmsnorm_bwd_torch`."""
+    check_inputs(x, w)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
+                         f"does not match x {tuple(x.shape)} {x.dtype}")
+    if not x.is_cuda:
+        return rmsnorm_bwd_torch(x, w, dy, eps=eps)
+    out = _launch_bwd(x, w, dy, eps)
+    rmsnorm_bwd.launches += 1
+    return out
+
+
+rmsnorm_bwd.launches = 0
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """RMSNorm with the backward kernel: forward :func:`rmsnorm`, backward
+    :func:`rmsnorm_bwd` (dw returned in w's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm(x, w, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy, eps=ctx.eps)
+        return dx, dw.to(w.dtype), None

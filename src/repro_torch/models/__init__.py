@@ -4,10 +4,14 @@ from .config import (  # noqa: F401
     ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
     ModelConfig, ShapeConfig, shapes_for,
 )
-from .convert import params_from_reference, params_to_reference  # noqa: F401
+from .convert import (  # noqa: F401
+    params_from_reference, params_to_reference, train_state_from_reference,
+    train_state_to_reference,
+)
 from .model import (  # noqa: F401
-    count_active_params, count_params, decode_step, forward, init_cache,
-    init_params, model_flops, model_spec, prefill,
+    bind_grads, count_active_params, count_params, decode_step, forward,
+    init_cache, init_params, loss_fn, model_flops, model_spec, prefill,
+    train_forward,
 )
 from .mamba2 import Mamba2  # noqa: F401
 from .rglru import RecurrentGemma  # noqa: F401

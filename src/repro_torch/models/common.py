@@ -10,6 +10,10 @@ config's ``param_dtype`` and cast to the activations' dtype at use, as
 in the reference.  Norms go through :func:`repro_torch.kernels.ops.rmsnorm`
 and full-sequence attention through
 :func:`repro_torch.kernels.ops.attention` (the CUDA kernels on a card).
+:func:`stacked_apply` runs a stack of layers with the reference's
+two-level rematerialisation (``torch.utils.checkpoint``) when a gradient
+is being recorded.  A float64 model (the arbiter of the kernels' float32
+gradients) computes RoPE and its logits in float64.
 """
 from __future__ import annotations
 
@@ -22,8 +26,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import compute_dtype
 from .config import ModelConfig
 
 #: The reference's ``kernel_impl`` names, as the port's ``impl``.
@@ -56,13 +62,19 @@ class P:
     scale: float = 1.0
 
     def initialize(self, generator: torch.Generator, dtype: torch.dtype,
-                   device) -> torch.Tensor:
+                   device, weight_std: Optional[float] = None
+                   ) -> torch.Tensor:
+        """Draw the parameter.  ``weight_std`` replaces the fan-in rule of
+        the ``normal`` weights by one standard deviation (as a published
+        checkpoint's ``initializer_range``)."""
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dtype, device=device)
         if self.init == "const_std":
             std = self.scale
+        elif weight_std is not None:
+            std = weight_std
         else:
             # the reference's rule: fan_in is shape[-2] for every weight of
             # two or more dims (the heads axis of a (D, H, Dh) projection)
@@ -84,15 +96,15 @@ def spec_leaves(spec, prefix=()):
 
 
 def init_from_spec(spec, generator: torch.Generator, dtype: torch.dtype,
-                   device) -> dict:
+                   device, weight_std: Optional[float] = None) -> dict:
     """A nested dict of tensors shaped like ``spec``, drawn leaf by leaf
-    from ``generator``."""
+    from ``generator`` (``weight_std``: see :meth:`P.initialize`)."""
     out: dict = {}
     for path, p in spec_leaves(spec):
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = p.initialize(generator, dtype, device)
+        node[path[-1]] = p.initialize(generator, dtype, device, weight_std)
     return out
 
 
@@ -134,15 +146,6 @@ def index_tree(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def stack_trees(trees) -> dict:
-    """The trees' leaves stacked on a new first axis (the reference's
-    stacked layout)."""
-    return {k: (stack_trees([t[k] for t in trees])
-                if isinstance(trees[0][k], dict)
-                else torch.stack([t[k] for t in trees]))
-            for k in trees[0]}
-
-
 # ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------
@@ -163,11 +166,12 @@ def _rope_freqs(dh: int, theta: float, device: torch.device) -> torch.Tensor:
 def rope(x, positions, theta: float):
     """x: (..., T, H, Dh); positions: (..., T)."""
     half = x.shape[-1] // 2
-    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
-    ang = positions[..., None].float() * freqs          # (..., T, half)
+    ct = compute_dtype(x)
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device).to(ct)
+    ang = positions[..., None].to(ct) * freqs           # (..., T, half)
     cos = torch.cos(ang)[..., None, :]                  # (..., T, 1, half)
     sin = torch.sin(ang)[..., None, :]
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    xf1, xf2 = x[..., :half].to(ct), x[..., half:].to(ct)
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
 
@@ -314,7 +318,7 @@ def embed_tokens(cfg: ModelConfig, p, tokens, dtype):
 
 
 def lm_logits(cfg: ModelConfig, p, x):
-    """x: (B, S, D) -> float32 (B, S, V)."""
+    """x: (B, S, D) -> float32 (B, S, V) (float64 for a float64 x)."""
     if cfg.num_codebooks > 1:
         raise NotImplementedError(_CODEBOOKS)
     head = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
@@ -322,7 +326,7 @@ def lm_logits(cfg: ModelConfig, p, x):
     if cfg.logits_softcap:
         cap = cfg.logits_softcap
         logits = torch.tanh(logits / cap) * cap
-    return logits.float()
+    return logits.to(compute_dtype(logits))
 
 
 def apply_frontend(cfg: ModelConfig, p, x, frontend_inputs):
@@ -337,3 +341,87 @@ def apply_frontend(cfg: ModelConfig, p, x, frontend_inputs):
 def constrain_act(x, cfg: "ModelConfig | None" = None):
     """The reference's sharding hint; the identity on one card."""
     return x
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+def _auto_block(n_layers: int) -> int:
+    """Largest divisor of n_layers not exceeding ~sqrt(n_layers)."""
+    limit = int(np.ceil(np.sqrt(n_layers))) + 1
+    best = 1
+    for k in range(1, limit + 1):
+        if n_layers % k == 0:
+            best = k
+    return best
+
+
+def remat_policy(cfg: ModelConfig) -> Optional[str]:
+    """What a checkpointed region keeps for the backward: None (no remat)
+    or ``"full"``: ``torch.utils.checkpoint`` keeps the region's inputs
+    only, as JAX's ``nothing_saveable``.  ``dots_saveable`` maps to
+    ``"full"`` too: keeping the matmul outputs faithfully needs a
+    selective-checkpoint policy over every product op, and on one card
+    the recompute it saves is not worth that code."""
+    return None if cfg.remat == "none" else "full"
+
+
+def _remat_on(cfg: ModelConfig) -> bool:
+    return remat_policy(cfg) is not None and torch.is_grad_enabled()
+
+
+def maybe_checkpoint(cfg: ModelConfig, fn):
+    """``fn`` checkpointed (recomputed in the backward) when remat is on
+    and a gradient is being recorded, else ``fn`` itself."""
+    if not _remat_on(cfg):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def stacked_apply(cfg: ModelConfig, body, x, layers):
+    """Apply ``body(x, layer) -> (x, y)`` over ``layers`` in order;
+    returns ``(x, [y, ...])``.
+
+    With remat on and a gradient being recorded, the reference's
+    two-level schedule: each layer is checkpointed, and so is each block
+    of ``cfg.remat_block`` layers (auto ~sqrt(L), when it divides L), so
+    the backward keeps L / k block inputs plus k layer inputs (see
+    :func:`layer_forward_runs` for the recompute it costs).  Otherwise
+    (serving, remat ``none``) a plain loop.
+    """
+    def run(fn, x, seq):
+        ys = []
+        for layer in seq:
+            x, y = fn(x, layer)
+            ys.append(y)
+        return x, ys
+
+    if not _remat_on(cfg):
+        return run(body, x, layers)
+    inner = maybe_checkpoint(cfg, body)
+    n = len(layers)
+    block = cfg.remat_block or _auto_block(n)
+    if block <= 1 or n % block:
+        return run(inner, x, layers)
+    ys = []
+    for i0 in range(0, n, block):
+        x, yb = checkpoint(run, inner, x, layers[i0:i0 + block],
+                           use_reentrant=False)
+        ys.extend(yb)
+    return x, ys
+
+
+def layer_forward_runs(cfg: ModelConfig, n_layers: int) -> int:
+    """How many layer forwards :func:`stacked_apply` runs in one training
+    step over ``n_layers`` layers (the forward and its recomputes): n
+    without remat; 2n with layer checkpoints only; 3n - n / k with blocks
+    of k.  ``torch.utils.checkpoint`` stops a recompute once it holds
+    every tensor the backward needs, so a block's recompute does not rerun
+    its last layer (whose own checkpoint keeps only its input); the
+    reference's ``jax.checkpoint`` reruns it (3n)."""
+    if cfg.remat == "none":
+        return n_layers
+    block = cfg.remat_block or _auto_block(n_layers)
+    if block <= 1 or n_layers % block:
+        return 2 * n_layers
+    return 3 * n_layers - n_layers // block

@@ -7,8 +7,11 @@ layers stacked on a leading axis (``params["layers"]["attn"]["wq"]`` is
 :func:`params_from_reference` takes that tree as numpy arrays and returns
 the port's model (:class:`Transformer` for the dense and MoE families,
 :class:`Mamba2` or :class:`RecurrentGemma`) with the same values;
-:func:`params_to_reference` gives the tree back.  The tests use them to
-run both packages on one set of weights.
+:func:`params_to_reference` gives the tree back.
+:func:`train_state_from_reference` does the same for a whole training
+state (parameters, AdamW's ``m`` and ``v``, the step), and
+:func:`train_state_to_reference` back.  The tests use them to run both
+packages on one set of weights, or from one training state.
 """
 from __future__ import annotations
 
@@ -59,6 +62,44 @@ def params_from_reference(cfg: ModelConfig, tree, *, device=DEFAULT_DEVICE):
     return _CLASSES[cfg.family](cfg, out)
 
 
+def _tree(cfg: ModelConfig, tree, dev) -> dict:
+    """A reference-layout tree of numpy leaves as tensors on ``dev``, in
+    the spec's key order."""
+    return params_from_reference(cfg, tree, device=dev).param_tree()
+
+
+def train_state_from_reference(cfg: ModelConfig, state, *,
+                               device=DEFAULT_DEVICE):
+    """The port's :class:`repro_torch.train.TrainState` from the
+    reference's (a ``TrainState`` or a ``{"step", "params", "opt"}``
+    dict, leaves as numpy arrays): the same parameters (trainable), ``m``,
+    ``v`` (float32) and step."""
+    from repro_torch.train import TrainState
+    get = (state.get if isinstance(state, dict)
+           else lambda k: getattr(state, k))
+    dev = resolve_device(device)
+    opt = get("opt")
+    return TrainState.of(params_from_reference(cfg, get("params"),
+                                               device=dev),
+                         step=int(np.asarray(get("step"))),
+                         opt={"m": _tree(cfg, opt["m"], dev),
+                              "v": _tree(cfg, opt["v"], dev)})
+
+
+def train_state_to_reference(state) -> dict:
+    """``{"step", "params", "opt": {"m", "v"}}`` of a port training state
+    as the reference's numpy trees (the step an int32)."""
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {"step": np.asarray(state.step, np.int32),
+            "params": host(state.params.param_tree()),
+            "opt": {"m": host(state.opt["m"]), "v": host(state.opt["v"])}}
+
+
 def params_to_reference(params) -> dict:
     """The reference's tree layout (numpy, stacked axes first) of a port
     model's parameters."""
@@ -71,4 +112,4 @@ def params_to_reference(params) -> dict:
             return {k: to_host(v) for k, v in node.items()}
         return host(node)
 
-    return to_host(params.reference_tree())
+    return to_host(params.param_tree())

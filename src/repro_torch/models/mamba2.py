@@ -49,22 +49,27 @@ class Mamba2(nn.Module):
         self.layers = nn.ModuleList(
             cm.ParamTree(cm.index_tree(tree["layers"], i))
             for i in range(cfg.num_layers))
+        self._tree = tree
 
-    def reference_tree(self) -> dict:
-        return {"embed": self.embed.tree(),
-                "layers": cm.stack_trees([ly.tree() for ly in self.layers])}
+    def param_tree(self) -> dict:
+        """The parameters in the reference's layout, layers stacked: the
+        tensors this module's parameters are views of (no copy)."""
+        return self._tree
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                *, device=DEFAULT_DEVICE) -> Mamba2:
+                *, device=DEFAULT_DEVICE,
+                weight_std: Optional[float] = None) -> Mamba2:
     """Random init from the spec tree, in ``cfg.param_dtype``, on
-    ``device``; ``generator`` (on that device) defaults to seed 0."""
+    ``device``; ``generator`` (on that device) defaults to seed 0.
+    ``weight_std``: every ``normal`` weight N(0, weight_std) instead of
+    the reference's fan-in rule (:meth:`repro_torch.models.common.P.initialize`)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
     return Mamba2(cfg, cm.init_from_spec(model_spec(cfg), generator,
                                          cm.torch_dtype(cfg.param_dtype),
-                                         dev))
+                                         dev, weight_std))
 
 
 def causal_conv(xbc, w, b):
@@ -118,16 +123,23 @@ def mamba_layer(cfg: ModelConfig, p, x):
 
 def _hidden(cfg: ModelConfig, params: Mamba2, tokens):
     x = cm.embed_tokens(cfg, params.embed, tokens, cm.torch_dtype(cfg.dtype))
-    for p in params.layers:
-        x = mamba_layer(cfg, p, x)
+    x, _ = cm.stacked_apply(cfg, lambda x, p: (mamba_layer(cfg, p, x), None),
+                            x, params.layers)
     return cm.rmsnorm(cfg, params.embed["final_norm"], x)
+
+
+def train_forward(cfg: ModelConfig, params: Mamba2, tokens,
+                  frontend_inputs=None):
+    """:func:`forward` that autograd records (layers rematerialised per
+    ``cfg.remat``).  On a card the SSD kernel has no backward yet: its
+    backward raises ``NotImplementedError`` (ROADMAP queue 1, item 6b)."""
+    return cm.lm_logits(cfg, params.embed, _hidden(cfg, params, tokens)), 0.0
 
 
 def forward(cfg: ModelConfig, params: Mamba2, tokens, frontend_inputs=None):
     """tokens: (B, S) integer -> (float32 logits (B, S, V), aux 0.0)."""
     with torch.inference_mode():
-        return cm.lm_logits(cfg, params.embed,
-                            _hidden(cfg, params, tokens)), 0.0
+        return train_forward(cfg, params, tokens, frontend_inputs)
 
 
 # ---------------------------------------------------------------------------

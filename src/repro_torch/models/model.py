@@ -4,6 +4,9 @@
                                              families), Mamba2 (ssm),
                                              RecurrentGemma (hybrid)
     forward(cfg, params, tokens)          -> (logits, aux)
+    train_forward(cfg, params, tokens)    -> the same, recorded by autograd
+    loss_fn(cfg, params, batch)           -> (loss, {"nll", "aux"})
+    bind_grads(cfg, params)               -> stacked gradient buffers
     init_cache / prefill / decode_step    -> serving entry points
     count_params(cfg)                     -> exact (spec tree, no alloc)
 
@@ -17,6 +20,7 @@ state.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.torch_device import DEFAULT_DEVICE
 from . import common as cm
@@ -51,12 +55,70 @@ def model_spec(cfg: ModelConfig):
     return transformer.model_spec(cfg)
 
 
-def init_params(cfg: ModelConfig, generator=None, *, device=DEFAULT_DEVICE):
-    return _module(cfg).init_params(cfg, generator, device=device)
+def init_params(cfg: ModelConfig, generator=None, *, device=DEFAULT_DEVICE,
+                weight_std=None):
+    """A random init from ``generator``: the reference's fan-in rule, or
+    with ``weight_std`` every ``normal`` weight N(0, weight_std)."""
+    return _module(cfg).init_params(cfg, generator, device=device,
+                                    weight_std=weight_std)
 
 
 def forward(cfg: ModelConfig, params, tokens, frontend_inputs=None):
     return _module(cfg).forward(cfg, params, tokens, frontend_inputs)
+
+
+def train_forward(cfg: ModelConfig, params, tokens, frontend_inputs=None):
+    return _module(cfg).train_forward(cfg, params, tokens, frontend_inputs)
+
+
+# ---------------------------------------------------------------------------
+# Loss and gradients
+# ---------------------------------------------------------------------------
+def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
+    """Next-token cross-entropy (+ MoE aux loss), the port of
+    ``repro.models.model.loss_fn``.
+
+    batch: ``{"tokens": (B, S)}`` (labels are the tokens shifted).  The
+    logits are float32 (float64 for a float64 model); the row maximum is
+    detached, the loss is ``mean(logsumexp - target logit) + aux_weight *
+    aux``.  The target logit is gathered: the reference's one-hot
+    contraction adds exact zeros to it, so the values are the same.
+    Returns ``(loss, {"nll", "aux"})``.
+    """
+    tokens = batch["tokens"]
+    logits, aux = train_forward(cfg, params, tokens,
+                                batch.get("frontend_inputs"))
+    targets = tokens[:, 1:]
+    logits = logits[:, :-1]
+    lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - lmax), dim=-1)) \
+        + lmax[..., 0]
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    loss = torch.mean(lse - tgt)
+    aux = torch.as_tensor(aux, dtype=loss.dtype, device=loss.device)
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux}
+
+
+def bind_grads(cfg: ModelConfig, params) -> dict:
+    """Zeroed gradient buffers in the reference's layout (layers stacked,
+    in the parameters' dtypes), with every parameter's ``.grad`` a view of
+    them: a backward then accumulates each layer's gradient in place into
+    its slice, and the tree is the gradient tree of
+    ``params.param_tree()`` with no copy."""
+    def zeros(node):
+        return {k: zeros(v) if isinstance(v, dict) else torch.zeros_like(v)
+                for k, v in node.items()}
+
+    grads = zeros(params.param_tree())
+    twin = type(params)(cfg, grads)      # parameters that alias the buffers
+    pairs = list(zip(params.parameters(), twin.parameters()))
+    if len(pairs) != len(list(twin.parameters())) or any(
+            p.shape != g.shape for p, g in pairs):
+        raise ValueError("bind_grads: the gradient tree does not mirror the "
+                         "model's parameters")
+    for p, g in pairs:
+        p.grad = g.detach()
+    return grads
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

@@ -62,24 +62,27 @@ class RecurrentGemma(nn.Module):
             for i in range(groups))
         self.tail = nn.ModuleList(cm.ParamTree(tree[f"tail{t}"])
                                   for t in range(tail))
+        self._tree = tree
 
-    def reference_tree(self) -> dict:
-        tree = {"embed": self.embed.tree(),
-                "groups": cm.stack_trees([g.tree() for g in self.groups])}
-        for t, blk in enumerate(self.tail):
-            tree[f"tail{t}"] = blk.tree()
-        return tree
+    def param_tree(self) -> dict:
+        """The parameters in the reference's layout, groups stacked: the
+        tensors this module's parameters are views of (no copy)."""
+        return self._tree
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                *, device=DEFAULT_DEVICE) -> RecurrentGemma:
+                *, device=DEFAULT_DEVICE,
+                weight_std: Optional[float] = None) -> RecurrentGemma:
     """Random init from the spec tree, in ``cfg.param_dtype``, on
-    ``device``; ``generator`` (on that device) defaults to seed 0."""
+    ``device``; ``generator`` (on that device) defaults to seed 0.
+    ``weight_std``: every ``normal`` weight N(0, weight_std) instead of
+    the reference's fan-in rule (:meth:`repro_torch.models.common.P.initialize`)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
     return RecurrentGemma(cfg, cm.init_from_spec(
-        model_spec(cfg), generator, cm.torch_dtype(cfg.param_dtype), dev))
+        model_spec(cfg), generator, cm.torch_dtype(cfg.param_dtype), dev,
+        weight_std))
 
 
 # ---------------------------------------------------------------------------
@@ -130,22 +133,34 @@ def _hidden(cfg: ModelConfig, params: RecurrentGemma, tokens):
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    for gp in params.groups:
+
+    def group(x, gp):
         for i, kind in enumerate(cfg.block_pattern):
             p = gp[f"b{i}_{kind}"]
             x = (rec_block(cfg, p, x) if kind == "rec"
                  else attn_block(cfg, p, x, positions))
+        return x, None
+
+    x, _ = cm.stacked_apply(cfg, group, x, params.groups)
     for p in params.tail:
         x = rec_block(cfg, p, x)
     return cm.rmsnorm(cfg, params.embed["final_norm"], x)
+
+
+def train_forward(cfg: ModelConfig, params: RecurrentGemma, tokens,
+                  frontend_inputs=None):
+    """:func:`forward` that autograd records (pattern groups
+    rematerialised per ``cfg.remat``).  On a card the linear recurrence
+    has no backward kernel yet, nor attention at D 256: training raises
+    ``NotImplementedError`` (ROADMAP queue 1, item 6b)."""
+    return cm.lm_logits(cfg, params.embed, _hidden(cfg, params, tokens)), 0.0
 
 
 def forward(cfg: ModelConfig, params: RecurrentGemma, tokens,
             frontend_inputs=None):
     """tokens: (B, S) integer -> (float32 logits (B, S, V), aux 0.0)."""
     with torch.inference_mode():
-        return cm.lm_logits(cfg, params.embed,
-                            _hidden(cfg, params, tokens)), 0.0
+        return train_forward(cfg, params, tokens, frontend_inputs)
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,17 @@ The port of ``repro.models.transformer`` for the dense family (tinyllama,
 qwen3-4b/8b, llama3-405b) and the MoE family (qwen2-moe-a2.7b,
 arctic-480b; the FFN half is :func:`repro_torch.models.moe.moe_block`).
 :class:`Transformer` holds the parameters,
-one :class:`DecoderLayer` per layer, and layers run in a plain Python
-loop (the reference's ``lax.scan`` and rematerialisation have no
-counterpart here).  The functions :func:`forward`, :func:`prefill` and
+one :class:`DecoderLayer` per layer, and layers run in a Python loop
+(:func:`repro_torch.models.common.stacked_apply`, with the reference's
+rematerialisation when a gradient is recorded).  The functions
+:func:`forward`, :func:`train_forward`, :func:`prefill` and
 :func:`decode_step` take the config explicitly, so one set of weights
 serves configs that differ only in ``kernel_impl`` or ``dtype``.
-Decoding writes the KV cache in place.
+Decoding writes the KV cache in place.  Parameters are frozen
+(``requires_grad=False``) for serving; ``params.requires_grad_(True)``
+makes them trainable (``repro_torch.train.TrainState`` does), and their
+gradients then land in the stacked buffers that
+:func:`repro_torch.models.model.bind_grads` gives them.
 """
 from __future__ import annotations
 
@@ -153,13 +158,13 @@ class Transformer(nn.Module):
 
         self.layers = nn.ModuleList(DecoderLayer(layer(i, stacked))
                                     for i in range(cfg.num_layers))
+        self._tree = tree
 
-    def reference_tree(self) -> dict:
-        """The parameters in the reference's layout (layers stacked: a
-        copy)."""
-        return {"embed": dict(self.embed.items()),
-                "layers": cm.stack_trees([ly.reference_tree()
-                                          for ly in self.layers])}
+    def param_tree(self) -> dict:
+        """The parameters in the reference's layout, layers stacked: the
+        tensors this module's parameters are views of (no copy; updating
+        one updates the other)."""
+        return self._tree
 
 
 # ---------------------------------------------------------------------------
@@ -169,35 +174,43 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
+def train_forward(cfg: ModelConfig, params: Transformer, tokens,
+                  frontend_inputs=None):
+    """:func:`forward` that autograd records (the same maths; the layers
+    rematerialised per ``cfg.remat`` when a gradient is recorded)."""
+    x = cm.embed_tokens(cfg, params.embed, tokens, cm.torch_dtype(cfg.dtype))
+    x = cm.apply_frontend(cfg, params.embed, x, frontend_inputs)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    x, auxs = cm.stacked_apply(
+        cfg, lambda x, layer: layer(cfg, x, positions), x, params.layers)
+    auxs = [a for a in auxs if a is not None]
+    x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
+    aux = torch.stack(auxs).sum() if auxs else 0.0
+    return cm.lm_logits(cfg, params.embed, x), aux
+
+
 def forward(cfg: ModelConfig, params: Transformer, tokens,
             frontend_inputs=None):
     """tokens: (B, S) integer -> (float32 logits (B, S, V), aux): aux is
     the layers' summed MoE load-balancing loss (a float32 scalar tensor),
-    0.0 for a dense model."""
+    0.0 for a dense model.  Runs under ``torch.inference_mode()``."""
     with torch.inference_mode():
-        x = cm.embed_tokens(cfg, params.embed, tokens,
-                            cm.torch_dtype(cfg.dtype))
-        x = cm.apply_frontend(cfg, params.embed, x, frontend_inputs)
-        positions = _positions(x.shape[0], x.shape[1], x.device)
-        auxs = []
-        for layer in params.layers:
-            x, aux = layer(cfg, x, positions)
-            if aux is not None:
-                auxs.append(aux)
-        x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
-        aux = torch.stack(auxs).sum() if auxs else 0.0
-        return cm.lm_logits(cfg, params.embed, x), aux
+        return train_forward(cfg, params, tokens, frontend_inputs)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                *, device=DEFAULT_DEVICE) -> Transformer:
+                *, device=DEFAULT_DEVICE,
+                weight_std: Optional[float] = None) -> Transformer:
     """Random init from the spec tree, in ``cfg.param_dtype``, on
-    ``device``; ``generator`` (on that device) defaults to seed 0."""
+    ``device``; ``generator`` (on that device) defaults to seed 0.
+    ``weight_std``: every ``normal`` weight N(0, weight_std) instead of
+    the reference's fan-in rule (:meth:`repro_torch.models.common.P.initialize`)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
     tree = cm.init_from_spec(model_spec(cfg), generator,
-                             cm.torch_dtype(cfg.param_dtype), dev)
+                             cm.torch_dtype(cfg.param_dtype), dev,
+                             weight_std)
     return Transformer(cfg, tree)
 
 

@@ -1,0 +1,139 @@
+"""Train step: loss -> gradients -> AdamW, with optional microbatch
+gradient accumulation.
+
+The port of ``repro.train.step`` for one card.  :class:`TrainState`
+holds the step count, the model (``params``: a :class:`Transformer`,
+:class:`Mamba2` or :class:`RecurrentGemma` whose parameters are
+trainable) and the optimizer state ``opt = {"m", "v"}`` (float32 trees
+in the reference's layout).  ``train_step(state, batch)`` takes the
+gradient of :func:`repro_torch.models.loss_fn` by autograd into stacked
+buffers (:func:`repro_torch.models.bind_grads`), then runs
+:func:`repro_torch.optim.adamw_update`, which updates the parameters
+and ``opt`` in place; it returns the state with ``step + 1`` and the
+metrics ``loss``, ``nll``, ``aux``, ``grad_norm`` and ``lr`` (0-d
+tensors).  The reference's ``state_spec`` / ``state_logical_axes``
+(shardings for the dry run) wait for ROADMAP queue 1, item 9.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import models as M
+from repro_torch.core.torch_device import DEFAULT_DEVICE
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.utils.tree import tree_flatten, tree_leaves
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: nn.Module
+    opt: dict
+
+    @staticmethod
+    def create(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+               *, device=DEFAULT_DEVICE,
+               weight_std: Optional[float] = None) -> "TrainState":
+        """A random init (``generator``, on the device, defaults to seed 0;
+        ``weight_std``: see :func:`repro_torch.models.init_params`) at
+        step 0 with zero ``m`` and ``v``."""
+        return TrainState.of(M.init_params(cfg, generator, device=device,
+                                           weight_std=weight_std))
+
+    @staticmethod
+    def of(params: nn.Module, step: int = 0,
+           opt: Optional[dict] = None) -> "TrainState":
+        """The state of a model: its parameters made trainable, ``opt``
+        zeros unless given."""
+        params.requires_grad_(True)
+        if opt is None:
+            opt = init_opt_state(params.param_tree())
+        return TrainState(step=int(step), params=params, opt=opt)
+
+    def load(self, tree) -> "TrainState":
+        """Copies a restored checkpoint tree (``{"params", "opt",
+        "step"}`` of numpy arrays, bfloat16 leaves as 2-byte words) into
+        this state's tensors in place; returns the state."""
+        dst, _ = tree_flatten({"params": self.params.param_tree(),
+                               "opt": self.opt})
+        src, _ = tree_flatten({"params": tree["params"], "opt": tree["opt"]})
+        if len(src) != len(dst):
+            raise ValueError(f"checkpoint has {len(src)} leaves, the state "
+                             f"{len(dst)}")
+        with torch.no_grad():
+            for d, s in zip(dst, src):
+                a = np.asarray(s)
+                t = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+                     if a.dtype.kind == "V" else torch.from_numpy(a))
+                d.copy_(t.reshape(d.shape))
+        self.step = int(np.asarray(tree["step"]))
+        return self
+
+    def tree(self) -> dict:
+        """``{"params", "opt", "step"}`` as the reference's checkpoints
+        hold them (the parameter and state tensors themselves, the step a
+        numpy int32)."""
+        return {"params": self.params.param_tree(), "opt": self.opt,
+                "step": np.asarray(self.step, np.int32)}
+
+
+def _device_batch(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    *, microbatches: int = 1):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch`` is ``{"tokens": (B, S)}`` (numpy or tensors; moved to the
+    model's device).  ``microbatches > 1`` splits the batch dim into that
+    many slices (it must divide evenly), runs a backward for each,
+    accumulating the gradients (float32 for float32 parameters) in the
+    stacked buffers, scales them by ``1 / microbatches`` and keeps the
+    last slice's metrics and the mean loss, as the reference's
+    ``lax.scan`` does.
+    """
+    def train_step(state: TrainState, batch):
+        model = state.params
+        device = next(model.parameters()).device
+        batch = _device_batch(batch, device)
+        grads = M.bind_grads(cfg, model)
+        try:
+            if microbatches > 1:
+                b = next(iter(batch.values())).shape[0]
+                if b % microbatches:
+                    raise ValueError(f"batch {b} does not split into "
+                                     f"{microbatches} microbatches")
+                n = b // microbatches
+                loss_sum = 0.0
+                for i in range(microbatches):
+                    loss, metrics = M.loss_fn(
+                        cfg, model,
+                        {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+                    loss.backward()
+                    loss_sum = loss_sum + loss.detach()
+                inv = 1.0 / microbatches
+                for g in tree_leaves(grads):
+                    g.mul_(inv)
+                loss = loss_sum * inv
+            else:
+                loss, metrics = M.loss_fn(cfg, model, batch)
+                loss.backward()
+            _, opt, opt_metrics = adamw_update(opt_cfg, model.param_tree(),
+                                               grads, state.opt, state.step)
+        finally:
+            for p in model.parameters():      # free the buffers
+                p.grad = None
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(opt_metrics)
+        metrics["loss"] = loss.detach()
+        return TrainState(step=state.step + 1, params=model, opt=opt), \
+            metrics
+
+    return train_step

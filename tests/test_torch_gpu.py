@@ -518,6 +518,286 @@ def test_flash_attention_copies_misaligned_bf16_views_on_card(cuda_device):
                                atol=ATTN_TOL[torch.bfloat16])
 
 
+#: Backward kernels against their plain versions on the same forward
+#: outputs (o, lse): both compute in float32 and differ in summation order
+#: (and by the last rounding to bfloat16).
+BWD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _attn_inputs(device, dtype, b, hq, hkv, tq, tk, d, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+            .to(device, dtype) for s in ((b, hq, tq, d), (b, hkv, tk, d),
+                                         (b, hkv, tk, d), (b, hq, tq, d))]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,window,causal", [
+    (1, 4, 4, 128, 128, 64, None, True),
+    (2, 8, 2, 100, 100, 64, None, True),      # GQA 4, ragged tiles
+    (1, 8, 1, 64, 256, 128, None, True),      # GQA 8, tq < tk
+    (2, 4, 2, 37, 37, 32, None, True),
+    (1, 4, 2, 200, 200, 16, None, True),
+    (1, 8, 2, 512, 512, 64, 256, True),       # local window
+    (1, 4, 2, 100, 160, 32, 16, True),        # window with tq < tk
+    (1, 4, 2, 300, 300, 128, 100, True),      # window edge inside a tile
+    (1, 4, 2, 200, 70, 64, None, True),       # tq > tk: rows see no key
+    (1, 2, 1, 90, 90, 128, None, False),      # not causal
+    (1, 32, 4, 256, 256, 64, None, True),     # tinyllama's heads
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_kernel_matches_plain_on_card(cuda_device, b, hq, hkv,
+                                                    tq, tk, d, window,
+                                                    causal, dtype):
+    q, k, v, do = _attn_inputs(cuda_device, dtype, b, hq, hkv, tq, tk, d,
+                               tq + 3 * tk + d)
+    out, lse = pfa.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    _, lse_plain = pfa.attention_torch(q, k, v, causal=causal,
+                                       window=window, return_lse=True)
+    seen = torch.isfinite(lse_plain)
+    assert bool((torch.isfinite(lse) == seen).all())
+    np.testing.assert_allclose(lse[seen].cpu().numpy(),
+                               lse_plain[seen].cpu().numpy(), atol=1e-4)
+    before = pfa.flash_attention_bwd.launches
+    got = pfa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                  window=window)
+    want = pfa.attention_bwd_torch(q, k, v, out, do, lse, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert pfa.flash_attention_bwd.launches == before + 1
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **BWD_TOL[dtype])
+    if not bool(seen.all()):      # rows that see no key: dq is 0
+        assert bool((got[0][~seen] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_kernel_takes_strided_views_on_card(cuda_device, dtype):
+    """The model's (B, S, H, D) -> (B, H, S, D) views and a strided
+    gradient go in uncopied; the gradients come back in the inputs'
+    layouts."""
+    q = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (2, 70, 8, 64)), dtype=torch.float32).to(cuda_device, dtype)
+    k, v = (torch.as_tensor(np.random.default_rng(s).standard_normal(
+        (2, 70, 2, 64)), dtype=torch.float32).to(cuda_device, dtype)
+        for s in (2, 3))
+    do = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (2, 70, 8, 64)), dtype=torch.float32).to(cuda_device, dtype)
+    q, k, v, do = (t.movedim(2, 1) for t in (q, k, v, do))
+    out, lse = pfa.flash_attention(q, k, v, return_lse=True)
+    got = pfa.flash_attention_bwd(q, k, v, out, do, lse)
+    want = pfa.attention_bwd_torch(*(t.contiguous() for t in (q, k, v, out,
+                                                               do)), lse)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.stride() == t.stride()
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_forward_lse_leaves_output_bit_equal_on_card(cuda_device,
+                                                               d, dtype):
+    """Asking the forward for lse changes no bit of its output."""
+    q, k, v, _ = _attn_inputs(cuda_device, dtype, 2, 8, 2, 300, 300, d, d)
+    plain = pfa.flash_attention(q, k, v, window=128)
+    out, lse = pfa.flash_attention(q, k, v, window=128, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, out)
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_kernel_is_deterministic_on_card(cuda_device, dtype):
+    """No atomics: two backwards of the same inputs are bit-equal."""
+    q, k, v, do = _attn_inputs(cuda_device, dtype, 2, 32, 4, 512, 512, 64, 8)
+    out, lse = pfa.flash_attention(q, k, v, return_lse=True)
+    one = pfa.flash_attention_bwd(q, k, v, out, do, lse)
+    two = pfa.flash_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_attention_function_under_checkpoint_on_card(cuda_device):
+    """ops.attention on impl="cuda" inside torch.utils.checkpoint: the
+    forward kernel runs twice (forward and recompute), the backward kernel
+    once, and the gradients match plain autograd."""
+    q0, k0, v0, do = _attn_inputs(cuda_device, torch.float32, 1, 8, 2, 150,
+                                  150, 64, 21)
+
+    def grads(impl, wrap):
+        q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+
+        def f(q, k, v):
+            return ops.attention(q, k, v, window=64, impl=impl) * 2.0
+
+        out = (torch.utils.checkpoint.checkpoint(f, q, k, v,
+                                                 use_reentrant=False)
+               if wrap else f(q, k, v))
+        out.backward(do)
+        return q.grad, k.grad, v.grad
+
+    fwd, bwd = pfa.flash_attention.launches, pfa.flash_attention_bwd.launches
+    got = grads("cuda", True)
+    torch.cuda.synchronize()
+    assert pfa.flash_attention.launches - fwd == 2
+    assert pfa.flash_attention_bwd.launches - bwd == 1
+    want = grads("torch", False)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   **BWD_TOL[torch.float32])
+
+
+def test_attention_bwd_refuses_head_dim_256_on_card(cuda_device):
+    q, k, v, _ = _attn_inputs(cuda_device, torch.bfloat16, 1, 2, 1, 64, 64,
+                              256, 0)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.attention(q, k, v, window=32, impl="cuda")
+
+
+@pytest.mark.parametrize("shape", [(8192, 2048), (4 * 256 * 32, 128),
+                                   (2, 9, 2560), (5, 100), (3, 64),
+                                   (7, 2568), (2, 5, 4096), (3, 16384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_matches_plain_on_card(cuda_device, shape, dtype):
+    rng = np.random.default_rng(shape[-1] + len(shape))
+    x, dy = (torch.as_tensor(rng.standard_normal(shape),
+                             dtype=torch.float32).to(cuda_device, dtype)
+             for _ in range(2))
+    w = torch.as_tensor(rng.standard_normal(shape[-1]) * 0.1,
+                        dtype=torch.float32).to(cuda_device)
+    before = prms.rmsnorm_bwd.launches
+    dx, dw = prms.rmsnorm_bwd(x, w, dy)
+    dx_p, dw_p = prms.rmsnorm_bwd_torch(x, w, dy)
+    torch.cuda.synchronize()
+    assert prms.rmsnorm_bwd.launches == before + 1
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
+    np.testing.assert_allclose(dx.float().cpu().numpy(),
+                               dx_p.float().cpu().numpy(), **BWD_TOL[dtype])
+    # dw sums a product over every row: relative to its scale
+    rows = x.numel() // shape[-1]
+    np.testing.assert_allclose(dw.cpu().numpy(), dw_p.cpu().numpy(),
+                               rtol=1e-3, atol=1e-4 * rows ** 0.5)
+    again = prms.rmsnorm_bwd(x, w, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_function_under_checkpoint_on_card(cuda_device, dtype):
+    rng = np.random.default_rng(31)
+    x0 = torch.as_tensor(rng.standard_normal((3, 40, 256)),
+                         dtype=torch.float32).to(cuda_device, dtype)
+    w0 = torch.as_tensor(rng.standard_normal(256) * 0.1,
+                         dtype=torch.float32).to(cuda_device)
+    dy = torch.as_tensor(rng.standard_normal((3, 40, 256)),
+                         dtype=torch.float32).to(cuda_device, dtype)
+
+    def grads(impl, wrap):
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+
+        def f(x, w):
+            return ops.rmsnorm(x, w, impl=impl)
+
+        out = (torch.utils.checkpoint.checkpoint(f, x, w,
+                                                 use_reentrant=False)
+               if wrap else f(x, w))
+        out.backward(dy)
+        return x.grad, w.grad
+
+    fwd, bwd = prms.rmsnorm.launches, prms.rmsnorm_bwd.launches
+    got = grads("cuda", True)
+    torch.cuda.synchronize()
+    assert (prms.rmsnorm.launches - fwd, prms.rmsnorm_bwd.launches - bwd) \
+        == (2, 1)
+    want = grads("torch", False)
+    np.testing.assert_allclose(got[0].float().cpu().numpy(),
+                               want[0].float().cpu().numpy(),
+                               **BWD_TOL[dtype])
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=1e-3, atol=1e-2)
+
+
+def test_recurrent_kernels_have_no_backward_on_card(cuda_device):
+    """linear_recurrence and ssd_scan on impl="cuda" run forward, and
+    their backward raises NotImplementedError naming the ROADMAP item;
+    nothing falls back to the plain version."""
+    a = torch.full((1, 64, 32), 0.9, device=cuda_device, requires_grad=True)
+    b = torch.ones((1, 64, 32), device=cuda_device, requires_grad=True)
+    h = ops.linear_recurrence(a, b, impl="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6b"):
+        h.sum().backward()
+    x = torch.randn((1, 128, 2, 64), device=cuda_device, requires_grad=True)
+    dt = torch.full((1, 128, 2), 0.01, device=cuda_device)
+    A = -torch.ones((2,), device=cuda_device)
+    B = torch.randn((1, 128, 1, 16), device=cuda_device)
+    y, _ = ops.ssd_scan(x, dt, A, B, B.clone(), chunk=128, impl="cuda")
+    with pytest.raises(NotImplementedError, match="ssd_chunk_scan"):
+        y.sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-4b"])
+def test_smoke_model_gradients_kernels_match_plain_on_card(cuda_device, arch):
+    """loss_fn's gradients through the kernels' Functions (remat full)
+    against plain autograd, float32, every leaf within 1e-4 of its scale;
+    the kernels launch as often as layer_forward_runs says."""
+    import dataclasses
+
+    from repro_torch.models import common as cm
+    from repro_torch.utils import tree_leaves
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              kernel_impl="auto")
+    tree = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                         device=cuda_device, weight_std=0.02).param_tree()
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)), device=cuda_device)
+    norms = 4 if cfg.qk_norm else 2
+    runs = cm.layer_forward_runs(cfg, cfg.num_layers)
+    out = []
+    for impl in ("auto", "torch"):
+        c = dataclasses.replace(cfg, kernel_impl=impl)
+        params = M.Transformer(c, tree)
+        params.requires_grad_(True)
+        grads = M.bind_grads(c, params)
+        before = (prms.rmsnorm.launches, prms.rmsnorm_bwd.launches,
+                  pfa.flash_attention.launches,
+                  pfa.flash_attention_bwd.launches)
+        M.loss_fn(c, params, {"tokens": toks})[0].backward()
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(
+            (prms.rmsnorm.launches, prms.rmsnorm_bwd.launches,
+             pfa.flash_attention.launches,
+             pfa.flash_attention_bwd.launches), before))
+        want = ((norms * runs + 1, norms * cfg.num_layers + 1, runs,
+                 cfg.num_layers) if impl == "auto" else (0, 0, 0, 0))
+        assert got == want, (impl, got, want)
+        out.append(tree_leaves(grads))
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_families_refuse_training_on_card(cuda_device, arch):
+    """Training an ssm or hybrid model with the CUDA kernels raises
+    NotImplementedError naming ROADMAP queue 1, item 6b; it does not run a
+    plain version in their place."""
+    cfg = get_smoke_config(arch)
+    import dataclasses
+    cfg = dataclasses.replace(cfg, kernel_impl="auto")
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           device=cuda_device)
+    params.requires_grad_(True)
+    toks = torch.zeros((1, 128), dtype=torch.long, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        M.loss_fn(cfg, params, {"tokens": toks})[0].backward()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_takes_misaligned_rows_on_card(cuda_device, dtype):
     """x whose storage starts one element past a 16-byte boundary (the

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import KiB as RKiB, OpType as ROp, WorkloadSpec as RWorkload
@@ -21,10 +22,13 @@ from repro.core.engine import (
     zone_sequential_completions_batched as r_scan_batched,
 )
 from repro.kernels import ops as rops
+from repro.kernels import ref as rref
 from repro.kernels.zns_event_scan import zns_event_scan as r_pallas_scan
 from repro.kernels.zns_fixpoint import blocks_adjacency as r_adjacency
 
+from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import ops, zns_event_scan as pscan
+from repro_torch.kernels import rmsnorm as prms
 from repro_torch.kernels import zns_fixpoint as pfix
 
 #: float32 tolerances of the reference kernel tests.
@@ -224,3 +228,123 @@ def test_fixpoint_block_tiles(rows, length, tiles):
     grid is the largest block's count, and its scratch two values a
     tile)."""
     assert pfix.block_tiles(rows, length, 2048) == tiles
+
+
+# -- backward passes: the plain versions of the two backward kernels ---------
+#: Plain backward against autograd of the plain forward: the same float32
+#: arithmetic in another order.
+BWD_AUTOGRAD = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+                torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+#: ... and against jax.grad of the reference's oracle (float32 inputs);
+#: bfloat16 inputs round their gradients to 8 bits in both.
+BWD_JAX = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=3e-2)}
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,window", [
+    (1, 4, 4, 40, 40, 16, None),
+    (2, 8, 2, 33, 33, 32, None),      # GQA 4
+    (1, 8, 1, 20, 50, 16, None),      # GQA 8, tq < tk (end-aligned)
+    (1, 4, 2, 48, 48, 32, 7),         # window
+    (1, 4, 2, 30, 45, 16, 5),         # window, tq < tk
+    (1, 4, 2, 50, 20, 16, None),      # tq > tk: the first rows see no key
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_plain_matches_autograd_and_jax(b, hq, hkv, tq, tk, d,
+                                                      window, dtype):
+    rng = np.random.default_rng(tq + tk + d)
+    shapes = ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    do = rng.standard_normal(shapes[0]).astype(np.float32)
+    q, k, v = (torch.as_tensor(a).to(dtype).requires_grad_(True)
+               for a in arrays)
+    out, lse = pfa.attention_torch(q, k, v, window=window, return_lse=True)
+    seen = torch.isfinite(lse)
+    # rows that see no key: the port writes 0 and takes no gradient; the
+    # reference's dense oracle spreads them over every key, so their
+    # cotangent is 0 for the comparison with it
+    do[~seen.numpy()] = 0.0
+    dot = torch.as_tensor(do).to(dtype)
+    want = torch.autograd.grad(out, (q, k, v), dot)
+    got = pfa.attention_bwd_torch(q.detach(), k.detach(), v.detach(),
+                                  out.detach(), dot, lse, window=window)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                   **BWD_AUTOGRAD[dtype])
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a, jd) for a in arrays)
+    _, vjp = jax.vjp(lambda q_, k_, v_: rref.attention_ref(
+        q_, k_, v_, window=window), jq, jk, jv)
+    ref = vjp(jnp.asarray(do, jd))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(r, np.float32),
+                                   **BWD_JAX[dtype])
+    if not bool(seen.all()):
+        assert bool((got[0][~seen] == 0).all())
+
+
+@pytest.mark.parametrize("shape", [(6, 64), (2, 5, 48), (3, 4, 2, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_plain_matches_autograd_and_jax(shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    xa = rng.standard_normal(shape).astype(np.float32)
+    wa = (rng.standard_normal(shape[-1]) * 0.1).astype(np.float32)
+    dya = rng.standard_normal(shape).astype(np.float32)
+    x = torch.as_tensor(xa).to(dtype).requires_grad_(True)
+    w = torch.as_tensor(wa).requires_grad_(True)
+    dy = torch.as_tensor(dya).to(dtype)
+    want = torch.autograd.grad(prms.rmsnorm_torch(x, w), (x, w), dy)
+    dx, dw = prms.rmsnorm_bwd_torch(x.detach(), w.detach(), dy)
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    np.testing.assert_allclose(dx.float().numpy(), want[0].float().numpy(),
+                               **BWD_AUTOGRAD[dtype])
+    np.testing.assert_allclose(dw.numpy(), want[1].numpy(), rtol=1e-5,
+                               atol=1e-4)
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    _, vjp = jax.vjp(lambda x_, w_: rref.rmsnorm_ref(x_, w_),
+                     jnp.asarray(xa, jd), jnp.asarray(wa))
+    rdx, rdw = vjp(jnp.asarray(dya, jd))
+    np.testing.assert_allclose(dx.float().numpy(), np.asarray(rdx,
+                                                              np.float32),
+                               **BWD_JAX[dtype])
+    np.testing.assert_allclose(dw.numpy(), np.asarray(rdw, np.float32),
+                               rtol=1e-4, atol=5e-3)
+
+
+def test_autograd_functions_run_plain_versions_on_cpu():
+    """The Functions that ``ops`` uses on ``impl="cuda"`` take CPU tensors
+    too (their wrappers then run the plain versions), and give plain
+    autograd's gradients; no kernel launch is counted."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+               .requires_grad_(True) for s in ((1, 4, 20, 16),
+                                               (1, 2, 20, 16),
+                                               (1, 2, 20, 16)))
+    x = torch.as_tensor(rng.standard_normal((5, 32)).astype(np.float32)
+                        ).requires_grad_(True)
+    w = torch.zeros(32, requires_grad=True)
+    launches = (pfa.flash_attention.launches,
+                pfa.flash_attention_bwd.launches, prms.rmsnorm.launches,
+                prms.rmsnorm_bwd.launches)
+    y = pfa.FlashAttentionFunction.apply(q, k, v, True, 6, None)
+    z = prms.RMSNormFunction.apply(x, w, 1e-6)
+    got = torch.autograd.grad((y.sum(), (z * z).sum()), (q, k, v, x, w))
+    y2 = pfa.attention_torch(q, k, v, window=6)
+    z2 = prms.rmsnorm_torch(x, w)
+    want = torch.autograd.grad((y2.sum(), (z2 * z2).sum()), (q, k, v, x, w))
+    for g, t in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), t.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert launches == (pfa.flash_attention.launches,
+                        pfa.flash_attention_bwd.launches,
+                        prms.rmsnorm.launches, prms.rmsnorm_bwd.launches)
+
+
+def test_cuda_route_needs_cuda_tensors_for_gradients_too():
+    q = torch.zeros((1, 2, 4, 16), requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(q, q, q, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.rmsnorm(q, torch.zeros(16), impl="cuda")
