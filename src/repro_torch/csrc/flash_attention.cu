@@ -83,25 +83,57 @@
 //
 // The backward (`flash_attention_bwd`; the TPU package has no backward
 // kernel: its gradients are XLA's autodiff of the plain attention) is
-// FlashAttention-2's scheme, in float32 on the float32 cores for both
-// dtypes, head dims 16-128:
-//   * `bwd_delta`: delta_i = sum_d dO_i,d O_i,d, a warp a row;
-//   * `bwd_dkdv`: a block a (key tile of 32, KV head, batch) holds K and V
-//     in shared memory, walks the Hq / Hkv query heads of its group and
-//     the query tiles of 64 rows that see the tile, recomputes
-//     P = exp(S scale - lse) and dS = P (dP - delta), dP = dO V^T, and
-//     accumulates dV += P^T dO and dK += dS^T Q scale in registers;
-//   * `bwd_dq`: a block a (query tile of 64, head, batch) walks the forward's
-//     key tiles and accumulates dQ += dS K scale.
-// No floating-point atomics: every gradient element is summed by one thread
-// in a fixed order (the GQA sum inside the dK/dV block), so a backward gives
-// the same bits in every run.  Masks as the forward's (causal, window, ends
-// aligned); a row that sees no key has P = 0 and contributes nothing.
-// Bound on the card: the float32 core rate here (67 TFLOP/s; 2.5x the
-// forward's products over the visible pairs, S and dP computed twice); the
-// same work on the bf16 tensor cores (989 TFLOP/s) is the later target.
-// Shared memory a block: 2 x 64 x D + 2 x 32 x (D + 4) + 2 x 64 x 33 floats
-// (113 KB at D = 128), one block an SM.
+// FlashAttention-2's scheme, head dims 16-128, with the forward's masks
+// (causal, window, ends aligned); a row that sees no key has lse = -inf,
+// P = 0 and contributes nothing.  No floating-point atomics: every gradient
+// element is summed by one thread in a fixed order (the GQA sum inside the
+// dK/dV block), so a backward gives the same bits in every run.
+// Bound on the card: the bf16 tensor-core rate; the least work is 10 D
+// flops a visible pair (2.5x the forward's), this design does 14 D (S and
+// dP are computed in both the dK/dV and the dQ kernel).
+//
+// bfloat16 (namespace wgb): all five products on wgmma with float32
+// accumulators, built from the forward's pieces (swizzled panels, the
+// cp.async ring on mbarriers, qk_issue / pv_issue):
+//   * `bwd_delta_vec`: delta_i = sum_d dO_i,d O_i,d, D / 8 threads a row,
+//     16-byte loads;
+//   * `bwd_dkdv_wgmma`: a block a (key tile of 128, KV head, batch), two
+//     warpgroups of 64 keys; K and V stay in shared memory, Q and dO tiles
+//     of 64 rows with their lse and delta stream through a ring of 4
+//     stages.  The keys are the M rows: S^T = K Q^T and dP^T = V dO^T are
+//     ss wgmma with both operands K-major (the forward's S with the roles
+//     swapped); P^T = 2^(S^T scale log2 e - lse log2 e) and dS^T = P^T
+//     (dP^T - delta) on the accumulator fragment, lse and delta indexed by
+//     column; dV += bf16(P^T) dO and dK += bf16(dS^T) Q are rs wgmma with
+//     the fragment as the register A operand and dO / Q the MN-major B
+//     operand (the forward's P V).  The block walks the Hq / Hkv query
+//     heads of its group and the query tiles that see its keys; key tiles
+//     are the slowest grid dimension, so causal key tile 0 (seen by every
+//     query tile) starts first;
+//   * `bwd_dq_wgmma`: a block a (query tile of 128, head, batch), two
+//     warpgroups of 64 rows; Q and dO loaded once, K and V tiles of 64 keys
+//     stream through the ring over the forward's key range; S = Q K^T and
+//     dP = dO V^T ss, dQ += bf16(dS) K rs with K the MN-major B;
+//   * rounding points are FlashAttention-2/3's: only P and dS are rounded
+//     to bf16 (as A operands); S and dP are exact products summed in
+//     float32; dK and dQ are scaled in the epilogue, rounded to bf16 and
+//     stored through shared memory as 16-byte row chunks;
+//   * masks are selects on the fragment (a masked element is 0 whatever
+//     2^(s - lse) gives there), both warpgroups walk the same tiles and the
+//     copy loops are unrolled, so no wgmma wait sits in divergent code
+//     (ptxas warning C7518);
+//   * shared memory (+1 KB to align): dK/dV 2 x 128 x DP + 4 x 2 x 64 x
+//     DP bf16 + lse/delta (195 KB at D = 128, 99 KB below); dQ 2 x 128 x
+//     DP + 4 x 2 x 64 x DP (193 KB, 97 KB); one block an SM (the dK/dV
+//     warpgroup holds dK, dV, S^T and dP^T: 255 registers at D = 128).
+// float32 (namespace bwd) runs on the float32 cores (TF32 wgmma could not
+// meet the float32 checks, as for the forward): `bwd_delta` a warp a row;
+// `bwd_dkdv` a block a (key tile of 32, KV head, batch) holding K and V,
+// walking the group's heads and the query tiles of 64 rows that see it
+// (P = exp(S scale - lse), dS = P (dP - delta), dV += P^T dO, dK += dS^T
+// Q scale); `bwd_dq` a block a (query tile of 64, head, batch) over the
+// forward's key tiles (dQ += dS K scale).  Shared memory 2 x 64 x D + 2 x
+// 32 x (D + 4) + 2 x 64 x 33 floats (113 KB at D = 128), one block an SM.
 #include <cuda_bf16.h>
 
 #include <cmath>
@@ -651,6 +683,22 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + (((a + 1023) & ~1023u) - a);
 }
 
+// Rows [row0, row0 + ROWS) of a staged swizzled tile (ROWS x D bf16 at
+// smem) out to a (T, D) view with row stride ld, as 16-byte chunks; rows
+// >= limit are not written.
+template <int ROWS, int D, int NTHREADS>
+__device__ __forceinline__ void store_tile(bf16* dst, long long ld,
+                                           const uint8_t* smem, int row0,
+                                           int limit, int tid) {
+  constexpr int CPR = D / 8;
+  for (int idx = tid; idx < ROWS * CPR; idx += NTHREADS) {
+    const int r = idx / CPR, c = idx % CPR, row = row0 + r;
+    if (row < limit)
+      *reinterpret_cast<uint4*>(dst + row * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + sw128<ROWS>(r, c));
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
     flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -842,13 +890,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
         pack_bf16(acc[i] / dl, acc[i + 1] / dl);
   }
   __syncthreads();
-  constexpr int CPR = D / 8;
-  for (int idx = tid; idx < BQ * CPR; idx += THREADS) {
-    const int r = idx / CPR, c = idx % CPR, row = q0 + r;
-    if (row < tq)
-      *reinterpret_cast<uint4*>(ob + row * st.o_s + c * 8) =
-          *reinterpret_cast<const uint4*>(smem + sw128<BQ>(r, c));
-  }
+  store_tile<BQ, D, THREADS>(ob, st.o_s, smem, q0, tq, tid);
 }
 
 // Rows of the K and V tiles of tile_products.
@@ -949,7 +991,7 @@ int launch_tile(const void* q, const void* k, const void* v, void* s,
 
 
 // ---------------------------------------------------------------------------
-// Backward, both dtypes: FlashAttention-2's scheme on the float32 cores.
+// Backward, float32: FlashAttention-2's scheme on the float32 cores.
 namespace bwd {
 
 constexpr int BQ = 64;        // query rows a tile
@@ -963,19 +1005,9 @@ struct Strides {  // (batch, head, sequence) of each tensor, in elements
       dv_s;
 };
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // delta_i = sum_d dO_i,d O_i,d (float32), a warp a row of (B, Hq, Tq).
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+    bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
               float* __restrict__ delta, Strides s, int hq, int tq, int d,
               long long rows) {
   const long long row =
@@ -984,10 +1016,10 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31, i = (int)(row % tq);
   const long long bh = row / tq;
   const int h = (int)(bh % hq), b = (int)(bh / hq);
-  const T* orow = o + b * s.o_b + h * s.o_h + i * s.o_s;
-  const T* grow = dout + b * s.do_b + h * s.do_h + i * s.do_s;
+  const float* orow = o + b * s.o_b + h * s.o_h + i * s.o_s;
+  const float* grow = dout + b * s.do_b + h * s.do_h + i * s.do_s;
   float acc = 0.f;
-  for (int c = lane; c < d; c += 32) acc = fmaf(ld(orow + c), ld(grow + c), acc);
+  for (int c = lane; c < d; c += 32) acc = fmaf(orow[c], grow[c], acc);
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
   if (lane == 0) delta[row] = acc;
@@ -995,13 +1027,13 @@ __global__ void __launch_bounds__(THREADS)
 
 // Rows [row0, row0 + ROWS) of a (T, D) view with row stride ls into a
 // float tile of row stride LDS; rows outside [0, limit) are zero.
-template <int ROWS, int D, int LDS, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+template <int ROWS, int D, int LDS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long ls, int row0, int limit,
                                           int tid) {
   for (int idx = tid; idx < ROWS * D; idx += THREADS) {
     const int r = idx / D, c = idx % D, row = row0 + r;
-    dst[r * LDS + c] = row < limit ? ld(src + row * ls + c) : 0.f;
+    dst[r * LDS + c] = row < limit ? src[row * ls + c] : 0.f;
   }
 }
 
@@ -1071,12 +1103,12 @@ __device__ __forceinline__ void p_ds(const float* sQ, const float* sdO,
 // query tiles that see the tile, so the GQA sum stays in the block (no
 // atomics: the same inputs give the same bits).  Thread t accumulates key
 // t / 8 and columns t % 8 + 8 c of both.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-    bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dk, T* __restrict__ dv, Strides s, int hq,
+             float* __restrict__ dk, float* __restrict__ dv, Strides s, int hq,
              int hkv, int tq, int tk, int causal, int window, float scale) {
   constexpr int KS = D + 4, NC = D / 8;
   extern __shared__ float4 smem4[];
@@ -1105,8 +1137,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int qend = window > 0 ? min(tq, klast + window - off) : tq;
   for (int hi = 0; hi < rep; ++hi) {
     const int h = hk * rep + hi;
-    const T* qb = q + b * s.q_b + h * s.q_h;
-    const T* gb = dout + b * s.do_b + h * s.do_h;
+    const float* qb = q + b * s.q_b + h * s.q_h;
+    const float* gb = dout + b * s.do_b + h * s.do_h;
     const float* lb = lse + ((long long)b * hq + h) * tq;
     const float* db = delta + ((long long)b * hq + h) * tq;
     for (int q0 = qbeg; q0 < qend; q0 += BQ) {
@@ -1134,12 +1166,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   const int key = k0 + kk;
   if (key < tk) {
-    T* kr = dk + b * s.dk_b + hk * s.dk_h + key * s.dk_s;
-    T* vr = dv + b * s.dv_b + hk * s.dv_h + key * s.dv_s;
+    float* kr = dk + b * s.dk_b + hk * s.dk_h + key * s.dk_s;
+    float* vr = dv + b * s.dv_b + hk * s.dv_h + key * s.dv_s;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      st(kr + c0 + 8 * c, adk[c] * scale);
-      st(vr + c0 + 8 * c, adv[c]);
+      kr[c0 + 8 * c] = adk[c] * scale;
+      vr[c0 + 8 * c] = adv[c];
     }
   }
 }
@@ -1147,12 +1179,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 // dQ of one query tile of one head: one block a (query tile, head, batch),
 // over the key tiles the tile sees (the forward's range).  Thread t
 // accumulates row t / 4 and columns t % 4 + 4 c.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-    bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           T* __restrict__ dq, Strides s, int hq, int hkv, int tq, int tk,
+           float* __restrict__ dq, Strides s, int hq, int hkv, int tq, int tk,
            int causal, int window, float scale) {
   constexpr int KS = D + 4, NC = D / 4;
   extern __shared__ float4 smem4[];
@@ -1168,8 +1200,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int row = tid >> 2, c0 = tid & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv), off = tk - tq;
-  const T* kb = k + b * s.k_b + hk * s.k_h;
-  const T* vb = v + b * s.v_b + hk * s.v_h;
+  const float* kb = k + b * s.k_b + hk * s.k_h;
+  const float* vb = v + b * s.v_b + hk * s.v_h;
   load_rows<BQ, D, D>(sQ, q + b * s.q_b + h * s.q_h, s.q_s, q0, tq, tid);
   load_rows<BQ, D, D>(sdO, dout + b * s.do_b + h * s.do_h, s.do_s, q0, tq,
                       tid);
@@ -1203,13 +1235,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
   if (q0 + row < tq) {
-    T* qr = dq + b * s.dq_b + h * s.dq_h + (q0 + row) * s.dq_s;
+    float* qr = dq + b * s.dq_b + h * s.dq_h + (q0 + row) * s.dq_s;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) st(qr + c0 + 4 * c, adq[c] * scale);
+    for (int c = 0; c < NC; ++c) qr[c0 + 4 * c] = adq[c] * scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, const Strides& s, int b, int hq, int hkv,
@@ -1219,12 +1251,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const long long rows = (long long)b * hq * tq;
   const long long dblocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
   if (dblocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  bwd_delta<T><<<(unsigned)dblocks, THREADS, 0, stream>>>(
-      (const T*)o, (const T*)dout, delta, s, hq, tq, D, rows);
+  bwd_delta<<<(unsigned)dblocks, THREADS, 0, stream>>>(
+      (const float*)o, (const float*)dout, delta, s, hq, tq, D, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  auto kv_kern = bwd_dkdv<T, D>;
-  auto q_kern = bwd_dq<T, D>;
+  auto kv_kern = bwd_dkdv<D>;
+  auto q_kern = bwd_dq<D>;
   e = cudaFuncSetAttribute(kv_kern,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
@@ -1233,17 +1265,519 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
   kv_kern<<<dim3((tk + BK - 1) / BK, hkv, b), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, s, hq, hkv, tq, tk, causal, window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, (float*)dk, (float*)dv, s, hq, hkv, tq, tk, causal, window,
+      scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   q_kern<<<dim3((tq + BQ - 1) / BQ, hq, b), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, s, hq, hkv, tq, tk, causal, window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, (float*)dq, s, hq, hkv, tq, tk, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// Backward, bfloat16: FlashAttention-2/3's scheme on the tensor cores, built
+// from the forward's pieces (swizzled panels, the cp.async ring on
+// mbarriers, qk_issue / pv_issue and their fragment rules).
+namespace wgb {
+
+using namespace wg;
+
+constexpr int THREADS = 256;  // two consumer warpgroups
+constexpr int STAGES = 4;     // ring depth; tile j + STAGES - 2 in flight
+
+template <int D>
+struct Cfg {
+  static constexpr int DP = D < 64 ? 64 : D;  // head dim padded to a panel
+  // dK/dV: a block a (key tile of BKV, KV head, batch), 64 keys a
+  // warpgroup; Q and dO tiles of BQ rows (with their lse and delta)
+  // stream through the ring.
+  static constexpr int BKV = 128, BQ = 64;
+  static constexpr int KV_BYTES = BKV * DP * 2;  // K or V
+  static constexpr int QT_BYTES = BQ * DP * 2;   // a streamed Q or dO tile
+  static constexpr int KV_RING = 2 * KV_BYTES;   // stage s: Q, then dO
+  static constexpr int KV_ROWS = KV_RING + STAGES * 2 * QT_BYTES;  // lse, delta
+  static constexpr int KV_BAR = KV_ROWS + STAGES * 2 * BQ * 4;
+  static constexpr int KV_SMEM = KV_BAR + STAGES * 2 * 8 + 1024;
+  // dQ: a block a (query tile of BQ_DQ, head, batch), 64 rows a
+  // warpgroup; K and V tiles of BK keys stream through the ring.
+  static constexpr int BQ_DQ = 128, BK = 64;
+  static constexpr int Q_BYTES = BQ_DQ * DP * 2;  // Q or dO
+  static constexpr int KT_BYTES = BK * DP * 2;    // a streamed K or V tile
+  static constexpr int DQ_RING = 2 * Q_BYTES;     // stage s: K, then V
+  static constexpr int DQ_BAR = DQ_RING + STAGES * 2 * KT_BYTES;
+  static constexpr int DQ_SMEM = DQ_BAR + STAGES * 2 * 8 + 1024;
+};
+
+// 4-byte async copy (zero-filled when !in): lse and delta rows, whose
+// starts need not be 16-byte aligned.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+// delta_i = sum_d dO_i,d O_i,d in float32: D / 8 threads a row, each one
+// 16-byte chunk of both rows.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    bwd_delta_vec(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                  float* __restrict__ delta, bwd::Strides s, int hq, int tq,
+                  long long rows) {
+  constexpr int CPR = D / 8, RPB = THREADS / CPR;
+  const long long row = (long long)blockIdx.x * RPB + threadIdx.x / CPR;
+  const int c = threadIdx.x % CPR;
+  float acc = 0.f;
+  if (row < rows) {
+    const int i = (int)(row % tq);
+    const long long bh = row / tq;
+    const int h = (int)(bh % hq), b = (int)(bh / hq);
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        o + b * s.o_b + h * s.o_h + i * s.o_s + c * 8);
+    const uint4 g = *reinterpret_cast<const uint4*>(
+        dout + b * s.do_b + h * s.do_h + i * s.do_s + c * 8);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(g2[e]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+#pragma unroll
+  for (int w = CPR / 2; w > 0; w >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (row < rows && c == 0) delta[row] = acc;
+}
+
+// Stages a warpgroup's (64 x DP) float32 accumulator, times mul and
+// rounded to bf16, into rows [64 wgi, 64 wgi + 64) of a swizzled tile of
+// ROWS rows at smem.
+template <int ROWS, int DP>
+__device__ __forceinline__ void stage_acc(uint8_t* smem, const float* acc,
+                                          float mul, int r_local, int c0) {
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int r = r_local + frag_row(i), c = frag_col(i) + c0;
+    *reinterpret_cast<uint32_t*>(smem + sw128<ROWS>(r, c >> 3) +
+                                 2 * (c & 7)) =
+        pack_bf16(acc[i] * mul, acc[i + 1] * mul);
+  }
+}
+
+// dK and dV of one key tile of one KV head, on the transposed scores: a
+// warpgroup's 64 keys are the M rows of S^T = K Q^T and dP^T = V dO^T
+// (ss wgmma, both operands K-major), P^T and dS^T are formed on the
+// accumulator fragment (lse and delta indexed by column, so by query),
+// and dV += bf16(P^T) dO, dK += bf16(dS^T) Q run as rs wgmma with dO and
+// Q the MN-major B operand (the forward's P V).  The block walks the
+// Hq / Hkv query heads of its group and the query tiles that see its keys
+// (the GQA sum stays in registers).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, bwd::Strides s, int hq, int hkv,
+                   int tq, int tk, int causal, int window, float scale,
+                   float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int DP = C::DP, BKV = C::BKV, BQ = C::BQ, S = STAGES;
+  constexpr int NS = BQ / 2;  // S^T registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t sK = smem_u32(smem), sV = sK + C::KV_BYTES;
+  const float* rows_f = reinterpret_cast<const float*>(smem + C::KV_ROWS);
+  const uint32_t full = sK + C::KV_BAR, empty = full + 8 * S;
+
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  // key tiles in the slowest grid dimension: causal key tile 0, which
+  // every query tile sees, runs first
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BKV;
+  const int rep = hq / hkv, off = tk - tq;
+
+  if constexpr (DP != D) {  // zero the pad columns of every tile once
+    uint4* p = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < C::KV_ROWS / 16; i += THREADS)
+      p[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (tid == 0)
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + 8 * i, THREADS);
+      mbar_init(empty + 8 * i, THREADS);
+    }
+  fence_async_smem();
+  __syncthreads();
+
+  load_tile<BKV, D, THREADS>(sK, k + b * s.k_b + hk * s.k_h, s.k_s, k0, tk,
+                             tid);
+  load_tile<BKV, D, THREADS>(sV, v + b * s.v_b + hk * s.v_h, s.v_s, k0, tk,
+                             tid);
+
+  // Query rows that see a key of the tile: qpos >= k0 (causal) and
+  // qpos < last key + window; every head of the group walks them.
+  const int klast = min(k0 + BKV, tk) - 1;
+  const int qbeg = causal ? max(0, k0 - off) / BQ * BQ : 0;
+  const int qend = window > 0 ? min(tq, klast + window - off) : tq;
+  const int nq = qend > qbeg ? (qend - qbeg + BQ - 1) / BQ : 0;
+  const int n = rep * nq;
+
+  auto stage = [&](int j) {
+    return sK + C::KV_RING + (j % S) * 2 * C::QT_BYTES;
+  };
+  auto load_q = [&](int j) {  // tile j into its stage; arrives on full
+    if (j < n) {
+      if (j >= S)  // the stage's previous tile, j - S, is done everywhere
+        mbar_wait(empty + 8 * (j % S), ((j - S) / S) & 1);
+      const int hi = j / nq, q0 = qbeg + (j - hi * nq) * BQ;
+      const int h = hk * rep + hi;
+      load_tile<BQ, D, THREADS>(stage(j), q + b * s.q_b + h * s.q_h, s.q_s,
+                                q0, tq, tid);
+      load_tile<BQ, D, THREADS>(stage(j) + C::QT_BYTES,
+                                dout + b * s.do_b + h * s.do_h, s.do_s, q0,
+                                tq, tid);
+      // lse, then delta: 2 BQ floats (surplus threads repeat a copy)
+      const int e = tid % (2 * BQ), r = e % BQ;
+      const bool in = q0 + r < tq;
+      const float* src = (e < BQ ? lse : delta) +
+                         ((long long)b * hq + h) * tq + q0 + r;
+      cp_async4(smem_u32(rows_f + (j % S) * 2 * BQ + e), in ? src : lse, in);
+      cp_async_arrive(full + 8 * (j % S));
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < S - 2; ++j) load_q(j);
+
+  float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+  const uint32_t kw = sK + wgi * 64 * ROW_BYTES;
+  const uint32_t vw = sV + wgi * 64 * ROW_BYTES;
+  const int r_k = k0 + 64 * wgi + 16 * warp + (lane >> 2);  // first key
+  const int c_q = 2 * (lane & 3);                           // first column
+
+  // No branch depends on the thread (ptxas serialises every wgmma of a
+  // kernel whose waits it must place in divergent code): both warpgroups
+  // walk every tile of the block, and masks are selects.
+  for (int j = 0; j < n; ++j) {
+    mbar_wait(full + 8 * (j % S), (j / S) & 1);  // tile j (and K/V) landed
+    fence_async_smem();
+    load_q(j + S - 2);
+    const int hi = j / nq, q0 = qbeg + (j - hi * nq) * BQ;
+    const uint32_t sq = stage(j), sdo = sq + C::QT_BYTES;
+    const float* lrow = rows_f + (j % S) * 2 * BQ;
+    const float* drow = lrow + BQ;
+
+    float st[NS], dpt[NS];
+    qk_issue<DP, BKV, BQ>(st, kw, sq);    // S^T = K Q^T
+    qk_issue<DP, BKV, BQ>(dpt, vw, sdo);  // dP^T = V dO^T
+    wgmma_wait<1>();
+    fence_regs<NS>(st);
+
+    // P^T = 2^(S^T scale log2 e - lse log2 e); masked elements are 0 by a
+    // select (a row that sees no key has lse = -inf).
+    const bool need_mask = q0 + BQ > tq || k0 + BKV > tk ||
+                           (causal && k0 + BKV - 1 > q0 + off) ||
+                           (window > 0 && k0 <= q0 + BQ - 1 + off - window);
+    int lo[2], hi_[2];  // visible columns of the thread's two keys
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = r_k + 8 * r, base = q0 + c_q;
+      // query qi sees key kpos: qi < tq, kpos < tk, qi + off >= kpos
+      // (causal) and qi + off < kpos + window
+      const int last = window > 0 ? min(tq - 1, kpos - off + window - 1)
+                                  : tq - 1;
+      lo[r] = (causal ? kpos - off : q0) - base;
+      hi_[r] = kpos < tk ? last - base : lo[r] - 1;
+    }
+#pragma unroll
+    for (int g = 0; g < NS / 4; ++g) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lrow + 8 * g + c_q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * g + e, r = (e >> 1) & 1, c = frag_col(i);
+        const float l = (e & 1) ? l2.y : l2.x;
+        const float p = exp2_approx(fmaf(st[i], scale_log2, -l * LOG2E));
+        st[i] = !need_mask || (c >= lo[r] && c <= hi_[r]) ? p : 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<NS>(dpt);
+#pragma unroll
+    for (int g = 0; g < NS / 4; ++g) {
+      const float2 d2 = *reinterpret_cast<const float2*>(drow + 8 * g + c_q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * g + e;
+        dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d2.y : d2.x));  // dS^T
+      }
+    }
+    uint32_t pp[BQ / 16][4], pds[BQ / 16][4];
+    pack_p<BQ>(st, pp);
+    pack_p<BQ>(dpt, pds);
+    pv_issue<DP, BQ>(dva, pp, sdo);  // dV += bf16(P^T) dO
+    pv_issue<DP, BQ>(dka, pds, sq);  // dK += bf16(dS^T) Q
+    wgmma_wait<0>();
+    fence_regs(pp);
+    fence_regs(pds);
+    fence_regs<DP / 2>(dva);
+    fence_regs<DP / 2>(dka);
+    mbar_arrive(empty + 8 * (j % S));
+  }
+
+  // Epilogue: dK scale and dV in bf16, staged through the K and V tiles.
+  cp_async_wait_all();  // K/V's copies, when no query tile sees the keys
+  __syncthreads();
+  const int r_local = 64 * wgi + 16 * warp + (lane >> 2);
+  stage_acc<BKV, DP>(smem, dka, scale, r_local, c_q);
+  stage_acc<BKV, DP>(smem + C::KV_BYTES, dva, 1.f, r_local, c_q);
+  __syncthreads();
+  store_tile<BKV, D, THREADS>(dk + b * s.dk_b + hk * s.dk_h, s.dk_s, smem,
+                             k0, tk, tid);
+  store_tile<BKV, D, THREADS>(dv + b * s.dv_b + hk * s.dv_h, s.dv_s,
+                             smem + C::KV_BYTES, k0, tk, tid);
+}
+
+// dQ of one query tile of one head: S = Q K^T and dP = dO V^T (ss wgmma),
+// P and dS on the fragment as the forward's softmax (lse and delta by
+// row), dQ += bf16(dS) K as rs wgmma with K the MN-major B operand (the
+// forward's P V); over the forward's key tiles.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                 bwd::Strides s, int hq, int hkv, int tq, int tk, int causal,
+                 int window, float scale, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int DP = C::DP, BQ = C::BQ_DQ, BK = C::BK, S = STAGES;
+  constexpr int NS = BK / 2;  // S registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t sQ = smem_u32(smem), sdO = sQ + C::Q_BYTES;
+  const uint32_t full = sQ + C::DQ_BAR, empty = full + 8 * S;
+
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest tiles first
+  const int hk = h / (hq / hkv), off = tk - tq;
+  const bf16* kb = k + b * s.k_b + hk * s.k_h;
+  const bf16* vb = v + b * s.v_b + hk * s.v_h;
+
+  if constexpr (DP != D) {
+    uint4* p = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < C::DQ_BAR / 16; i += THREADS)
+      p[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (tid == 0)
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + 8 * i, THREADS);
+      mbar_init(empty + 8 * i, THREADS);
+    }
+  fence_async_smem();
+  __syncthreads();
+
+  load_tile<BQ, D, THREADS>(sQ, q + b * s.q_b + h * s.q_h, s.q_s, q0, tq,
+                            tid);
+  load_tile<BQ, D, THREADS>(sdO, dout + b * s.do_b + h * s.do_h, s.do_s, q0,
+                            tq, tid);
+
+  // the forward's key range
+  const int last_row = min(q0 + BQ, tq) - 1;
+  const int kend = causal ? min(tk, last_row + off + 1) : tk;
+  const int kbeg = window > 0 ? max(0, q0 + off - window + 1) / BK * BK : 0;
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  auto stage = [&](int j) {
+    return sQ + C::DQ_RING + (j % S) * 2 * C::KT_BYTES;
+  };
+  auto load_kv = [&](int j) {
+    if (j < ntiles) {
+      if (j >= S) mbar_wait(empty + 8 * (j % S), ((j - S) / S) & 1);
+      const int kt = kbeg + j * BK;
+      load_tile<BK, D, THREADS>(stage(j), kb, s.k_s, kt, tk, tid);
+      load_tile<BK, D, THREADS>(stage(j) + C::KT_BYTES, vb, s.v_s, kt, tk,
+                                tid);
+      cp_async_arrive(full + 8 * (j % S));
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < S - 2; ++j) load_kv(j);
+
+  const int r_q = q0 + 64 * wgi + 16 * warp + (lane >> 2);  // first row
+  const int c_k = 2 * (lane & 3);                           // first column
+  float l2[2], dl[2];  // lse log2 e and delta of the thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_q + 8 * r;
+    const long long i = ((long long)b * hq + h) * tq + row;
+    l2[r] = row < tq ? lse[i] * LOG2E : 0.f;
+    dl[r] = row < tq ? delta[i] : 0.f;
+  }
+  float dqa[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.f;
+  const uint32_t qw = sQ + wgi * 64 * ROW_BYTES;
+  const uint32_t dow = sdO + wgi * 64 * ROW_BYTES;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int kt = kbeg + j * BK;
+    mbar_wait(full + 8 * (j % S), (j / S) & 1);  // tile j (and Q, dO) landed
+    fence_async_smem();
+    load_kv(j + S - 2);
+
+    float sc[NS], dp[NS];
+    qk_issue<DP, BQ, BK>(sc, qw, stage(j));                // S = Q K^T
+    qk_issue<DP, BQ, BK>(dp, dow, stage(j) + C::KT_BYTES);  // dP = dO V^T
+    wgmma_wait<1>();
+    fence_regs<NS>(sc);
+
+    const bool need_mask = kt + BK > tk ||
+                           (causal && kt + BK - 1 > q0 + off) ||
+                           (window > 0 && kt <= q0 + BQ - 1 + off - window);
+    int lo[2], hi[2];  // visible columns of the thread's two rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = r_q + 8 * r + off, base = kt + c_k;
+      hi[r] = (causal ? min(qpos, tk - 1) : tk - 1) - base;
+      lo[r] = window > 0 ? qpos - window + 1 - base : -BK;
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int r = (i >> 1) & 1, c = frag_col(i);
+      const float p = exp2_approx(fmaf(sc[i], scale_log2, -l2[r]));
+      sc[i] = !need_mask || (c >= lo[r] && c <= hi[r]) ? p : 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs<NS>(dp);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+    uint32_t pds[BK / 16][4];
+    pack_p<BK>(dp, pds);
+    pv_issue<DP, BK>(dqa, pds, stage(j));  // dQ += bf16(dS) K
+    wgmma_wait<0>();
+    fence_regs(pds);
+    fence_regs<DP / 2>(dqa);
+    mbar_arrive(empty + 8 * (j % S));
+  }
+
+  // Epilogue: dQ scale in bf16, staged through the Q tile.
+  cp_async_wait_all();  // Q's and dO's copies, when no key tile was loaded
+  __syncthreads();
+  stage_acc<BQ, DP>(smem, dqa, scale, 64 * wgi + 16 * warp + (lane >> 2),
+                    c_k);
+  __syncthreads();
+  store_tile<BQ, D, THREADS>(dq + b * s.dq_b + h * s.dq_h, s.dq_s, smem, q0,
+                            tq, tid);
+}
+
+// bf16(a) (64 x 64, float32) . b (64 x D, bf16) in float32, through the
+// backward's rs product: a in the accumulator fragment's layout rounded to
+// the A fragment (pack_p), b a 64-row swizzled tile read MN-major
+// (P^T dO, dS^T Q and dS K all have this shape a warpgroup).
+template <int D>
+__global__ void __launch_bounds__(128)
+    bwd_tile_products(const float* __restrict__ a, const bf16* __restrict__ bm,
+                      float* __restrict__ out) {
+  constexpr int DP = Cfg<D>::DP, KD = 64;
+  static_assert(Cfg<D>::BQ == KD && Cfg<D>::BK == KD, "product depth");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t sB = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if constexpr (DP != D) {
+    uint4* p = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < KD * DP * 2 / 16; i += 128)
+      p[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
+  load_tile<KD, D, 128>(sB, bm, D, 0, KD, tid);
+  cp_async_wait_all();
+  fence_async_smem();
+  __syncthreads();
+  const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+  float f[KD / 2];
+#pragma unroll
+  for (int i = 0; i < KD / 2; ++i)
+    f[i] = a[(r0 + frag_row(i)) * KD + frag_col(i) + c0];
+  uint32_t p[KD / 16][4];
+  pack_p<KD>(f, p);
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  pv_issue<DP, KD>(acc, p, sB);
+  wgmma_wait<0>();
+  fence_regs(p);
+  fence_regs<DP / 2>(acc);
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) {
+    const int c = frag_col(i) + c0;
+    if (c < D) out[(r0 + frag_row(i)) * D + c] = acc[i];
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, const bwd::Strides& s, int b, int hq, int hkv,
+           int tq, int tk, int causal, int window, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  constexpr int RPB = THREADS / (D / 8);  // delta rows a block
+  const long long rows = (long long)b * hq * tq;
+  const long long dblocks = (rows + RPB - 1) / RPB;
+  const int kv_tiles = (tk + C::BKV - 1) / C::BKV;
+  const int q_tiles = (tq + C::BQ_DQ - 1) / C::BQ_DQ;
+  if (dblocks > 0x7fffffffLL || kv_tiles > 65535 || q_tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  bwd_delta_vec<D><<<(unsigned)dblocks, THREADS, 0, stream>>>(
+      (const bf16*)o, (const bf16*)dout, delta, s, hq, tq, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  auto kv_kern = bwd_dkdv_wgmma<D>;
+  auto q_kern = bwd_dq_wgmma<D>;
+  e = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::KV_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::DQ_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const float scale_log2 = scale * LOG2E;
+  kv_kern<<<dim3(hkv, b, kv_tiles), THREADS, C::KV_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+      delta, (bf16*)dk, (bf16*)dv, s, hq, hkv, tq, tk, causal, window, scale,
+      scale_log2);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  q_kern<<<dim3(hq, b, q_tiles), THREADS, C::DQ_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+      delta, (bf16*)dq, s, hq, hkv, tq, tk, causal, window, scale,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tile(const void* a, const void* bm, void* out,
+                cudaStream_t stream) {
+  constexpr int smem = 64 * Cfg<D>::DP * 2 + 1024;
+  auto kern = bwd_tile_products<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, 128, smem, stream>>>((const float*)a, (const bf16*)bm,
+                                 (float*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wgb
 
 // One switch over the head dims for every launcher (L::run<D>).
 template <typename L, typename... A>
@@ -1270,14 +1804,32 @@ struct TileLaunch {
   template <int D, typename... A>
   static int run(A... args) { return wg::launch_tile<D>(args...); }
 };
-template <typename T>
+// The backward is compiled for D <= 128.
 struct BwdLaunch {
   template <int D, typename... A>
   static int run(A... args) {
-    if constexpr (D > 128)  // the backward is compiled for D <= 128
+    if constexpr (D > 128)
       return (int)cudaErrorInvalidValue;
     else
-      return bwd::launch<T, D>(args...);
+      return bwd::launch<D>(args...);
+  }
+};
+struct BwdWgmmaLaunch {
+  template <int D, typename... A>
+  static int run(A... args) {
+    if constexpr (D > 128)
+      return (int)cudaErrorInvalidValue;
+    else
+      return wgb::launch<D>(args...);
+  }
+};
+struct BwdTileLaunch {
+  template <int D, typename... A>
+  static int run(A... args) {
+    if constexpr (D > 128)
+      return (int)cudaErrorInvalidValue;
+    else
+      return wgb::launch_tile<D>(args...);
   }
 };
 
@@ -1331,6 +1883,8 @@ extern "C" int flash_attention_tile_products(int d, const void* q,
 // (batch, head, sequence) of q, k, v, o, dout, dq, dk, dv in turn), in the
 // input dtype, from the forward's o and lse (contiguous float32 (B, Hq, Tq)).
 // delta: float32 (B, Hq, Tq) scratch.  Head dims 16-128; 256 is refused.
+// bfloat16 needs every row start 16-byte aligned (the eight pointers and
+// the 24 strides).
 extern "C" int flash_attention_bwd(int dtype, int d, const void* q,
                                    const void* k, const void* v,
                                    const void* o, const void* dout,
@@ -1347,12 +1901,28 @@ extern "C" int flash_attention_bwd(int dtype, int d, const void* q,
   memcpy(&st, strides, sizeof st);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_d<BwdLaunch<float>>(d, q, k, v, o, dout, lse, delta, dq,
-                                        dk, dv, st, b, hq, hkv, tq, tk,
-                                        causal, window, scale, s);
-  if (dtype == 1)
-    return dispatch_d<BwdLaunch<__nv_bfloat16>>(
-        d, q, k, v, o, dout, lse, delta, dq, dk, dv, st, b, hq, hkv, tq, tk,
-        causal, window, scale, s);
+    return dispatch_d<BwdLaunch>(d, q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                 st, b, hq, hkv, tq, tk, causal, window,
+                                 scale, s);
+  if (dtype == 1) {
+    for (int i = 0; i < 24; ++i)
+      if (strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
+    const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+    uintptr_t any = 0;
+    for (const void* p : ptrs) any |= reinterpret_cast<uintptr_t>(p);
+    if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;
+    return dispatch_d<BwdWgmmaLaunch>(d, q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, st, b, hq, hkv, tq, tk, causal,
+                                      window, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 backward's rs product on one tile (card tests): out = bf16(a)
+// b in float32, a (64, 64) float32 and b (64, d) bf16, both contiguous;
+// head dims 16-128.
+extern "C" int flash_attention_bwd_tile_products(int d, const void* a,
+                                                 const void* b, void* out,
+                                                 void* stream) {
+  return dispatch_d<BwdTileLaunch>(d, a, b, out, (cudaStream_t)stream);
 }

@@ -26,12 +26,17 @@ head ``h // (Hq // Hkv)``; a row that sees no key is 0.
   log-sum-exp of its scaled scores, float32 ``(B, Hq, Tq)``, ``-inf`` for
   a row that sees no key (the kernel writes it; serving asks for none).
 * :func:`flash_attention_bwd` launches the backward kernels of the same
-  source (FlashAttention-2's scheme in float32, head dims in
-  :data:`BWD_HEAD_DIMS`; no atomics, so a backward gives the same bits in
-  every run) and counts ``flash_attention_bwd.launches``;
+  source (FlashAttention-2's scheme, head dims in :data:`BWD_HEAD_DIMS`;
+  no atomics, so a backward gives the same bits in every run) and counts
+  ``flash_attention_bwd.launches``: bfloat16 runs all five products on the
+  tensor cores (``wgmma``, P and dS rounded to bfloat16 as their A
+  operands, float32 sums) and, like the forward, copies a tensor whose
+  rows do not start 16-byte aligned; float32 runs on the float32 cores.
   :func:`attention_bwd_torch` is its plain version.  The reference has no
   backward kernel: its gradients are XLA's autodiff of the plain
   attention.
+* :func:`bwd_tile_products` runs the bfloat16 backward's register-A
+  ``wgmma`` on one tile, for the card tests.
 * :class:`FlashAttentionFunction` is the ``torch.autograd.Function``
   (forward with ``lse``, backward :func:`flash_attention_bwd`) that
   ``ops.attention(..., impl="cuda")`` uses when a gradient is wanted.
@@ -228,7 +233,12 @@ def _unit(t: torch.Tensor) -> torch.Tensor:
 def _launch_bwd(q, k, v, o, do, lse, causal: bool, window: Optional[int],
                 scale: float):
     d = q.shape[3]
-    q, k, v, o, do = (_unit(t) for t in (q, k, v, o, do))
+    if q.dtype == torch.bfloat16:   # the cp.async copies: aligned rows
+        q, k, v, o, do = (
+            t if _fits(t) else t.clone(memory_format=torch.contiguous_format)
+            for t in (q, k, v, o, do))
+    else:
+        q, k, v, o, do = (_unit(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     b, hq, tq, _ = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -298,6 +308,31 @@ class FlashAttentionFunction(torch.autograd.Function):
                                          causal=causal, window=window,
                                          scale=scale)
         return dq, dk, dv, None, None, None
+
+
+def bwd_tile_products(a, b):
+    """``bf16(a) b`` in float32 for a ``(64, 64)`` and b ``(64, D)`` CUDA
+    tensors, through the bfloat16 backward's register-A ``wgmma`` with b
+    the MN-major operand (the shape of its products P^T dO, dS^T Q and dS
+    K a warpgroup; a check of their descriptors and fragment layouts
+    against ``torch.matmul``)."""
+    d = b.shape[1] if b.dim() == 2 else 0
+    if (a.shape != (64, 64) or b.shape != (64, d) or d not in BWD_HEAD_DIMS
+            or not (a.is_cuda and b.is_cuda)):
+        raise ValueError("bwd_tile_products: a (64, 64) and b (64, D) CUDA "
+                         "tensors, D in BWD_HEAD_DIMS")
+    a = a.to(torch.float32).clone(memory_format=torch.contiguous_format)
+    b = b.to(torch.bfloat16).clone(memory_format=torch.contiguous_format)
+    out = torch.empty((64, d), dtype=torch.float32, device=b.device)
+    fn = _build.load("flash_attention").flash_attention_bwd_tile_products
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    rc = fn(d, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            _build.stream_handle(b.device))
+    if rc != 0:
+        raise RuntimeError(f"bwd_tile_products launch failed: CUDA error "
+                           f"{rc}")
+    return out
 
 
 def tile_products(q, k, v):

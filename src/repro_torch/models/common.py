@@ -210,7 +210,7 @@ def full_attention(cfg: ModelConfig, qh, kh, vh, *, window=None):
     S, Dh), through the flash-attention kernel on a card."""
     if cfg.ring_attention:
         raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP queue 1, item 11: "
+            "ring attention is not ported yet (ROADMAP queue 1, item 9: "
             "distributed)")
     return kops.attention(qh, kh, vh, causal=True, window=window,
                           impl=kernel_impl(cfg))

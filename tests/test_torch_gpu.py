@@ -465,6 +465,27 @@ def test_flash_attention_tile_products_match_matmul_on_card(cuda_device, d):
                                rtol=1e-4, atol=1e-2)
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_bwd_tile_products_match_matmul_on_card(cuda_device,
+                                                                d):
+    """The bfloat16 backward's register-A wgmma with an MN-major B over a
+    64-row depth (the shape of P^T dO, dS^T Q and dS K a warpgroup): a
+    float32 tile in the accumulator fragment's layout, rounded to bf16, times
+    a (64, D) tile, against float32 torch.matmul of the same rounded
+    operands (bf16 products are exact in float32; the sums differ in
+    order).  A descriptor or layout fault moves values by O(1)."""
+    rng = np.random.default_rng(d + 7)
+    a = torch.as_tensor(rng.standard_normal((64, 64)),
+                        dtype=torch.float32).to(cuda_device)
+    b = torch.as_tensor(rng.standard_normal((64, d)),
+                        dtype=torch.float32).to(cuda_device, torch.bfloat16)
+    got = pfa.bwd_tile_products(a, b)
+    torch.cuda.synchronize()
+    want = a.cpu().to(torch.bfloat16).float() @ b.cpu().float()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-3)
+
+
 def test_flash_attention_rows_before_the_keys_are_zero_on_card(cuda_device):
     """tq > tk, causal: queries at positions below 0 see no key and write
     exactly 0 in bfloat16 as in float32."""
@@ -595,6 +616,35 @@ def test_attention_bwd_kernel_takes_strided_views_on_card(cuda_device, dtype):
         assert g.stride() == t.stride()
         np.testing.assert_allclose(g.float().cpu().numpy(),
                                    w.float().cpu().numpy(), **BWD_TOL[dtype])
+
+
+def test_attention_bwd_kernel_copies_misaligned_bf16_views_on_card(
+        cuda_device):
+    """bfloat16 q and gradient views whose rows do not start 16-byte
+    aligned are copied before the backward's launch; the gradients come
+    back in q's shape and hold against the plain version."""
+    rng = np.random.default_rng(6)
+
+    def misaligned(shape):
+        flat = torch.as_tensor(rng.standard_normal(1 + int(np.prod(shape))),
+                               dtype=torch.float32).to(cuda_device,
+                                                       torch.bfloat16)
+        return flat[1:].view(shape)
+
+    q, do = misaligned((2, 4, 96, 64)), misaligned((2, 4, 96, 64))
+    k = torch.as_tensor(rng.standard_normal((2, 2, 96, 64)),
+                        dtype=torch.float32).to(cuda_device, torch.bfloat16)
+    v = k.flip(2)
+    assert not pfa._fits(q) and not pfa._fits(do)
+    out, lse = pfa.flash_attention(q, k, v, window=40, return_lse=True)
+    got = pfa.flash_attention_bwd(q, k, v, out, do, lse, window=40)
+    want = pfa.attention_bwd_torch(q, k, v, out, do, lse, window=40)
+    torch.cuda.synchronize()
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(),
+                                   **BWD_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("d", [64, 128])

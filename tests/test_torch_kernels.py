@@ -28,6 +28,7 @@ from repro.kernels.zns_fixpoint import blocks_adjacency as r_adjacency
 
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import ops, zns_event_scan as pscan
+from repro_torch.kernels import ref as pref
 from repro_torch.kernels import rmsnorm as prms
 from repro_torch.kernels import zns_fixpoint as pfix
 
@@ -241,14 +242,17 @@ BWD_JAX = {torch.float32: dict(rtol=1e-4, atol=1e-4),
            torch.bfloat16: dict(rtol=2e-2, atol=3e-2)}
 
 
-@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,window", [
+BWD_CASES = [
     (1, 4, 4, 40, 40, 16, None),
     (2, 8, 2, 33, 33, 32, None),      # GQA 4
     (1, 8, 1, 20, 50, 16, None),      # GQA 8, tq < tk (end-aligned)
     (1, 4, 2, 48, 48, 32, 7),         # window
     (1, 4, 2, 30, 45, 16, 5),         # window, tq < tk
     (1, 4, 2, 50, 20, 16, None),      # tq > tk: the first rows see no key
-])
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,window", BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_bwd_plain_matches_autograd_and_jax(b, hq, hkv, tq, tk, d,
                                                       window, dtype):
@@ -281,6 +285,60 @@ def test_attention_bwd_plain_matches_autograd_and_jax(b, hq, hkv, tq, tk, d,
         np.testing.assert_allclose(g.float().numpy(),
                                    np.asarray(r, np.float32),
                                    **BWD_JAX[dtype])
+    if not bool(seen.all()):
+        assert bool((got[0][~seen] == 0).all())
+
+
+def _bwd_bf16_rounding_points(q, k, v, o, do, lse, window):
+    """``attention_bwd_torch``'s arithmetic in float32 with the bfloat16
+    CUDA backward's rounding points: P and dS rounded to bfloat16 before
+    the three products (dV = P^T dO, dK = dS^T Q, dQ = dS K), as the
+    tensor cores take them; S and dP, products of bfloat16 inputs, stay
+    float32; the gradients are rounded to bfloat16 at the end."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    rep, scale = hq // hkv, d ** -0.5
+    qg = q.float().reshape(b, hkv, rep, tq, d)
+    gg = do.float().reshape(b, hkv, rep, tq, d)
+    kf, vf = k.float().unsqueeze(2), v.float().unsqueeze(2)
+    lg = lse.reshape(b, hkv, rep, tq, 1)
+    dg = (do.float() * o.float()).sum(-1).reshape(b, hkv, rep, tq, 1)
+    mask = pref.attention_mask(tq, tk, True, window, q.device)
+    p = torch.where(mask, torch.exp(qg @ kf.transpose(-1, -2) * scale - lg),
+                    0.0)
+    ds = p * (gg @ vf.transpose(-1, -2) - dg)
+    p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = (ds @ kf * scale).reshape(b, hq, tq, d)
+    dk = (ds.transpose(-1, -2) @ qg).sum(2) * scale
+    dv = (p.transpose(-1, -2) @ gg).sum(2)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,window", BWD_CASES)
+def test_attention_bwd_bf16_rounding_points_match_jax(b, hq, hkv, tq, tk, d,
+                                                      window):
+    """The bfloat16 kernel's rounding points (P and dS in bfloat16 before
+    its tensor-core products) keep the gradients within the bfloat16
+    tolerance of jax.vjp of the reference's oracle."""
+    rng = np.random.default_rng(tq + tk + d)
+    shapes = ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    do = rng.standard_normal(shapes[0]).astype(np.float32)
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16) for a in arrays)
+    out, lse = pfa.attention_torch(q, k, v, window=window, return_lse=True)
+    seen = torch.isfinite(lse)
+    do[~seen.numpy()] = 0.0       # as in the test above
+    got = _bwd_bf16_rounding_points(q, k, v, out,
+                                    torch.as_tensor(do).to(torch.bfloat16),
+                                    lse, window)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in arrays)
+    _, vjp = jax.vjp(lambda q_, k_, v_: rref.attention_ref(
+        q_, k_, v_, window=window), jq, jk, jv)
+    ref = vjp(jnp.asarray(do, jnp.bfloat16))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(r, np.float32),
+                                   **BWD_JAX[torch.bfloat16])
     if not bool(seen.all()):
         assert bool((got[0][~seen] == 0).all())
 

@@ -247,7 +247,7 @@ def test_unported_families_and_features_raise():
             M.init_params(get_smoke_config(arch), device="cpu")
     cfg = get_smoke_config("qwen3-4b", ring_attention=True)
     params = M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
         M.forward(cfg, params, torch.ones(1, 4, dtype=torch.long))
 
 
