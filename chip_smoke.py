@@ -119,7 +119,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``),
 and fails if ptxas serialised any kernel's ``wgmma`` (warning C7518 in a
-build log) or if a bfloat16 attention backward kernel spills.
+build log) or if a bfloat16 attention backward kernel or an RMSNorm
+backward kernel of the vector path or the dw sum spills.
 Phase 2 also holds the flash-attention and RMSNorm kernels against their
 plain versions at qwen3-4b's shapes, in bfloat16 and float32 at the
 reference kernel tests' tolerances (attention atol 2e-2 / 2e-4, RMSNorm
@@ -130,9 +131,12 @@ versions (``BWD_TOL``; two runs bit-equal) at tinyllama-1.1b's training
 shape (4 x 32/4 heads x 2,048, D 64) and qwen3-4b's (D 128) for
 attention, and at (8,192, 2,048) and the qk-norm rows (262,144, 128) for
 RMSNorm, timed beside SDPA's and ``F.rms_norm``'s backward through
-autograd, and the attention forward with and without ``lse``; and counts
-the ``HGMMA`` (``wgmma``) instructions in each function of the built
-flash-attention library (``cuobjdump -sass``): none in the forward, or
+autograd (the RMSNorm backward also by ``torch.profiler``'s device time of
+its kernels, two a call (more fails the script), with its share of the
+bound and its kernels' registers), and the attention forward with and
+without ``lse``; and counts the ``HGMMA`` (``wgmma``) instructions in
+each function of the built flash-attention library (``cuobjdump
+-sass``): none in the forward, or
 in any instance of the bfloat16 backward's dK/dV or dQ kernel, fails the
 script; likewise flash attention at recurrentgemma-9b's prefill
 shape (head dim 256, window 2,048), the SSD chunk scan at mamba2-370m's
@@ -242,6 +246,12 @@ BF16_GRAD_REL = 0.1
 #: shape without lse (PR 19's phase 2, bfloat16).
 ATTN_FWD_PR19_MS = 0.1203
 
+#: Kernels that must not spill (ptxas -v): the bfloat16 attention
+#: backward's and the RMSNorm backward's, whose designs hold their
+#: accumulators in registers.
+NO_SPILL = ("bwd_dkdv_wgmma", "bwd_dq_wgmma", "rmsnorm_bwd_vec",
+            "rmsnorm_dw_sum")
+
 F64 = dict(rtol=1e-12, atol=1e-9)
 F32 = dict(rtol=2e-5, atol=1e-2)
 #: Phase 10, recurrentgemma-9b's blocks one by one in bfloat16, kernels
@@ -315,25 +325,42 @@ def device_ms(fn, key: str, reps: int = 5):
     """``(median device ms of the CUDA kernels whose name holds key in
     one call of fn, device kernels a call)`` from ``torch.profiler``
     (copies and memsets are not kernels; the L2 is not flushed), after
-    one warm-up call; the time is None when the profiler records no
-    device time."""
+    one warm-up call, each call in its own profiled window.  The profiler
+    on the H100 machine drops the first kernel of most windows, so each
+    window first runs two short sleep kernels (``spin_kernel``),
+    synchronising after each, and counts every kernel after the last
+    sleep kernel it recorded: all that fn launched.  It still drops a
+    kernel now and then, so the time is the median over the windows that
+    saw the most kernels, and the kernels a call are that most; the time
+    is None when the profiler records no device time.  Fails when no
+    window recorded a sleep kernel (the count would hold them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    times, counts = [], []
+    seen, slept = [], 0
     for _ in range(reps):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not e.name.startswith(("Memcpy", "Memset"))]
-        counts.append(len(ev))
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset"))),
+                    key=lambda e: e.time_range.start)
+        sleeps = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
+        ev = ev[sleeps[-1] + 1:] if sleeps else ev
+        slept += bool(sleeps)
         t = sum(e.time_range.elapsed_us() for e in ev if key in e.name)
-        if t:
-            times.append(t / 1e3)
-    return (sorted(times)[len(times) // 2] if times else None), max(counts)
+        seen.append((len(ev), t / 1e3))
+    check(slept > 0 or not any(n for n, _ in seen),
+          f"device_ms ({key}): the profiler recorded no sleep kernel")
+    most = max(n for n, _ in seen)
+    times = sorted(t for n, t in seen if n == most and t)
+    return (times[len(times) // 2] if times else None), most
 
 
 def kernel_group(name: str) -> str:
@@ -369,9 +396,10 @@ def kernel_group(name: str) -> str:
 
 def device_breakdown(fn):
     """Run ``fn()`` once under ``torch.profiler``; returns (wall ms, kernel
-    ms, device events, [(group, ms), ...] largest first) from the CUDA
-    kernel events, or None when the profiler records no device time.  The
-    wall time includes the profiler's own overhead."""
+    ms, device events, [(group, ms), ...] largest first, {group: device
+    events}) from the CUDA kernel events, or None when the profiler
+    records no device time.  The wall time includes the profiler's own
+    overhead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -382,16 +410,16 @@ def device_breakdown(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    groups, n = {}, 0
+    groups, counts = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             g = kernel_group(e.name)
             groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
-            n += 1
+            counts[g] = counts.get(g, 0) + 1
     if not groups:
         return None
-    return wall, sum(groups.values()), n, sorted(groups.items(),
-                                                 key=lambda kv: -kv[1])
+    return (wall, sum(groups.values()), sum(counts.values()),
+            sorted(groups.items(), key=lambda kv: -kv[1]), counts)
 
 
 def kernel_name(mangled: str) -> str:
@@ -487,11 +515,13 @@ def main() -> int:
     tb = time.perf_counter()
     libs = _build.build()
     print(f"[1] built {sorted(libs)} in {time.perf_counter() - tb:.1f} s")
+    ptxas = {}
     for name, path in libs.items():
         log = (path.parent / "build.log").read_text()
-        for kern, regs, spill in ptxas_lines(log):
+        ptxas[name] = ptxas_lines(log)
+        for kern, regs, spill in ptxas[name]:
             print(f"[1]   {name}: {kern}: {regs} registers; {spill}")
-            if kern.startswith(("bwd_dkdv_wgmma", "bwd_dq_wgmma")):
+            if kern.startswith(NO_SPILL):
                 check(re.search(r"\b0 bytes spill stores, 0 bytes spill "
                                 r"loads", spill) is not None,
                       f"{name}: {kern} spills: {spill}")
@@ -1020,6 +1050,13 @@ def main() -> int:
             check(torch.equal(again[0], dx) and torch.equal(again[1], dw),
                   f"rmsnorm_bwd ({rows}, {d}) {dname}: two runs differ")
             ms = time_ms(lambda: krms.rmsnorm_bwd(x, w, dy), flush=flush)
+            dms, nk = device_ms(lambda: krms.rmsnorm_bwd(x, w, dy),
+                                "rmsnorm", reps=9)
+            check(nk <= 2, f"rmsnorm_bwd ({rows}, {d}) {dname}: {nk} device "
+                           f"kernels a call, want 2 (the rows, then the dw "
+                           f"sum)")
+            if nk < 2:    # the profiler dropped a kernel in every window
+                dms = None
             pms = time_ms(lambda: krms.rmsnorm_bwd_torch(x, w, dy), reps=3,
                           flush=flush)
             xl = x.detach().requires_grad_(True)
@@ -1029,19 +1066,29 @@ def main() -> int:
                 lo, (xl, wl), dy, retain_graph=True), flush=flush)
             nbytes = 3.0 * x.numel() * x.element_size() + 8 * d
             bnd, by = bound_ms(nbytes, 8.0 * x.numel(), dname)
+            dtxt = (f"{dms:.4f} ms ({bnd / dms:.0%} of the bound)"
+                    if dms is not None else "not measured")
             print(f"[2] rmsnorm_bwd ({rows}, {d}) {dname}: max abs err dx "
                   f"{err:.3e}, dw {err_w:.3e}, two runs bit-equal, kernel "
-                  f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), plain "
-                  f"{pms:.4f} ms, library (F.rms_norm's backward) {lms:.4f} "
-                  f"ms, bound {bnd:.4f} ms ({by})")
+                  f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                  f"{bnd / ms:.0%} of the bound; device time {dtxt}, {nk} "
+                  f"device kernels a call), plain {pms:.4f} ms, library "
+                  f"(F.rms_norm's backward) {lms:.4f} ms, bound {bnd:.4f} "
+                  f"ms ({by})")
             row = dict(max_abs_err=max(err, err_w), ms=ms, plain_ms=pms,
                        bound_ms=bnd, bound_by=by, library_ms=lms,
-                       gbps=nbytes / ms / 1e6, shape=[rows, d], dtype=dname)
+                       gbps=nbytes / ms / 1e6, device_ms=dms,
+                       device_kernels=nk, bound_share=bnd / ms,
+                       shape=[rows, d], dtype=dname)
             if (rows, d) == (8192, 2048) and dname == "bfloat16":
                 report["rmsnorm_bwd"] = row
             elif dname == "bfloat16":
                 report["rmsnorm_bwd"]["qk_norm"] = row
             del x, dy, dx, dw, dx_p, dw_p, again, xl, wl, lo
+    print("[2] rmsnorm_bwd kernels (ptxas -v): " + "; ".join(
+        f"{kern} {regs} registers, {spill}" for kern, regs, spill
+        in ptxas["rmsnorm"] if kern.startswith(("rmsnorm_bwd",
+                                                "rmsnorm_dw"))))
 
     report["flash_attention"]["d256"] = d256
     report["flash_attention"]["moe"] = moe_attn
@@ -1329,7 +1376,7 @@ def main() -> int:
                 print(f"[{phase}] {what}: profiler recorded no device time "
                       f"(breakdown not measured)")
                 continue
-            wall, busy, n, groups = brk
+            wall, busy, n, groups, _ = brk
             print(f"[{phase}] {what} under torch.profiler: wall {wall:.1f} "
                   f"ms, {n} device events, kernels {busy:.1f} ms, device "
                   f"idle {max(0.0, 1 - busy / wall):.1%}; " + ", ".join(
@@ -2208,7 +2255,7 @@ def main() -> int:
         step_ms.append((time.perf_counter() - t) * 1e3)
     brk = device_breakdown(lambda: step18(state18, batch18))
     check(brk is not None, "phase 18: torch.profiler recorded no device time")
-    wall_p, busy, nev, groups = brk
+    wall_p, busy, nev, groups, nk18 = brk
     names = dict(groups)
     for g in ("flash_attention", "flash_attention_bwd", "rmsnorm",
               "rmsnorm_bwd"):
@@ -2227,7 +2274,10 @@ def main() -> int:
           f"device events, kernels {busy:.1f} ms, device idle "
           f"{max(0.0, 1 - busy / wall_p):.1%}, attention backward "
           f"{attn_share:.1%} of the kernels' time; " + ", ".join(
-              f"{g} {ms:.2f} ms" for g, ms in groups))
+              f"{g} {ms:.2f} ms" for g, ms in groups)
+          + f"; the RMSNorm backward's group {nk18['rmsnorm_bwd']} device "
+            f"kernels ({per_step18['rmsnorm_bwd']} calls, two kernels a "
+            f"call)")
     report18 = dict(step_ms=min(step_ms), tokens_per_s=tok_s, peak_gb=peak18,
                     losses=losses18, idle=max(0.0, 1 - busy / wall_p),
                     attn_bwd_share=attn_share, groups=groups)

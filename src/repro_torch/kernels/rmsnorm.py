@@ -14,11 +14,14 @@ view of ``x`` (``(..., D)``), in float32, written in ``x``'s dtype
 * :func:`rmsnorm_torch` is the plain version, a float32 row reduction
   (the oracle :func:`repro_torch.kernels.ref.rmsnorm_ref` itself).  The
   wrapper uses it only for tensors on the CPU.
-* :func:`rmsnorm_bwd` launches the backward kernel of the same source
-  (``rmsnorm_bwd_f32`` / ``_bf16``: dx, and dw summed without atomics
-  through per-block partial rows) and counts ``rmsnorm_bwd.launches``;
-  :func:`rmsnorm_bwd_torch` is its plain version.  The reference has no
-  backward kernel (its gradient is XLA's autodiff of the plain RMSNorm).
+* :func:`rmsnorm_bwd` launches the backward kernels of the same source
+  (``rmsnorm_bwd_f32`` / ``_bf16``: dx in one pass over each row, with
+  16-byte vectors held in registers where the rows are aligned as for the
+  forward, and dw summed without atomics through per-block partial rows
+  in a fixed order; two device kernels a call) and counts
+  ``rmsnorm_bwd.launches``; :func:`rmsnorm_bwd_torch` is its plain
+  version.  The reference has no backward kernel (its gradient is XLA's
+  autodiff of the plain RMSNorm).
 * :class:`RMSNormFunction` is the ``torch.autograd.Function`` whose
   forward is :func:`rmsnorm` and whose backward is :func:`rmsnorm_bwd`;
   ``ops.rmsnorm(..., impl="cuda")`` uses it when a gradient is wanted.
@@ -51,17 +54,36 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError("rmsnorm: x and w on different devices")
 
 
+_LIB = None
+
+
+def _lib():
+    """The built library, its C signatures set once."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("rmsnorm")
+        ptr, tail = ctypes.c_void_p, [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_float, ctypes.c_void_p]
+        for fn in (lib.rmsnorm_f32, lib.rmsnorm_bf16):
+            fn.argtypes = [ptr] * 3 + tail
+            fn.restype = ctypes.c_int
+        for fn in (lib.rmsnorm_bwd_f32, lib.rmsnorm_bwd_bf16):
+            fn.argtypes = [ptr] * 6 + tail
+            fn.restype = ctypes.c_int
+        lib.rmsnorm_bwd_parts.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        lib.rmsnorm_bwd_parts.restype = ctypes.c_longlong
+        _LIB = lib
+    return _LIB
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """Run the CUDA kernel on CUDA tensors (raises on any failure)."""
     d = x.shape[-1]
     x2 = x.reshape(-1, d).contiguous()
     w32 = w.float().contiguous()
     out = torch.empty_like(x2)
-    lib = _build.load("rmsnorm")
+    lib = _lib()
     fn = lib.rmsnorm_bf16 if x.dtype == torch.bfloat16 else lib.rmsnorm_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     rc = fn(x2.data_ptr(), w32.data_ptr(), out.data_ptr(), x2.shape[0], d,
             float(eps), _build.stream_handle(x.device))
     if rc != 0:
@@ -107,9 +129,7 @@ def _launch_bwd(x, w, dy, eps: float):
     x2 = x.reshape(-1, d).contiguous()
     g2 = dy.reshape(-1, d).contiguous()
     w32 = w.float().contiguous()
-    lib = _build.load("rmsnorm")
-    lib.rmsnorm_bwd_parts.argtypes = [ctypes.c_longlong, ctypes.c_int]
-    lib.rmsnorm_bwd_parts.restype = ctypes.c_longlong
+    lib = _lib()
     parts = lib.rmsnorm_bwd_parts(x2.shape[0], d)
     if parts <= 0 and x2.shape[0] > 0:
         raise ValueError(f"rmsnorm_bwd: rows of {d} are too long for the "
@@ -117,12 +137,9 @@ def _launch_bwd(x, w, dy, eps: float):
     dx = torch.empty_like(x2)
     part = torch.empty((max(parts, 1), d), dtype=torch.float32,
                        device=x.device)
-    dw = torch.zeros((d,), dtype=torch.float32, device=x.device)
+    dw = torch.empty((d,), dtype=torch.float32, device=x.device)
     fn = lib.rmsnorm_bwd_bf16 if x.dtype == torch.bfloat16 \
         else lib.rmsnorm_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     rc = fn(x2.data_ptr(), w32.data_ptr(), g2.data_ptr(), dx.data_ptr(),
             part.data_ptr(), dw.data_ptr(), x2.shape[0], d, float(eps),
             _build.stream_handle(x.device))

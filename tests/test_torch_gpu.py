@@ -711,7 +711,14 @@ def test_attention_bwd_refuses_head_dim_256_on_card(cuda_device):
 
 @pytest.mark.parametrize("shape", [(8192, 2048), (4 * 256 * 32, 128),
                                    (2, 9, 2560), (5, 100), (3, 64),
-                                   (7, 2568), (2, 5, 4096), (3, 16384)])
+                                   (7, 2568), (2, 5, 4096), (3, 16384),
+                                   # rows that are not a multiple of a
+                                   # grid's rows, fewer rows than blocks,
+                                   # one row; D 16,384 ends bf16's vector
+                                   # path (float32's ends at 8,192)
+                                   (3001, 2048), (5, 2048), (1, 2048),
+                                   (10_001, 128), (3, 128), (1, 128),
+                                   (300, 16384), (9, 8192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_bwd_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     rng = np.random.default_rng(shape[-1] + len(shape))
@@ -735,6 +742,49 @@ def test_rmsnorm_bwd_kernel_matches_plain_on_card(cuda_device, shape, dtype):
                                rtol=1e-3, atol=1e-4 * rows ** 0.5)
     again = prms.rmsnorm_bwd(x, w, dy)
     assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("case", ["x-and-dy-misaligned", "dy-transposed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_on_views_on_card(cuda_device, case, dtype):
+    """x and dy one element past a 16-byte boundary take the scalar path;
+    a transposed dy is made contiguous by the wrapper."""
+    rows, d = 777, 2048
+    rng = np.random.default_rng(77)
+
+    def randn(shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(cuda_device, dtype)
+
+    if case == "x-and-dy-misaligned":
+        x, dy = (randn(rows * d + 1)[1:].view(rows, d) for _ in range(2))
+        assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    else:
+        x, dy = randn((rows, d)), randn((d, rows)).t()
+        assert not dy.is_contiguous()
+    w = torch.as_tensor(rng.standard_normal(d) * 0.1,
+                        dtype=torch.float32).to(cuda_device)
+    before = prms.rmsnorm_bwd.launches
+    dx, dw = prms.rmsnorm_bwd(x, w, dy)
+    dx_p, dw_p = prms.rmsnorm_bwd_torch(x, w, dy)
+    torch.cuda.synchronize()
+    assert prms.rmsnorm_bwd.launches == before + 1
+    np.testing.assert_allclose(dx.float().cpu().numpy(),
+                               dx_p.float().cpu().numpy(), **BWD_TOL[dtype])
+    np.testing.assert_allclose(dw.cpu().numpy(), dw_p.cpu().numpy(),
+                               rtol=1e-3, atol=1e-4 * rows ** 0.5)
+    again = prms.rmsnorm_bwd(x, w, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_refuses_rows_above_16384_on_card(cuda_device, dtype):
+    x = torch.ones((2, 16392), dtype=dtype, device=cuda_device)
+    w = torch.zeros(16392, device=cuda_device)
+    before = prms.rmsnorm_bwd.launches
+    with pytest.raises(ValueError, match="16,384"):
+        prms.rmsnorm_bwd(x, w, x)
+    assert prms.rmsnorm_bwd.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
