@@ -115,7 +115,33 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    then at full width and 2 layers a checkpoint at step 3 into the ZNS
    store (one batched scan launch), restored into a fresh state (seed
    99) and replayed through step 6: parameters, m and v equal an
-   uninterrupted run's bit for bit.
+   uninterrupted run's bit for bit;
+19. runs the cluster tier (``repro_torch.cluster``) on the card at
+   ``benchmarks/cluster_bench.py``'s rack: 4 gateways, 16 storage
+   servers, the configs ``ec2+1/round-robin``, ``rep2-k2/hashed``,
+   ``ec4+2/strided`` and ``ec3+1/grouped``, 8 users x 6 objects of 1 MiB
+   (GET fraction 0.5, seed 0).  ``plan_capacity`` with the users ladder
+   [4, 8] and degraded mode (16 programs, 17,164 events) on the default
+   ``fixpoint="auto"``: every solve (each compile's bootstrap and
+   refinements, and the fleet solve) one launch of the fixpoint kernel,
+   as many launches as ``solve_program`` calls; every point converged,
+   every config order-stable; each compiled program, family and FIFO pop
+   order equal to the same call on ``device="cpu"`` with the host float64
+   ``fixpoint="loop"`` driver and numpy scans, its completions within
+   rtol 1e-12; the per-op latencies of the fleet solve within
+   ``CLUSTER_TOL_US`` of the greedy-engine oracle ``simulate_graph`` on
+   each graph; and the bench's ranking sanity (no erasure config's
+   degraded p99 below 0.95 of its normal row's).  Then the rate ladder
+   [4,000, 16,000, 64,000] objects/s cold and with ``warm_ladder=True``
+   (equal curves to rtol 1e-12; it prints warm hits / attempts), and one
+   config with ``fixpoint="loop"`` (the batched scan kernel around the
+   host loop) against the ``cuda`` driver at rtol 1e-12.  It prints each
+   call's wall time split into host lowering and the time inside
+   ``solve_program`` (uploads, the launch and the copy back), the solve
+   and launch counts, the sweeps and family blocks x sweeps of its
+   solves, the fleet solve's programs, events and sweeps, and, from a
+   profiled users-ladder call, the device's idle share and the fixpoint
+   kernel's device time a launch and a family block a sweep.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``),
 and fails if ptxas serialised any kernel's ``wgmma`` (warning C7518 in a
@@ -176,7 +202,7 @@ output against a float32 expert-by-expert computation (the same top-k,
 drops and shared expert) at the block tolerance; and the MoE block
 kernels vs plain on every token both runs route alike (the others are
 counted).  Every kernel's
-launch counter is set to 0 just before each of the runs of phases 3-18
+launch counter is set to 0 just before each of the runs of phases 3-19
 and read just after; a kernel of
 the path that was never launched fails the script, and phase 9 fails
 unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
@@ -268,6 +294,10 @@ RUNNER_ORACLE_ATOL = 1e-9
 #: Phase 14, the host goldens (event-engine completions) against the
 #: card's vectorized backend: the reference golden test's tolerance.
 GOLDEN_TOL = dict(rtol=1e-9, atol=1e-6)
+#: Phase 19: the compiled cluster program against the greedy event-engine
+#: oracle, per-op latency in microseconds (benchmarks/cluster_bench.py's
+#: TOL_US).
+CLUSTER_TOL_US = 1e-6
 #: Phase 15's issue-time window, as benchmarks/mega_fleet.py's windowed row.
 WINDOW_EVENTS = 131_072
 #: Phase 16: the layers of qwen2-moe-a2.7b held one by one.
@@ -332,30 +362,37 @@ def device_ms(fn, key: str, reps: int = 5):
     sleep kernel it recorded: all that fn launched.  It still drops a
     kernel now and then, so the time is the median over the windows that
     saw the most kernels, and the kernels a call are that most; the time
-    is None when the profiler records no device time.  Fails when no
-    window recorded a sleep kernel (the count would hold them)."""
+    is None when the profiler records no device time.  A round of reps
+    windows in which the profiler recorded kernels but no sleep kernel
+    (it does so now and then on the H100) is run again, up to three
+    rounds; fails when no window of the last round recorded a sleep
+    kernel (the count would hold them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    seen, slept = [], 0
-    for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                torch.cuda._sleep(1000)
+    for _ in range(3):
+        seen, slept = [], 0
+        for _ in range(reps):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    torch.cuda._sleep(1000)
+                    torch.cuda.synchronize()
+                fn()
                 torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-        ev = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and not e.name.startswith(("Memcpy", "Memset"))),
-                    key=lambda e: e.time_range.start)
-        sleeps = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
-        ev = ev[sleeps[-1] + 1:] if sleeps else ev
-        slept += bool(sleeps)
-        t = sum(e.time_range.elapsed_us() for e in ev if key in e.name)
-        seen.append((len(ev), t / 1e3))
+            ev = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not e.name.startswith(("Memcpy", "Memset"))),
+                        key=lambda e: e.time_range.start)
+            sleeps = [i for i, e in enumerate(ev)
+                      if "spin_kernel" in e.name]
+            ev = ev[sleeps[-1] + 1:] if sleeps else ev
+            slept += bool(sleeps)
+            t = sum(e.time_range.elapsed_us() for e in ev if key in e.name)
+            seen.append((len(ev), t / 1e3))
+        if slept > 0 or not any(n for n, _ in seen):
+            break
     check(slept > 0 or not any(n for n, _ in seen),
           f"device_ms ({key}): the profiler recorded no sleep kernel")
     most = max(n for n, _ in seen)
@@ -365,7 +402,10 @@ def device_ms(fn, key: str, reps: int = 5):
 
 def kernel_group(name: str) -> str:
     """A CUDA kernel's name as the part of the model it serves."""
-    for key, group in (("flash_fwd", "flash_attention"),
+    for key, group in (("fp_solve_kernel", "zns_fixpoint"),
+                       ("fp_stack_kernel", "zns_fixpoint_sharded"),
+                       ("scan_tiles_kernel", "zns_event_scan"),
+                       ("flash_fwd", "flash_attention"),
                        ("bwd_dkdv", "flash_attention_bwd"),
                        ("bwd_dq", "flash_attention_bwd"),
                        ("bwd_delta", "flash_attention_bwd"),
@@ -2408,6 +2448,253 @@ def main() -> int:
     del whole, first, resumed
     torch.cuda.empty_cache()
     report["flash_attention_bwd"]["training"] = report18
+
+    # -- phase 19: the cluster tier on the card ------------------------------
+    from repro_torch import cluster as C
+    from repro_torch.cluster import capacity as ccap
+    from repro_torch.cluster import compiler as ccomp
+    # every solve of the tier goes through solve_program (compile_graph's
+    # bootstrap, refinements and warm repairs, plan_capacity's fleet
+    # solve): count the calls, the time inside them (it returns host
+    # arrays, so that time holds the upload, the launch and the copy
+    # back), and each solve's family blocks x sweeps
+    solves19 = {"n": 0, "s": 0.0, "block_sweeps": 0, "sweeps": []}
+    real_solve = ccomp.solve_program
+
+    def counted_solve(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_solve(*a, **kw)
+        finally:
+            st = P.last_solve_stats()
+            solves19["n"] += 1
+            solves19["s"] += time.perf_counter() - t
+            solves19["block_sweeps"] += st.n_blocks * st.sweeps
+            solves19["sweeps"].append(st.sweeps)
+
+    def reset_solves19():
+        solves19.update(n=0, s=0.0, block_sweeps=0, sweeps=[])
+    ccomp.solve_program = ccap.solve_program = counted_solve
+    configs19 = [C.ClusterConfig(C.erasure(2, 1), "round-robin"),
+                 C.ClusterConfig(C.replication(2, 2), "hashed"),
+                 C.ClusterConfig(C.erasure(4, 2), "strided"),
+                 C.ClusterConfig(C.erasure(3, 1), "grouped")]
+    spec19 = C.ClusterSpec(n_gateways=4, n_servers=16)
+    wl19 = C.ClusterWorkload(n_users=8, ops_per_user=6,
+                             object_bytes=1 << 20, get_fraction=0.5, seed=0)
+    kw19 = dict(base_spec=spec19, workload=wl19, slo_us=10_000.0,
+                degraded=True)
+    calls19 = {}
+
+    def plan19(name, device, **kw):
+        """One plan_capacity call; its wall, solves and solve time."""
+        reset_solves19()
+        zero_counts()
+        t = time.perf_counter()
+        out = C.plan_capacity(configs19, [4, 8], device=device, **kw19,
+                              **kw)
+        wall = time.perf_counter() - t
+        sw = sorted(solves19["sweeps"])
+        calls19[name] = c = dict(wall_s=wall, solve_s=solves19["s"],
+                                 host_s=wall - solves19["s"],
+                                 solves=solves19["n"], sweeps=sum(sw),
+                                 median_sweeps=sw[len(sw) // 2],
+                                 max_sweeps=sw[-1],
+                                 block_sweeps=solves19["block_sweeps"])
+        if device is cuda:
+            read_counts(f"19 {name}", ["zns_fixpoint"])
+            got = phase_counts[f"19 {name}"]
+            c["launches"] = got["zns_fixpoint"]
+            check(got["zns_fixpoint"] == solves19["n"],
+                  f"phase 19 {name}: {got['zns_fixpoint']} fixpoint "
+                  f"launches for {solves19['n']} solves")
+            check(sum(v for k, v in got.items() if k != "zns_fixpoint")
+                  == 0, f"phase 19 {name}: other kernels launched: {got}")
+            check(P.last_solve_stats().driver == "cuda",
+                  f"phase 19 {name}: driver {P.last_solve_stats().driver}")
+        print(f"[19] {name}: {out.n_programs} programs, {out.n_events} "
+              f"events, fleet solve {out.sweeps_used} sweeps; wall "
+              f"{wall:.3f} s = host {c['host_s']:.3f} s + "
+              f"{c['solves']} solve_program calls {c['solve_s']:.3f} s"
+              + (f", {c['launches']} fixpoint launches"
+                 if "launches" in c else "") + f" (device={device}); "
+              f"{c['sweeps']} sweeps in all (median {c['median_sweeps']}, "
+              f"most {c['max_sweeps']} a solve), {c['block_sweeps']} "
+              f"family blocks x sweeps")
+        check(out.converged and all(p.converged for cv in out.curves
+                                    for p in cv.points),
+              f"phase 19 {name}: not converged")
+        check(out.order_unstable == (),
+              f"phase 19 {name}: order-unstable {out.order_unstable}")
+        check(all(e.program.order_stable and e.converged
+                  for e in out.compiled),
+              f"phase 19 {name}: an entry is not order-stable")
+        return out
+
+    def same_entries19(got, want, what):
+        """Programs, families and pop orders exactly; completions (each
+        entry's and the fleet solve's) to rtol 1e-12."""
+        check(len(got.compiled) == len(want.compiled),
+              f"phase 19 {what}: {len(got.compiled)} entries against "
+              f"{len(want.compiled)}")
+        for i, (g, w) in enumerate(zip(got.compiled, want.compiled)):
+            gp, wp = g.program, w.program
+            check((gp.n_flat, gp.refine_used, gp.order_stable)
+                  == (wp.n_flat, wp.refine_used, wp.order_stable)
+                  and len(gp.families) == len(wp.families)
+                  and all(a.label == b.label
+                          and np.array_equal(a.gidx, b.gidx)
+                          and np.array_equal(a.heads, b.heads)
+                          for a, b in zip(gp.families, wp.families)),
+                  f"phase 19 {what}: entry {i}'s program differs")
+            check(len(g.fifo_chains) == len(w.fifo_chains)
+                  and all(len(a) == len(b) and all(
+                      np.array_equal(x, y) for x, y in zip(a, b))
+                      for a, b in zip(g.fifo_chains, w.fifo_chains)),
+                  f"phase 19 {what}: entry {i}'s FIFO pop orders differ")
+            close(g.comp, w.comp, dict(rtol=1e-12, atol=0.0),
+                  f"phase 19 {what}: entry {i}'s completions")
+        return close(got.comp, want.comp, dict(rtol=1e-12, atol=0.0),
+                     f"phase 19 {what}: fleet completions")
+
+    def same_curves19(got, want, what):
+        """Equal reports (warm telemetry aside): floats to rtol 1e-12,
+        the rest exactly; returns the largest relative difference."""
+        a, b = got.to_json(), want.to_json()
+        for k in ("warm_hits", "warm_attempts"):
+            a.pop(k), b.pop(k)
+        worst = [0.0]
+
+        def walk(x, y, path):
+            if isinstance(y, dict):
+                check(set(x) == set(y), f"phase 19 {what}: {path} keys")
+                for k in y:
+                    walk(x[k], y[k], f"{path}.{k}")
+            elif isinstance(y, list):
+                check(len(x) == len(y), f"phase 19 {what}: {path} length")
+                for i, (u, v) in enumerate(zip(x, y)):
+                    walk(u, v, f"{path}[{i}]")
+            elif isinstance(y, float):
+                rel = abs(x - y) / abs(y) if y else abs(x)
+                check(rel <= 1e-12, f"phase 19 {what}: {path} {x!r} "
+                                    f"against {y!r}")
+                worst[0] = max(worst[0], rel)
+            else:
+                check(x == y, f"phase 19 {what}: {path} {x!r} against {y!r}")
+        walk(a, b, "report")
+        return worst[0]
+
+    t19 = time.perf_counter()
+    users19 = plan19("users", cuda)
+    # the same call on the CPU with the host float64 loop driver and
+    # numpy scans (the reference's driver, and the port's fastest on
+    # the CPU)
+    users19c = plan19("users cpu", "cpu", fixpoint="loop",
+                      scan_backend="numpy")
+    err19 = same_entries19(users19, users19c, "users, cuda against cpu")
+    rel19 = same_curves19(users19, users19c, "users, cuda against cpu")
+    # the fleet solve's per-op latencies against the greedy oracle
+    oracle19, off, t = 0.0, 0, time.perf_counter()
+    for e in users19.compiled:
+        g = e.graph
+        lat = C.op_latencies(g, users19.comp[off:off + g.n])
+        off += g.n
+        oracle19 = max(oracle19, float(np.max(np.abs(
+            lat - C.oracle_op_latencies(g)))))
+    oracle19_s = time.perf_counter() - t
+    check(oracle19 <= CLUSTER_TOL_US, f"phase 19: per-op latency "
+          f"{oracle19:.3e} us from the oracle")
+    # the bench's ranking sanity: an erasure config's degraded p99 is no
+    # better than 0.95 of its normal row's (degraded PUTs skip a shard)
+    ranking19 = []
+    for curve in users19.ranking():
+        deg = users19.degraded_curve(curve.config)
+        check(deg is not None, f"phase 19: no degraded row for "
+                               f"{curve.config.name}")
+        ranking19.append(f"{curve.config.name} {curve.users_at_slo:.2f} "
+                         f"(degraded {deg.users_at_slo:.2f})")
+        if curve.config.scheme.kind == "ec":
+            for pn, pd in zip(curve.points, deg.points):
+                check(pd.lat.p99_us >= 0.95 * pn.lat.p99_us,
+                      f"phase 19: {curve.config.name} degraded p99 "
+                      f"{pd.lat.p99_us:.1f} us under its normal "
+                      f"{pn.lat.p99_us:.1f} us at {pn.users} users")
+    print(f"[19] users ladder [4, 8]: cuda against cpu: programs, "
+          f"families and pop orders equal, completions max abs err "
+          f"{err19:.3e} us, report numbers max rel {rel19:.3e}; per-op "
+          f"latency within {oracle19:.3e} us of the oracle "
+          f"({oracle19_s:.2f} s); users at the 10 ms SLO, best first: "
+          + "; ".join(ranking19))
+    rates19 = [4000.0, 16000.0, 64000.0]
+    cold19 = plan19("rate", cuda, rate_ladder=rates19)
+    warm19 = plan19("rate warm", cuda, rate_ladder=rates19,
+                    warm_ladder=True)
+    rrel19 = same_curves19(warm19, cold19, "rate ladder, warm against cold")
+    bit19 = warm19.to_json()["curves"] == cold19.to_json()["curves"]
+    print(f"[19] rate ladder {rates19}: warm curves against cold max rel "
+          f"{rrel19:.3e} (bit-equal: {bit19}); warm hits / attempts "
+          f"{warm19.warm_hits}/{warm19.warm_attempts}")
+    # one config on the loop driver: the batched scan around the host loop
+    spec19l = dataclasses.replace(spec19, scheme=configs19[0].scheme,
+                                  placement=configs19[0].placement)
+    zero_counts()
+    reset_solves19()
+    t = time.perf_counter()
+    loop19 = C.Cluster(spec19l, device=cuda).run(wl19, fixpoint="loop")
+    loop19_s = time.perf_counter() - t
+    read_counts("19 loop", ["zns_event_scan_batched"])
+    check(phase_counts["19 loop"]["zns_fixpoint"] == 0,
+          "phase 19 loop: the fixpoint kernel launched")
+    auto19 = C.Cluster(spec19l, device=cuda).run(wl19)
+    check(loop19.converged and loop19.compiled.program.order_stable,
+          "phase 19 loop: not converged or not order-stable")
+    check(all(len(a) == len(b) and all(np.array_equal(x, y)
+                                       for x, y in zip(a, b))
+              for a, b in zip(loop19.compiled.fifo_chains,
+                              auto19.compiled.fifo_chains)),
+          "phase 19 loop: FIFO pop orders differ from the cuda driver's")
+    lerr19 = close(loop19.comp, auto19.comp, dict(rtol=1e-12, atol=0.0),
+                   "phase 19: loop against cuda")
+    print(f"[19] {configs19[0].name} at 8 users on fixpoint=\"loop\": "
+          f"{loop19.compiled.graph.n} events, {solves19['n']} solves, "
+          f"{phase_counts['19 loop']['zns_event_scan_batched']} batched "
+          f"scan launches, {loop19_s:.3f} s; against the cuda driver max "
+          f"abs err {lerr19:.3e} us")
+    # the device's idle share of one users-ladder call, profiled again
+    # (the profiler can miss every device event of a window: 2 tries)
+    for _ in range(2):
+        reset_solves19()
+        prof19 = device_breakdown(lambda: C.plan_capacity(
+            configs19, [4, 8], device=cuda, **kw19))
+        if prof19 is not None:
+            break
+    ccomp.solve_program = ccap.solve_program = real_solve
+    idle19 = None if prof19 is None else 1.0 - prof19[1] / prof19[0]
+    fp19 = None if prof19 is None else dict(prof19[3]).get("zns_fixpoint")
+    # the fixpoint kernel's device time per family block a sweep: the
+    # persistent kernel crosses a grid barrier after each block
+    per_bs19 = None if not fp19 else \
+        fp19 * 1e3 / max(solves19["block_sweeps"], 1)
+    print("[19] profiled users-ladder call: " + (
+        "no device time recorded" if prof19 is None else
+        f"{prof19[0]:.1f} ms wall, {prof19[1]:.4f} ms of device kernels "
+        f"in {prof19[2]} device events ({prof19[3]}), device idle "
+        f"{100 * idle19:.2f}%; the fixpoint kernel "
+        + ("not seen" if per_bs19 is None else
+           f"{fp19 / max(solves19['n'], 1):.4f} ms a launch, "
+           f"{per_bs19:.3f} us a family block a sweep over "
+           f"{solves19['block_sweeps']} blocks x sweeps"))
+          + f"; phase 19 took {time.perf_counter() - t19:.1f} s")
+    report["zns_fixpoint"]["cluster"] = dict(
+        programs=users19.n_programs, events=users19.n_events,
+        fleet_sweeps=users19.sweeps_used, calls=calls19,
+        rate_warm_hits=warm19.warm_hits,
+        rate_warm_attempts=warm19.warm_attempts,
+        loop_scan_launches=phase_counts["19 loop"]["zns_event_scan_batched"],
+        device_kernel_ms=None if prof19 is None else prof19[1],
+        fixpoint_us_per_block_sweep=per_bs19,
+        profiled_wall_ms=None if prof19 is None else prof19[0],
+        idle_share=idle19)
 
     # -- report -----------------------------------------------------------------
     sources = {

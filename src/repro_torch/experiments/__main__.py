@@ -7,6 +7,10 @@
     python -m repro_torch.experiments host [--scenarios lsm,cache]
                                            [--policies greedy-open,striped]
                                            [--device cpu]
+    python -m repro_torch.experiments cluster [--stripe-widths 2,4]
+                                              [--schemes ec4+2,rep2-k2]
+                                              [--policies round-robin,hashed]
+                                              [--device cpu]
 
 ``run`` executes the selected experiments as one fleet-batched sweep on
 ``--device`` (``cuda`` by default, which fails without a CUDA device),
@@ -18,9 +22,16 @@ placement-policy matrix (`repro_torch.host`) the same way — every
 combination is one member of a single
 :class:`repro_torch.core.DeviceFleet` call on ``--device`` — writes
 ``host_policies.json`` under ``--out`` (default ``build/host``) and
-prints the per-scenario policy ranking (see docs/host.md).  The
-reference CLI's ``cluster`` subcommand is not ported yet: it exits with
-code 2 and names the slice of the port it waits for.
+prints the per-scenario policy ranking (see docs/host.md).  ``cluster``
+compiles a (redundancy scheme x placement policy) x users-ladder x
+(normal | degraded) rack sweep (`repro_torch.cluster`) to one fleet-level
+:class:`repro_torch.core.ChainProgram`, solves it in a single call on
+``--device``, writes ``capacity.json`` and ``capacity_curves.csv`` under
+``--out`` (default ``build/cluster``) and ranks configurations by the
+user count served inside the p99 latency SLO (see docs/cluster.md);
+``--rates`` swaps the ladder for open-loop Poisson offered load and
+ranks by arrival-rate-at-SLO.  It exits 1 when the solve does not
+converge and 2 on a bad scheme.
 """
 from __future__ import annotations
 
@@ -38,12 +49,9 @@ from .runner import DEFAULT_OUT_DIR, ExperimentRunner
 #: ``results/host`` is never written).
 HOST_OUT_DIR = os.path.join("build", "host")
 
-#: Subcommands of the reference CLI that the port does not have yet, with
-#: the part of the port each waits for.
-NOT_PORTED = {
-    "cluster": "the cluster-tier slice (repro_torch.cluster; ROADMAP.md, "
-               "queue 1)",
-}
+#: Artifact directory of the ``cluster`` subcommand (the reference's
+#: ``results/cluster`` is never written).
+CLUSTER_OUT_DIR = os.path.join("build", "cluster")
 
 
 def _cmd_list() -> int:
@@ -129,6 +137,109 @@ def _cmd_host(args) -> int:
     return 0
 
 
+def _cluster_configs(args):
+    from repro_torch.cluster import (ClusterConfig, available_placements,
+                                     erasure, parse_scheme, replication)
+    if args.schemes:
+        schemes = [parse_scheme(s) for s in args.schemes.split(",") if s]
+    else:
+        widths = [int(w) for w in args.stripe_widths.split(",") if w]
+        schemes = []
+        for k in widths:
+            schemes.append(erasure(k, args.parity))
+            schemes.append(replication(k, copies=args.parity + 1))
+    policies = ([p for p in args.policies.split(",") if p]
+                or available_placements())
+    return [ClusterConfig(scheme=s, placement=p)
+            for s in schemes for p in policies]
+
+
+def _cmd_cluster(args) -> int:
+    from repro_torch.cluster import (ClusterSpec, ClusterWorkload,
+                                     available_placements, plan_capacity)
+
+    if args.list:
+        for p in available_placements():
+            print(f"placement  {p}")
+        print("schemes    ec<k>+<m> (erasure) or rep<copies>-k<k> "
+              "(replication), e.g. ec4+2, rep2-k2")
+        return 0
+    try:
+        configs = _cluster_configs(args)
+        base_spec = ClusterSpec(n_gateways=args.gateways,
+                                n_servers=args.servers,
+                                durability=args.durability)
+        for cfg in configs:
+            if cfg.scheme.n_shards > args.servers:
+                print(f"cluster: {cfg.scheme.name} needs "
+                      f"{cfg.scheme.n_shards} servers, have {args.servers}",
+                      file=sys.stderr)
+                return 2
+    except (KeyError, ValueError) as e:
+        print(f"cluster: {e.args[0]}", file=sys.stderr)
+        return 2
+    ladder = [int(u) for u in args.users.split(",") if u]
+    rate_ladder = [float(r) for r in args.rates.split(",") if r] or None
+    workload = ClusterWorkload(
+        ops_per_user=args.objects_per_user,
+        object_bytes=int(args.object_mib * (1 << 20)),
+        get_fraction=args.get_fraction, seed=args.seed,
+        n_users=ladder[-1] if rate_ladder and ladder else 8)
+    report = plan_capacity(
+        configs, ladder, base_spec=base_spec, workload=workload,
+        slo_us=args.slo_ms * 1e3, rate_ladder=rate_ladder,
+        degraded=not args.no_degraded,
+        sweeps=args.sweeps, max_refine=args.max_refine,
+        warm_ladder=args.warm_ladder, device=args.device)
+
+    os.makedirs(args.out, exist_ok=True)
+    json_path = os.path.join(args.out, "capacity.json")
+    with open(json_path, "w") as f:
+        json.dump(report.to_json(), f, indent=1, sort_keys=True)
+    csv_path = os.path.join(args.out, "capacity_curves.csv")
+    with open(csv_path, "w") as f:
+        f.write("config,degraded,users,objects_per_sec,p50_us,p99_us,"
+                "p999_us,slo_violation_rate,offered_rate\n")
+        for c in report.curves:
+            for p in c.points:
+                rate = "" if p.offered_rate is None \
+                    else f"{p.offered_rate:.3f}"
+                f.write(f"{c.config.name},{int(c.degraded)},{p.users},"
+                        f"{p.objects_per_sec:.3f},{p.lat.p50_us:.3f},"
+                        f"{p.lat.p99_us:.3f},{p.lat.p999_us:.3f},"
+                        f"{p.slo_violation_rate:.6f},{rate}\n")
+
+    width = max(len(c.config.name) for c in report.curves)
+    fom = "rate@SLO" if rate_ladder else "users@SLO"
+    print(f"{'config':{width}s} {'mode':8s} {fom:>9s} "
+          f"{'p99(us) by rung':>24s}")
+    for c in report.ranking():
+        rungs = " ".join(f"{p.lat.p99_us:7.1f}" for p in c.points)
+        print(f"{c.config.name:{width}s} {'normal':8s} "
+              f"{c.load_at_slo:9.2f} {rungs:>24s}")
+        d = report.degraded_curve(c.config)
+        if d is not None:
+            rungs = " ".join(f"{p.lat.p99_us:7.1f}" for p in d.points)
+            print(f"{'':{width}s} {'degraded':8s} "
+                  f"{d.load_at_slo:9.2f} {rungs:>24s}")
+    print(f"\n{report.n_programs} programs ({report.n_events} events) in "
+          f"one fleet-level solve ({report.sweeps_used} sweeps, SLO "
+          f"p99 <= {report.slo_us / 1e3:g}ms, device={args.device}); "
+          f"results: {json_path}")
+    if args.warm_ladder:
+        print(f"warm ladder: {report.warm_hits}/{report.warm_attempts} "
+              f"rung seeds verified tight (misses fall back cold; curves "
+              f"are identical either way)")
+    if report.order_unstable:
+        print("WARNING: pop-order refinement budget exhausted for "
+              f"{', '.join(report.order_unstable)} — their curves are "
+              "approximate (raise --max-refine)", file=sys.stderr)
+    if not report.converged:
+        print("WARNING: fixpoint did not converge — capacity numbers are "
+              "not steady-state", file=sys.stderr)
+    return 0 if report.converged else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.experiments",
                                  description=__doc__)
@@ -153,8 +264,55 @@ def main(argv=None) -> int:
                       help=f"artifact directory (default {HOST_OUT_DIR})")
     host.add_argument("--list", action="store_true",
                       help="list scenarios/policies instead of running")
-    for cmd, slice_ in NOT_PORTED.items():
-        sub.add_parser(cmd, help=f"not ported yet: waits for {slice_}")
+    clu = sub.add_parser(
+        "cluster",
+        help="rack capacity sweep: scheme x placement -> users at p99 SLO "
+             "(repro_torch.cluster)")
+    clu.add_argument("--stripe-widths", default="2,4",
+                     help="comma-separated stripe widths k; each yields an "
+                          "ec(k,parity) and a rep(k,parity+1 copies) scheme")
+    clu.add_argument("--parity", type=int, default=1,
+                     help="redundancy degree m paired with --stripe-widths")
+    clu.add_argument("--schemes", default="",
+                     help="explicit scheme list (ec4+2,rep2-k2,...); "
+                          "overrides --stripe-widths/--parity")
+    clu.add_argument("--policies", default="",
+                     help="comma-separated placement policies (default: all)")
+    clu.add_argument("--gateways", type=int, default=2)
+    clu.add_argument("--servers", type=int, default=8)
+    clu.add_argument("--users", default="2,4,8",
+                     help="comma-separated users-per-rack ladder")
+    clu.add_argument("--rates", default="",
+                     help="comma-separated open-loop offered-load ladder "
+                          "(objects/s, Poisson arrivals); switches the "
+                          "figure of merit to arrival-rate-at-SLO and "
+                          "fixes the population at the last --users rung")
+    clu.add_argument("--slo-ms", type=float, default=10.0,
+                     help="p99 latency SLO in milliseconds")
+    clu.add_argument("--objects-per-user", type=int, default=6)
+    clu.add_argument("--object-mib", type=float, default=2.0)
+    clu.add_argument("--get-fraction", type=float, default=0.5)
+    clu.add_argument("--durability", default="writeback",
+                     choices=("writeback", "write-through"))
+    clu.add_argument("--no-degraded", action="store_true",
+                     help="skip the one-server-down rows")
+    clu.add_argument("--sweeps", type=int, default=512)
+    clu.add_argument("--warm-ladder", action="store_true",
+                     help="thread each rung's completions into the next "
+                          "rung's fixpoint seed (per-op content-digest "
+                          "slot mapping; bit-identical curves, pays on "
+                          "--rates ladders)")
+    clu.add_argument("--max-refine", type=int, default=None,
+                     help="pop-order refinement budget per config "
+                          "(default: compiler MAX_REFINE)")
+    clu.add_argument("--seed", type=int, default=0)
+    clu.add_argument("--device", default=DEFAULT_DEVICE,
+                     help=f"where every solve runs (default "
+                          f"{DEFAULT_DEVICE}; 'cpu' runs the plain versions)")
+    clu.add_argument("--out", default=CLUSTER_OUT_DIR,
+                     help=f"artifact directory (default {CLUSTER_OUT_DIR})")
+    clu.add_argument("--list", action="store_true",
+                     help="list placement policies / scheme syntax")
     run = sub.add_parser("run", help="run experiments (one batched sweep)")
     run.add_argument("--all", action="store_true",
                      help="run every registered experiment")
@@ -173,17 +331,13 @@ def main(argv=None) -> int:
                           "(checks are calibrated for jitter off)")
     run.add_argument("--verbose", action="store_true",
                      help="print every check, not just failures")
-    args, extra = ap.parse_known_args(argv)
-    if args.cmd in NOT_PORTED:
-        print(f"{args.cmd}: not ported yet; it waits for "
-              f"{NOT_PORTED[args.cmd]}", file=sys.stderr)
-        return 2
-    if extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = ap.parse_args(argv)
     if args.cmd == "list":
         return _cmd_list()
     if args.cmd == "host":
         return _cmd_host(args)
+    if args.cmd == "cluster":
+        return _cmd_cluster(args)
     return _cmd_run(args)
 
 

@@ -342,8 +342,21 @@ def test_import_loads_neither_jax_nor_reference():
             "import repro_torch.launch.serve, repro_torch.configs\n"
             "import repro_torch.host, repro_torch.experiments\n"
             "import repro_torch.experiments.__main__\n"
+            "import repro_torch.cluster as C\n"
             "import torch\n"
             "assert not torch.cuda.is_available()\n"
+            # run the cluster tier: a warm rate ladder reaches the
+            # warm-start repair, whose imports are function-local in
+            # the reference
+            "spec = C.ClusterSpec(n_gateways=1, n_servers=4, "
+            "scheme=C.erasure(2, 1))\n"
+            "wl = C.ClusterWorkload(n_users=2, ops_per_user=2, "
+            "object_bytes=1 << 20)\n"
+            "rep = C.plan_capacity([C.ClusterConfig(spec.scheme, "
+            "'hashed')], [], base_spec=spec, workload=wl, "
+            "rate_ladder=[4000.0, 16000.0], warm_ladder=True, "
+            "device='cpu')\n"
+            "assert rep.converged and rep.warm_attempts > 0, rep\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

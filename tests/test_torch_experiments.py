@@ -348,12 +348,111 @@ def test_cli_reports_failure_nonzero(tmp_path):
         unregister_experiment("always_fails")
 
 
-@pytest.mark.parametrize("cmd", [["cluster", "--stripe-widths", "2"],
-                                 ["cluster", "--schemes", "ec4+2"],
-                                 ["cluster"], ["cluster", "--list"]])
-def test_cli_unported_subcommands_exit_2(cmd, capsys):
-    assert cli_main(cmd) == 2
-    assert "not ported yet" in capsys.readouterr().err
+# -- the cluster subcommand against the reference CLI ------------------------
+CLUSTER_SMALL = ["--policies", "round-robin", "--users", "2,3",
+                 "--objects-per-user", "3", "--servers", "6"]
+
+
+def _same_floats(got, want, path="capacity.json"):
+    """Equal JSON; floats to the float64 contract (RTOL)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _same_floats(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_floats(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        assert got == pytest.approx(want, rel=RTOL, abs=0.0), path
+    else:
+        assert got == want, path
+
+
+def test_cli_cluster_list_matches_reference(capsys):
+    assert cli_main(["cluster", "--list"]) == 0
+    got = capsys.readouterr().out
+    assert r_cli(["cluster", "--list"]) == 0
+    assert got == capsys.readouterr().out
+    for policy in ("round-robin", "strided", "grouped", "hashed"):
+        assert policy in got
+
+
+@pytest.mark.parametrize("flags", [
+    ["--schemes", "ec2+1,rep2-k2"],
+    ["--schemes", "ec2+1", "--rates", "2000,8000,32000", "--warm-ladder",
+     "--durability", "write-through"]], ids=["users", "rates-warm"])
+def test_cli_cluster_matches_reference(flags, tmp_path, monkeypatch,
+                                       capsys):
+    monkeypatch.chdir(tmp_path)
+    argv = ["cluster"] + flags + CLUSTER_SMALL
+    assert cli_main(argv + ["--device", "cpu", "--out", "port"]) == 0
+    out = capsys.readouterr().out
+    assert r_cli(argv + ["--out", "ref"]) == 0
+    want_out = capsys.readouterr().out
+    # the same table; the port's summary also names its device
+    assert out.split("\n\n")[0] == want_out.split("\n\n")[0]
+    assert "device=cpu" in out
+    got = json.loads((tmp_path / "port" / "capacity.json").read_text())
+    want = json.loads((tmp_path / "ref" / "capacity.json").read_text())
+    _same_floats(got, want)
+    assert got["converged"] is True and {c["degraded"] for c in
+                                         got["curves"]} == {False, True}
+    assert (tmp_path / "port" / "capacity_curves.csv").read_text() \
+        == (tmp_path / "ref" / "capacity_curves.csv").read_text()
+    assert sorted(os.listdir(tmp_path)) == ["port", "ref"]
+
+
+def test_cli_cluster_default_out_is_build(tmp_path, monkeypatch, capsys):
+    from repro_torch.experiments.__main__ import CLUSTER_OUT_DIR
+    assert CLUSTER_OUT_DIR == os.path.join("build", "cluster")
+    monkeypatch.chdir(tmp_path)
+    assert cli_main(["cluster", "--schemes", "ec2+1", "--no-degraded",
+                     "--device", "cpu"] + CLUSTER_SMALL) == 0
+    capsys.readouterr()
+    assert sorted(os.listdir(tmp_path / "build" / "cluster")) \
+        == ["capacity.json", "capacity_curves.csv"]
+    assert not (tmp_path / "results").exists()
+
+
+@pytest.mark.parametrize("flags", [["--schemes", "raid6"],
+                                   ["--schemes", "ec9+3", "--servers", "8"],
+                                   ["--schemes", "rep0-k2"]],
+                         ids=["unknown", "too-wide", "no-copies"])
+def test_cli_cluster_rejects_bad_scheme(flags, tmp_path, capsys):
+    argv = ["cluster"] + flags + ["--out", str(tmp_path)]
+    assert cli_main(argv + ["--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert r_cli(argv) == 2
+    assert err == capsys.readouterr().err and err.startswith("cluster: ")
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_cluster_max_refine_flag(tmp_path, capsys):
+    argv = ["cluster", "--schemes", "ec2+1", "--policies", "round-robin",
+            "--users", "16", "--objects-per-user", "1", "--servers", "6",
+            "--no-degraded", "--max-refine", "0"]
+    with pytest.warns(RuntimeWarning, match="order refinement"):
+        assert cli_main(argv + ["--device", "cpu", "--out",
+                                str(tmp_path / "port")]) == 0
+    assert "refinement budget exhausted" in capsys.readouterr().err
+    with pytest.warns(RuntimeWarning, match="order refinement"):
+        assert r_cli(argv + ["--out", str(tmp_path / "ref")]) == 0
+    got = json.loads((tmp_path / "port" / "capacity.json").read_text())
+    want = json.loads((tmp_path / "ref" / "capacity.json").read_text())
+    assert got["order_unstable"] == ["ec2+1/round-robin"]
+    _same_floats(got, want)
+
+
+def test_cli_cluster_exits_1_when_unconverged(tmp_path, capsys):
+    argv = ["cluster", "--schemes", "ec2+1", "--sweeps", "1",
+            "--no-degraded"] + CLUSTER_SMALL
+    assert cli_main(argv + ["--device", "cpu", "--out",
+                            str(tmp_path / "port")]) == 1
+    assert "did not converge" in capsys.readouterr().err
+    assert r_cli(argv + ["--out", str(tmp_path / "ref")]) == 1
+    assert json.loads((tmp_path / "port" / "capacity.json").read_text())[
+        "converged"] is False
 
 
 def test_obs12_points_share_seed_in_batched_run():

@@ -1458,6 +1458,77 @@ def test_host_policies_one_launch_on_card(cuda_device):
             np.testing.assert_allclose(a[k], b[k], rtol=1e-9, atol=0)
 
 
+def _same_cluster_entries(got, want):
+    """Two plan_capacity reports' compiled entries: programs and FIFO pop
+    orders exactly, completions to the float64 contract."""
+    assert len(got.compiled) == len(want.compiled)
+    for g, w in zip(got.compiled, want.compiled):
+        assert (g.program.refine_used, g.program.order_stable) \
+            == (w.program.refine_used, w.program.order_stable)
+        assert len(g.fifo_chains) == len(w.fifo_chains)
+        for gc, wc in zip(g.fifo_chains, w.fifo_chains):
+            assert len(gc) == len(wc)
+            assert all(np.array_equal(a, b) for a, b in zip(gc, wc))
+        for gf, wf in zip(g.program.families, w.program.families):
+            assert gf.label == wf.label
+            assert np.array_equal(gf.gidx, wf.gidx)
+            assert np.array_equal(gf.heads, wf.heads)
+        np.testing.assert_allclose(g.comp, w.comp, **F64)
+    np.testing.assert_allclose(got.comp, want.comp, **F64)
+
+
+@pytest.mark.parametrize("mode", ["users", "rate-warm"])
+def test_cluster_plan_capacity_matches_cpu_on_card(cuda_device, mode):
+    """plan_capacity on the card against device="cpu": the same programs
+    and pop orders, completions to rtol 1e-12, and one fixpoint launch a
+    solve (each compile's bootstrap and refinements, and the fleet)."""
+    from repro_torch.cluster import (ClusterConfig, ClusterSpec,
+                                     ClusterWorkload, erasure,
+                                     plan_capacity, replication)
+    configs = [ClusterConfig(erasure(2, 1), "round-robin"),
+               ClusterConfig(replication(2, copies=2), "hashed")]
+    kw = dict(base_spec=ClusterSpec(n_gateways=2, n_servers=6),
+              workload=ClusterWorkload(n_users=3, ops_per_user=3,
+                                       object_bytes=1 << 20, seed=3),
+              slo_us=20e3)
+    if mode == "rate-warm":
+        kw.update(rate_ladder=[2000.0, 8000.0, 32000.0], warm_ladder=True)
+    before = pfix.zns_fixpoint.launches
+    got = plan_capacity(configs, [2, 4], device=cuda_device, **kw)
+    launches = pfix.zns_fixpoint.launches - before
+    want = plan_capacity(configs, [2, 4], device="cpu", **kw)
+    assert got.converged and got.to_json().keys() == want.to_json().keys()
+    _same_cluster_entries(got, want)
+    for gc, wc in zip(got.curves, want.curves):
+        for gp, wp in zip(gc.points, wc.points):
+            np.testing.assert_allclose(gp.lat.p99_us, wp.lat.p99_us, **F64)
+    assert (got.warm_hits, got.warm_attempts) \
+        == (want.warm_hits, want.warm_attempts)
+    if mode == "users":
+        assert launches == 1 + sum(1 + c.program.refine_used
+                                   for c in got.compiled)
+    else:
+        assert launches > len(got.compiled)
+
+
+def test_cluster_loop_driver_matches_cuda_on_card(cuda_device):
+    """fixpoint="loop" on the card runs the batched scan kernel around the
+    host loop and equals the cuda driver to rtol 1e-12."""
+    from repro_torch.cluster import (Cluster, ClusterSpec, ClusterWorkload,
+                                     erasure)
+    spec = ClusterSpec(n_gateways=2, n_servers=6, scheme=erasure(3, 1))
+    wl = ClusterWorkload(n_users=3, ops_per_user=4, object_bytes=1 << 20,
+                         seed=3)
+    before = pscan.zns_event_scan_batched.launches
+    loop = Cluster(spec, device=cuda_device).run(wl, fixpoint="loop")
+    assert pscan.zns_event_scan_batched.launches > before
+    cuda = Cluster(spec, device=cuda_device).run(wl)
+    assert loop.converged and cuda.converged
+    for a, b in zip(loop.compiled.fifo_chains, cuda.compiled.fifo_chains):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    np.testing.assert_allclose(loop.comp, cuda.comp, **F64)
+
+
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "arctic-480b"])
 def test_moe_greedy_generate_kernels_match_plain_on_card(cuda_device, arch):
     """The MoE smoke configs in float32 on the card: the greedy tokens with
