@@ -43,7 +43,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    times prefill and decode;
 10. the same on recurrentgemma-9b at full width and depth (38 blocks,
    9.6e9 float32 parameters): 2 prompts of 3,072 tokens, longer than the
-   window of 2,048;
+   window of 2,048; then again from every weight matrix N(0, 0.02)
+   (phase "10b"), its bfloat16 whole-model last logits held kernels
+   against plain versions at ``LOGITS_ATOL``;
 11. runs the serving driver on mamba2-370m (16 requests, batch 4,
    max_seq 128, 32 new tokens);
 12. solves the 18 cells of the exactness matrix
@@ -141,7 +143,40 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    and launch counts, the sweeps and family blocks x sweeps of its
    solves, the fleet solve's programs, events and sweeps, and, from a
    profiled users-ladder call, the device's idle share and the fixpoint
-   kernel's device time a launch and a family block a sweep.
+   kernel's device time a launch and a family block a sweep;
+20. runs ``greedy_generate`` on musicgen-large at full width and depth (48
+   layers, 3.25e9 float32 parameters from seed 0, every weight matrix
+   N(0, 0.02)) on (B, S, 4) codebook prompts: 2 prompts of 1,024 frames,
+   16 new frames, as phase 7, and holds the last logits of all four
+   codebooks, kernels against plain versions, at ``LOGITS_ATOL``
+   (bfloat16) and ``F32_LOGITS_ATOL`` (the float32 model);
+21. the same on internvl2-26b (48 layers, 19.9e9 parameters from N(0,
+   0.02) in the reference's bfloat16 ``param_dtype``, 39.8 GB; its
+   float32 model is float32 activations over the bfloat16 weights): the
+   text prompt, then an image prompt (stub patch embeddings (2, 256,
+   6,144) from ``default_rng(0)``, in bfloat16, over the first 256
+   positions) through ``make_prefill_step`` and 8 steps of
+   ``make_serve_step``.  For both prompts the float32 model's last
+   logits are held kernels against plain versions at
+   ``F32_LOGITS_ATOL``; the bfloat16 model's are not comparable between
+   two implementations at ``LOGITS_ATOL`` (each MLP's 16,384 bfloat16
+   products turn one-step input differences into ~0.1, and both
+   bfloat16 models end ~0.8 from the float32 model), so each is held
+   against the float32 model's: the kernels' no farther than the plain
+   versions' plus ``LOGITS_ATOL``; and each of the 48 layers (image
+   prompt, from the plain chain's input) against the layer in float32,
+   within the plain versions' error plus ``BF16_BLOCK_TOL``.  Then the
+   serving driver on it (bfloat16 weights; 16 requests, batch 4, max_seq
+   128, 32 new tokens);
+22. trains musicgen-large at full width and depth through
+   ``repro_torch.launch.train`` (N(0, 0.02), bfloat16 activations, remat
+   full): 4 steps of 4 x 2,048 frames x 4 codebooks, every loss finite,
+   each kernel launched exactly as a step needs and no other; it prints
+   the step time, frames/s, peak memory, a profiled step's idle share
+   and kernel groups; then the first step's bfloat16 gradients at full
+   width and 2 layers, kernels against plain versions, each leaf
+   (``codebook_embed`` and ``codebook_head`` among them) within
+   ``BF16_GRAD_REL``.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``),
 and fails if ptxas serialised any kernel's ``wgmma`` (warning C7518 in a
@@ -165,9 +200,11 @@ each function of the built flash-attention library (``cuobjdump
 -sass``): none in the forward, or
 in any instance of the bfloat16 backward's dK/dV or dQ kernel, fails the
 script; likewise flash attention at recurrentgemma-9b's prefill
-shape (head dim 256, window 2,048), the SSD chunk scan at mamba2-370m's
-prefill shape and at batch 1 (y and the final state; bfloat16 y rtol
-1e-2 / atol 2e-2, state atol 1e-3; TFLOP/s and the multiple of the bound;
+shape (head dim 256, window 2,048), at musicgen-large's (2 x 32/32
+heads x 1,024, D 64) and internvl2-26b's (2 x 48/8 x 1,024, D 128),
+the SSD chunk scan at mamba2-370m's prefill shape and at batch 1 (y and
+the final state; bfloat16 y rtol 1e-2 / atol 2e-2, state atol 1e-3;
+TFLOP/s and the multiple of the bound;
 the ``HMMA`` (``mma.sync``) count of its library, none fails the script)
 and the linear recurrence at recurrentgemma-9b's, in float32 and bfloat16
 (rtol 1e-3 / atol 2e-3, the reference kernel test's; GB/s).  Phases
@@ -202,7 +239,7 @@ output against a float32 expert-by-expert computation (the same top-k,
 drops and shared expert) at the block tolerance; and the MoE block
 kernels vs plain on every token both runs route alike (the others are
 counted).  Every kernel's
-launch counter is set to 0 just before each of the runs of phases 3-19
+launch counter is set to 0 just before each of the runs of phases 3-22
 and read just after; a kernel of
 the path that was never launched fails the script, and phase 9 fails
 unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
@@ -268,6 +305,12 @@ GRAD_F64_FRAC = 1e-4
 #: bfloat16 at places that differ, and the attention backward kernel
 #: also rounds P and dS to bfloat16 for its tensor-core products.
 BF16_GRAD_REL = 0.1
+#: Phases 10b, 18, 20-22: every weight matrix N(0, INIT_STD), the llama
+#: family's initializer_range.  The reference's fan-in rule takes the heads
+#: axis as the fan-in of a (D, H, Dh) projection: at full depth its
+#: gradients reach ~1e16 (tinyllama, 22 layers) and its attention logits
+#: thousands (recurrentgemma), so no two implementations agree there.
+INIT_STD = 0.02
 #: Phase 18's forward time of the attention kernel at qwen3-4b's prefill
 #: shape without lse (PR 19's phase 2, bfloat16).
 ATTN_FWD_PR19_MS = 0.1203
@@ -357,26 +400,26 @@ def device_ms(fn, key: str, reps: int = 5):
     (copies and memsets are not kernels; the L2 is not flushed), after
     one warm-up call, each call in its own profiled window.  The profiler
     on the H100 machine drops the first kernel of most windows, so each
-    window first runs two short sleep kernels (``spin_kernel``),
+    window first runs four short sleep kernels (``spin_kernel``),
     synchronising after each, and counts every kernel after the last
     sleep kernel it recorded: all that fn launched.  It still drops a
     kernel now and then, so the time is the median over the windows that
     saw the most kernels, and the kernels a call are that most; the time
     is None when the profiler records no device time.  A round of reps
     windows in which the profiler recorded kernels but no sleep kernel
-    (it does so now and then on the H100) is run again, up to three
-    rounds; fails when no window of the last round recorded a sleep
-    kernel (the count would hold them)."""
+    (it does so now and then on the H100, in runs of several rounds) is
+    run again, up to six rounds; fails when no window of the last round
+    recorded a sleep kernel (the count would hold them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(6):
         seen, slept = [], 0
         for _ in range(reps):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
+                for _ in range(4):
                     torch.cuda._sleep(1000)
                     torch.cuda.synchronize()
                 fn()
@@ -918,12 +961,15 @@ def main() -> int:
         return lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)
 
+    family_attn = {}
     for case, (b, hq, hkv, tq, tk, d), window in (
             ("prefill", (1, 32, 8, 2048, 2048, 128), None),
             ("decode", (1, 32, 8, 1, 2048, 128), None),
             ("window", (1, 8, 2, 512, 512, 64), 256),
             ("d256", (2, 16, 1, 3072, 3072, 256), 2048),
-            ("moe", (2, 16, 16, 1024, 1024, 128), None)):
+            ("moe", (2, 16, 16, 1024, 1024, 128), None),
+            ("musicgen", (2, 32, 32, 1024, 1024, 64), None),
+            ("internvl2", (2, 48, 8, 1024, 1024, 128), None)):
         for dname in ("bfloat16", "float32"):
             dtype = getattr(torch, dname)
             q = randn((b, hq, tq, d), dtype)
@@ -963,6 +1009,8 @@ def main() -> int:
                 d256 = dict(row, window=window)
             if case == "moe" and dname == "bfloat16":
                 moe_attn = row       # qwen2-moe-a2.7b's prefill (MHA)
+            if case in ("musicgen", "internvl2") and dname == "bfloat16":
+                family_attn[case] = row     # phases 20-21's prefills
             del q, k, v, got, want
 
     for rows, d in ((2048, 2560), (2048 * 32, 128)):
@@ -1132,6 +1180,7 @@ def main() -> int:
 
     report["flash_attention"]["d256"] = d256
     report["flash_attention"]["moe"] = moe_attn
+    report["flash_attention"].update(family_attn)
     # the bf16 attention kernels run on the tensor cores: count the wgmma
     # of each function
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -1342,21 +1391,31 @@ def main() -> int:
 
     # -- phases 7, 9, 10: greedy_generate at full width and depth -----------
     def generation_phase(phase, arch, batch, plen, max_seq, need,
-                         logits_atol, f32_atol, blocks=None):
+                         logits_atol, f32_atol, extra=None, weight_std=None,
+                         overrides=None):
         """The model's 2-layer smoke config in float32 first (kernels
         against plain versions, equal greedy tokens), then the published
-        config from seed 0: greedy_generate (launches counted), prefill and
-        decode times, peak memory, a profile, and the last logits with the
-        kernels against those with the plain versions, in bfloat16
-        (checked at ``logits_atol`` unless None) and in the float32 model
-        (checked at ``f32_atol`` unless None), and against the float32
-        model's.  ``blocks(cfg, params, prompt)``, when given, holds the
-        model block by block."""
+        config (with ``overrides``) from seed 0: greedy_generate (launches
+        counted), prefill and decode times, peak memory, a profile, and
+        the last logits with the kernels against those with the plain
+        versions, in the config's dtype (checked at ``logits_atol`` unless
+        None) and in the float32 model (float32 activations; checked at
+        ``f32_atol`` unless None), and against the float32 model's.
+        Prompts are (batch, plen) tokens, or (batch, plen, Cb) for a
+        codebook model.  ``weight_std``: every weight matrix N(0,
+        weight_std) instead of the reference's fan-in rule.
+        ``extra(cfg, params, prompt)``, when given, runs further checks on
+        the model (block by block, an image prefill); its result is
+        returned as ``block_errs``."""
+        def tokens(cfg, b, s):
+            cb = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+            return torch.as_tensor(np.random.default_rng(0).integers(
+                1, cfg.vocab_size, (b, s) + cb), device=cuda)
+
         small = get_smoke_config(arch, dtype="float32", kernel_impl="cuda")
         sparams = M.init_params(small, torch.Generator(cuda).manual_seed(0),
                                 device=cuda)
-        sprompt = torch.as_tensor(np.random.default_rng(0).integers(
-            1, small.vocab_size, (2, 40)), device=cuda)
+        sprompt = tokens(small, 2, 40)
         stoks = greedy_generate(small, sparams, sprompt, steps=8, max_seq=64)
         ptoks = greedy_generate(dataclasses.replace(small,
                                                     kernel_impl="torch"),
@@ -1366,16 +1425,15 @@ def main() -> int:
               f"(plain)")
         del sparams
 
-        cfg = get_config(arch)
+        cfg = get_config(arch, **(overrides or {}))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
-                               device=cuda)
+                               device=cuda, weight_std=weight_std)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t
-        prompt = torch.as_tensor(np.random.default_rng(0).integers(
-            1, cfg.vocab_size, (batch, plen)), device=cuda)
+        prompt = tokens(cfg, batch, plen)
         zero_counts()
         t = time.perf_counter()
         toks = greedy_generate(cfg, params, prompt, steps=16,
@@ -1383,7 +1441,7 @@ def main() -> int:
         torch.cuda.synchronize()
         gen_ms = (time.perf_counter() - t) * 1e3
         read_counts(phase, need)
-        check(tuple(toks.shape) == (batch, 16),
+        check(tuple(toks.shape) == (batch, 16) + tuple(prompt.shape[2:]),
               f"phase {phase}: tokens {tuple(toks.shape)}")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
               f"phase {phase}: token out of the vocabulary")
@@ -1406,7 +1464,7 @@ def main() -> int:
               f"prefill gave {tok.tolist()}, greedy_generate "
               f"{toks[:, 8].tolist()}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        shape = f"{batch} x {plen}"
+        shape = " x ".join(f"{n:,}" for n in prompt.shape)
         for what, fn in ((f"prefill {shape}", lambda: M.prefill(
                               cfg, params, prompt, max_seq)),
                          (f"decode step, batch {batch}", lambda: M.decode_step(
@@ -1449,7 +1507,10 @@ def main() -> int:
         to_f32 = float(np.abs(got - got32).max())
         plain_f32 = float(np.abs(want - got32).max())
         f32_err = float(np.abs(got32 - want32).max())
-        print(f"[{phase}] {arch}: {M.count_params(cfg):,} params, init "
+        init = ("fan-in init" if weight_std is None
+                else f"weights N(0, {weight_std})")
+        print(f"[{phase}] {arch}: {M.count_params(cfg):,} {cfg.param_dtype} "
+              f"params ({init}), init "
               f"{init_s:.1f} s, greedy_generate {shape} + 16 tokens "
               f"{gen_ms:.1f} ms, prefill {prefill_ms:.1f} ms, decode "
               f"{decode_ms:.2f} ms/token (batch {batch}; median of 8 steps, "
@@ -1463,7 +1524,7 @@ def main() -> int:
               f"vs plain {f32_err:.3e} (atol {f32_atol}); float32 plain "
               f"model with its first norm's scale moved one step "
               f"{nudge:.3e}; tokens {toks[0].tolist()}")
-        block_errs = blocks(cfg, params, prompt) if blocks else None
+        block_errs = extra(cfg, params, prompt) if extra else None
         if logits_atol is not None:
             close(got, want, dict(rtol=0.0, atol=logits_atol),
                   f"phase {phase} last logits, kernels vs plain")
@@ -1474,7 +1535,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         return dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
                     peak_gb=peak_gb, logits_err=err, f32_err=f32_err,
-                    nudge=nudge, block_errs=block_errs)
+                    to_f32=to_f32, plain_f32=plain_f32, nudge=nudge,
+                    block_errs=block_errs)
 
     generation_phase("7", "qwen3-4b", 2, 1024, 2048,
                      ["flash_attention", "rmsnorm"], LOGITS_ATOL, None)
@@ -1627,7 +1689,17 @@ def main() -> int:
 
     generation_phase("10", "recurrentgemma-9b", 2, 3072, 4096,
                      ["linear_recurrence", "flash_attention", "rmsnorm"],
-                     None, None, blocks=rglru_blocks)
+                     None, None, extra=rglru_blocks)
+    # the whole model from a better-conditioned init: every weight matrix
+    # N(0, 0.02); its bfloat16 last logits held kernels against plain
+    res10b = generation_phase("10b", "recurrentgemma-9b", 2, 3072, 4096,
+                              ["linear_recurrence", "flash_attention",
+                               "rmsnorm"], LOGITS_ATOL, None,
+                              weight_std=INIT_STD)
+    print(f"[10b] recurrentgemma-9b from N(0, {INIT_STD}): whole-model last "
+          f"logits kernels vs plain {res10b['logits_err']:.3e} (bfloat16, "
+          f"atol {LOGITS_ATOL}), {res10b['f32_err']:.3e} (float32, not "
+          f"held)")
 
     # -- phase 11: the continuous-batching driver on mamba2-370m -------------
     zero_counts()
@@ -1726,7 +1798,8 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     seen = []
-    for _ in range(3):
+    # three runs, and up to three more while none recorded a device kernel
+    while len(seen) < 3 or (len(seen) < 6 and max(seen)[1] == 0):
         before = kfix.zns_fixpoint.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             runner13.run()
@@ -1740,7 +1813,7 @@ def main() -> int:
         seen.append((sum("fp_solve_kernel" in k for k in names), len(names)))
     n_fp, n_kern = max(seen)
     check(n_fp == 1, f"phase 13: torch.profiler saw (fixpoint kernels, "
-                     f"device kernels) {seen} in 3 runs")
+                     f"device kernels) {seen} in {len(seen)} runs")
     solve13 = solve_ms(prog13, svc13)
     print(f"[13] experiment runner: {len(results13)}/15 observations passed "
           f"and converged in one fleet call: {cstats.n_devices} members "
@@ -1748,7 +1821,8 @@ def main() -> int:
           f"{sstats.n_blocks} blocks, {sstats.sweeps} sweeps, lowering "
           f"{cstats.lowering_ms:.1f} ms, solve {solve13:.4f} ms; run "
           f"{run13_ms:.1f} ms, second (cached) run {rerun13_ms:.1f} ms; "
-          f"(fixpoint, all) device kernels in 3 profiled runs {seen}; "
+          f"(fixpoint, all) device kernels in {len(seen)} profiled runs "
+          f"{seen}; "
           f"kernel grid {launch13['grid']} of "
           f"{launch13['resident_blocks']} resident blocks, "
           f"{launch13['registers']} registers; worst metric rel diff "
@@ -2115,7 +2189,7 @@ def main() -> int:
 
     res16 = generation_phase("16", "qwen2-moe-a2.7b", 2, 1024, 2048,
                              ["flash_attention", "rmsnorm"], None, None,
-                             blocks=moe_layers)
+                             extra=moe_layers)
     # The whole model's last logits are not held (logits_atol and f32_atol
     # None above): routing is discrete, and one choice that differs (4 of
     # 8,192 at the first layer in bfloat16) reroutes later tokens layer
@@ -2256,10 +2330,6 @@ def main() -> int:
     # norms and its attention; the final norm runs once; each backward once
     per_step18 = {"rmsnorm": 2 * runs18 + 1, "rmsnorm_bwd": 2 * L18 + 1,
                   "flash_attention": runs18, "flash_attention_bwd": L18}
-    # the llama family's initializer_range: the reference's fan-in rule
-    # makes tinyllama's gradients ~1e16 at 22 layers, kernels and plain
-    # versions alike (launch.train's docstring)
-    INIT_STD = 0.02
     train_args = ["--arch", "tinyllama-1.1b", "--batch", "4", "--seq-len",
                   "2048", "--lr", "3e-3", "--warmup", "2", "--log-every",
                   "1", "--init-std", str(INIT_STD)]
@@ -2332,15 +2402,20 @@ def main() -> int:
     first18 = {"tokens": torch.as_tensor(data18.batch_at(0)["tokens"],
                                          device=cuda)}
 
-    def grads18(cfg, tree):
-        params = type(base18)(cfg, tree)
+    def first_step_grads(cfg, tree, batch):
+        """(loss, gradient tree) of one backward of a transformer on the
+        parameter tree ``tree``."""
+        params = M.Transformer(cfg, tree)
         params.requires_grad_(True)
         g = M.bind_grads(cfg, params)
-        loss, _ = M.loss_fn(cfg, params, first18)
+        loss, _ = M.loss_fn(cfg, params, batch)
         loss.backward()
         for p in params.parameters():
             p.grad = None
         return float(loss), g
+
+    def grads18(cfg, tree):
+        return first_step_grads(cfg, tree, first18)
 
     def tree_as(tree, dtype):
         return {k: tree_as(v, dtype) if isinstance(v, dict) else v.to(dtype)
@@ -2695,6 +2770,290 @@ def main() -> int:
         fixpoint_us_per_block_sweep=per_bs19,
         profiled_wall_ms=None if prof19 is None else prof19[0],
         idle_share=idle19)
+
+    # -- phase 20: musicgen-large serving at full width and depth ------------
+    t20 = time.perf_counter()
+    res20 = generation_phase("20", "musicgen-large", 2, 1024, 2048,
+                             ["flash_attention", "rmsnorm"], LOGITS_ATOL,
+                             F32_LOGITS_ATOL, weight_std=INIT_STD)
+    print(f"[20] musicgen-large: prefill {res20['prefill_ms']:.1f} ms, decode "
+          f"{res20['decode_ms']:.2f} ms a frame of 4 codebooks (batch 2), "
+          f"peak {res20['peak_gb']:.2f} GB; last logits of the 4 codebooks "
+          f"kernels vs plain {res20['logits_err']:.3e} (bfloat16, atol "
+          f"{LOGITS_ATOL}), {res20['f32_err']:.3e} (float32, atol "
+          f"{F32_LOGITS_ATOL}); phase 20 took "
+          f"{time.perf_counter() - t20:.1f} s")
+
+    # -- phase 21: internvl2-26b serving at full width and depth -------------
+    from repro_torch.serve import make_prefill_step, make_serve_step
+    t21 = time.perf_counter()
+    # the published config's float32 weights (79.6 GB) fit no 80 GB card:
+    # the reference's bfloat16 param_dtype (39.8 GB)
+    bf16_params = dict(param_dtype="bfloat16")
+
+    def internvl2_checks(cfg, params, prompt):
+        """An image prompt: stub patch embeddings (B, 256, 6,144) from
+        default_rng(0), in bfloat16, over the text prompt's first 256
+        positions, through make_prefill_step(cfg, 2048) and 8 steps of
+        make_serve_step (launches counted, times).  Its last logits with
+        the kernels against the plain versions: the float32 model's at
+        F32_LOGITS_ATOL, and the bfloat16 model's against the float32
+        model's, no farther than the plain versions' plus LOGITS_ATOL.
+        Then the bfloat16 model layer by layer from the plain chain's
+        input (the image prompt's): each layer's kernels output against
+        the same layer in float32 from the same input, no farther than
+        the plain versions' output plus BF16_BLOCK_TOL."""
+        from repro_torch.models import common as mc
+        b, s = prompt.shape
+        plain = dataclasses.replace(cfg, kernel_impl="torch")
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        patches = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            (b, cfg.num_patches, cfg.d_model)), dtype=torch.float32).to(
+                cuda, torch.bfloat16)
+        prefill, step = make_prefill_step(cfg, 2048), make_serve_step(cfg)
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok, cache = prefill(params, prompt, patches)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        toks, step_ms = [tok], []
+        for i in range(8):
+            t = time.perf_counter()
+            tok, cache = step(params, cache, tok, s + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            toks.append(tok)
+        read_counts("21 image", ["flash_attention", "rmsnorm"])
+        toks = torch.stack(toks, 1)
+        check(tuple(toks.shape) == (b, 9) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"phase 21 image prompt: tokens {toks.tolist()}")
+        del cache
+        last = {}
+        for name, c in (("bfloat16", cfg), ("float32", f32)):
+            for impl in ("cuda", "torch"):
+                logits, _ = M.prefill(dataclasses.replace(c, kernel_impl=impl),
+                                      params, prompt, 2048, patches)
+                last[name, impl] = logits[:, -1].cpu().numpy()
+        text, _ = M.prefill(plain, params, prompt, 2048)
+        moved = float(np.abs(last["bfloat16", "torch"]
+                             - text[:, -1].cpu().numpy()).max())
+        check(moved > 0, "phase 21: the image left the last logits as the "
+                         "text prompt's")
+        f32_err = close(last["float32", "cuda"], last["float32", "torch"],
+                        dict(rtol=0.0, atol=F32_LOGITS_ATOL),
+                        "phase 21 image prompt float32 last logits, kernels "
+                        "vs plain")
+        err = float(np.abs(last["bfloat16", "cuda"]
+                           - last["bfloat16", "torch"]).max())
+        to_f32, plain_f32 = (float(np.abs(last["bfloat16", impl]
+                                          - last["float32", "cuda"]).max())
+                             for impl in ("cuda", "torch"))
+        check(to_f32 <= plain_f32 + LOGITS_ATOL,
+              f"phase 21 image prompt: the kernels' bfloat16 last logits are "
+              f"{to_f32:.3e} from the float32 model's, the plain versions' "
+              f"{plain_f32:.3e} (+ {LOGITS_ATOL} allowed)")
+        tol = BF16_BLOCK_TOL
+        layers = []
+        with torch.inference_mode():
+            x = mc.apply_frontend(cfg, params.embed, mc.embed_tokens(
+                cfg, params.embed, prompt, torch.bfloat16), patches)
+            pos = torch.arange(s, dtype=torch.int32,
+                               device=cuda).expand(b, s)
+            for i, layer in enumerate(params.layers):
+                got, want = (layer(c, x, pos)[0] for c in (cfg, plain))
+                exact = layer(dataclasses.replace(f32, kernel_impl="torch"),
+                              x.float(), pos)[0]
+                e_plain = float((want.float() - exact).abs().max())
+                excess = float(((got.float() - exact).abs() - tol["atol"]
+                                - tol["rtol"] * exact.abs()).max()) - e_plain
+                check(excess <= 0, f"phase 21 layer {i}: the kernels' "
+                                   f"bfloat16 output is {excess:.3e} farther "
+                                   f"from the float32 layer than the plain "
+                                   f"versions' error and {tol} allow")
+                layers.append((float((got - want).float().abs().max()),
+                               float((got.float() - exact).abs().max()),
+                               e_plain))
+                x = want
+        worst = max(range(len(layers)), key=lambda i: layers[i][0])
+        step_ms.sort()
+        print(f"[21] image prompt ({b} x {s:,} tokens, patches "
+              f"{tuple(patches.shape)} over the first {cfg.num_patches}): "
+              f"make_prefill_step {pre_ms:.1f} ms, serve step "
+              f"{step_ms[len(step_ms) // 2]:.2f} ms (median of 8, "
+              f"{step_ms[0]:.2f}..{step_ms[-1]:.2f}); last logits kernels "
+              f"vs plain {f32_err:.3e} (float32 activations over the "
+              f"bfloat16 weights, atol {F32_LOGITS_ATOL}), {err:.3e} "
+              f"(bfloat16); bfloat16 against the float32 model: kernels "
+              f"{to_f32:.3e}, plain {plain_f32:.3e}; the image moved them "
+              f"{moved:.3e} from the text prompt's; tokens "
+              f"{toks[0].tolist()}")
+        print(f"[21] bfloat16 layer by layer from the plain chain's input "
+              f"(image prompt), each within the plain versions' error to the "
+              f"float32 layer and {tol}: kernels vs plain largest "
+              f"{layers[worst][0]:.3e} at layer {worst} (to float32: kernels "
+              f"{layers[worst][1]:.3e}, plain {layers[worst][2]:.3e}); "
+              f"layers 0-3 kernels vs plain "
+              f"{[f'{e[0]:.3e}' for e in layers[:4]]}; max |x| "
+              f"{float(x.float().abs().max()):.1f} after layer "
+              f"{len(layers) - 1}")
+        return dict(prefill_ms=pre_ms, decode_ms=step_ms[len(step_ms) // 2],
+                    logits_err=err, f32_err=f32_err, to_f32=to_f32,
+                    plain_f32=plain_f32, layers=layers)
+
+    res21 = generation_phase("21", "internvl2-26b", 2, 1024, 2048,
+                             ["flash_attention", "rmsnorm"], None,
+                             F32_LOGITS_ATOL, extra=internvl2_checks,
+                             weight_std=INIT_STD, overrides=bf16_params)
+    img21 = res21["block_errs"]
+    # The bfloat16 whole-model logits, kernels against plain, are not held
+    # at LOGITS_ATOL (None above): each MLP's 16,384 bfloat16 products turn
+    # one-step differences of its input into ~0.1 at its output, and over 48
+    # layers both bfloat16 models end ~0.8 from the float32 model.  Each is
+    # held against the float32 model instead: the kernels' no farther than
+    # the plain versions' plus LOGITS_ATOL.
+    check(res21["to_f32"] <= res21["plain_f32"] + LOGITS_ATOL,
+          f"phase 21 text prompt: the kernels' bfloat16 last logits are "
+          f"{res21['to_f32']:.3e} from the float32 model's, the plain "
+          f"versions' {res21['plain_f32']:.3e} (+ {LOGITS_ATOL} allowed)")
+    print(f"[21] bfloat16 last logits, kernels vs plain "
+          f"{res21['logits_err']:.3e} (text), {img21['logits_err']:.3e} "
+          f"(image); against the float32 model: kernels "
+          f"{res21['to_f32']:.3e} / {img21['to_f32']:.3e}, "
+          f"plain {res21['plain_f32']:.3e} / {img21['plain_f32']:.3e} "
+          f"(kernels held within plain + {LOGITS_ATOL})")
+    # the serving driver takes the published config: give it the bfloat16
+    # weights for this call
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    published = lserve.get_config
+    lserve.get_config = lambda arch: get_config(arch, **bf16_params)
+    try:
+        stats = lserve.main(["--arch", "internvl2-26b", "--requests", "16",
+                             "--batch", "4", "--max-seq", "128", "--max-new",
+                             "32", "--seed", "0"])
+    finally:
+        lserve.get_config = published
+    torch.cuda.synchronize()
+    read_counts("21 serve", ["rmsnorm"])
+    check(stats["done"] == 16, f"phase 21: {stats['done']}/16 requests")
+    print(f"[21] internvl2-26b: text prefill {res21['prefill_ms']:.1f} ms, "
+          f"decode {res21['decode_ms']:.2f} ms/token (batch 2), peak "
+          f"{res21['peak_gb']:.2f} GB; serve driver (bfloat16 weights): "
+          f"{stats['done']} requests, {stats['steps']} decode steps in "
+          f"{stats['seconds']:.2f} s, {stats['tok_per_s']:.1f} tok/s (batch "
+          f"4), {stats['seconds'] / stats['steps'] * 1e3:.2f} ms/step, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase 21 took "
+          f"{time.perf_counter() - t21:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- phase 22: musicgen-large training at full width and depth -----------
+    t22 = time.perf_counter()
+    cfg22 = get_config("musicgen-large")
+    L22 = cfg22.num_layers
+    runs22 = mc.layer_forward_runs(cfg22, L22)
+    per_step22 = {"rmsnorm": 2 * runs22 + 1, "rmsnorm_bwd": 2 * L22 + 1,
+                  "flash_attention": runs22, "flash_attention_bwd": L22}
+    data22 = DataConfig(cfg22.vocab_size, 2048, 4,
+                        num_codebooks=cfg22.num_codebooks)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res22 = ltrain.main(["--arch", "musicgen-large", "--batch", "4",
+                         "--seq-len", "2048", "--lr", "3e-3", "--warmup", "2",
+                         "--log-every", "1", "--init-std", str(INIT_STD),
+                         "--steps", "4", "--seed", "0"])
+    torch.cuda.synchronize()
+    wall22 = time.perf_counter() - t
+    peak22 = torch.cuda.max_memory_allocated() / 1e9
+    read_counts("22", list(per_step22))
+    for k, v in phase_counts["22"].items():
+        want = 4 * per_step22.get(k, 0)
+        check(v == want, f"phase 22: {k} launched {v} times in 4 steps, "
+                         f"want {want} ({per_step22} a step)")
+    losses22 = res22["losses"]
+    check(len(losses22) == 4 and bool(np.isfinite(losses22).all()),
+          f"phase 22: losses {losses22}")
+    state22 = res22["state"]
+    step22 = make_train_step(cfg22, AdamWConfig(lr=3e-3, warmup_steps=2,
+                                                total_steps=4))
+    batch22 = TokenPipeline(data22).batch_at(4)
+    step_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state22, _ = step22(state22, batch22)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    # the profiler can miss every device event of a window: up to 3 tries
+    for _ in range(3):
+        brk = device_breakdown(lambda: step22(state22, batch22))
+        if brk is not None:
+            break
+    check(brk is not None, "phase 22: torch.profiler recorded no device time")
+    wall_p, busy, nev, groups, _ = brk
+    for g in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+              "rmsnorm_bwd"):
+        check(dict(groups).get(g, 0.0) > 0, f"phase 22: the profiler saw no "
+                                            f"{g} kernel in a step")
+    frames_s = 4 * 2048 / (min(step_ms) / 1e3)
+    print(f"[22] musicgen-large at full size "
+          f"({M.count_params(cfg22) / 1e9:.3f}e9 float32 parameters from seed 0, weights N(0, {INIT_STD}), "
+          f"bfloat16 activations, remat full, 4 x 2,048 frames x 4 "
+          f"codebooks): 4 steps through launch.train in {wall22:.2f} s, "
+          f"losses {[round(x, 4) for x in losses22]}; step "
+          f"{min(step_ms):.1f} ms ({step_ms}), {frames_s:.0f} frames/s, peak "
+          f"memory {peak22:.2f} GB; launches a step {per_step22} ({runs22} "
+          f"layer forwards a step)")
+    print(f"[22] one step under torch.profiler: wall {wall_p:.1f} ms, {nev} "
+          f"device events, kernels {busy:.1f} ms, device idle "
+          f"{max(0.0, 1 - busy / wall_p):.1%}; " + ", ".join(
+              f"{g} {ms:.2f} ms" for g, ms in groups))
+    report22 = dict(step_ms=min(step_ms), frames_per_s=frames_s,
+                    peak_gb=peak22, losses=losses22,
+                    idle=max(0.0, 1 - busy / wall_p), groups=groups)
+    del res22, state22, step22
+    torch.cuda.empty_cache()
+
+    # the first step's bfloat16 gradients at full width and 2 layers,
+    # kernels against plain versions, the codebook leaves among them
+    two22 = dataclasses.replace(cfg22, num_layers=2)
+    tree22 = M.init_params(two22, torch.Generator(cuda).manual_seed(0),
+                           device=cuda, weight_std=INIT_STD).param_tree()
+    first22 = {"tokens": torch.as_tensor(
+        TokenPipeline(data22).batch_at(0)["tokens"], device=cuda)}
+    zero_counts()
+    l_k, g_k = first_step_grads(two22, tree22, first22)
+    check(kfa.flash_attention_bwd.launches == 2
+          and krms.rmsnorm_bwd.launches == 5,
+          f"phase 22: the 2-layer kernel step launched the attention "
+          f"backward {kfa.flash_attention_bwd.launches} and the RMSNorm "
+          f"backward {krms.rmsnorm_bwd.launches} times (want 2 and 5)")
+    l_p, g_p = first_step_grads(
+        dataclasses.replace(two22, kernel_impl="torch"), tree22, first22)
+    paths22 = ["/".join(p) for p, _ in mc.spec_leaves(M.model_spec(two22))]
+    check(any("codebook_embed" in p for p in paths22)
+          and any("codebook_head" in p for p in paths22),
+          f"phase 22: no codebook leaves in {paths22}")
+    gaps = sorted(((float((a - b).float().norm()
+                          / b.float().norm().clamp_min(1e-30)), p)
+                   for p, a, b in zip(paths22, tree_leaves(g_k),
+                                      tree_leaves(g_p))), reverse=True)
+    print(f"[22] bfloat16 first-step gradients at full width, 2 layers: loss "
+          f"kernels {l_k!r}, plain {l_p!r}; every leaf's relative gap within "
+          f"{BF16_GRAD_REL}; largest " + "; ".join(
+              f"{p} {g:.2e}" for g, p in gaps[:4]) + "; " + "; ".join(
+              f"{p} {g:.2e}" for g, p in gaps if "codebook" in p)
+          + f"; phase 22 took {time.perf_counter() - t22:.1f} s")
+    for g, p in gaps:
+        check(np.isfinite(g) and g <= BF16_GRAD_REL,
+              f"phase 22: bfloat16 gradient {p}: relative gap {g:.3e} "
+              f"between kernels and plain versions exceeds {BF16_GRAD_REL}")
+    report22["bf16_grad_gap"] = gaps[0][0]
+    report["flash_attention_bwd"]["training_musicgen"] = report22
+    del g_k, g_p, tree22
+    torch.cuda.empty_cache()
 
     # -- report -----------------------------------------------------------------
     sources = {

@@ -4,11 +4,18 @@ full config, on one card by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
+      --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --requests 4 --batch 2 --max-new 4
 
-The port of ``repro.launch.serve`` for the dense, moe, ssm and hybrid
-families (arctic-480b fits no card: ``--smoke`` only): the same request stream (prompt lengths and tokens from
+The port of ``repro.launch.serve`` for the dense, moe, ssm, hybrid and
+vlm families (arctic-480b fits no card: ``--smoke`` only; internvl2-26b
+serves text only, as the reference does; its float32 weights at full
+size, 79.6 GB, fit no 80 GB card).  The audio family raises
+``ValueError``: the driver feeds one token a slot and musicgen takes
+``num_codebooks`` (the reference's driver fails on it too).  The same
+request stream (prompt lengths and tokens from
 ``numpy.random.default_rng(seed)``), the same admission, and one decode
 step per position for the whole batch.  The cache each step returns is
 the one the next step takes (the dense and moe families write their KV
@@ -46,6 +53,11 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if cfg.num_codebooks > 1:
+        raise ValueError(
+            f"{cfg.name}: the serving driver feeds one token per slot, and "
+            f"the model takes {cfg.num_codebooks} codebook tokens a position "
+            f"(num_codebooks); drive it through serve.greedy_generate")
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                            device=dev)
     serve = make_serve_step(cfg)

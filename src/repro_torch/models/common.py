@@ -306,23 +306,30 @@ def embed_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-_CODEBOOKS = ("audio codebooks are not ported yet (ROADMAP queue 1, slice "
-              "8: VLM and audio serving)")
-
-
 def embed_tokens(cfg: ModelConfig, p, tokens, dtype):
-    """tokens: (B, S) -> (B, S, D)."""
+    """tokens: (B, S), or (B, S, Cb) for audio -> (B, S, D).  Audio sums
+    the first codebook's embedding and each further codebook's, in
+    codebook order and in the parameters' dtype, then casts, as the
+    reference does."""
     if cfg.num_codebooks > 1:
-        raise NotImplementedError(_CODEBOOKS)
-    return p["embedding"][tokens].to(dtype)
+        x = p["embedding"][tokens[..., 0]]
+        for c in range(cfg.num_codebooks - 1):
+            x = x + p["codebook_embed"][c][tokens[..., c + 1]]
+    else:
+        x = p["embedding"][tokens]
+    return x.to(dtype)
 
 
 def lm_logits(cfg: ModelConfig, p, x):
-    """x: (B, S, D) -> float32 (B, S, V) (float64 for a float64 x)."""
-    if cfg.num_codebooks > 1:
-        raise NotImplementedError(_CODEBOOKS)
+    """x: (B, S, D) -> float32 (B, S, V), or (B, S, Cb, V) for audio: the
+    main head's logits, then each codebook head's (float64 for a float64
+    x)."""
     head = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
     logits = x @ head.to(x.dtype)
+    if cfg.num_codebooks > 1:
+        extra = torch.einsum("bsd,cdv->bscv", x,
+                             p["codebook_head"].to(x.dtype))
+        logits = torch.cat([logits[:, :, None, :], extra], dim=2)
     if cfg.logits_softcap:
         cap = cfg.logits_softcap
         logits = torch.tanh(logits / cap) * cap
@@ -330,11 +337,19 @@ def lm_logits(cfg: ModelConfig, p, x):
 
 
 def apply_frontend(cfg: ModelConfig, p, x, frontend_inputs):
-    """Modality frontends (the VLM's patch embeddings) are not ported."""
-    if frontend_inputs is not None:
-        raise NotImplementedError(
-            "modality frontends are not ported yet (ROADMAP queue 1, slice "
-            "8: VLM and audio serving)")
+    """Splice the VLM's stub patch embeddings into the token embeddings.
+
+    vision_stub: ``frontend_inputs`` is (B, num_patches, D) precomputed
+    patch embeddings; they are projected through ``patch_proj`` in
+    ``x.dtype`` and overwrite the first ``num_patches`` positions, as the
+    reference's concatenate does (a prompt shorter than the patches comes
+    out as long as the patches, as there).  Other frontends, or no
+    inputs, leave ``x`` as it is.
+    """
+    if cfg.frontend == "vision_stub" and frontend_inputs is not None:
+        patches = torch.einsum("bpe,ed->bpd", frontend_inputs.to(x.dtype),
+                               p["patch_proj"].to(x.dtype))
+        x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
     return x
 
 

@@ -5,8 +5,8 @@ layers stacked on a leading axis (``params["layers"]["attn"]["wq"]`` is
 ``(L, D, H, Dh)``; the hybrid stacks its pattern groups,
 ``params["groups"]["b0_rec"]``, beside unstacked ``tail{t}`` blocks).
 :func:`params_from_reference` takes that tree as numpy arrays and returns
-the port's model (:class:`Transformer` for the dense and MoE families,
-:class:`Mamba2` or :class:`RecurrentGemma`) with the same values;
+the port's model (:class:`Transformer` for the dense, MoE, VLM and audio
+families, :class:`Mamba2` or :class:`RecurrentGemma`) with the same values;
 :func:`params_to_reference` gives the tree back.
 :func:`train_state_from_reference` does the same for a whole training
 state (parameters, AdamW's ``m`` and ``v``, the step), and
@@ -26,8 +26,8 @@ from .model import model_spec
 from .rglru import RecurrentGemma
 from .transformer import Transformer
 
-_CLASSES = {"dense": Transformer, "moe": Transformer, "ssm": Mamba2,
-            "hybrid": RecurrentGemma}
+_CLASSES = {"dense": Transformer, "moe": Transformer, "vlm": Transformer,
+            "audio": Transformer, "ssm": Mamba2, "hybrid": RecurrentGemma}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -58,7 +58,7 @@ def params_from_reference(cfg: ModelConfig, tree, *, device=DEFAULT_DEVICE):
             dst = dst.setdefault(key, {})
         dst[path[-1]] = _tensor(node, dev)
     if cfg.family not in _CLASSES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(f"unknown family {cfg.family!r}")
     return _CLASSES[cfg.family](cfg, out)
 
 

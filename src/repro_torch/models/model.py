@@ -1,8 +1,8 @@
 """Family dispatch: one API over the architectures.
 
-    init_params(cfg, generator, device=)  -> Transformer (dense and moe
-                                             families), Mamba2 (ssm),
-                                             RecurrentGemma (hybrid)
+    init_params(cfg, generator, device=)  -> Transformer (dense, moe, vlm
+                                             and audio families), Mamba2
+                                             (ssm), RecurrentGemma (hybrid)
     forward(cfg, params, tokens)          -> (logits, aux)
     train_forward(cfg, params, tokens)    -> the same, recorded by autograd
     loss_fn(cfg, params, batch)           -> (loss, {"nll", "aux"})
@@ -10,9 +10,10 @@
     init_cache / prefill / decode_step    -> serving entry points
     count_params(cfg)                     -> exact (spec tree, no alloc)
 
-The dense, moe, ssm and hybrid families are ported; the others raise
-``NotImplementedError`` naming the ROADMAP slice that brings them.
-Parameter counts work for all ten configurations.  For the recurrent
+All six families are ported.  The VLM takes ``frontend_inputs``
+(B, num_patches, D) in ``forward``, ``loss_fn`` (``batch[
+"frontend_inputs"]``) and ``prefill``; the audio family takes (B, S,
+Cb) tokens and gives (B, S, Cb, V) logits.  For the recurrent
 families ``prefill`` returns the reference's zeroed cache for the prompt
 (``repro.models.model.prefill``): decoding after it starts from a blank
 state.
@@ -27,22 +28,13 @@ from . import common as cm
 from . import mamba2, rglru, specs, transformer
 from .config import ModelConfig
 
-#: Families whose compute is not ported yet, with their ROADMAP slice.
-NOT_PORTED = {
-    "vlm": "VLM and audio serving (ROADMAP queue 1, slice 8)",
-    "audio": "VLM and audio serving (ROADMAP queue 1, slice 8)",
-}
-
-_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
-            "hybrid": rglru}
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "audio": transformer, "ssm": mamba2, "hybrid": rglru}
 
 
 def _module(cfg: ModelConfig):
     if cfg.family in _MODULES:
         return _MODULES[cfg.family]
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
-                                  f"{NOT_PORTED[cfg.family]}")
     raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -78,11 +70,13 @@ def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
     """Next-token cross-entropy (+ MoE aux loss), the port of
     ``repro.models.model.loss_fn``.
 
-    batch: ``{"tokens": (B, S)}`` (labels are the tokens shifted).  The
-    logits are float32 (float64 for a float64 model); the row maximum is
-    detached, the loss is ``mean(logsumexp - target logit) + aux_weight *
-    aux``.  The target logit is gathered: the reference's one-hot
-    contraction adds exact zeros to it, so the values are the same.
+    batch: ``{"tokens": (B, S) or (B, S, Cb)}``, and for the VLM optionally
+    ``"frontend_inputs"`` (labels are the tokens shifted; audio averages
+    over every codebook of every position).  The logits are float32
+    (float64 for a float64 model); the row maximum is detached, the loss
+    is ``mean(logsumexp - target logit) + aux_weight * aux``.  The target
+    logit is gathered: the reference's one-hot contraction adds exact
+    zeros to it, so the values are the same.
     Returns ``(loss, {"nll", "aux"})``.
     """
     tokens = batch["tokens"]

@@ -1,8 +1,13 @@
-"""Dense and MoE decoder-only transformer: forward, prefill and decode.
+"""Dense / MoE / VLM / audio decoder-only transformer: forward, prefill
+and decode.
 
 The port of ``repro.models.transformer`` for the dense family (tinyllama,
-qwen3-4b/8b, llama3-405b) and the MoE family (qwen2-moe-a2.7b,
-arctic-480b; the FFN half is :func:`repro_torch.models.moe.moe_block`).
+qwen3-4b/8b, llama3-405b), the MoE family (qwen2-moe-a2.7b, arctic-480b;
+the FFN half is :func:`repro_torch.models.moe.moe_block`), the VLM
+backbone (internvl2-26b: stub patch embeddings projected over the first
+positions, :func:`repro_torch.models.common.apply_frontend`) and the
+audio backbone (musicgen-large: (B, S, Cb) codebook tokens, their
+embeddings summed, one output head a codebook).
 :class:`Transformer` holds the parameters,
 one :class:`DecoderLayer` per layer, and layers run in a Python loop
 (:func:`repro_torch.models.common.stacked_apply`, with the reference's
@@ -137,17 +142,16 @@ class DecoderLayer(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The dense or MoE model's parameters: ``embed`` (embedding, final
-    norm, LM head) and ``layers``, built from a reference-layout tree
-    (layers stacked on a leading axis; each layer's tensors are views of
-    it)."""
+    """The transformer's parameters: ``embed`` (embedding, final norm, LM
+    head, and the VLM's ``patch_proj`` or the audio model's
+    ``codebook_embed`` and ``codebook_head``) and ``layers``, built from a
+    reference-layout tree (layers stacked on a leading axis; each layer's
+    tensors are views of it)."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(f"family {cfg.family!r}: only the "
-                                      f"dense and MoE transformers are "
-                                      f"ported")
+        if cfg.family not in ("dense", "moe", "vlm", "audio"):
+            raise ValueError(f"family {cfg.family!r} is not a transformer")
         self.embed = nn.ParameterDict({k: _frozen(v)
                                        for k, v in tree["embed"].items()})
         stacked = tree["layers"]
@@ -191,9 +195,11 @@ def train_forward(cfg: ModelConfig, params: Transformer, tokens,
 
 def forward(cfg: ModelConfig, params: Transformer, tokens,
             frontend_inputs=None):
-    """tokens: (B, S) integer -> (float32 logits (B, S, V), aux): aux is
-    the layers' summed MoE load-balancing loss (a float32 scalar tensor),
-    0.0 for a dense model.  Runs under ``torch.inference_mode()``."""
+    """tokens: (B, S) integer, or (B, S, Cb) for audio -> (float32 logits
+    (B, S, V) or (B, S, Cb, V), aux): aux is the layers' summed MoE
+    load-balancing loss (a float32 scalar tensor), 0.0 for a dense model.
+    ``frontend_inputs``: the VLM's (B, num_patches, D) patch embeddings.
+    Runs under ``torch.inference_mode()``."""
     with torch.inference_mode():
         return train_forward(cfg, params, tokens, frontend_inputs)
 
@@ -235,10 +241,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens, max_seq: int,
             frontend_inputs=None):
-    """Run the full prompt; returns (last logits (B, 1, V), cache).  Each
-    layer's keys and values fill the first S cache slots (zeros after),
-    or, when the cache is shorter than the prompt, it keeps the last
-    ones."""
+    """Run the full prompt (tokens as :func:`forward` takes them, and the
+    VLM's ``frontend_inputs``); returns (last logits (B, 1, V), or (B, 1,
+    Cb, V) for audio, cache).  Each layer's keys and values fill the
+    first S cache slots (zeros after), or, when the cache is shorter than
+    the prompt, it keeps the last ones."""
     with torch.inference_mode():
         x = cm.embed_tokens(cfg, params.embed, tokens,
                             cm.torch_dtype(cfg.dtype))
@@ -257,8 +264,9 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens, max_seq: int,
 
 def decode_step(cfg: ModelConfig, params: Transformer, cache: dict, tokens,
                 pos):
-    """One decode step.  tokens: (B,); pos: the position written.  Returns
-    (logits (B, V), cache), the cache updated in place."""
+    """One decode step.  tokens: (B,), or (B, Cb) for audio; pos: the
+    position written.  Returns (logits (B, V) or (B, Cb, V), cache), the
+    cache updated in place."""
     pos = int(pos)
     with torch.inference_mode():
         x = cm.embed_tokens(cfg, params.embed, tokens[:, None],

@@ -14,7 +14,8 @@ from repro_torch.models.config import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
-    """prefill_step(params, tokens) -> (next tokens (B,), cache)."""
+    """prefill_step(params, tokens, frontend_inputs=None) -> (next tokens
+    (B,), or (B, Cb) for audio, cache)."""
     @torch.inference_mode()
     def prefill_step(params, tokens, frontend_inputs=None):
         logits, cache = M.prefill(cfg, params, tokens, max_seq,
@@ -36,8 +37,9 @@ def make_serve_step(cfg: ModelConfig):
 @torch.inference_mode()
 def greedy_generate(cfg: ModelConfig, params, prompt, *, steps: int,
                     max_seq: int):
-    """Prefill ``prompt`` (B, S), then ``steps - 1`` decode steps; returns
-    the (B, steps) greedy tokens."""
+    """Prefill ``prompt`` (B, S), or (B, S, Cb) for audio, then ``steps -
+    1`` decode steps; returns the (B, steps), or (B, steps, Cb), greedy
+    tokens."""
     prefill = make_prefill_step(cfg, max_seq)
     step = make_serve_step(cfg)
     tok, cache = prefill(params, prompt)

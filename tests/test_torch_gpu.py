@@ -840,7 +840,8 @@ def test_recurrent_kernels_have_no_backward_on_card(cuda_device):
         y.sum().backward()
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-4b",
+                                  "internvl2-26b", "musicgen-large"])
 def test_smoke_model_gradients_kernels_match_plain_on_card(cuda_device, arch):
     """loss_fn's gradients through the kernels' Functions (remat full)
     against plain autograd, float32, every leaf within 1e-4 of its scale;
@@ -854,7 +855,7 @@ def test_smoke_model_gradients_kernels_match_plain_on_card(cuda_device, arch):
     tree = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
                          device=cuda_device, weight_std=0.02).param_tree()
     toks = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 64)), device=cuda_device)
+        0, cfg.vocab_size, (2, 64) + _codebooks(cfg)), device=cuda_device)
     norms = 4 if cfg.qk_norm else 2
     runs = cm.layer_forward_runs(cfg, cfg.num_layers)
     out = []
@@ -937,26 +938,75 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda_device, shape, dtype):
                                atol=RMS_TOL[dtype])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "tinyllama-1.1b"])
+def _codebooks(cfg) -> tuple:
+    """The trailing codebook axis of a codebook model's tokens, else ()."""
+    return (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "tinyllama-1.1b",
+                                  "internvl2-26b", "musicgen-large"])
 def test_greedy_generate_kernels_match_plain_on_card(cuda_device, arch):
     """A 2-layer smoke config in float32: prefill logits and the greedy
-    tokens with the CUDA kernels equal those with the plain versions."""
+    tokens ((B, steps, Cb) for musicgen) with the CUDA kernels equal those
+    with the plain versions."""
     cfg = get_smoke_config(arch, dtype="float32", kernel_impl="cuda")
     plain = get_smoke_config(arch, dtype="float32", kernel_impl="torch")
     params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
                            device=cuda_device)
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
-        1, cfg.vocab_size, (2, 24)), device=cuda_device)
+        1, cfg.vocab_size, (2, 24) + _codebooks(cfg)), device=cuda_device)
     before = (pfa.flash_attention.launches, prms.rmsnorm.launches)
     got = greedy_generate(cfg, params, prompt, steps=6, max_seq=32)
     assert pfa.flash_attention.launches > before[0]
     assert prms.rmsnorm.launches > before[1]
     want = greedy_generate(plain, params, prompt, steps=6, max_seq=32)
+    assert got.shape == (2, 6) + _codebooks(cfg)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     lg, _ = M.prefill(cfg, params, prompt, 32)
     lw, _ = M.prefill(plain, params, prompt, 32)
     np.testing.assert_allclose(lg.cpu().numpy(), lw.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_image_prefill_kernels_match_plain_on_card(cuda_device, dtype):
+    """internvl2's smoke config with stub patch embeddings over the first
+    positions: prefill logits and caches, and the next serve steps'
+    logits, with the CUDA kernels against the plain versions (float32 at
+    1e-4; bfloat16 at tests/test_torch_serve.py's BF16)."""
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == "float32"
+           else dict(rtol=2e-2, atol=8e-2))
+    cfg = get_smoke_config("internvl2-26b", dtype=dtype, kernel_impl="cuda")
+    plain = get_smoke_config("internvl2-26b", dtype=dtype,
+                             kernel_impl="torch")
+    params = M.init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                           device=cuda_device, weight_std=0.02)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, 24)),
+                             device=cuda_device)
+    patches = torch.as_tensor(rng.standard_normal(
+        (2, cfg.num_patches, cfg.d_model)), dtype=torch.float32).to(
+            cuda_device, getattr(torch, dtype))
+    nxt = torch.as_tensor(rng.integers(1, cfg.vocab_size, (3, 2)),
+                          device=cuda_device)
+    out = []
+    for c in (cfg, plain):
+        before = pfa.flash_attention.launches
+        logits, cache = M.prefill(c, params, prompt, 32, patches)
+        assert (pfa.flash_attention.launches > before) == (c is cfg)
+        steps = [logits[:, -1]]
+        for i in range(3):
+            step, cache = M.decode_step(c, params, cache, nxt[i], 24 + i)
+            steps.append(step)
+        out.append((torch.stack(steps, 1), cache))
+    (got, gc), (want, wc) = out
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(gc[key].float().cpu().numpy(),
+                                   wc[key].float().cpu().numpy(), **tol)
+    text, _ = M.prefill(cfg, params, prompt, 32)
+    assert not torch.equal(text[:, -1], got[:, 0])
 
 
 def _ssd_inputs(rng, b, t, h, p, g, n, dtype, device):

@@ -26,7 +26,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.utils.tree import tree_flatten
 
 ARCHS = ["tinyllama-1.1b", "qwen3-4b", "qwen2-moe-a2.7b", "mamba2-370m",
-         "recurrentgemma-9b"]
+         "recurrentgemma-9b", "internvl2-26b", "musicgen-large"]
 #: float32: the two frameworks differ in summation order only (the
 #: smoke configs' leaves agree to 2e-5 of their largest magnitude).
 F32 = dict(rtol=1e-4, scale_atol=1e-4)
@@ -77,8 +77,10 @@ def _loss_and_grads(rcfg, cfg, toks):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_every_gradient_match_reference_float32(arch):
     rcfg, cfg = _configs(arch, "float32")
+    # (2, 24, Cb) for a codebook model
+    shape = (2, 24) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1 else ())
     toks = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+        0, cfg.vocab_size, shape).astype(np.int32)
     (rloss, rmet, rgrads), (loss, met, grads) = _loss_and_grads(rcfg, cfg,
                                                                 toks)
     assert float(loss) == pytest.approx(float(rloss), rel=1e-5)
