@@ -176,7 +176,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    and kernel groups; then the first step's bfloat16 gradients at full
    width and 2 layers, kernels against plain versions, each leaf
    (``codebook_embed`` and ``codebook_head`` among them) within
-   ``BF16_GRAD_REL``.
+   ``BF16_GRAD_REL``;
+23. trains mamba2-370m at full width and depth (48 layers) the same way:
+   4 steps of 4 x 2,048 tokens, the losses finite and falling, the SSD
+   scan (all on its tensor-core instance), its backward and the norms
+   launched exactly as ``layer_forward_runs`` says; step time, tokens/s,
+   peak memory, idle share and kernel groups; then the first step's
+   gradients at full width and 2 layers: float32 kernels against a
+   float64 plain step (within the plain float32 step's error plus
+   ``GRAD_F64_FRAC`` of each leaf's scale, as phase 18) and bfloat16
+   kernels against plain versions (``BF16_GRAD_REL``);
+24. the same on recurrentgemma-9b at full width cut to 6 layers (two
+   (rec, rec, attn) groups, 3.28e9 parameters with the untied embedding
+   and head, 52.5 GB of float32 state with AdamW; the 38 blocks fit no
+   card) on 1 x 4,096 tokens, so that the window of 2,048 masks: the
+   linear recurrence's backward and the attention backward at D 256 with
+   the window and MQA (16/1 heads); the gradients checked at one group
+   (3 layers: 2 layers would hold no attention block) on 2,304 tokens.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``),
 and fails if ptxas serialised any kernel's ``wgmma`` (warning C7518 in a
@@ -207,7 +223,16 @@ the final state; bfloat16 y rtol 1e-2 / atol 2e-2, state atol 1e-3;
 TFLOP/s and the multiple of the bound;
 the ``HMMA`` (``mma.sync``) count of its library, none fails the script)
 and the linear recurrence at recurrentgemma-9b's, in float32 and bfloat16
-(rtol 1e-3 / atol 2e-3, the reference kernel test's; GB/s).  Phases
+(rtol 1e-3 / atol 2e-3, the reference kernel test's; GB/s); and the
+recurrent families' backward kernels against their plain backwards and
+against autograd through the plain forwards (``BWD_TOL``, two runs
+bit-equal), timed beside the plain backwards: the attention backward at
+D 256 with the window (1 x 16/1 heads x 4,096, window 2,048; beside
+SDPA's backward with the window's mask, whose backend is named), the
+linear recurrence's at (1, 4,096, 4,096) in float32 and the SSD scan's
+at mamba2-370m's training shape (4 x 2,048, 32 heads, P 64, N 128,
+chunk 128), in float32 and bfloat16 (also its device time over its five
+kernels).  Phases
 3-6 go through the public entry points on ``device="cuda"`` and are
 compared with the port's host float64 ``fixpoint="loop"`` driver (or the
 host numpy scan) at rtol 1e-12.  Phases 7, 9 and 10 first run the model's 2-layer smoke
@@ -239,7 +264,7 @@ output against a float32 expert-by-expert computation (the same top-k,
 drops and shared expert) at the block tolerance; and the MoE block
 kernels vs plain on every token both runs route alike (the others are
 counted).  Every kernel's
-launch counter is set to 0 just before each of the runs of phases 3-22
+launch counter is set to 0 just before each of the runs of phases 3-24
 and read just after; a kernel of
 the path that was never launched fails the script, and phase 9 fails
 unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
@@ -311,6 +336,14 @@ BF16_GRAD_REL = 0.1
 #: gradients reach ~1e16 (tinyllama, 22 layers) and its attention logits
 #: thousands (recurrentgemma), so no two implementations agree there.
 INIT_STD = 0.02
+#: Phases 23-24's learning rates.  An AdamW step moves every row of the
+#: output head by about lr, which shifts every logit by about lr |x|_1
+#: (~0.8 d_model lr for normalised x): 2.5 at mamba2-370m's d_model 1,024
+#: and phases 18 and 22's lr 3e-3, where its loss went 11.04, 11.03,
+#: 9.69, 12.22 (gradient norm 6.9 -> 26); 3.3 at recurrentgemma-9b's
+#: 4,096 and 1e-3, where it went 13.29, 13.28, 13.30, 20.78 (9.6 -> 31).
+#: The rates below shift a logit by about 0.8 and 0.7 a step.
+RECURRENT_LR = {"23": 1e-3, "24": 2e-4}
 #: Phase 18's forward time of the attention kernel at qwen3-4b's prefill
 #: shape without lse (PR 19's phase 2, bfloat16).
 ATTN_FWD_PR19_MS = 0.1203
@@ -455,8 +488,10 @@ def kernel_group(name: str) -> str:
                        ("rmsnorm_bwd", "rmsnorm_bwd"),
                        ("rmsnorm_dw", "rmsnorm_bwd"),
                        ("rmsnorm", "rmsnorm"),
+                       ("ssd_bwd", "ssd_chunk_scan_bwd"),
                        ("ssd_chunk_scan", "ssd_chunk_scan"),
                        ("ssd_mma", "ssd_chunk_scan"),
+                       ("linear_recurrence_bwd", "linear_recurrence_bwd"),
                        ("linear_recurrence", "linear_recurrence"),
                        ("nvjet", "matmul"),
                        ("gemm", "matmul"), ("gemv", "matmul"),
@@ -503,6 +538,39 @@ def device_breakdown(fn):
         return None
     return (wall, sum(groups.values()), sum(counts.values()),
             sorted(groups.items(), key=lambda kv: -kv[1]), counts)
+
+
+def kernel_split(fn, key: str, tries: int = 3):
+    """{kernel: device ms} of the kernels whose name holds key in one
+    profiled call of fn (after a warm-up call), or None when the profiler
+    records none of them.  Each window runs four sleep kernels first (the
+    profiler on the H100 machine drops a window's first kernels, as
+    ``device_ms`` notes); of ``tries`` windows, the one that saw the most
+    of fn's kernels is read."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and key in e.name:
+                # "void (anonymous namespace)::name<args>(params)" -> name<args>
+                name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                              e.name).split("(")[0]
+                out[name] = round(out.get(name, 0.0)
+                                  + e.time_range.elapsed_us() / 1e3, 4)
+        if len(out) > len(best):
+            best = out
+    return best or None
 
 
 def kernel_name(mangled: str) -> str:
@@ -622,21 +690,28 @@ def main() -> int:
         "rmsnorm": krms.rmsnorm,
         "rmsnorm_bwd": krms.rmsnorm_bwd,
         "ssd_chunk_scan": kssd.ssd_chunk_scan,
+        "ssd_chunk_scan_bwd": kssd.ssd_chunk_scan_bwd,
         "linear_recurrence": klr.linear_recurrence,
+        "linear_recurrence_bwd": klr.linear_recurrence_bwd,
     }
     launches = {k: 0 for k in counters}
+    launches["flash_attention_bwd_d256"] = 0
     phase_counts = {}
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
         kssd.ssd_chunk_scan.mma_launches = 0
+        kfa.flash_attention_bwd.d256_launches = 0
 
     def read_counts(phase: str, need):
         got = {k: fn.launches for k, fn in counters.items()}
         for k, v in got.items():
             launches[k] += v
         got["ssd_chunk_scan.mma"] = kssd.ssd_chunk_scan.mma_launches
+        got["flash_attention_bwd.d256"] = \
+            kfa.flash_attention_bwd.d256_launches
+        launches["flash_attention_bwd_d256"] += got["flash_attention_bwd.d256"]
         phase_counts[phase] = got
         print(f"[{phase}] launches {got}")
         for k in need:
@@ -1050,38 +1125,74 @@ def main() -> int:
         return close(got.float().cpu().numpy(), want.float().cpu().numpy(),
                      dict(rtol=rtol, atol=frac * scale), what)
 
-    fwd_ms = {}
-    for case, (b, hq, hkv, tq, tk, d) in (
-            ("tinyllama", (4, 32, 4, 2048, 2048, 64)),
-            ("qwen3", (1, 32, 8, 2048, 2048, 128))):
+    def sdpa_backend(fn):
+        """The SDPA backend one call of ``fn`` ran, from its device
+        kernels' names under ``torch.profiler``."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events()).lower()
+        for key, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+                             ("fmha", "efficient"), ("efficient",
+                                                     "efficient")):
+            if key in names:
+                return backend
+        return "math" if names else "none"
+
+    fwd_ms, bwd_d256 = {}, {}
+    for case, (b, hq, hkv, tq, tk, d), window in (
+            ("tinyllama", (4, 32, 4, 2048, 2048, 64), None),
+            ("qwen3", (1, 32, 8, 2048, 2048, 128), None),
+            # recurrentgemma-9b's attention in phase 24's training: MQA at
+            # D 256, window 2,048 of 4,096 tokens
+            ("recurrentgemma", (1, 16, 1, 4096, 4096, 256), 2048)):
         for dname in ("bfloat16", "float32"):
             dtype = getattr(torch, dname)
             q = randn((b, hq, tq, d), dtype)
             k = randn((b, hkv, tk, d), dtype)
             v = randn((b, hkv, tk, d), dtype)
             do = randn((b, hq, tq, d), dtype)
-            out, lse = kfa.flash_attention(q, k, v, return_lse=True)
-            check(torch.equal(out, kfa.flash_attention(q, k, v)),
+            out, lse = kfa.flash_attention(q, k, v, window=window,
+                                           return_lse=True)
+            check(torch.equal(out, kfa.flash_attention(q, k, v,
+                                                       window=window)),
                   f"flash_attention {case} {dname}: the output with lse "
                   f"differs from the one without")
-            got = kfa.flash_attention_bwd(q, k, v, out, do, lse)
-            want = kfa.attention_bwd_torch(q, k, v, out, do, lse)
+            got = kfa.flash_attention_bwd(q, k, v, out, do, lse,
+                                          window=window)
+            want = kfa.attention_bwd_torch(q, k, v, out, do, lse,
+                                           window=window)
             torch.cuda.synchronize()
             err = max(bwd_close(g, w, dname, f"flash_attention_bwd {case} "
                                              f"{dname} d{n}")
                       for g, w, n in zip(got, want, "qkv"))
-            again = kfa.flash_attention_bwd(q, k, v, out, do, lse)
+            again = kfa.flash_attention_bwd(q, k, v, out, do, lse,
+                                            window=window)
             check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
                   f"flash_attention_bwd {case} {dname}: two runs differ")
-            ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, out, do,
-                                                         lse), flush=flush)
-            pms = time_ms(lambda: kfa.attention_bwd_torch(q, k, v, out, do,
-                                                          lse),
-                          reps=3, flush=flush)
+            auto = ""
+            if window is not None:   # autograd through the plain forward
+                qa, ka, va = (t.detach().requires_grad_(True)
+                              for t in (q, k, v))
+                ref_g = torch.autograd.grad(
+                    kfa.attention_torch(qa, ka, va, window=window),
+                    (qa, ka, va), do)
+                aerr = max(bwd_close(g, w, dname, f"flash_attention_bwd "
+                                                  f"{case} {dname} d{n} "
+                                                  f"against autograd")
+                           for g, w, n in zip(got, ref_g, "qkv"))
+                auto = f", against autograd of the plain forward {aerr:.3e}"
+                del qa, ka, va, ref_g
+            ms = time_ms(lambda: kfa.flash_attention_bwd(
+                q, k, v, out, do, lse, window=window), flush=flush)
+            pms = time_ms(lambda: kfa.attention_bwd_torch(
+                q, k, v, out, do, lse, window=window), reps=3, flush=flush)
             # the library: SDPA's backward through autograd
             ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                                enable_gqa=True)
+            lo = sdpa(ql, kl, vl, True, window)()
+            backend = sdpa_backend(lambda: torch.autograd.grad(
+                lo, (ql, kl, vl), do, retain_graph=True))
             lms = time_ms(lambda: torch.autograd.grad(
                 lo, (ql, kl, vl), do, retain_graph=True), flush=flush)
             lib_err = max(float((a.float() - g.float()).abs().max())
@@ -1093,29 +1204,36 @@ def main() -> int:
                                   flush=flush),
                     lse=time_ms(lambda: kfa.flash_attention(
                         q, k, v, return_lse=True), flush=flush))
-            pairs = int(kref.attention_mask(tq, tk, True, None,
+            pairs = int(kref.attention_mask(tq, tk, True, window,
                                             cuda).sum())
             flop = 2.5 * 4.0 * b * hq * d * pairs
             nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
                       + 4.0 * lse.numel())
             bnd, by = bound_ms(nbytes, flop, dname)
             print(f"[2] flash_attention_bwd {case} q {tuple(q.shape)} k "
-                  f"{tuple(k.shape)} causal {dname}: max abs err {err:.3e} "
-                  f"(SDPA's gradients {lib_err:.3e} from the kernel's), two "
-                  f"runs bit-equal, kernel {ms:.4f} ms ({flop / ms / 1e9:.1f}"
-                  f" TFLOP/s, {ms / lms:.2f}x SDPA's backward), plain "
-                  f"{pms:.4f} ms, library {lms:.4f} ms, bound {bnd:.4f} ms "
-                  f"({by})")
+                  f"{tuple(k.shape)} causal, window {window}, {dname}: max "
+                  f"abs err {err:.3e}{auto} (SDPA's gradients {lib_err:.3e} "
+                  f"from the kernel's), two runs bit-equal, kernel "
+                  f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, "
+                  f"{ms / lms:.2f}x SDPA's backward), plain {pms:.4f} ms, "
+                  f"library {lms:.4f} ms (SDPA backend: {backend}), bound "
+                  f"{bnd:.4f} ms ({by})")
             row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd,
                        bound_by=by, library_ms=lms, library_err=lib_err,
-                       tflops=flop / ms / 1e9, vs_library=ms / lms,
+                       library_backend=backend, tflops=flop / ms / 1e9,
+                       vs_library=ms / lms, window=window,
                        shape=[list(q.shape), list(k.shape)], dtype=dname)
             if dname == "bfloat16" and case == "tinyllama":
                 report["flash_attention_bwd"] = row
+            elif case == "recurrentgemma":
+                bwd_d256[dname] = row
             elif dname == "bfloat16":
                 qwen3_bwd = row
             del q, k, v, do, out, lse, got, want, again, ql, kl, vl, lo
+            torch.cuda.empty_cache()
     report["flash_attention_bwd"]["qwen3"] = qwen3_bwd
+    report["flash_attention_bwd_d256"] = dict(
+        bwd_d256["bfloat16"], float32=bwd_d256["float32"])
     print(f"[2] flash_attention forward at qwen3's prefill, bfloat16: "
           f"without lse {fwd_ms['plain']:.4f} ms (PR 19: "
           f"{ATTN_FWD_PR19_MS} ms), with lse {fwd_ms['lse']:.4f} ms")
@@ -1204,9 +1322,9 @@ def main() -> int:
           f"{bwd_hg}")
     check(fwd_hg and all(fwd_hg.values()),
           f"flash_attention: a forward function without HGMMA: {fwd_hg}")
-    check(len(bwd_hg) == 8 and all(bwd_hg.values()),
+    check(len(bwd_hg) == 10 and all(bwd_hg.values()),
           f"flash_attention: a bfloat16 backward function without HGMMA "
-          f"(want dK/dV and dQ at 4 head dims): {bwd_hg}")
+          f"(want dK/dV and dQ at 5 head dims, D 256 too): {bwd_hg}")
     report["flash_attention"]["hgmma"] = sum(fwd_hg.values())
     report["flash_attention_bwd"]["hgmma"] = bwd_hg
 
@@ -1299,6 +1417,118 @@ def main() -> int:
                 max_abs_err=err, ms=ms, bound_ms=bnd,
                 gbps=nbytes / ms / 1e6)
         del a, xb, got, want
+
+    # -- phase 2, the recurrent backward kernels ----------------------------
+    def ssd_bwd_work(bb, t, h, p, n, chunk):
+        """The SSD backward's least products (multiply-adds x 2): the
+        causal C.B and dy.u scores, M^T dy, Q B and Q^T C over the causal
+        pairs; S_prev^T dy, dS B, dS^T u, dS's update and the states'
+        recompute at L P N each."""
+        pairs = chunk * (chunk + 1) // 2
+        per = pairs * (2 * n + 2 * p + n) + 5 * chunk * p * n
+        return 2.0 * bb * h * (t // chunk) * per
+
+    a24 = (torch.rand((1, 4096, 4096), generator=gen, device=cuda) * 0.399
+           + 0.6)
+    b24, dh24 = randn((1, 4096, 4096), torch.float32), \
+        randn((1, 4096, 4096), torch.float32)
+    h24 = klr.linear_recurrence(a24, b24)
+    got = klr.linear_recurrence_bwd(a24, h24, dh24)
+    want = klr.linear_recurrence_bwd_torch(a24, h24, dh24)
+    xa, xb = a24.clone().requires_grad_(True), b24.clone().requires_grad_(True)
+    auto = torch.autograd.grad(klr.linear_recurrence_torch(xa, xb), (xa, xb),
+                               dh24)
+    torch.cuda.synchronize()
+    err = max(bwd_close(g, w, "float32", f"linear_recurrence_bwd d{nm}")
+              for g, w, nm in zip(got, want, "ab"))
+    aerr = max(bwd_close(g, w, "float32", f"linear_recurrence_bwd d{nm} "
+                                          f"against autograd")
+               for g, w, nm in zip(got, auto, "ab"))
+    again = klr.linear_recurrence_bwd(a24, h24, dh24)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          "linear_recurrence_bwd: two runs differ")
+    ms = time_ms(lambda: klr.linear_recurrence_bwd(a24, h24, dh24),
+                 flush=flush)
+    pms = time_ms(lambda: klr.linear_recurrence_bwd_torch(a24, h24, dh24),
+                  reps=3, flush=flush)
+    nbytes = 5.0 * a24.numel() * 4
+    bnd, by = bound_ms(nbytes, 3.0 * a24.numel(), "float32")
+    print(f"[2] linear_recurrence_bwd {tuple(a24.shape)} float32 "
+          f"(recurrentgemma-9b's training shape): max abs err {err:.3e}, "
+          f"against autograd of the plain forward {aerr:.3e}, two runs "
+          f"bit-equal, kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+          f"{bnd / ms:.1%} of the bound), plain {pms:.4f} ms, library none, "
+          f"bound {bnd:.4f} ms ({by})")
+    report["linear_recurrence_bwd"] = dict(
+        max_abs_err=max(err, aerr), ms=ms, plain_ms=pms, bound_ms=bnd,
+        bound_by=by, library_ms=None, gbps=nbytes / ms / 1e6,
+        shape=list(a24.shape), dtype="float32")
+    del a24, b24, dh24, h24, got, want, xa, xb, auto, again
+
+    t23, h23, p23, n23, c23 = 2048, 32, 64, 128, 128
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        x = randn((4, t23, h23, p23), dtype, 0.5)
+        dt = (torch.rand((4, t23, h23), generator=gen, device=cuda) * 0.099
+              + 0.001)
+        A = -(torch.rand((h23,), generator=gen, device=cuda) * 1.5 + 0.5)
+        Bm = randn((4, t23, 1, n23), dtype, 0.3)
+        Cm = randn((4, t23, 1, n23), dtype, 0.3)
+        dy = randn((4, t23, h23, p23), dtype)
+        ds = randn((4, h23, p23, n23), torch.float32, 0.1)
+        args = (x, dt, A, Bm, Cm, dy, ds)
+        got = kssd.ssd_chunk_scan_bwd(*args, chunk=c23)
+        want = kssd.ssd_bwd_torch(*args, chunk=c23)
+        req = [u.clone().requires_grad_(True) for u in (x, dt, A, Bm, Cm)]
+        y_, s_ = kssd.ssd_torch(*req, chunk=c23)
+        auto = torch.autograd.grad((y_, s_), req, (dy, ds))
+        torch.cuda.synchronize()
+        names = ("dx", "ddt", "dA", "dB", "dC")
+        err = max(bwd_close(g, w, dname, f"ssd_chunk_scan_bwd {dname} {nm}")
+                  for g, w, nm in zip(got, want, names))
+        aerr = max(bwd_close(g, w, dname, f"ssd_chunk_scan_bwd {dname} {nm} "
+                                          f"against autograd")
+                   for g, w, nm in zip(got, auto, names))
+        again = kssd.ssd_chunk_scan_bwd(*args, chunk=c23)
+        check(all(torch.equal(u, w) for u, w in zip(got, again)),
+              f"ssd_chunk_scan_bwd {dname}: two runs differ")
+        ms = time_ms(lambda: kssd.ssd_chunk_scan_bwd(*args, chunk=c23),
+                     flush=flush)
+        dms, nk = device_ms(lambda: kssd.ssd_chunk_scan_bwd(*args,
+                                                            chunk=c23),
+                            "ssd_bwd", reps=5)
+        pms = time_ms(lambda: kssd.ssd_bwd_torch(*args, chunk=c23), reps=3,
+                      flush=flush)
+        nflop = ssd_bwd_work(4, t23, h23, p23, n23, c23)
+        es = x.element_size()
+        nbytes = (es * (2 * x.numel() + dy.numel() + 4 * Bm.numel())
+                  + 4 * (2 * dt.numel() + ds.numel() + 2 * h23))
+        bnd, by = bound_ms(nbytes, nflop, dname)
+        split = kernel_split(lambda: kssd.ssd_chunk_scan_bwd(*args,
+                                                             chunk=c23),
+                             "ssd_bwd")
+        dtxt = (f"{dms:.4f} ms in {nk} device kernels" if dms is not None
+                else "not measured") + f"; by kernel {split}"
+        print(f"[2] ssd_chunk_scan_bwd x {tuple(x.shape)} B/C "
+              f"{tuple(Bm.shape)} chunk {c23} {dname} (mamba2-370m's "
+              f"training shape): max abs err {err:.3e}, against autograd of "
+              f"the plain forward {aerr:.3e}, two runs bit-equal, kernel "
+              f"{ms:.4f} ms ({nflop / ms / 1e9:.1f} TFLOP/s on the float32 "
+              f"cores, {ms / bnd:.2f}x the bound; device time {dtxt}), "
+              f"plain {pms:.4f} ms, library none, bound {bnd:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {nflop / 1e9:.2f} GFLOP)")
+        row = dict(max_abs_err=max(err, aerr), ms=ms, plain_ms=pms,
+                   bound_ms=bnd, bound_by=by, library_ms=None,
+                   device_ms=dms, device_kernels=nk, kernel_ms=split,
+                   tflops=nflop / ms / 1e9, vs_bound=ms / bnd,
+                   shape=[list(x.shape), list(Bm.shape)], dtype=dname)
+        if dname == "float32":
+            report["ssd_chunk_scan_bwd"] = row
+        else:
+            report["ssd_chunk_scan_bwd"]["bfloat16"] = row
+        del x, dt, A, Bm, Cm, dy, ds, args, got, want, req, y_, s_, auto, \
+            again
+        torch.cuda.empty_cache()
 
     # -- phases 3-5: vectorized runs through the public entry points -------
     def run_phase(phase, run, ref_run, *, fleet):
@@ -2403,9 +2633,11 @@ def main() -> int:
                                          device=cuda)}
 
     def first_step_grads(cfg, tree, batch):
-        """(loss, gradient tree) of one backward of a transformer on the
+        """(loss, gradient tree) of one backward of the model on the
         parameter tree ``tree``."""
-        params = M.Transformer(cfg, tree)
+        model = {"ssm": M.Mamba2, "hybrid": M.RecurrentGemma}.get(
+            cfg.family, M.Transformer)
+        params = model(cfg, tree)
         params.requires_grad_(True)
         g = M.bind_grads(cfg, params)
         loss, _ = M.loss_fn(cfg, params, batch)
@@ -3055,6 +3287,217 @@ def main() -> int:
     del g_k, g_p, tree22
     torch.cuda.empty_cache()
 
+    # -- phases 23-24: the recurrent families train on the kernels ------------
+    def train_phase(phase, arch, argv, cfg, per_step, batch, seq, groups,
+                    need):
+        """Four steps through launch.train at RECURRENT_LR (launches
+        exactly per_step a step, losses finite and falling), two timed
+        steps and a profiled one; returns the report row."""
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = ltrain.main(["--arch", arch, "--batch", str(batch),
+                           "--seq-len", str(seq), "--lr",
+                           str(RECURRENT_LR[phase]),
+                           "--warmup", "2", "--log-every", "1",
+                           "--init-std", str(INIT_STD), "--steps", "4",
+                           "--seed", "0"] + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        read_counts(phase, need)
+        for k, v in phase_counts[phase].items():
+            want = 4 * per_step.get(k, 0)
+            check(v == want, f"phase {phase}: {k} launched {v} times in 4 "
+                             f"steps, want {want} ({per_step} a step)")
+        losses = res["losses"]
+        check(len(losses) == 4 and bool(np.isfinite(losses).all()),
+              f"phase {phase}: losses {losses}")
+        check(losses[-1] < losses[0], f"phase {phase}: the loss did not "
+                                      f"fall: {losses}")
+        state = res["state"]
+        step = make_train_step(cfg, AdamWConfig(lr=RECURRENT_LR[phase],
+                                                warmup_steps=2,
+                                                total_steps=4))
+        data = TokenPipeline(DataConfig(cfg.vocab_size, seq, batch))
+        bt = data.batch_at(4)
+        step_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, _ = step(state, bt)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        for _ in range(3):   # the profiler can miss a window's device events
+            brk = device_breakdown(lambda: step(state, bt))
+            if brk is not None:
+                break
+        check(brk is not None, f"phase {phase}: torch.profiler recorded no "
+                               f"device time")
+        wall_p, busy, nev, grp, _ = brk
+        for g in groups:
+            check(dict(grp).get(g, 0.0) > 0, f"phase {phase}: the profiler "
+                                             f"saw no {g} kernel in a step")
+        tok_s = batch * seq / (min(step_ms) / 1e3)
+        print(f"[{phase}] {arch} ({M.count_params(cfg) / 1e9:.3f}e9 float32 "
+              f"parameters from seed 0, {cfg.num_layers} layers, weights "
+              f"N(0, {INIT_STD}), bfloat16 activations, remat full, {batch} "
+              f"x {seq:,} tokens): 4 steps through launch.train in "
+              f"{wall:.2f} s, losses {[round(x, 4) for x in losses]}; step "
+              f"{min(step_ms):.1f} ms ({step_ms}), {tok_s:.0f} tokens/s, "
+              f"peak memory {peak:.2f} GB; launches a step {per_step}")
+        print(f"[{phase}] one step under torch.profiler: wall {wall_p:.1f} "
+              f"ms, {nev} device events, kernels {busy:.1f} ms, device idle "
+              f"{max(0.0, 1 - busy / wall_p):.1%}; " + ", ".join(
+                  f"{g} {ms:.2f} ms" for g, ms in grp))
+        row = dict(step_ms=min(step_ms), tokens_per_s=tok_s, peak_gb=peak,
+                   losses=losses, idle=max(0.0, 1 - busy / wall_p),
+                   groups=grp, layers=cfg.num_layers)
+        del res, state, step
+        torch.cuda.empty_cache()
+        return row
+
+    def tree_to(tree, device):
+        return {k: tree_to(v, device) if isinstance(v, dict)
+                else v.to(device) for k, v in tree.items()}
+
+    def hold_first_grads(phase, cfg, batch, need, offload=False):
+        """The first step's gradients at cfg's (cut) depth: float32 kernels
+        within the plain float32 step's error to a float64 plain step plus
+        GRAD_F64_FRAC of each leaf's scale, as phase 18; bfloat16 kernels
+        against plain within BF16_GRAD_REL.  ``need``: {counter: launches}
+        of the float32 kernel step.  ``offload`` keeps the float32
+        parameters and gradients in host memory during the float64
+        step."""
+        tree = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                             device=cuda, weight_std=INIT_STD).param_tree()
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        zero_counts()
+        l_k, g_k = first_step_grads(f32, tree, batch)
+        got = {k: counters[k].launches for k in need}
+        check(got == need, f"phase {phase}: the float32 kernel step "
+                           f"launched {got}, want {need}")
+        l_p, g_p = first_step_grads(dataclasses.replace(
+            f32, kernel_impl="torch"), tree, batch)
+        check(all(counters[k].launches == need[k] for k in need),
+              f"phase {phase}: the plain step launched a kernel")
+        leaves_k, leaves_p = tree_leaves(g_k), tree_leaves(g_p)
+        tree64 = tree_as(tree, torch.float64)
+        if offload:
+            leaves_k = [u.cpu() for u in leaves_k]
+            leaves_p = [u.cpu() for u in leaves_p]
+            tree = tree_to(tree, "cpu")
+        del g_k, g_p
+        torch.cuda.empty_cache()
+        f64 = dataclasses.replace(cfg, dtype="float64",
+                                  param_dtype="float64", kernel_impl="torch")
+        torch.cuda.reset_peak_memory_stats()
+        l_64, g_64 = first_step_grads(f64, tree64, batch)
+        del tree64
+        peak64 = torch.cuda.max_memory_allocated() / 1e9
+        paths = ["/".join(p) for p, _ in mc.spec_leaves(M.model_spec(cfg))]
+        worst, excess_max = [], -1.0
+        for path, gk, gp, g64 in zip(paths, leaves_k, leaves_p,
+                                     tree_leaves(g_64)):
+            gk, gp = gk.to(cuda), gp.to(cuda)
+            scale = float(g64.abs().max())
+            e_k = float((gk.double() - g64).abs().max())
+            e_p = float((gp.double() - g64).abs().max())
+            excess = e_k - e_p - GRAD_F64_FRAC * scale
+            excess_max = max(excess_max, excess / max(scale, 1e-30))
+            worst.append((e_k / max(scale, 1e-30), e_p / max(scale, 1e-30),
+                          path))
+            check(excess <= 0, f"phase {phase}: gradient {path}: the "
+                               f"kernels' float32 error to float64 "
+                               f"{e_k:.3e} exceeds the plain float32 error "
+                               f"{e_p:.3e} plus {GRAD_F64_FRAC} of its "
+                               f"scale {scale:.3e}")
+        worst.sort(reverse=True)
+        print(f"[{phase}] first-step gradients at full width, "
+              f"{cfg.num_layers} layers: loss kernels {l_k!r}, plain "
+              f"{l_p!r}, float64 {l_64!r}; every leaf's float32 error to the "
+              f"float64 step within the plain float32 step's plus "
+              f"{GRAD_F64_FRAC}; largest kernels / plain: " + "; ".join(
+                  f"{p} {a:.2e} / {b:.2e}" for a, b, p in worst[:4])
+              + f"; peak of the float64 step {peak64:.2f} GB")
+        del leaves_k, leaves_p, g_64
+        torch.cuda.empty_cache()
+        tree = tree_to(tree, cuda)
+        l_kb, g_kb = first_step_grads(cfg, tree, batch)
+        l_pb, g_pb = first_step_grads(dataclasses.replace(
+            cfg, kernel_impl="torch"), tree, batch)
+        gaps = sorted(((float((a - b).float().norm()
+                              / b.float().norm().clamp_min(1e-30)), p)
+                       for p, a, b in zip(paths, tree_leaves(g_kb),
+                                          tree_leaves(g_pb))), reverse=True)
+        print(f"[{phase}] bfloat16 first-step gradients, kernels vs plain: "
+              f"loss {l_kb!r} vs {l_pb!r}; every leaf's relative gap within "
+              f"{BF16_GRAD_REL}; largest " + "; ".join(
+                  f"{p} {g:.2e}" for g, p in gaps[:4]))
+        for g, p in gaps:
+            check(np.isfinite(g) and g <= BF16_GRAD_REL,
+                  f"phase {phase}: bfloat16 gradient {p}: relative gap "
+                  f"{g:.3e} between kernels and plain versions exceeds "
+                  f"{BF16_GRAD_REL}")
+        del g_kb, g_pb, tree
+        torch.cuda.empty_cache()
+        return dict(grad_excess=excess_max, bf16_grad_gap=gaps[0][0],
+                    f64_peak_gb=peak64)
+
+    # -- phase 23: mamba2-370m training at full width and depth ---------------
+    t23 = time.perf_counter()
+    cfg23 = get_config("mamba2-370m")
+    L23 = cfg23.num_layers
+    runs23 = mc.layer_forward_runs(cfg23, L23)
+    per_step23 = {"rmsnorm": 2 * runs23 + 1, "rmsnorm_bwd": 2 * L23 + 1,
+                  "ssd_chunk_scan": runs23, "ssd_chunk_scan_bwd": L23,
+                  "ssd_chunk_scan.mma": runs23}
+    report23 = train_phase("23", "mamba2-370m", [], cfg23, per_step23, 4,
+                           2048, ("ssd_chunk_scan", "ssd_chunk_scan_bwd",
+                                  "rmsnorm", "rmsnorm_bwd"),
+                           ["ssd_chunk_scan", "ssd_chunk_scan_bwd"])
+    batch23 = {"tokens": torch.as_tensor(TokenPipeline(DataConfig(
+        cfg23.vocab_size, 2048, 4)).batch_at(0)["tokens"], device=cuda)}
+    report23.update(hold_first_grads(
+        "23", dataclasses.replace(cfg23, num_layers=2), batch23,
+        {"ssd_chunk_scan_bwd": 2, "rmsnorm_bwd": 5}))
+    print(f"[23] phase 23 took {time.perf_counter() - t23:.1f} s")
+    report["ssd_chunk_scan_bwd"]["training"] = report23
+
+    # -- phase 24: recurrentgemma-9b training at full width, 6 layers -------
+    # Two (rec, rec, attn) groups: 3.28e9 parameters (the embedding and
+    # the head, untied, are 2.1e9), 52.5 GB of float32 state with AdamW
+    # (the 38 blocks' 154 GB fit no card); 4,096 tokens, so that the
+    # window of 2,048 masks.
+    t24 = time.perf_counter()
+    argv24 = ["--d-model", "4096", "--d-ff", "12288", "--layers", "6"]
+    cfg24 = dataclasses.replace(get_config("recurrentgemma-9b"),
+                                num_layers=6)
+    G24 = cfg24.num_layers // len(cfg24.block_pattern)
+    runs24 = mc.layer_forward_runs(cfg24, G24)
+    per_step24 = {"rmsnorm": 6 * runs24 + 1, "rmsnorm_bwd": 6 * G24 + 1,
+                  "linear_recurrence": 2 * runs24,
+                  "linear_recurrence_bwd": 2 * G24,
+                  "flash_attention": runs24, "flash_attention_bwd": G24,
+                  "flash_attention_bwd.d256": G24}
+    report24 = train_phase("24", "recurrentgemma-9b", argv24, cfg24,
+                           per_step24, 1, 4096,
+                           ("linear_recurrence", "linear_recurrence_bwd",
+                            "flash_attention", "flash_attention_bwd",
+                            "rmsnorm", "rmsnorm_bwd"),
+                           ["linear_recurrence_bwd", "flash_attention_bwd"])
+    # the gradient check at one group (rec, rec, attn) on 2,304 tokens
+    # (more than the window): the float64 step holds 21.5 GB of
+    # parameters, as much gradient, and logits of 4.7 GB a copy
+    batch24 = {"tokens": torch.as_tensor(TokenPipeline(DataConfig(
+        cfg24.vocab_size, 2304, 1)).batch_at(0)["tokens"], device=cuda)}
+    report24.update(hold_first_grads(
+        "24", dataclasses.replace(cfg24, num_layers=3), batch24,
+        {"linear_recurrence_bwd": 2, "flash_attention_bwd": 1,
+         "rmsnorm_bwd": 7}, offload=True))
+    print(f"[24] phase 24 took {time.perf_counter() - t24:.1f} s")
+    report["linear_recurrence_bwd"]["training"] = report24
+
     # -- report -----------------------------------------------------------------
     sources = {
         "zns_event_scan": ("src/repro_torch/csrc/zns_event_scan.cu",
@@ -3077,6 +3520,14 @@ def main() -> int:
                            "src/repro/kernels/ssd_chunk_scan.py:76"),
         "linear_recurrence": ("src/repro_torch/csrc/linear_recurrence.cu",
                               "src/repro/kernels/linear_recurrence.py:45"),
+        "linear_recurrence_bwd": (
+            "src/repro_torch/csrc/linear_recurrence.cu",
+            "src/repro/kernels/linear_recurrence.py:45"),
+        "ssd_chunk_scan_bwd": ("src/repro_torch/csrc/ssd_chunk_scan.cu",
+                               "src/repro/kernels/ssd_chunk_scan.py:76"),
+        "flash_attention_bwd_d256": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:77"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -83,7 +83,7 @@
 //
 // The backward (`flash_attention_bwd`; the TPU package has no backward
 // kernel: its gradients are XLA's autodiff of the plain attention) is
-// FlashAttention-2's scheme, head dims 16-128, with the forward's masks
+// FlashAttention-2's scheme, head dims 16-256, with the forward's masks
 // (causal, window, ends aligned); a row that sees no key has lse = -inf,
 // P = 0 and contributes nothing.  No floating-point atomics: every gradient
 // element is summed by one thread in a fixed order (the GQA sum inside the
@@ -125,15 +125,27 @@
 //   * shared memory (+1 KB to align): dK/dV 2 x 128 x DP + 4 x 2 x 64 x
 //     DP bf16 + lse/delta (195 KB at D = 128, 99 KB below); dQ 2 x 128 x
 //     DP + 4 x 2 x 64 x DP (193 KB, 97 KB); one block an SM (the dK/dV
-//     warpgroup holds dK, dV, S^T and dP^T: 255 registers at D = 128).
+//     warpgroup holds dK, dV, S^T and dP^T: 255 registers at D = 128);
+//   * D = 256 (recurrentgemma-9b, MQA with a window of 2,048) has its own
+//     tiles (wgb::Cfg): 64 keys x 256 columns of dK and dV would be 256
+//     float32 registers a thread, so both warpgroups of a dK/dV block take
+//     the same 64 keys, each computes S^T and dP^T (repeated: 12 D flops
+//     a visible pair in that kernel), and each holds dK and dV for its
+//     128 columns; Q and dO stream in tiles of 32 rows, 4 stages (194 KB
+//     with K and V).  The dQ block keeps 128 rows of Q and dO (128 KB) and
+//     streams 32-key tiles through 3 stages (225 KB), as the forward does
+//     at D = 256.  Every block of an MQA dK/dV grid walks all the query
+//     heads of its KV head.
 // float32 (namespace bwd) runs on the float32 cores (TF32 wgmma could not
-// meet the float32 checks, as for the forward): `bwd_delta` a warp a row;
+// meet the float32 checks, as for the forward), D 16-256: `bwd_delta` a
+// warp a row;
 // `bwd_dkdv` a block a (key tile of 32, KV head, batch) holding K and V,
 // walking the group's heads and the query tiles of 64 rows that see it
 // (P = exp(S scale - lse), dS = P (dP - delta), dV += P^T dO, dK += dS^T
 // Q scale); `bwd_dq` a block a (query tile of 64, head, batch) over the
 // forward's key tiles (dQ += dS K scale).  Shared memory 2 x 64 x D + 2 x
-// 32 x (D + 4) + 2 x 64 x 33 floats (113 KB at D = 128), one block an SM.
+// 32 x (D + 4) + 2 x 64 x 33 floats (113 KB at D = 128, 210 KB at D =
+// 256), one block an SM.
 #include <cuda_bf16.h>
 
 #include <cmath>
@@ -1287,29 +1299,43 @@ namespace wgb {
 using namespace wg;
 
 constexpr int THREADS = 256;  // two consumer warpgroups
-constexpr int STAGES = 4;     // ring depth; tile j + STAGES - 2 in flight
 
+// Rings of KV_STAGES / DQ_STAGES tiles: tile j + STAGES - 2 is in flight
+// while tile j is used.
 template <int D>
 struct Cfg {
   static constexpr int DP = D < 64 ? 64 : D;  // head dim padded to a panel
+  // D 256 splits the head dim of dK and dV between the two warpgroups:
+  // 64 keys x 256 columns of dK and dV would be 256 float32 registers a
+  // thread, so both warpgroups take the same 64 keys, each computes S^T
+  // and dP^T for them (the products are repeated), and each holds dK and
+  // dV for its 128 columns.
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int DH = SPLIT ? DP / 2 : DP;  // dK/dV columns a wg
   // dK/dV: a block a (key tile of BKV, KV head, batch), 64 keys a
-  // warpgroup; Q and dO tiles of BQ rows (with their lse and delta)
-  // stream through the ring.
-  static constexpr int BKV = 128, BQ = 64;
+  // warpgroup (the same 64 under SPLIT); Q and dO tiles of BQ rows (with
+  // their lse and delta) stream through the ring.  At D 256, K and V
+  // take 64 KB and a stage of Q and dO 32 KB.
+  static constexpr int BKV = SPLIT ? 64 : 128, BQ = SPLIT ? 32 : 64;
+  static constexpr int KV_STAGES = 4;
   static constexpr int KV_BYTES = BKV * DP * 2;  // K or V
   static constexpr int QT_BYTES = BQ * DP * 2;   // a streamed Q or dO tile
   static constexpr int KV_RING = 2 * KV_BYTES;   // stage s: Q, then dO
-  static constexpr int KV_ROWS = KV_RING + STAGES * 2 * QT_BYTES;  // lse, delta
-  static constexpr int KV_BAR = KV_ROWS + STAGES * 2 * BQ * 4;
-  static constexpr int KV_SMEM = KV_BAR + STAGES * 2 * 8 + 1024;
+  static constexpr int KV_ROWS =
+      KV_RING + KV_STAGES * 2 * QT_BYTES;        // lse, delta
+  static constexpr int KV_BAR = KV_ROWS + KV_STAGES * 2 * BQ * 4;
+  static constexpr int KV_SMEM = KV_BAR + KV_STAGES * 2 * 8 + 1024;
   // dQ: a block a (query tile of BQ_DQ, head, batch), 64 rows a
-  // warpgroup; K and V tiles of BK keys stream through the ring.
-  static constexpr int BQ_DQ = 128, BK = 64;
+  // warpgroup; K and V tiles of BK keys stream through the ring (at D 256
+  // Q and dO take 128 KB, so 3 stages of 32 keys, as the forward's tile).
+  static constexpr int BQ_DQ = 128, BK = SPLIT ? 32 : 64;
+  static constexpr int DQ_STAGES = SPLIT ? 3 : 4;
   static constexpr int Q_BYTES = BQ_DQ * DP * 2;  // Q or dO
   static constexpr int KT_BYTES = BK * DP * 2;    // a streamed K or V tile
   static constexpr int DQ_RING = 2 * Q_BYTES;     // stage s: K, then V
-  static constexpr int DQ_BAR = DQ_RING + STAGES * 2 * KT_BYTES;
-  static constexpr int DQ_SMEM = DQ_BAR + STAGES * 2 * 8 + 1024;
+  static constexpr int DQ_BAR = DQ_RING + DQ_STAGES * 2 * KT_BYTES;
+  static constexpr int DQ_SMEM = DQ_BAR + DQ_STAGES * 2 * 8 + 1024;
+  static_assert(KV_SMEM <= 232448 && DQ_SMEM <= 232448, "shared memory");
 };
 
 // 4-byte async copy (zero-filled when !in): lse and delta rows, whose
@@ -1387,7 +1413,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                    int tq, int tk, int causal, int window, float scale,
                    float scale_log2) {
   using C = Cfg<D>;
-  constexpr int DP = C::DP, BKV = C::BKV, BQ = C::BQ, S = STAGES;
+  constexpr int DP = C::DP, DH = C::DH, BKV = C::BKV, BQ = C::BQ;
+  constexpr int S = C::KV_STAGES;
   constexpr int NS = BQ / 2;  // S^T registers a thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
@@ -1454,13 +1481,18 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int j = 0; j < S - 2; ++j) load_q(j);
 
-  float dka[DP / 2], dva[DP / 2];
+  float dka[DH / 2], dva[DH / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
-  const uint32_t kw = sK + wgi * 64 * ROW_BYTES;
-  const uint32_t vw = sV + wgi * 64 * ROW_BYTES;
-  const int r_k = k0 + 64 * wgi + 16 * warp + (lane >> 2);  // first key
-  const int c_q = 2 * (lane & 3);                           // first column
+  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+  // the warpgroup's keys (rows of the K and V tiles) and, under SPLIT, its
+  // columns of dK and dV: panels col0 / 64 on of the Q and dO tiles
+  const int key0 = C::SPLIT ? 0 : 64 * wgi;
+  const int col0 = C::SPLIT ? DH * wgi : 0;
+  const uint32_t kw = sK + key0 * ROW_BYTES;
+  const uint32_t vw = sV + key0 * ROW_BYTES;
+  const uint32_t half = (col0 / 64) * BQ * ROW_BYTES;
+  const int r_k = k0 + key0 + 16 * warp + (lane >> 2);  // first key
+  const int c_q = 2 * (lane & 3);                       // first column
 
   // No branch depends on the thread (ptxas serialises every wgmma of a
   // kernel whose waits it must place in divergent code): both warpgroups
@@ -1521,22 +1553,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint32_t pp[BQ / 16][4], pds[BQ / 16][4];
     pack_p<BQ>(st, pp);
     pack_p<BQ>(dpt, pds);
-    pv_issue<DP, BQ>(dva, pp, sdo);  // dV += bf16(P^T) dO
-    pv_issue<DP, BQ>(dka, pds, sq);  // dK += bf16(dS^T) Q
+    pv_issue<DH, BQ>(dva, pp, sdo + half);  // dV += bf16(P^T) dO
+    pv_issue<DH, BQ>(dka, pds, sq + half);  // dK += bf16(dS^T) Q
     wgmma_wait<0>();
     fence_regs(pp);
     fence_regs(pds);
-    fence_regs<DP / 2>(dva);
-    fence_regs<DP / 2>(dka);
+    fence_regs<DH / 2>(dva);
+    fence_regs<DH / 2>(dka);
     mbar_arrive(empty + 8 * (j % S));
   }
 
   // Epilogue: dK scale and dV in bf16, staged through the K and V tiles.
   cp_async_wait_all();  // K/V's copies, when no query tile sees the keys
   __syncthreads();
-  const int r_local = 64 * wgi + 16 * warp + (lane >> 2);
-  stage_acc<BKV, DP>(smem, dka, scale, r_local, c_q);
-  stage_acc<BKV, DP>(smem + C::KV_BYTES, dva, 1.f, r_local, c_q);
+  const int r_local = key0 + 16 * warp + (lane >> 2);
+  stage_acc<BKV, DH>(smem, dka, scale, r_local, col0 + c_q);
+  stage_acc<BKV, DH>(smem + C::KV_BYTES, dva, 1.f, r_local, col0 + c_q);
   __syncthreads();
   store_tile<BKV, D, THREADS>(dk + b * s.dk_b + hk * s.dk_h, s.dk_s, smem,
                              k0, tk, tid);
@@ -1557,7 +1589,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                  bwd::Strides s, int hq, int hkv, int tq, int tk, int causal,
                  int window, float scale, float scale_log2) {
   using C = Cfg<D>;
-  constexpr int DP = C::DP, BQ = C::BQ_DQ, BK = C::BK, S = STAGES;
+  constexpr int DP = C::DP, BQ = C::BQ_DQ, BK = C::BK, S = C::DQ_STAGES;
   constexpr int NS = BK / 2;  // S registers a thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
@@ -1682,13 +1714,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 // bf16(a) (64 x 64, float32) . b (64 x D, bf16) in float32, through the
 // backward's rs product: a in the accumulator fragment's layout rounded to
 // the A fragment (pack_p), b a 64-row swizzled tile read MN-major
-// (P^T dO, dS^T Q and dS K all have this shape a warpgroup).
+// (P^T dO, dS^T Q and dS K have this shape a warpgroup at D <= 128; at D
+// 256 they run at depth 32, dK and dV over 128 of the columns, with the
+// same descriptors per k-step).
 template <int D>
 __global__ void __launch_bounds__(128)
     bwd_tile_products(const float* __restrict__ a, const bf16* __restrict__ bm,
                       float* __restrict__ out) {
   constexpr int DP = Cfg<D>::DP, KD = 64;
-  static_assert(Cfg<D>::BQ == KD && Cfg<D>::BK == KD, "product depth");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t sB = smem_u32(smem);
@@ -1804,33 +1837,17 @@ struct TileLaunch {
   template <int D, typename... A>
   static int run(A... args) { return wg::launch_tile<D>(args...); }
 };
-// The backward is compiled for D <= 128.
 struct BwdLaunch {
   template <int D, typename... A>
-  static int run(A... args) {
-    if constexpr (D > 128)
-      return (int)cudaErrorInvalidValue;
-    else
-      return bwd::launch<D>(args...);
-  }
+  static int run(A... args) { return bwd::launch<D>(args...); }
 };
 struct BwdWgmmaLaunch {
   template <int D, typename... A>
-  static int run(A... args) {
-    if constexpr (D > 128)
-      return (int)cudaErrorInvalidValue;
-    else
-      return wgb::launch<D>(args...);
-  }
+  static int run(A... args) { return wgb::launch<D>(args...); }
 };
 struct BwdTileLaunch {
   template <int D, typename... A>
-  static int run(A... args) {
-    if constexpr (D > 128)
-      return (int)cudaErrorInvalidValue;
-    else
-      return wgb::launch_tile<D>(args...);
-  }
+  static int run(A... args) { return wgb::launch_tile<D>(args...); }
 };
 
 }  // namespace
@@ -1882,7 +1899,7 @@ extern "C" int flash_attention_tile_products(int d, const void* q,
 // The backward: dq in q's layout, dk / dv in k's / v's (24 element strides,
 // (batch, head, sequence) of q, k, v, o, dout, dq, dk, dv in turn), in the
 // input dtype, from the forward's o and lse (contiguous float32 (B, Hq, Tq)).
-// delta: float32 (B, Hq, Tq) scratch.  Head dims 16-128; 256 is refused.
+// delta: float32 (B, Hq, Tq) scratch.  Head dims 16-256.
 // bfloat16 needs every row start 16-byte aligned (the eight pointers and
 // the 24 strides).
 extern "C" int flash_attention_bwd(int dtype, int d, const void* q,
@@ -1894,7 +1911,7 @@ extern "C" int flash_attention_bwd(int dtype, int d, const void* q,
                                    int hkv, int tq, int tk, int causal,
                                    int window, float scale, void* stream) {
   if (b <= 0 || tq <= 0 || tk <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || b > 65535 || hq > 65535 || d > 128)
+  if (hkv <= 0 || hq % hkv != 0 || b > 65535 || hq > 65535)
     return (int)cudaErrorInvalidValue;
   static_assert(sizeof(bwd::Strides) == 24 * sizeof(long long), "strides");
   bwd::Strides st;
@@ -1920,7 +1937,7 @@ extern "C" int flash_attention_bwd(int dtype, int d, const void* q,
 
 // The bf16 backward's rs product on one tile (card tests): out = bf16(a)
 // b in float32, a (64, 64) float32 and b (64, d) bf16, both contiguous;
-// head dims 16-128.
+// head dims 16-256.
 extern "C" int flash_attention_bwd_tile_products(int d, const void* a,
                                                  const void* b, void* out,
                                                  void* stream) {

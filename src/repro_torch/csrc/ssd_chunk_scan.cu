@@ -864,6 +864,621 @@ int launch_mma_n(int np, const void* x, const void* dt, const void* A,
   }
 }
 
+
+// ---- the backward (float32 cores, x / B / C in float32 or bfloat16) --------
+//
+// From the output gradient dy and the final state's dS_final: dx, ddt, dA,
+// dB, dC of the chunked maths above (repro_torch.kernels.ssd_chunk_scan.
+// ssd_bwd_torch is the same maths as batched products).  Per chunk, with
+// u_j = dt_j x_j, E_ij = exp(cum_i - cum_j) for i >= j (selected away
+// before the exp elsewhere), S_prev the state entering the chunk and dS
+// the gradient of the state leaving it:
+//   du_j = sum_{i>=j} (C_i.B_j) E_ij dy_i + exp(cum_L - cum_j) dS B_j
+//   dC_i = sum_{j<=i} E_ij (dy_i.u_j) B_j + exp(cum_i) S_prev^T dy_i
+//   dB_j = sum_{i>=j} E_ij (dy_i.u_j) C_i + exp(cum_L - cum_j) dS^T u_j
+//   dS entering = exp(cum_L) dS + sum_i exp(cum_i) dy_i C_i^T
+// dcum, through every exponent, gives ddt_j = x_j.du_j + A rc_j and dA =
+// sum_j dt_j rc_j, rc the reverse cumsum of dcum within the chunk.
+// Five kernels, no atomics (every sum in a fixed order):
+//  1. ssd_bwd_states<T, false>: a block per (head, batch) walks the chunks
+//     in order and writes the state entering each chunk (the forward's
+//     state update) to a scratch tensor (Bb, H, chunks, P, N) float32;
+//  2. ssd_bwd_states<T, true>: the same walk in reverse over dy and C
+//     from dS_final, writing each chunk's dS (the gradient of the state
+//     leaving it) to a second scratch tensor of that shape;
+//  3. ssd_bwd_chunk: with both states known, every chunk is independent.
+//     A block per (chunk, role, head, batch): the row role walks row
+//     tiles of 32 steps i (dC_i and dcum's row sums), the column role
+//     column tiles of 32 steps j (du_j, dx_j, x_j.du_j, dB_j and dcum's
+//     column sums).  B, C, x and dy of a 128-step chunk in float32 do not
+//     fit a block's shared memory (B and C alone take 135 KB at N = 128),
+//     so each role streams 32-row tiles of the other side past its own
+//     tile, as the forward streams C, recomputing the 32 x 32 tiles of
+//     C.B and dy.u (twice the forward's score products) rather than
+//     storing them; the causal tiles only.  dB and dC per head go to
+//     float32 scratch (Bb, T, H, N);
+//  4. ssd_bwd_finish: a thread per (batch, chunk, head) sums dcum's parts
+//     and takes the reverse cumsum: ddt, and dA's partial per chunk;
+//  5. ssd_bwd_reduce: dB and dC summed over the heads of a group (32
+//     heads at mamba2-370m's G = 1), dA over batch and chunks, in order.
+// Bound on the card: the float32 cores.  Per chunk and head the least work
+// is, in multiply-adds over the L (L + 1) / 2 causal pairs, the C.B and
+// dy.u scores (N + P) and their three products (P + 2 N), then five
+// products of L P N (S_prev^T dy, dS B, dS^T u, dS's update and the
+// state's recompute): 38.8 GFLOP at mamba2-370m's training shape (4,
+// 2048, 32, 64), N 128, 0.58 ms at 67 TFLOP/s.  This design does about
+// 1.2x that (both roles form the score tiles, whole 32 x 32 tiles on the
+// diagonal).
+
+constexpr int TR = 32;  // rows of a backward tile: 8 warps x 4 rows
+
+struct BwdDims {
+  int t_len, h, p, g, n, l, nc;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// dt of a chunk (L steps of a (T, H) column) into sdt and its inclusive
+// cumsum times a_h into scum, in order (the forward's float32 kernel's
+// sum).  Ends with a block barrier.
+__device__ __forceinline__ void chunk_cum(const float* dtc, int H, int L,
+                                          float a_h, float* sdt, float* scum,
+                                          int tid) {
+  for (int j = tid; j < L; j += THREADS) sdt[j] = dtc[(long long)j * H];
+  __syncthreads();
+  if (tid == 0) {
+    float c = 0.f;
+    for (int j = 0; j < L; ++j) {
+      c += sdt[j] * a_h;
+      scum[j] = c;
+    }
+  }
+  __syncthreads();
+}
+
+// Shared memory of ssd_bwd_states, in floats: X (L x P), Y (L x NB), the
+// state (P x NB), dt, cum and the weights (L each, and L spare).
+__host__ __device__ inline long long bwd_states_floats(int l, int p, int n) {
+  const int nb = n + 4;
+  return (long long)l * p + (long long)l * nb + (long long)p * nb + 4 * l;
+}
+
+// S <- exp(cum_L) S + sum_j beta_j X_j Y_j^T over the chunks, the state
+// entering each step written to out (Bb, H, chunks, P, N) first.  Forward
+// (REV false): X = x, Y = B, beta_j = exp(cum_L - cum_j) dt_j, S from 0.
+// Reverse: X = dy, Y = C, beta_j = exp(cum_j), S from init (the final
+// state's gradient), the chunks last first.
+template <typename T, bool REV>
+__global__ void __launch_bounds__(THREADS, 1)
+    ssd_bwd_states(const T* __restrict__ X, const float* __restrict__ dt,
+                   const float* __restrict__ A, const T* __restrict__ Y,
+                   const float* __restrict__ init, float* __restrict__ out,
+                   BwdDims dm) {
+  const int H = dm.h, P = dm.p, N = dm.n, L = dm.l, G = dm.g;
+  const int NB = N + 4;
+  extern __shared__ float4 smem4[];
+  float* sX = reinterpret_cast<float*>(smem4);
+  float* sY = sX + L * P;
+  float* sS = sY + L * NB;
+  float* sdt = sS + P * NB;
+  float* scum = sdt + L;
+  float* sbeta = scum + L;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float a_h = A[h];
+  const long long x_t = (long long)H * P, y_t = (long long)G * N;
+  const T* Xb = X + (long long)b * dm.t_len * x_t + (long long)h * P;
+  const T* Yb = Y + (long long)b * dm.t_len * y_t + (long long)g * N;
+  const float* dtb = dt + (long long)b * dm.t_len * H + h;
+  const long long pn = (long long)P * N;
+  float* ob = out + ((long long)b * H + h) * dm.nc * pn;
+  const float* ib = init ? init + ((long long)b * H + h) * pn : nullptr;
+
+  for (int i = tid; i < P * N; i += THREADS)
+    sS[(i / N) * NB + i % N] = ib ? ib[i] : 0.f;
+
+  for (int k = 0; k < dm.nc; ++k) {
+    const int ci = REV ? dm.nc - 1 - k : k;
+    const long long c0 = (long long)ci * L;
+    __syncthreads();  // the state is written; the last chunk's readers done
+    for (int i = tid; i < P * N; i += THREADS)
+      ob[ci * pn + i] = sS[(i / N) * NB + i % N];
+    for (int i = tid; i < L * P; i += THREADS) {
+      const int j = i / P, q = i - j * P;
+      sX[i] = to_f32(Xb[(c0 + j) * x_t + q]);
+    }
+    for (int i = tid; i < L * N; i += THREADS) {
+      const int j = i / N, q = i - j * N;
+      sY[j * NB + q] = to_f32(Yb[(c0 + j) * y_t + q]);
+    }
+    chunk_cum(dtb + c0 * H, H, L, a_h, sdt, scum, tid);
+    const float cum_last = scum[L - 1];
+    for (int j = tid; j < L; j += THREADS)
+      sbeta[j] = REV ? expf(scum[j]) : expf(cum_last - scum[j]) * sdt[j];
+    __syncthreads();  // beta written; the state's copy-out is done
+
+    // rows p = 4 pg + i, columns n = q0 + e, as the forward's update
+    const float el = expf(cum_last);
+    for (int pg = warp; pg < P / 4; pg += THREADS / 32) {
+      for (int q0 = 4 * lane; q0 < N; q0 += 128) {
+        float acc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+        for (int j = 0; j < L; ++j) {
+          const float wj = sbeta[j];
+          float xw[4], yv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) xw[i] = sX[j * P + 4 * pg + i] * wj;
+          lds4(sY + j * NB + q0, yv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][e] = fmaf(xw[i], yv[e], acc[i][e]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* srow = sS + (4 * pg + i) * NB + q0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) srow[e] = srow[e] * el + acc[i][e];
+        }
+      }
+    }
+  }
+}
+
+// Shared memory of ssd_bwd_chunk, in floats: two TR x NB and two TR x PB
+// tiles, two TR x 33 score tiles, a state (P x NB), dt and cum (L each)
+// and 32 for the block's sums.
+__host__ __device__ inline long long bwd_chunk_floats(int l, int p, int n) {
+  const int nb = n + 4, pb = p + 4;
+  return 2LL * TR * nb + 2LL * TR * pb + 2LL * TR * 33 + (long long)p * nb +
+         2 * l + 32;
+}
+
+// s1[i] = a1 row (r + i) . b1 row lane over k1 columns, s2 likewise: the
+// warp's four rows against the 32 rows of the other tile (float4 along
+// the contraction: broadcasts for a, conflict-free rows of stride k + 4
+// for b).
+__device__ __forceinline__ void tile_dots(const float* a, const float* bt,
+                                          int ld, int k, int r, int lane,
+                                          float (&s)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = 0.f;
+  for (int q = 0; q < k; q += 4) {
+    float bv[4];
+    lds4(bt + lane * ld + q, bv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float av[4];
+      lds4(a + (r + i) * ld + q, av);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i] = fmaf(av[e], bv[e], s[i]);
+    }
+  }
+}
+
+// Rows [row0, row0 + TR) of a (T, cols) view with row stride ld into a
+// float tile of row stride lds, each row times sdt[row0 + r] if scaled.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int lds, const T* src,
+                                          long long ld, int row0, int cols,
+                                          const float* sdt, bool scaled,
+                                          int tid) {
+  for (int i = tid; i < TR * cols; i += THREADS) {
+    const int r = i / cols, q = i - r * cols;
+    const float v = to_f32(src[(long long)(row0 + r) * ld + q]);
+    dst[r * lds + q] = scaled ? v * sdt[row0 + r] : v;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+    ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const T* __restrict__ B,
+                  const T* __restrict__ C, const T* __restrict__ dy,
+                  const float* __restrict__ states,
+                  const float* __restrict__ dstates, float* __restrict__ dBp,
+                  float* __restrict__ dCp, float* __restrict__ rows,
+                  T* __restrict__ dx, BwdDims dm, int batch) {
+  const int H = dm.h, P = dm.p, N = dm.n, L = dm.l, G = dm.g;
+  const int NB = N + 4, PB = P + 4;
+  extern __shared__ float4 smem4[];
+  float* t1 = reinterpret_cast<float*>(smem4);  // TR x NB
+  float* t2 = t1 + TR * NB;                     // TR x PB
+  float* t3 = t2 + TR * PB;                     // TR x NB
+  float* t4 = t3 + TR * NB;                     // TR x PB
+  float* sm1 = t4 + TR * PB;                    // TR x 33
+  float* sm2 = sm1 + TR * 33;                   // TR x 33
+  float* sS = sm2 + TR * 33;                    // P x NB
+  float* sdt = sS + P * NB;
+  float* scum = sdt + L;
+  float* sred = scum + L;
+
+  const int ci = blockIdx.x >> 1, role = blockIdx.x & 1;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r = 4 * warp;  // the warp's first row of a tile
+  const long long x_t = (long long)H * P, bc_t = (long long)G * N;
+  const long long T_ = dm.t_len, c0 = (long long)ci * L;
+  const T* xc = x + ((long long)b * T_ + c0) * x_t + (long long)h * P;
+  const T* dyc = dy + ((long long)b * T_ + c0) * x_t + (long long)h * P;
+  const T* Bc = B + ((long long)b * T_ + c0) * bc_t + (long long)g * N;
+  const T* Cc = C + ((long long)b * T_ + c0) * bc_t + (long long)g * N;
+  const long long sidx = (((long long)b * H + h) * dm.nc + ci) * P * N;
+  const long long bth = (long long)batch * T_ * H;
+
+  // the row role takes S_prev, the column role dS
+  const float* st = (role ? dstates : states) + sidx;
+  for (int i = tid; i < P * N; i += THREADS)
+    sS[(i / N) * NB + i % N] = st[i];
+  chunk_cum(dt + ((long long)b * T_ + c0) * H + h, H, L, A[h], sdt, scum,
+            tid);
+  const int nt = L / TR;
+
+  if (role == 0) {
+    // Row tiles i: dC_i and dcum_i's row sums.
+    for (int it = 0; it < nt; ++it) {
+      const int i0 = it * TR;
+      __syncthreads();  // the last tile's readers of t1, t2 are done
+      load_tile(t1, NB, Cc, bc_t, i0, N, sdt, false, tid);   // C_i
+      load_tile(t2, PB, dyc, x_t, i0, P, sdt, false, tid);   // dy_i
+      float acc[4][4], rs[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        rs[i] = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
+      }
+      for (int jt = 0; jt <= it; ++jt) {
+        const int j0 = jt * TR;
+        __syncthreads();  // the last tile's readers of t3, t4 are done
+        load_tile(t3, NB, Bc, bc_t, j0, N, sdt, false, tid);  // B_j
+        load_tile(t4, PB, xc, x_t, j0, P, sdt, true, tid);    // u_j
+        __syncthreads();
+        float cb[4], gg[4];
+        tile_dots(t1, t3, NB, N, r, lane, cb);  // C_i . B_j
+        tile_dots(t2, t4, PB, P, r, lane, gg);  // dy_i . u_j
+        const int j = j0 + lane;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ii = i0 + r + i;
+          const float e = j <= ii ? expf(scum[ii] - scum[j]) : 0.f;
+          const float q = gg[i] * e;
+          rs[i] = fmaf(cb[i], q, rs[i]);
+          sm1[(r + i) * 33 + lane] = q;
+        }
+        __syncwarp();
+        for (int jj = 0; jj < TR; ++jj) {  // dC_i += Q_ij B_j
+          float qv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qv[i] = sm1[(r + i) * 33 + jj];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int col = lane + 32 * k;
+            if (col < N) {
+              const float bv = t3[jj * NB + col];
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[i][k] = fmaf(qv[i], bv, acc[i][k]);
+            }
+          }
+        }
+        __syncwarp();
+      }
+      // exp(cum_i) S_prev^T dy_i
+      float acc2[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc2[i][k] = 0.f;
+      for (int pp = 0; pp < P; ++pp) {
+        float dv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dv[i] = t2[(r + i) * PB + pp];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int col = lane + 32 * k;
+          if (col < N) {
+            const float sv = sS[pp * NB + col];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc2[i][k] = fmaf(dv[i], sv, acc2[i][k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ii = i0 + r + i;
+        const float ei = expf(scum[ii]);
+        const long long row = (long long)b * T_ + c0 + ii;
+        float* dst = dCp + (row * H + h) * N;
+        float part = 0.f;  // dcum_i from y_inter: C_i . exp(cum_i) S^T dy_i
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int col = lane + 32 * k;
+          if (col < N) {
+            const float v = ei * acc2[i][k];
+            part = fmaf(t1[(r + i) * NB + col], v, part);
+            dst[col] = acc[i][k] + v;
+          }
+        }
+        part = warp_sum(part);
+        const float s = warp_sum(rs[i]);
+        if (lane == 0) rows[row * H + h] = s + part;
+      }
+    }
+    return;
+  }
+
+  // Column tiles j: du_j (dx_j, x_j . du_j), dB_j and dcum_j's column sums.
+  const float cl = scum[L - 1];
+  float tsum = 0.f;  // sum of T_j over the warp's rows
+  for (int jt = 0; jt < nt; ++jt) {
+    const int j0 = jt * TR;
+    __syncthreads();  // the last tile's readers of t1, t2 are done
+    load_tile(t1, NB, Bc, bc_t, j0, N, sdt, false, tid);  // B_j
+    load_tile(t2, PB, xc, x_t, j0, P, sdt, true, tid);    // u_j
+    float du[4][4], db[4][4], cs[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cs[i] = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) du[i][k] = db[i][k] = 0.f;
+    }
+    for (int it = jt; it < nt; ++it) {
+      const int i0 = it * TR;
+      __syncthreads();  // the last tile's readers of t3, t4 are done
+      load_tile(t3, NB, Cc, bc_t, i0, N, sdt, false, tid);  // C_i
+      load_tile(t4, PB, dyc, x_t, i0, P, sdt, false, tid);  // dy_i
+      __syncthreads();
+      float cb[4], gg[4];
+      tile_dots(t1, t3, NB, N, r, lane, cb);  // B_j . C_i
+      tile_dots(t2, t4, PB, P, r, lane, gg);  // u_j . dy_i
+      const int ii = i0 + lane;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int jj = j0 + r + i;
+        const float e = jj <= ii ? expf(scum[ii] - scum[jj]) : 0.f;
+        const float m = cb[i] * e, q = gg[i] * e;
+        cs[i] = fmaf(cb[i], q, cs[i]);
+        sm1[(r + i) * 33 + lane] = m;
+        sm2[(r + i) * 33 + lane] = q;
+      }
+      __syncwarp();
+      for (int k2 = 0; k2 < TR; ++k2) {  // over the tile's steps i
+        float mv[4], qv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mv[i] = sm1[(r + i) * 33 + k2];
+          qv[i] = sm2[(r + i) * 33 + k2];
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int col = lane + 32 * k;
+          if (col < P) {
+            const float dv = t4[k2 * PB + col];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) du[i][k] = fmaf(mv[i], dv, du[i][k]);
+          }
+          if (col < N) {
+            const float cv = t3[k2 * NB + col];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) db[i][k] = fmaf(qv[i], cv, db[i][k]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+    // dS B_j (columns p) and dS^T u_j (columns n)
+    float duS[4][4], dbS[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) duS[i][k] = dbS[i][k] = 0.f;
+    for (int q = 0; q < N; q += 4) {
+      float bv[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lds4(t1 + (r + i) * NB + q, bv[i]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = lane + 32 * k;
+        if (col < P) {
+          float sv[4];
+          lds4(sS + col * NB + q, sv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              duS[i][k] = fmaf(bv[i][e], sv[e], duS[i][k]);
+        }
+      }
+    }
+    for (int pp = 0; pp < P; ++pp) {
+      float uv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) uv[i] = t2[(r + i) * PB + pp];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = lane + 32 * k;
+        if (col < N) {
+          const float sv = sS[pp * NB + col];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dbS[i][k] = fmaf(uv[i], sv, dbS[i][k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int jj = j0 + r + i;
+      const float wj = expf(cl - scum[jj]), dtj = sdt[jj];
+      const long long row = (long long)b * T_ + c0 + jj;
+      const T* xr = xc + (long long)jj * x_t;
+      T* dxr = dx + row * x_t + (long long)h * P;
+      float* dbr = dBp + (row * H + h) * N;
+      float tp = 0.f, xd = 0.f;  // T_j = u_j . w_j dS B_j; x_j . du_j
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = lane + 32 * k;
+        if (col < P) {
+          const float sv = wj * duS[i][k];
+          tp = fmaf(t2[(r + i) * PB + col], sv, tp);
+          const float d = du[i][k] + sv;
+          xd = fmaf(to_f32(xr[col]), d, xd);
+          store(dxr + col, dtj * d);
+        }
+        if (col < N) dbr[col] = db[i][k] + wj * dbS[i][k];
+      }
+      tp = warp_sum(tp);
+      xd = warp_sum(xd);
+      const float c = warp_sum(cs[i]);
+      if (lane == 0) {
+        rows[bth + row * H + h] = -c - tp;
+        rows[2 * bth + row * H + h] = xd;
+      }
+      tsum += tp;
+    }
+  }
+  // The chunk's last step: dcum_L += sum_j T_j + exp(cum_L) <dS, S_prev>.
+  const float* sp = states + sidx;
+  float dot = 0.f;
+  for (int i = tid; i < P * N; i += THREADS)
+    dot = fmaf(sS[(i / N) * NB + i % N], sp[i], dot);
+  dot = warp_sum(dot);
+  if (lane == 0) {
+    sred[warp] = tsum;
+    sred[8 + warp] = dot;
+  }
+  __syncthreads();  // and the lane-0 writes of rows are visible
+  if (tid == 0) {
+    float ts = 0.f, d = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      ts += sred[w];
+      d += sred[8 + w];
+    }
+    rows[bth + ((long long)b * T_ + c0 + L - 1) * H + h] += ts + expf(cl) * d;
+  }
+}
+
+// A thread per (batch, chunk, head): rc = reverse cumsum of dcum (its row
+// and column parts), ddt_j = x_j.du_j + A rc_j, dA's part sum_j dt_j rc_j.
+__global__ void __launch_bounds__(128)
+    ssd_bwd_finish(const float* __restrict__ dt, const float* __restrict__ A,
+                   const float* __restrict__ rows, float* __restrict__ ddt,
+                   float* __restrict__ dAp, BwdDims dm, int batch) {
+  const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int H = dm.h, L = dm.l, nc = dm.nc;
+  if (item >= (long long)batch * nc * H) return;
+  const int h = (int)(item % H);
+  const long long bc = item / H;
+  const int c = (int)(bc % nc), b = (int)(bc / nc);
+  const long long bth = (long long)batch * dm.t_len * H;
+  const float a_h = A[h];
+  float rc = 0.f, da = 0.f;
+  for (int j = L - 1; j >= 0; --j) {
+    const long long o = ((long long)b * dm.t_len + (long long)c * L + j) * H + h;
+    rc += rows[o] + rows[bth + o];
+    ddt[o] = rows[2 * bth + o] + a_h * rc;
+    da = fmaf(dt[o], rc, da);
+  }
+  dAp[((long long)b * H + h) * nc + c] = da;
+}
+
+// dB, dC (Bb, T, G, N) in the input type: the heads of each group summed
+// in order; dA (H,) over batch and chunks in order (block 0).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    ssd_bwd_reduce(const float* __restrict__ dBp, const float* __restrict__ dCp,
+                   const float* __restrict__ dAp, T* __restrict__ dB,
+                   T* __restrict__ dC, float* __restrict__ dA, BwdDims dm,
+                   int batch) {
+  const int H = dm.h, G = dm.g, N = dm.n, rep = H / G;
+  const long long total = (long long)batch * dm.t_len * G * N;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
+       i += (long long)gridDim.x * THREADS) {
+    const int n = (int)(i % N);
+    const long long rg = i / N;
+    const int g = (int)(rg % G);
+    const long long bt = rg / G;
+    const long long o = (bt * H + (long long)g * rep) * N + n;
+    float sb = 0.f, sc = 0.f;
+    for (int k = 0; k < rep; ++k) {
+      sb += dBp[o + (long long)k * N];
+      sc += dCp[o + (long long)k * N];
+    }
+    store(dB + i, sb);
+    store(dC + i, sc);
+  }
+  if (blockIdx.x == 0)
+    for (int hh = threadIdx.x; hh < H; hh += THREADS) {
+      float s = 0.f;
+      for (int b = 0; b < batch; ++b)
+        for (int c = 0; c < dm.nc; ++c)
+          s += dAp[((long long)b * H + hh) * dm.nc + c];
+      dA[hh] = s;
+    }
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* dt, const void* A, const void* B,
+               const void* C, const void* dy, const void* dstate,
+               void* states, void* dstates, void* dBp, void* dCp, void* rows,
+               void* dAp, void* dx, void* ddt, void* dA, void* dB, void* dC,
+               int batch, const BwdDims& dm, cudaStream_t stream) {
+  const long long s_smem = 4 * bwd_states_floats(dm.l, dm.p, dm.n);
+  const long long c_smem = 4 * bwd_chunk_floats(dm.l, dm.p, dm.n);
+  if (s_smem > MAX_SMEM || c_smem > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  auto fwd = ssd_bwd_states<T, false>;
+  auto rev = ssd_bwd_states<T, true>;
+  auto chunk = ssd_bwd_chunk<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(rev, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)s_smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(chunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)c_smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(dm.h, batch);
+  fwd<<<grid, THREADS, s_smem, stream>>>(
+      (const T*)x, (const float*)dt, (const float*)A, (const T*)B, nullptr,
+      (float*)states, dm);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  rev<<<grid, THREADS, s_smem, stream>>>(
+      (const T*)dy, (const float*)dt, (const float*)A, (const T*)C,
+      (const float*)dstate, (float*)dstates, dm);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  chunk<<<dim3(2 * dm.nc, dm.h, batch), THREADS, c_smem, stream>>>(
+      (const T*)x, (const float*)dt, (const float*)A, (const T*)B,
+      (const T*)C, (const T*)dy, (const float*)states,
+      (const float*)dstates, (float*)dBp, (float*)dCp, (float*)rows, (T*)dx,
+      dm, batch);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long items = (long long)batch * dm.nc * dm.h;
+  ssd_bwd_finish<<<(unsigned)((items + 127) / 128), 128, 0, stream>>>(
+      (const float*)dt, (const float*)A, (const float*)rows, (float*)ddt,
+      (float*)dAp, dm, batch);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long total = (long long)batch * dm.t_len * dm.g * dm.n;
+  const long long blocks = (total + THREADS - 1) / THREADS;
+  ssd_bwd_reduce<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0,
+                      stream>>>((const float*)dBp, (const float*)dCp,
+                                (const float*)dAp, (T*)dB, (T*)dC,
+                                (float*)dA, dm, batch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (x, B, C and y).  chunk in 32 / 64 / 128
@@ -921,4 +1536,35 @@ extern "C" int ssd_chunk_scan_mma_fwd(const void* x, const void* dt,
     default:
       return launch_mma_n<128>(np, x, dt, A, B, C, y, s_out, batch, dm, s);
   }
+}
+
+// The backward: dtype 0 float32, 1 bfloat16 (x, B, C, dy, and dx, dB, dC);
+// dt, A, dstate (Bb, H, P, N), ddt and dA float32.  Scratch, all float32:
+// states and dstates (Bb, H, T / chunk, P, N), dBp and dCp (Bb, T, H, N),
+// rows (3, Bb, T, H), dAp (Bb, H, T / chunk).  Shapes as ssd_chunk_scan_fwd,
+// and n <= 128.
+extern "C" int ssd_chunk_scan_bwd(int dtype, const void* x, const void* dt,
+                                  const void* A, const void* B, const void* C,
+                                  const void* dy, const void* dstate,
+                                  void* states, void* dstates, void* dBp,
+                                  void* dCp, void* rows, void* dAp, void* dx,
+                                  void* ddt, void* dA, void* dB, void* dC,
+                                  int batch, int t_len, int h, int p, int g,
+                                  int n, int chunk, void* stream) {
+  if (batch <= 0 || h <= 0) return 0;
+  if (chunk <= 0 || chunk % 32 != 0 || chunk > 128 || t_len % chunk != 0 ||
+      p <= 0 || p % 4 != 0 || p > 128 || n <= 0 || n % 4 != 0 || n > 128 ||
+      g <= 0 || h % g != 0 || batch > 65535 || t_len / chunk > 32767)
+    return (int)cudaErrorInvalidValue;
+  const BwdDims dm{t_len, h, p, g, n, chunk, t_len / chunk};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_bwd<float>(x, dt, A, B, C, dy, dstate, states, dstates, dBp,
+                             dCp, rows, dAp, dx, ddt, dA, dB, dC, batch, dm,
+                             s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, dt, A, B, C, dy, dstate, states,
+                                     dstates, dBp, dCp, rows, dAp, dx, ddt,
+                                     dA, dB, dC, batch, dm, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -28,10 +28,13 @@ head ``h // (Hq // Hkv)``; a row that sees no key is 0.
 * :func:`flash_attention_bwd` launches the backward kernels of the same
   source (FlashAttention-2's scheme, head dims in :data:`BWD_HEAD_DIMS`;
   no atomics, so a backward gives the same bits in every run) and counts
-  ``flash_attention_bwd.launches``: bfloat16 runs all five products on the
-  tensor cores (``wgmma``, P and dS rounded to bfloat16 as their A
-  operands, float32 sums) and, like the forward, copies a tensor whose
-  rows do not start 16-byte aligned; float32 runs on the float32 cores.
+  ``flash_attention_bwd.launches`` (those at D 256 again in
+  ``flash_attention_bwd.d256_launches``): bfloat16 runs all five
+  products on the tensor cores (``wgmma``, P and dS rounded to bfloat16
+  as their A operands, float32 sums; at D 256 the two warpgroups of a
+  dK/dV block split the head dim) and, like the forward, copies a tensor
+  whose rows do not start 16-byte aligned; float32 runs on the float32
+  cores.
   :func:`attention_bwd_torch` is its plain version.  The reference has no
   backward kernel: its gradients are XLA's autodiff of the plain
   attention.
@@ -55,11 +58,7 @@ from .ref import NEG_INF, attention_mask, compute_dtype
 #: Head dims the CUDA kernel is compiled for.
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: Head dims of the backward kernel.
-BWD_HEAD_DIMS = (16, 32, 64, 128)
-#: Why the backward refuses other head dims.
-BWD_D256 = ("the attention backward kernel takes head dims 16-128; D 256 "
-            "(recurrentgemma-9b, with its window) waits for ROADMAP queue 1, "
-            "item 6b: recurrent-family training on the card")
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: The kernels' dtypes; float64 runs the plain version only, when it is
 #: asked for by name.
 DTYPES = (torch.float32, torch.bfloat16)
@@ -267,8 +266,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         scale: Optional[float] = None):
     """Attention backward from the forward's ``o`` and ``lse``: ``(dq, dk,
     dv)`` in q's and k's / v's layouts and dtype.  CUDA tensors launch the
-    kernel (head dims in :data:`BWD_HEAD_DIMS`; D 256 raises
-    ``NotImplementedError``); CPU tensors run :func:`attention_bwd_torch`."""
+    kernel (head dims in :data:`BWD_HEAD_DIMS`); CPU tensors run
+    :func:`attention_bwd_torch`."""
     check_inputs(q, k, v, window)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
@@ -278,13 +277,17 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         return attention_bwd_torch(q, k, v, o, do, lse, causal=causal,
                                    window=window, scale=scale)
     if q.shape[3] not in BWD_HEAD_DIMS:
-        raise NotImplementedError(BWD_D256)
+        raise ValueError(f"flash_attention_bwd: head dim {q.shape[3]} not in "
+                         f"{BWD_HEAD_DIMS}")
     out = _launch_bwd(q, k, v, o, do.to(q.dtype), lse, causal, window, scale)
     flash_attention_bwd.launches += 1
+    if q.shape[3] == 256:
+        flash_attention_bwd.d256_launches += 1
     return out
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.d256_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -11,12 +11,12 @@ oracles of :mod:`repro_torch.kernels.ref`, as the reference's
 that fails to build or launch raises.
 
 Gradients: ``impl="torch"`` is plain autograd through the plain
-versions.  On ``impl="cuda"``, :func:`rmsnorm` and :func:`attention` go
-through ``torch.autograd.Function`` objects whose backward launches the
-backward kernels whenever an input requires a gradient (the plain kernel
-call otherwise, as in serving); :func:`linear_recurrence` and
-:func:`ssd_scan` have no backward kernel yet, and their backward raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+versions.  On ``impl="cuda"``, :func:`rmsnorm`, :func:`attention`,
+:func:`linear_recurrence` and :func:`ssd_scan` go through
+``torch.autograd.Function`` objects whose backward launches the backward
+kernels whenever an input requires a gradient (the plain kernel call
+otherwise, as in serving).  A float64 call runs the plain versions only,
+when asked for by name (``impl="torch"``).
 """
 from __future__ import annotations
 
@@ -38,30 +38,8 @@ from .zns_fixpoint import PackedBlocks, PackedShards, pack_blocks, \
 IMPLS = ("cuda", "torch")
 
 
-#: Why the recurrent kernels have no backward on the card.
-NO_RECURRENT_BWD = ("{} has no backward kernel yet: training the ssm and "
-                    "hybrid families on the card waits for ROADMAP queue 1, "
-                    "item 6b (backward kernels for linear_recurrence and "
-                    "ssd_chunk_scan); train them on the CPU or with "
-                    "kernel_impl='xla'")
-
-
 def _wants_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-class _NoBackward(torch.autograd.Function):
-    """A CUDA kernel's forward whose backward raises (no backward kernel
-    exists, and nothing falls back to the plain version)."""
-
-    @staticmethod
-    def forward(ctx, name, fn, *args):
-        ctx.name = name
-        return fn(*args)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(NO_RECURRENT_BWD.format(ctx.name))
 
 
 def _resolve(impl: Optional[str], t: torch.Tensor) -> str:
@@ -170,8 +148,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _fa.attention_torch(q, k, v, causal=causal, window=window,
                                    scale=scale)
     if _wants_grad(q, k, v):
-        if q.shape[3] not in _fa.BWD_HEAD_DIMS:
-            raise NotImplementedError(_fa.BWD_D256)
         return _fa.FlashAttentionFunction.apply(q, k, v, causal, window,
                                                 scale)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -193,13 +169,12 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor, *,
                       impl: Optional[str] = None) -> torch.Tensor:
     """``h_t = a_t h_{t-1} + b_t`` over ``(B, T, D)`` from ``h_0 = 0``, in
-    float32, returned in b's dtype."""
-    _lr.check_inputs(a, b)
+    float32 (float64 for float64 inputs), returned in b's dtype."""
+    _lr.check_inputs(a, b, plain=impl == "torch")
     if _resolve(impl, a) == "torch":
         return _lr.linear_recurrence_torch(a, b)
     if _wants_grad(a, b):
-        return _NoBackward.apply("linear_recurrence", _lr.linear_recurrence,
-                                 a, b)
+        return _lr.LinearRecurrenceFunction.apply(a, b)
     return _lr.linear_recurrence(a, b)
 
 
@@ -209,11 +184,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba2 SSD scan; returns ``(y, final state)``.  The CUDA kernel
     needs T to be a multiple of ``chunk`` (the model pads), as the
     reference's kernel does."""
-    _ssd.check_inputs(x, dt, A, B, C)
+    _ssd.check_inputs(x, dt, A, B, C, plain=impl == "torch")
     if _resolve(impl, x) == "torch":
         return _ssd.ssd_torch(x, dt, A, B, C, chunk=chunk)
     if _wants_grad(x, dt, A, B, C):
-        return _NoBackward.apply(
-            "ssd_chunk_scan",
-            lambda *a: _ssd.ssd_chunk_scan(*a, chunk=chunk), x, dt, A, B, C)
+        return _ssd.SSDScanFunction.apply(x, dt, A, B, C, chunk)
     return _ssd.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)

@@ -13,7 +13,10 @@ weight matrix from N(0, S) (0.02 is the llama family's published
 takes the heads axis as the fan-in of a (D, H, Dh) projection: at full
 depth that init's gradients grow about 5x a layer (a norm of ~1e16 at
 tinyllama's 22 layers), and clipping them to 1.0 leaves every other
-gradient below AdamW's eps.
+gradient below AdamW's eps.  Every arch trains on the card with the
+defaults, on the kernels' backward: ``--arch mamba2-370m`` (the SSD
+scan's backward kernels) and ``--arch recurrentgemma-9b`` (the linear
+recurrence's, and attention's at D 256 with the window) too.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --smoke --steps 200 --ckpt-dir /tmp/ckpt --ckpt-every 50

@@ -24,6 +24,7 @@ from torch import nn
 
 from repro_torch.core.torch_device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from . import common as cm
 from .config import ModelConfig
 from .specs import mamba2_model_spec as model_spec
@@ -100,8 +101,9 @@ def mamba_layer(cfg: ModelConfig, p, x):
     xh = xs.reshape(b, s, nh, cfg.ssm_headdim)
     bh = bmat.reshape(b, s, g, n)
     ch = cmat.reshape(b, s, g, n)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())
+    ct = kref.compute_dtype(x)       # float32; float64 for a float64 model
+    dt = F.softplus(dt_raw.to(ct) + p["dt_bias"].to(ct))
+    a = -torch.exp(p["a_log"].to(ct))
     # Pad S to a chunk multiple with zero steps (the reference pads for its
     # kernel only; dt = 0 leaves the state as it is, so no value changes).
     pad = (-s) % cfg.ssm_chunk
@@ -131,8 +133,10 @@ def _hidden(cfg: ModelConfig, params: Mamba2, tokens):
 def train_forward(cfg: ModelConfig, params: Mamba2, tokens,
                   frontend_inputs=None):
     """:func:`forward` that autograd records (layers rematerialised per
-    ``cfg.remat``).  On a card the SSD kernel has no backward yet: its
-    backward raises ``NotImplementedError`` (ROADMAP queue 1, item 6b)."""
+    ``cfg.remat``).  On a card the SSD scan's gradient runs the
+    ``ssd_chunk_scan`` backward kernels (``ops.ssd_scan``'s Function), the
+    norms' the RMSNorm backward kernel; the padded steps' gradients stop
+    at ``F.pad`` (dt = 0 there, so they add nothing to dA)."""
     return cm.lm_logits(cfg, params.embed, _hidden(cfg, params, tokens)), 0.0
 
 

@@ -27,6 +27,7 @@ from torch import nn
 
 from repro_torch.core.torch_device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from . import common as cm
 from .config import ModelConfig
 from .mamba2 import causal_conv
@@ -97,17 +98,19 @@ def block_linear(w, x):
 
 
 def _gates(cfg: ModelConfig, p, u):
-    """The decay ``a`` (float32) and input gate ``i`` (u's dtype)."""
+    """The decay ``a`` (float32; float64 for a float64 model) and input
+    gate ``i`` (u's dtype)."""
+    ct = kref.compute_dtype(u)
     r = torch.sigmoid(block_linear(p["w_a"], u) + p["b_a"].to(u.dtype))
     i = torch.sigmoid(block_linear(p["w_i"], u) + p["b_i"].to(u.dtype))
-    log_a0 = F.logsigmoid(p["lam"].float())                 # log a
-    return torch.exp(cfg.rglru_c * r.float() * log_a0), i
+    log_a0 = F.logsigmoid(p["lam"].to(ct))                  # log a
+    return torch.exp(cfg.rglru_c * r.to(ct) * log_a0), i
 
 
 def rglru(cfg: ModelConfig, p, u):
     """u: (B, S, di) -> (B, S, di) from a zero state."""
     a, i = _gates(cfg, p, u)
-    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * u).float()
+    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * u).to(a.dtype)
     h = kops.linear_recurrence(a, b, impl=cm.kernel_impl(cfg))
     return h.to(u.dtype)
 
@@ -150,9 +153,9 @@ def _hidden(cfg: ModelConfig, params: RecurrentGemma, tokens):
 def train_forward(cfg: ModelConfig, params: RecurrentGemma, tokens,
                   frontend_inputs=None):
     """:func:`forward` that autograd records (pattern groups
-    rematerialised per ``cfg.remat``).  On a card the linear recurrence
-    has no backward kernel yet, nor attention at D 256: training raises
-    ``NotImplementedError`` (ROADMAP queue 1, item 6b)."""
+    rematerialised per ``cfg.remat``).  On a card the gradients run the
+    ``linear_recurrence`` backward kernel, the attention backward at D 256
+    with the window, and the RMSNorm backward (the ops' Functions)."""
     return cm.lm_logits(cfg, params.embed, _hidden(cfg, params, tokens)), 0.0
 
 

@@ -11,8 +11,11 @@ buffers (:func:`repro_torch.models.bind_grads`), then runs
 :func:`repro_torch.optim.adamw_update`, which updates the parameters
 and ``opt`` in place; it returns the state with ``step + 1`` and the
 metrics ``loss``, ``nll``, ``aux``, ``grad_norm`` and ``lr`` (0-d
-tensors).  The reference's ``state_spec`` / ``state_logical_axes``
-(shardings for the dry run) wait for ROADMAP queue 1, item 9.
+tensors).  On a card every family's gradient runs hand-written backward
+kernels: attention (D 16-256, with windows) and RMSNorm, and for the
+ssm and hybrid families the SSD scan's and the linear recurrence's.  The
+reference's ``state_spec`` / ``state_logical_axes`` (shardings for the
+dry run) wait for ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
