@@ -180,12 +180,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 23. trains mamba2-370m at full width and depth (48 layers) the same way:
    4 steps of 4 x 2,048 tokens, the losses finite and falling, the SSD
    scan (all on its tensor-core instance), its backward and the norms
-   launched exactly as ``layer_forward_runs`` says; step time, tokens/s,
-   peak memory, idle share and kernel groups; then the first step's
-   gradients at full width and 2 layers: float32 kernels against a
-   float64 plain step (within the plain float32 step's error plus
-   ``GRAD_F64_FRAC`` of each leaf's scale, as phase 18) and bfloat16
-   kernels against plain versions (``BF16_GRAD_REL``);
+   launched exactly as ``layer_forward_runs`` says (the backward all on
+   its tensor-core instance); step time, tokens/s, peak memory, idle
+   share and kernel groups; then the first step's gradients at full
+   width and 2 layers: float32 kernels against a float64 plain step
+   (within the plain float32 step's error plus ``GRAD_F64_FRAC`` of each
+   leaf's scale, as phase 18) and bfloat16 kernels against plain versions
+   (``BF16_GRAD_REL``); then the same at all 48 layers (the float64
+   step's peak printed), the bfloat16 gap printed, not held;
 24. the same on recurrentgemma-9b at full width cut to 6 layers (two
    (rec, rec, attn) groups, 3.28e9 parameters with the untied embedding
    and head, 52.5 GB of float32 state with AdamW; the 38 blocks fit no
@@ -231,8 +233,11 @@ D 256 with the window (1 x 16/1 heads x 4,096, window 2,048; beside
 SDPA's backward with the window's mask, whose backend is named), the
 linear recurrence's at (1, 4,096, 4,096) in float32 and the SSD scan's
 at mamba2-370m's training shape (4 x 2,048, 32 heads, P 64, N 128,
-chunk 128), in float32 and bfloat16 (also its device time over its five
-kernels).  Phases
+chunk 128), in float32 (the float32-core kernels) and bfloat16 (the
+tensor-core kernels), with its device time by kernel, TFLOP/s and
+multiple of the bound; the ``HMMA`` count of each bfloat16 backward
+function (``ssd_bwd_walk`` and ``ssd_bwd_mma_chunk`` at 16 paddings of P
+and N; none in any fails the script) and their registers and spills.  Phases
 3-6 go through the public entry points on ``device="cuda"`` and are
 compared with the port's host float64 ``fixpoint="loop"`` driver (or the
 host numpy scan) at rtol 1e-12.  Phases 7, 9 and 10 first run the model's 2-layer smoke
@@ -274,6 +279,7 @@ line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
 CUDA device or without the repository's ``src/`` beside this file.
 """
 import dataclasses
+import gc
 import glob
 import hashlib
 import json
@@ -702,6 +708,7 @@ def main() -> int:
         for fn in counters.values():
             fn.launches = 0
         kssd.ssd_chunk_scan.mma_launches = 0
+        kssd.ssd_chunk_scan_bwd.mma_launches = 0
         kfa.flash_attention_bwd.d256_launches = 0
 
     def read_counts(phase: str, need):
@@ -709,6 +716,7 @@ def main() -> int:
         for k, v in got.items():
             launches[k] += v
         got["ssd_chunk_scan.mma"] = kssd.ssd_chunk_scan.mma_launches
+        got["ssd_chunk_scan_bwd.mma"] = kssd.ssd_chunk_scan_bwd.mma_launches
         got["flash_attention_bwd.d256"] = \
             kfa.flash_attention_bwd.d256_launches
         launches["flash_attention_bwd_d256"] += got["flash_attention_bwd.d256"]
@@ -1302,17 +1310,24 @@ def main() -> int:
     # the bf16 attention kernels run on the tensor cores: count the wgmma
     # of each function
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(_build.library_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300)
-    hgmma, fn = {}, None
-    for line in sass.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = kernel_name(m.group(1))
-            hgmma[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            hgmma[fn] += 1
+
+    def sass_counts(source, op):
+        """{function: instructions holding op} of a built library
+        (cuobjdump -sass), and the whole listing."""
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(_build.library_path(source))],
+                              capture_output=True, text=True, timeout=300)
+        counts, fn = {}, None
+        for line in sass.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = kernel_name(m.group(1))
+                counts[fn] = 0
+            elif fn is not None and op in line:
+                counts[fn] += 1
+        return counts, sass.stdout
+
+    hgmma, _ = sass_counts("flash_attention", "HGMMA")
     fwd_hg = {f: n for f, n in hgmma.items()
               if f.startswith("flash_fwd_wgmma")}
     bwd_hg = {f: n for f, n in hgmma.items()
@@ -1377,10 +1392,8 @@ def main() -> int:
         else:
             report["ssd_chunk_scan"]["batch1"] = row
         del x, dt, A, Bm, Cm, args, y, st, yw, sw
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(_build.library_path("ssd_chunk_scan"))],
-                          capture_output=True, text=True, timeout=300)
-    hmma = sum("HMMA" in line for line in sass.stdout.splitlines())
+    hmma_fn, sass = sass_counts("ssd_chunk_scan", "HMMA")
+    hmma = sum("HMMA" in line for line in sass.splitlines())
     print(f"[2] ssd_chunk_scan library: {hmma} HMMA (mma.sync) instructions "
           f"(cuobjdump -sass)")
     check(hmma > 0, "ssd_chunk_scan: no HMMA instruction in the library")
@@ -1507,21 +1520,26 @@ def main() -> int:
         split = kernel_split(lambda: kssd.ssd_chunk_scan_bwd(*args,
                                                              chunk=c23),
                              "ssd_bwd")
+        kind = kssd.bwd_instance(dtype, n23)
+        cores = {"mma": "the bf16 tensor cores",
+                 "simt": "the float32 cores"}[kind]
         dtxt = (f"{dms:.4f} ms in {nk} device kernels" if dms is not None
                 else "not measured") + f"; by kernel {split}"
         print(f"[2] ssd_chunk_scan_bwd x {tuple(x.shape)} B/C "
               f"{tuple(Bm.shape)} chunk {c23} {dname} (mamba2-370m's "
-              f"training shape): max abs err {err:.3e}, against autograd of "
-              f"the plain forward {aerr:.3e}, two runs bit-equal, kernel "
-              f"{ms:.4f} ms ({nflop / ms / 1e9:.1f} TFLOP/s on the float32 "
-              f"cores, {ms / bnd:.2f}x the bound; device time {dtxt}), "
-              f"plain {pms:.4f} ms, library none, bound {bnd:.4f} ms ({by}; "
+              f"training shape; {kind} instance): max abs err {err:.3e}, "
+              f"against autograd of the plain forward {aerr:.3e}, two runs "
+              f"bit-equal, kernel {ms:.4f} ms ({nflop / ms / 1e9:.1f} "
+              f"TFLOP/s of least products on {cores}, {ms / bnd:.2f}x the "
+              f"{dname} bound; device time {dtxt}), plain {pms:.4f} ms, "
+              f"library none, bound {bnd:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB, {nflop / 1e9:.2f} GFLOP)")
         row = dict(max_abs_err=max(err, aerr), ms=ms, plain_ms=pms,
                    bound_ms=bnd, bound_by=by, library_ms=None,
                    device_ms=dms, device_kernels=nk, kernel_ms=split,
                    tflops=nflop / ms / 1e9, vs_bound=ms / bnd,
-                   shape=[list(x.shape), list(Bm.shape)], dtype=dname)
+                   instance=kind, shape=[list(x.shape), list(Bm.shape)],
+                   dtype=dname)
         if dname == "float32":
             report["ssd_chunk_scan_bwd"] = row
         else:
@@ -1529,6 +1547,24 @@ def main() -> int:
         del x, dt, A, Bm, Cm, dy, ds, args, got, want, req, y_, s_, auto, \
             again
         torch.cuda.empty_cache()
+    # the bfloat16 backward's kernels run on the tensor cores: HMMA in each
+    # of their functions (16 (P, N) paddings each); their registers and
+    # spills
+    bwd_mma = ("ssd_bwd_walk", "ssd_bwd_mma_chunk")
+    bwd_hmma = {f: n for f, n in hmma_fn.items() if f.startswith(bwd_mma)}
+    bwd_ptxas = [(k, r, sp) for k, r, sp in ptxas["ssd_chunk_scan"]
+                 if k.startswith(bwd_mma)]
+    print("[2] ssd_chunk_scan_bwd bfloat16 kernels, HMMA (mma.sync) "
+          "instructions by function (cuobjdump -sass): " + ", ".join(
+              f"{f} {n}" for f, n in sorted(bwd_hmma.items())))
+    print("[2] ssd_chunk_scan_bwd bfloat16 kernels (ptxas -v): " + "; ".join(
+        f"{k} {r} registers, {sp}" for k, r, sp in bwd_ptxas))
+    check(len(bwd_hmma) == 32 and all(bwd_hmma.values()),
+          f"ssd_chunk_scan_bwd: a bfloat16 kernel without HMMA (want "
+          f"ssd_bwd_walk and ssd_bwd_mma_chunk at 16 paddings each): "
+          f"{bwd_hmma}")
+    report["ssd_chunk_scan_bwd"]["bfloat16"].update(
+        hmma=bwd_hmma, ptxas=[list(r) for r in bwd_ptxas])
 
     # -- phases 3-5: vectorized runs through the public entry points -------
     def run_phase(phase, run, ref_run, *, fleet):
@@ -3361,14 +3397,15 @@ def main() -> int:
         return {k: tree_to(v, device) if isinstance(v, dict)
                 else v.to(device) for k, v in tree.items()}
 
-    def hold_first_grads(phase, cfg, batch, need, offload=False):
+    def hold_first_grads(phase, cfg, batch, need, offload=False,
+                         hold_bf16=True):
         """The first step's gradients at cfg's (cut) depth: float32 kernels
         within the plain float32 step's error to a float64 plain step plus
         GRAD_F64_FRAC of each leaf's scale, as phase 18; bfloat16 kernels
-        against plain within BF16_GRAD_REL.  ``need``: {counter: launches}
-        of the float32 kernel step.  ``offload`` keeps the float32
-        parameters and gradients in host memory during the float64
-        step."""
+        against plain within BF16_GRAD_REL (``hold_bf16`` False: the gap
+        is printed, not held).  ``need``: {counter: launches} of the
+        float32 kernel step.  ``offload`` keeps the float32 parameters and
+        gradients in host memory during the float64 step."""
         tree = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
                              device=cuda, weight_std=INIT_STD).param_tree()
         f32 = dataclasses.replace(cfg, dtype="float32")
@@ -3430,16 +3467,19 @@ def main() -> int:
                               / b.float().norm().clamp_min(1e-30)), p)
                        for p, a, b in zip(paths, tree_leaves(g_kb),
                                           tree_leaves(g_pb))), reverse=True)
-        print(f"[{phase}] bfloat16 first-step gradients, kernels vs plain: "
-              f"loss {l_kb!r} vs {l_pb!r}; every leaf's relative gap within "
-              f"{BF16_GRAD_REL}; largest " + "; ".join(
+        held = (f"every leaf's relative gap within {BF16_GRAD_REL}"
+                if hold_bf16 else "not held")
+        print(f"[{phase}] bfloat16 first-step gradients at {cfg.num_layers} "
+              f"layers, kernels vs plain: loss {l_kb!r} vs {l_pb!r}; {held}; "
+              f"largest relative gaps " + "; ".join(
                   f"{p} {g:.2e}" for g, p in gaps[:4]))
         for g, p in gaps:
-            check(np.isfinite(g) and g <= BF16_GRAD_REL,
+            check(np.isfinite(g) and (g <= BF16_GRAD_REL or not hold_bf16),
                   f"phase {phase}: bfloat16 gradient {p}: relative gap "
                   f"{g:.3e} between kernels and plain versions exceeds "
                   f"{BF16_GRAD_REL}")
         del g_kb, g_pb, tree
+        gc.collect()   # the steps' graphs hold reference cycles
         torch.cuda.empty_cache()
         return dict(grad_excess=excess_max, bf16_grad_gap=gaps[0][0],
                     f64_peak_gb=peak64)
@@ -3451,7 +3491,8 @@ def main() -> int:
     runs23 = mc.layer_forward_runs(cfg23, L23)
     per_step23 = {"rmsnorm": 2 * runs23 + 1, "rmsnorm_bwd": 2 * L23 + 1,
                   "ssd_chunk_scan": runs23, "ssd_chunk_scan_bwd": L23,
-                  "ssd_chunk_scan.mma": runs23}
+                  "ssd_chunk_scan.mma": runs23,
+                  "ssd_chunk_scan_bwd.mma": L23}
     report23 = train_phase("23", "mamba2-370m", [], cfg23, per_step23, 4,
                            2048, ("ssd_chunk_scan", "ssd_chunk_scan_bwd",
                                   "rmsnorm", "rmsnorm_bwd"),
@@ -3461,6 +3502,14 @@ def main() -> int:
     report23.update(hold_first_grads(
         "23", dataclasses.replace(cfg23, num_layers=2), batch23,
         {"ssd_chunk_scan_bwd": 2, "rmsnorm_bwd": 5}))
+    # and at all 48 layers, the 48 chained SSD backwards together: float32
+    # held against float64 as above; the bfloat16 gap printed
+    t = time.perf_counter()
+    report23["full_depth"] = hold_first_grads(
+        "23", cfg23, batch23, {"ssd_chunk_scan_bwd": L23,
+                               "rmsnorm_bwd": 2 * L23 + 1}, hold_bf16=False)
+    print(f"[23] the {L23}-layer gradient holds took "
+          f"{time.perf_counter() - t:.1f} s")
     print(f"[23] phase 23 took {time.perf_counter() - t23:.1f} s")
     report["ssd_chunk_scan_bwd"]["training"] = report23
 
@@ -3470,6 +3519,9 @@ def main() -> int:
     # (the 38 blocks' 154 GB fit no card); 4,096 tokens, so that the
     # window of 2,048 masks.
     t24 = time.perf_counter()
+    print(f"[24] device memory held entering the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     argv24 = ["--d-model", "4096", "--d-ff", "12288", "--layers", "6"]
     cfg24 = dataclasses.replace(get_config("recurrentgemma-9b"),
                                 num_layers=6)

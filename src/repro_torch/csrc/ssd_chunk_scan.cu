@@ -425,6 +425,38 @@ __device__ __forceinline__ void split_scaled(uint32_t xv, float2 w,
   lo = pack_bf16(px - hf.x, py - hf.y);
 }
 
+// cumsum(dt * a_h) of a chunk of L = 32, 64 or 128 steps by one warp: L /
+// 32 steps a lane, then a 5-step shuffle scan.  v[e] (e < L / 32) is cum
+// at step (L / 32) lane + e; returns cum at the chunk's last step, in
+// every lane.
+__device__ __forceinline__ float warp_cumsum(const float* sdt, float a_h,
+                                             int L, int lane, float (&v)[4]) {
+  const int E = L / 32;
+  float run = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < E) {
+      run += sdt[E * lane + e] * a_h;
+      v[e] = run;
+    }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < E) v[e] = excl + v[e];
+  float mine = v[0];
+#pragma unroll
+  for (int e = 1; e < 4; ++e)
+    if (e < E) mine = v[e];
+  return __shfl_sync(0xffffffffu, mine, 31);
+}
+
 struct MmaDims {
   int t_len, h, p, g, n, l, stages, vec;
 };
@@ -742,31 +774,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float* sdt = reinterpret_cast<const float*>(sC + L * BS);
     const long long c0 = (long long)ci * L;
 
-    if (warp == 0) {  // cumsum(dt * A): L / 32 steps a lane, then a scan
+    if (warp == 0) {  // cumsum(dt * A)
       const int E = L / 32;
-      float v[4], run = 0.f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (e < E) {
-          run += sdt[E * lane + e] * a_h;
-          v[e] = run;
-        }
-      float incl = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += u;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 0.f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (e < E) v[e] = excl + v[e];
-      float mine = v[0];
-#pragma unroll
-      for (int e = 1; e < 4; ++e)
-        if (e < E) mine = v[e];
-      const float last = __shfl_sync(0xffffffffu, mine, 31);
+      float v[4];
+      const float last = warp_cumsum(sdt, a_h, L, lane, v);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (e < E) {
@@ -865,7 +876,7 @@ int launch_mma_n(int np, const void* x, const void* dt, const void* A,
 }
 
 
-// ---- the backward (float32 cores, x / B / C in float32 or bfloat16) --------
+// ---- the backward --------------------------------------------------------
 //
 // From the output gradient dy and the final state's dS_final: dx, ddt, dA,
 // dB, dC of the chunked maths above (repro_torch.kernels.ssd_chunk_scan.
@@ -878,37 +889,94 @@ int launch_mma_n(int np, const void* x, const void* dt, const void* A,
 //   dB_j = sum_{i>=j} E_ij (dy_i.u_j) C_i + exp(cum_L - cum_j) dS^T u_j
 //   dS entering = exp(cum_L) dS + sum_i exp(cum_i) dy_i C_i^T
 // dcum, through every exponent, gives ddt_j = x_j.du_j + A rc_j and dA =
-// sum_j dt_j rc_j, rc the reverse cumsum of dcum within the chunk.
-// Five kernels, no atomics (every sum in a fixed order):
-//  1. ssd_bwd_states<T, false>: a block per (head, batch) walks the chunks
-//     in order and writes the state entering each chunk (the forward's
-//     state update) to a scratch tensor (Bb, H, chunks, P, N) float32;
-//  2. ssd_bwd_states<T, true>: the same walk in reverse over dy and C
-//     from dS_final, writing each chunk's dS (the gradient of the state
-//     leaving it) to a second scratch tensor of that shape;
-//  3. ssd_bwd_chunk: with both states known, every chunk is independent.
-//     A block per (chunk, role, head, batch): the row role walks row
-//     tiles of 32 steps i (dC_i and dcum's row sums), the column role
-//     column tiles of 32 steps j (du_j, dx_j, x_j.du_j, dB_j and dcum's
-//     column sums).  B, C, x and dy of a 128-step chunk in float32 do not
-//     fit a block's shared memory (B and C alone take 135 KB at N = 128),
-//     so each role streams 32-row tiles of the other side past its own
-//     tile, as the forward streams C, recomputing the 32 x 32 tiles of
-//     C.B and dy.u (twice the forward's score products) rather than
-//     storing them; the causal tiles only.  dB and dC per head go to
-//     float32 scratch (Bb, T, H, N);
-//  4. ssd_bwd_finish: a thread per (batch, chunk, head) sums dcum's parts
-//     and takes the reverse cumsum: ddt, and dA's partial per chunk;
-//  5. ssd_bwd_reduce: dB and dC summed over the heads of a group (32
-//     heads at mamba2-370m's G = 1), dA over batch and chunks, in order.
-// Bound on the card: the float32 cores.  Per chunk and head the least work
-// is, in multiply-adds over the L (L + 1) / 2 causal pairs, the C.B and
-// dy.u scores (N + P) and their three products (P + 2 N), then five
-// products of L P N (S_prev^T dy, dS B, dS^T u, dS's update and the
-// state's recompute): 38.8 GFLOP at mamba2-370m's training shape (4,
-// 2048, 32, 64), N 128, 0.58 ms at 67 TFLOP/s.  This design does about
-// 1.2x that (both roles form the score tiles, whole 32 x 32 tiles on the
-// diagonal).
+// sum_j dt_j rc_j, rc the reverse cumsum of dcum within the chunk.  Both
+// instances run in this order, with no atomics (every sum in a fixed
+// order, so two runs give the same bits): the state walks (the state
+// entering each chunk and dS leaving it, to float32 scratch (Bb, H,
+// chunks, P, N)), a chunk kernel (every chunk independent once both states
+// are known: dx, dB and dC per head to float32 scratch (Bb, T, H, N), and
+// dcum's parts and x.du a step to `rows`), then
+//  - ssd_bwd_finish: a thread per (batch, chunk, head) sums dcum's parts
+//    and takes the reverse cumsum: ddt, and dA's partial per chunk;
+//  - ssd_bwd_reduce: dB and dC summed over the heads of a group (32 heads
+//    at mamba2-370m's G = 1), dA over batch and chunks, in order.
+// The least work per chunk and head is, in multiply-adds over the L (L +
+// 1) / 2 causal pairs, the C.B and dy.u scores (N + P) and their three
+// products (P + 2 N), then five products of L P N (S_prev^T dy, dS B, dS^T
+// u, dS's update and the state's recompute): 38.8 GFLOP at mamba2-370m's
+// training shape (4, 2048, 32, 64), N 128: 0.58 ms on the float32 cores at
+// 67 TFLOP/s, 0.039 ms on the bf16 tensor cores at 989.
+//
+// The float32 instance (ssd_bwd_states<float, false / true>, ssd_bwd_chunk
+// <float>): the products on the float32 cores, as the float32 model is held
+// to float32.  The walks are two launches of a block per (head, batch).
+// The chunk kernel is a block per (chunk, role, head, batch): the row role
+// walks row tiles of 32 steps i (dC_i and dcum's row sums), the column
+// role column tiles of 32 steps j (du_j, dx_j, x_j.du_j, dB_j and dcum's
+// column sums).  B, C, x and dy of a 128-step chunk in float32 do not fit
+// a block's shared memory (B and C alone take 135 KB at N = 128), so each
+// role streams 32-row tiles of the other side past its own tile,
+// recomputing the 32 x 32 tiles of C.B and dy.u rather than storing them;
+// the causal tiles only (about 1.2x the least work).
+//
+// The bfloat16 instance (ssd_bwd_walk, ssd_bwd_mma_chunk: the products on
+// the tensor cores, mma.sync m16n8k16 with float32 accumulators, P and N
+// padded with zeros to PP, NP in {16, 32, 64, 128}, the forward's
+// fragments and helpers).  What bounded the float32 instance on bfloat16
+// inputs (4.11 ms at mamba2-370m's training shape, 9 TFLOP/s), and what
+// this one does about it:
+//  1. float32 SIMT products: every bf16 element was widened to float32 in
+//     shared memory and the products ran on the float32 cores -> every
+//     product on mma.sync from bf16 operands that are either inputs (x,
+//     dy, B, C, exact) or rounded once (the decayed score tiles, as the
+//     forward's scores); each row scale (dt_j, e^{cum_i}, e^{cum_L -
+//     cum_j}) is applied to a float32 accumulator, never to an operand, so
+//     u = dt x is never rounded.  The states enter products as bf16 hi +
+//     lo pairs (two products, ~16 bits a term): by estimate, one rounding
+//     of S_prev or dS would put an error of 2^-9 of a term's size on every
+//     gradient element, enough for a few near-zero elements of a
+//     million-element dB or dC to leave BWD_TOL's atol; the forward's
+//     state update measured the same.
+//  2. the chunk kernel's split roles and streamed 32-row tiles (2.87 of
+//     4.0 ms): a block of L / 16 warps per (chunk, head, batch) holds the
+//     whole chunk's x, dy, B and C in bf16 (rows padded by 8 for
+//     ldmatrix, pad columns zeroed; 106 KB at P 64, N 128, L 128), loaded
+//     once by 16-byte cp.async.  Warp w takes row block w for dC (dy S_prev,
+//     then Q = E (dy.x^T) dt_j over the causal tiles, then Q B) and column
+//     block w for du and dB (B dS^T and x dS, then M^T and Q^T over the
+//     causal tiles, then M^T dy and Q^T C): (w + 1) + (8 - w) tiles a warp.
+//     The transposed tiles M^T = E (B C^T) and Q^T are formed directly in
+//     their own orientation (rows j), not stored and read back with
+//     ldmatrix.trans: the 36 causal bf16 tiles of M and Q would take 37 KB
+//     beside the chunk, the state and dS (213 KB at P 64) and a block
+//     barrier between the sides, while forming them costs the score
+//     products again (3.5 of ~26 MFLOP a chunk) and keeps each warp's work
+//     its own.  dcum's sums use the float32 accumulators (R = (C.B) Q, its
+//     sums over j in each lane and over i across the quad, its sums over
+//     a column block's rows by shuffles into a (block, step) table summed
+//     in order).  S_prev and then dS come in by cp.async through a float32
+//     staging buffer where it fits (not at P = N = 128); dS replaces
+//     S_prev in the state's bf16 buffer right after the rows' state term,
+//     so no barrier separates the row tiles from the column tiles (one
+//     there would chain the longest row block's tiles to the longest
+//     column block's: 960 mma.sync a warp against 792).
+//  3. two serial walks of 128 blocks on the float32 cores, a one-thread
+//     cumsum -> one launch of a (head, batch, direction) grid, the forward
+//     and the reverse walk side by side (256 blocks): the forward kernel's
+//     state update (its tiling, hi + lo split and order: the forward walk's
+//     states are the forward kernel's), the next chunk by cp.async into a
+//     second stage, the cumsum by one warp's shuffles (warp_cumsum, as the
+//     forward and the chunk kernel take it).
+// At the training shape on an H100 (chip_smoke.py phase 2, scripts/
+// ssd_bwd_ab.py): 0.64-0.70 ms against 4.03-4.26 before; the walks 0.116
+// ms, about twice the 0.06 ms of their bytes (x or dy in, the 67 MB
+// states out); the chunk kernel 0.34 ms (0.41 with the barrier between
+// its sides), 140 TFLOP/s of mma.sync.  What holds it back now: the
+// float32 scratch between the kernels (the states, and dB and dC per
+// head, 134 MB each) moves ~0.5 GB through device memory, and
+// ssd_bwd_finish and ssd_bwd_reduce take 0.18 ms of the total; the chunk
+// kernel runs one block of 8 warps an SM (182 KB of shared memory), so
+// its loads are not overlapped with its products; mma.sync, not wgmma.
 
 constexpr int TR = 32;  // rows of a backward tile: 8 warps x 4 rows
 
@@ -1428,6 +1496,825 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
+// ---- the backward's bfloat16 instance (tensor cores) ------------------------
+
+struct MmaBwdDims {
+  int t_len, h, p, g, n, l, nc, vec;
+};
+
+// Shared memory of ssd_bwd_walk, in bytes: two stages of [X (L x XS bf16)
+// | Y (L x BS bf16) | dt (L floats)], then beta and e^{cum_L} (L floats
+// each).  XS = PP + 8, BS = NP + 8; every part a multiple of 16 bytes.
+__host__ __device__ inline long long walk_stage_bytes(int l, int pp, int np) {
+  return 2LL * l * (pp + 8) + 2LL * l * (np + 8) + 4LL * l;
+}
+__host__ __device__ inline long long walk_smem_bytes(int l, int pp, int np) {
+  return 2 * walk_stage_bytes(l, pp, np) + 8LL * l;
+}
+
+// Shared memory of ssd_bwd_mma_chunk, in bytes, without the float32
+// staging of S_prev and then dS (PP x NP floats after the bf16 parts,
+// where it fits): x and dy
+// (L x XS bf16 each), B and C (L x BS), the state's bf16 hi and lo (PP x
+// BS each), then dt, cum log2(e), e^cum and e^{cum_L - cum} (L floats
+// each), the column blocks' parts of R's row sums (L / 16 x L), three sums
+// a step (L each) and 32 floats.
+__host__ __device__ inline long long chunk_core_bytes(int l, int pp, int np) {
+  return 4LL * l * (pp + 8) + 4LL * l * (np + 8) + 4LL * pp * (np + 8) +
+         4LL * (7 + l / 16) * l + 128;
+}
+__host__ __device__ inline bool chunk_stages_f32(int l, int pp, int np) {
+  return chunk_core_bytes(l, pp, np) + 4LL * pp * np <= MAX_SMEM;
+}
+__host__ __device__ inline long long chunk_smem_bytes(int l, int pp, int np) {
+  return chunk_core_bytes(l, pp, np) +
+         (chunk_stages_f32(l, pp, np) ? 4LL * pp * np : 0);
+}
+
+// Rows [0, L) of a (T, cols) bf16 view with row stride ld into shared rows
+// of stride ls, columns [cols, CP) zeroed: 16-byte cp.async where vec,
+// else element by element.
+template <int CP>
+__device__ __forceinline__ void load_rows(bf16* dst, int ls, const bf16* src,
+                                          long long ld, int cols, int L,
+                                          bool vec, int tid, int nthr) {
+  if (vec) {
+    for (int i = tid; i < L * (CP / 8); i += nthr) {
+      const int r = i / (CP / 8), c = 8 * (i % (CP / 8));
+      bf16* d = dst + r * ls + c;
+      if (c < cols)
+        cp_async16(smem_u32(d), src + r * ld + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = tid; i < L * CP; i += nthr) {
+      const int r = i / CP, q = i - r * CP;
+      dst[r * ls + q] = q < cols ? src[r * ld + q] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// A (P x N) float32 state into bf16 hi + lo (PP rows of stride NP + 8,
+// zero outside P x N).  With `dot`, each element's old hi + lo (the state
+// it replaces) times the new value is summed, in the thread's order, into
+// the result.
+template <int PP, int NP>
+__device__ __forceinline__ float split_state(bf16* hi, bf16* lo,
+                                             const float* src, int P, int N,
+                                             bool dot, int tid, int nthr) {
+  constexpr int BS = NP + 8, G4 = NP / 4;
+  float acc = 0.f;
+  for (int i = tid; i < PP * G4; i += nthr) {
+    const int p = i / G4, n = 4 * (i % G4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < P && n < N)
+      v = *reinterpret_cast<const float4*>(src + (long long)p * N + n);
+    uint2* ph = reinterpret_cast<uint2*>(hi + p * BS + n);
+    uint2* pl = reinterpret_cast<uint2*>(lo + p * BS + n);
+    if (dot) {
+      const uint2 oh = *ph, ol = *pl;
+      const float2 h0 =
+          __bfloat1622float2(*reinterpret_cast<const bf162*>(&oh.x));
+      const float2 h1 =
+          __bfloat1622float2(*reinterpret_cast<const bf162*>(&oh.y));
+      const float2 l0 =
+          __bfloat1622float2(*reinterpret_cast<const bf162*>(&ol.x));
+      const float2 l1 =
+          __bfloat1622float2(*reinterpret_cast<const bf162*>(&ol.y));
+      acc = fmaf(h0.x + l0.x, v.x, acc);
+      acc = fmaf(h0.y + l0.y, v.y, acc);
+      acc = fmaf(h1.x + l1.x, v.z, acc);
+      acc = fmaf(h1.y + l1.y, v.w, acc);
+    }
+    const bf162 a = __floats2bfloat162_rn(v.x, v.y);
+    const bf162 c = __floats2bfloat162_rn(v.z, v.w);
+    const float2 af = __bfloat1622float2(a), cf = __bfloat1622float2(c);
+    uint2 hv, lv;
+    hv.x = *reinterpret_cast<const uint32_t*>(&a);
+    hv.y = *reinterpret_cast<const uint32_t*>(&c);
+    lv.x = pack_bf16(v.x - af.x, v.y - af.y);
+    lv.y = pack_bf16(v.z - cf.x, v.w - cf.y);
+    *ph = hv;
+    *pl = lv;
+  }
+  return acc;
+}
+
+// acc (16 x 8 NTT) += a (16 x 16 KS) . S, S (16 KS x 8 NTT) stored by rows
+// k of stride ls: transposed ldmatrix, two column tiles a load.
+template <int KS, int NTT>
+__device__ __forceinline__ void mma_rows_k(float (&acc)[NTT][4],
+                                           const uint32_t (&a)[KS][4],
+                                           const bf16* s, int ls, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < NTT; nt += 2) {
+      uint32_t t4[4];
+      ldsm_x4_t(smem_u32(s + (16 * kk + (lane & 15)) * ls + 8 * nt +
+                         (lane >> 4) * 8),
+                t4);
+      mma16816(acc[nt], a[kk], t4[0], t4[1]);
+      mma16816(acc[nt + 1], a[kk], t4[2], t4[3]);
+    }
+}
+
+// acc (16 x 8 NTT) += a (16 x 16 KS) . M^T, M (8 NTT x 16 KS) stored by
+// rows n of stride ls: ldmatrix, two column tiles a load.
+template <int KS, int NTT>
+__device__ __forceinline__ void mma_rows_n(float (&acc)[NTT][4],
+                                           const uint32_t (&a)[KS][4],
+                                           const bf16* m, int ls, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < NTT; nt += 2) {
+      uint32_t t4[4];
+      ldsm_x4(smem_u32(m + (8 * nt + (lane & 7) + (lane >> 4) * 8) * ls +
+                       16 * kk + ((lane >> 3) & 1) * 8),
+              t4);
+      mma16816(acc[nt], a[kk], t4[0], t4[1]);
+      mma16816(acc[nt + 1], a[kk], t4[2], t4[3]);
+    }
+}
+
+// A fragments (16 x 16 KS) of rows r0.. of a shared bf16 matrix of stride
+// ls.
+template <int KS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], const bf16* m,
+                                       int ls, int r0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldsm_x4(smem_u32(m + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ls +
+                     16 * kk + (lane >> 4) * 8),
+            a[kk]);
+}
+
+// The 16 x 16 score tile a . m^T over rows m0.. of m (16 KS wide): two
+// column tiles, each summed over two accumulators (k-step parity).
+template <int KS>
+__device__ __forceinline__ void score_tile(float (&sc)[2][4],
+                                           const uint32_t (&a)[KS][4],
+                                           const bf16* m, int ls, int m0,
+                                           int lane) {
+  float acc[2][2][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][v][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t bb[4];
+    ldsm_x4(smem_u32(m + (m0 + (lane & 7) + (lane >> 4) * 8) * ls + 16 * kk +
+                     ((lane >> 3) & 1) * 8),
+            bb);
+    mma16816(acc[0][kk & 1], a[kk], bb[0], bb[1]);
+    mma16816(acc[1][kk & 1], a[kk], bb[2], bb[3]);
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[u][e] = acc[u][0][e] + acc[u][1][e];
+}
+
+// The bf16 A fragment of a 16 x 16 tile held as two accumulator tiles
+// (FlashAttention-2's reuse: m16n8k16's accumulator layout is its A
+// layout).
+__device__ __forceinline__ void tile_as_a(uint32_t (&a)[1][4],
+                                          const float (&t)[2][4]) {
+  a[0][0] = pack_bf16(t[0][0], t[0][1]);
+  a[0][1] = pack_bf16(t[0][2], t[0][3]);
+  a[0][2] = pack_bf16(t[1][0], t[1][1]);
+  a[0][3] = pack_bf16(t[1][2], t[1][3]);
+}
+
+// The sum over the four lanes of an accumulator row (lanes 4 r .. 4 r + 3).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Both state walks, a block per (head, batch, direction): S <- e^{cum_L} S
+// + (X beta)^T Y over the chunks, the state entering each step written to
+// out (Bb, H, chunks, P, N) first.  Forward (z = 0): X = x, Y = B, beta_j =
+// e^{cum_L - cum_j} dt_j, S from 0 (the forward kernel's update: its warp
+// tiling, hi + lo split and order).  Reverse (z = 1): X = dy, Y = C,
+// beta_i = e^{cum_i}, S from dstate, the chunks last first.
+template <int PP, int NP>
+__global__ void __launch_bounds__(THREADS, 2)
+    ssd_bwd_walk(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                 const float* __restrict__ dt, const float* __restrict__ A,
+                 const bf16* __restrict__ B, const bf16* __restrict__ C,
+                 const float* __restrict__ dstate, float* __restrict__ states,
+                 float* __restrict__ dstates, MmaBwdDims dm) {
+  constexpr int XS = PP + 8, BS = NP + 8;
+  constexpr int NT = NP / 8;
+  constexpr int WM = PP / 16, WN = 8 / WM;
+  constexpr int ST = (NT + WN - 1) / WN;
+  constexpr bool SFULL = NT % WN == 0;
+  const int H = dm.h, P = dm.p, N = dm.n, L = dm.l, G = dm.g, nc = dm.nc;
+  const bool rev = blockIdx.z != 0;
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  const int stage_bytes = (int)walk_stage_bytes(L, PP, NP);
+  float* sbeta = reinterpret_cast<float*>(base + 2 * stage_bytes);
+  float* sel = sbeta + L;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const float a_h = A[h];
+  const long long x_t = (long long)H * P, y_t = (long long)G * N;
+  const bf16* Xb =
+      (rev ? dy : x) + (long long)b * dm.t_len * x_t + (long long)h * P;
+  const bf16* Yb =
+      (rev ? C : B) + (long long)b * dm.t_len * y_t + (long long)g * N;
+  const float* dtb = dt + (long long)b * dm.t_len * H + h;
+  const long long pn = (long long)P * N;
+  float* ob = (rev ? dstates : states) + ((long long)b * H + h) * nc * pn;
+
+  // padding columns of X and Y stay 0: loads write only columns < P, N
+  // (not load_rows, which zeroes them at every load: its registers make
+  // this kernel spill under its 128-register bound)
+  const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < 2 * stage_bytes / 16; i += THREADS) smem4[i] = z4;
+  __syncthreads();
+
+  auto stage_x = [&](int st) {
+    return reinterpret_cast<bf16*>(base + st * stage_bytes);
+  };
+  auto load_chunk = [&](int ci, int st) {
+    bf16* sX = stage_x(st);
+    bf16* sY = sX + L * XS;
+    float* sdt = reinterpret_cast<float*>(sY + L * BS);
+    const long long c0 = (long long)ci * L;
+    if (dm.vec) {
+      for (int i = tid; i < L * (PP / 8); i += THREADS) {
+        const int j = i / (PP / 8), c = 8 * (i % (PP / 8));
+        if (c < P)
+          cp_async16(smem_u32(sX + j * XS + c), Xb + (c0 + j) * x_t + c);
+      }
+      for (int i = tid; i < L * (NP / 8); i += THREADS) {
+        const int j = i / (NP / 8), c = 8 * (i % (NP / 8));
+        if (c < N)
+          cp_async16(smem_u32(sY + j * BS + c), Yb + (c0 + j) * y_t + c);
+      }
+    } else {
+      for (int i = tid; i < L * P; i += THREADS) {
+        const int j = i / P, q = i - j * P;
+        sX[j * XS + q] = Xb[(c0 + j) * x_t + q];
+      }
+      for (int i = tid; i < L * N; i += THREADS) {
+        const int j = i / N, q = i - j * N;
+        sY[j * BS + q] = Yb[(c0 + j) * y_t + q];
+      }
+    }
+    for (int j = tid; j < L; j += THREADS)
+      cp_async4(smem_u32(sdt + j), dtb + (c0 + j) * H);
+    cp_async_commit();
+  };
+
+  // this warp's state tiles: rows 16 smt.., column tiles snt0 + s
+  const int smt = warp % WM, snt0 = (warp / WM) * ST;
+  const float* init = rev ? dstate + ((long long)b * H + h) * pn : nullptr;
+  float st[ST][4];
+#pragma unroll
+  for (int s = 0; s < ST; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int nt = snt0 + s;
+      const int p = 16 * smt + gr + 8 * (e >> 1);
+      const int n = 8 * nt + 2 * tq + (e & 1);
+      st[s][e] = (init && (SFULL || nt < NT) && p < P && n < N)
+                     ? init[(long long)p * N + n]
+                     : 0.f;
+    }
+
+  if (nc > 0) load_chunk(rev ? nc - 1 : 0, 0);
+  for (int k = 0; k < nc; ++k) {
+    const int ci = rev ? nc - 1 - k : k, cur = k & 1;
+    cp_async_wait_all();
+    __syncthreads();  // chunk k landed; every reader of chunk k-1, beta done
+    if (k + 1 < nc) load_chunk(rev ? ci - 1 : ci + 1, cur ^ 1);
+    const bf16* sX = stage_x(cur);
+    const bf16* sY = sX + L * XS;
+    const float* sdt = reinterpret_cast<const float*>(sY + L * BS);
+
+    float* oc = ob + (long long)ci * pn;
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      const int nt = snt0 + s;
+      const int n = 8 * nt + 2 * tq, p = 16 * smt + gr;
+      if ((SFULL || nt < NT) && n < N) {
+        if (p < P)
+          *reinterpret_cast<float2*>(oc + (long long)p * N + n) =
+              make_float2(st[s][0], st[s][1]);
+        if (p + 8 < P)
+          *reinterpret_cast<float2*>(oc + (long long)(p + 8) * N + n) =
+              make_float2(st[s][2], st[s][3]);
+      }
+    }
+    if (warp == 0) {  // cumsum(dt * A), beta and e^{cum_L}
+      const int E = L / 32;
+      float v[4];
+      const float last = warp_cumsum(sdt, a_h, L, lane, v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e < E) {
+          const int j = E * lane + e;
+          sbeta[j] = rev ? expf(v[e]) : expf(last - v[e]) * sdt[j];
+        }
+      if (lane == 0) sel[0] = expf(last);
+    }
+    __syncthreads();  // beta and e^{cum_L} written
+    const float el = sel[0];
+#pragma unroll
+    for (int s = 0; s < ST; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[s][e] *= el;
+    for (int kb = 0; kb < L / 16; ++kb) {  // rows j = 16 kb .. 16 kb + 15
+      uint32_t xf[4], hi[4], lo[4];
+      ldsm_x4_t(smem_u32(sX + (16 * kb + (lane & 7) + (lane >> 4) * 8) * XS +
+                         16 * smt + ((lane >> 3) & 1) * 8),
+                xf);
+      const float2 w0 =
+          *reinterpret_cast<const float2*>(sbeta + 16 * kb + 2 * tq);
+      const float2 w1 =
+          *reinterpret_cast<const float2*>(sbeta + 16 * kb + 8 + 2 * tq);
+      split_scaled(xf[0], w0, hi[0], lo[0]);
+      split_scaled(xf[1], w0, hi[1], lo[1]);
+      split_scaled(xf[2], w1, hi[2], lo[2]);
+      split_scaled(xf[3], w1, hi[3], lo[3]);
+      const bf16* yr = sY + (16 * kb + (lane & 15)) * BS;
+      uint32_t bq[ST][2];
+      if constexpr (SFULL && ST % 2 == 0) {
+#pragma unroll
+        for (int s = 0; s < ST; s += 2) {
+          uint32_t t4[4];
+          ldsm_x4_t(smem_u32(yr + 8 * (snt0 + s) + (lane >> 4) * 8), t4);
+          bq[s][0] = t4[0];
+          bq[s][1] = t4[1];
+          bq[s + 1][0] = t4[2];
+          bq[s + 1][1] = t4[3];
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < ST; ++s)
+          if (SFULL || snt0 + s < NT)
+            ldsm_x2_t(smem_u32(yr + 8 * (snt0 + s)), bq[s]);
+      }
+#pragma unroll
+      for (int s = 0; s < ST; ++s)
+        if (SFULL || snt0 + s < NT) mma16816(st[s], hi, bq[s][0], bq[s][1]);
+#pragma unroll
+      for (int s = 0; s < ST; ++s)
+        if (SFULL || snt0 + s < NT) mma16816(st[s], lo, bq[s][0], bq[s][1]);
+    }
+  }
+}
+
+// The chunk kernel of the bfloat16 instance: a block of L / 16 warps per
+// (chunk, head, batch), the whole chunk in shared memory.  Warp w takes
+// row block w (dC_i = e^{cum_i} dy_i S_prev + sum_j Q_ij B_j, and dcum's
+// y_inter part), then column block w (du_j, dx_j, x_j.du_j, dB_j, T_j and
+// R's sums); then dcum's parts and x.du a step go to rows.
+template <int PP, int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+    ssd_bwd_mma_chunk(const bf16* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A, const bf16* __restrict__ B,
+                      const bf16* __restrict__ C, const bf16* __restrict__ dy,
+                      const float* __restrict__ states,
+                      const float* __restrict__ dstates,
+                      float* __restrict__ dBp, float* __restrict__ dCp,
+                      float* __restrict__ rows, bf16* __restrict__ dx,
+                      MmaBwdDims dm, int batch) {
+  constexpr int XS = PP + 8, BS = NP + 8;
+  constexpr int KP = PP / 16, KN = NP / 16;  // k-steps over P and N
+  constexpr int PT = PP / 8, NT = NP / 8;    // 8-column tiles of P and N
+  const int H = dm.h, P = dm.p, N = dm.n, L = dm.l, G = dm.g;
+  const int RB = L / 16, nthr = 32 * RB;
+  extern __shared__ float4 smem4[];
+  bf16* sx = reinterpret_cast<bf16*>(smem4);
+  bf16* sdy = sx + L * XS;
+  bf16* sB = sdy + L * XS;
+  bf16* sC = sB + L * BS;
+  bf16* sSh = sC + L * BS;
+  bf16* sSl = sSh + PP * BS;
+  // S_prev, then dS, in float32 by cp.async where it fits
+  const bool staged = chunk_stages_f32(L, PP, NP);
+  float* sF = reinterpret_cast<float*>(sSl + PP * BS);
+  float* sdt = sF + (staged ? PP * NP : 0);
+  float* scum2 = sdt + L;  // cum log2(e)
+  float* se = scum2 + L;   // e^{cum}
+  float* sw = se + L;      // e^{cum_L - cum}
+  float* sRr = sw + L;     // [column block][step i]: sum_j R_ij in the block
+  float* sPart = sRr + RB * L;
+  float* sCol = sPart + L;
+  float* sXd = sCol + L;
+  float* sred = sXd + L;  // T by warp [0, 8), <dS, S_prev> by warp [8, 16),
+                          // e^{cum_L} [16]
+
+  const int ci = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const long long x_t = (long long)H * P, bc_t = (long long)G * N;
+  const long long T_ = dm.t_len, c0 = (long long)ci * L;
+  const long long xo = ((long long)b * T_ + c0) * x_t + (long long)h * P;
+  const long long bo = ((long long)b * T_ + c0) * bc_t + (long long)g * N;
+  const long long sidx = (((long long)b * H + h) * dm.nc + ci) * P * N;
+  const long long bth = (long long)batch * T_ * H;
+
+  // the chunk: x, dy, B, C (pads zeroed), dt and S_prev by cp.async, then
+  // S_prev into the state's hi + lo; dS comes in while the rows' state
+  // term runs
+  auto stage = [&](const float* src) {
+    for (int i = tid; i < P * N / 4; i += nthr)
+      cp_async16(smem_u32(sF + 4 * i), src + 4 * i);
+    cp_async_commit();
+  };
+  load_rows<PP>(sx, XS, x + xo, x_t, P, L, dm.vec, tid, nthr);
+  load_rows<PP>(sdy, XS, dy + xo, x_t, P, L, dm.vec, tid, nthr);
+  load_rows<NP>(sB, BS, B + bo, bc_t, N, L, dm.vec, tid, nthr);
+  load_rows<NP>(sC, BS, C + bo, bc_t, N, L, dm.vec, tid, nthr);
+  const float* dtc = dt + ((long long)b * T_ + c0) * H + h;
+  for (int j = tid; j < L; j += nthr)
+    cp_async4(smem_u32(sdt + j), dtc + (long long)j * H);
+  if (staged) stage(states + sidx);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  split_state<PP, NP>(sSh, sSl, staged ? sF : states + sidx, P, N,
+                      false, tid, nthr);
+  __syncthreads();  // S_prev's hi + lo written, its float32 copy read
+  if (staged) stage(dstates + sidx);
+
+  if (warp == 0) {  // cumsum(dt * A)
+    const int E = L / 32;
+    float v[4];
+    const float last = warp_cumsum(sdt, A[h], L, lane, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < E) {
+        const int j = E * lane + e;
+        scum2[j] = v[e] * 1.4426950408889634f;
+        se[j] = expf(v[e]);
+        sw[j] = expf(last - v[e]);
+      }
+    if (lane == 0) sred[16] = expf(last);
+  }
+
+  // -- row block w: dC_i.  dy_i S_prev first (hi + lo), while warp 0 scans
+  // and dS lands
+  {
+    const int i0 = 16 * warp, ilo = i0 + gr, ihi = ilo + 8;
+    uint32_t af[KP][4];
+    load_a<KP>(af, sdy, XS, i0, lane);
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    mma_rows_k<KP, NT>(acc, af, sSh, BS, lane);
+    mma_rows_k<KP, NT>(acc, af, sSl, BS, lane);
+    // dS replaces S_prev in the state's buffer here, not after the rows'
+    // tiles: a barrier there would put the longest row block's tiles and
+    // the longest column block's in one critical path
+    cp_async_wait_all();
+    __syncthreads();  // warp 0's cum, e^cum and w written; S_prev read; dS
+                      // staged
+    {  // dS into the state's hi + lo; <dS, S_prev> in float32
+      float d = split_state<PP, NP>(sSh, sSl,
+                                    staged ? sF : dstates + sidx, P,
+                                    N, true, tid, nthr);
+      d = warp_sum(d);
+      if (lane == 0) sred[8 + warp] = d;
+    }
+    __syncthreads();
+    // dcum's y_inter part e^{cum_i} C_i . (dy_i S_prev); dC starts at
+    // e^{cum_i} dy_i S_prev
+    const float e_lo = se[ilo], e_hi = se[ihi];
+    float plo = 0.f, phi = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = 8 * nt + 2 * tq;
+      const float2 cl = __bfloat1622float2(
+          *reinterpret_cast<const bf162*>(sC + ilo * BS + n));
+      const float2 ch = __bfloat1622float2(
+          *reinterpret_cast<const bf162*>(sC + ihi * BS + n));
+      plo = fmaf(cl.x, acc[nt][0], plo);
+      plo = fmaf(cl.y, acc[nt][1], plo);
+      phi = fmaf(ch.x, acc[nt][2], phi);
+      phi = fmaf(ch.y, acc[nt][3], phi);
+      acc[nt][0] *= e_lo;
+      acc[nt][1] *= e_lo;
+      acc[nt][2] *= e_hi;
+      acc[nt][3] *= e_hi;
+    }
+    plo = quad_sum(plo);
+    phi = quad_sum(phi);
+    if (tq == 0) {
+      sPart[ilo] = e_lo * plo;
+      sPart[ihi] = e_hi * phi;
+    }
+    // Q_ij = (dy_i . x_j) dt_j E_ij over the causal tiles (j > i selected
+    // to 0 before the exp), then dC_i += Q_ij B_j
+    const float cum_lo = scum2[ilo], cum_hi = scum2[ihi];
+    for (int kb = 0; kb <= warp; ++kb) {
+      float sc[2][4];
+      score_tile<KP>(sc, af, sx, XS, 16 * kb, lane);
+      float q[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = 16 * kb + 8 * u + 2 * tq;
+        const float2 cj = *reinterpret_cast<const float2*>(scum2 + j);
+        const float2 dj = *reinterpret_cast<const float2*>(sdt + j);
+        q[u][0] = j <= ilo ? sc[u][0] * ex2(cum_lo - cj.x) * dj.x : 0.f;
+        q[u][1] = j < ilo ? sc[u][1] * ex2(cum_lo - cj.y) * dj.y : 0.f;
+        q[u][2] = j <= ihi ? sc[u][2] * ex2(cum_hi - cj.x) * dj.x : 0.f;
+        q[u][3] = j < ihi ? sc[u][3] * ex2(cum_hi - cj.y) * dj.y : 0.f;
+      }
+      uint32_t qa[1][4];
+      tile_as_a(qa, q);
+      mma_rows_k<1, NT>(acc, qa, sB + 16 * kb * BS, BS, lane);
+    }
+    float* d_lo = dCp + (((long long)b * T_ + c0 + ilo) * H + h) * N;
+    float* d_hi = dCp + (((long long)b * T_ + c0 + ihi) * H + h) * N;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = 8 * nt + 2 * tq;
+      if (n < N) {
+        *reinterpret_cast<float2*>(d_lo + n) =
+            make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(d_hi + n) =
+            make_float2(acc[nt][2], acc[nt][3]);
+      }
+    }
+  }
+
+  // -- column block w: du_j, dB_j.  B_j dS^T and x_j dS first (hi + lo)
+  {
+    const int j0 = 16 * warp, jlo = j0 + gr, jhi = jlo + 8;
+    uint32_t xf[KP][4];
+    load_a<KP>(xf, sx, XS, j0, lane);
+    float du[PT][4], db[NT][4];
+#pragma unroll
+    for (int pt = 0; pt < PT; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) du[pt][e] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) db[nt][e] = 0.f;
+    {
+      uint32_t bf[KN][4];
+      load_a<KN>(bf, sB, BS, j0, lane);
+      mma_rows_n<KN, PT>(du, bf, sSh, BS, lane);
+      mma_rows_n<KN, PT>(du, bf, sSl, BS, lane);
+    }
+    mma_rows_k<KP, NT>(db, xf, sSh, BS, lane);
+    mma_rows_k<KP, NT>(db, xf, sSl, BS, lane);
+    // T_j = dt_j w_j (x_j . dS B_j); du_j starts at w_j dS B_j, dB_j at
+    // w_j dt_j x_j dS
+    const float w_lo = sw[jlo], w_hi = sw[jhi];
+    const float t_lo = sdt[jlo], t_hi = sdt[jhi];
+    float tlo = 0.f, thi = 0.f;
+#pragma unroll
+    for (int pt = 0; pt < PT; ++pt) {
+      const int p = 8 * pt + 2 * tq;
+      const float2 xl = __bfloat1622float2(
+          *reinterpret_cast<const bf162*>(sx + jlo * XS + p));
+      const float2 xh = __bfloat1622float2(
+          *reinterpret_cast<const bf162*>(sx + jhi * XS + p));
+      tlo = fmaf(xl.x, du[pt][0], tlo);
+      tlo = fmaf(xl.y, du[pt][1], tlo);
+      thi = fmaf(xh.x, du[pt][2], thi);
+      thi = fmaf(xh.y, du[pt][3], thi);
+      du[pt][0] *= w_lo;
+      du[pt][1] *= w_lo;
+      du[pt][2] *= w_hi;
+      du[pt][3] *= w_hi;
+    }
+    const float s_lo = w_lo * t_lo, s_hi = w_hi * t_hi;
+    tlo = quad_sum(tlo) * s_lo;
+    thi = quad_sum(thi) * s_hi;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      db[nt][0] *= s_lo;
+      db[nt][1] *= s_lo;
+      db[nt][2] *= s_hi;
+      db[nt][3] *= s_hi;
+    }
+    // the transposed tiles (rows j, columns i >= j selected before the
+    // exp): M^T = E (B_j . C_i), Q^T = E (x_j . dy_i) dt_j, R = (B_j . C_i)
+    // Q^T; then du_j += M^T dy_i and dB_j += Q^T C_i
+    const float cj_lo = scum2[jlo], cj_hi = scum2[jhi];
+    float rlo = 0.f, rhi = 0.f;
+    for (int ib = warp; ib < RB; ++ib) {
+      float mt[2][4], gt[2][4];
+      {
+        uint32_t bf[KN][4];
+        load_a<KN>(bf, sB, BS, j0, lane);
+        score_tile<KN>(mt, bf, sC, BS, 16 * ib, lane);
+      }
+      score_tile<KP>(gt, xf, sdy, XS, 16 * ib, lane);
+      float m[2][4], q[2][4], cs[2][2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = 16 * ib + 8 * u + 2 * tq;
+        const float2 c2 = *reinterpret_cast<const float2*>(scum2 + i);
+        const float e0 = i >= jlo ? ex2(c2.x - cj_lo) : 0.f;
+        const float e1 = i + 1 >= jlo ? ex2(c2.y - cj_lo) : 0.f;
+        const float e2 = i >= jhi ? ex2(c2.x - cj_hi) : 0.f;
+        const float e3 = i + 1 >= jhi ? ex2(c2.y - cj_hi) : 0.f;
+        m[u][0] = mt[u][0] * e0;
+        m[u][1] = mt[u][1] * e1;
+        m[u][2] = mt[u][2] * e2;
+        m[u][3] = mt[u][3] * e3;
+        q[u][0] = gt[u][0] * e0 * t_lo;
+        q[u][1] = gt[u][1] * e1 * t_lo;
+        q[u][2] = gt[u][2] * e2 * t_hi;
+        q[u][3] = gt[u][3] * e3 * t_hi;
+        const float r0 = mt[u][0] * q[u][0], r1 = mt[u][1] * q[u][1];
+        const float r2 = mt[u][2] * q[u][2], r3 = mt[u][3] * q[u][3];
+        rlo += r0 + r1;
+        rhi += r2 + r3;
+        cs[u][0] = r0 + r2;
+        cs[u][1] = r1 + r3;
+      }
+      // R's sums over this block's rows j, for each column i
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          float c = cs[u][v];
+          c += __shfl_xor_sync(0xffffffffu, c, 4);
+          c += __shfl_xor_sync(0xffffffffu, c, 8);
+          c += __shfl_xor_sync(0xffffffffu, c, 16);
+          if (gr == 0) sRr[warp * L + 16 * ib + 8 * u + 2 * tq + v] = c;
+        }
+      uint32_t ma[1][4], qa[1][4];
+      tile_as_a(ma, m);
+      tile_as_a(qa, q);
+      mma_rows_k<1, PT>(du, ma, sdy + 16 * ib * XS, XS, lane);
+      mma_rows_k<1, NT>(db, qa, sC + 16 * ib * BS, BS, lane);
+    }
+    rlo = quad_sum(rlo);
+    rhi = quad_sum(rhi);
+    // dx_j = dt_j du_j in bf16, x_j . du_j in float32
+    const long long r_lo = (long long)b * T_ + c0 + jlo, r_hi = r_lo + 8;
+    bf16* dx_lo = dx + (r_lo * H + h) * P;
+    bf16* dx_hi = dx + (r_hi * H + h) * P;
+    float xlo = 0.f, xhi = 0.f;
+#pragma unroll
+    for (int pt = 0; pt < PT; ++pt) {
+      const int p = 8 * pt + 2 * tq;
+      if (p < P) {
+        const float2 xl = __bfloat1622float2(
+            *reinterpret_cast<const bf162*>(sx + jlo * XS + p));
+        const float2 xh = __bfloat1622float2(
+            *reinterpret_cast<const bf162*>(sx + jhi * XS + p));
+        xlo = fmaf(xl.x, du[pt][0], xlo);
+        xlo = fmaf(xl.y, du[pt][1], xlo);
+        xhi = fmaf(xh.x, du[pt][2], xhi);
+        xhi = fmaf(xh.y, du[pt][3], xhi);
+        *reinterpret_cast<bf162*>(dx_lo + p) =
+            __floats2bfloat162_rn(t_lo * du[pt][0], t_lo * du[pt][1]);
+        *reinterpret_cast<bf162*>(dx_hi + p) =
+            __floats2bfloat162_rn(t_hi * du[pt][2], t_hi * du[pt][3]);
+      }
+    }
+    xlo = quad_sum(xlo);
+    xhi = quad_sum(xhi);
+    float* b_lo = dBp + (r_lo * H + h) * N;
+    float* b_hi = dBp + (r_hi * H + h) * N;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = 8 * nt + 2 * tq;
+      if (n < N) {
+        *reinterpret_cast<float2*>(b_lo + n) =
+            make_float2(db[nt][0], db[nt][1]);
+        *reinterpret_cast<float2*>(b_hi + n) =
+            make_float2(db[nt][2], db[nt][3]);
+      }
+    }
+    if (tq == 0) {
+      sCol[jlo] = -rlo - tlo;
+      sCol[jhi] = -rhi - thi;
+      sXd[jlo] = xlo;
+      sXd[jhi] = xhi;
+    }
+    float ts = tlo + thi;  // the warp's sum of T_j over its 16 rows
+    ts += __shfl_xor_sync(0xffffffffu, ts, 4);
+    ts += __shfl_xor_sync(0xffffffffu, ts, 8);
+    ts += __shfl_xor_sync(0xffffffffu, ts, 16);
+    if (lane == 0) sred[warp] = ts;
+  }
+  __syncthreads();
+
+  // dcum's row part, its column part (at the chunk's last step also sum_j
+  // T_j + e^{cum_L} <dS, S_prev>) and x.du, a step each, in order
+  for (int t = tid; t < L; t += nthr) {
+    const long long o = ((long long)b * T_ + c0 + t) * H + h;
+    float r = 0.f;
+    for (int cb = 0; cb <= t / 16; ++cb) r += sRr[cb * L + t];
+    float c = sCol[t];
+    if (t == L - 1) {
+      float ts = 0.f, d = 0.f;
+      for (int w = 0; w < RB; ++w) {
+        ts += sred[w];
+        d += sred[8 + w];
+      }
+      c += ts + sred[16] * d;
+    }
+    rows[o] = r + sPart[t];
+    rows[bth + o] = c;
+    rows[2 * bth + o] = sXd[t];
+  }
+}
+
+template <int PP, int NP>
+int launch_bwd_mma(const void* x, const void* dt, const void* A,
+                   const void* B, const void* C, const void* dy,
+                   const void* dstate, void* states, void* dstates,
+                   void* dBp, void* dCp, void* rows, void* dx, int batch,
+                   const MmaBwdDims& dm, cudaStream_t stream) {
+  const long long w_smem = walk_smem_bytes(dm.l, PP, NP);
+  const long long c_smem = chunk_smem_bytes(dm.l, PP, NP);
+  auto walk = ssd_bwd_walk<PP, NP>;
+  auto chunk = ssd_bwd_mma_chunk<PP, NP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)w_smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(walk,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(chunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)c_smem);
+  if (e != cudaSuccess) return (int)e;
+  walk<<<dim3(dm.h, batch, 2), THREADS, w_smem, stream>>>(
+      (const bf16*)x, (const bf16*)dy, (const float*)dt, (const float*)A,
+      (const bf16*)B, (const bf16*)C, (const float*)dstate, (float*)states,
+      (float*)dstates, dm);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  chunk<<<dim3(dm.nc, dm.h, batch), 2 * dm.l, c_smem, stream>>>(
+      (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)B,
+      (const bf16*)C, (const bf16*)dy, (const float*)states,
+      (const float*)dstates, (float*)dBp, (float*)dCp, (float*)rows,
+      (bf16*)dx, dm, batch);
+  return (int)cudaGetLastError();
+}
+
+template <int PP>
+int launch_bwd_mma_n(int np, const void* x, const void* dt, const void* A,
+                     const void* B, const void* C, const void* dy,
+                     const void* dstate, void* states, void* dstates,
+                     void* dBp, void* dCp, void* rows, void* dx, int batch,
+                     const MmaBwdDims& dm, cudaStream_t s) {
+  switch (np) {
+    case 16:
+      return launch_bwd_mma<PP, 16>(x, dt, A, B, C, dy, dstate, states,
+                                    dstates, dBp, dCp, rows, dx, batch, dm, s);
+    case 32:
+      return launch_bwd_mma<PP, 32>(x, dt, A, B, C, dy, dstate, states,
+                                    dstates, dBp, dCp, rows, dx, batch, dm, s);
+    case 64:
+      return launch_bwd_mma<PP, 64>(x, dt, A, B, C, dy, dstate, states,
+                                    dstates, dBp, dCp, rows, dx, batch, dm, s);
+    default:
+      return launch_bwd_mma<PP, 128>(x, dt, A, B, C, dy, dstate, states,
+                                     dstates, dBp, dCp, rows, dx, batch, dm,
+                                     s);
+  }
+}
+
+// ssd_bwd_finish, then ssd_bwd_reduce: the last two kernels of either
+// instance.
+template <typename T>
+int launch_bwd_tail(const void* dt, const void* A, const void* rows,
+                    const void* dBp, const void* dCp, void* dAp, void* ddt,
+                    void* dA, void* dB, void* dC, int batch,
+                    const BwdDims& dm, cudaStream_t stream) {
+  const long long items = (long long)batch * dm.nc * dm.h;
+  ssd_bwd_finish<<<(unsigned)((items + 127) / 128), 128, 0, stream>>>(
+      (const float*)dt, (const float*)A, (const float*)rows, (float*)ddt,
+      (float*)dAp, dm, batch);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long total = (long long)batch * dm.t_len * dm.g * dm.n;
+  const long long blocks = (total + THREADS - 1) / THREADS;
+  ssd_bwd_reduce<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0,
+                      stream>>>((const float*)dBp, (const float*)dCp,
+                                (const float*)dAp, (T*)dB, (T*)dC,
+                                (float*)dA, dm, batch);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* dt, const void* A, const void* B,
                const void* C, const void* dy, const void* dstate,
@@ -1465,18 +2352,8 @@ int launch_bwd(const void* x, const void* dt, const void* A, const void* B,
       (const float*)dstates, (float*)dBp, (float*)dCp, (float*)rows, (T*)dx,
       dm, batch);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const long long items = (long long)batch * dm.nc * dm.h;
-  ssd_bwd_finish<<<(unsigned)((items + 127) / 128), 128, 0, stream>>>(
-      (const float*)dt, (const float*)A, (const float*)rows, (float*)ddt,
-      (float*)dAp, dm, batch);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const long long total = (long long)batch * dm.t_len * dm.g * dm.n;
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  ssd_bwd_reduce<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0,
-                      stream>>>((const float*)dBp, (const float*)dCp,
-                                (const float*)dAp, (T*)dB, (T*)dC,
-                                (float*)dA, dm, batch);
-  return (int)cudaGetLastError();
+  return launch_bwd_tail<T>(dt, A, rows, dBp, dCp, dAp, ddt, dA, dB, dC,
+                            batch, dm, stream);
 }
 
 }  // namespace
@@ -1538,11 +2415,20 @@ extern "C" int ssd_chunk_scan_mma_fwd(const void* x, const void* dt,
   }
 }
 
-// The backward: dtype 0 float32, 1 bfloat16 (x, B, C, dy, and dx, dB, dC);
-// dt, A, dstate (Bb, H, P, N), ddt and dA float32.  Scratch, all float32:
-// states and dstates (Bb, H, T / chunk, P, N), dBp and dCp (Bb, T, H, N),
-// rows (3, Bb, T, H), dAp (Bb, H, T / chunk).  Shapes as ssd_chunk_scan_fwd,
-// and n <= 128.
+// The backward's shared memory per block, in bytes: the larger of the
+// bfloat16 instance's two kernels (its state walks and its chunk kernel).
+extern "C" long long ssd_chunk_scan_mma_bwd_smem(int chunk, int p, int n) {
+  const int pp = padded(p), np = padded(n);
+  const long long w = walk_smem_bytes(chunk, pp, np);
+  const long long c = chunk_smem_bytes(chunk, pp, np);
+  return w > c ? w : c;
+}
+
+// The backward: dtype 0 float32 (the float32-core kernels), 1 bfloat16 (x,
+// B, C, dy, and dx, dB, dC; the tensor-core kernels); dt, A, dstate (Bb, H,
+// P, N), ddt and dA float32.  Scratch, all float32: states and dstates (Bb,
+// H, T / chunk, P, N), dBp and dCp (Bb, T, H, N), rows (3, Bb, T, H), dAp
+// (Bb, H, T / chunk).  Shapes as ssd_chunk_scan_fwd, and n <= 128.
 extern "C" int ssd_chunk_scan_bwd(int dtype, const void* x, const void* dt,
                                   const void* A, const void* B, const void* C,
                                   const void* dy, const void* dstate,
@@ -1562,9 +2448,31 @@ extern "C" int ssd_chunk_scan_bwd(int dtype, const void* x, const void* dt,
     return launch_bwd<float>(x, dt, A, B, C, dy, dstate, states, dstates, dBp,
                              dCp, rows, dAp, dx, ddt, dA, dB, dC, batch, dm,
                              s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(x, dt, A, B, C, dy, dstate, states,
-                                     dstates, dBp, dCp, rows, dAp, dx, ddt,
-                                     dA, dB, dC, batch, dm, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int pp = padded(p), np = padded(n);
+  const bool vec = p % 8 == 0 && n % 8 == 0 &&
+                   (((uintptr_t)x | (uintptr_t)B | (uintptr_t)C |
+                     (uintptr_t)dy) & 15) == 0;
+  const MmaBwdDims md{t_len, h, p, g, n, chunk, dm.nc, vec ? 1 : 0};
+  int rc;
+  switch (pp) {
+    case 16:
+      rc = launch_bwd_mma_n<16>(np, x, dt, A, B, C, dy, dstate, states,
+                                dstates, dBp, dCp, rows, dx, batch, md, s);
+      break;
+    case 32:
+      rc = launch_bwd_mma_n<32>(np, x, dt, A, B, C, dy, dstate, states,
+                                dstates, dBp, dCp, rows, dx, batch, md, s);
+      break;
+    case 64:
+      rc = launch_bwd_mma_n<64>(np, x, dt, A, B, C, dy, dstate, states,
+                                dstates, dBp, dCp, rows, dx, batch, md, s);
+      break;
+    default:
+      rc = launch_bwd_mma_n<128>(np, x, dt, A, B, C, dy, dstate, states,
+                                 dstates, dBp, dCp, rows, dx, batch, md, s);
+  }
+  if (rc != 0) return rc;
+  return launch_bwd_tail<__nv_bfloat16>(dt, A, rows, dBp, dCp, dAp, ddt, dA,
+                                        dB, dC, batch, dm, s);
 }

@@ -30,10 +30,13 @@ dtype.  Per chunk of ``L`` steps, with ``cum`` the inclusive cumsum of
 * :func:`ssd_chunk_scan_bwd` launches the backward kernels of the same
   source for CUDA tensors and counts ``ssd_chunk_scan_bwd.launches``:
   from ``(dy, dS_final)`` it gives ``(dx, ddt, dA, dB, dC)`` with the
-  chunked maths of :func:`ssd_bwd_torch` (below), on the float32 cores,
-  with no atomics (every sum in a fixed order, so a backward gives the
-  same bits in every run).  The reference has no backward kernel: its
-  gradients are XLA's autodiff of the sequential oracle.
+  chunked maths of :func:`ssd_bwd_torch` (below), with no atomics (every
+  sum in a fixed order, so a backward gives the same bits in every run).
+  Two instances, chosen by :func:`bwd_instance` before the launch:
+  bfloat16 runs on the tensor cores (``mma.sync``; counted again in
+  ``ssd_chunk_scan_bwd.mma_launches``), float32 on the float32 cores.
+  The reference has no backward kernel: its gradients are XLA's autodiff
+  of the sequential oracle.
 * :func:`ssd_bwd_torch` is its plain version: per chunk, walking the
   chunks in reverse and carrying ``dS``, with ``u_j = dt_j x_j``, ``M_ij
   = (C_i . B_j) e^(cum_i - cum_j)`` (i >= j) and ``S_prev`` the state
@@ -133,6 +136,15 @@ def instance(dtype: torch.dtype, n: int) -> str:
     """The kernel a launch takes, from dtype and N alone: ``"mma"`` (the
     bfloat16 tensor-core kernel, N <= 128) or ``"simt"`` (the float32-core
     kernel: float32, or bfloat16 with N > 128)."""
+    return "mma" if dtype == torch.bfloat16 and n <= 128 else "simt"
+
+
+def bwd_instance(dtype: torch.dtype, n: int) -> str:
+    """The backward's kernels for a launch, from dtype and N alone:
+    ``"mma"`` (the bfloat16 tensor-core kernels, N <= 128; P and N padded
+    to 16, 32, 64 or 128) or ``"simt"`` (the float32-core kernels: float32
+    is held to float32, and TF32 would not be).  Nothing falls back from
+    one to the other."""
     return "mma" if dtype == torch.bfloat16 and n <= 128 else "simt"
 
 
@@ -327,10 +339,10 @@ def _check_kernel_shape(x, B, chunk: int) -> None:
 
 
 def bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory of the backward's kernels per block, the larger (see
-    the source's layout): the state walks stage a chunk of x or dy, B or C
-    and the state; the chunk kernel four 32-row tiles, two 32 x 32 score
-    tiles and a state."""
+    """Shared memory of the float32-core backward's kernels per block, the
+    larger (see the source's layout): the state walks stage a chunk of x
+    or dy, B or C and the state; the chunk kernel four 32-row tiles, two
+    32 x 32 score tiles and a state."""
     nb, pb = n + 4, p + 4
     scan = chunk * p + chunk * nb + p * nb + 4 * chunk
     tiles = (2 * 32 * nb + 2 * 32 * pb + 2 * 32 * 33 + p * nb + 2 * chunk
@@ -338,15 +350,42 @@ def bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
     return 4 * max(scan, tiles)
 
 
+def mma_bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
+    """Shared memory of the tensor-core backward's kernels per block, the
+    larger (see the source's layout): the state walks hold two stages of
+    x or dy, B or C (rows padded by 8 bf16) and dt; the chunk kernel the
+    chunk's x, dy, B and C, the state's bf16 hi and lo, eleven float
+    vectors of the chunk, and a float32 state (S_prev, then dS) where
+    that still fits."""
+    pp, np_ = padded(p), padded(n)
+    walk = (2 * (2 * chunk * (pp + 8) + 2 * chunk * (np_ + 8) + 4 * chunk)
+            + 8 * chunk)
+    core = (4 * chunk * (pp + 8) + 4 * chunk * (np_ + 8)
+            + 4 * pp * (np_ + 8) + 4 * (7 + chunk // 16) * chunk + 128)
+    staged = core + 4 * pp * np_
+    return max(walk, staged if staged <= SMEM_LIMIT else core)
+
+
+def check_bwd_shape(chunk: int, p: int, n: int, kind: str) -> None:
+    """Raises ``ValueError`` where the backward's kernels of instance
+    ``kind`` do not take the shape: N above 128, or a block's shared
+    memory above :data:`SMEM_LIMIT`."""
+    need = (mma_bwd_smem_bytes if kind == "mma" else bwd_smem_bytes)(
+        chunk, p, n)
+    if n > 128 or need > SMEM_LIMIT:
+        raise ValueError(f"ssd_chunk_scan_bwd ({kind}): N <= 128 and chunk "
+                         f"{chunk}, P {p}, N {n} within {SMEM_LIMIT} bytes "
+                         f"of shared memory (needs {need})")
+
+
 def _launch_bwd(x, dt, A, B, C, dy, dstate, chunk: int):
-    """Run the backward kernels on CUDA tensors (raises on any failure)."""
+    """Run the backward kernels on CUDA tensors (raises on any failure);
+    returns the gradients and the instance that ran."""
     _check_kernel_shape(x, B, chunk)
     bb, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    if n > 128 or bwd_smem_bytes(chunk, p, n) > SMEM_LIMIT:
-        raise ValueError(f"ssd_chunk_scan_bwd: N <= 128 and chunk {chunk}, "
-                         f"P {p}, N {n} within {SMEM_LIMIT} bytes of shared "
-                         f"memory")
+    kind = bwd_instance(x.dtype, n)
+    check_bwd_shape(chunk, p, n, kind)
     x, dt, A, B, C = (u.contiguous() for u in (x, dt, A, B, C))
     dy = dy.to(x.dtype).contiguous()
     nc = t // chunk
@@ -373,29 +412,33 @@ def _launch_bwd(x, dt, A, B, C, dy, dstate, chunk: int):
     rc = fn(1 if x.dtype == torch.bfloat16 else 0, *ptrs, bb, t, h, p, g, n,
             chunk, _build.stream_handle(x.device))
     if rc != 0:
-        raise RuntimeError(f"ssd_chunk_scan_bwd kernel launch failed: CUDA "
-                           f"error {rc}")
-    return dx, ddt, dA, dB, dC
+        raise RuntimeError(f"ssd_chunk_scan_bwd ({kind}) kernel launch "
+                           f"failed: CUDA error {rc}")
+    return (dx, ddt, dA, dB, dC), kind
 
 
 def ssd_chunk_scan_bwd(x, dt, A, B, C, dy, dstate=None, *,
                        chunk: int = 128):
     """``(dx, ddt, dA, dB, dC)`` of the SSD scan from the output gradient
     ``dy`` and the final state's ``dstate`` (None: 0).  CUDA tensors
-    launch the backward kernels (T a multiple of the chunk, N <= 128);
-    CPU tensors run :func:`ssd_bwd_torch`."""
+    launch the backward kernels (T a multiple of the chunk, N <= 128;
+    :func:`bwd_instance` picks them); CPU tensors run
+    :func:`ssd_bwd_torch`."""
     check_inputs(x, dt, A, B, C)
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"ssd_chunk_scan_bwd: dy {tuple(dy.shape)} must be "
                          f"x's {tuple(x.shape)}, on its device")
     if not x.is_cuda:
         return ssd_bwd_torch(x, dt, A, B, C, dy, dstate, chunk=chunk)
-    out = _launch_bwd(x, dt, A, B, C, dy, dstate, chunk)
+    out, kind = _launch_bwd(x, dt, A, B, C, dy, dstate, chunk)
     ssd_chunk_scan_bwd.launches += 1
+    if kind == "mma":
+        ssd_chunk_scan_bwd.mma_launches += 1
     return out
 
 
 ssd_chunk_scan_bwd.launches = 0
+ssd_chunk_scan_bwd.mma_launches = 0
 
 
 class SSDScanFunction(torch.autograd.Function):

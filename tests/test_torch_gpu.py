@@ -945,6 +945,111 @@ def test_ssd_bwd_kernel_matches_plain_on_card(cuda_device, bb, t, h, p, g,
     _hold_bwd(grads("cuda"), grads("torch"), dtype, "ssd_scan Function")
 
 
+def _ssd_bwd_args(rng, bb, t, h, p, g, n, device, dt_max=0.1,
+                  a_max=2.0, offset=False):
+    """Seeded inputs of ssd_chunk_scan_bwd in bfloat16 (dt, A and the
+    final state's gradient in float32); ``offset``: x, dy, B and C start
+    one element into their storage, 2 bytes from a 16-byte boundary."""
+    def bf16(u):
+        u = torch.as_tensor(u, dtype=torch.float32).to(device, torch.bfloat16)
+        if not offset:
+            return u
+        buf = torch.empty(u.numel() + 1, dtype=torch.bfloat16, device=device)
+        view = buf[1:].view(u.shape)
+        view.copy_(u)
+        return view
+
+    def f32(u):
+        return torch.as_tensor(u, dtype=torch.float32).to(device)
+
+    x = bf16(rng.standard_normal((bb, t, h, p)))
+    dt = f32(rng.uniform(0.001, dt_max, (bb, t, h)))
+    A = f32(-np.linspace(0.5, a_max, h))
+    B, C = (bf16(rng.standard_normal((bb, t, g, n)) * 0.3) for _ in "BC")
+    dy = bf16(rng.standard_normal((bb, t, h, p)))
+    ds = f32(rng.standard_normal((bb, h, p, n)))
+    return x, dt, A, B, C, dy, ds
+
+
+def _hold_mma_bwd(args, chunk):
+    """The bfloat16 backward through its tensor-core instance (one launch
+    a call, counted by both counters; two runs bit-equal) against its
+    plain version and against autograd of the plain forward, at
+    REC_BWD_TOL (chip_smoke.BWD_TOL["bfloat16"])."""
+    x, dt, A, B, C, dy, ds = args
+    assert pssd.bwd_instance(x.dtype, B.shape[3]) == "mma"
+    fn = pssd.ssd_chunk_scan_bwd
+    before = (fn.launches, fn.mma_launches)
+    got = fn(*args, chunk=chunk)
+    assert (fn.launches, fn.mma_launches) == (before[0] + 1, before[1] + 1)
+    again = fn(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.mma_launches) == (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [u.dtype for u in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16,
+                                      torch.bfloat16]
+    assert all(bool(torch.isfinite(u).all()) for u in got)
+    _hold_bwd(got, pssd.ssd_bwd_torch(*args, chunk=chunk), torch.bfloat16,
+              "ssd_chunk_scan_bwd (mma)")
+    req = [u.detach().clone().requires_grad_(True) for u in args[:5]]
+    y, s = pssd.ssd_torch(*req, chunk=chunk)
+    auto = torch.autograd.grad((y, s), req, (dy, ds))
+    _hold_bwd(got, auto, torch.bfloat16,
+              "ssd_chunk_scan_bwd (mma) against autograd")
+
+
+@pytest.mark.parametrize("bb,t,h,p,g,n,chunk", [
+    (2, 256, 4, 64, 1, 128, 128),    # mamba2-370m's P and N: dS staged
+    (1, 256, 2, 128, 1, 128, 128),   # P = N = 128: dS read after the rows
+    (1, 192, 8, 16, 2, 16, 64),      # G 2, chunk 64, the smoke P and N
+    (2, 96, 4, 32, 4, 32, 32),       # G = H, chunk 32
+    (1, 128, 4, 20, 2, 36, 64),      # P, N not multiples of 8 (pads 32, 64)
+    (2, 64, 2, 128, 1, 16, 32),      # P 128, N 16
+    (1, 256, 2, 48, 1, 100, 128),    # pads 64 and 128
+])
+def test_ssd_bwd_mma_kernel_matches_plain_on_card(cuda_device, bb, t, h, p,
+                                                  g, n, chunk):
+    """Every chunk length and padding of P and N through the bfloat16
+    backward's tensor-core kernels."""
+    args = _ssd_bwd_args(np.random.default_rng(t + p + n), bb, t, h, p, g, n,
+                         cuda_device)
+    _hold_mma_bwd(args, chunk)
+
+
+def test_ssd_bwd_mma_kernel_takes_offset_views_on_card(cuda_device):
+    """x, dy, B and C 2 bytes off a 16-byte boundary: the element-by-
+    element loads."""
+    args = _ssd_bwd_args(np.random.default_rng(7), 2, 256, 4, 64, 1, 128,
+                         cuda_device, offset=True)
+    assert args[0].data_ptr() % 16 == 2
+    _hold_mma_bwd(args, 128)
+
+
+def test_ssd_bwd_mma_kernel_strong_decay_on_card(cuda_device):
+    """The inputs of test_ssd_kernel_strong_decay_on_card: dt up to 1 and
+    A down to -16, cum below -1,000 inside a 128-step chunk, where
+    exp(-cum) overflows float32."""
+    rng = np.random.default_rng(16)
+    args = _ssd_bwd_args(rng, 2, 384, 4, 64, 1, 128, cuda_device,
+                         dt_max=1.0, a_max=16.0)
+    dt, A = args[1].cpu().numpy(), args[2].cpu().numpy()
+    cum = np.cumsum((dt * A).reshape(2, 3, 128, 4), axis=2)
+    assert cum.min() < -1000.0
+    _hold_mma_bwd(args, 128)
+
+
+def test_ssd_mma_bwd_smem_matches_the_source_on_card(cuda_device):
+    fn = _build.load("ssd_chunk_scan").ssd_chunk_scan_mma_bwd_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for chunk in pssd.CHUNKS:
+        for p in (4, 16, 36, 64, 100, 128):
+            for n in (4, 16, 40, 64, 128):
+                assert fn(chunk, p, n) == pssd.mma_bwd_smem_bytes(
+                    chunk, p, n), (chunk, p, n)
+
+
 def _launch_counts(cfg, steps=1):
     """The kernels one training step of a smoke config launches, from
     layer_forward_runs: {counter: launches}."""

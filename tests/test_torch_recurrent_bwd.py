@@ -262,3 +262,64 @@ def test_plain_recurrent_ops_take_float64_only_by_name():
         pssd.ssd_chunk_scan(x, dt, -torch.ones(2, dtype=torch.float64),
                             torch.ones((1, 32, 1, 4), dtype=torch.float64),
                             torch.ones((1, 32, 1, 4), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("n", [4, 16, 100, 128, 132, 256])
+def test_ssd_bwd_instance_follows_dtype_and_n(dtype, n):
+    """The backward's tensor-core kernels take bfloat16 with N <= 128,
+    and only that; every other case keeps the float32-core kernels."""
+    want = "mma" if dtype == torch.bfloat16 and n <= 128 else "simt"
+    assert pssd.bwd_instance(dtype, n) == want
+
+
+def _ssd_shapes():
+    """(chunk, P, N) of every ssm configuration, full size and smoke."""
+    from repro_torch.configs import all_configs
+    cfgs = list(all_configs().values())
+    cfgs += [get_smoke_config(c.name) for c in cfgs]
+    return sorted({(c.ssm_chunk, c.ssm_headdim, c.ssm_state) for c in cfgs
+                   if c.family == "ssm"})
+
+
+def test_ssd_mma_bwd_smem_fits_every_config_and_refuses_beyond():
+    """The tensor-core backward's shared memory per block stays within
+    SMEM_LIMIT at every configuration's (chunk, P, N), mamba2-370m's
+    (128, 64, 128) among them (its chunk kernel stages dS in float32 there:
+    181,888 bytes), and at every shape the kernels take; a chunk of 256
+    would not fit and is refused."""
+    shapes = _ssd_shapes()
+    assert (128, 64, 128) in shapes
+    for chunk, p, n in shapes:
+        assert pssd.mma_bwd_smem_bytes(chunk, p, n) <= pssd.SMEM_LIMIT
+        pssd.check_bwd_shape(chunk, p, n, "mma")
+    assert pssd.mma_bwd_smem_bytes(128, 64, 128) == 181_888
+    for chunk in pssd.CHUNKS:
+        for p in (4, 16, 20, 64, 100, 128):
+            for n in (4, 16, 36, 64, 128):
+                assert (pssd.mma_bwd_smem_bytes(chunk, p, n)
+                        <= pssd.SMEM_LIMIT), (chunk, p, n)
+    assert pssd.mma_bwd_smem_bytes(256, 128, 128) > pssd.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        pssd.check_bwd_shape(256, 128, 128, "mma")
+    with pytest.raises(ValueError, match="N <= 128"):
+        pssd.check_bwd_shape(128, 64, 256, "simt")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_scan_bwd_runs_plain_version_on_cpu(dtype):
+    """ssd_chunk_scan_bwd on CPU tensors is ssd_bwd_torch, bit for bit,
+    in either dtype, and counts no launch of either instance."""
+    rng = np.random.default_rng(5)
+    x, dy = (_t(rng.standard_normal((1, 64, 4, 16)), dtype) for _ in "xy")
+    dt = _t(rng.uniform(0.01, 0.3, (1, 64, 4)))
+    A = _t(-rng.uniform(0.5, 2, 4))
+    B, C = (_t(rng.standard_normal((1, 64, 2, 16)), dtype) for _ in "BC")
+    ds = _t(rng.standard_normal((1, 4, 16, 16)))
+    fn = pssd.ssd_chunk_scan_bwd
+    before = (fn.launches, fn.mma_launches)
+    got = fn(x, dt, A, B, C, dy, ds, chunk=32)
+    want = pssd.ssd_bwd_torch(x, dt, A, B, C, dy, ds, chunk=32)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (fn.launches, fn.mma_launches) == before
