@@ -230,7 +230,8 @@ recurrent families' backward kernels against their plain backwards and
 against autograd through the plain forwards (``BWD_TOL``, two runs
 bit-equal), timed beside the plain backwards: the attention backward at
 D 256 with the window (1 x 16/1 heads x 4,096, window 2,048; beside
-SDPA's backward with the window's mask, whose backend is named), the
+SDPA's backward with the window's mask, whose backend is named; with its
+query-head groups G and its device time by kernel), the
 linear recurrence's at (1, 4,096, 4,096) in float32 and the SSD scan's
 at mamba2-370m's training shape (4 x 2,048, 32 heads, P 64, N 128,
 chunk 128), in float32 (the float32-core kernels) and bfloat16 (the
@@ -491,6 +492,7 @@ def kernel_group(name: str) -> str:
                        ("bwd_dkdv", "flash_attention_bwd"),
                        ("bwd_dq", "flash_attention_bwd"),
                        ("bwd_delta", "flash_attention_bwd"),
+                       ("bwd_fused", "flash_attention_bwd"),
                        ("rmsnorm_bwd", "rmsnorm_bwd"),
                        ("rmsnorm_dw", "rmsnorm_bwd"),
                        ("rmsnorm", "rmsnorm"),
@@ -1218,6 +1220,13 @@ def main() -> int:
             nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
                       + 4.0 * lse.numel())
             bnd, by = bound_ms(nbytes, flop, dname)
+            # the query-head groups of the dK/dV grid and, at D 256, the
+            # device ms by kernel (bf16: delta, dK/dV, the groups' sum,
+            # dQ; float32: delta, then dK/dV and dQ in one launch)
+            groups = kfa.flash_attention_bwd.last_plan.groups
+            split = (kernel_split(lambda: kfa.flash_attention_bwd(
+                q, k, v, out, do, lse, window=window), "bwd_")
+                if case == "recurrentgemma" else None)
             print(f"[2] flash_attention_bwd {case} q {tuple(q.shape)} k "
                   f"{tuple(k.shape)} causal, window {window}, {dname}: max "
                   f"abs err {err:.3e}{auto} (SDPA's gradients {lib_err:.3e} "
@@ -1225,12 +1234,14 @@ def main() -> int:
                   f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, "
                   f"{ms / lms:.2f}x SDPA's backward), plain {pms:.4f} ms, "
                   f"library {lms:.4f} ms (SDPA backend: {backend}), bound "
-                  f"{bnd:.4f} ms ({by})")
+                  f"{bnd:.4f} ms ({by}); head groups G {groups}"
+                  + (f"; device ms by kernel {split}" if split else ""))
             row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd,
                        bound_by=by, library_ms=lms, library_err=lib_err,
                        library_backend=backend, tflops=flop / ms / 1e9,
                        vs_library=ms / lms, window=window,
-                       shape=[list(q.shape), list(k.shape)], dtype=dname)
+                       shape=[list(q.shape), list(k.shape)], dtype=dname,
+                       head_groups=groups, split=split)
             if dname == "bfloat16" and case == "tinyllama":
                 report["flash_attention_bwd"] = row
             elif case == "recurrentgemma":
@@ -1241,7 +1252,8 @@ def main() -> int:
             torch.cuda.empty_cache()
     report["flash_attention_bwd"]["qwen3"] = qwen3_bwd
     report["flash_attention_bwd_d256"] = dict(
-        bwd_d256["bfloat16"], float32=bwd_d256["float32"])
+        bwd_d256["bfloat16"], float32=bwd_d256["float32"],
+        float32_vs_library=bwd_d256["float32"]["vs_library"])
     print(f"[2] flash_attention forward at qwen3's prefill, bfloat16: "
           f"without lse {fwd_ms['plain']:.4f} ms (PR 19: "
           f"{ATTN_FWD_PR19_MS} ms), with lse {fwd_ms['lse']:.4f} ms")

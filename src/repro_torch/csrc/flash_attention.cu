@@ -87,33 +87,58 @@
 // (causal, window, ends aligned); a row that sees no key has lse = -inf,
 // P = 0 and contributes nothing.  No floating-point atomics: every gradient
 // element is summed by one thread in a fixed order (the GQA sum inside the
-// dK/dV block), so a backward gives the same bits in every run.
-// Bound on the card: the bf16 tensor-core rate; the least work is 10 D
-// flops a visible pair (2.5x the forward's), this design does 14 D (S and
-// dP are computed in both the dK/dV and the dQ kernel).
+// dK/dV block, or over G blocks by one kernel in group order), so a
+// backward gives the same bits in every run.  Bound on the card: the bf16
+// tensor-core rate (the float32 rate for float32 inputs); the least work
+// is 10 D flops a visible pair (2.5x the forward's), this design does 14 D
+// (S and dP are computed in both the dK/dV and the dQ kernel).
+//
+// Query-head groups.  A dK/dV block walks the query heads of its KV head;
+// where the grid (key tiles x Hkv x B) would leave SMs idle (MQA at batch
+// 1: recurrentgemma-9b's 64 key tiles at D 256), the host plan splits
+// those heads into G groups, a block each, G the largest divisor of Hq /
+// Hkv that keeps the grid within one wave.  With G > 1 the blocks write
+// float32 partial dK and dV to scratch (2 G B Hkv Tk D floats: 16.8 MB at
+// that shape) and `bwd_dkdv_sum` adds them in group order, scales dK and
+// rounds to the output dtype.  bf16 at D <= 128 takes no groups.
 //
 // bfloat16 (namespace wgb): all five products on wgmma with float32
 // accumulators, built from the forward's pieces (swizzled panels, the
 // cp.async ring on mbarriers, qk_issue / pv_issue):
 //   * `bwd_delta_vec`: delta_i = sum_d dO_i,d O_i,d, D / 8 threads a row,
 //     16-byte loads;
-//   * `bwd_dkdv_wgmma`: a block a (key tile of 128, KV head, batch), two
-//     warpgroups of 64 keys; K and V stay in shared memory, Q and dO tiles
-//     of 64 rows with their lse and delta stream through a ring of 4
-//     stages.  The keys are the M rows: S^T = K Q^T and dP^T = V dO^T are
-//     ss wgmma with both operands K-major (the forward's S with the roles
-//     swapped); P^T = 2^(S^T scale log2 e - lse log2 e) and dS^T = P^T
-//     (dP^T - delta) on the accumulator fragment, lse and delta indexed by
-//     column; dV += bf16(P^T) dO and dK += bf16(dS^T) Q are rs wgmma with
-//     the fragment as the register A operand and dO / Q the MN-major B
-//     operand (the forward's P V).  The block walks the Hq / Hkv query
-//     heads of its group and the query tiles that see its keys; key tiles
-//     are the slowest grid dimension, so causal key tile 0 (seen by every
-//     query tile) starts first;
+//   * `bwd_dkdv_wgmma` (D <= 128): a block a (key tile of 128, KV head,
+//     batch), two warpgroups of 64 keys; K and V stay in shared memory, Q
+//     and dO tiles of 64 rows with their lse and delta stream through a
+//     ring of 4 stages.  The keys are the M rows: S^T = K Q^T and dP^T = V
+//     dO^T are ss wgmma with both operands K-major (the forward's S with
+//     the roles swapped); P^T = 2^(S^T scale log2 e - lse log2 e) and dS^T
+//     = P^T (dP^T - delta) on the accumulator fragment, lse and delta
+//     indexed by column; dV += bf16(P^T) dO and dK += bf16(dS^T) Q are rs
+//     wgmma with the fragment as the register A operand and dO / Q the
+//     MN-major B operand (the forward's P V).  The block walks the Hq /
+//     Hkv query heads of its group and the query tiles that see its keys;
+//     key tiles are the slowest grid dimension, so causal key tile 0 (seen
+//     by every query tile) starts first;
+//   * `bwd_dkdv_wgmma_pair` (D 256, recurrentgemma-9b: MQA with a window of
+//     2,048): 64 keys x 256 columns of both dK and dV would be 256 float32
+//     registers a thread, so both warpgroups take the same 64 keys and
+//     split the products: warpgroup 0 issues S^T = K Q^T and warpgroup 1
+//     dP^T = V dO^T (m64n32, the operands picked by the warpgroup index,
+//     so both run one instruction stream), the two float32 fragments cross
+//     through shared memory behind a named barrier, each warpgroup forms
+//     P^T and dS^T, and warpgroup 0 accumulates dV += bf16(P^T) dO,
+//     warpgroup 1 dK += bf16(dS^T) Q over all 256 columns (128 registers).
+//     Every product runs once (8 D flops a visible pair in this kernel);
+//     tile j's S^T / dP^T is issued beside tile j - 1's rs product, whose
+//     run the exchange and softmax overlap.  Q and dO stream in tiles of
+//     32 rows through 4 stages; K, V, the ring and the exchange (two tiles'
+//     fragments) take 226 KB.  With G = 2 its grid is 128 blocks;
 //   * `bwd_dq_wgmma`: a block a (query tile of 128, head, batch), two
 //     warpgroups of 64 rows; Q and dO loaded once, K and V tiles of 64 keys
-//     stream through the ring over the forward's key range; S = Q K^T and
-//     dP = dO V^T ss, dQ += bf16(dS) K rs with K the MN-major B;
+//     (32 in 3 stages at D 256, as the forward's tile) stream through the
+//     ring over the forward's key range; S = Q K^T and dP = dO V^T ss, dQ
+//     += bf16(dS) K rs with K the MN-major B;
 //   * rounding points are FlashAttention-2/3's: only P and dS are rounded
 //     to bf16 (as A operands); S and dP are exact products summed in
 //     float32; dK and dQ are scaled in the epilogue, rounded to bf16 and
@@ -125,27 +150,29 @@
 //   * shared memory (+1 KB to align): dK/dV 2 x 128 x DP + 4 x 2 x 64 x
 //     DP bf16 + lse/delta (195 KB at D = 128, 99 KB below); dQ 2 x 128 x
 //     DP + 4 x 2 x 64 x DP (193 KB, 97 KB); one block an SM (the dK/dV
-//     warpgroup holds dK, dV, S^T and dP^T: 255 registers at D = 128);
-//   * D = 256 (recurrentgemma-9b, MQA with a window of 2,048) has its own
-//     tiles (wgb::Cfg): 64 keys x 256 columns of dK and dV would be 256
-//     float32 registers a thread, so both warpgroups of a dK/dV block take
-//     the same 64 keys, each computes S^T and dP^T (repeated: 12 D flops
-//     a visible pair in that kernel), and each holds dK and dV for its
-//     128 columns; Q and dO stream in tiles of 32 rows, 4 stages (194 KB
-//     with K and V).  The dQ block keeps 128 rows of Q and dO (128 KB) and
-//     streams 32-key tiles through 3 stages (225 KB), as the forward does
-//     at D = 256.  Every block of an MQA dK/dV grid walks all the query
-//     heads of its KV head.
+//     warpgroup holds dK, dV, S^T and dP^T: 255 registers at D = 128).
 // float32 (namespace bwd) runs on the float32 cores (TF32 wgmma could not
-// meet the float32 checks, as for the forward), D 16-256: `bwd_delta` a
-// warp a row;
-// `bwd_dkdv` a block a (key tile of 32, KV head, batch) holding K and V,
-// walking the group's heads and the query tiles of 64 rows that see it
-// (P = exp(S scale - lse), dS = P (dP - delta), dV += P^T dO, dK += dS^T
-// Q scale); `bwd_dq` a block a (query tile of 64, head, batch) over the
-// forward's key tiles (dQ += dS K scale).  Shared memory 2 x 64 x D + 2 x
-// 32 x (D + 4) + 2 x 64 x 33 floats (113 KB at D = 128, 210 KB at D =
-// 256), one block an SM.
+// meet the float32 checks, as for the forward), D 16-256, register-tiled:
+// `bwd_delta` a warp a row, then one launch of `bwd_fused` whose first
+// blocks compute dK/dV, one a (key tile of 32, KV head x group, batch)
+// holding K and V, walking its heads' query tiles that see the keys (64
+// rows, 32 at D 256) through two stages of 16-byte cp.async copies (tile
+// j + 1 lands while tile j is used), and whose other blocks compute dQ,
+// one a (query tile, head, batch) holding Q and dO, streaming the
+// forward's key tiles the same way; in one launch the dQ blocks fill the
+// SMs that light dK/dV blocks free (the window's last key tiles, the
+// causal mask's last).  What bounds them is the shared-
+// memory port: a warp's 16-byte load takes 4 of its cycles against 4
+// FMA instructions a cycle on the SM, so each word loaded must feed 4
+// FMAs.  Every product therefore runs on 8 x 8 outputs a thread: one
+// half of the block computes S = Q K^T and the other dP = dO V^T (at D
+// 256 eight lanes share an 8 x 8 block, each over its own float4 columns
+// of D, and fold their sums by shuffles); half 0 writes P = exp(S scale -
+// lse), half 1 reads it (a named barrier) and writes dS = P (dP - delta);
+// then dV += P^T dO and dK += dS^T Q (a half each) or dQ += dS K, lanes
+// sharing a block over their own rows or keys, folded once at the end.
+// Shared memory 205 KB at D 256 and 184 KB (dK/dV) at D 128; one block
+// (8 warps) an SM.
 #include <cuda_bf16.h>
 
 #include <cmath>
@@ -415,6 +442,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(in ? 16 : 0));
 }
+// 4-byte async copy (zero-filled when !in): lse and delta rows, whose
+// starts need not be 16-byte aligned.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
 // Waits for every cp.async copy this thread has issued.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -453,6 +488,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // visible to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier 1 over N threads (0 is __syncthreads): bar1_arrive counts
+// this thread in without waiting (its earlier shared-memory writes are
+// seen by the threads that wait), bar1_sync counts it in and waits.
+template <int N>
+__device__ __forceinline__ void bar1_arrive() {
+  asm volatile("bar.arrive 1, %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bar1_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
 }
 
 // Rows [row0, row0 + ROWS) of a (T, D) bf16 view with row stride ld
@@ -1003,19 +1050,226 @@ int launch_tile(const void* q, const void* k, const void* v, void* s,
 
 
 // ---------------------------------------------------------------------------
-// Backward, float32: FlashAttention-2's scheme on the float32 cores.
+// Backward, float32: FlashAttention-2's scheme on the float32 cores,
+// register-tiled.
 namespace bwd {
 
-constexpr int BQ = 64;        // query rows a tile
-constexpr int BK = 32;        // keys a tile
-constexpr int THREADS = 256;  // 16 x 16 for the score tile (ty rows, tx keys)
-constexpr int PS = BK + 1;    // padded row of the P / dS tiles
+using wg::cp_async16;
+using wg::cp_async4;
+using wg::smem_u32;
+using simt::lds;
+
+constexpr int THREADS = 256;  // two halves of 128 threads
 
 struct Strides {  // (batch, head, sequence) of each tensor, in elements
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s,
       do_b, do_h, do_s, dq_b, dq_h, dq_s, dk_b, dk_h, dk_s, dv_b, dv_h,
       dv_s;
 };
+
+// The float32 instance at head dim D.  On the float32 cores a warp-wide
+// 16-byte shared-memory load takes four cycles of the SM's shared-memory
+// port while the four schedulers issue four FMA instructions a cycle, so
+// an operand word must feed at least four FMAs: every product runs on
+// 8 x 8 blocks of outputs a thread (the 16 words of a step of the sum
+// feed 64 FMAs), and where a product has too few such blocks for its threads,
+// lanes of a warp share a block, each over its own share of the sum, and
+// add their shares by shuffles at the end (a butterfly that leaves each
+// lane 64 / lanes of the sums).
+//   * S = Q K^T and dP = dO V^T (a half-block each, in both kernels): SK
+//     lanes share a block, each summing every SK-th run of float4 columns
+//     of D, and fold their sums per tile.  Half 0 writes P = exp(S scale -
+//     lse) (0 where masked), then half 1, whose threads hold dP at the
+//     same elements, reads it and writes dS = P (dP - delta).
+//   * dV += P^T dO and dK += dS^T Q (a half each, dkdv_block): SB lanes
+//     share a block of 8 keys x 8 columns, each over its own rows of the
+//     query tile (runs of 4); folded once, at the end of the block.
+//   * dQ += dS K (the whole block, dq_block): SQ lanes share a block of TRQ
+//     rows x 8 columns, each over its own runs of 4 keys; folded at the
+//     end.
+template <int D>
+struct Cfg {
+  static constexpr int BK = 32;                 // keys a K/V tile
+  static constexpr int BQ = D > 128 ? 32 : 64;  // rows a Q/dO tile
+  static constexpr int LD = D + 4;  // padded rows of Q, dO, K, V
+  static constexpr int LP = BK + 4;  // padded rows of P and dS
+  // S / dP: RB x KB blocks of 8 x 8 (rows rb + RB i, keys kb + KB j)
+  static constexpr int RB = BQ / 8, KB = BK / 8;
+  static constexpr int SK = 128 / (RB * KB);
+  // its float4 columns: lane p of SK takes G8 / SK of every G8
+  static constexpr int G8 = D / 4 < 8 ? D / 4 : 8;
+  // dK / dV: KBB x CBB blocks of 8 keys x 8 columns (a half)
+  static constexpr int KBB = BK / 8, CBB = D / 8;
+  static constexpr int SB = 128 / (KBB * CBB);
+  // dQ: RBQ x CBQ blocks of TRQ rows x 8 columns (the block)
+  static constexpr int TRQ = D >= 32 ? 8 : 4;
+  static constexpr int RBQ = BQ / TRQ, CBQ = D / 8;
+  static constexpr int SQ = THREADS / (RBQ * CBQ);
+  // a streamed stage: dK/dV's Q, dO, lse, delta; dQ's K, V
+  static constexpr int Q_STAGE = 2 * BQ * LD + 2 * BQ;
+  static constexpr int K_STAGE = 2 * BK * LD;
+  // shared memory, bytes: dK/dV holds K, V, two Q stages, P, dS; dQ holds
+  // Q, dO, lse, delta, two K stages, P, dS
+  static constexpr int KV_SMEM = 4 * (2 * BK * LD + 2 * Q_STAGE + 2 * BQ * LP);
+  static constexpr int DQ_SMEM = 4 * (Q_STAGE + 2 * K_STAGE + 2 * BQ * LP);
+  static constexpr int SMEM = KV_SMEM > DQ_SMEM ? KV_SMEM : DQ_SMEM;
+  static_assert(SK >= 1 && SK <= 8 && G8 % SK == 0, "S blocks");
+  static_assert(SB >= 1 && SB <= 16 && BQ % (4 * SB) == 0, "dK/dV blocks");
+  static_assert(SQ >= 1 && SQ <= 8 && TRQ * 8 % SQ == 0, "dQ blocks");
+  static_assert(KV_SMEM <= 232448 && DQ_SMEM <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed cp.async groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st4(float* p, const float* v, float mul) {
+  *reinterpret_cast<float4*>(p) =
+      make_float4(v[0] * mul, v[1] * mul, v[2] * mul, v[3] * mul);
+}
+
+// Rows [row0, row0 + ROWS) of a (T, D) view with row stride ls (16-byte
+// aligned rows) into a tile of row stride LD, as 16-byte cp.async copies;
+// rows >= limit are zero-filled.
+template <int ROWS, int D, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long ls, int row0, int limit,
+                                          int tid) {
+  constexpr int CPR = D / 4, N = ROWS * CPR;
+#pragma unroll
+  for (int it = 0; it < (N + THREADS - 1) / THREADS; ++it) {
+    const int idx = tid + it * THREADS;
+    if (N % THREADS == 0 || idx < N) {
+      const int r = idx / CPR, c = idx % CPR, row = row0 + r;
+      const bool in = row < limit;
+      cp_async16(smem_u32(dst + r * LD + 4 * c),
+                 in ? src + row * ls + 4 * c : src, in);
+    }
+  }
+}
+
+// ROWS floats of lse, then of delta, of rows [row0, row0 + ROWS) of one
+// head into dst (zero past limit).
+template <int ROWS>
+__device__ __forceinline__ void load_lse(float* dst, const float* lse,
+                                         const float* delta, long long base,
+                                         int row0, int limit, int tid) {
+  if (tid < 2 * ROWS) {
+    const int r = tid % ROWS;
+    const bool in = row0 + r < limit;
+    const float* src = (tid < ROWS ? lse : delta) + base + row0 + r;
+    cp_async4(smem_u32(dst + tid), in ? src : lse, in);
+  }
+}
+
+// One butterfly step: the lanes l and l ^ M each keep half of v's N
+// values (l & M: the upper half) and add the partner's copy of it.
+template <int N, int M>
+__device__ __forceinline__ void fold_step(const float* v, float* out,
+                                          int lane) {
+  const bool up = lane & M;
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) {
+    const float send = up ? v[k] : v[k + N / 2];
+    const float keep = up ? v[k + N / 2] : v[k];
+    out[k] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+// Sums v's N values over the S lanes that differ in their low log2(S)
+// bits; lane l keeps out[k] = the sum of v[(N / S) (l % S) + k].
+template <int N, int S>
+__device__ __forceinline__ void fold(const float* v, float* out, int lane) {
+  if constexpr (S == 1) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = v[k];
+  } else {
+    float half[N / 2];
+    fold_step<N, S / 2>(v, half, lane);
+    fold<N / 2, S / 2>(half, out, lane);
+  }
+}
+
+// One half-block's product of a (BQ x BK) tile, folded over its SK lanes:
+// out[8 ii + j] = sum_d xr[rb + RB i][d] xk[kb + KB j][d] for the
+// thread's rows i = (8 / SK) p + ii.
+template <int D>
+__device__ __forceinline__ void tile_product(const float* xr, const float* xk,
+                                             int rb, int kb, int p, int lane,
+                                             float (&out)[64 / Cfg<D>::SK]) {
+  using C = Cfg<D>;
+  constexpr int RUN = C::G8 / C::SK;
+  float acc[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) acc[k] = 0.f;
+#pragma unroll 1
+  for (int g = 0; g < D / 4; g += C::G8) {
+#pragma unroll
+    for (int u = 0; u < RUN; ++u) {
+      const int c = 4 * (g + RUN * p + u);
+      float b[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        lds<4>(xk + (kb + C::KB * j) * C::LD + c, b[j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float a[4];
+        lds<4>(xr + (rb + C::RB * i) * C::LD + c, a);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[8 * i + j] = fmaf(a[e], b[j][e], acc[8 * i + j]);
+      }
+    }
+  }
+  fold<64, C::SK>(acc, out, lane);
+}
+
+// S (half 0) or dP (half 1) of the thread's rows into P = exp(S scale -
+// lse) (0 where masked; a visible key implies a finite lse for its row)
+// in sP, then dS = P (dP - delta) in sX; the tile at query row q0, key k0.
+template <int D>
+__device__ __forceinline__ void scores_out(const float (&v)[64 / Cfg<D>::SK],
+                                           int half, int rb, int kb, int p,
+                                           const float* sL, const float* sDl,
+                                           float* sP, float* sX, int q0,
+                                           int k0, int tq, int tk, int off,
+                                           int causal, int window,
+                                           float scale) {
+  using C = Cfg<D>;
+  constexpr int NR = 8 / C::SK;
+  if (half == 0) {
+#pragma unroll
+    for (int ii = 0; ii < NR; ++ii) {
+      const int r = rb + C::RB * (NR * p + ii), qi = q0 + r, qpos = qi + off;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = kb + C::KB * j, kpos = k0 + c;
+        const bool ok = qi < tq && kpos < tk && (!causal || kpos <= qpos) &&
+                        (window <= 0 || kpos > qpos - window);
+        sP[r * C::LP + c] = ok ? expf(v[8 * ii + j] * scale - sL[r]) : 0.f;
+      }
+    }
+    wg::bar1_arrive<THREADS>();
+  } else {
+    wg::bar1_sync<THREADS>();  // half 0's P of the same elements
+#pragma unroll
+    for (int ii = 0; ii < NR; ++ii) {
+      const int r = rb + C::RB * (NR * p + ii);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = kb + C::KB * j;
+        sX[r * C::LP + c] = sP[r * C::LP + c] * (v[8 * ii + j] - sDl[r]);
+      }
+    }
+  }
+}
 
 // delta_i = sum_d dO_i,d O_i,d (float32), a warp a row of (B, Hq, Tq).
 __global__ void __launch_bounds__(THREADS)
@@ -1037,229 +1291,327 @@ __global__ void __launch_bounds__(THREADS)
   if (lane == 0) delta[row] = acc;
 }
 
-// Rows [row0, row0 + ROWS) of a (T, D) view with row stride ls into a
-// float tile of row stride LDS; rows outside [0, limit) are zero.
-template <int ROWS, int D, int LDS>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long ls, int row0, int limit,
-                                          int tid) {
-  for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D, row = row0 + r;
-    dst[r * LDS + c] = row < limit ? src[row * ls + c] : 0.f;
-  }
-}
-
-// The tile's shared memory, in floats: Q and dO (BQ x D), K and V (BK x
-// (D + 4), conflict-free float4 rows), P and dS (BQ x PS), lse and delta.
+// dK and dV of one key tile (kt) of one KV head for one group of its
+// query heads (hg = KV head x groups + group), batch b.  K and V stay in
+// shared memory; the Q, dO, lse and delta tiles of the group's heads and
+// the query rows that see the keys stream through two stages (tile j + 1
+// copied while tile j is used).  Half 0 accumulates dV += P^T dO, half 1
+// dK += dS^T Q.  groups 1 writes dK scale and dV; more write float32
+// partial sums to part ([dK, dV][group][batch][KV head][key][D]), which
+// bwd_dkdv_sum adds in group order.  No atomics: the same inputs give the
+// same bits.
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (2 * BQ * D + 2 * BK * (D + 4) + 2 * BQ * PS + 2 * BQ);
-}
-
-// One (query tile q0, key tile k0) pair: S = Q K^T and dP = dO V^T for the
-// thread's rows ty + 16 i and keys tx + 16 j, then P = exp(S scale - lse)
-// (0 where masked) and dS = P (dP - delta) into sP and sdS.
-template <int D>
-__device__ __forceinline__ void p_ds(const float* sQ, const float* sdO,
-                                     const float* sK, const float* sV,
-                                     const float* sL, const float* sDl,
-                                     float* sP, float* sdS, int ty, int tx,
-                                     int q0, int k0, int tq, int tk, int off,
-                                     int causal, int window, float scale) {
-  constexpr int KS = D + 4;
-  float s[4][2], dp[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float qv[4][4], gv[4][4], kv[2][4], vv[2][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      simt::lds<4>(sQ + (ty + 16 * i) * D + d, qv[i]);
-      simt::lds<4>(sdO + (ty + 16 * i) * D + d, gv[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      simt::lds<4>(sK + (tx + 16 * j) * KS + d, kv[j]);
-      simt::lds<4>(sV + (tx + 16 * j) * KS + d, vv[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[i][j] = fmaf(qv[i][e], kv[j][e], s[i][j]);
-          dp[i][j] = fmaf(gv[i][e], vv[j][e], dp[i][j]);
-        }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, qi = q0 + r, qpos = qi + off;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = tx + 16 * j, kpos = k0 + c;
-      // a visible key implies a finite lse for its row
-      const bool ok = qi < tq && kpos < tk && (!causal || kpos <= qpos) &&
-                      (window <= 0 || kpos > qpos - window);
-      const float p = ok ? expf(s[i][j] * scale - sL[r]) : 0.f;
-      sP[r * PS + c] = p;
-      sdS[r * PS + c] = p * (dp[i][j] - sDl[r]);
-    }
-  }
-}
-
-// dK and dV of one key tile of one KV head: one block a (key tile, KV head,
-// batch).  It walks the Hq / Hkv query heads of its group and, for each, the
-// query tiles that see the tile, so the GQA sum stays in the block (no
-// atomics: the same inputs give the same bits).  Thread t accumulates key
-// t / 8 and columns t % 8 + 8 c of both.
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-    bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dk, float* __restrict__ dv, Strides s, int hq,
-             int hkv, int tq, int tk, int causal, int window, float scale) {
-  constexpr int KS = D + 4, NC = D / 8;
+__device__ __forceinline__ void dkdv_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
+    const Strides& s, int hq, int hkv, int tq, int tk, int causal,
+    int window, float scale, int groups, int kt, int hg, int b, int nb) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
+  constexpr int SK = C::SK, SB = C::SB, NB = 64 / SB;
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sdO = sQ + BQ * D;
-  float* sK = sdO + BQ * D;
-  float* sV = sK + BK * KS;
-  float* sP = sV + BK * KS;
-  float* sdS = sP + BQ * PS;
-  float* sL = sdS + BQ * PS;
-  float* sDl = sL + BQ;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int kk = tid >> 3, c0 = tid & 7;
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
-  const int rep = hq / hkv, off = tk - tq;
-  load_rows<BK, D, KS>(sK, k + b * s.k_b + hk * s.k_h, s.k_s, k0, tk, tid);
-  load_rows<BK, D, KS>(sV, v + b * s.v_b + hk * s.v_h, s.v_s, k0, tk, tid);
+  float* sK = reinterpret_cast<float*>(smem4);
+  float* sV = sK + BK * LD;
+  float* ring = sV + BK * LD;
+  float* sP = ring + 2 * C::Q_STAGE;
+  float* sX = sP + BQ * LP;
+  const int tid = threadIdx.x, half = tid >> 7, lane = tid & 31;
+  const int w = (tid >> 5) & 3;
+  const int k0 = kt * BK, hk = hg / groups, g = hg % groups;
+  const int rep = hq / hkv, hpg = rep / groups, off = tk - tq;
+  // the thread's S / dP block: rows rb + RB i, keys kb + KB j, lane p of SK
+  const int p = lane % SK, slot = lane / SK + (32 / SK) * w;
+  const int kb = slot % C::KB, rb = slot / C::KB;
+  // its dK / dV block: keys 8 kbb + e, columns 4 cbb + D / 2 u, rows of
+  // the query tile in runs of 4, lane pb of SB
+  const int pb = lane % SB, bslot = lane / SB + (32 / SB) * w;
+  const int cbb = bslot % C::CBB, kbb = bslot / C::CBB;
 
-  float adk[NC], adv[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) adk[c] = adv[c] = 0.f;
+  load_rows<BK, D, LD>(sK, k + b * s.k_b + hk * s.k_h, s.k_s, k0, tk, tid);
+  load_rows<BK, D, LD>(sV, v + b * s.v_b + hk * s.v_h, s.v_s, k0, tk, tid);
   // query rows that see a key of the tile: qpos >= k0 (causal) and
-  // qpos < last key + window
+  // qpos < last key + window; every head of the group walks them
   const int klast = min(k0 + BK, tk) - 1;
   const int qbeg = causal ? max(0, k0 - off) / BQ * BQ : 0;
   const int qend = window > 0 ? min(tq, klast + window - off) : tq;
-  for (int hi = 0; hi < rep; ++hi) {
-    const int h = hk * rep + hi;
-    const float* qb = q + b * s.q_b + h * s.q_h;
-    const float* gb = dout + b * s.do_b + h * s.do_h;
-    const float* lb = lse + ((long long)b * hq + h) * tq;
-    const float* db = delta + ((long long)b * hq + h) * tq;
-    for (int q0 = qbeg; q0 < qend; q0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done
-      load_rows<BQ, D, D>(sQ, qb, s.q_s, q0, tq, tid);
-      load_rows<BQ, D, D>(sdO, gb, s.do_s, q0, tq, tid);
-      if (tid < BQ) {
-        const bool in = q0 + tid < tq;
-        sL[tid] = in ? lb[q0 + tid] : 0.f;
-        sDl[tid] = in ? db[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      p_ds<D>(sQ, sdO, sK, sV, sL, sDl, sP, sdS, ty, tx, q0, k0, tq, tk, off,
-              causal, window, scale);
-      __syncthreads();
-      for (int r = 0; r < BQ; ++r) {
-        const float p = sP[r * PS + kk], ds = sdS[r * PS + kk];
+  const int nq = qend > qbeg ? (qend - qbeg + BQ - 1) / BQ : 0;
+  const int n = hpg * nq;
+  auto load_q = [&](int j) {  // tile j into stage j % 2
+    float* st = ring + (j & 1) * C::Q_STAGE;
+    const int h = hk * rep + g * hpg + j / nq, q0 = qbeg + (j % nq) * BQ;
+    load_rows<BQ, D, LD>(st, q + b * s.q_b + h * s.q_h, s.q_s, q0, tq, tid);
+    load_rows<BQ, D, LD>(st + BQ * LD, dout + b * s.do_b + h * s.do_h,
+                         s.do_s, q0, tq, tid);
+    load_lse<BQ>(st + 2 * BQ * LD, lse, delta, ((long long)b * hq + h) * tq,
+                 q0, tq, tid);
+  };
+  if (n > 0) load_q(0);
+  cp_async_commit();
+
+  float acc[64];  // [e][c]: key 8 kbb + e, column c of the block
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          adv[c] = fmaf(p, sdO[r * D + c0 + 8 * c], adv[c]);
-          adk[c] = fmaf(ds, sQ[r * D + c0 + 8 * c], adk[c]);
-        }
-      }
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j landed; tile j - 1's readers are done
+    if (j + 1 < n) load_q(j + 1);
+    cp_async_commit();
+    const float* sQ = ring + (j & 1) * C::Q_STAGE;
+    const float* sdO = sQ + BQ * LD;
+    const float* sL = sdO + BQ * LD;
+    float sc[64 / SK];
+    tile_product<D>(half ? sdO : sQ, half ? sV : sK, rb, kb, p, lane, sc);
+    scores_out<D>(sc, half, rb, kb, p, sL, sL + BQ, sP, sX,
+                  qbeg + (j % nq) * BQ, k0, tq, tk, off, causal, window,
+                  scale);
+    __syncthreads();
+    // dV += P^T dO (half 0), dK += dS^T Q (half 1)
+    const float* a_src = (half ? sX : sP) + 8 * kbb;
+    const float* b_src = (half ? sQ : sdO) + 4 * cbb;
+#pragma unroll 2
+    for (int m = 0; m < BQ / SB; ++m) {
+      const int r = (m & 3) + 4 * pb + 4 * SB * (m >> 2);
+      float a[8], bv[8];
+      lds<4>(a_src + r * LP, a);
+      lds<4>(a_src + r * LP + 4, a + 4);
+      lds<4>(b_src + r * LD, bv);
+      lds<4>(b_src + r * LD + D / 2, bv + 4);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          acc[8 * e + c] = fmaf(a[e], bv[c], acc[8 * e + c]);
     }
   }
-  const int key = k0 + kk;
-  if (key < tk) {
-    float* kr = dk + b * s.dk_b + hk * s.dk_h + key * s.dk_s;
-    float* vr = dv + b * s.dv_b + hk * s.dv_h + key * s.dv_s;
+  cp_async_wait<0>();  // K/V's copies, when no query tile sees the keys
+
+  float red[NB];  // keys and columns (NB / 8 rows of acc) of this lane
+  fold<64, SB>(acc, red, lane);
+  float* out;
+  long long ls;
+  float mul = 1.f;
+  if (groups == 1) {
+    out = half ? dk + b * s.dk_b + hk * s.dk_h : dv + b * s.dv_b + hk * s.dv_h;
+    ls = half ? s.dk_s : s.dv_s;
+    mul = half ? scale : 1.f;
+  } else {
+    out = part + (((long long)(1 - half) * groups + g) * nb * hkv +
+                  (long long)b * hkv + hk) * tk * D;
+    ls = D;
+  }
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      kr[c0 + 8 * c] = adk[c] * scale;
-      vr[c0 + 8 * c] = adv[c];
-    }
+  for (int kk = 0; kk < NB; kk += 4) {
+    const int fl = NB * pb + kk, e = fl / 8, c = fl % 8;
+    const int key = k0 + 8 * kbb + e;
+    if (key < tk)
+      st4(out + key * ls + 4 * cbb + (D / 2) * (c / 4), red + kk, mul);
   }
 }
 
-// dQ of one query tile of one head: one block a (query tile, head, batch),
-// over the key tiles the tile sees (the forward's range).  Thread t
-// accumulates row t / 4 and columns t % 4 + 4 c.
+// dQ of one query tile (rows q0 on) of head h, batch b.  Q, dO, lse and
+// delta stay in shared
+// memory; the K and V tiles of the forward's key range stream through
+// two stages; every thread accumulates dQ += dS K on its block.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-    bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dq, Strides s, int hq, int hkv, int tq, int tk,
-           int causal, int window, float scale) {
-  constexpr int KS = D + 4, NC = D / 4;
+__device__ __forceinline__ void dq_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, const Strides& s, int hq, int hkv, int tq,
+    int tk, int causal, int window, float scale, int q0, int h, int b) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
+  constexpr int SK = C::SK, SQ = C::SQ, TRQ = C::TRQ;
+  constexpr int NQ = 8 * TRQ / SQ;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sdO = sQ + BQ * D;
-  float* sK = sdO + BQ * D;
-  float* sV = sK + BK * KS;
-  float* sP = sV + BK * KS;
-  float* sdS = sP + BQ * PS;
-  float* sL = sdS + BQ * PS;
-  float* sDl = sL + BQ;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int row = tid >> 2, c0 = tid & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  float* sdO = sQ + BQ * LD;
+  float* sL = sdO + BQ * LD;  // lse, then delta
+  float* ring = sQ + C::Q_STAGE;
+  float* sP = ring + 2 * C::K_STAGE;
+  float* sX = sP + BQ * LP;
+  const int tid = threadIdx.x, half = tid >> 7, lane = tid & 31;
+  const int w = (tid >> 5) & 3, w8 = tid >> 5;
   const int hk = h / (hq / hkv), off = tk - tq;
-  const float* kb = k + b * s.k_b + hk * s.k_h;
-  const float* vb = v + b * s.v_b + hk * s.v_h;
-  load_rows<BQ, D, D>(sQ, q + b * s.q_b + h * s.q_h, s.q_s, q0, tq, tid);
-  load_rows<BQ, D, D>(sdO, dout + b * s.do_b + h * s.do_h, s.do_s, q0, tq,
-                      tid);
-  if (tid < BQ) {
-    const bool in = q0 + tid < tq;
-    const long long i = ((long long)b * hq + h) * tq + q0 + tid;
-    sL[tid] = in ? lse[i] : 0.f;
-    sDl[tid] = in ? delta[i] : 0.f;
-  }
-  float adq[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) adq[c] = 0.f;
+  const int p = lane % SK, slot = lane / SK + (32 / SK) * w;
+  const int kb = slot % C::KB, rb = slot / C::KB;
+  // the thread's dQ block: rows rbq + RBQ i, columns 4 cbq + D / 2 u, runs
+  // of 4 keys pq, pq + SQ, ...
+  const int pq = lane % SQ, qslot = lane / SQ + (32 / SQ) * w8;
+  const int cbq = qslot % C::CBQ, rbq = qslot / C::CBQ;
+  const float* kbase = k + b * s.k_b + hk * s.k_h;
+  const float* vbase = v + b * s.v_b + hk * s.v_h;
+
+  load_rows<BQ, D, LD>(sQ, q + b * s.q_b + h * s.q_h, s.q_s, q0, tq, tid);
+  load_rows<BQ, D, LD>(sdO, dout + b * s.do_b + h * s.do_h, s.do_s, q0, tq,
+                       tid);
+  load_lse<BQ>(sL, lse, delta, ((long long)b * hq + h) * tq, q0, tq, tid);
+  // the forward's key range
   const int last_row = min(q0 + BQ, tq) - 1;
   const int kend = causal ? min(tk, last_row + off + 1) : tk;
-  int kbeg = 0;
-  if (window > 0) kbeg = max(0, q0 + off - window + 1) / BK * BK;
-  for (int kt = kbeg; kt < kend; kt += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<BK, D, KS>(sK, kb, s.k_s, kt, tk, tid);
-    load_rows<BK, D, KS>(sV, vb, s.v_s, kt, tk, tid);
-    __syncthreads();
-    p_ds<D>(sQ, sdO, sK, sV, sL, sDl, sP, sdS, ty, tx, q0, kt, tq, tk, off,
-            causal, window, scale);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float ds = sdS[row * PS + j];
+  const int kbeg = window > 0 ? max(0, q0 + off - window + 1) / BK * BK : 0;
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  auto load_kv = [&](int j) {  // tile j into stage j % 2
+    float* st = ring + (j & 1) * C::K_STAGE;
+    const int kt = kbeg + j * BK;
+    load_rows<BK, D, LD>(st, kbase, s.k_s, kt, tk, tid);
+    load_rows<BK, D, LD>(st + BK * LD, vbase, s.v_s, kt, tk, tid);
+  };
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();
+
+  float acc[8 * TRQ];  // [i][c]: row rbq + RBQ i, column c of the block
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
-        adq[c] = fmaf(ds, sK[j * KS + c0 + 4 * c], adq[c]);
+  for (int i = 0; i < 8 * TRQ; ++i) acc[i] = 0.f;
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j landed; tile j - 1's readers are done
+    if (j + 1 < ntiles) load_kv(j + 1);
+    cp_async_commit();
+    const float* sK = ring + (j & 1) * C::K_STAGE;
+    const float* sV = sK + BK * LD;
+    float sc[64 / SK];
+    tile_product<D>(half ? sdO : sQ, half ? sV : sK, rb, kb, p, lane, sc);
+    scores_out<D>(sc, half, rb, kb, p, sL, sL + BQ, sP, sX, q0,
+                  kbeg + j * BK, tq, tk, off, causal, window, scale);
+    __syncthreads();
+    // dQ += dS K over this lane's runs of 4 keys
+#pragma unroll
+    for (int m = 0; m < BK / (4 * SQ); ++m) {
+      const int c0 = 4 * (pq + SQ * m);
+      float ds[TRQ][4];
+#pragma unroll
+      for (int i = 0; i < TRQ; ++i)
+        lds<4>(sX + (rbq + C::RBQ * i) * LP + c0, ds[i]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float kv[8];
+        lds<4>(sK + (c0 + e) * LD + 4 * cbq, kv);
+        lds<4>(sK + (c0 + e) * LD + 4 * cbq + D / 2, kv + 4);
+#pragma unroll
+        for (int i = 0; i < TRQ; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            acc[8 * i + c] = fmaf(ds[i][e], kv[c], acc[8 * i + c]);
+      }
     }
   }
-  if (q0 + row < tq) {
-    float* qr = dq + b * s.dq_b + h * s.dq_h + (q0 + row) * s.dq_s;
+  cp_async_wait<0>();  // Q's copies, when no key tile was loaded
+
+  float red[NQ];
+  fold<8 * TRQ, SQ>(acc, red, lane);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) qr[c0 + 4 * c] = adq[c] * scale;
+  for (int kk = 0; kk < NQ; kk += 4) {
+    const int fl = NQ * pq + kk, i = fl / 8, c = fl % 8;
+    const int row = q0 + rbq + C::RBQ * i;
+    if (row < tq)
+      st4(dq + b * s.dq_b + h * s.dq_h + row * s.dq_s + 4 * cbq +
+              (D / 2) * (c / 4),
+          red + kk, scale);
   }
+}
+
+// Both in one launch, so that dQ blocks fill the SMs that dK/dV blocks of
+// little work (the window's last key tiles, causal's last) leave idle:
+// blocks [0, kv_tiles x Hkv x groups x B) take dK/dV (key tiles fastest,
+// heaviest first), the rest dQ (query tiles fastest, heaviest first).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_fused(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq, float* __restrict__ dk,
+              float* __restrict__ dv, float* __restrict__ part, Strides s,
+              int nb, int hq, int hkv, int tq, int tk, int causal, int window,
+              float scale, int groups, int kv_tiles, int q_tiles) {
+  const int kv_blocks = kv_tiles * hkv * groups * nb;
+  int id = blockIdx.x;
+  if (id < kv_blocks) {
+    const int kt = id % kv_tiles, hg = id / kv_tiles % (hkv * groups);
+    dkdv_block<D>(q, k, v, dout, lse, delta, dk, dv, part, s, hq, hkv, tq,
+                  tk, causal, window, scale, groups, kt, hg,
+                  id / kv_tiles / (hkv * groups), nb);
+  } else {
+    id -= kv_blocks;
+    const int qt = id % q_tiles, h = id / q_tiles % hq;
+    dq_block<D>(q, k, v, dout, lse, delta, dq, s, hq, hkv, tq, tk, causal,
+                window, scale, (q_tiles - 1 - qt) * Cfg<D>::BQ, h,
+                id / q_tiles / hq);
+  }
+}
+
+// dK = scale sum_g part[0][g], dV = sum_g part[1][g], the G partial sums
+// of bwd_dkdv / bwd_dkdv_wgmma_pair added in group order (no atomics: the
+// same bits in every run), into the output dtype T.  A thread a float4 of
+// a (batch, KV head, key) row of dK or dV.
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    bwd_dkdv_sum(const float* __restrict__ part, T* __restrict__ dk,
+                 T* __restrict__ dv, Strides s, int groups, int hkv, int tk,
+                 int d, long long rows, float scale) {
+  const long long n4 = rows * (d / 4);  // float4s of dK (or dV)
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= 2 * n4) return;
+  const int which = i >= n4;  // 0: dK, 1: dV
+  const long long e = i - which * n4, row = e / (d / 4);
+  const int c = (int)(e % (d / 4)) * 4;
+  const float4* src =
+      reinterpret_cast<const float4*>(part + which * groups * rows * d) + e;
+  float4 acc = src[0];
+  for (int g = 1; g < groups; ++g) {
+    const float4 x = src[g * n4];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float mul = which ? 1.f : scale;
+  acc.x *= mul;
+  acc.y *= mul;
+  acc.z *= mul;
+  acc.w *= mul;
+  const int key = (int)(row % tk);
+  const long long bh = row / tk;
+  const int hk = (int)(bh % hkv), b = (int)(bh / hkv);
+  T* dst = which ? dv + b * s.dv_b + hk * s.dv_h + key * s.dv_s
+                 : dk + b * s.dk_b + hk * s.dk_h + key * s.dk_s;
+  store4(dst + c, acc);
+}
+
+// Adds the partial sums (groups > 1) into dk and dv.
+template <typename T>
+int launch_sum(const float* part, void* dk, void* dv, const Strides& s,
+               int groups, int b, int hkv, int tk, int d, float scale,
+               cudaStream_t stream) {
+  const long long rows = (long long)b * hkv * tk;
+  const long long blocks = (2 * rows * (d / 4) + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bwd_dkdv_sum<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      part, (T*)dk, (T*)dv, s, groups, hkv, tk, d, rows, scale);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, const Strides& s, int b, int hq, int hkv,
-           int tq, int tk, int causal, int window, float scale,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+           void* dk, void* dv, float* part, int groups, const Strides& s,
+           int b, int hq, int hkv, int tq, int tk, int causal, int window,
+           float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
   const long long rows = (long long)b * hq * tq;
   const long long dblocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
   if (dblocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -1267,25 +1619,23 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       (const float*)o, (const float*)dout, delta, s, hq, tq, D, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  auto kv_kern = bwd_dkdv<D>;
-  auto q_kern = bwd_dq<D>;
-  e = cudaFuncSetAttribute(kv_kern,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  auto kern = bwd_fused<D>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kv_kern<<<dim3((tk + BK - 1) / BK, hkv, b), THREADS, smem, stream>>>(
+  const int kv_tiles = (tk + C::BK - 1) / C::BK;
+  const int q_tiles = (tq + C::BQ - 1) / C::BQ;
+  const long long blocks =
+      (long long)kv_tiles * hkv * groups * b + (long long)q_tiles * hq * b;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, THREADS, C::SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, delta, (float*)dk, (float*)dv, s, hq, hkv, tq, tk, causal, window,
-      scale);
+      lse, delta, (float*)dq, (float*)dk, (float*)dv, part, s, b, hq, hkv,
+      tq, tk, causal, window, scale, groups, kv_tiles, q_tiles);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  q_kern<<<dim3((tq + BQ - 1) / BQ, hq, b), THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, delta, (float*)dq, s, hq, hkv, tq, tk, causal, window, scale);
-  return (int)cudaGetLastError();
+  if (e != cudaSuccess || groups == 1) return (int)e;
+  return launch_sum<float>(part, dk, dv, s, groups, b, hkv, tk, D, scale,
+                           stream);
 }
 
 }  // namespace bwd
@@ -1305,31 +1655,31 @@ constexpr int THREADS = 256;  // two consumer warpgroups
 template <int D>
 struct Cfg {
   static constexpr int DP = D < 64 ? 64 : D;  // head dim padded to a panel
-  // D 256 splits the head dim of dK and dV between the two warpgroups:
-  // 64 keys x 256 columns of dK and dV would be 256 float32 registers a
-  // thread, so both warpgroups take the same 64 keys, each computes S^T
-  // and dP^T for them (the products are repeated), and each holds dK and
-  // dV for its 128 columns.
-  static constexpr bool SPLIT = D > 128;
-  static constexpr int DH = SPLIT ? DP / 2 : DP;  // dK/dV columns a wg
+  // D 256 runs bwd_dkdv_wgmma_pair: 64 keys x 256 columns of both dK and
+  // dV would be 256 float32 registers a thread, so both warpgroups take
+  // the same 64 keys, one computes S^T and the other dP^T, the two
+  // fragments cross through shared memory (KV_XCH: two tiles' worth), and
+  // each holds one of dK and dV.
+  static constexpr bool PAIR = D > 128;
   // dK/dV: a block a (key tile of BKV, KV head, batch), 64 keys a
-  // warpgroup (the same 64 under SPLIT); Q and dO tiles of BQ rows (with
+  // warpgroup (the same 64 under PAIR); Q and dO tiles of BQ rows (with
   // their lse and delta) stream through the ring.  At D 256, K and V
-  // take 64 KB and a stage of Q and dO 32 KB.
-  static constexpr int BKV = SPLIT ? 64 : 128, BQ = SPLIT ? 32 : 64;
+  // take 64 KB, a stage of Q and dO 32 KB and the exchange 32 KB.
+  static constexpr int BKV = PAIR ? 64 : 128, BQ = PAIR ? 32 : 64;
   static constexpr int KV_STAGES = 4;
   static constexpr int KV_BYTES = BKV * DP * 2;  // K or V
   static constexpr int QT_BYTES = BQ * DP * 2;   // a streamed Q or dO tile
   static constexpr int KV_RING = 2 * KV_BYTES;   // stage s: Q, then dO
   static constexpr int KV_ROWS =
       KV_RING + KV_STAGES * 2 * QT_BYTES;        // lse, delta
-  static constexpr int KV_BAR = KV_ROWS + KV_STAGES * 2 * BQ * 4;
+  static constexpr int KV_XCH = KV_ROWS + KV_STAGES * 2 * BQ * 4;
+  static constexpr int KV_BAR = KV_XCH + (PAIR ? 2 * 2 * 64 * BQ * 4 : 0);
   static constexpr int KV_SMEM = KV_BAR + KV_STAGES * 2 * 8 + 1024;
   // dQ: a block a (query tile of BQ_DQ, head, batch), 64 rows a
   // warpgroup; K and V tiles of BK keys stream through the ring (at D 256
   // Q and dO take 128 KB, so 3 stages of 32 keys, as the forward's tile).
-  static constexpr int BQ_DQ = 128, BK = SPLIT ? 32 : 64;
-  static constexpr int DQ_STAGES = SPLIT ? 3 : 4;
+  static constexpr int BQ_DQ = 128, BK = PAIR ? 32 : 64;
+  static constexpr int DQ_STAGES = PAIR ? 3 : 4;
   static constexpr int Q_BYTES = BQ_DQ * DP * 2;  // Q or dO
   static constexpr int KT_BYTES = BK * DP * 2;    // a streamed K or V tile
   static constexpr int DQ_RING = 2 * Q_BYTES;     // stage s: K, then V
@@ -1337,14 +1687,6 @@ struct Cfg {
   static constexpr int DQ_SMEM = DQ_BAR + DQ_STAGES * 2 * 8 + 1024;
   static_assert(KV_SMEM <= 232448 && DQ_SMEM <= 232448, "shared memory");
 };
-
-// 4-byte async copy (zero-filled when !in): lse and delta rows, whose
-// starts need not be 16-byte aligned.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 4 : 0));
-}
 
 // delta_i = sum_d dO_i,d O_i,d in float32: D / 8 threads a row, each one
 // 16-byte chunk of both rows.
@@ -1395,8 +1737,8 @@ __device__ __forceinline__ void stage_acc(uint8_t* smem, const float* acc,
   }
 }
 
-// dK and dV of one key tile of one KV head, on the transposed scores: a
-// warpgroup's 64 keys are the M rows of S^T = K Q^T and dP^T = V dO^T
+// dK and dV of one key tile of one KV head at D <= 128, on the transposed
+// scores: a warpgroup's 64 keys are the M rows of S^T = K Q^T and dP^T = V dO^T
 // (ss wgmma, both operands K-major), P^T and dS^T are formed on the
 // accumulator fragment (lse and delta indexed by column, so by query),
 // and dV += bf16(P^T) dO, dK += bf16(dS^T) Q run as rs wgmma with dO and
@@ -1413,7 +1755,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                    int tq, int tk, int causal, int window, float scale,
                    float scale_log2) {
   using C = Cfg<D>;
-  constexpr int DP = C::DP, DH = C::DH, BKV = C::BKV, BQ = C::BQ;
+  static_assert(!C::PAIR, "D 256 runs bwd_dkdv_wgmma_pair");
+  constexpr int DP = C::DP, BKV = C::BKV, BQ = C::BQ;
   constexpr int S = C::KV_STAGES;
   constexpr int NS = BQ / 2;  // S^T registers a thread
   extern __shared__ uint8_t smem_raw[];
@@ -1481,16 +1824,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int j = 0; j < S - 2; ++j) load_q(j);
 
-  float dka[DH / 2], dva[DH / 2];
+  float dka[DP / 2], dva[DP / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
-  // the warpgroup's keys (rows of the K and V tiles) and, under SPLIT, its
-  // columns of dK and dV: panels col0 / 64 on of the Q and dO tiles
-  const int key0 = C::SPLIT ? 0 : 64 * wgi;
-  const int col0 = C::SPLIT ? DH * wgi : 0;
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+  // the warpgroup's keys (rows of the K and V tiles)
+  const int key0 = 64 * wgi;
   const uint32_t kw = sK + key0 * ROW_BYTES;
   const uint32_t vw = sV + key0 * ROW_BYTES;
-  const uint32_t half = (col0 / 64) * BQ * ROW_BYTES;
   const int r_k = k0 + key0 + 16 * warp + (lane >> 2);  // first key
   const int c_q = 2 * (lane & 3);                       // first column
 
@@ -1553,13 +1893,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint32_t pp[BQ / 16][4], pds[BQ / 16][4];
     pack_p<BQ>(st, pp);
     pack_p<BQ>(dpt, pds);
-    pv_issue<DH, BQ>(dva, pp, sdo + half);  // dV += bf16(P^T) dO
-    pv_issue<DH, BQ>(dka, pds, sq + half);  // dK += bf16(dS^T) Q
+    pv_issue<DP, BQ>(dva, pp, sdo);  // dV += bf16(P^T) dO
+    pv_issue<DP, BQ>(dka, pds, sq);  // dK += bf16(dS^T) Q
     wgmma_wait<0>();
     fence_regs(pp);
     fence_regs(pds);
-    fence_regs<DH / 2>(dva);
-    fence_regs<DH / 2>(dka);
+    fence_regs<DP / 2>(dva);
+    fence_regs<DP / 2>(dka);
     mbar_arrive(empty + 8 * (j % S));
   }
 
@@ -1567,13 +1907,249 @@ __global__ void __launch_bounds__(THREADS, 1)
   cp_async_wait_all();  // K/V's copies, when no query tile sees the keys
   __syncthreads();
   const int r_local = key0 + 16 * warp + (lane >> 2);
-  stage_acc<BKV, DH>(smem, dka, scale, r_local, col0 + c_q);
-  stage_acc<BKV, DH>(smem + C::KV_BYTES, dva, 1.f, r_local, col0 + c_q);
+  stage_acc<BKV, DP>(smem, dka, scale, r_local, c_q);
+  stage_acc<BKV, DP>(smem + C::KV_BYTES, dva, 1.f, r_local, c_q);
   __syncthreads();
   store_tile<BKV, D, THREADS>(dk + b * s.dk_b + hk * s.dk_h, s.dk_s, smem,
                              k0, tk, tid);
   store_tile<BKV, D, THREADS>(dv + b * s.dv_b + hk * s.dv_h, s.dv_s,
                              smem + C::KV_BYTES, k0, tk, tid);
+}
+
+// qk_issue with the k-steps alternating between two accumulators, s0 and
+// s1 (two independent wgmma chains); s = s0 + s1 after the group's wait.
+template <int DP, int QROWS, int BK>
+__device__ __forceinline__ void qk_issue2(float (&s0)[BK / 2],
+                                          float (&s1)[BK / 2], uint32_t qw,
+                                          uint32_t sk) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s0[i] = s1[i] = 0.f;
+  fence_regs<BK / 2>(s0);
+  fence_regs<BK / 2>(s1);
+  wgmma_fence();
+  const uint64_t da0 = desc_sw128(qw, 16, 1024);
+  const uint64_t db0 = desc_sw128(sk, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int step = (kk & 3) * 32;
+    const uint64_t da = da0 + (((kk >> 2) * QROWS * ROW_BYTES + step) >> 4);
+    const uint64_t db = db0 + (((kk >> 2) * BK * ROW_BYTES + step) >> 4);
+    static_assert(BK == 32, "the pair's m64n32 products");
+    wgmma_ss_n32(kk & 1 ? s1 : s0, da, db);
+  }
+  wgmma_commit();
+}
+
+// dK and dV of one key tile of 64 at D 256 (recurrentgemma-9b: MQA at
+// batch 1 with a window), for one group of the KV head's query heads.
+// Both warpgroups take the same 64 keys and split the products, not D:
+// warpgroup 0 issues S^T = K Q^T and warpgroup 1 dP^T = V dO^T (ss wgmma
+// m64n32, the operands picked by the warpgroup index, so both run one
+// instruction stream and no wgmma wait sits in divergent code), the two
+// float32 fragments cross through shared memory behind a named barrier
+// (thread t of either warpgroup holds the same elements), and each forms
+// P^T and dS^T = P^T (dP^T - delta); warpgroup 0 then accumulates dV +=
+// bf16(P^T) dO and warpgroup 1 dK += bf16(dS^T) Q over all 256 columns
+// (rs wgmma, 128 float32 registers a thread).  So every product runs
+// once: 8 D flops a visible pair.  Tile j's S^T / dP^T is issued with
+// tile j - 1's rs product, and the exchange and softmax of tile j overlap
+// the latter (tile 0 issues one of A = 0); the 16 narrow k-steps of S^T /
+// dP^T alternate between two accumulators, two chains in place of one.
+// Q and dO tiles of 32 rows stream through a ring of 4 stages.  groups 1 stores dK scale and dV in
+// bf16; more write float32 partial sums to part, which bwd::bwd_dkdv_sum
+// adds in group order.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dkdv_wgmma_pair(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        float* __restrict__ part, bwd::Strides s, int hq,
+                        int hkv, int tq, int tk, int causal, int window,
+                        float scale, float scale_log2, int groups) {
+  using C = Cfg<D>;
+  static_assert(C::PAIR, "the D 256 tiles");
+  constexpr int DP = C::DP, BKV = C::BKV, BQ = C::BQ, S = C::KV_STAGES;
+  constexpr int NS = BQ / 2;  // S^T (or dP^T) registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t sK = smem_u32(smem);
+  const float* rows_f = reinterpret_cast<const float*>(smem + C::KV_ROWS);
+  float4* xch = reinterpret_cast<float4*>(smem + C::KV_XCH);
+  const uint32_t full = sK + C::KV_BAR, empty = full + 8 * S;
+
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, tw = tid & 127;
+  const int hk = blockIdx.x / groups, g = blockIdx.x % groups;
+  const int b = blockIdx.y, k0 = blockIdx.z * BKV;
+  const int rep = hq / hkv, hpg = rep / groups, off = tk - tq;
+
+  if (tid == 0)
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + 8 * i, THREADS);
+      mbar_init(empty + 8 * i, THREADS);
+    }
+  fence_async_smem();
+  __syncthreads();
+
+  load_tile<BKV, D, THREADS>(sK, k + b * s.k_b + hk * s.k_h, s.k_s, k0, tk,
+                             tid);
+  load_tile<BKV, D, THREADS>(sK + C::KV_BYTES, v + b * s.v_b + hk * s.v_h,
+                             s.v_s, k0, tk, tid);
+
+  // Query rows that see a key of the tile: qpos >= k0 (causal) and
+  // qpos < last key + window; every head of the group walks them.
+  const int klast = min(k0 + BKV, tk) - 1;
+  const int qbeg = causal ? max(0, k0 - off) / BQ * BQ : 0;
+  const int qend = window > 0 ? min(tq, klast + window - off) : tq;
+  const int nq = qend > qbeg ? (qend - qbeg + BQ - 1) / BQ : 0;
+  const int n = hpg * nq;
+
+  auto stage = [&](int j) {
+    return sK + C::KV_RING + (j % S) * 2 * C::QT_BYTES;
+  };
+  auto load_q = [&](int j) {  // tile j into its stage; arrives on full
+    if (j < n) {
+      if (j >= S)  // the stage's previous tile, j - S, is done everywhere
+        mbar_wait(empty + 8 * (j % S), ((j - S) / S) & 1);
+      const int hi = j / nq, q0 = qbeg + (j - hi * nq) * BQ;
+      const int h = hk * rep + g * hpg + hi;
+      load_tile<BQ, D, THREADS>(stage(j), q + b * s.q_b + h * s.q_h, s.q_s,
+                                q0, tq, tid);
+      load_tile<BQ, D, THREADS>(stage(j) + C::QT_BYTES,
+                                dout + b * s.do_b + h * s.do_h, s.do_s, q0,
+                                tq, tid);
+      // lse, then delta: 2 BQ floats (surplus threads repeat a copy)
+      const int e = tid % (2 * BQ), r = e % BQ;
+      const bool in = q0 + r < tq;
+      const float* src = (e < BQ ? lse : delta) +
+                         ((long long)b * hq + h) * tq + q0 + r;
+      cp_async4(smem_u32(rows_f + (j % S) * 2 * BQ + e), in ? src : lse, in);
+      cp_async_arrive(full + 8 * (j % S));
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < S - 2; ++j) load_q(j);
+
+  // The operands, by warpgroup: S^T from K and Q, or dP^T from V and dO;
+  // then dV from dO, or dK from Q (a stage holds Q, then dO).
+  const uint32_t xa = sK + wgi * C::KV_BYTES;
+  const uint32_t xb = wgi * C::QT_BYTES;
+  const uint32_t rb = (1 - wgi) * C::QT_BYTES;
+  const int r_k = k0 + 16 * warp + (lane >> 2);  // the thread's first key
+  const int c_q = 2 * (lane & 3);                // and first column
+  float acc[DP / 2];  // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  uint32_t a[BQ / 16][4] = {};  // tile j - 1's A fragments; 0 before tile 0
+
+  for (int j = 0; j < n; ++j) {
+    mbar_wait(full + 8 * (j % S), (j / S) & 1);  // tile j (and K/V) landed
+    fence_async_smem();
+    load_q(j + S - 2);
+    const int hi = j / nq, q0 = qbeg + (j - hi * nq) * BQ;
+    const float* lrow = rows_f + (j % S) * 2 * BQ;
+    const float* drow = lrow + BQ;
+
+    float x[NS], x1[NS];
+    qk_issue2<DP, BKV, BQ>(x, x1, xa, stage(j) + xb);  // S^T or dP^T
+    pv_issue<DP, BQ>(acc, a, stage(j > 0 ? j - 1 : 0) + rb);
+    wgmma_wait<1>();
+    fence_regs<NS>(x);
+    fence_regs<NS>(x1);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) x[i] += x1[i];
+
+    // the other warpgroup's fragment, through a buffer of tile parity
+    float4* mine = xch + ((j & 1) * 2 + wgi) * (NS / 4) * 128 + tw;
+    const float4* other = xch + ((j & 1) * 2 + 1 - wgi) * (NS / 4) * 128 + tw;
+#pragma unroll
+    for (int i = 0; i < NS / 4; ++i)
+      mine[i * 128] =
+          make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+    bar1_sync<THREADS>();  // both warpgroups' fragments are in
+    float y[NS];
+#pragma unroll
+    for (int i = 0; i < NS / 4; ++i) {
+      const float4 f = other[i * 128];
+      y[4 * i] = f.x;
+      y[4 * i + 1] = f.y;
+      y[4 * i + 2] = f.z;
+      y[4 * i + 3] = f.w;
+    }
+
+    // P^T = 2^(S^T scale log2 e - lse log2 e); masked elements are 0 by a
+    // select (a row that sees no key has lse = -inf); dS^T = P^T (dP^T -
+    // delta).  Warpgroup 0 keeps P^T, warpgroup 1 dS^T.
+    const bool need_mask = q0 + BQ > tq || k0 + BKV > tk ||
+                           (causal && k0 + BKV - 1 > q0 + off) ||
+                           (window > 0 && k0 <= q0 + BQ - 1 + off - window);
+    int lo[2], hi_[2];  // visible columns of the thread's two keys
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = r_k + 8 * r, base = q0 + c_q;
+      // query qi sees key kpos: qi < tq, kpos < tk, qi + off >= kpos
+      // (causal) and qi + off < kpos + window
+      const int last = window > 0 ? min(tq - 1, kpos - off + window - 1)
+                                  : tq - 1;
+      lo[r] = (causal ? kpos - off : q0) - base;
+      hi_[r] = kpos < tk ? last - base : lo[r] - 1;
+    }
+    float f[NS];
+#pragma unroll
+    for (int gi = 0; gi < NS / 4; ++gi) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lrow + 8 * gi + c_q);
+      const float2 d2 = *reinterpret_cast<const float2*>(drow + 8 * gi + c_q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * gi + e, r = (e >> 1) & 1, c = frag_col(i);
+        const float st = wgi ? y[i] : x[i], dpt = wgi ? x[i] : y[i];
+        const float l = (e & 1) ? l2.y : l2.x;
+        const float p0 = exp2_approx(fmaf(st, scale_log2, -l * LOG2E));
+        const float p = !need_mask || (c >= lo[r] && c <= hi_[r]) ? p0 : 0.f;
+        const float ds = p * (dpt - ((e & 1) ? d2.y : d2.x));
+        f[i] = wgi ? ds : p;
+      }
+    }
+    wgmma_wait<0>();  // tile j - 1's rs product: a and its stage are free
+    fence_regs(a);
+    fence_regs<DP / 2>(acc);
+    if (j > 0) mbar_arrive(empty + 8 * ((j - 1) % S));
+    pack_p<BQ>(f, a);
+  }
+  if (n > 0) {  // the last tile's rs product (its stage is never refilled)
+    pv_issue<DP, BQ>(acc, a, stage(n - 1) + rb);
+    wgmma_wait<0>();
+    fence_regs(a);
+    fence_regs<DP / 2>(acc);
+  }
+
+  cp_async_wait_all();  // K/V's copies, when no query tile sees the keys
+  __syncthreads();
+  const int r_local = 16 * warp + (lane >> 2);
+  if (groups == 1) {
+    // dK scale and dV in bf16, staged through the K and V tiles
+    stage_acc<BKV, DP>(smem + (1 - wgi) * C::KV_BYTES, acc,
+                       wgi ? scale : 1.f, r_local, c_q);
+    __syncthreads();
+    store_tile<BKV, D, THREADS>(dk + b * s.dk_b + hk * s.dk_h, s.dk_s, smem,
+                               k0, tk, tid);
+    store_tile<BKV, D, THREADS>(dv + b * s.dv_b + hk * s.dv_h, s.dv_s,
+                               smem + C::KV_BYTES, k0, tk, tid);
+  } else {
+    float* out = part + (((long long)(1 - wgi) * groups + g) * gridDim.y * hkv +
+                         (long long)b * hkv + hk) * tk * D;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int key = k0 + r_local + frag_row(i);
+      if (key < tk)
+        *reinterpret_cast<float2*>(out + (long long)key * D + frag_col(i) +
+                                   c_q) = make_float2(acc[i], acc[i + 1]);
+    }
+  }
 }
 
 // dQ of one query tile of one head: S = Q K^T and dP = dO V^T (ss wgmma),
@@ -1715,8 +2291,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // backward's rs product: a in the accumulator fragment's layout rounded to
 // the A fragment (pack_p), b a 64-row swizzled tile read MN-major
 // (P^T dO, dS^T Q and dS K have this shape a warpgroup at D <= 128; at D
-// 256 they run at depth 32, dK and dV over 128 of the columns, with the
-// same descriptors per k-step).
+// 256 they run at depth 32, with the same descriptors per k-step).
 template <int D>
 __global__ void __launch_bounds__(128)
     bwd_tile_products(const float* __restrict__ a, const bf16* __restrict__ bm,
@@ -1760,36 +2335,55 @@ __global__ void __launch_bounds__(128)
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, const bwd::Strides& s, int b, int hq, int hkv,
-           int tq, int tk, int causal, int window, float scale,
-           cudaStream_t stream) {
+           void* dk, void* dv, float* part, int groups,
+           const bwd::Strides& s, int b, int hq, int hkv, int tq, int tk,
+           int causal, int window, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   constexpr int RPB = THREADS / (D / 8);  // delta rows a block
   const long long rows = (long long)b * hq * tq;
   const long long dblocks = (rows + RPB - 1) / RPB;
   const int kv_tiles = (tk + C::BKV - 1) / C::BKV;
   const int q_tiles = (tq + C::BQ_DQ - 1) / C::BQ_DQ;
-  if (dblocks > 0x7fffffffLL || kv_tiles > 65535 || q_tiles > 65535)
+  if (dblocks > 0x7fffffffLL || kv_tiles > 65535 || q_tiles > 65535 ||
+      (long long)hkv * groups > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   bwd_delta_vec<D><<<(unsigned)dblocks, THREADS, 0, stream>>>(
       (const bf16*)o, (const bf16*)dout, delta, s, hq, tq, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  auto kv_kern = bwd_dkdv_wgmma<D>;
   auto q_kern = bwd_dq_wgmma<D>;
-  e = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           C::KV_SMEM);
-  if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::DQ_SMEM);
   if (e != cudaSuccess) return (int)e;
   const float scale_log2 = scale * LOG2E;
-  kv_kern<<<dim3(hkv, b, kv_tiles), THREADS, C::KV_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dk, (bf16*)dv, s, hq, hkv, tq, tk, causal, window, scale,
-      scale_log2);
+  if constexpr (C::PAIR) {
+    auto kv_kern = bwd_dkdv_wgmma_pair<D>;
+    e = cudaFuncSetAttribute(
+        kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::KV_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    kv_kern<<<dim3(hkv * groups, b, kv_tiles), THREADS, C::KV_SMEM,
+              stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                        (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv,
+                        part, s, hq, hkv, tq, tk, causal, window, scale,
+                        scale_log2, groups);
+  } else {
+    if (groups != 1) return (int)cudaErrorInvalidValue;
+    auto kv_kern = bwd_dkdv_wgmma<D>;
+    e = cudaFuncSetAttribute(
+        kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::KV_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    kv_kern<<<dim3(hkv, b, kv_tiles), THREADS, C::KV_SMEM, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        lse, delta, (bf16*)dk, (bf16*)dv, s, hq, hkv, tq, tk, causal, window,
+        scale, scale_log2);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (groups > 1) {
+    const int rc = bwd::launch_sum<bf16>(part, dk, dv, s, groups, b, hkv, tk,
+                                         D, scale, stream);
+    if (rc != 0) return rc;
+  }
   q_kern<<<dim3(hq, b, q_tiles), THREADS, C::DQ_SMEM, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
       delta, (bf16*)dq, s, hq, hkv, tq, tk, causal, window, scale,
@@ -1845,6 +2439,13 @@ struct BwdWgmmaLaunch {
   template <int D, typename... A>
   static int run(A... args) { return wgb::launch<D>(args...); }
 };
+struct BwdSmem {
+  template <int D>
+  static int run(int dtype, int which) {
+    if (dtype == 0) return which ? bwd::Cfg<D>::DQ_SMEM : bwd::Cfg<D>::KV_SMEM;
+    return which ? wgb::Cfg<D>::DQ_SMEM : wgb::Cfg<D>::KV_SMEM;
+  }
+};
 struct BwdTileLaunch {
   template <int D, typename... A>
   static int run(A... args) { return wgb::launch_tile<D>(args...); }
@@ -1899,40 +2500,50 @@ extern "C" int flash_attention_tile_products(int d, const void* q,
 // The backward: dq in q's layout, dk / dv in k's / v's (24 element strides,
 // (batch, head, sequence) of q, k, v, o, dout, dq, dk, dv in turn), in the
 // input dtype, from the forward's o and lse (contiguous float32 (B, Hq, Tq)).
-// delta: float32 (B, Hq, Tq) scratch.  Head dims 16-256.
-// bfloat16 needs every row start 16-byte aligned (the eight pointers and
-// the 24 strides).
+// delta: float32 (B, Hq, Tq) scratch.  Head dims 16-256.  groups: the dK/dV
+// kernel splits each KV head's Hq / Hkv query heads into that many groups,
+// a block each (it must divide Hq / Hkv; bfloat16 at D <= 128 takes 1), and
+// part, float32 scratch of 2 x groups x B x Hkv x Tk x D (null for 1),
+// holds their partial sums.  Every row starts 16-byte aligned (the eight
+// pointers and the 24 strides): the kernels copy with 16-byte cp.async.
 extern "C" int flash_attention_bwd(int dtype, int d, const void* q,
                                    const void* k, const void* v,
                                    const void* o, const void* dout,
                                    const float* lse, float* delta, void* dq,
-                                   void* dk, void* dv,
-                                   const long long* strides, int b, int hq,
-                                   int hkv, int tq, int tk, int causal,
-                                   int window, float scale, void* stream) {
+                                   void* dk, void* dv, float* part,
+                                   int groups, const long long* strides,
+                                   int b, int hq, int hkv, int tq, int tk,
+                                   int causal, int window, float scale,
+                                   void* stream) {
   if (b <= 0 || tq <= 0 || tk <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || b > 65535 || hq > 65535)
+  if (hkv <= 0 || hq % hkv != 0 || b > 65535 || hq > 65535 || groups < 1 ||
+      (hq / hkv) % groups != 0 || (groups > 1 && part == nullptr) ||
+      (dtype == 1 && d <= 128 && groups != 1) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   static_assert(sizeof(bwd::Strides) == 24 * sizeof(long long), "strides");
+  const int vec = dtype == 0 ? 4 : 8;  // elements in 16 bytes
+  for (int i = 0; i < 24; ++i)
+    if (strides[i] % vec != 0) return (int)cudaErrorMisalignedAddress;
+  const void* ptrs[9] = {q, k, v, o, dout, dq, dk, dv, part};
+  uintptr_t any = 0;
+  for (const void* p : ptrs) any |= reinterpret_cast<uintptr_t>(p);
+  if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;
   bwd::Strides st;
   memcpy(&st, strides, sizeof st);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_d<BwdLaunch>(d, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                 st, b, hq, hkv, tq, tk, causal, window,
-                                 scale, s);
-  if (dtype == 1) {
-    for (int i = 0; i < 24; ++i)
-      if (strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
-    const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
-    uintptr_t any = 0;
-    for (const void* p : ptrs) any |= reinterpret_cast<uintptr_t>(p);
-    if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;
-    return dispatch_d<BwdWgmmaLaunch>(d, q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, st, b, hq, hkv, tq, tk, causal,
-                                      window, scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
+                                 part, groups, st, b, hq, hkv, tq, tk, causal,
+                                 window, scale, s);
+  return dispatch_d<BwdWgmmaLaunch>(d, q, k, v, o, dout, lse, delta, dq, dk,
+                                    dv, part, groups, st, b, hq, hkv, tq, tk,
+                                    causal, window, scale, s);
+}
+
+// Shared memory a block of the backward's dK/dV kernel (which 0) or dQ
+// kernel (which 1) takes at head dim d, dtype 0 float32 or 1 bfloat16.
+extern "C" int flash_attention_bwd_smem(int dtype, int d, int which) {
+  return dispatch_d<BwdSmem>(d, dtype, which);
 }
 
 // The bf16 backward's rs product on one tile (card tests): out = bf16(a)

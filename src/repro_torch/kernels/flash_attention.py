@@ -29,15 +29,19 @@ head ``h // (Hq // Hkv)``; a row that sees no key is 0.
   source (FlashAttention-2's scheme, head dims in :data:`BWD_HEAD_DIMS`;
   no atomics, so a backward gives the same bits in every run) and counts
   ``flash_attention_bwd.launches`` (those at D 256 again in
-  ``flash_attention_bwd.d256_launches``): bfloat16 runs all five
+  ``flash_attention_bwd.d256_launches``).  bfloat16 runs all five
   products on the tensor cores (``wgmma``, P and dS rounded to bfloat16
-  as their A operands, float32 sums; at D 256 the two warpgroups of a
-  dK/dV block split the head dim) and, like the forward, copies a tensor
-  whose rows do not start 16-byte aligned; float32 runs on the float32
-  cores.
-  :func:`attention_bwd_torch` is its plain version.  The reference has no
-  backward kernel: its gradients are XLA's autodiff of the plain
-  attention.
+  as their A operands, float32 sums); at D 256 the two warpgroups of a
+  dK/dV block take one product each (S^T or dP^T) and trade the
+  fragments through shared memory, so no product runs twice.  float32
+  runs on the float32 cores, register-tiled, with Q/dO and K/V streamed
+  through 16-byte ``cp.async`` copies.  Both copy a tensor whose rows do
+  not start 16-byte aligned.  Where the dK/dV grid would leave SMs idle,
+  :func:`attention_bwd_plan` splits each KV head's query heads into G
+  groups, a block each; the blocks write float32 partial sums that one
+  kernel adds in group order.  :func:`attention_bwd_torch` is its plain
+  version.  The reference has no backward kernel: its gradients are
+  XLA's autodiff of the plain attention.
 * :func:`bwd_tile_products` runs the bfloat16 backward's register-A
   ``wgmma`` on one tile, for the card tests.
 * :class:`FlashAttentionFunction` is the ``torch.autograd.Function``
@@ -47,6 +51,8 @@ head ``h // (Hq // Hkv)``; a row that sees no key is 0.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -160,14 +166,17 @@ def attention_bwd_torch(q, k, v, o, do, lse, *, causal: bool = True,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _fits(t: torch.Tensor) -> bool:
+def _fits(t: torch.Tensor, aligned: bool = False) -> bool:
     """Whether the kernel takes ``t`` as it is: unit stride along D and,
-    in bfloat16, 16-byte aligned rows (pointer and strides)."""
+    in bfloat16 (or where ``aligned`` asks for it), 16-byte aligned rows
+    (pointer and strides)."""
     if t.stride(-1) != 1:
         return False
-    if t.dtype != torch.bfloat16:
+    if t.dtype != torch.bfloat16 and not aligned:
         return True
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    vec = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % vec == 0
+                                          for s in t.stride()[:3])
 
 
 def _launch(q, k, v, causal: bool, window: Optional[int], scale: float,
@@ -223,41 +232,128 @@ def flash_attention(q, k, v, *, causal: bool = True,
 flash_attention.launches = 0
 
 
-def _unit(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the backward takes it: unit stride along D (an expanded
-    gradient is copied)."""
-    return t if t.stride(-1) == 1 and t.numel() else t.contiguous()
+#: Streaming multiprocessors of an H100 SXM: the plan's default card (on a
+#: card it takes the device's own count).
+SMS = 132
+#: Shared memory a block may take (bytes).
+SMEM_LIMIT = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdTiles:
+    """The backward's tiles at one head dim and dtype, as the source's
+    ``Cfg`` sets them: the dK/dV kernel's keys a block and query rows a
+    streamed tile, the dQ kernel's query rows a block and keys a streamed
+    tile, each kernel's shared memory a block (bytes), the blocks an SM
+    holds, and whether the dK/dV kernel takes query-head groups."""
+    kv_keys: int
+    kv_rows: int
+    dq_rows: int
+    dq_keys: int
+    kv_smem: int
+    dq_smem: int
+    per_sm: int
+    takes_groups: bool
+
+
+def bwd_tiles(d: int, dtype) -> BwdTiles:
+    """The tiles of the backward's instance at head dim ``d`` (float32 or
+    bfloat16): a mirror of ``wgb::Cfg`` and ``bwd::Cfg`` in
+    ``csrc/flash_attention.cu``."""
+    if dtype == torch.bfloat16:
+        dp = max(d, 64)
+        pair = d > 128                   # bwd_dkdv_wgmma_pair
+        bkv, bq = (64, 32) if pair else (128, 64)
+        stages = 4
+        ring_end = 2 * bkv * dp * 2 + stages * 2 * bq * dp * 2
+        kv_xch = ring_end + stages * 2 * bq * 4   # after lse, delta
+        kv_bar = kv_xch + (2 * 2 * 64 * bq * 4 if pair else 0)
+        bk, dq_stages = (32, 3) if pair else (64, 4)
+        dq_bar = 2 * 128 * dp * 2 + dq_stages * 2 * bk * dp * 2
+        return BwdTiles(bkv, bq, 128, bk, kv_bar + stages * 2 * 8 + 1024,
+                        dq_bar + dq_stages * 2 * 8 + 1024, 1, pair)
+    bk, bq = 32, (32 if d > 128 else 64)
+    ld, lp = d + 4, bk + 4
+    q_stage, k_stage = 2 * bq * ld + 2 * bq, 2 * bk * ld
+    return BwdTiles(bk, bq, bq, bk,
+                    4 * (2 * bk * ld + 2 * q_stage + 2 * bq * lp),
+                    4 * (q_stage + 2 * k_stage + 2 * bq * lp), 1, True)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How the backward launches: ``groups`` (G) query-head groups a KV
+    head in the dK/dV grid, its ``blocks`` at G = 1, the ``wave`` of
+    blocks the card holds at once, and the instance's ``tiles``."""
+    groups: int
+    blocks: int
+    wave: int
+    tiles: BwdTiles
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_bwd_plan(b: int, hq: int, hkv: int, tq: int, tk: int, d: int,
+                       dtype, sms: int = SMS) -> BwdPlan:
+    """G for the dK/dV kernel: the largest divisor of ``hq // hkv`` whose
+    blocks (key tiles x Hkv x B x G) still fit one wave of ``sms`` SMs;
+    1 where the grid fills a wave already, or the instance takes no
+    groups (bfloat16 at D <= 128).  At recurrentgemma-9b's training shape
+    in bfloat16 (1 x 16/1 x 4,096, D 256: 64 key tiles) G is 2, 128
+    blocks."""
+    tiles = bwd_tiles(d, dtype)
+    rep = hq // hkv
+    blocks = -(-tk // tiles.kv_keys) * hkv * b
+    wave = sms * tiles.per_sm
+    groups = 1
+    if tiles.takes_groups:
+        groups = max(g for g in range(1, rep + 1)
+                     if rep % g == 0 and (g == 1 or blocks * g <= wave))
+    return BwdPlan(groups, blocks, wave, tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """The SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch_bwd(q, k, v, o, do, lse, causal: bool, window: Optional[int],
                 scale: float):
     d = q.shape[3]
-    if q.dtype == torch.bfloat16:   # the cp.async copies: aligned rows
-        q, k, v, o, do = (
-            t if _fits(t) else t.clone(memory_format=torch.contiguous_format)
-            for t in (q, k, v, o, do))
-    else:
-        q, k, v, o, do = (_unit(t) for t in (q, k, v, o, do))
+    # the kernels' 16-byte cp.async copies: aligned rows (an expanded
+    # gradient is copied too)
+    q, k, v, o, do = (
+        t if _fits(t, aligned=True) and t.numel()
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (q, k, v, o, do))
     lse = lse.contiguous()
     b, hq, tq, _ = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    plan = attention_bwd_plan(b, hq, hkv, tq, tk, d, q.dtype,
+                              _sms(q.device.index))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, hq, tq), **f32)
+    part = (torch.empty((2, plan.groups, b, hkv, tk, d), **f32)
+            if plan.groups > 1 else None)
     strides = (ctypes.c_longlong * 24)(
         *[s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
     fn = _build.load("flash_attention").flash_attention_bwd
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                   + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rc = fn(1 if q.dtype == torch.bfloat16 else 0, d, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), strides, b, hq, k.shape[1], tq, k.shape[2],
-            int(causal), -1 if window is None else int(window), float(scale),
+            dv.data_ptr(), None if part is None else part.data_ptr(),
+            plan.groups, strides, b, hq, hkv, tq, tk, int(causal),
+            -1 if window is None else int(window), float(scale),
             _build.stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {rc}")
+    flash_attention_bwd.last_plan = plan
     return dq, dk, dv
 
 
@@ -288,6 +384,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.d256_launches = 0
+#: The :class:`BwdPlan` of the last launch (None before one).
+flash_attention_bwd.last_plan = None
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -736,6 +736,71 @@ def test_attention_function_d256_window_mqa_on_card(cuda_device, dtype):
                                    w.float().cpu().numpy(), **BWD_TOL[dtype])
 
 
+#: Shapes where the dK/dV grid leaves SMs idle, so the plan splits each KV
+#: head's query heads into G > 1 groups: MQA 16/1 at batch 1 with a window
+#: (recurrentgemma's heads), GQA 8/2 at batch 1, ragged tails, tq < tk.
+GROUPED_BWD = [
+    (1, 16, 1, 1024, 1024, 256, 512),
+    (1, 8, 2, 300, 300, 256, None),
+    (1, 16, 1, 200, 200, 256, 64),
+    (1, 8, 1, 96, 300, 256, 100),
+    (1, 8, 2, 300, 300, 64, 128),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,window", GROUPED_BWD)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_with_head_groups_matches_plain_on_card(
+        cuda_device, b, hq, hkv, tq, tk, d, window, dtype):
+    """G > 1 (float32 at every head dim, bfloat16 at D 256): the partial
+    sums of the groups, added in group order, hold against the plain
+    backward, and two runs are bit-equal."""
+    q, k, v, do = _attn_inputs(cuda_device, dtype, b, hq, hkv, tq, tk, d,
+                               tq + 5 * tk + d)
+    out, lse = pfa.flash_attention(q, k, v, window=window, return_lse=True)
+    got = pfa.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    plan = pfa.flash_attention_bwd.last_plan
+    again = pfa.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    want = pfa.attention_bwd_torch(q, k, v, out, do, lse, window=window)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert plan == pfa.attention_bwd_plan(b, hq, hkv, tq, tk, d, dtype, sms)
+    assert plan.groups > 1 or (dtype == torch.bfloat16 and d <= 128)
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **BWD_TOL[dtype])
+
+
+def test_attention_bwd_refuses_groups_that_do_not_divide_on_card(
+        cuda_device):
+    """The C entry refuses a G that does not divide Hq / Hkv, and G > 1
+    where the bfloat16 instance takes no groups (D <= 128)."""
+    fn = _build.load("flash_attention").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    buf = torch.zeros(1 << 16, dtype=torch.float32, device=cuda_device)
+    p = buf.data_ptr()
+    strides = (ctypes.c_longlong * 24)(*([4096, 256, 64] * 8))
+    for dtype, d, groups in ((0, 64, 3), (1, 256, 3), (1, 64, 2)):
+        assert fn(dtype, d, *[p] * 11, groups, strides, 1, 4, 1, 4, 4, 1,
+                  -1, 1.0, None) != 0, (dtype, d, groups)
+
+
+def test_attention_bwd_smem_matches_the_source_on_card(cuda_device):
+    fn = _build.load("flash_attention").flash_attention_bwd_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in pfa.BWD_HEAD_DIMS:
+            tiles = pfa.bwd_tiles(d, dtype)
+            assert fn(code, d, 0) == tiles.kv_smem, (dtype, d)
+            assert fn(code, d, 1) == tiles.dq_smem, (dtype, d)
+
+
 @pytest.mark.parametrize("shape", [(8192, 2048), (4 * 256 * 32, 128),
                                    (2, 9, 2560), (5, 100), (3, 64),
                                    (7, 2568), (2, 5, 4096), (3, 16384),

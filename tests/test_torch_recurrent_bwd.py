@@ -122,14 +122,22 @@ def test_ssd_bwd_matches_jax_vjp(bb, t, h, p, g, n, chunk, dtype):
         _hold(u, w.float(), TOL[dtype], f"d{name} against autograd")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_bwd_d256_window_matches_jax_vjp(dtype):
+@pytest.mark.parametrize("hq,hkv,dtype", [
+    pytest.param(4, 1, torch.float32, id="dtype0"),
+    pytest.param(4, 1, torch.bfloat16, id="dtype1"),
+    # recurrentgemma's MQA 16/1 and a GQA 4/2 (the kernels' head groups)
+    pytest.param(16, 1, torch.float32, id="mqa16-dtype0"),
+    pytest.param(16, 1, torch.bfloat16, id="mqa16-dtype1"),
+    pytest.param(4, 2, torch.float32, id="gqa4_2-dtype0"),
+    pytest.param(4, 2, torch.bfloat16, id="gqa4_2-dtype1"),
+])
+def test_attention_bwd_d256_window_matches_jax_vjp(hq, hkv, dtype):
     """recurrentgemma's attention backward cut small: D 256, window 32 of
-    T 96, 4 query heads on 1 KV head."""
+    T 96, hq query heads on hkv KV heads."""
     rng = np.random.default_rng(256)
-    q = rng.standard_normal((1, 4, 96, 256))
-    k, v = (rng.standard_normal((1, 1, 96, 256)) for _ in "kv")
-    do = rng.standard_normal((1, 4, 96, 256))
+    q = rng.standard_normal((1, hq, 96, 256))
+    k, v = (rng.standard_normal((1, hkv, 96, 256)) for _ in "kv")
+    do = rng.standard_normal((1, hq, 96, 256))
     jd = JNP[dtype]
     _, vjp = jax.vjp(lambda q_, k_, v_: rref.attention_ref(q_, k_, v_,
                                                            window=32),
