@@ -23,7 +23,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    (16 shards) and 5 (2 shards), shard by shard against its plain
    version and against the single-program kernel (completions, sweeps,
    convergence), timed beside the single-program kernel on the whole
-   program;
+   program, with its launch shape (``stack_launch``: instance, cluster
+   size, clusters, rounds; phase 13's plan must take the cluster
+   instance);
 3. runs the README ``ZnsDevice`` quickstart (200,100 requests);
 4. runs the README fleet quickstart (16 devices, 1,600,000 events);
 5. runs a contended heterogeneous fleet (``ours`` / ``nvmevirt`` /
@@ -198,8 +200,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``),
 and fails if ptxas serialised any kernel's ``wgmma`` (warning C7518 in a
-build log) or if a bfloat16 attention backward kernel or an RMSNorm
-backward kernel of the vector path or the dw sum spills.
+build log) or if a bfloat16 attention backward kernel, an RMSNorm
+backward kernel of the vector path or the dw sum, or a float32 SSD
+backward state walk spills.
 Phase 2 also holds the flash-attention and RMSNorm kernels against their
 plain versions at qwen3-4b's shapes, in bfloat16 and float32 at the
 reference kernel tests' tolerances (attention atol 2e-2 / 2e-4, RMSNorm
@@ -234,11 +237,13 @@ SDPA's backward with the window's mask, whose backend is named; with its
 query-head groups G and its device time by kernel), the
 linear recurrence's at (1, 4,096, 4,096) in float32 and the SSD scan's
 at mamba2-370m's training shape (4 x 2,048, 32 heads, P 64, N 128,
-chunk 128), in float32 (the float32-core kernels) and bfloat16 (the
-tensor-core kernels), with its device time by kernel, TFLOP/s and
-multiple of the bound; the ``HMMA`` count of each bfloat16 backward
-function (``ssd_bwd_walk`` and ``ssd_bwd_mma_chunk`` at 16 paddings of P
-and N; none in any fails the script) and their registers and spills.  Phases
+chunk 128), in float32 (the register-tiled float32-core kernels,
+``ssd_bwd_f32_walk`` and ``ssd_bwd_f32_chunk``) and bfloat16 (the
+tensor-core kernels), with its device time by kernel (the split),
+TFLOP/s and multiple of the bound; the ``HMMA`` count of each bfloat16
+backward function (``ssd_bwd_walk`` and ``ssd_bwd_mma_chunk`` at 16
+paddings of P and N; none in any fails the script) and the registers and
+spills of every backward function.  Phases
 3-6 go through the public entry points on ``device="cuda"`` and are
 compared with the port's host float64 ``fixpoint="loop"`` driver (or the
 host numpy scan) at rtol 1e-12.  Phases 7, 9 and 10 first run the model's 2-layer smoke
@@ -356,10 +361,13 @@ RECURRENT_LR = {"23": 1e-3, "24": 2e-4}
 ATTN_FWD_PR19_MS = 0.1203
 
 #: Kernels that must not spill (ptxas -v): the bfloat16 attention
-#: backward's and the RMSNorm backward's, whose designs hold their
-#: accumulators in registers.
+#: backward's, the RMSNorm backward's and the float32 SSD backward's
+#: state walks, whose designs hold their accumulators in registers.  (The
+#: float32 SSD chunk kernel's instances that hold the other side's whole
+#: chunk spill a few bytes at 255 registers and are still the faster
+#: layout; PERF.md has the timings.)
 NO_SPILL = ("bwd_dkdv_wgmma", "bwd_dq_wgmma", "rmsnorm_bwd_vec",
-            "rmsnorm_dw_sum")
+            "rmsnorm_dw_sum", "ssd_bwd_f32_walk")
 
 F64 = dict(rtol=1e-12, atol=1e-9)
 F32 = dict(rtol=2e-5, atol=1e-2)
@@ -487,6 +495,7 @@ def kernel_group(name: str) -> str:
     """A CUDA kernel's name as the part of the model it serves."""
     for key, group in (("fp_solve_kernel", "zns_fixpoint"),
                        ("fp_stack_kernel", "zns_fixpoint_sharded"),
+                       ("fp_cluster_kernel", "zns_fixpoint_sharded"),
                        ("scan_tiles_kernel", "zns_event_scan"),
                        ("flash_fwd", "flash_attention"),
                        ("bwd_dkdv", "flash_attention_bwd"),
@@ -986,7 +995,7 @@ def main() -> int:
                           f"sweeps {got[1][k]}, plain {want[1][k]}, single "
                           f"{one[1]}")
             ms = time_ms(lambda: stacked("cuda"), flush=flush)
-            kms, nk = device_ms(lambda: stacked("cuda"), "fp_stack_kernel")
+            kms, nk = device_ms(lambda: stacked("cuda"), "fp_")
             check(nk == 1, f"zns_fixpoint_sharded {label}: {nk} device "
                            f"kernels a solve")
             pms = time_ms(lambda: stacked("torch"), reps=3, flush=flush)
@@ -1004,8 +1013,15 @@ def main() -> int:
             skms, _ = device_ms(lambda: ops.zns_fixpoint(
                 w0, w1, whole, sweeps=budget, impl="cuda"),
                 "fp_solve_kernel")
+            if label == "phase-13":
+                check(launch["instance"] == "cluster",
+                      f"zns_fixpoint_sharded {label}: the {launch['instance']}"
+                      f" instance (want the cluster instance)")
             print(f"[2] zns_fixpoint_sharded {label} {dtype}: {plan.n_shards} "
-                  f"shards in one launch, sweeps {got[1].tolist()} (plain "
+                  f"shards in one launch ({launch['instance']} instance: "
+                  f"clusters of {launch['cluster']}, {launch['clusters']} "
+                  f"clusters, {launch['rounds']} rounds, widest pass "
+                  f"{launch['widest']} tiles), sweeps {got[1].tolist()} (plain "
                   f"{want[1].tolist()}), all converged, lanes {lanes}, max "
                   f"abs err {err:.3e} (plain and single kernel shard by "
                   f"shard), kernel {ms:.4f} ms (device {kms} ms, {nk} device "
@@ -1571,12 +1587,20 @@ def main() -> int:
               f"{f} {n}" for f, n in sorted(bwd_hmma.items())))
     print("[2] ssd_chunk_scan_bwd bfloat16 kernels (ptxas -v): " + "; ".join(
         f"{k} {r} registers, {sp}" for k, r, sp in bwd_ptxas))
+    f32_ptxas = [(k, r, sp) for k, r, sp in ptxas["ssd_chunk_scan"]
+                 if k.startswith(("ssd_bwd_f32_walk", "ssd_bwd_f32_chunk"))]
+    print("[2] ssd_chunk_scan_bwd float32 kernels (ptxas -v): " + "; ".join(
+        f"{k} {r} registers, {sp}" for k, r, sp in f32_ptxas))
+    check(len(f32_ptxas) == 25, f"ssd_chunk_scan_bwd: want the two float32 "
+                                f"walks and 23 chunk instances, got "
+                                f"{[k for k, _, _ in f32_ptxas]}")
     check(len(bwd_hmma) == 32 and all(bwd_hmma.values()),
           f"ssd_chunk_scan_bwd: a bfloat16 kernel without HMMA (want "
           f"ssd_bwd_walk and ssd_bwd_mma_chunk at 16 paddings each): "
           f"{bwd_hmma}")
     report["ssd_chunk_scan_bwd"]["bfloat16"].update(
         hmma=bwd_hmma, ptxas=[list(r) for r in bwd_ptxas])
+    report["ssd_chunk_scan_bwd"]["ptxas"] = [list(r) for r in f32_ptxas]
 
     # -- phases 3-5: vectorized runs through the public entry points -------
     def run_phase(phase, run, ref_run, *, fleet):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The SSD scan's backward of one source tree, timed and held on the card.
 
-    python scripts/ssd_bwd_ab.py [--src DIR] [--layers 48] [--reps 5]
+    python scripts/ssd_bwd_ab.py [--src DIR] [--dtype bfloat16|float32]
+                                 [--layers 48] [--reps 5]
 
 Needs a CUDA card and ``nvcc``.  ``--src`` is a ``src`` directory holding
 ``repro_torch`` (default: this checkout's), e.g. an unpacked ``git
@@ -11,15 +12,16 @@ change, parent in one call.  Prints, after the card's name and power
 limit:
 
 - ``ssd_chunk_scan_bwd`` at mamba2-370m's training shape (x (4, 2,048, 32,
-  64), B/C (4, 2,048, 1, 128), chunk 128) in bfloat16, on
+  64), B/C (4, 2,048, 1, 128), chunk 128) in ``--dtype`` (bfloat16 by
+  default: the tensor-core instance; float32: the float32-core one), on
   ``chip_smoke.py`` phase 2's inputs: the median of ``--reps`` CUDA-event
   timings with the L2 flushed, and the device ms by kernel
-  (``chip_smoke.kernel_split``);
-- mamba2-370m's bfloat16 first-step gradients at ``--layers`` layers
+  (``chip_smoke.kernel_split``), the split of the backward's time;
+- in bfloat16, mamba2-370m's first-step gradients at ``--layers`` layers
   (weights N(0, 0.02) from seed 0, 4 x 2,048 tokens), kernels against
   the plain versions: the largest relative (Frobenius) gap over the
-  leaves, as ``chip_smoke.py`` phase 23 prints it (``--layers 0``: not
-  taken).
+  leaves, as ``chip_smoke.py`` phase 23 prints it (``--layers 0``, or
+  float32: not taken).
 
 The last line is a JSON object with these numbers.
 """
@@ -36,6 +38,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     ap.add_argument("--layers", type=int, default=48)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -66,12 +70,13 @@ def main() -> int:
 
     # phase 2's inputs at mamba2-370m's training shape
     t, h, p, n, chunk = 2048, 32, 64, 128, 128
-    x = randn((4, t, h, p), torch.bfloat16, 0.5)
+    dtype = getattr(torch, args.dtype)
+    x = randn((4, t, h, p), dtype, 0.5)
     dt = torch.rand((4, t, h), generator=gen, device=cuda) * 0.099 + 0.001
     A = -(torch.rand((h,), generator=gen, device=cuda) * 1.5 + 0.5)
-    Bm = randn((4, t, 1, n), torch.bfloat16, 0.3)
-    Cm = randn((4, t, 1, n), torch.bfloat16, 0.3)
-    dy = randn((4, t, h, p), torch.bfloat16)
+    Bm = randn((4, t, 1, n), dtype, 0.3)
+    Cm = randn((4, t, 1, n), dtype, 0.3)
+    dy = randn((4, t, h, p), dtype)
     ds = randn((4, h, p, n), torch.float32, 0.1)
     ins = (x, dt, A, Bm, Cm, dy, ds)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float64, device=cuda)
@@ -81,13 +86,14 @@ def main() -> int:
 
     ms = cs.time_ms(bwd, reps=args.reps, flush=flush)
     split = cs.kernel_split(bwd, "ssd_bwd")
-    print(f"ssd_chunk_scan_bwd bfloat16 x {tuple(x.shape)}: {ms:.4f} ms "
+    print(f"ssd_chunk_scan_bwd {args.dtype} x {tuple(x.shape)}: {ms:.4f} ms "
           f"(median of {args.reps}, L2 flushed); device ms by kernel "
           f"{split}")
     del ins, x, dt, A, Bm, Cm, dy, ds, flush
     torch.cuda.empty_cache()
-    out = {"bwd_ms": ms, "kernel_ms": split, "card": smi.stdout.strip()}
-    if args.layers == 0:
+    out = {"dtype": args.dtype, "bwd_ms": ms, "kernel_ms": split,
+           "card": smi.stdout.strip()}
+    if args.layers == 0 or args.dtype == "float32":
         print(json.dumps(out))
         return 0
 

@@ -907,17 +907,49 @@ int launch_mma_n(int np, const void* x, const void* dt, const void* A,
 // training shape (4, 2048, 32, 64), N 128: 0.58 ms on the float32 cores at
 // 67 TFLOP/s, 0.039 ms on the bf16 tensor cores at 989.
 //
-// The float32 instance (ssd_bwd_states<float, false / true>, ssd_bwd_chunk
-// <float>): the products on the float32 cores, as the float32 model is held
-// to float32.  The walks are two launches of a block per (head, batch).
-// The chunk kernel is a block per (chunk, role, head, batch): the row role
-// walks row tiles of 32 steps i (dC_i and dcum's row sums), the column
-// role column tiles of 32 steps j (du_j, dx_j, x_j.du_j, dB_j and dcum's
-// column sums).  B, C, x and dy of a 128-step chunk in float32 do not fit
-// a block's shared memory (B and C alone take 135 KB at N = 128), so each
-// role streams 32-row tiles of the other side past its own tile,
-// recomputing the 32 x 32 tiles of C.B and dy.u rather than storing them;
-// the causal tiles only (about 1.2x the least work).
+// The float32 instance (ssd_bwd_f32_walk<WT>, ssd_bwd_f32_chunk<PP, NP,
+// TO>): the products on the float32 cores, as the float32 model is held to
+// float32 (TF32 would not be), at 67 TFLOP/s, so their least work above
+// takes 0.58 ms.  Shared memory, not the FMA units, is the first limit on
+// those cores: a warp's 16-byte shared load costs four cycles of the SM's
+// port, so a product only keeps the FMA units busy where a thread does 64
+// multiply-adds for every four float4 it reads.  What held the earlier
+// float32 kernels back (4.12 ms at mamba2-370m's training shape: the walks
+// 0.99 ms in two launches, the chunk kernel 2.87), and what these do:
+//  1. two serial walk launches of a block per (head, batch), a one-thread
+//     cumsum -> one launch of a (head, batch, direction) grid (the forward
+//     and the reverse walk side by side, 256 blocks at the training shape;
+//     128 threads a block and two blocks an SM at P <= 64, each loading
+//     its next chunk while the other computes; 256 threads and the next
+//     chunk by cp.async into a second stage above), the cumsum by one
+//     warp's shuffles (warp_cumsum).  The state lives in registers, 8 x 8
+//     elements a thread.
+//  2. 32-row tiles of the other side loaded after the products that wait
+//     for them, products of 4 x 4 outputs a thread on scalar or broadcast
+//     loads -> the other side's whole chunk held in shared memory (TO = L,
+//     loaded once; 32-row tiles streamed through two stages where it does
+//     not fit: PP = NP = 128, or P above the chunk), the own side's 32-row
+//     tiles through two stages by cp.async.  Every product gives a thread
+//     an 8 x 8 block of outputs: the 32 x L scores (C.B over N, dy.x over
+//     P) with 512 / L lanes a block, each over a slice of the contraction
+//     in float4, the other products as an outer product a contraction step
+//     (two float4 of each operand, laid out along the outputs: Q^T, M and
+//     Q go to shared memory transposed, and the own X tile once an own
+//     tile); lanes sharing a block fold by shuffles (Fold), each element
+//     summed in one fixed order.  Score blocks the causal mask clears are
+//     not computed.  The roles stay split: x, dy, B and C of a 128-step
+//     chunk in float32 take 192 KB.  The column role's du (P columns) and
+//     dB (N columns) run side by side in warps 0-3 and 4-7.  P and N are
+//     padded with zeros to 32, 64 or 128 (23 chunk instances).
+// At the training shape on an H100 (scripts/ssd_bwd_ab.py --dtype float32):
+// the walks 0.37 ms, the chunk kernel 2.15 ms (26% of the float32 rate),
+// the whole backward 2.85-2.98 ms against 4.05-4.26 before.  Streaming
+// 32-row tiles there instead of holding the whole chunk takes the chunk
+// kernel to 2.37 ms; the whole-chunk instances spill a few bytes at 255
+// registers (12 stored, 24 loaded at PP 64, NP 128) and are still the
+// faster layout.  What holds the chunk kernel back now: it runs one block
+// of 8 warps an SM at 255 registers, two warps a scheduler, so the
+// latency of its shared loads and shuffles is exposed.
 //
 // The bfloat16 instance (ssd_bwd_walk, ssd_bwd_mma_chunk: the products on
 // the tensor cores, mma.sync m16n8k16 with float32 accumulators, P and N
@@ -978,7 +1010,7 @@ int launch_mma_n(int np, const void* x, const void* dt, const void* A,
 // kernel runs one block of 8 warps an SM (182 KB of shared memory), so
 // its loads are not overlapped with its products; mma.sync, not wgmma.
 
-constexpr int TR = 32;  // rows of a backward tile: 8 warps x 4 rows
+constexpr int TR = 32;  // rows of a float32 backward tile
 
 struct BwdDims {
   int t_len, h, p, g, n, l, nc;
@@ -990,450 +1022,722 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// dt of a chunk (L steps of a (T, H) column) into sdt and its inclusive
-// cumsum times a_h into scum, in order (the forward's float32 kernel's
-// sum).  Ends with a block barrier.
-__device__ __forceinline__ void chunk_cum(const float* dtc, int H, int L,
-                                          float a_h, float* sdt, float* scum,
-                                          int tid) {
-  for (int j = tid; j < L; j += THREADS) sdt[j] = dtc[(long long)j * H];
-  __syncthreads();
-  if (tid == 0) {
-    float c = 0.f;
-    for (int j = 0; j < L; ++j) {
-      c += sdt[j] * a_h;
-      scum[j] = c;
+// ---- the backward's float32 instance (float32 cores) -----------------------
+
+struct F32BwdDims {
+  int t_len, h, p, g, n, l, nc, vec, stages;
+};
+
+// P and N padded to the float32 chunk kernel's tiles: 32, 64 or 128.
+__host__ __device__ inline int padded32(int v) {
+  return v <= 32 ? 32 : v <= 64 ? 64 : 128;
+}
+
+// Shared memory of ssd_bwd_f32_walk: `stages` x [X (L x XS) | Y (L x YS)
+// | dt (L)], then beta (L) and e^{cum_L} (4), in floats; XS and YS are P
+// and N rounded up to 8.  Every part a multiple of 4 floats.
+__host__ __device__ inline long long f32_walk_stage_floats(int l, int p,
+                                                           int n) {
+  return (long long)l * ((p + 7) / 8 * 8) + (long long)l * ((n + 7) / 8 * 8) +
+         l;
+}
+__host__ __device__ inline long long f32_walk_bytes(int l, int p, int n,
+                                                    int stages) {
+  return 4 * (stages * f32_walk_stage_floats(l, p, n) + l + 4);
+}
+inline int f32_walk_stages(int l, int p, int n) {
+  if (p <= 64) return 1;  // two blocks an SM: one loads while one computes
+  return f32_walk_bytes(l, p, n, 2) <= MAX_SMEM ? 2 : 1;
+}
+
+// Shared memory of ssd_bwd_f32_chunk, in floats.  Streaming (to = 32): two
+// stages of the own side's 32-row tiles and two of the other side's
+// ([32 x (NP + 4) | 32 x (PP + 4)] each), the own X tile transposed (PP x
+// 36), two 32 x 36 tiles (the pair's decayed scores, then the epilogue's
+// partial sums), the state (PP x (NP + 4)), dt, cum and e (L each).  The
+// whole chunk (to = L, 64 or 128): the other side's L rows once, and two L
+// x 36 tiles, the second of which holds the own X tile transposed in the
+// epilogue (PP <= L).  The whole chunk where it fits, else streaming:
+// 231,936 bytes at PP = NP = 128, L = 128, the most.
+__host__ __device__ inline long long f32_chunk_bytes(int l, int pp, int np,
+                                                     int to) {
+  const long long row = (np + 4) + (pp + 4);
+  if (to == 32)
+    return 4 * (4 * 32 * row + (long long)pp * 36 + 2 * 32 * 36 +
+                (long long)pp * (np + 4) + 3LL * l);
+  return 4 * (2 * 32 * row + (long long)l * row + 2LL * l * 36 +
+              (long long)pp * (np + 4) + 3LL * l);
+}
+__host__ __device__ inline int f32_chunk_rows(int l, int pp, int np) {
+  return l >= 64 && pp <= l && f32_chunk_bytes(l, pp, np, l) <= MAX_SMEM ? l
+                                                                          : 32;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc (8 x 8, row-major) += A . B^T over the float4 chunks c = s, s + KS,
+// ... < k4 of 8 rows of A (stride lda) and 8 rows of B (stride ldb): the
+// k-slice s of a block that KS lanes share.
+template <int KS>
+__device__ __forceinline__ void nt_acc(float (&acc)[64], const float* a,
+                                       int lda, const float* bt, int ldb,
+                                       int k4, int s) {
+#pragma unroll 1
+  for (int c = s; c < k4; c += KS) {
+    float4 av[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) av[m] = ld4(a + m * lda + 4 * c);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float4 bv = ld4(bt + n * ldb + 4 * c);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        float v = acc[8 * m + n];
+        v = fmaf(av[m].x, bv.x, v);
+        v = fmaf(av[m].y, bv.y, v);
+        v = fmaf(av[m].z, bv.z, v);
+        v = fmaf(av[m].w, bv.w, v);
+        acc[8 * m + n] = v;
+      }
     }
   }
-  __syncthreads();
 }
 
-// Shared memory of ssd_bwd_states, in floats: X (L x P), Y (L x NB), the
-// state (P x NB), dt, cum and the weights (L each, and L spare).
-__host__ __device__ inline long long bwd_states_floats(int l, int p, int n) {
-  const int nb = n + 4;
-  return (long long)l * p + (long long)l * nb + (long long)p * nb + 4 * l;
+// acc (8 x 8) += AT^T . B over the rows k = k0 + s, k0 + s + KS, ... < k1:
+// 8 consecutive values of row k of AT (stride lda) times 8 of row k of B
+// (stride ldb), an outer product a k.
+template <int KS>
+__device__ __forceinline__ void nn_acc(float (&acc)[64], const float* at,
+                                       int lda, const float* b, int ldb,
+                                       int k0, int k1, int s) {
+#pragma unroll 2
+  for (int k = k0 + s; k < k1; k += KS) {
+    const float4 a0 = ld4(at + k * lda), a1 = ld4(at + k * lda + 4);
+    const float4 b0 = ld4(b + k * ldb), b1 = ld4(b + k * ldb + 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        acc[8 * m + n] = fmaf(av[m], bv[n], acc[8 * m + n]);
+  }
 }
 
-// S <- exp(cum_L) S + sum_j beta_j X_j Y_j^T over the chunks, the state
-// entering each step written to out (Bb, H, chunks, P, N) first.  Forward
-// (REV false): X = x, Y = B, beta_j = exp(cum_L - cum_j) dt_j, S from 0.
-// Reverse: X = dy, Y = C, beta_j = exp(cum_j), S from init (the final
-// state's gradient), the chunks last first.
-template <typename T, bool REV>
-__global__ void __launch_bounds__(THREADS, 1)
-    ssd_bwd_states(const T* __restrict__ X, const float* __restrict__ dt,
-                   const float* __restrict__ A, const T* __restrict__ Y,
-                   const float* __restrict__ init, float* __restrict__ out,
-                   BwdDims dm) {
-  const int H = dm.h, P = dm.p, N = dm.n, L = dm.l, G = dm.g;
-  const int NB = N + 4;
+// The KS lanes of a block (lane % KS its slice s) fold their partial 8 x
+// 8 blocks by shuffles, halving what each keeps a step: lane s ends with
+// elements [64 / KS s, 64 / KS (s + 1)) of the row-major block in v[0 ..
+// 64 / KS).  Every element is summed in one fixed order.
+template <int KS, int O>
+struct Fold {
+  static __device__ __forceinline__ void run(float (&v)[64], int lane) {
+    constexpr int HALF = 64 * O / KS;
+    const bool up = (lane & O) != 0;
+#pragma unroll
+    for (int t = 0; t < HALF; ++t) {
+      const float send = up ? v[t] : v[t + HALF];
+      const float keep = up ? v[t + HALF] : v[t];
+      v[t] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    Fold<KS, O / 2>::run(v, lane);
+  }
+};
+template <int KS>
+struct Fold<KS, 0> {
+  static __device__ __forceinline__ void run(float (&)[64], int) {}
+};
+template <int KS>
+__device__ __forceinline__ void fold(float (&v)[64], int lane) {
+  Fold<KS, KS / 2>::run(v, lane);
+}
+
+__device__ __forceinline__ void zero64(float (&v)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) v[i] = 0.f;
+}
+
+// Both float32 state walks, a block per (head, batch, direction): S <-
+// e^{cum_L} S + (X beta)^T Y over the chunks, the state entering each
+// chunk written to out (Bb, H, chunks, P, N) first.  Forward (z = 0): X =
+// x, Y = B, beta_j = e^{cum_L - cum_j} dt_j, S from 0; reverse (z = 1): X =
+// dy, Y = C, beta_i = e^{cum_i}, S from dstate, the chunks last first.  A
+// block of WT threads (128 at P <= 64, two blocks an SM; 256 above): lane
+// l of warp w holds rows 8 (2 w + l / 16) .. + 7 and columns 8 (l % 16) ..
+// + 7 of S in registers, and each step reads 8 values of X and 8 of Y for
+// 64 multiply-adds.  Each element sums its chunk's terms over the steps in
+// order and then takes S e^{cum_L} + sum, the float32 forward kernel's
+// update (its states, up to the cumsum's order of sum).  X is scaled by
+// beta in shared memory once a chunk, the product the forward forms a
+// step.
+template <int WT>
+__global__ void __launch_bounds__(WT, WT == 128 ? 2 : 1)
+    ssd_bwd_f32_walk(const float* __restrict__ x, const float* __restrict__ dy,
+                     const float* __restrict__ dt, const float* __restrict__ A,
+                     const float* __restrict__ B, const float* __restrict__ C,
+                     const float* __restrict__ dstate,
+                     float* __restrict__ states, float* __restrict__ dstates,
+                     F32BwdDims dm) {
+  const int H = dm.h, P = dm.p, N = dm.n, L = dm.l, G = dm.g, nc = dm.nc;
+  const int XS = (P + 7) / 8 * 8, YS = (N + 7) / 8 * 8;
+  const bool rev = blockIdx.z != 0;
   extern __shared__ float4 smem4[];
-  float* sX = reinterpret_cast<float*>(smem4);
-  float* sY = sX + L * P;
-  float* sS = sY + L * NB;
-  float* sdt = sS + P * NB;
-  float* scum = sdt + L;
-  float* sbeta = scum + L;
+  float* base = reinterpret_cast<float*>(smem4);
+  const int stage = (int)f32_walk_stage_floats(L, P, N);
+  float* sbeta = base + dm.stages * stage;
+  float* sel = sbeta + L;
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int g = h / (H / G);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float a_h = A[h];
   const long long x_t = (long long)H * P, y_t = (long long)G * N;
-  const T* Xb = X + (long long)b * dm.t_len * x_t + (long long)h * P;
-  const T* Yb = Y + (long long)b * dm.t_len * y_t + (long long)g * N;
+  const float* Xb =
+      (rev ? dy : x) + (long long)b * dm.t_len * x_t + (long long)h * P;
+  const float* Yb =
+      (rev ? C : B) + (long long)b * dm.t_len * y_t + (long long)g * N;
   const float* dtb = dt + (long long)b * dm.t_len * H + h;
   const long long pn = (long long)P * N;
-  float* ob = out + ((long long)b * H + h) * dm.nc * pn;
-  const float* ib = init ? init + ((long long)b * H + h) * pn : nullptr;
+  float* ob = (rev ? dstates : states) + ((long long)b * H + h) * nc * pn;
 
-  for (int i = tid; i < P * N; i += THREADS)
-    sS[(i / N) * NB + i % N] = ib ? ib[i] : 0.f;
+  // the padding columns of X (P .. XS) and Y (N .. YS) stay 0: loads
+  // write columns < P, < N only
+  for (int i = tid; i < dm.stages * stage / 4; i += WT)
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
 
-  for (int k = 0; k < dm.nc; ++k) {
-    const int ci = REV ? dm.nc - 1 - k : k;
+  auto load_chunk = [&](int ci, int st) {
+    float* sX = base + st * stage;
+    float* sY = sX + L * XS;
+    float* sdt = sY + L * YS;
     const long long c0 = (long long)ci * L;
-    __syncthreads();  // the state is written; the last chunk's readers done
-    for (int i = tid; i < P * N; i += THREADS)
-      ob[ci * pn + i] = sS[(i / N) * NB + i % N];
-    for (int i = tid; i < L * P; i += THREADS) {
-      const int j = i / P, q = i - j * P;
-      sX[i] = to_f32(Xb[(c0 + j) * x_t + q]);
-    }
-    for (int i = tid; i < L * N; i += THREADS) {
-      const int j = i / N, q = i - j * N;
-      sY[j * NB + q] = to_f32(Yb[(c0 + j) * y_t + q]);
-    }
-    chunk_cum(dtb + c0 * H, H, L, a_h, sdt, scum, tid);
-    const float cum_last = scum[L - 1];
-    for (int j = tid; j < L; j += THREADS)
-      sbeta[j] = REV ? expf(scum[j]) : expf(cum_last - scum[j]) * sdt[j];
-    __syncthreads();  // beta written; the state's copy-out is done
-
-    // rows p = 4 pg + i, columns n = q0 + e, as the forward's update
-    const float el = expf(cum_last);
-    for (int pg = warp; pg < P / 4; pg += THREADS / 32) {
-      for (int q0 = 4 * lane; q0 < N; q0 += 128) {
-        float acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-        for (int j = 0; j < L; ++j) {
-          const float wj = sbeta[j];
-          float xw[4], yv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) xw[i] = sX[j * P + 4 * pg + i] * wj;
-          lds4(sY + j * NB + q0, yv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][e] = fmaf(xw[i], yv[e], acc[i][e]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* srow = sS + (4 * pg + i) * NB + q0;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) srow[e] = srow[e] * el + acc[i][e];
-        }
+    if (dm.vec) {
+      const int P4 = P / 4, N4 = N / 4;
+      for (int i = tid; i < L * P4; i += WT) {
+        const int j = i / P4, c = 4 * (i - j * P4);
+        cp_async16(smem_u32(sX + j * XS + c), Xb + (c0 + j) * x_t + c);
+      }
+      for (int i = tid; i < L * N4; i += WT) {
+        const int j = i / N4, c = 4 * (i - j * N4);
+        cp_async16(smem_u32(sY + j * YS + c), Yb + (c0 + j) * y_t + c);
+      }
+    } else {
+      for (int i = tid; i < L * P; i += WT) {
+        const int j = i / P, q = i - j * P;
+        sX[j * XS + q] = Xb[(c0 + j) * x_t + q];
+      }
+      for (int i = tid; i < L * N; i += WT) {
+        const int j = i / N, q = i - j * N;
+        sY[j * YS + q] = Yb[(c0 + j) * y_t + q];
       }
     }
-  }
-}
+    for (int j = tid; j < L; j += WT)
+      cp_async4(smem_u32(sdt + j), dtb + (c0 + j) * H);
+    cp_async_commit();
+  };
 
-// Shared memory of ssd_bwd_chunk, in floats: two TR x NB and two TR x PB
-// tiles, two TR x 33 score tiles, a state (P x NB), dt and cum (L each)
-// and 32 for the block's sums.
-__host__ __device__ inline long long bwd_chunk_floats(int l, int p, int n) {
-  const int nb = n + 4, pb = p + 4;
-  return 2LL * TR * nb + 2LL * TR * pb + 2LL * TR * 33 + (long long)p * nb +
-         2 * l + 32;
-}
+  const int p0 = 8 * (2 * warp + (lane >> 4)), n0 = 8 * (lane & 15);
+  const bool live = p0 < P && n0 < N;
+  const float* init = rev ? dstate + ((long long)b * H + h) * pn : nullptr;
+  float st[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      st[i][e] = (init && p0 + i < P && n0 + e < N)
+                     ? init[(long long)(p0 + i) * N + n0 + e]
+                     : 0.f;
 
-// s1[i] = a1 row (r + i) . b1 row lane over k1 columns, s2 likewise: the
-// warp's four rows against the 32 rows of the other tile (float4 along
-// the contraction: broadcasts for a, conflict-free rows of stride k + 4
-// for b).
-__device__ __forceinline__ void tile_dots(const float* a, const float* bt,
-                                          int ld, int k, int r, int lane,
-                                          float (&s)[4]) {
+  if (nc > 0) load_chunk(rev ? nc - 1 : 0, 0);
+  for (int k = 0; k < nc; ++k) {
+    const int ci = rev ? nc - 1 - k : k;
+    const int cur = dm.stages == 2 ? (k & 1) : 0;
+    cp_async_wait_all();
+    __syncthreads();  // chunk k landed; every reader of chunk k-1 done
+    if (dm.stages == 2 && k + 1 < nc)
+      load_chunk(rev ? ci - 1 : ci + 1, cur ^ 1);
+    float* sX = base + cur * stage;
+    const float* sY = sX + L * XS;
+    const float* sdt = sY + L * YS;
+
+    float* oc = ob + (long long)ci * pn;
+    if (live) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) s[i] = 0.f;
-  for (int q = 0; q < k; q += 4) {
-    float bv[4];
-    lds4(bt + lane * ld + q, bv);
+      for (int i = 0; i < 8; ++i) {
+        if (p0 + i >= P) continue;
+        float* orow = oc + (long long)(p0 + i) * N + n0;
+        *reinterpret_cast<float4*>(orow) =
+            make_float4(st[i][0], st[i][1], st[i][2], st[i][3]);
+        if (n0 + 4 < N)
+          *reinterpret_cast<float4*>(orow + 4) =
+              make_float4(st[i][4], st[i][5], st[i][6], st[i][7]);
+      }
+    }
+    if (warp == 0) {  // cumsum(dt * A), beta and e^{cum_L}
+      const int E = L / 32;
+      float v[4];
+      const float last = warp_cumsum(sdt, a_h, L, lane, v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float av[4];
-      lds4(a + (r + i) * ld + q, av);
+      for (int e = 0; e < 4; ++e)
+        if (e < E) {
+          const int j = E * lane + e;
+          sbeta[j] = rev ? expf(v[e]) : expf(last - v[e]) * sdt[j];
+        }
+      if (lane == 0) sel[0] = expf(last);
+    }
+    __syncthreads();  // beta and e^{cum_L} written
+    for (int i = tid; i < L * P; i += WT) {
+      const int j = i / P, q = i - j * P;
+      sX[j * XS + q] *= sbeta[j];
+    }
+    __syncthreads();  // X scaled
+    const float el = sel[0];
+    if (live) {
+      float acc[8][8];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i] = fmaf(av[e], bv[e], s[i]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+#pragma unroll 2
+      for (int j = 0; j < L; ++j) {
+        const float4 x0 = ld4(sX + j * XS + p0), x1 = ld4(sX + j * XS + p0 + 4);
+        const float4 y0 = ld4(sY + j * YS + n0), y1 = ld4(sY + j * YS + n0 + 4);
+        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc[i][e] = fmaf(xv[i], yv[e], acc[i][e]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) st[i][e] = st[i][e] * el + acc[i][e];
+    }
+    if (dm.stages == 1 && k + 1 < nc) {
+      __syncthreads();  // every reader of the single stage done
+      load_chunk(rev ? ci - 1 : ci + 1, 0);
     }
   }
 }
 
-// Rows [row0, row0 + TR) of a (T, cols) view with row stride ld into a
-// float tile of row stride lds, each row times sdt[row0 + r] if scaled.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int lds, const T* src,
-                                          long long ld, int row0, int cols,
-                                          const float* sdt, bool scaled,
-                                          int tid) {
-  for (int i = tid; i < TR * cols; i += THREADS) {
-    const int r = i / cols, q = i - r * cols;
-    const float v = to_f32(src[(long long)(row0 + r) * ld + q]);
-    dst[r * lds + q] = scaled ? v * sdt[row0 + r] : v;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-    ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ A, const T* __restrict__ B,
-                  const T* __restrict__ C, const T* __restrict__ dy,
-                  const float* __restrict__ states,
-                  const float* __restrict__ dstates, float* __restrict__ dBp,
-                  float* __restrict__ dCp, float* __restrict__ rows,
-                  T* __restrict__ dx, BwdDims dm, int batch) {
+// The float32 chunk kernel: a block of 256 threads per (chunk, role,
+// head, batch).  The row role (role 0) takes its own row tiles i of 32
+// steps (C_i, dy_i) against the column steps j <= i (B_j, x_j): dC_i and
+// R's row sums, then e^{cum_i} S_prev^T dy_i.  The column role (role 1)
+// takes its own column tiles j of 32 steps (B_j, x_j) against the row
+// steps i >= j (C_i, dy_i): du_j (dx_j, x_j.du_j), dB_j and R's column
+// sums, then w_j dS B_j and w_j dS^T u_j.  The other side is held whole
+// (TO = L, loaded once) where it fits, else streamed in 32-row tiles (TO =
+// 32).  A step is one (own, other) pair of tiles; the next step's tiles
+// (and the next own tile) arrive by 16-byte cp.async while this one
+// computes.  Every product
+// is register-tiled, 8 x 8 outputs a thread: the scores (C.B and dy.x, 32
+// x TO) with 256 / (TO / 2) lanes a block over the contraction (float4
+// along N or P), the others an outer product a contraction step over 2 + 2
+// float4 of operands laid out along the outputs; lanes sharing a block
+// fold by shuffles (Fold).  Blocks of a pair's scores that the causal mask
+// clears are not computed, and the products over the pair's steps stop at
+// the mask.  The column role's du and dB run side by side in warps 0-3
+// and 4-7.  P and N are padded with zeros to PP, NP in {32, 64, 128}.
+template <int PP, int NP, int TO>
+__global__ void __launch_bounds__(THREADS, 1)
+    ssd_bwd_f32_chunk(const float* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A, const float* __restrict__ B,
+                      const float* __restrict__ C, const float* __restrict__ dy,
+                      const float* __restrict__ states,
+                      const float* __restrict__ dstates,
+                      float* __restrict__ dBp, float* __restrict__ dCp,
+                      float* __restrict__ rows, float* __restrict__ dx,
+                      F32BwdDims dm, int batch) {
+  constexpr int NS = NP + 4, PS = PP + 4, TS = 36, RS = 48;
+  constexpr bool WHOLE = TO > TR;        // the other side held whole
+  constexpr int OWN_F = TR * (NS + PS);  // an own A tile and X tile
+  constexpr int OTH_F = TO * (NS + PS);  // the other side's
+  constexpr int SKS = 512 / TO;          // the scores' slices: 16, 8 or 4
+  constexpr int SCNT = 64 / SKS;         // a lane's scores after the fold
+  constexpr int RPLS = SCNT >= 8 ? SCNT / 8 : 1;  // its rows
+  constexpr int LPRS = SCNT < 8 ? 8 / SCNT : 1;   // lanes a row of a block
+  constexpr int SSLOTS = TO / 8 * LPRS;           // partial sums a row
+  constexpr int KS2 = 512 / NP;  // row role's slices of dC (4 x NP / 8 blocks)
+  constexpr int KSD = 256 / PP;  // column role's of du (warps 0-3)
+  constexpr int KSB = 256 / NP;  // and of dB (warps 4-7)
   const int H = dm.h, P = dm.p, N = dm.n, L = dm.l, G = dm.g;
-  const int NB = N + 4, PB = P + 4;
+  const int nt = L / TR, nto = L / TO;
   extern __shared__ float4 smem4[];
-  float* t1 = reinterpret_cast<float*>(smem4);  // TR x NB
-  float* t2 = t1 + TR * NB;                     // TR x PB
-  float* t3 = t2 + TR * PB;                     // TR x NB
-  float* t4 = t3 + TR * NB;                     // TR x PB
-  float* sm1 = t4 + TR * PB;                    // TR x 33
-  float* sm2 = sm1 + TR * 33;                   // TR x 33
-  float* sS = sm2 + TR * 33;                    // P x NB
-  float* sdt = sS + P * NB;
+  float* own = reinterpret_cast<float*>(smem4);  // 2 stages
+  float* oth = own + 2 * OWN_F;                  // 2 stages, or 1 whole
+  float* sT1 = oth + (WHOLE ? 1 : 2) * OTH_F;    // TO x TS
+  float* sT2 = sT1 + TO * TS;                    // TO x TS
+  // own X^T (PP x TS): past T2 when streaming, in T2 when whole (built in
+  // the epilogue, when T2 is free)
+  float* sT = WHOLE ? sT2 : sT2 + TO * TS;
+  float* sS = sT + (WHOLE ? TO * TS : PP * TS);  // PP x NS
+  float* sdt = sS + PP * NS;
   float* scum = sdt + L;
-  float* sred = scum + L;
+  float* sev = scum + L;  // row role e^{cum}, column role e^{cum_L - cum}
+  float* red = sT1;       // the epilogue's partial sums: TR rows of RS
 
   const int ci = blockIdx.x >> 1, role = blockIdx.x & 1;
   const int h = blockIdx.y, b = blockIdx.z;
   const int g = h / (H / G);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r = 4 * warp;  // the warp's first row of a tile
   const long long x_t = (long long)H * P, bc_t = (long long)G * N;
   const long long T_ = dm.t_len, c0 = (long long)ci * L;
-  const T* xc = x + ((long long)b * T_ + c0) * x_t + (long long)h * P;
-  const T* dyc = dy + ((long long)b * T_ + c0) * x_t + (long long)h * P;
-  const T* Bc = B + ((long long)b * T_ + c0) * bc_t + (long long)g * N;
-  const T* Cc = C + ((long long)b * T_ + c0) * bc_t + (long long)g * N;
+  const float* xc = x + ((long long)b * T_ + c0) * x_t + (long long)h * P;
+  const float* dyc = dy + ((long long)b * T_ + c0) * x_t + (long long)h * P;
+  const float* Bc = B + ((long long)b * T_ + c0) * bc_t + (long long)g * N;
+  const float* Cc = C + ((long long)b * T_ + c0) * bc_t + (long long)g * N;
   const long long sidx = (((long long)b * H + h) * dm.nc + ci) * P * N;
   const long long bth = (long long)batch * T_ * H;
+  // the own side's rows: row role C_i, dy_i; column role B_j, x_j
+  const float* ownA = role ? Bc : Cc;
+  const float* ownX = role ? xc : dyc;
+  const float* othA = role ? Cc : Bc;
+  const float* othX = role ? dyc : xc;
 
-  // the row role takes S_prev, the column role dS
-  const float* st = (role ? dstates : states) + sidx;
-  for (int i = tid; i < P * N; i += THREADS)
-    sS[(i / N) * NB + i % N] = st[i];
-  chunk_cum(dt + ((long long)b * T_ + c0) * H + h, H, L, A[h], sdt, scum,
-            tid);
-  const int nt = L / TR;
-
-  if (role == 0) {
-    // Row tiles i: dC_i and dcum_i's row sums.
-    for (int it = 0; it < nt; ++it) {
-      const int i0 = it * TR;
-      __syncthreads();  // the last tile's readers of t1, t2 are done
-      load_tile(t1, NB, Cc, bc_t, i0, N, sdt, false, tid);   // C_i
-      load_tile(t2, PB, dyc, x_t, i0, P, sdt, false, tid);   // dy_i
-      float acc[4][4], rs[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        rs[i] = 0.f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
-      }
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * TR;
-        __syncthreads();  // the last tile's readers of t3, t4 are done
-        load_tile(t3, NB, Bc, bc_t, j0, N, sdt, false, tid);  // B_j
-        load_tile(t4, PB, xc, x_t, j0, P, sdt, true, tid);    // u_j
-        __syncthreads();
-        float cb[4], gg[4];
-        tile_dots(t1, t3, NB, N, r, lane, cb);  // C_i . B_j
-        tile_dots(t2, t4, PB, P, r, lane, gg);  // dy_i . u_j
-        const int j = j0 + lane;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int ii = i0 + r + i;
-          const float e = j <= ii ? expf(scum[ii] - scum[j]) : 0.f;
-          const float q = gg[i] * e;
-          rs[i] = fmaf(cb[i], q, rs[i]);
-          sm1[(r + i) * 33 + lane] = q;
-        }
-        __syncwarp();
-        for (int jj = 0; jj < TR; ++jj) {  // dC_i += Q_ij B_j
-          float qv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) qv[i] = sm1[(r + i) * 33 + jj];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int col = lane + 32 * k;
-            if (col < N) {
-              const float bv = t3[jj * NB + col];
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                acc[i][k] = fmaf(qv[i], bv, acc[i][k]);
-            }
-          }
-        }
-        __syncwarp();
-      }
-      // exp(cum_i) S_prev^T dy_i
-      float acc2[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc2[i][k] = 0.f;
-      for (int pp = 0; pp < P; ++pp) {
-        float dv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i] = t2[(r + i) * PB + pp];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int col = lane + 32 * k;
-          if (col < N) {
-            const float sv = sS[pp * NB + col];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              acc2[i][k] = fmaf(dv[i], sv, acc2[i][k]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ii = i0 + r + i;
-        const float ei = expf(scum[ii]);
-        const long long row = (long long)b * T_ + c0 + ii;
-        float* dst = dCp + (row * H + h) * N;
-        float part = 0.f;  // dcum_i from y_inter: C_i . exp(cum_i) S^T dy_i
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int col = lane + 32 * k;
-          if (col < N) {
-            const float v = ei * acc2[i][k];
-            part = fmaf(t1[(r + i) * NB + col], v, part);
-            dst[col] = acc[i][k] + v;
-          }
-        }
-        part = warp_sum(part);
-        const float s = warp_sum(rs[i]);
-        if (lane == 0) rows[row * H + h] = s + part;
-      }
-    }
-    return;
+  // padding rows and columns stay 0: loads write only p < P, n < N
+  if (P < PP || N < NP) {
+    const int total4 = (int)(sS + PP * NS + 3 * L -
+                             reinterpret_cast<float*>(smem4)) / 4;
+    for (int i = tid; i < total4; i += THREADS)
+      smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
   }
 
-  // Column tiles j: du_j (dx_j, x_j . du_j), dB_j and dcum_j's column sums.
-  const float cl = scum[L - 1];
-  float tsum = 0.f;  // sum of T_j over the warp's rows
-  for (int jt = 0; jt < nt; ++jt) {
-    const int j0 = jt * TR;
-    __syncthreads();  // the last tile's readers of t1, t2 are done
-    load_tile(t1, NB, Bc, bc_t, j0, N, sdt, false, tid);  // B_j
-    load_tile(t2, PB, xc, x_t, j0, P, sdt, true, tid);    // u_j
-    float du[4][4], db[4][4], cs[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      cs[i] = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) du[i][k] = db[i][k] = 0.f;
+  // rows [r0, r0 + rows) of a (T, cols) view of row stride ld into shared
+  // rows of stride ls
+  auto load_tile = [&](float* dst, int ls, const float* src, long long ld,
+                       int r0, int rows, int cols) {
+    if (dm.vec) {
+      const int c4 = cols / 4;
+      for (int i = tid; i < rows * c4; i += THREADS) {
+        const int r = i / c4, c = 4 * (i - r * c4);
+        cp_async16(smem_u32(dst + r * ls + c),
+                   src + (long long)(r0 + r) * ld + c);
+      }
+    } else {
+      for (int i = tid; i < rows * cols; i += THREADS) {
+        const int r = i / cols, c = i - r * cols;
+        dst[r * ls + c] = src[(long long)(r0 + r) * ld + c];
+      }
     }
-    for (int it = jt; it < nt; ++it) {
-      const int i0 = it * TR;
-      __syncthreads();  // the last tile's readers of t3, t4 are done
-      load_tile(t3, NB, Cc, bc_t, i0, N, sdt, false, tid);  // C_i
-      load_tile(t4, PB, dyc, x_t, i0, P, sdt, false, tid);  // dy_i
+  };
+  // step k's tiles: the other side's tile q into stage k & 1, and the own
+  // tile o into stage o & 1 when the step starts it
+  auto load_step = [&](int o, int q, int k, bool own_new) {
+    if (!WHOLE || k == 0) {  // the whole other side once
+      float* t = oth + (WHOLE ? 0 : (k & 1)) * OTH_F;
+      load_tile(t, NS, othA, bc_t, TO * q, TO, N);
+      load_tile(t + TO * NS, PS, othX, x_t, TO * q, TO, P);
+    }
+    if (own_new) {
+      float* w = own + (o & 1) * OWN_F;
+      load_tile(w, NS, ownA, bc_t, TR * o, TR, N);
+      load_tile(w + TR * NS, PS, ownX, x_t, TR * o, TR, P);
+    }
+    cp_async_commit();
+  };
+  // the other side's tiles a step of own tile o takes: row role q <= its
+  // last row's, column role q >= its first row's
+  auto q_first = [&](int o) { return role ? TR * o / TO : 0; };
+  auto q_last = [&](int o) { return role ? nto - 1 : (TR * o + TR - 1) / TO; };
+
+  {  // the state (row role S_prev, column role dS), dt, the first step
+    const float* st = (role ? dstates : states) + sidx;
+    const int n4 = N / 4;
+    for (int i = tid; i < P * n4; i += THREADS) {
+      const int p = i / n4, c = 4 * (i - p * n4);
+      cp_async16(smem_u32(sS + p * NS + c), st + (long long)p * N + c);
+    }
+    const float* dtc = dt + ((long long)b * T_ + c0) * H + h;
+    for (int j = tid; j < L; j += THREADS)
+      cp_async4(smem_u32(sdt + j), dtc + (long long)j * H);
+    load_step(0, 0, 0, true);
+  }
+
+  // the scores' blocks: 4 x TO / 8 of 8 x 8, SKS lanes each; after the
+  // fold a lane holds elements SCNT ss .. SCNT (ss + 1) - 1 of its block,
+  // RPLS rows from sr, columns from scl, and its partial row sums go to
+  // slot sslot of each row's SSLOTS
+  const int ss = tid % SKS, sb = tid / SKS, sbm = sb & 3, sbn = sb >> 2;
+  const int sr = 8 * sbm + SCNT * ss / 8, scl = 8 * sbn + SCNT * ss % 8;
+  const int sslot = sbn * LPRS + SCNT * ss % 8 / SCNT;
+  float acc[64];       // row role dC, column role du (warps 0-3) or dB
+  float rsum[RPLS];    // R's row (row role) or column (column role) sums
+  float tsum = 0.f;   // column role, threads < 32: T_j over the own tiles
+  zero64(acc);
+#pragma unroll
+  for (int r = 0; r < RPLS; ++r) rsum[r] = 0.f;
+
+  int o = 0, q = 0;
+  for (int k = 0;; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // step k landed; every reader of step k - 1 done
+    if (k == 0) {
+      if (warp == 0) {
+        float v[4];
+        const int E = L / 32;
+        const float last = warp_cumsum(sdt, A[h], L, lane, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e < E) {
+            const int j = E * lane + e;
+            scum[j] = v[e];
+            sev[j] = role ? expf(last - v[e]) : expf(v[e]);
+          }
+      }
+      __syncthreads();  // cum and e written
+    }
+    const bool last = q == q_last(o);
+    const int o2 = last ? o + 1 : o;  // the next step, its tiles issued now
+    const int q2 = last ? (o2 < nt ? q_first(o2) : 0) : q + 1;
+    if (o2 < nt) load_step(o2, q2, k + 1, o2 != o);
+    const float* oA = own + (o & 1) * OWN_F;
+    const float* oX = oA + TR * NS;
+    const float* tA = oth + (WHOLE ? 0 : (k & 1)) * OTH_F;
+    const float* tX = tA + TO * NS;
+    // the other tile's steps the causal mask keeps: row role j <= its own
+    // tile's last row, column role i >= its first
+    const int klo = role ? max(0, TR * o - TO * q) : 0;
+    const int khi = role ? TO : min(TO, TR * (o + 1) - TO * q);
+
+    // X^T of the own tile: row role dy_i^T, column role u_j^T = (dt_j
+    // x_j)^T (its first step when streaming, its epilogue when whole)
+    auto build_t = [&]() {
+      for (int i = tid; i < PP * TR; i += THREADS) {
+        const int p = i / TR, r = i - p * TR;
+        float v = oX[r * PS + p];
+        if (role) v *= sdt[TR * o + r];
+        sT[p * TS + r] = v;
+      }
+    };
+    if (q == q_first(o)) {  // the own tile's first step
+      if (!WHOLE) build_t();
+      zero64(acc);
+#pragma unroll
+      for (int r = 0; r < RPLS; ++r) rsum[r] = 0.f;
+    }
+
+    // the pair's scores: C.B over N and dy.x over P (row role rows i of
+    // its own tile, columns j; column role rows j, columns i)
+    float cb[SCNT], gx[SCNT];
+    {
+      // a block the mask clears: j > i on all of it (row role), or i < j
+      const bool live = role ? TO * q + 8 * sbn + 7 >= TR * o + 8 * sbm
+                             : TO * q + 8 * sbn <= TR * o + 8 * sbm + 7;
+      float sacc[64];
+      zero64(sacc);
+      if (live)
+        nt_acc<SKS>(sacc, oA + 8 * sbm * NS, NS, tA + 8 * sbn * NS, NS,
+                    NP / 4, ss);
+      fold<SKS>(sacc, lane);
+#pragma unroll
+      for (int e = 0; e < SCNT; ++e) cb[e] = sacc[e];
+      zero64(sacc);
+      if (live)
+        nt_acc<SKS>(sacc, oX + 8 * sbm * PS, PS, tX + 8 * sbn * PS, PS,
+                    PP / 4, ss);
+      fold<SKS>(sacc, lane);
+#pragma unroll
+      for (int e = 0; e < SCNT; ++e) gx[e] = sacc[e];
+    }
+#pragma unroll
+    for (int e = 0; e < SCNT; ++e) {
+      const int rl = sr + e / 8, cl = scl + e % 8;  // own row, other column
+      const int r = SCNT >= 8 ? e / 8 : 0;
+      if (role == 0) {
+        const int i = TR * o + rl, j = TO * q + cl;
+        const float ee = j <= i ? expf(scum[i] - scum[j]) : 0.f;
+        const float qv = gx[e] * sdt[j] * ee;  // e (dy_i . u_j)
+        rsum[r] = fmaf(cb[e], qv, rsum[r]);
+        sT1[cl * TS + rl] = qv;                // Q^T (j, i)
+      } else {
+        const int j = TR * o + rl, i = TO * q + cl;
+        const float ee = j <= i ? expf(scum[i] - scum[j]) : 0.f;
+        const float qv = gx[e] * sdt[j] * ee;
+        rsum[r] = fmaf(cb[e], qv, rsum[r]);
+        sT1[cl * TS + rl] = cb[e] * ee;        // M (i, j)
+        sT2[cl * TS + rl] = qv;                // Q (i, j)
+      }
+    }
+    __syncthreads();  // the pair's decayed scores written
+    if (role == 0) {  // dC_i += Q_ij B_j
+      const int s = tid % KS2, bb = tid / KS2;
+      nn_acc<KS2>(acc, sT1 + 8 * (bb & 3), TS, tA + 8 * (bb >> 2), NS, klo,
+                  khi, s);
+    } else if (warp < 4) {  // du_j += M_ij dy_i
+      const int s = tid % KSD, bb = tid / KSD;
+      nn_acc<KSD>(acc, sT1 + 8 * (bb & 3), TS, tX + 8 * (bb >> 2), PS, klo,
+                  khi, s);
+    } else {  // dB_j += Q_ij C_i
+      const int t = tid - 128, s = t % KSB, bb = t / KSB;
+      nn_acc<KSB>(acc, sT2 + 8 * (bb & 3), TS, tA + 8 * (bb >> 2), NS, klo,
+                  khi, s);
+    }
+
+    if (WHOLE && last) {  // X^T into T2, free once every product read it
       __syncthreads();
-      float cb[4], gg[4];
-      tile_dots(t1, t3, NB, N, r, lane, cb);  // B_j . C_i
-      tile_dots(t2, t4, PB, P, r, lane, gg);  // u_j . dy_i
-      const int ii = i0 + lane;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int jj = j0 + r + i;
-        const float e = jj <= ii ? expf(scum[ii] - scum[jj]) : 0.f;
-        const float m = cb[i] * e, q = gg[i] * e;
-        cs[i] = fmaf(cb[i], q, cs[i]);
-        sm1[(r + i) * 33 + lane] = m;
-        sm2[(r + i) * 33 + lane] = q;
-      }
-      __syncwarp();
-      for (int k2 = 0; k2 < TR; ++k2) {  // over the tile's steps i
-        float mv[4], qv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          mv[i] = sm1[(r + i) * 33 + k2];
-          qv[i] = sm2[(r + i) * 33 + k2];
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int col = lane + 32 * k;
-          if (col < P) {
-            const float dv = t4[k2 * PB + col];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) du[i][k] = fmaf(mv[i], dv, du[i][k]);
-          }
-          if (col < N) {
-            const float cv = t3[k2 * NB + col];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) db[i][k] = fmaf(qv[i], cv, db[i][k]);
-          }
-        }
-      }
-      __syncwarp();
+      build_t();
+      __syncthreads();
     }
-    // dS B_j (columns p) and dS^T u_j (columns n)
-    float duS[4][4], dbS[4][4];
+    if (role == 0 && last) {
+      // the row tile's end: dC_i = sum_j Q_ij B_j + e^{cum_i} S_prev^T dy_i
+      constexpr int CNT = 64 / KS2, RPL = CNT >= 8 ? CNT / 8 : 1;
+      constexpr int LPR = CNT < 8 ? 8 / CNT : 1;
+      const int s = tid % KS2, bb = tid / KS2, bm = bb & 3, bn = bb >> 2;
+      const int e0 = CNT * s;
+      fold<KS2>(acc, lane);
+      float v3[64];
+      zero64(v3);
+      nn_acc<KS2>(v3, sT + 8 * bm, TS, sS + 8 * bn, NS, 0, PP, s);
+      fold<KS2>(v3, lane);
+      float part[RPL];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int r = 0; r < RPL; ++r) part[r] = 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) duS[i][k] = dbS[i][k] = 0.f;
-    for (int q = 0; q < N; q += 4) {
-      float bv[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) lds4(t1 + (r + i) * NB + q, bv[i]);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int col = lane + 32 * k;
-        if (col < P) {
-          float sv[4];
-          lds4(sS + col * NB + q, sv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              duS[i][k] = fmaf(bv[i][e], sv[e], duS[i][k]);
-        }
-      }
-    }
-    for (int pp = 0; pp < P; ++pp) {
-      float uv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) uv[i] = t2[(r + i) * PB + pp];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int col = lane + 32 * k;
+      for (int e = 0; e < CNT; e += 4) {
+        const int rr = 8 * bm + (e0 + e) / 8, col = 8 * bn + (e0 + e) % 8;
         if (col < N) {
-          const float sv = sS[pp * NB + col];
+          const float ev = sev[TR * o + rr];
+          const long long row = (long long)b * T_ + c0 + TR * o + rr;
+          float out[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) dbS[i][k] = fmaf(uv[i], sv, dbS[i][k]);
+          for (int u = 0; u < 4; ++u) {
+            const float v = ev * v3[e + u];
+            out[u] = acc[e + u] + v;
+            part[e / 8] = fmaf(oA[rr * NS + col + u], v, part[e / 8]);
+          }
+          *reinterpret_cast<float4*>(dCp + (row * H + h) * N + col) =
+              make_float4(out[0], out[1], out[2], out[3]);
         }
       }
-    }
+      __syncthreads();  // every reader of T1 done
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int jj = j0 + r + i;
-      const float wj = expf(cl - scum[jj]), dtj = sdt[jj];
-      const long long row = (long long)b * T_ + c0 + jj;
-      const T* xr = xc + (long long)jj * x_t;
-      T* dxr = dx + row * x_t + (long long)h * P;
-      float* dbr = dBp + (row * H + h) * N;
-      float tp = 0.f, xd = 0.f;  // T_j = u_j . w_j dS B_j; x_j . du_j
+      for (int r = 0; r < RPLS; ++r) red[(sr + r) * RS + sslot] = rsum[r];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int col = lane + 32 * k;
-        if (col < P) {
-          const float sv = wj * duS[i][k];
-          tp = fmaf(t2[(r + i) * PB + col], sv, tp);
-          const float d = du[i][k] + sv;
-          xd = fmaf(to_f32(xr[col]), d, xd);
-          store(dxr + col, dtj * d);
+      for (int r = 0; r < RPL; ++r)
+        red[(8 * bm + e0 / 8 + r) * RS + 16 + bn * LPR + (e0 % 8) / CNT] =
+            part[r];
+      __syncthreads();
+      if (tid < TR) {
+        float s1 = 0.f, s2 = 0.f;
+        for (int u = 0; u < SSLOTS; ++u) s1 += red[tid * RS + u];
+        for (int u = 0; u < (NP / 8) * LPR; ++u) s2 += red[tid * RS + 16 + u];
+        rows[((long long)b * T_ + c0 + TR * o + tid) * H + h] = s1 + s2;
+      }
+    } else if (role == 1 && last) {
+      // the column tile's end: du_j += w_j dS B_j (warps 0-3), dB_j +=
+      // w_j dS^T u_j (warps 4-7), and the steps' sums
+      constexpr int CNTD = 64 / KSD, RPL = CNTD / 8;
+      const int sd = tid % KSD, bd = tid / KSD, e0 = CNTD * sd;
+      const int bmd = bd & 3, bnd = bd >> 2;
+      float tp[RPL], xd[RPL];
+#pragma unroll
+      for (int r = 0; r < RPL; ++r) tp[r] = xd[r] = 0.f;
+      if (warp < 4) {
+        fold<KSD>(acc, lane);
+        float v4[64];
+        zero64(v4);
+        nt_acc<KSD>(v4, oA + 8 * bmd * NS, NS, sS + 8 * bnd * NS, NS,
+                    NP / 4, sd);
+        fold<KSD>(v4, lane);
+#pragma unroll
+        for (int e = 0; e < CNTD; e += 4) {
+          const int rr = 8 * bmd + (e0 + e) / 8;
+          const int col = 8 * bnd + (e0 + e) % 8;
+          if (col < P) {
+            const int j = TR * o + rr;
+            const float wj = sev[j], dtj = sdt[j];
+            const long long row = (long long)b * T_ + c0 + j;
+            float out[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float sv = wj * v4[e + u];
+              const float d = acc[e + u] + sv;
+              const float xv = oX[rr * PS + col + u];
+              tp[e / 8] = fmaf(xv * dtj, sv, tp[e / 8]);
+              xd[e / 8] = fmaf(xv, d, xd[e / 8]);
+              out[u] = dtj * d;
+            }
+            *reinterpret_cast<float4*>(dx + row * x_t + (long long)h * P +
+                                       col) =
+                make_float4(out[0], out[1], out[2], out[3]);
+          }
         }
-        if (col < N) dbr[col] = db[i][k] + wj * dbS[i][k];
+      } else {
+        constexpr int CNT = 64 / KSB;
+        const int t = tid - 128, s = t % KSB, bb = t / KSB;
+        const int bm = bb & 3, bn = bb >> 2, e1 = CNT * s;
+        fold<KSB>(acc, lane);
+        float v5[64];
+        zero64(v5);
+        nn_acc<KSB>(v5, sT + 8 * bm, TS, sS + 8 * bn, NS, 0, PP, s);
+        fold<KSB>(v5, lane);
+#pragma unroll
+        for (int e = 0; e < CNT; e += 4) {
+          const int rr = 8 * bm + (e1 + e) / 8, col = 8 * bn + (e1 + e) % 8;
+          if (col < N) {
+            const int j = TR * o + rr;
+            const float wj = sev[j];
+            const long long row = (long long)b * T_ + c0 + j;
+            float out[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) out[u] = acc[e + u] + wj * v5[e + u];
+            *reinterpret_cast<float4*>(dBp + (row * H + h) * N + col) =
+                make_float4(out[0], out[1], out[2], out[3]);
+          }
+        }
       }
-      tp = warp_sum(tp);
-      xd = warp_sum(xd);
-      const float c = warp_sum(cs[i]);
-      if (lane == 0) {
-        rows[bth + row * H + h] = -c - tp;
-        rows[2 * bth + row * H + h] = xd;
+      __syncthreads();  // every reader of T1, T2 done
+#pragma unroll
+      for (int r = 0; r < RPLS; ++r) red[(sr + r) * RS + sslot] = rsum[r];
+      if (warp < 4) {
+#pragma unroll
+        for (int r = 0; r < RPL; ++r) {
+          red[(8 * bmd + e0 / 8 + r) * RS + 16 + bnd] = tp[r];
+          red[(8 * bmd + e0 / 8 + r) * RS + 32 + bnd] = xd[r];
+        }
       }
-      tsum += tp;
+      __syncthreads();
+      if (tid < TR) {
+        float cs = 0.f, tpv = 0.f, xdv = 0.f;
+        for (int u = 0; u < SSLOTS; ++u) cs += red[tid * RS + u];
+        for (int u = 0; u < PP / 8; ++u) {
+          tpv += red[tid * RS + 16 + u];
+          xdv += red[tid * RS + 32 + u];
+        }
+        const long long row = (long long)b * T_ + c0 + TR * o + tid;
+        rows[bth + row * H + h] = -cs - tpv;
+        rows[2 * bth + row * H + h] = xdv;
+        tsum += tpv;
+      }
     }
+    if (o2 >= nt) break;
+    o = o2;
+    q = q2;
   }
-  // The chunk's last step: dcum_L += sum_j T_j + exp(cum_L) <dS, S_prev>.
-  const float* sp = states + sidx;
-  float dot = 0.f;
-  for (int i = tid; i < P * N; i += THREADS)
-    dot = fmaf(sS[(i / N) * NB + i % N], sp[i], dot);
-  dot = warp_sum(dot);
-  if (lane == 0) {
-    sred[warp] = tsum;
-    sred[8 + warp] = dot;
-  }
-  __syncthreads();  // and the lane-0 writes of rows are visible
-  if (tid == 0) {
-    float ts = 0.f, d = 0.f;
-    for (int w = 0; w < THREADS / 32; ++w) {
-      ts += sred[w];
-      d += sred[8 + w];
+
+  if (role == 1) {
+    // the chunk's last step: dcum_L += sum_j T_j + e^{cum_L} <dS, S_prev>
+    const float* sp = states + sidx;
+    float dot = 0.f;
+    for (int i = tid; i < P * N; i += THREADS)
+      dot = fmaf(sS[(i / N) * NS + i % N], sp[i], dot);
+    dot = warp_sum(dot);
+    __syncthreads();  // the last tile's sums read
+    if (lane == 0) red[warp] = dot;
+    if (tid < TR) red[8 + tid] = tsum;
+    __syncthreads();  // and the lane-0 writes of rows are visible
+    if (tid == 0) {
+      float ts = 0.f, d = 0.f;
+      for (int w = 0; w < THREADS / 32; ++w) d += red[w];
+      for (int r = 0; r < TR; ++r) ts += red[8 + r];
+      rows[bth + ((long long)b * T_ + c0 + L - 1) * H + h] +=
+          ts + expf(scum[L - 1]) * d;
     }
-    rows[bth + ((long long)b * T_ + c0 + L - 1) * H + h] += ts + expf(cl) * d;
   }
 }
 
@@ -2315,45 +2619,121 @@ int launch_bwd_tail(const void* dt, const void* A, const void* rows,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* dt, const void* A, const void* B,
-               const void* C, const void* dy, const void* dstate,
-               void* states, void* dstates, void* dBp, void* dCp, void* rows,
-               void* dAp, void* dx, void* ddt, void* dA, void* dB, void* dC,
-               int batch, const BwdDims& dm, cudaStream_t stream) {
-  const long long s_smem = 4 * bwd_states_floats(dm.l, dm.p, dm.n);
-  const long long c_smem = 4 * bwd_chunk_floats(dm.l, dm.p, dm.n);
-  if (s_smem > MAX_SMEM || c_smem > MAX_SMEM)
-    return (int)cudaErrorInvalidValue;
-  auto fwd = ssd_bwd_states<T, false>;
-  auto rev = ssd_bwd_states<T, true>;
-  auto chunk = ssd_bwd_chunk<T>;
+template <int PP, int NP, int TO>
+int launch_bwd_f32_chunk_to(const void* x, const void* dt, const void* A,
+                            const void* B, const void* C, const void* dy,
+                            const void* states, const void* dstates,
+                            void* dBp, void* dCp, void* rows, void* dx,
+                            int batch, const F32BwdDims& dm,
+                            cudaStream_t stream) {
+  const long long smem = f32_chunk_bytes(dm.l, PP, NP, TO);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  auto chunk = ssd_bwd_f32_chunk<PP, NP, TO>;
   cudaError_t e = cudaFuncSetAttribute(
-      fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_smem);
+      chunk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(rev, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)s_smem);
+  chunk<<<dim3(2 * dm.nc, dm.h, batch), THREADS, smem, stream>>>(
+      (const float*)x, (const float*)dt, (const float*)A, (const float*)B,
+      (const float*)C, (const float*)dy, (const float*)states,
+      (const float*)dstates, (float*)dBp, (float*)dCp, (float*)rows,
+      (float*)dx, dm, batch);
+  return (int)cudaGetLastError();
+}
+
+// The chunk kernel holds the other side's whole chunk where it fits
+// (f32_chunk_rows), else streams 32-row tiles of it.
+template <int PP, int NP>
+int launch_bwd_f32_chunk(const void* x, const void* dt, const void* A,
+                         const void* B, const void* C, const void* dy,
+                         const void* states, const void* dstates, void* dBp,
+                         void* dCp, void* rows, void* dx, int batch,
+                         const F32BwdDims& dm, cudaStream_t s) {
+  const int to = f32_chunk_rows(dm.l, PP, NP);
+  if constexpr (PP <= 64) {
+    if (to == 64)
+      return launch_bwd_f32_chunk_to<PP, NP, 64>(x, dt, A, B, C, dy, states,
+                                                 dstates, dBp, dCp, rows, dx,
+                                                 batch, dm, s);
+  }
+  if constexpr (PP < 128 || NP < 128) {
+    if (to == 128)
+      return launch_bwd_f32_chunk_to<PP, NP, 128>(x, dt, A, B, C, dy, states,
+                                                  dstates, dBp, dCp, rows, dx,
+                                                  batch, dm, s);
+  }
+  if (to != 32) return (int)cudaErrorInvalidValue;
+  return launch_bwd_f32_chunk_to<PP, NP, 32>(x, dt, A, B, C, dy, states,
+                                             dstates, dBp, dCp, rows, dx,
+                                             batch, dm, s);
+}
+
+template <int PP>
+int launch_bwd_f32_chunk_n(int np, const void* x, const void* dt,
+                           const void* A, const void* B, const void* C,
+                           const void* dy, const void* states,
+                           const void* dstates, void* dBp, void* dCp,
+                           void* rows, void* dx, int batch,
+                           const F32BwdDims& dm, cudaStream_t s) {
+  switch (np) {
+    case 32:
+      return launch_bwd_f32_chunk<PP, 32>(x, dt, A, B, C, dy, states,
+                                          dstates, dBp, dCp, rows, dx, batch,
+                                          dm, s);
+    case 64:
+      return launch_bwd_f32_chunk<PP, 64>(x, dt, A, B, C, dy, states,
+                                          dstates, dBp, dCp, rows, dx, batch,
+                                          dm, s);
+    default:
+      return launch_bwd_f32_chunk<PP, 128>(x, dt, A, B, C, dy, states,
+                                           dstates, dBp, dCp, rows, dx,
+                                           batch, dm, s);
+  }
+}
+
+// The float32 instance: one launch of both walks, the chunk kernel, then
+// ssd_bwd_finish and ssd_bwd_reduce.
+int launch_bwd_f32(const void* x, const void* dt, const void* A,
+                   const void* B, const void* C, const void* dy,
+                   const void* dstate, void* states, void* dstates, void* dBp,
+                   void* dCp, void* rows, void* dAp, void* dx, void* ddt,
+                   void* dA, void* dB, void* dC, int batch, const BwdDims& bd,
+                   cudaStream_t stream) {
+  const bool vec = (((uintptr_t)x | (uintptr_t)B | (uintptr_t)C |
+                     (uintptr_t)dy) & 15) == 0;
+  const int stages = f32_walk_stages(bd.l, bd.p, bd.n);
+  const long long w_smem = f32_walk_bytes(bd.l, bd.p, bd.n, stages);
+  if (w_smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const F32BwdDims dm{bd.t_len, bd.h, bd.p, bd.g,  bd.n,
+                      bd.l,     bd.nc, vec ? 1 : 0, stages};
+  const int wt = bd.p > 64 ? 256 : 128;
+  auto walk = wt == 256 ? ssd_bwd_f32_walk<256> : ssd_bwd_f32_walk<128>;
+  cudaError_t e = cudaFuncSetAttribute(
+      walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)w_smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(chunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)c_smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(dm.h, batch);
-  fwd<<<grid, THREADS, s_smem, stream>>>(
-      (const T*)x, (const float*)dt, (const float*)A, (const T*)B, nullptr,
-      (float*)states, dm);
+  walk<<<dim3(bd.h, batch, 2), wt, w_smem, stream>>>(
+      (const float*)x, (const float*)dy, (const float*)dt, (const float*)A,
+      (const float*)B, (const float*)C, (const float*)dstate, (float*)states,
+      (float*)dstates, dm);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  rev<<<grid, THREADS, s_smem, stream>>>(
-      (const T*)dy, (const float*)dt, (const float*)A, (const T*)C,
-      (const float*)dstate, (float*)dstates, dm);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  chunk<<<dim3(2 * dm.nc, dm.h, batch), THREADS, c_smem, stream>>>(
-      (const T*)x, (const float*)dt, (const float*)A, (const T*)B,
-      (const T*)C, (const T*)dy, (const float*)states,
-      (const float*)dstates, (float*)dBp, (float*)dCp, (float*)rows, (T*)dx,
-      dm, batch);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return launch_bwd_tail<T>(dt, A, rows, dBp, dCp, dAp, ddt, dA, dB, dC,
-                            batch, dm, stream);
+  const int np = padded32(bd.n);
+  int rc;
+  switch (padded32(bd.p)) {
+    case 32:
+      rc = launch_bwd_f32_chunk_n<32>(np, x, dt, A, B, C, dy, states, dstates,
+                                      dBp, dCp, rows, dx, batch, dm, stream);
+      break;
+    case 64:
+      rc = launch_bwd_f32_chunk_n<64>(np, x, dt, A, B, C, dy, states, dstates,
+                                      dBp, dCp, rows, dx, batch, dm, stream);
+      break;
+    default:
+      rc = launch_bwd_f32_chunk_n<128>(np, x, dt, A, B, C, dy, states,
+                                       dstates, dBp, dCp, rows, dx, batch, dm,
+                                       stream);
+  }
+  if (rc != 0) return rc;
+  return launch_bwd_tail<float>(dt, A, rows, dBp, dCp, dAp, ddt, dA, dB, dC,
+                                batch, bd, stream);
 }
 
 }  // namespace
@@ -2424,6 +2804,17 @@ extern "C" long long ssd_chunk_scan_mma_bwd_smem(int chunk, int p, int n) {
   return w > c ? w : c;
 }
 
+// The float32 backward's shared memory per block, in bytes: the larger of
+// its two kernels (the state walks, at the stages they take, and the chunk
+// kernel).
+extern "C" long long ssd_chunk_scan_f32_bwd_smem(int chunk, int p, int n) {
+  const long long w = f32_walk_bytes(chunk, p, n, f32_walk_stages(chunk, p, n));
+  const int pp = padded32(p), np = padded32(n);
+  const long long c =
+      f32_chunk_bytes(chunk, pp, np, f32_chunk_rows(chunk, pp, np));
+  return w > c ? w : c;
+}
+
 // The backward: dtype 0 float32 (the float32-core kernels), 1 bfloat16 (x,
 // B, C, dy, and dx, dB, dC; the tensor-core kernels); dt, A, dstate (Bb, H,
 // P, N), ddt and dA float32.  Scratch, all float32: states and dstates (Bb,
@@ -2445,9 +2836,8 @@ extern "C" int ssd_chunk_scan_bwd(int dtype, const void* x, const void* dt,
   const BwdDims dm{t_len, h, p, g, n, chunk, t_len / chunk};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_bwd<float>(x, dt, A, B, C, dy, dstate, states, dstates, dBp,
-                             dCp, rows, dAp, dx, ddt, dA, dB, dC, batch, dm,
-                             s);
+    return launch_bwd_f32(x, dt, A, B, C, dy, dstate, states, dstates, dBp,
+                          dCp, rows, dAp, dx, ddt, dA, dB, dC, batch, dm, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int pp = padded(p), np = padded(n);
   const bool vec = p % 8 == 0 && n % 8 == 0 &&

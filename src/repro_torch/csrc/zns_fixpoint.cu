@@ -9,11 +9,12 @@
 // blocks: a moving block re-activates later neighbours within the sweep
 // and earlier ones in the next; the solve ends when no block is active.
 //
-// The stacked form (fp_stack_kernel, zns_fixpoint_sharded_*) replaces
+// The stacked form (fp_cluster_kernel and fp_stack_kernel,
+// zns_fixpoint_cluster_* and zns_fixpoint_sharded_*) replaces
 // src/repro/kernels/zns_fixpoint.py::zns_fixpoint_sharded (lax.map of
 // _fixpoint_core over a stack of shard programs inside shard_map): S
 // independent fixpoints, each with its own blocks, adjacency, sweep count,
-// active set and convergence, in one launch.  It is a kernel of its own
+// active set and convergence, in one launch.  Its kernels are their own
 // beside the single solve's fp_solve_kernel, sharing the tile helpers, so
 // the single solve pays nothing for the shard bookkeeping.
 //
@@ -51,17 +52,34 @@
 //
 // Shards.  Shard s owns lanes base[s] .. base[s] + n_s of the completion
 // vector (its dead slot last) and its own (F, 3) rows of the block table;
-// its gather indices are its own (0 .. n_s).  The stack runs global sweeps:
-// in sweep k every shard still running does its own sweep k, and at family
-// slot f the tile space is the concatenation of the tiles of every running
-// shard whose block f is active, in shard order (a per-pass prefix of tile
-// counts in shared memory maps a tile to its shard).  Rows never cross
-// shards, so the carry rule is unchanged: a tile composes the aggregates of
-// its own row's earlier tiles.  Each shard keeps its own sweep count,
-// movement flag and active set (S * F flags in shared memory), and stops
-// when its active set empties or its budget runs out; the launch ends when
-// no shard runs.  One barrier pair serves a slot for every shard, so a
-// sweep of the stack costs max_s F_s family passes.
+// its gather indices are its own (0 .. n_s).  Rows never cross shards, so
+// the shards are independent: no row, gather or flag crosses them.  Two
+// instances, chosen on the host from the packed shapes
+// (kernels.zns_fixpoint.stack_launch):
+//  - fp_cluster_kernel: a thread-block cluster of 8 or 16 blocks a shard
+//    (cudaLaunchKernelEx with a cluster dimension; clusters take shard
+//    after shard where S do not fit on the card).  Each cluster runs its
+//    shard's sweeps, active set and early exit behind its own barrier
+//    (barrier.cluster, which spans only the SMs of its GPC), so a shard's
+//    pass costs two cluster barriers and a converged shard costs the others
+//    nothing.  A pass's tiles go one a block; each block publishes its
+//    tile's aggregate in its shared memory and a row's later tiles compose
+//    their carry from their peers' (distributed shared memory,
+//    map_shared_rank).  A pass wider than a cluster runs in rounds, its
+//    aggregates through the cluster's slice of the scratch.  No grid
+//    barrier, no cooperative launch.  The runner's 16-shard plan on an
+//    H100 (scripts/fp_stack_ab.py): 0.069 ms of device time against 0.117
+//    for fp_stack_kernel; about 5 us a family pass on its longest shard,
+//    16% of it in cluster barriers, the rest the pass's chain of
+//    dependent reads and its blocks' own barriers.
+//  - fp_stack_kernel, for plans with a pass wider than a cluster: one
+//    cooperative grid runs global sweeps; in sweep k every shard still
+//    running does its own sweep k, and at family slot f the tile space is
+//    the concatenation of the tiles of every running shard whose block f
+//    is active, in shard order (a per-pass prefix of tile counts in shared
+//    memory maps a tile to its shard).  One grid barrier pair serves a slot
+//    for every shard, so a sweep of the stack costs max_s F_s family
+//    passes and every shard waits at every barrier.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -591,6 +609,205 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// Phase B of a staged tile whose carry-in value c is known: apply, store
+// max(cur, value) on real lanes, movement test.  Returns 1 if a lane of
+// this thread moved.
+template <typename T>
+__device__ __forceinline__ int fp_apply_store(const FpView<T>& v, T c,
+                                              pair_t<T>* tile,
+                                              const T* cur_s, const int* g_s,
+                                              T* sh_a, T* sh_b,
+                                              T one_plus_rtol, T atol) {
+  tile_apply<THREADS, ITEMS>(tile, c, sh_a, sh_b);
+  int moved = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int pos = tile_pos<ITEMS>(j);
+    const int g = g_s[pos];
+    if (g < 0) continue;
+    const T val = tile_get<ITEMS, T>(tile, j);
+    const T cur = cur_s[pos];
+    if (val > cur) v.comp[g] = val;
+    if (val > cur * one_plus_rtol + atol) moved = 1;
+  }
+  return moved;
+}
+
+// The stacked solve on thread-block clusters: a cluster of C blocks a
+// shard (clusters take shard after shard when S clusters do not fit on
+// the card), each with its own sweeps, active set and early exit behind
+// the cluster's barrier; no barrier spans the grid and no shard waits for
+// another.  A pass's tiles go one per block where they fit (nt <= C), the
+// aggregates published in each block's shared memory and read by the
+// row's later tiles from their peers' (map_shared_rank); a wider pass runs
+// in rounds, its aggregates in the cluster's slice of the scratch (most a
+// cluster), ordered by the same barrier.  The movement flags are read from
+// every peer after the pass's second barrier, so every block of a cluster
+// takes the same branches.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+    fp_cluster_kernel(FpStack<T> p, T ninf, T one_plus_rtol, T atol,
+                      long long most) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C, nclu = gridDim.x / C;
+  const int F = p.F;
+#ifdef FP_TRACE
+  int tk = 0;
+#endif
+  TRACE();
+  extern __shared__ __align__(16) uint8_t smem[];
+  pair_t<T>* tile = (pair_t<T>*)smem;
+  T* cur_s = (T*)(tile + TILE);
+  int* g_s = (int*)(cur_s + TILE);
+  uint8_t* act_now = (uint8_t*)(g_s + TILE);
+  uint8_t* act_next = act_now + F;
+  __shared__ T sh_a[THREADS / 32];
+  __shared__ T sh_b[THREADS / 32];
+  __shared__ T sh_c[1];
+  __shared__ T pub[2];     // this block's tile aggregate, for its peers
+  __shared__ T peer_a[16];  // the row's earlier tiles' aggregates
+  __shared__ T peer_b[16];
+  __shared__ int moved_sh;
+  T* agg_a = p.agg_a + (long long)cid * most;
+  T* agg_b = p.agg_b + (long long)cid * most;
+  const long long stride = (long long)C * THREADS;
+
+  for (int s = cid; s < p.S; s += nclu) {
+    const FpView<T> v = fp_view(p, s);
+    // comp = comp0 on the shard's lanes, four loads in flight a thread
+    const long long b0 = __ldg(p.base + s);
+    for (long long i0 = (long long)rank * THREADS + threadIdx.x; i0 < v.n;
+         i0 += 4 * stride) {
+      T w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u * stride < v.n) w[u] = __ldg(p.comp0 + b0 + i0 + u * stride);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u * stride < v.n) v.comp[i0 + u * stride] = w[u];
+    }
+    if (rank == 0 && threadIdx.x == 0) v.comp[v.n] = ninf;
+    for (int f = threadIdx.x; f < F; f += blockDim.x) {
+      act_now[f] = 1;
+      act_next[f] = 0;
+    }
+    TRACE();
+    cluster.sync();
+    TRACE();
+
+    int used = 0, running = 1;  // the first sweep always runs
+    while (used < p.sweeps && running) {
+      for (int f = 0; f < F; ++f) {
+        if (!act_now[f]) continue;
+        const FpShape sh = fp_block(p, s, f);
+        if (sh.nt == 0) continue;           // an empty block never moves
+        const bool peers = sh.nt <= C;      // one tile a block
+        // the adjacency row, read while the pass runs
+        const uint8_t* adj_row = p.adj + ((long long)s * F + f) * F;
+        const int nb = threadIdx.x < F ? __ldg(adj_row + threadIdx.x) : 0;
+        long long held = -1;
+        for (long long t = rank; t < sh.nt; t += C) {
+          fp_stage(v, sh, t, tile, cur_s, g_s, ninf);
+          T ta, tb;
+          tile_aggregate<THREADS, ITEMS>(tile, ta, tb, sh_a, sh_b);
+          if (threadIdx.x == 0) {
+            if (peers) {
+              pub[0] = ta;
+              pub[1] = tb;
+            } else {
+              agg_a[t] = ta;
+              agg_b[t] = tb;
+            }
+          }
+          held = t;
+        }
+        TRACE();
+        cluster.sync();
+        TRACE();
+        int moved = 0;
+        if (held >= 0 && peers) {
+          // the carry: the aggregates of the row's earlier tiles, read from
+          // the peers that hold them at once, composed in order
+          const int first = (int)((held / sh.tpr) * sh.tpr), k = (int)held - first;
+          if (threadIdx.x < k) {
+            const T* q = cluster.map_shared_rank(pub, first + (int)threadIdx.x);
+            peer_a[threadIdx.x] = q[0];
+            peer_b[threadIdx.x] = q[1];
+          }
+          __syncthreads();
+          if (threadIdx.x == 0) {
+            T a = T(0), b = ninf;
+            for (int r = 0; r < k; ++r) {
+              T qa = peer_a[r], qb = peer_b[r];
+              compose_into(a, b, qa, qb);
+              a = qa;
+              b = qb;
+            }
+            sh_c[0] = k > 0 ? tmax(ninf + a, b) : ninf;
+          }
+          __syncthreads();
+          moved = fp_apply_store(v, sh_c[0], tile, cur_s, g_s, sh_a, sh_b,
+                                 one_plus_rtol, atol);
+        } else if (held >= 0) {
+          // the last tile is still staged; the block's earlier ones are
+          // gathered again (no other tile of the block writes their lanes)
+          moved = fp_finish(v, (const T*)agg_a, (const T*)agg_b, 0, sh.tpr,
+                            held, tile, cur_s, g_s, sh_a, sh_b, sh_c, ninf,
+                            one_plus_rtol, atol);
+          for (long long t = rank; t < held; t += C) {
+            __syncwarp();
+            fp_stage(v, sh, t, tile, cur_s, g_s, ninf);
+            moved |= fp_finish(v, (const T*)agg_a, (const T*)agg_b, 0,
+                               sh.tpr, t, tile, cur_s, g_s, sh_a, sh_b, sh_c,
+                               ninf, one_plus_rtol, atol);
+          }
+        }
+        moved = __syncthreads_or(moved);
+        if (threadIdx.x == 0) moved_sh = moved;
+        TRACE();
+        cluster.sync();
+        TRACE();
+        // every block reads every peer's flag (a thread a peer): the same
+        // decision in all of them
+        const int any = __syncthreads_or(
+            threadIdx.x < C ? *cluster.map_shared_rank(&moved_sh,
+                                                      (int)threadIdx.x)
+                            : 0);
+        // a moving block re-activates neighbours: later blocks see the
+        // write within this sweep, earlier ones on the next
+        if (any) {
+          for (int h = threadIdx.x; h < F; h += blockDim.x) {
+            if (!(h == threadIdx.x ? nb : __ldg(adj_row + h))) continue;
+            if (h > f)
+              act_now[h] = 1;
+            else
+              act_next[h] = 1;
+          }
+        }
+        __syncthreads();
+      }
+      ++used;
+      int mine = 0;
+      for (int h = threadIdx.x; h < F; h += blockDim.x) {
+        act_now[h] = act_next[h];
+        act_next[h] = 0;
+        mine |= act_now[h];
+      }
+      running = __syncthreads_or(mine);
+    }
+    if (rank == 0) {
+      int* w = p.state + (long long)s * (2 + F);
+      if (threadIdx.x == 0) w[ST_USED] = used;
+      for (int h = threadIdx.x; h < F; h += blockDim.x)
+        w[ST_ACTIVE + h] = act_now[h];
+    }
+  }
+  // no block leaves while a peer may still read its shared memory
+  cluster.sync();
+}
+
 // A page-locked host buffer of at least n ints for this thread (the
 // state read back each solve), grown as needed; nullptr if it cannot be
 // allocated.
@@ -737,6 +954,135 @@ static int run_stack(void* comp, const void* comp0, const void* svc,
   return 0;
 }
 
+// fp_cluster_kernel's launch configuration: `clusters` clusters of
+// `cluster` blocks (cudaLaunchKernelEx with a cluster dimension; 16 is a
+// non-portable size, allowed once here), smem bytes of dynamic shared
+// memory; attr is filled in.
+template <typename T>
+static void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                           int cluster, int clusters, size_t smem,
+                           cudaStream_t stream) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(cluster * clusters), 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+// The clusters of `cluster` blocks of fp_cluster_kernel<T> that fit on
+// the card at once with F block slots, and its registers a thread; kept
+// for each size, device and F, as the query costs microseconds.  Opts the
+// kernel into the most shared memory a block may hold and into
+// non-portable cluster sizes, once.
+template <typename T>
+static int cluster_fit(int cluster, int F, int* clusters, int* regs) {
+  struct Entry {
+    int dev, cluster, F, clusters, regs;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> seen;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : seen) {
+    if (e.dev == dev && e.cluster == cluster && e.F == F) {
+      *clusters = e.clusters;
+      *regs = e.regs;
+      return 0;
+    }
+  }
+  auto kernel = fp_cluster_kernel<T>;
+  const size_t smem = fp_smem<T>(F);
+  cudaFuncAttributes attr;
+  int optin = 0;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (!err) err = (int)cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!err && smem > 48 * 1024)
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        optin - (int)attr.sharedSizeBytes);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute la[1];
+  cluster_config<T>(cfg, la, cluster, 1, smem, 0);
+  int n = 0;
+  if (!err) err = (int)cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err) return err;
+  *clusters = n;
+  *regs = attr.numRegs;
+  seen.push_back({dev, cluster, F, n, attr.numRegs});
+  return 0;
+}
+
+// The stacked solve on clusters: `clusters` clusters of `cluster` blocks
+// (at most the number that fit), agg 2 * clusters * most elements (most:
+// the most tiles of one shard's pass), state S * (2 + F) ints; waits and
+// reads every shard's state back, as run_stack.  info: the grid, the
+// blocks of the clusters that fit, the registers a thread, shard 0's
+// sweeps and convergence.
+template <typename T>
+static int run_cluster(void* comp, const void* comp0, const void* svc,
+                       const void* gidx, const void* heads,
+                       const void* table_dev, const void* adj,
+                       const void* base, int S, int F, int sweeps,
+                       int cluster, int clusters, long long most, void* agg,
+                       void* state, void* stream, int* info, int* used,
+                       int* conv, T ninf, double rtol, double atol) {
+  if (S < 1 || S > FP_MAX_SHARDS || (long long)S * F > FP_MAX_FLAGS ||
+      (cluster != 8 && cluster != 16) || clusters < 1 || clusters > S)
+    return (int)cudaErrorInvalidValue;
+  int fit = 0, regs = 0;
+  int err = cluster_fit<T>(cluster, F, &fit, &regs);
+  if (err) return err;
+  if (clusters > fit) return (int)cudaErrorInvalidValue;
+  if (most < 1) most = 1;
+  FpStack<T> p;
+  fp_fill<T>(p, comp, comp0, svc, gidx, heads, table_dev, adj, state, 0, F,
+             sweeps);
+  p.base = (const long long*)base;
+  p.S = S;
+  p.agg_a = (T*)agg;
+  p.agg_b = p.agg_a + (long long)clusters * most;
+  info[0] = cluster * clusters;
+  info[1] = cluster * fit;
+  info[2] = regs;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute la[1];
+  cluster_config<T>(cfg, la, cluster, clusters, fp_smem<T>(F), st);
+  const T one_plus_rtol = (T)(1.0 + rtol), at = (T)atol;
+  err = (int)cudaLaunchKernelEx(&cfg, fp_cluster_kernel<T>, p, ninf,
+                                one_plus_rtol, at, most);
+  if (err) return err;
+  const size_t words = (size_t)S * (2 + F);
+  int* host = pinned_ints(words);
+  if (host == nullptr) return (int)cudaErrorMemoryAllocation;
+  err = (int)cudaMemcpyAsync(host, p.state, words * sizeof(int),
+                             cudaMemcpyDeviceToHost, st);
+  if (!err) err = (int)cudaStreamSynchronize(st);
+  if (err) return err;
+  for (int s = 0; s < S; ++s) {
+    const int* w = host + (size_t)s * (2 + F);
+    int active = 0;
+    for (int f = 0; f < F; ++f) active |= w[ST_ACTIVE + f];
+    used[s] = w[ST_USED];
+    conv[s] = !active;
+  }
+  info[3] = used[0];
+  info[4] = conv[0];
+  return 0;
+}
+
 extern "C" int zns_fixpoint_tile() { return TILE; }
 
 extern "C" int zns_fixpoint_max_shards() { return FP_MAX_SHARDS; }
@@ -793,4 +1139,42 @@ extern "C" int zns_fixpoint_sharded_f64(
                            used, conv,
                            -std::numeric_limits<double>::infinity(), 1e-12,
                            1e-9);
+}
+
+// The clusters of `cluster` (8 or 16) blocks of the stacked solve's
+// cluster kernel (f64: float64, else float32) with F block slots that fit
+// on the card at once, into *clusters.
+extern "C" int zns_fixpoint_cluster_fit(int f64, int cluster, int F,
+                                        int* clusters) {
+  int regs = 0;
+  return f64 ? cluster_fit<double>(cluster, F, clusters, &regs)
+             : cluster_fit<float>(cluster, F, clusters, &regs);
+}
+
+// The stacked solve on thread-block clusters (fp_cluster_kernel): shards
+// as zns_fixpoint_sharded_*, `clusters` clusters of `cluster` blocks,
+// agg 2 * clusters * most elements.
+extern "C" int zns_fixpoint_cluster_f32(
+    void* comp, const void* comp0, const void* svc, const void* gidx,
+    const void* heads, const void* table_dev, const void* adj,
+    const void* base, int S, int F, int sweeps, int cluster, int clusters,
+    long long most, void* agg, void* state, void* stream, int* info,
+    int* used, int* conv) {
+  return run_cluster<float>(comp, comp0, svc, gidx, heads, table_dev, adj,
+                            base, S, F, sweeps, cluster, clusters, most, agg,
+                            state, stream, info, used, conv, -1e30f, 1e-5,
+                            1e-3);
+}
+
+extern "C" int zns_fixpoint_cluster_f64(
+    void* comp, const void* comp0, const void* svc, const void* gidx,
+    const void* heads, const void* table_dev, const void* adj,
+    const void* base, int S, int F, int sweeps, int cluster, int clusters,
+    long long most, void* agg, void* state, void* stream, int* info,
+    int* used, int* conv) {
+  return run_cluster<double>(comp, comp0, svc, gidx, heads, table_dev, adj,
+                             base, S, F, sweeps, cluster, clusters, most, agg,
+                             state, stream, info, used, conv,
+                             -std::numeric_limits<double>::infinity(), 1e-12,
+                             1e-9);
 }

@@ -142,9 +142,10 @@ def instance(dtype: torch.dtype, n: int) -> str:
 def bwd_instance(dtype: torch.dtype, n: int) -> str:
     """The backward's kernels for a launch, from dtype and N alone:
     ``"mma"`` (the bfloat16 tensor-core kernels, N <= 128; P and N padded
-    to 16, 32, 64 or 128) or ``"simt"`` (the float32-core kernels: float32
-    is held to float32, and TF32 would not be).  Nothing falls back from
-    one to the other."""
+    to 16, 32, 64 or 128) or ``"simt"`` (the float32-core kernels,
+    ``ssd_bwd_f32_walk`` and ``ssd_bwd_f32_chunk``, register-tiled, P and N
+    padded to 32, 64 or 128: float32 is held to float32, and TF32 would not
+    be).  Nothing falls back from one to the other."""
     return "mma" if dtype == torch.bfloat16 and n <= 128 else "simt"
 
 
@@ -338,16 +339,49 @@ def _check_kernel_shape(x, B, chunk: int) -> None:
                          f"4; got P {p}, N {n}")
 
 
+def padded32(v: int) -> int:
+    """P or N padded to the float32 backward chunk kernel's tile: 32, 64,
+    128."""
+    return next(k for k in (32, 64, 128) if v <= k)
+
+
 def bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
     """Shared memory of the float32-core backward's kernels per block, the
-    larger (see the source's layout): the state walks stage a chunk of x
-    or dy, B or C and the state; the chunk kernel four 32-row tiles, two
-    32 x 32 score tiles and a state."""
-    nb, pb = n + 4, p + 4
-    scan = chunk * p + chunk * nb + p * nb + 4 * chunk
-    tiles = (2 * 32 * nb + 2 * 32 * pb + 2 * 32 * 33 + p * nb + 2 * chunk
-             + 32)
-    return 4 * max(scan, tiles)
+    larger (see the source's layout): the state walks hold x or dy and B
+    or C (rows padded to 8 floats), dt, and a float vector of the chunk:
+    one stage at P <= 64 (two blocks share an SM), else two where they
+    fit; the chunk kernel two stages of its own 32-row tiles and the
+    other side's whole chunk, or two stages of its 32-row tiles
+    (:func:`f32_chunk_rows`; N and P padded to 32, 64 or 128, rows 4 floats
+    longer), two tiles of 36 floats a row of the other side's, the own X
+    tile transposed, the state and three float vectors of the chunk."""
+    stage = chunk * (-(-p // 8) * 8) + chunk * (-(-n // 8) * 8) + chunk
+    walk = 4 * (2 * stage + chunk + 4)
+    if p <= 64 or walk > SMEM_LIMIT:
+        walk = 4 * (stage + chunk + 4)
+    pp, np_ = padded32(p), padded32(n)
+    return max(walk, f32_chunk_bytes(chunk, pp, np_,
+                                     f32_chunk_rows(chunk, pp, np_)))
+
+
+def f32_chunk_bytes(chunk: int, pp: int, np_: int, rows: int) -> int:
+    """The float32 chunk kernel's shared memory at padded PP, NP: streaming
+    the other side in 32-row tiles (``rows`` 32), or holding its whole
+    chunk (``rows`` the chunk)."""
+    row = (np_ + 4) + (pp + 4)
+    if rows == 32:
+        return 4 * (4 * 32 * row + pp * 36 + 2 * 32 * 36 + pp * (np_ + 4)
+                    + 3 * chunk)
+    return 4 * (2 * 32 * row + chunk * row + 2 * chunk * 36
+                + pp * (np_ + 4) + 3 * chunk)
+
+
+def f32_chunk_rows(chunk: int, pp: int, np_: int) -> int:
+    """The other side's rows the float32 chunk kernel holds: the whole
+    chunk (64 or 128 steps) where it fits and PP <= the chunk, else 32-row
+    tiles streamed."""
+    return chunk if chunk >= 64 and pp <= chunk and f32_chunk_bytes(
+        chunk, pp, np_, chunk) <= SMEM_LIMIT else 32
 
 
 def mma_bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
@@ -370,9 +404,9 @@ def check_bwd_shape(chunk: int, p: int, n: int, kind: str) -> None:
     """Raises ``ValueError`` where the backward's kernels of instance
     ``kind`` do not take the shape: N above 128, or a block's shared
     memory above :data:`SMEM_LIMIT`."""
-    need = (mma_bwd_smem_bytes if kind == "mma" else bwd_smem_bytes)(
-        chunk, p, n)
-    if n > 128 or need > SMEM_LIMIT:
+    need = None if n > 128 else (
+        mma_bwd_smem_bytes if kind == "mma" else bwd_smem_bytes)(chunk, p, n)
+    if need is None or need > SMEM_LIMIT:
         raise ValueError(f"ssd_chunk_scan_bwd ({kind}): N <= 128 and chunk "
                          f"{chunk}, P {p}, N {n} within {SMEM_LIMIT} bytes "
                          f"of shared memory (needs {need})")

@@ -17,12 +17,17 @@ solve stops once no block is active.
   (``_fixpoint_core`` of the reference).  The wrapper uses it only for
   tensors on the CPU.
 * :func:`zns_fixpoint_sharded` solves a stack of S independent programs
-  (the shards of a plan, :mod:`repro_torch.core.shard`) in one launch of
-  the same kernel, each shard with its own blocks, adjacency, sweep count,
-  active set and convergence.  It replaces the reference's
-  ``zns_fixpoint_sharded`` (``lax.map`` of ``_fixpoint_core`` inside
-  ``shard_map``).  :func:`zns_fixpoint_sharded_torch` is its plain
-  version, a loop over the shards of :func:`zns_fixpoint_torch`.
+  (the shards of a plan, :mod:`repro_torch.core.shard`) in one launch,
+  each shard with its own blocks, adjacency, sweep count, active set and
+  convergence.  It replaces the reference's ``zns_fixpoint_sharded``
+  (``lax.map`` of ``_fixpoint_core`` inside ``shard_map``).  Two
+  instances, chosen by :func:`stack_launch` from the packed shapes before
+  the launch: ``"cluster"`` (``fp_cluster_kernel``, a thread-block cluster
+  a shard, no barrier across the grid) where every pass of every shard
+  fits one tile a block of a cluster, else ``"grid"`` (``fp_stack_kernel``,
+  one cooperative grid sweeping every shard's passes together).
+  :func:`zns_fixpoint_sharded_torch` is its plain version, a loop over the
+  shards of :func:`zns_fixpoint_torch`.
 
 The single solve takes the blocks packed by :func:`pack_blocks`: one
 flat int32 ``gidx`` and bool ``heads`` buffer with a per-family
@@ -251,6 +256,40 @@ MAX_SHARDS = 1024
 MAX_FLAGS = 4096
 
 
+#: Cluster sizes of the stacked solve's cluster instance (16 is a
+#: non-portable size on Hopper).
+CLUSTER_SIZES = (8, 16)
+#: The most tiles a block of a cluster takes in one pass for the cluster
+#: instance; a plan with a wider pass takes the grid instance.
+CLUSTER_TILES_PER_BLOCK = 2
+
+
+def stack_launch(shards: "PackedShards", fits, tile: int = 2048) -> dict:
+    """How a stacked solve launches, from the packed shapes alone.
+
+    ``widest`` is the most tiles of ``tile`` lanes in one pass of one shard
+    (its widest family block); the cluster size is 8 where that takes at
+    most :data:`CLUSTER_TILES_PER_BLOCK` tiles a block of 8, else 16 (twice
+    as many clusters of 8 fit on the card).  ``fits`` maps a cluster size
+    to the clusters that fit on the card at once (the library's
+    ``zns_fixpoint_cluster_fit``); ``clusters`` is the smaller of S and
+    that, and ``rounds`` the shards a cluster takes in turn.  The instance
+    is ``"cluster"`` where the widest pass takes at most
+    :data:`CLUSTER_TILES_PER_BLOCK` tiles a block, else ``"grid"`` (every
+    shard's passes over one cooperative grid)."""
+    widest = max([block_tiles(int(r), int(l), tile)
+                  for s in range(shards.S) for _, r, l in shards.shapes[s]]
+                 + [0])
+    small = CLUSTER_SIZES[0]
+    cluster = small if widest <= small * CLUSTER_TILES_PER_BLOCK \
+        else CLUSTER_SIZES[1]
+    clusters = max(1, min(shards.S, int(fits[cluster])))
+    per_block = -(-widest // cluster)
+    instance = "cluster" if per_block <= CLUSTER_TILES_PER_BLOCK else "grid"
+    return dict(instance=instance, cluster=cluster, clusters=clusters,
+                rounds=-(-shards.S // clusters), widest=widest)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class PackedShards:
     """S independent programs packed for the stacked fixpoint.
@@ -461,6 +500,41 @@ def _lib():
     return _LIB
 
 
+def _cluster_fn(dtype: torch.dtype):
+    """The library's cluster entry for ``dtype``, its C signature set at
+    first use."""
+    lib = _lib()
+    fn = lib.zns_fixpoint_cluster_f64 if dtype == torch.float64 \
+        else lib.zns_fixpoint_cluster_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+            ctypes.c_longlong] + [ctypes.c_void_p] * 6
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def cluster_fits(dtype: torch.dtype, slots: int) -> dict:
+    """``{cluster size: clusters that fit on the card at once}`` of the
+    cluster instance with ``slots`` block slots a shard (the library's
+    occupancy query, which keeps its answer per device, size and slots)."""
+    lib = _lib()
+    fn = lib.zns_fixpoint_cluster_fit
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    got = {}
+    for c in CLUSTER_SIZES:
+        n = ctypes.c_int(0)
+        rc = fn(int(dtype == torch.float64), c, slots, ctypes.byref(n))
+        if rc != 0:
+            raise RuntimeError(f"zns_fixpoint_sharded: cluster occupancy "
+                               f"query failed: "
+                               f"{lib.zns_fixpoint_error(rc).decode()} "
+                               f"(CUDA error {rc})")
+        got[c] = n.value
+    return got
+
+
 def _sharded_fn(dtype: torch.dtype):
     """The library's stacked entry for ``dtype``, its C signature set at
     first use (a build of an earlier source, as
@@ -547,10 +621,11 @@ def zns_fixpoint_sharded(comp0: torch.Tensor, svc: torch.Tensor,
     """Stacked fixpoint of S independent programs; returns ``(comp
     (total,), sweeps_used (S,), converged (S,))`` with ``comp0`` / ``svc``
     the flat ``(shards.total,)`` vectors of :class:`PackedShards` (only
-    real lanes are read).  CUDA tensors launch the kernel once for the
-    whole stack (each shard its own sweeps, active set and early exit; the
-    library waits for it and reads every shard's state back); CPU tensors
-    run :func:`zns_fixpoint_sharded_torch`.  A refused launch raises
+    real lanes are read).  CUDA tensors launch one kernel for the whole
+    stack (each shard its own sweeps, active set and early exit; the
+    library waits for it and reads every shard's state back), the instance
+    :func:`stack_launch` picks; CPU tensors run
+    :func:`zns_fixpoint_sharded_torch`.  A refused launch raises
     ``RuntimeError`` naming the CUDA error."""
     check_inputs(comp0, svc, shards)
     if not comp0.is_cuda:
@@ -558,20 +633,36 @@ def zns_fixpoint_sharded(comp0: torch.Tensor, svc: torch.Tensor,
     comp0 = comp0.contiguous()
     svc = svc.contiguous()
     S, F = shards.S, shards.F
-    fn = _sharded_fn(comp0.dtype)
+    tile = _lib().tile
+    shape = stack_launch(shards, cluster_fits(comp0.dtype, F), tile)
     used = (ctypes.c_int * S)()
     conv = (ctypes.c_int * S)()
-    comp, _ = _launch(
-        zns_fixpoint_sharded, comp0, shards.total,
-        shards.tiles(_lib().tile), S * (2 + F),
-        lambda comp, agg, state, info: fn(
-            comp.data_ptr(), comp0.data_ptr(), svc.data_ptr(),
-            shards.gidx.data_ptr(), shards.heads.data_ptr(),
-            shards.table.data_ptr(), shards.c_table(),
-            shards.adj_dev.data_ptr(), shards.base_dev.data_ptr(), S, F,
-            max(int(sweeps), 1), agg.data_ptr(), state.data_ptr(),
-            _build.stream_handle(comp.device), info, used, conv))
-    zns_fixpoint_sharded.last_launch.update(shards=S, slots=F)
+    args = (shards.gidx.data_ptr(), shards.heads.data_ptr(),
+            shards.table.data_ptr())
+    stream = _build.stream_handle(comp0.device)
+    if shape["instance"] == "cluster":
+        fn = _cluster_fn(comp0.dtype)
+        most = max(1, shape["widest"])
+        comp, _ = _launch(
+            zns_fixpoint_sharded, comp0, shards.total,
+            shape["clusters"] * most, S * (2 + F),
+            lambda comp, agg, state, info: fn(
+                comp.data_ptr(), comp0.data_ptr(), svc.data_ptr(), *args,
+                shards.adj_dev.data_ptr(), shards.base_dev.data_ptr(), S, F,
+                max(int(sweeps), 1), shape["cluster"], shape["clusters"],
+                most, agg.data_ptr(), state.data_ptr(), stream, info, used,
+                conv))
+    else:
+        fn = _sharded_fn(comp0.dtype)
+        comp, _ = _launch(
+            zns_fixpoint_sharded, comp0, shards.total, shards.tiles(tile),
+            S * (2 + F),
+            lambda comp, agg, state, info: fn(
+                comp.data_ptr(), comp0.data_ptr(), svc.data_ptr(), *args,
+                shards.c_table(), shards.adj_dev.data_ptr(),
+                shards.base_dev.data_ptr(), S, F, max(int(sweeps), 1),
+                agg.data_ptr(), state.data_ptr(), stream, info, used, conv))
+    zns_fixpoint_sharded.last_launch.update(shards=S, slots=F, **shape)
     return (comp, np.asarray(used[:], dtype=np.int64),
             np.asarray(conv[:], dtype=bool))
 

@@ -353,10 +353,11 @@ def test_fixpoint_solve_is_one_device_kernel_on_card(cuda_device, sweeps):
 
 
 def test_sharded_solve_is_one_device_kernel_on_card(cuda_device):
-    """One stacked solve is one launch and one device kernel.  The
-    profiler can miss every device event of a profiled window (seen on
-    the card), so three solves are profiled: none may show more than one
-    kernel, and at least one must show exactly the fixpoint kernel."""
+    """One stacked solve is one launch and one device kernel, that of the
+    instance stack_launch picked.  The profiler can miss every device event
+    of a profiled window (seen on the card), so three solves are profiled:
+    none may show more than one kernel, and at least one must show exactly
+    the fixpoint kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(2)
@@ -381,7 +382,9 @@ def test_sharded_solve_is_one_device_kernel_on_card(cuda_device):
                      if e.device_type == DeviceType.CUDA
                      and not e.name.startswith(("Memcpy", "Memset"))])
     assert all(len(k) <= 1 for k in seen), seen
-    assert any(len(k) == 1 and "fp_stack_kernel" in k[0] for k in seen), seen
+    kernel = {"cluster": "fp_cluster_kernel", "grid": "fp_stack_kernel"}[
+        pfix.zns_fixpoint_sharded.last_launch["instance"]]
+    assert any(len(k) == 1 and kernel in k[0] for k in seen), seen
 
 
 def test_device_run_matches_host_loop_on_card(cuda_device):
@@ -1011,15 +1014,16 @@ def test_ssd_bwd_kernel_matches_plain_on_card(cuda_device, bb, t, h, p, g,
 
 
 def _ssd_bwd_args(rng, bb, t, h, p, g, n, device, dt_max=0.1,
-                  a_max=2.0, offset=False):
-    """Seeded inputs of ssd_chunk_scan_bwd in bfloat16 (dt, A and the
-    final state's gradient in float32); ``offset``: x, dy, B and C start
-    one element into their storage, 2 bytes from a 16-byte boundary."""
+                  a_max=2.0, offset=False, dtype=torch.bfloat16):
+    """Seeded inputs of ssd_chunk_scan_bwd, x, dy, B and C in ``dtype``
+    (dt, A and the final state's gradient in float32); ``offset``: x, dy,
+    B and C start one element into their storage, off a 16-byte
+    boundary."""
     def bf16(u):
-        u = torch.as_tensor(u, dtype=torch.float32).to(device, torch.bfloat16)
+        u = torch.as_tensor(u, dtype=torch.float32).to(device, dtype)
         if not offset:
             return u
-        buf = torch.empty(u.numel() + 1, dtype=torch.bfloat16, device=device)
+        buf = torch.empty(u.numel() + 1, dtype=dtype, device=device)
         view = buf[1:].view(u.shape)
         view.copy_(u)
         return view
@@ -1112,6 +1116,84 @@ def test_ssd_mma_bwd_smem_matches_the_source_on_card(cuda_device):
         for p in (4, 16, 36, 64, 100, 128):
             for n in (4, 16, 40, 64, 128):
                 assert fn(chunk, p, n) == pssd.mma_bwd_smem_bytes(
+                    chunk, p, n), (chunk, p, n)
+
+
+def _hold_f32_bwd(args, chunk):
+    """The float32 backward through its float32-core instance (one launch
+    a call, no tensor-core launch; two runs bit-equal) against its plain
+    version and against autograd of the plain forward, at REC_BWD_TOL
+    (chip_smoke.BWD_TOL["float32"])."""
+    x, dt, A, B, C, dy, ds = args
+    assert pssd.bwd_instance(x.dtype, B.shape[3]) == "simt"
+    fn = pssd.ssd_chunk_scan_bwd
+    before = (fn.launches, fn.mma_launches)
+    got = fn(*args, chunk=chunk)
+    again = fn(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.mma_launches) == (before[0] + 2, before[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(u.dtype == torch.float32 for u in got)
+    assert all(bool(torch.isfinite(u).all()) for u in got)
+    _hold_bwd(got, pssd.ssd_bwd_torch(*args, chunk=chunk), torch.float32,
+              "ssd_chunk_scan_bwd (float32)")
+    req = [u.detach().clone().requires_grad_(True) for u in args[:5]]
+    y, s = pssd.ssd_torch(*req, chunk=chunk)
+    auto = torch.autograd.grad((y, s), req, (dy, ds))
+    _hold_bwd(got, auto, torch.float32,
+              "ssd_chunk_scan_bwd (float32) against autograd")
+
+
+@pytest.mark.parametrize("bb,t,h,p,g,n,chunk", [
+    (2, 256, 4, 64, 1, 128, 128),    # mamba2-370m's P and N
+    (1, 256, 2, 128, 1, 128, 128),   # P = N = 128: the walks' one stage
+    (1, 192, 8, 16, 2, 16, 64),      # G 2, chunk 64, the smoke P and N
+    (2, 96, 4, 32, 4, 32, 32),       # G = H, chunk 32
+    (1, 128, 4, 20, 2, 36, 64),      # P, N not multiples of 8 (pads 32, 64)
+    (2, 64, 2, 128, 1, 16, 32),      # P 128, N 16
+    (1, 256, 2, 48, 1, 100, 128),    # pads 64 and 128
+])
+def test_ssd_bwd_f32_kernel_matches_plain_on_card(cuda_device, bb, t, h, p,
+                                                  g, n, chunk):
+    """Every chunk length and padding of P and N through the float32
+    backward's register-tiled kernels (ssd_bwd_f32_walk, one launch of
+    both walks, and ssd_bwd_f32_chunk)."""
+    args = _ssd_bwd_args(np.random.default_rng(t + p + n), bb, t, h, p, g, n,
+                         cuda_device, dtype=torch.float32)
+    _hold_f32_bwd(args, chunk)
+
+
+def test_ssd_bwd_f32_kernel_takes_offset_views_on_card(cuda_device):
+    """x, dy, B and C 4 bytes off a 16-byte boundary: the element-by-
+    element loads."""
+    args = _ssd_bwd_args(np.random.default_rng(8), 2, 256, 4, 64, 1, 128,
+                         cuda_device, offset=True, dtype=torch.float32)
+    assert args[0].data_ptr() % 16 == 4
+    _hold_f32_bwd(args, 128)
+
+
+def test_ssd_bwd_f32_kernel_strong_decay_on_card(cuda_device):
+    """The float32 backward where cum falls below -1,000 inside a 128-step
+    chunk (dt up to 1, A down to -16), where exp(-cum) overflows float32."""
+    rng = np.random.default_rng(16)
+    args = _ssd_bwd_args(rng, 2, 384, 4, 64, 1, 128, cuda_device,
+                         dt_max=1.0, a_max=16.0, dtype=torch.float32)
+    dt, A = args[1].cpu().numpy(), args[2].cpu().numpy()
+    cum = np.cumsum((dt * A).reshape(2, 3, 128, 4), axis=2)
+    assert cum.min() < -1000.0
+    _hold_f32_bwd(args, 128)
+
+
+def test_ssd_f32_bwd_smem_matches_the_source_on_card(cuda_device):
+    """The float32 backward's shared memory per block, as the library
+    computes it, equals its Python mirror at every shape it takes."""
+    fn = _build.load("ssd_chunk_scan").ssd_chunk_scan_f32_bwd_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for chunk in pssd.CHUNKS:
+        for p in (4, 16, 20, 36, 64, 96, 100, 128):
+            for n in (4, 16, 40, 64, 100, 128):
+                assert fn(chunk, p, n) == pssd.bwd_smem_bytes(
                     chunk, p, n), (chunk, p, n)
 
 
@@ -1648,10 +1730,12 @@ def _shards_of_shapes(rng, groups, links=()):
     return shards
 
 
-def _solve_stack(cuda_device, shards, sweeps, dtype):
-    """Stacked kernel, its plain version, and the single-program kernel on
-    each shard: completions, sweeps and convergence agree shard by
-    shard.  Returns the kernel's (used, converged)."""
+def _solve_stack(cuda_device, shards, sweeps, dtype, instance=None):
+    """Stacked kernel (the instance stack_launch picks, which must be
+    ``instance`` where one is named), its plain version, and the
+    single-program kernel on each shard: completions, sweeps and
+    convergence agree shard by shard.  Returns the kernel's (used,
+    converged)."""
     packed = pfix.pack_shards([(b, len(i), None) for i, _, b in shards],
                               cuda_device)
     init = np.full(packed.total, -np.inf)
@@ -1662,8 +1746,14 @@ def _solve_stack(cuda_device, shards, sweeps, dtype):
     c0 = torch.as_tensor(init, dtype=dtype, device=cuda_device)
     sv = torch.as_tensor(svc, dtype=dtype, device=cuda_device)
     before = pfix.zns_fixpoint_sharded.launches
-    got = ops.zns_fixpoint_sharded(c0, sv, packed, sweeps=sweeps, impl="cuda")
+    got = ops.zns_fixpoint_sharded(c0, sv, packed, sweeps=sweeps,
+                                   impl="cuda")
     assert pfix.zns_fixpoint_sharded.launches == before + 1
+    launch = pfix.zns_fixpoint_sharded.last_launch
+    want_shape = pfix.stack_launch(
+        packed, pfix.cluster_fits(dtype, packed.F), pfix._lib().tile)
+    assert launch["instance"] == want_shape["instance"]
+    assert instance in (None, launch["instance"])
     want = ops.zns_fixpoint_sharded(c0, sv, packed, sweeps=sweeps,
                                     impl="torch")
     tol = F64 if dtype == torch.float64 else F32_FIX
@@ -1721,6 +1811,109 @@ def test_sharded_kernel_shards_stop_on_their_own_on_card(cuda_device):
     used, conv = _solve_stack(cuda_device, [easy, hand, hard], 64,
                               torch.float64)
     assert conv.all() and used[0] == 1 and used[2] > 2
+
+
+#: A shard whose widest pass takes 40 tiles: three a block of 16, so
+#: stack_launch sends a plan that holds it to the grid instance.
+WIDE_GRID = [(40, 2000), (9, 200)]
+
+
+@pytest.mark.parametrize("instance", ["cluster", "grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stacked_instances_match_plain_on_card(cuda_device, instance,
+                                               dtype):
+    """Both instances on three shards of 5, 3 and 6 blocks (1 to 4,097
+    lanes; the 4,097-lane row spans three tiles, so its carry crosses
+    blocks of a cluster), two taking several sweeps, which take the
+    cluster instance; with a fourth, 40-tile shard they take the grid
+    instance.  Each shard equals the plain version and the single-program
+    kernel, sweeps equal in float64."""
+    rng = np.random.default_rng(23)
+    groups = [PACKED_SHAPES[:5], PACKED_SHAPES[5:7], PACKED_SHAPES[6:]]
+    links = (True, False, True)
+    if instance == "grid":
+        groups, links = groups + [WIDE_GRID], links + (True,)
+    used, conv = _solve_stack(cuda_device,
+                              _shards_of_shapes(rng, groups, links),
+                              64, dtype, instance)
+    assert conv.all() and used[0] > 1 and used[2] > 1
+
+
+@pytest.mark.parametrize("instance", ["cluster", "grid"])
+def test_stacked_instances_shards_stop_on_their_own_on_card(cuda_device,
+                                                            instance):
+    """Both instances: one shard converges in one sweep and another runs
+    out of a budget of 2 sweeps, each with its own count.  With the contended
+    fleet's program (96 tiles in a pass) the plan takes the grid
+    instance; with a narrow linked shard instead, the cluster instance."""
+    rng = np.random.default_rng(11)
+    easy = _shards_of_shapes(rng, [[(30, 50)]])[0]
+    hand = _hand_program("empty-family", rng)
+    if instance == "grid":
+        shards, out = [easy, hand, _contended_fleet_program()], 2
+    else:
+        linked = _shards_of_shapes(np.random.default_rng(23),
+                                   [PACKED_SHAPES[:5]], (True,))[0]
+        shards, out = [easy, hand, linked], 1
+    used, conv = _solve_stack(cuda_device, shards, 2, torch.float64,
+                              instance)
+    assert used[0] == 1 and conv[0]
+    assert not conv[out] and used[out] == 2
+
+
+@pytest.mark.parametrize("instance,wide", [
+    ("cluster", [(15, 4000), (30, 2000)]),
+    ("grid", [(20, 4000), WIDE_GRID[0]])])
+def test_stacked_wide_shard_among_narrow_on_card(cuda_device, instance,
+                                                 wide):
+    """One shard whose passes take 30 tiles (two a block of a cluster of
+    16: their aggregates go through the cluster's slice of the scratch),
+    or 40 (the grid instance), among six of one tile."""
+    rng = np.random.default_rng(31)
+    groups = [wide] + [[(9, 200), (3, 500)]] * 6
+    used, conv = _solve_stack(cuda_device,
+                              _shards_of_shapes(rng, groups, (True,)), 64,
+                              torch.float64, instance)
+    assert conv.all() and used[0] > 1
+    assert pfix.zns_fixpoint_sharded.last_launch["widest"] == (
+        30 if instance == "cluster" else 40)
+
+
+def test_stacked_cluster_more_shards_than_clusters_on_card(cuda_device):
+    """More shards than clusters fit on the card: the clusters take shard
+    after shard (rounds > 1), and every shard still equals its plain
+    version and the single-program kernel."""
+    rng = np.random.default_rng(41)
+    fits = pfix.cluster_fits(torch.float64, 2)
+    S = 2 * max(fits.values()) + 3
+    shards = _shards_of_shapes(rng, [[(4, 300), (2, 600)]] * S,
+                               [s % 2 == 0 for s in range(S)])
+    used, conv = _solve_stack(cuda_device, shards, 16, torch.float64)
+    launch = pfix.zns_fixpoint_sharded.last_launch
+    assert launch["instance"] == "cluster" and launch["rounds"] >= 2
+    assert launch["clusters"] == pfix.cluster_fits(
+        torch.float64, launch["slots"])[launch["cluster"]]
+    assert conv.all()
+
+
+def test_stacked_cluster_queries_match_their_mirrors_on_card(cuda_device):
+    """The library's cluster occupancy for either size, and the launch a
+    plan like phase 2's 16-shard one takes from it, as stack_launch
+    computes it: clusters of 8, two tiles a block."""
+    fits = pfix.cluster_fits(torch.float64, 7)
+    assert set(fits) == set(pfix.CLUSTER_SIZES)
+    assert all(n >= 1 for n in fits.values())
+    assert fits[8] >= fits[16]
+    rng = np.random.default_rng(3)
+    shards = _shards_of_shapes(rng, [[(32, 750), (30, 858)]] * 16)
+    packed = pfix.pack_shards([(b, len(i), None) for i, _, b in shards],
+                              cuda_device)
+    shape = pfix.stack_launch(packed, pfix.cluster_fits(torch.float64,
+                                                        packed.F))
+    assert (shape["instance"], shape["cluster"], shape["widest"]) == (
+        "cluster", 8, 16)
+    assert shape["clusters"] == min(16, pfix.cluster_fits(
+        torch.float64, packed.F)[8])
 
 
 def test_sharded_kernel_limits_match_the_library_on_card(cuda_device):

@@ -315,6 +315,51 @@ def test_ssd_mma_bwd_smem_fits_every_config_and_refuses_beyond():
         pssd.check_bwd_shape(128, 64, 256, "simt")
 
 
+def test_ssd_f32_bwd_smem_fits_every_config_and_refuses_beyond():
+    """The float32-core backward's shared memory per block stays within
+    SMEM_LIMIT at every configuration's (chunk, P, N), mamba2-370m's
+    (128, 64, 128) among them (its chunk kernel, holding the other side's
+    whole chunk, takes 225,792 bytes),
+    and at every shape check_bwd_shape takes: P and N multiples of 4 up to
+    128, chunk 32, 64 or 128 (the chunk kernel's most, 231,936 bytes, at
+    P and N above 64 and chunk 128; the walks take one stage where two do
+    not fit).  A chunk of 256 would not fit and is refused, as is N above
+    128."""
+    for chunk, p, n in _ssd_shapes():
+        assert pssd.bwd_smem_bytes(chunk, p, n) <= pssd.SMEM_LIMIT
+        pssd.check_bwd_shape(chunk, p, n, "simt")
+    assert pssd.bwd_smem_bytes(128, 64, 128) == 225_792
+    most = 0
+    for chunk in pssd.CHUNKS:
+        for p in range(4, 129, 4):
+            for n in range(4, 129, 4):
+                need = pssd.bwd_smem_bytes(chunk, p, n)
+                assert need <= pssd.SMEM_LIMIT, (chunk, p, n)
+                most = max(most, need)
+                pssd.check_bwd_shape(chunk, p, n, "simt")
+    assert most == pssd.bwd_smem_bytes(128, 128, 128) == 231_936
+    assert pssd.bwd_smem_bytes(256, 128, 128) > pssd.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        pssd.check_bwd_shape(256, 128, 128, "simt")
+    with pytest.raises(ValueError, match="N <= 128"):
+        pssd.check_bwd_shape(128, 64, 132, "simt")
+
+
+@pytest.mark.parametrize("p,n,want", [(16, 16, (32, 32)), (20, 36, (32, 64)),
+                                      (64, 128, (64, 128)),
+                                      (100, 4, (128, 32)),
+                                      (128, 128, (128, 128))])
+def test_ssd_f32_bwd_pads_p_and_n_to_its_tiles(p, n, want):
+    """The float32 chunk kernel's instance: P and N padded to 32, 64 or
+    128; it holds the other side's whole chunk at chunk 64 and 128 (P up to
+    the chunk), except at P = N = 128 (where that does not fit), and
+    streams 32-row tiles of it otherwise."""
+    assert (pssd.padded32(p), pssd.padded32(n)) == want
+    for chunk in pssd.CHUNKS:
+        whole = (chunk > 32 and want[0] <= chunk and want != (128, 128))
+        assert pssd.f32_chunk_rows(chunk, *want) == (chunk if whole else 32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_chunk_scan_bwd_runs_plain_version_on_cpu(dtype):
     """ssd_chunk_scan_bwd on CPU tensors is ssd_bwd_torch, bit for bit,
