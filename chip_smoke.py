@@ -196,7 +196,37 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    card) on 1 x 4,096 tokens, so that the window of 2,048 masks: the
    linear recurrence's backward and the attention backward at D 256 with
    the window and MQA (16/1 heads); the gradients checked at one group
-   (3 layers: 2 layers would hold no attention block) on 2,304 tokens.
+   (3 layers: 2 layers would hold no attention block) on 2,304 tokens;
+25. ``repro_torch.distributed`` on four ranks that share the card: four
+   processes (``spawn``) on ``gloo`` with CUDA tensors (NCCL takes one
+   GPU a rank), float32 with TF32 off unless stated; each rank holds the
+   global tensors and cuts its block (``distributed.mesh.shard_map``).
+   25a ring attention at qwen3-4b's attention shape (2 x 32/8 heads x
+   4,096, D 128, causal) on meshes (1, 4) and (2, 2) ("data", "model")
+   against the plain attention (``kernels.ref``) at 1e-4 on rank 0, its
+   gradient of sum(out^2) through the ring against the plain one's, and
+   once in bfloat16 against float32; 25b qwen3-4b at full width cut to 4
+   layers (N(0, 0.02) weights, 2 x 2,048 tokens) with
+   ``ring_attention=True`` under ``ctx.axis_rules`` on (2, 2) against
+   the same ranks' forward with no context (the flash-attention kernel);
+   25c flash-decode at qwen3-4b's decode cache (4 x 8 KV heads x 4 x
+   32,768, D 128, pos 30,000) on (1, 4) against dense masked attention;
+   25d expert-parallel MoE at qwen2-moe-a2.7b's full width cut to 2
+   layers (4 x 512 tokens, capacity factor 8) on (2, 2) against
+   ``moe_ffn`` on the same weights, with the dropped count and the aux
+   losses; 25e GPipe: 4 stages of 2 qwen3-4b decoder layers at full
+   width, 4 microbatches of 1 x 1,024, forward and the gathered gradient
+   against the sequential stack's autograd on rank 0; 25f the
+   error-feedback compressed psum (bf16, int8) over a pod axis of 4 on
+   tinyllama-1.1b's embedding and one decoder layer's leaves against
+   ``compressed_psum_reference``, and 30 int8 steps' drift; then 25g a
+   world of one rank on NCCL (in a process of its own): 25a's shape on
+   a (1, 1) mesh and 25c's, against the plain results.  Each sub-phase
+   prints its mesh, shapes, max error and tolerance, the largest peak
+   memory of a rank and its wall time, which is gloo's on one shared
+   card (collectives staged through the host), not the card's
+   collective rate.  A rank that fails fails the script; a world that
+   reports nothing for ``DIST_TIMEOUT`` seconds is killed and fails it.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``),
 and fails if ptxas serialised any kernel's ``wgmma`` (warning C7518 in a
@@ -276,8 +306,11 @@ drops and shared expert) at the block tolerance; and the MoE block
 kernels vs plain on every token both runs route alike (the others are
 counted).  Every kernel's
 launch counter is set to 0 just before each of the runs of phases 3-24
-and read just after; a kernel of
-the path that was never launched fails the script, and phase 9 fails
+and read just after (phase 25's ranks, each its own, around each
+distributed run of the model path, 25b's ring forward, 25d's EP forward
+and 25e's GPipe step, and hold them to the counts those runs make; the
+parent adds them up, and no rank-0 baseline or oracle counts); a kernel
+of the path that was never launched fails the script, and phase 9 fails
 unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
 instance (``ssd_chunk_scan.mma_launches``).  The line
 before the last is a JSON object with every kernel's numbers; the last
@@ -396,6 +429,35 @@ MOE_LAYERS = 4
 #: Phase 17: the store's modeled seconds on the card against the same
 #: calls on the CPU (the same float64 max-plus scan).
 STORE_RTOL = 1e-12
+
+
+#: Phase 25: the longest a world of ranks may go without reporting (also
+#: its collectives' timeout).
+DIST_TIMEOUT = 300
+#: Phase 25a: ring attention against the plain attention (float32).
+RING_ATOL = 1e-4
+#: Phase 25a/25e: gradients through the ring and the pipeline, against
+#: autograd through the plain single-rank computation: both float32,
+#: summed in other orders; held at this fraction of the gradient's
+#: largest magnitude.
+DIST_GRAD_REL = 1e-4
+#: Phase 25e: the pipeline's forward against the sequential stack (the
+#: reference test's 1e-5), of the outputs' largest magnitude (at least 1).
+PIPE_REL = 1e-5
+#: Phase 25c: flash-decode against dense masked attention; 25d: EP logits
+#: against moe_ffn's (the reference tests' 1e-4 and 1e-3).
+DECODE_ATOL = 1e-4
+EP_ATOL = 1e-3
+#: Phase 25d: EP's aux loss against moe_ffn's on each data rank's half of
+#: the batch, averaged: the same float32 quantity, computed apart (a sum
+#: of 60 expert terms over 1,024 tokens a rank; a token routed otherwise
+#: would move it by about 1e-4 of itself).
+EP_AUX_REL = 1e-5
+#: Phase 25f: the int8 compressed psum against its oracle (the reference
+#: test's 1e-4).  The bf16 one is held element by element at the
+#: summation bound of its three bfloat16 additions, (n-1) u sum_i |q_i| / n
+#: with u = 2^-8 (plus 1e-6): gloo rounds each partial sum to bfloat16.
+EF_INT8_ATOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -630,6 +692,543 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _dist_need(cond: bool, msg: str) -> None:
+    """A rank's check: raises, so that the world fails the phase."""
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def _dist_tools(rank: int, report):
+    """(say, run, peak_gb) for a phase-25 rank: ``say(line)`` prints from
+    rank 0 (every rank reports, which keeps the world's timeout fresh);
+    ``run(fn)`` gives ``(fn(), wall s)`` between two barriers on
+    synchronised ranks, the peak memory counted from its start;
+    ``peak_gb()`` the largest peak of any rank since."""
+    import torch
+    import torch.distributed as dist
+
+    def say(line):
+        report(line if rank == 0 else None)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        return out, time.perf_counter() - t
+
+    def peak_gb():
+        x = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                         device=DIST_DEVICE)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        return float(x)
+
+    return say, run, peak_gb
+
+
+def _max_err(a, b) -> float:
+    """The largest |a - b|, in float32 (the tensors may be GBs)."""
+    return float((a.float() - b.float()).abs().max())
+
+
+def _dense_decode(q, ck, cv, pos: int):
+    """Dense masked decode attention, the reference test's oracle."""
+    import torch
+    logits = torch.einsum("bkrd,bksd->bkrs", q, ck) / (q.shape[-1] ** 0.5)
+    valid = torch.arange(ck.shape[2], device=q.device) <= pos
+    logits = torch.where(valid[None, None, None], logits, -1e30)
+    return torch.einsum("bkrs,bksd->bkrd", torch.softmax(logits, -1), cv)
+
+
+#: Phase 25's device (each rank's), and shapes: qwen3-4b's attention (B,
+#: Hq, Hkv, S, D) and decode cache (B, K, rep, S, D, pos).
+DIST_DEVICE = "cuda"
+RING_SHAPE = (2, 32, 8, 4096, 128)
+DECODE_SHAPE = (4, 8, 4, 32768, 128, 30000)
+
+
+def _ring_inputs(dtype=None):
+    import torch
+    b, hq, hkv, s, d = RING_SHAPE
+    g = torch.Generator(DIST_DEVICE).manual_seed(0)
+    return [torch.randn(shape, generator=g, device=DIST_DEVICE, dtype=dtype)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def _decode_inputs():
+    import torch
+    b, k, rep, s, d, _ = DECODE_SHAPE
+    g = torch.Generator(DIST_DEVICE).manual_seed(1)
+    return [torch.randn(shape, generator=g, device=DIST_DEVICE)
+            for shape in ((b, k, rep, d), (b, k, s, d), (b, k, s, d))]
+
+
+def phase25_rank(rank, report):
+    """One of phase 25's four gloo ranks on the shared card (25a-25f);
+    returns its kernel launches and rank 0 its numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.collectives import (
+        compressed_psum_reference, ef_compressed_psum, init_error_state)
+    from repro_torch.distributed.flash_decode import flash_decode
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.pipeline import (
+        gpipe, stack_stage_fn, stages_from_stack)
+    from repro_torch.distributed.ring_attention import ring_attention
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import common as cm
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    cuda = torch.device(DIST_DEVICE)
+    say, run, peak_gb = _dist_tools(rank, report)
+    gloo = "wall (gloo, 4 ranks on one card, not the card's collective rate)"
+    meshes = {shape: Mesh(shape, ("data", "model"), backend="gloo",
+                          device=cuda) for shape in ((1, 4), (2, 2))}
+    pipe = Mesh((4,), ("pipe",), backend="gloo", device=cuda)
+    pod = Mesh((4,), ("pod",), backend="gloo", device=cuda)
+    rules = sh.make_rules(data_axes=("data",))
+    counters = {"flash_attention": kfa.flash_attention,
+                "flash_attention_bwd": kfa.flash_attention_bwd,
+                "rmsnorm": krms.rmsnorm, "rmsnorm_bwd": krms.rmsnorm_bwd}
+    launched = {}
+
+    def run_counted(sub, fn, want):
+        """``run(fn)`` of a distributed run of the main path, its kernel
+        launches counted from 0 and held against ``want`` (this rank's
+        launches, by kernel); the rank-0 baselines and oracles run
+        outside it and count nowhere."""
+        for c in counters.values():
+            c.launches = 0
+        out = run(fn)
+        launched[sub] = got = {k: c.launches for k, c in counters.items()}
+        _dist_need(got == {k: want.get(k, 0) for k in counters},
+                   f"{sub}: kernel launches {got} on rank {rank}, want "
+                   f"{want}")
+        return out
+
+    def norms(cfg):
+        """RMSNorm launches of one decoder layer (ln1, ln2, and the q/k
+        norms where the config has them)."""
+        return 2 + 2 * bool(cfg.qk_norm)
+
+    rows = {}
+    # warm up cuBLAS and the gloo pairs, so that 25a's first wall is not
+    # their start-up
+    w = torch.ones(256, 256, device=cuda)
+    dist.all_reduce(w @ w)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 25a: ring attention at qwen3-4b's attention shape -----------------
+    q, k, v = _ring_inputs()
+    want = kref.attention_ref(q, k, v, causal=True) if rank == 0 else None
+    for shape, mesh in meshes.items():
+        out, wall = run(lambda: ring_attention(mesh, q, k, v, causal=True))
+        err = _max_err(out, want) if rank == 0 else 0.0
+        _dist_need(err <= RING_ATOL, f"25a ring attention on mesh {shape}: "
+                                     f"max abs err {err:.3e} > {RING_ATOL}")
+        say(f"[25a] ring attention, mesh {shape} (data, model), q "
+            f"{tuple(q.shape)} k/v {tuple(k.shape)} float32 causal: max abs "
+            f"err {err:.3e} vs the plain attention (tol {RING_ATOL}); peak "
+            f"{peak_gb():.2f} GB a rank; {gloo} {wall * 1e3:.1f} ms")
+        rows[f"25a {shape}"] = dict(err=err, wall_s=wall, peak_gb=peak_gb())
+        del out
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    out, wall = run(lambda: ring_attention(meshes[(2, 2)], qb, kb, vb))
+    err = _max_err(out, want) if rank == 0 else 0.0
+    _dist_need(err <= ATTN_TOL["bfloat16"]["atol"],
+               f"25a bfloat16 ring: max abs err {err:.3e}")
+    say(f"[25a] ring attention in bfloat16, mesh (2, 2): max abs err "
+        f"{err:.3e} vs the float32 plain attention (the bf16 kernel "
+        f"tolerance {ATTN_TOL['bfloat16']['atol']}); peak {peak_gb():.2f} "
+        f"GB a rank; {gloo} {wall * 1e3:.1f} ms")
+    rows["25a bf16"] = dict(err=err, wall_s=wall)
+    del out, qb, kb, vb, want
+    free()
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def ring_grad():
+        out = ring_attention(meshes[(2, 2)], qg, kg, vg, causal=True)
+        (out ** 2).sum().backward()
+
+    _, wall = run(ring_grad)
+    peak = peak_gb()
+    errs = []
+    if rank == 0:
+        qd, kd, vd = (t.clone().requires_grad_(True) for t in (q, k, v))
+        (kref.attention_ref(qd, kd, vd, causal=True) ** 2).sum().backward()
+        for name, got, ref_ in (("dq", qg, qd), ("dk", kg, kd),
+                                ("dv", vg, vd)):
+            scale = float(ref_.grad.abs().max())
+            e = _max_err(got.grad, ref_.grad)
+            errs.append(f"{name} {e:.3e} of {scale:.3e}")
+            _dist_need(e <= DIST_GRAD_REL * scale,
+                       f"25a ring gradient {name}: max abs err {e:.3e} > "
+                       f"{DIST_GRAD_REL} x {scale:.3e}")
+        del qd, kd, vd
+    say(f"[25a] gradient of sum(out^2) through the ring, mesh (2, 2): "
+        f"{'; '.join(errs)} (max abs err of max |grad|, tol "
+        f"{DIST_GRAD_REL} of it) vs autograd of the plain attention; peak "
+        f"{peak:.2f} GB a rank; {gloo} {wall * 1e3:.1f} ms")
+    rows["25a grad"] = dict(errs=errs, wall_s=wall, peak_gb=peak)
+    del q, k, v, qg, kg, vg
+    free()
+
+    # -- 25b: qwen3-4b forward with ring_attention=True ----------------------
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=4,
+                              dtype="float32")
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                           device=cuda, weight_std=INIT_STD)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2048),
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+    ring_cfg = dataclasses.replace(cfg, ring_attention=True)
+    with torch.no_grad():
+        # the forward without a context runs on rank 0 alone (it holds
+        # no collective); the one with the ring on every rank
+        fa0 = kfa.flash_attention.launches
+        plain, wall_p = run(lambda: M.forward(cfg, params, toks)[0]
+                            if rank == 0 else None)
+        fa1 = kfa.flash_attention.launches
+        with dctx.axis_rules(meshes[(2, 2)], rules):
+            # the ring takes the flash-attention kernel's place
+            ringed, wall = run_counted(
+                "25b", lambda: M.forward(ring_cfg, params, toks)[0],
+                {"rmsnorm": norms(cfg) * cfg.num_layers + 1})
+    _dist_need(fa1 - fa0 == (cfg.num_layers if rank == 0 else 0),
+               f"25b: flash-attention launches {fa1 - fa0} without the "
+               f"context")
+    err, scale = 0.0, 0.0
+    if rank == 0:
+        err = _max_err(ringed, plain)
+        scale = float(plain.abs().max())
+    _dist_need(bool(torch.isfinite(ringed).all()) and err <= F32_LOGITS_ATOL,
+               f"25b: logits max abs err {err:.3e} > {F32_LOGITS_ATOL}")
+    say(f"[25b] qwen3-4b at full width, 4 of 36 layers, float32, tokens "
+        f"{tuple(toks.shape)}: logits {tuple(ringed.shape)} with ring "
+        f"attention under axis_rules on (2, 2) vs the flash-attention "
+        f"kernel without a context: max abs err {err:.3e} (max |logit| "
+        f"{scale:.3f}; tol {F32_LOGITS_ATOL}); flash-attention launches "
+        f"{fa1 - fa0} without the context / "
+        f"{launched['25b']['flash_attention']} under it; peak "
+        f"{peak_gb():.2f} GB a rank; "
+        f"{gloo} {wall:.2f} s (no context, rank 0 alone, {wall_p:.2f} s)")
+    rows["25b"] = dict(err=err, max_logit=scale, wall_s=wall,
+                       plain_wall_s=wall_p, peak_gb=peak_gb())
+    del params, plain, ringed
+    free()
+
+    # -- 25c: flash-decode at qwen3-4b's decode cache ---------------------------
+    q, ck, cv = _decode_inputs()
+    pos = DECODE_SHAPE[-1]
+    out, wall = run(lambda: flash_decode(meshes[(1, 4)], q, ck, cv, pos))
+    err = _max_err(out, _dense_decode(q, ck, cv, pos)) if rank == 0 else 0.0
+    _dist_need(err <= DECODE_ATOL, f"25c flash-decode: max abs err "
+                                   f"{err:.3e} > {DECODE_ATOL}")
+    say(f"[25c] flash-decode, mesh (1, 4), q {tuple(q.shape)} cache "
+        f"{tuple(ck.shape)} pos {pos}: max abs err {err:.3e} vs dense "
+        f"masked attention (tol {DECODE_ATOL}); peak {peak_gb():.2f} GB a "
+        f"rank; {gloo} {wall * 1e3:.1f} ms")
+    rows["25c"] = dict(err=err, wall_s=wall, peak_gb=peak_gb())
+    del q, ck, cv, out
+    free()
+
+    # -- 25d: expert-parallel MoE at qwen2-moe-a2.7b's full width -----------
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
+                              dtype="float32", moe_capacity_factor=8.0,
+                              moe_expert_pad=0)
+    ep = dataclasses.replace(cfg, moe_impl="ep")
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                           device=cuda, weight_std=INIT_STD)
+    toks = torch.randint(0, cfg.vocab_size, (4, 512),
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+    def dropped():
+        return sum(int((~r.valid).sum()) for layer in params.layers
+                   for r in layer.routing)
+
+    for layer in params.layers:
+        layer.routing = []
+    with torch.no_grad():
+        # moe_ffn on rank 0 alone (no collective); EP on every rank
+        (l_gs, aux_gs), wall_gs = run(lambda: M.forward(cfg, params, toks)
+                                      if rank == 0 else (None, 0.0))
+        drop_gs = dropped()
+        # EP's aux is the mean over the data ranks of each one's aux on
+        # its half of the batch: the same on moe_ffn, half by half
+        aux_halves = (sum(float(M.forward(cfg, params, half)[1])
+                          for half in toks.chunk(2)) / 2
+                      if rank == 0 else 0.0)
+        for layer in params.layers:
+            layer.routing = []
+        with dctx.axis_rules(meshes[(2, 2)], rules):
+            (l_ep, aux_ep), wall = run_counted(
+                "25d", lambda: M.forward(ep, params, toks),
+                {"flash_attention": cfg.num_layers,
+                 "rmsnorm": norms(cfg) * cfg.num_layers + 1})
+    n = torch.tensor([dropped()])
+    dist.all_reduce(n)
+    drop_ep = int(n)
+    err = _max_err(l_ep, l_gs) if rank == 0 else 0.0
+    aux_err = abs(float(aux_ep) - aux_halves) if rank == 0 else 0.0
+    _dist_need(err <= EP_ATOL and drop_gs == 0 and drop_ep == 0,
+               f"25d: logits max abs err {err:.3e} (tol {EP_ATOL}), dropped "
+               f"{drop_gs} / {drop_ep}")
+    _dist_need(aux_err <= EP_AUX_REL * abs(aux_halves),
+               f"25d: EP aux {float(aux_ep):.7f} vs moe_ffn's mean over the "
+               f"two halves {aux_halves:.7f} (tol {EP_AUX_REL} relative)")
+    say(f"[25d] qwen2-moe-a2.7b at full width ({cfg.moe_num_experts} "
+        f"experts top-{cfg.moe_top_k}, d_ff {cfg.moe_d_ff}), 2 of 24 layers, "
+        f"float32, tokens {tuple(toks.shape)}, "
+        f"capacity factor 8: EP on (2, 2) vs moe_ffn: logits max abs err "
+        f"{err:.3e} (tol {EP_ATOL}); dropped {drop_ep} (EP, all ranks) / "
+        f"{drop_gs}; aux {float(aux_ep):.7f} (EP, the mean of the data "
+        f"ranks') vs {aux_halves:.7f} (moe_ffn on each data rank's half, "
+        f"averaged): err {aux_err:.3e} (tol {EP_AUX_REL} relative), "
+        f"{float(aux_gs):.6f} on the whole batch; peak {peak_gb():.2f} GB "
+        f"a rank; "
+        f"{gloo} {wall:.2f} s (moe_ffn {wall_gs:.2f} s)")
+    rows["25d"] = dict(err=err, dropped=drop_ep, aux_ep=float(aux_ep),
+                       aux_halves=aux_halves, aux_err=aux_err,
+                       aux=float(aux_gs), wall_s=wall, peak_gb=peak_gb())
+    del params, l_gs, l_ep
+    free()
+
+    # -- 25e: GPipe over 4 stages of qwen3-4b's decoder block -----------------
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=8,
+                              dtype="float32")
+    layers = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                           device=cuda, weight_std=INIT_STD
+                           ).param_tree()["layers"]
+    free()
+    positions = torch.arange(1024, dtype=torch.int32, device=cuda)[None]
+
+    def layer_fn(lp, h):
+        h = h + cm.attention(cfg, lp["attn"], cm.rmsnorm(cfg, lp["ln1"], h),
+                             positions)
+        return h + cm.mlp(lp["mlp"], cm.rmsnorm(cfg, lp["ln2"], h))
+
+    leaves, treedef = tree_flatten(stages_from_stack(layers, 4))
+    leaves = [a.detach().requires_grad_(True) for a in leaves]
+    stages = tree_unflatten(treedef, leaves)
+    x = torch.randn((4, 1, 1024, cfg.d_model),
+                    generator=torch.Generator(cuda).manual_seed(2),
+                    device=cuda)
+
+    def pipe_run():
+        y = gpipe(pipe, stack_stage_fn(layer_fn), stages, x)
+        (y ** 2).sum().backward()
+        return y.detach()
+
+    # every rank runs its stage at each of the M + n - 1 ticks, bubbles
+    # included, and its backward
+    per_tick = {"flash_attention": 2, "flash_attention_bwd": 2,
+                "rmsnorm": 2 * norms(cfg), "rmsnorm_bwd": 2 * norms(cfg)}
+    ticks = x.shape[0] + pipe.shape["pipe"] - 1
+    y, wall = run_counted("25e", pipe_run,
+                          {k: ticks * v for k, v in per_tick.items()})
+    peak = peak_gb()
+    errs = []
+    if rank == 0:
+        flat, ltd = tree_flatten(layers)
+        seq_leaves = [a.detach().clone().requires_grad_(True) for a in flat]
+        outs = []
+        for mb in x:
+            h = mb
+            for i in range(cfg.num_layers):
+                h = layer_fn(tree_unflatten(ltd, [a[i] for a in seq_leaves]),
+                             h)
+            outs.append(h)
+        want = torch.stack(outs)
+        (want ** 2).sum().backward()
+        want = want.detach()
+        scale = max(float(want.abs().max()), 1.0)
+        e = _max_err(y, want)
+        errs.append(f"forward {e:.3e} of {scale:.3e}")
+        _dist_need(e <= PIPE_REL * scale, f"25e forward: max abs err "
+                                          f"{e:.3e} > {PIPE_REL} x {scale}")
+        worst = (0.0, "")
+        for (path, got), ref_ in zip(_leaf_paths(stages), seq_leaves):
+            g_want = ref_.grad.reshape(got.grad.shape)
+            gs = float(g_want.abs().max())
+            e = _max_err(got.grad, g_want)
+            _dist_need(e <= DIST_GRAD_REL * gs,
+                       f"25e gradient {path}: max abs err {e:.3e} > "
+                       f"{DIST_GRAD_REL} x {gs:.3e}")
+            worst = max(worst, (e / max(gs, 1e-30), path))
+        errs.append(f"gradients: largest err / max |grad| {worst[0]:.3e} "
+                    f"({worst[1]})")
+        del flat, seq_leaves, outs, want
+    say(f"[25e] GPipe, mesh (4,) (pipe), 4 stages x 2 qwen3-4b decoder "
+        f"layers at full width, float32, M 4 microbatches of 1 x 1,024: "
+        f"{'; '.join(errs)} vs the sequential stack's autograd (tol "
+        f"{PIPE_REL} / {DIST_GRAD_REL} of the largest magnitude); peak "
+        f"{peak:.2f} GB a rank; {gloo} {wall:.2f} s (forward, backward and "
+        f"the gradients' gather)")
+    rows["25e"] = dict(errs=errs, wall_s=wall, peak_gb=peak)
+    del layers, leaves, stages, x, y
+    free()
+
+    # -- 25f: compressed collectives on tinyllama-1.1b's leaves ----------------
+    spec = M.model_spec(get_config("tinyllama-1.1b"))
+    shapes = {"embed": spec["embed"]["embedding"].shape}
+    shapes.update({f"layer/{'/'.join(p)}": s.shape[1:] for p, s in
+                   cm.spec_leaves(spec["layers"])})
+    g = torch.Generator(cuda).manual_seed(3)
+    grads = {name: torch.randn((4,) + tuple(s), generator=g, device=cuda)
+             * torch.arange(1, 5, device=cuda).view((4,) + (1,) * len(s))
+             for name, s in shapes.items()}
+    n_el = sum(int(np.prod(s)) for s in shapes.values())
+    for method in ("bf16", "int8"):
+        (out, errs_), wall = run(lambda: ef_compressed_psum(
+            pod, grads, init_error_state(grads), method=method))
+        worst = 0.0
+        if rank == 0:
+            for name, gl in grads.items():
+                want = compressed_psum_reference(list(gl), method)
+                e = (out[name] - want).abs()
+                if method == "bf16":
+                    q_abs = sum(t.bfloat16().float().abs() for t in gl)
+                    bound = 3 * 2.0 ** -8 * q_abs / 4 + 1e-6
+                    _dist_need(bool((e <= bound).all()),
+                               f"25f bf16 {name}: beyond the summation bound"
+                               f" (max abs err {float(e.max()):.3e})")
+                else:
+                    _dist_need(float(e.max()) <= EF_INT8_ATOL,
+                               f"25f int8 {name}: max abs err "
+                               f"{float(e.max()):.3e} > {EF_INT8_ATOL}")
+                worst = max(worst, float(e.max()))
+                _dist_need(tuple(errs_[name].shape) == tuple(gl.shape),
+                           f"25f {name}: error state {errs_[name].shape}")
+        tol = ("the bf16 summation bound, element by element" if
+               method == "bf16" else f"{EF_INT8_ATOL}")
+        say(f"[25f] ef_compressed_psum {method}, mesh (4,) (pod), "
+            f"tinyllama-1.1b's embedding {tuple(shapes['embed'])} and one "
+            f"decoder layer's {len(shapes) - 1} leaves ({n_el:,} values a "
+            f"pod): max "
+            f"abs err {worst:.3e} vs compressed_psum_reference (tol {tol}); "
+            f"peak {peak_gb():.2f} GB a rank; {gloo} {wall:.2f} s")
+        rows[f"25f {method}"] = dict(err=worst, wall_s=wall,
+                                     peak_gb=peak_gb())
+        del out, errs_
+    del grads
+    free()
+    d = shapes["layer/ln1"]
+    steps = torch.randn((30, 4) + tuple(d), generator=g, device=cuda) * 0.01
+    err = {"g": torch.zeros((4,) + tuple(d), device=cuda)}
+    acc = torch.zeros(d, device=cuda)
+    for st in steps:
+        o, err = ef_compressed_psum(pod, {"g": st}, err, method="int8")
+        acc = acc + o["g"]
+    true = steps.double().mean(1).sum(0)
+    rel = float((acc.double() - true).abs().max() / true.abs().max())
+    _dist_need(rel < 0.2, f"25f int8 drift {rel:.3f} >= 0.2")
+    say(f"[25f] 30 int8 steps at scale 0.01 on a {tuple(d)} leaf: the "
+        f"accumulated update's drift {rel:.4f} relative (< 0.2)")
+    rows["25f drift"] = dict(rel=rel)
+    return dict(launches=launched, rows=rows if rank == 0 else None)
+
+
+def _leaf_paths(tree, prefix=""):
+    """``(path, leaf)`` of a tree of dicts, in sorted-key order."""
+    if not isinstance(tree, dict):
+        yield prefix, tree
+        return
+    for k in sorted(tree):
+        yield from _leaf_paths(tree[k], f"{prefix}/{k}" if prefix else k)
+
+
+def phase25g_rank(rank, report):
+    """Phase 25g: a world of one rank on NCCL: ring attention at 25a's
+    shape on a (1, 1) mesh and flash-decode at 25c's, against the plain
+    results."""
+    import torch
+
+    from repro_torch.distributed.flash_decode import flash_decode
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.ring_attention import ring_attention
+    from repro_torch.kernels import ref as kref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = Mesh((1, 1), ("data", "model"), backend="nccl",
+                device=DIST_DEVICE)
+    w = torch.ones(256, 256, device=DIST_DEVICE)
+    torch.distributed.all_reduce(w @ w)      # cuBLAS and NCCL start-up
+    torch.cuda.synchronize()
+    q, k, v = _ring_inputs()
+    t = time.perf_counter()
+    out = ring_attention(mesh, q, k, v, causal=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    err = _max_err(out, kref.attention_ref(q, k, v, causal=True))
+    _dist_need(err <= RING_ATOL, f"25g ring: max abs err {err:.3e}")
+    del q, k, v, out
+    q, ck, cv = _decode_inputs()
+    pos = DECODE_SHAPE[-1]
+    t = time.perf_counter()
+    out = flash_decode(mesh, q, ck, cv, pos)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t
+    err_d = _max_err(out, _dense_decode(q, ck, cv, pos))
+    _dist_need(err_d <= DECODE_ATOL, f"25g decode: max abs err {err_d:.3e}")
+    report(f"[25g] one rank on NCCL, mesh (1, 1): ring attention at 25a's "
+           f"shape max abs err {err:.3e} (tol {RING_ATOL}, wall "
+           f"{wall * 1e3:.1f} ms), flash-decode at 25c's {err_d:.3e} (tol "
+           f"{DECODE_ATOL}, wall {wall_d * 1e3:.1f} ms), against the plain "
+           f"results")
+    return dict(ring_err=err, decode_err=err_d)
+
+
+def phase25():
+    """Phase 25 from the parent: the four gloo ranks (25a-25f), then the
+    NCCL world of one (25g); returns the kernel launches of the ranks'
+    distributed runs, summed.  Fails the script when a rank fails, a
+    world hangs or a kernel of the path was never launched."""
+    from repro_torch.distributed import launch as dlaunch
+    t = time.perf_counter()
+
+    def show(rank, line):
+        if line is not None:
+            print(line, flush=True)
+
+    try:
+        res = dlaunch.run(phase25_rank, 4, backend="gloo",
+                          device=DIST_DEVICE, timeout=DIST_TIMEOUT,
+                          on_message=show)
+        dlaunch.run(phase25g_rank, 1, backend="nccl", device=DIST_DEVICE,
+                    timeout=DIST_TIMEOUT, on_message=show)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 25: {e}")
+    subs = {sub: {k: sum(r["launches"][sub][k] for r in res)
+                  for k in res[0]["launches"][sub]}
+            for sub in res[0]["launches"]}
+    got = {k: sum(c[k] for c in subs.values()) for k in subs["25e"]}
+    print(f"[25] launches of the four ranks in the distributed runs, by "
+          f"sub-phase (the rank-0 baselines and oracles not counted) "
+          f"{subs}; in all {got}")
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+              "rmsnorm_bwd"):
+        check(subs["25e"][k] > 0, f"phase 25: GPipe never launched {k}")
+    print(f"[25] rank 0's numbers {json.dumps(res[0]['rows'])}")
+    print(f"[25] phase 25 took {time.perf_counter() - t:.1f} s")
+    return got
 
 
 def main() -> int:
@@ -3585,6 +4184,14 @@ def main() -> int:
          "rmsnorm_bwd": 7}, offload=True))
     print(f"[24] phase 24 took {time.perf_counter() - t24:.1f} s")
     report["linear_recurrence_bwd"]["training"] = report24
+
+    # -- phase 25: distributed/ on four ranks that share the card ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    got25 = phase25()
+    for k, v in got25.items():
+        launches[k] += v
+    phase_counts["25"] = got25
 
     # -- report -----------------------------------------------------------------
     sources = {

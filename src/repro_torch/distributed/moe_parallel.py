@@ -1,0 +1,84 @@
+"""Expert-parallel MoE dispatch by explicit all-to-all.
+
+The port of ``repro.distributed.moe_parallel``, the classic EP schedule:
+tokens stay sharded over the data axes; each rank routes its *local*
+tokens into an (E, local_cap, D) buffer (the routing of
+:func:`repro_torch.models.moe.route_logits`: the stable top-k tie order
+and the stable sort by expert of ``moe_ffn``), one tiled all-to-all
+over the expert axis re-bins it to (E/m, m*local_cap, D) so each model
+rank holds only its experts' tokens, the expert FFN runs locally, and
+the reverse all-to-all returns outputs to their source rank, where the
+combine adds each token's contributions.
+
+Wire bytes a layer = 2 x tokens_exchanged x D, independent of E.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+from repro_torch.models import moe
+from repro_torch.models.config import ModelConfig
+
+from . import comm
+from .mesh import Mesh, shard_map
+from .sharding import PartitionSpec as PS
+
+
+def _local_dispatch(cfg: ModelConfig, router_logits, xf, cap: int):
+    """Route local tokens: ``(buf, routing, aux)``, buf the (E_padded, cap,
+    D) expert buffer and routing the :class:`repro_torch.models.moe
+    .Routing` the combine needs (the reference's ``(slot, tok_s, gate_s,
+    valid)`` are its ``slot``, ``order // k``, ``gate_vals`` in sorted
+    order and ``valid``)."""
+    r, aux = moe.route_logits(cfg, router_logits, cap)
+    et = cfg.moe_num_experts + cfg.moe_expert_pad
+    return moe.dispatch(r, xf, et), r, aux
+
+
+def moe_ffn_ep(cfg: ModelConfig, mesh: Mesh, p, x, *,
+               model_axis: str = "model", data_axes=("data",),
+               record: Optional[list] = None):
+    """Expert-parallel MoE FFN.  x: (B, S, D), global, computed with B
+    sharded over ``data_axes`` and the experts (``p['w_*']``'s leading
+    dim) over ``model_axis``.  Returns (y, aux) like
+    :func:`repro_torch.models.moe.moe_ffn`; ``record``, when a list,
+    receives this rank's routing of its local tokens.
+    """
+    b, s, d = x.shape
+    m = mesh.shape[model_axis]
+    e = cfg.moe_num_experts
+    et = e + cfg.moe_expert_pad
+    if et % m:
+        raise ValueError(f"experts {e} + pad {cfg.moe_expert_pad} must "
+                         f"divide EP degree {m}: set moe_expert_pad")
+    ba = tuple(a for a in data_axes if a in mesh.axis_names)
+    n_data = math.prod(mesh.shape[a] for a in ba)
+    t_local = b * s // n_data
+    cap_local = max(int(math.ceil(t_local * cfg.moe_top_k / e
+                                  * cfg.moe_capacity_factor)), 8)
+    b_spec = ba[0] if len(ba) == 1 else (ba if ba else None)
+
+    def body(x_l, router_l, wg_l, wu_l, wd_l):
+        bl, sl, dl = x_l.shape
+        xf = x_l.reshape(bl * sl, dl)
+        logits = xf.float() @ router_l
+        buf, r, aux = _local_dispatch(cfg, logits, xf, cap_local)
+        if record is not None:
+            record.append(r)
+        # (E, cap, D) -> exchange the expert dim over the model ranks:
+        # each keeps E/m experts and gains m x cap tokens for them
+        buf = comm.all_to_all(mesh, buf, model_axis, 0, 1)
+        out = moe.experts({"w_gate": wg_l, "w_up": wu_l, "w_down": wd_l},
+                          buf)
+        out = comm.all_to_all(mesh, out, model_axis, 1, 0)
+        y = moe.undispatch(out, r)
+        aux = comm.pmean(mesh, aux, ba) if ba else aux   # a mean over ranks
+        return y.reshape(bl, sl, dl), aux
+
+    return shard_map(
+        body, mesh,
+        in_specs=(PS(b_spec), PS(), PS(model_axis), PS(model_axis),
+                  PS(model_axis)),
+        out_specs=(PS(b_spec), PS()),
+    )(x, p["router"].float(), p["w_gate"], p["w_up"], p["w_down"])

@@ -9,9 +9,9 @@ from .convert import (  # noqa: F401
     train_state_to_reference,
 )
 from .model import (  # noqa: F401
-    bind_grads, count_active_params, count_params, decode_step, forward,
-    init_cache, init_params, loss_fn, model_flops, model_spec, prefill,
-    train_forward,
+    bind_grads, cache_logical_axes, count_active_params, count_params,
+    decode_step, forward, init_cache, init_params, logical_axes, loss_fn,
+    model_flops, model_spec, prefill, train_forward,
 )
 from .mamba2 import Mamba2  # noqa: F401
 from .rglru import RecurrentGemma  # noqa: F401

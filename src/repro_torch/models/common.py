@@ -108,6 +108,15 @@ def init_from_spec(spec, generator: torch.Generator, dtype: torch.dtype,
     return out
 
 
+def axes_from_spec(spec):
+    """The tree of logical axis tuples of a spec tree: the shape of the
+    spec, each ``P`` replaced by its ``axes`` (flattened in
+    :func:`spec_leaves`' order)."""
+    if isinstance(spec, P):
+        return spec.axes
+    return {k: axes_from_spec(v) for k, v in spec.items()}
+
+
 def stack_spec(spec, n: int, axis_name: str = "layers"):
     """Prepend a stacked dimension to every param in a spec tree."""
     if isinstance(spec, P):
@@ -207,11 +216,25 @@ def attn_qkv(cfg: ModelConfig, p, x, positions):
 
 def full_attention(cfg: ModelConfig, qh, kh, vh, *, window=None):
     """Head-major full-sequence attention core: (B, H/K, S, Dh) -> (B, H,
-    S, Dh), through the flash-attention kernel on a card."""
-    if cfg.ring_attention:
-        raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP queue 1, item 9: "
-            "distributed)")
+    S, Dh).
+
+    Dispatch, as the reference's: ring attention
+    (:func:`repro_torch.distributed.ring_attention.ring_attention`,
+    sequence-parallel over the context mesh's ``"model"`` axis) when
+    ``cfg.ring_attention`` is set, there is no window, a sharding context
+    is current with a ``"model"`` axis and S divides by it; otherwise the
+    flash-attention kernel (on a card) or its plain version."""
+    if cfg.ring_attention and window is None:
+        from repro_torch.distributed import ctx as dctx
+        c = dctx.current()
+        if c is not None and "model" in c[0].axis_names \
+                and qh.shape[2] % c[0].shape["model"] == 0:
+            from repro_torch.distributed.ring_attention import ring_attention
+            mesh = c[0]
+            data_axes = tuple(a for a in ("pod", "data")
+                              if a in mesh.axis_names)
+            return ring_attention(mesh, qh, kh, vh, causal=True,
+                                  batch_axes=data_axes)
     return kops.attention(qh, kh, vh, causal=True, window=window,
                           impl=kernel_impl(cfg))
 
@@ -354,8 +377,14 @@ def apply_frontend(cfg: ModelConfig, p, x, frontend_inputs):
 
 
 def constrain_act(x, cfg: "ModelConfig | None" = None):
-    """The reference's sharding hint; the identity on one card."""
-    return x
+    """Pin the residual stream sharding: batch-sharded, and with
+    ``cfg.seq_parallel`` the sequence dim over the model axis
+    (Megatron-SP).  A hint, resolved under a sharding context
+    (:func:`repro_torch.distributed.ctx.constrain`); the values pass
+    unchanged."""
+    from repro_torch.distributed.ctx import constrain
+    seq_axis = "seq_sp" if (cfg is not None and cfg.seq_parallel) else "seq"
+    return constrain(x, ("batch", seq_axis, "act_embed"))
 
 
 # ---------------------------------------------------------------------------

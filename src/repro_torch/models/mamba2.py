@@ -92,6 +92,7 @@ def mamba_layer(cfg: ModelConfig, p, x):
     """x: (B, S, D) -> (B, S, D)."""
     b, s, _ = x.shape
     di, nh, g, n, _ = _dims(cfg)
+    x = cm.constrain_act(x, cfg)
     xn = cm.rmsnorm(cfg, p["ln"], x)
     proj = xn @ p["in_proj"].to(x.dtype)
     z, xs, bmat, cmat, dt_raw = _split_proj(cfg, proj)
@@ -146,9 +147,20 @@ def forward(cfg: ModelConfig, params: Mamba2, tokens, frontend_inputs=None):
         return train_forward(cfg, params, tokens, frontend_inputs)
 
 
+def logical_axes(cfg: ModelConfig):
+    return cm.axes_from_spec(model_spec(cfg))
+
+
 # ---------------------------------------------------------------------------
 # Serving: O(1) recurrent state
 # ---------------------------------------------------------------------------
+def cache_logical_axes(cfg: ModelConfig):
+    return {
+        "conv": ("layers", "batch", "conv", "ssm_inner"),
+        "ssm": ("layers", "batch", "ssm_heads", "head_dim", "ssm_state"),
+    }
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device=DEFAULT_DEVICE) -> dict:
     """Zero decode state: ``conv`` (L, B, W - 1, conv_dim) in ``cfg.dtype``

@@ -9,6 +9,8 @@
     bind_grads(cfg, params)               -> stacked gradient buffers
     init_cache / prefill / decode_step    -> serving entry points
     count_params(cfg)                     -> exact (spec tree, no alloc)
+    logical_axes / cache_logical_axes     -> the trees' logical axis
+                                             tuples (distributed.sharding)
 
 All six families are ported.  The VLM takes ``frontend_inputs``
 (B, num_patches, D) in ``forward``, ``loss_fn`` (``batch[
@@ -53,6 +55,18 @@ def init_params(cfg: ModelConfig, generator=None, *, device=DEFAULT_DEVICE,
     with ``weight_std`` every ``normal`` weight N(0, weight_std)."""
     return _module(cfg).init_params(cfg, generator, device=device,
                                     weight_std=weight_std)
+
+
+def logical_axes(cfg: ModelConfig):
+    """The parameters' logical axis tuples, shaped as the parameter tree
+    (the input of :func:`repro_torch.distributed.sharding.tree_specs`)."""
+    return _module(cfg).logical_axes(cfg)
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    """The decode cache's logical axis tuples, shaped as ``init_cache``'s
+    tree."""
+    return _module(cfg).cache_logical_axes(cfg)
 
 
 def forward(cfg: ModelConfig, params, tokens, frontend_inputs=None):

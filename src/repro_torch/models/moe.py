@@ -24,9 +24,12 @@ the reference does:
 
 Variants: arctic-480b (128 experts, top-2, a dense FFN in parallel,
 ``moe_dense_parallel``) and qwen2-moe-a2.7b (60 routed experts, top-4,
-an always-on shared expert, ``moe_shared_d_ff``).  Expert parallelism
-(``moe_impl="ep"`` under a mesh) is not ported: with no distributed
-context the reference runs :func:`moe_ffn` too, and so does the port.
+an always-on shared expert, ``moe_shared_d_ff``).  With
+``moe_impl="ep"`` under a sharding context
+(:func:`repro_torch.distributed.ctx.axis_rules`), :func:`moe_block` runs
+the expert-parallel schedule of
+:func:`repro_torch.distributed.moe_parallel.moe_ffn_ep` on the context's
+mesh instead; without one it runs :func:`moe_ffn`, as the reference does.
 """
 from __future__ import annotations
 
@@ -80,10 +83,16 @@ class Routing:
 def route(cfg: ModelConfig, p, xf) -> tuple:
     """Router, top-k, aux loss and sort-based dispatch of ``xf`` (T, D):
     returns ``(Routing, aux)``."""
-    T = xf.shape[0]
+    return route_logits(cfg, xf.float() @ p["router"].float(),
+                        _capacity(cfg, xf.shape[0]))
+
+
+def route_logits(cfg: ModelConfig, logits, cap: int) -> tuple:
+    """Top-k, aux loss and sort-based dispatch of T tokens' router
+    ``logits`` (T, E) into ``cap`` slots an expert: ``(Routing, aux)``."""
+    T = logits.shape[0]
     k, E = cfg.moe_top_k, cfg.moe_num_experts
-    logits = xf.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)                      # (T, E)
+    probs = torch.softmax(logits.float(), dim=-1)              # (T, E)
     # top-k as jax.lax.top_k: largest first, ties to the lower index
     # (torch.topk leaves the order of ties open; a stable sort fixes it)
     gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
@@ -101,8 +110,7 @@ def route(cfg: ModelConfig, p, xf) -> tuple:
     e_s = flat_e[order]
     counts = torch.bincount(flat_e, minlength=E)               # (E,)
     starts = torch.cumsum(counts, 0) - counts                  # exclusive
-    rank = torch.arange(T * k, device=xf.device) - starts[e_s]
-    cap = _capacity(cfg, T)
+    rank = torch.arange(T * k, device=logits.device) - starts[e_s]
     Et = E + cfg.moe_expert_pad
     valid = rank < cap
     slot = torch.where(valid, e_s * cap + rank,
@@ -114,33 +122,42 @@ def moe_ffn(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
     """x: (B, S, D) -> (y, aux).  ``record``, when a list, receives this
     call's :class:`Routing`."""
     B, S, D = x.shape
-    T, k = B * S, cfg.moe_top_k
     Et = cfg.moe_num_experts + cfg.moe_expert_pad
-    xf = x.reshape(T, D)
+    xf = x.reshape(B * S, D)
     r, aux = route(cfg, p, xf)
     if record is not None:
         record.append(r)
-    cap = r.cap
-    tok_s = r.order // k                  # the token of each sorted entry
+    out = experts(p, dispatch(r, xf, Et))
+    return undispatch(out, r).reshape(B, S, D), aux
 
-    # ---- dispatch: real slots are unique; dropped rows land on row Et*cap
-    buf = xf.new_zeros((Et * cap + 1, D))
-    buf[r.slot] = xf[tok_s]
-    h = buf[: Et * cap].view(Et, cap, D)
 
-    # ---- expert compute (batched over the expert axis) ------------------
-    g = torch.bmm(h, p["w_gate"].to(x.dtype))
-    u = torch.bmm(h, p["w_up"].to(x.dtype))
-    out = torch.bmm(F.silu(g) * u, p["w_down"].to(x.dtype))
+def dispatch(r: Routing, xf, et: int):
+    """The ``(et, cap, D)`` expert buffer of tokens ``xf`` (T, D) routed
+    by ``r``: real slots are unique; dropped entries land on an extra row,
+    which is thrown away."""
+    d = xf.shape[1]
+    buf = xf.new_zeros((et * r.cap + 1, d))
+    buf[r.slot] = xf[r.order // r.expert_idx.shape[1]]
+    return buf[: et * r.cap].view(et, r.cap, d)
 
-    # ---- combine --------------------------------------------------------
-    out_flat = out.reshape(Et * cap, D)
+
+def experts(p, h):
+    """The SwiGLU experts on their buffer ``h`` (E, cap, D), batched over
+    the expert axis; ``p``'s expert weights lead with the same E."""
+    g = torch.bmm(h, p["w_gate"].to(h.dtype))
+    u = torch.bmm(h, p["w_up"].to(h.dtype))
+    return torch.bmm(F.silu(g) * u, p["w_down"].to(h.dtype))
+
+
+def undispatch(out, r: Routing):
+    """Each token's gate-weighted sum of its experts' rows of ``out``
+    (et, cap, D): ``(T, D)``; dropped entries add nothing."""
+    out_flat = out.reshape(-1, out.shape[-1])
     gathered = torch.where(r.valid[:, None],
-                           out_flat[r.slot.clamp(max=Et * cap - 1)],
+                           out_flat[r.slot.clamp(max=out_flat.shape[0] - 1)],
                            out_flat.new_zeros(()))
     gate_s = r.gate_vals.reshape(-1)[r.order]
-    contrib = gathered * gate_s[:, None].to(x.dtype)
-    return combine(contrib, r).reshape(B, S, D), aux
+    return combine(gathered * gate_s[:, None].to(out.dtype), r)
 
 
 def combine(contrib, r: Routing):
@@ -164,8 +181,21 @@ def combine(contrib, r: Routing):
 
 def moe_block(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
     """The full FFN half of an MoE layer (routed + shared/dense paths).
-    ``p`` maps ``"moe"`` (and ``"dense_mlp"``) to the layer's parameters."""
-    y, aux = moe_ffn(cfg, p["moe"], x, record=record)
+    ``p`` maps ``"moe"`` (and ``"dense_mlp"``) to the layer's parameters.
+    ``record``, when a list, receives the call's routing (this rank's
+    local one on the expert-parallel path)."""
+    c = None
+    if cfg.moe_impl == "ep":
+        from repro_torch.distributed import ctx as dctx
+        c = dctx.current()
+    if c is not None:
+        from repro_torch.distributed.moe_parallel import moe_ffn_ep
+        mesh = c[0]
+        data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        y, aux = moe_ffn_ep(cfg, mesh, p["moe"], x, data_axes=data_axes,
+                            record=record)
+    else:
+        y, aux = moe_ffn(cfg, p["moe"], x, record=record)
     if cfg.moe_shared_d_ff:
         y = y + cm.mlp(p["moe"]["shared"], x)
     if cfg.moe_dense_parallel:

@@ -116,6 +116,7 @@ def rglru(cfg: ModelConfig, p, u):
 
 
 def rec_block(cfg: ModelConfig, p, x):
+    x = cm.constrain_act(x, cfg)
     xn = cm.rmsnorm(cfg, p["ln"], x)
     u = causal_conv(xn @ p["proj_x"].to(x.dtype), p["conv_w"], p["conv_b"])
     h = rglru(cfg, p, u)
@@ -125,6 +126,7 @@ def rec_block(cfg: ModelConfig, p, x):
 
 
 def attn_block(cfg: ModelConfig, p, x, positions):
+    x = cm.constrain_act(x, cfg)
     h = cm.attention(cfg, p["attn"], cm.rmsnorm(cfg, p["ln"], x), positions,
                      window=cfg.window)
     x = x + h
@@ -166,9 +168,26 @@ def forward(cfg: ModelConfig, params: RecurrentGemma, tokens,
         return train_forward(cfg, params, tokens, frontend_inputs)
 
 
+def logical_axes(cfg: ModelConfig):
+    return cm.axes_from_spec(model_spec(cfg))
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
+def cache_logical_axes(cfg: ModelConfig):
+    return {
+        "rec_h": ("layer_groups", None, "batch", "rnn"),
+        "conv": ("layer_groups", None, "batch", "conv", "rnn"),
+        "k": ("layer_groups", None, "batch", "kv_heads", "cache_seq",
+              "head_dim"),
+        "v": ("layer_groups", None, "batch", "kv_heads", "cache_seq",
+              "head_dim"),
+        "tail_rec_h": (None, "batch", "rnn"),
+        "tail_conv": (None, "batch", "conv", "rnn"),
+    }
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device=DEFAULT_DEVICE) -> dict:
     """Zero decode state, the reference's layout: ``rec_h`` (groups, rec

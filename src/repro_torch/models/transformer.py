@@ -102,6 +102,7 @@ class DecoderLayer(nn.Module):
     def forward(self, cfg: ModelConfig, x, positions):
         """``(x, aux)``: the layer's output and its MoE aux loss (None for
         a dense layer)."""
+        x = cm.constrain_act(x, cfg)
         h = cm.attention(cfg, self.attn, cm.rmsnorm(cfg, self.ln1, x),
                          positions, window=cfg.window)
         x = x + h
@@ -226,6 +227,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def cache_len(cfg: ModelConfig, max_seq: int) -> int:
     """Cache slots per layer: windowed models keep a rolling window."""
     return min(max_seq, cfg.window) if cfg.window else max_seq
+
+
+def logical_axes(cfg: ModelConfig):
+    return cm.axes_from_spec(model_spec(cfg))
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    axes = ("layers", "batch", "kv_heads", "cache_seq", "head_dim")
+    return {"k": axes, "v": axes}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

@@ -16,6 +16,10 @@ from repro_torch import models as M
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import DeviceFleet, KiB, OpType, WorkloadSpec, \
     ZnsDevice, compile_fleet_program, compile_program, compute_service_times
+from repro_torch.distributed import comm, launch
+from repro_torch.distributed.mesh import Mesh, shard_map
+from repro_torch.distributed.ring_attention import ring_attention
+from repro_torch.distributed.sharding import PartitionSpec as PS
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.kernels import linear_recurrence as plr
@@ -2138,3 +2142,45 @@ def test_checkpoint_save_is_one_batched_scan_on_card(cuda_device, tmp_path):
                                      **kw).simulate_payload_write(256 * MiB)
         assert n == n_cpu
         np.testing.assert_allclose(t, t_cpu, rtol=1e-12, atol=0)
+
+
+def _two_rank_ring(rank, report):
+    """On each of two gloo ranks sharing cuda:0: ring attention and its
+    gradient on a (1, 2) mesh against the plain attention's, and a
+    ppermute's forward and backward against the block swap they are."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = Mesh((1, 2), ("data", "model"), backend="gloo", device="cuda")
+    g = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               for shape in ((2, 4, 128, 32), (2, 2, 128, 32),
+                             (2, 2, 128, 32)))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ring_attention(mesh, *leaves, causal=True)
+    (out ** 2).sum().backward()
+    want = ref.attention_ref(*plain, causal=True)
+    (want ** 2).sum().backward()
+    errs = {"ring": float((out - want).abs().max())}
+    for name, a, b in zip("qkv", leaves, plain):
+        errs[f"d{name}"] = float((a.grad - b.grad).abs().max()
+                                 / b.grad.abs().max())
+    a = torch.randn((3, 8), generator=g, device="cuda", requires_grad=True)
+    w = torch.randn((3, 8), generator=g, device="cuda")
+    swap = shard_map(lambda t: comm.ppermute(mesh, t, "model",
+                                             [(0, 1), (1, 0)]),
+                     mesh, in_specs=(PS(None, "model"),),
+                     out_specs=PS(None, "model"))
+    y = swap(a)
+    (y * w).sum().backward()
+    errs["ppermute"] = float((y - a.roll(4, dims=1)).abs().max())
+    errs["ppermute_bwd"] = float((a.grad - w.roll(4, dims=1)).abs().max())
+    return errs
+
+
+def test_ring_attention_and_ppermute_on_two_gloo_ranks(cuda_device):
+    """A 2-rank gloo world on one card (NCCL takes one GPU a rank)."""
+    for errs in launch.run(_two_rank_ring, 2, backend="gloo",
+                           device=cuda_device, timeout=180):
+        assert errs["ring"] < 1e-4, errs
+        assert max(errs[f"d{n}"] for n in "qkv") < 1e-4, errs
+        assert errs["ppermute"] == 0 and errs["ppermute_bwd"] == 0, errs

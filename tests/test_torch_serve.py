@@ -242,10 +242,18 @@ def test_init_follows_reference_rule():
 
 
 def test_unported_families_and_features_raise():
-    cfg = get_smoke_config("qwen3-4b", ring_attention=True)
+    """An unknown family raises.  Ring attention is ported: with no
+    sharding context the flag falls through to the kernel path, as the
+    reference's full_attention does, and the forward equals the flag-off
+    one (it raised NotImplementedError before)."""
+    cfg = get_smoke_config("qwen3-4b")
     params = M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        M.forward(cfg, params, torch.ones(1, 4, dtype=torch.long))
+    toks = torch.ones(1, 4, dtype=torch.long)
+    ring = get_smoke_config("qwen3-4b", ring_attention=True)
+    assert torch.equal(M.forward(ring, params, toks)[0],
+                       M.forward(cfg, params, toks)[0])
+    with pytest.raises(ValueError, match="unknown family"):
+        M.forward(get_smoke_config("qwen3-4b", family="nope"), params, toks)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
