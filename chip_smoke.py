@@ -226,7 +226,30 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    memory of a rank and its wall time, which is gloo's on one shared
    card (collectives staged through the host), not the card's
    collective rate.  A rank that fails fails the script; a world that
-   reports nothing for ``DIST_TIMEOUT`` seconds is killed and fails it.
+   reports nothing for ``DIST_TIMEOUT`` seconds is killed and fails it;
+26. the dry run (``repro_torch.launch.dryrun``: one rank's step traced
+   under ``FakeTensorMode`` on torch's ``fake`` process group, nothing
+   allocated) and its roofline (``repro_torch.launch.roofline``, the
+   H100's constants), each cell in a subprocess of its own, all at
+   once.  26a traces phase 18's own step (tinyllama-1.1b, 4 x 2,048, one
+   microbatch) on a 1 x 1 mesh and holds it against what phase 18
+   measured: the argument bytes equal phase 18's ``TrainState`` on the
+   card leaf for leaf (params, ``m``, ``v``) plus its batch and the
+   4-byte step counter, and the roofline's compute term is no more than
+   the measured step; it prints the memory term, the dominant term, the
+   traced peak against phase 18's, the useful-flop ratio and the step's
+   compute share.  26b runs the CLI on tinyllama-1.1b train_4k (single,
+   the (16, 16) mesh, one microbatch where the reference's cell takes 8:
+   its report is tagged ``mb1``), qwen2-moe-a2.7b decode_32k through its
+   presets (``--optimized``) and tinyllama-1.1b decode_32k on the (2, 16,
+   16) multi-pod mesh (512 ranks), under ``build/dryrun_torch``, and the
+   roofline CLI over their reports; each cell's status, trace seconds,
+   both argument figures and roofline row are printed.  26c traces
+   qwen2-moe-a2.7b's expert-parallel train_4k step at two layers and its
+   forward on the (16, 16) mesh, on CUDA fake tensors and on CPU ones,
+   and holds the backward's collectives: equal on both devices (the
+   backward runs on the autograd engine's CUDA thread), and the body's
+   three times the forward's (step, recompute, backward).
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``),
 and fails if ptxas serialised any kernel's ``wgmma`` (warning C7518 in a
@@ -332,10 +355,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor float64
-#: / float32 rates, and the dense bfloat16 tensor-core rate.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 ATTN_TOL = {"bfloat16": dict(rtol=0.0, atol=2e-2),
             "float32": dict(rtol=0.0, atol=2e-4)}
 RMS_TOL = {"bfloat16": dict(rtol=0.0, atol=2e-2),
@@ -689,8 +708,12 @@ def ptxas_lines(log: str):
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    """The least ms for ``nbytes`` at the card's memory rate and ``ops`` at
+    its peak rate for ``dtype`` (``repro_torch.launch.roofline``'s H100
+    constants)."""
+    from repro_torch.launch import roofline
+    t_bytes = nbytes / roofline.HBM_BW * 1e3
+    t_ops = ops / roofline.PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1229,6 +1252,294 @@ def phase25():
     print(f"[25] rank 0's numbers {json.dumps(res[0]['rows'])}")
     print(f"[25] phase 25 took {time.perf_counter() - t:.1f} s")
     return got
+
+
+# -- phase 26: the dry run and its roofline ----------------------------------
+#: Phase 26a's trace of phase 18's step on a 1 x 1 mesh (a world of one
+#: fake rank), in a process of its own: prints one JSON line.
+DRYRUN_18 = """
+import json, sys, time
+import torch
+from repro_torch import models as M
+from repro_torch.configs import get_config
+from repro_torch.distributed.ctx import axis_rules
+from repro_torch.launch import dryrun as D, roofline as R
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.config import ShapeConfig
+from repro_torch.train import state_spec
+batch, seq = int(sys.argv[1]), int(sys.argv[2])
+cfg = get_config("tinyllama-1.1b", kernel_impl="torch")
+shape = ShapeConfig("phase18", "train", seq, batch)
+args = D.parser().parse_args(["--arch", "tinyllama-1.1b", "--shape", "-",
+                              "--microbatches", "1"])
+with D.fake_world(1):
+    mesh = make_mesh((1, 1), ("data", "model"))
+    with axis_rules(mesh, D._rules_for(mesh, args)):
+        trace, info = D.lower_cell(cfg, shape, mesh, args)
+res = {"arch": "tinyllama-1.1b", "shape": "phase18", "mesh": "single",
+       "mesh_shape": dict(mesh.shape), "status": "ok",
+       "model_flops": M.model_flops(cfg, shape.tokens, "train"),
+       "full": {**D.analyze(trace), **info}}
+res["row"] = R.roofline_row(res)
+st = state_spec(cfg)
+res["leaves"] = {}
+for name, tree in (("params", st.params), ("m", st.opt["m"]),
+                   ("v", st.opt["v"])):
+    def walk(t, pre):
+        for k in sorted(t):
+            if isinstance(t[k], dict):
+                walk(t[k], f"{pre}/{k}")
+            else:
+                res["leaves"][f"{pre}/{k}"] = t[k].nbytes
+    walk(tree, name)
+res["step_bytes"] = st.step.nbytes
+res["cuda_allocated"] = (torch.cuda.memory_allocated()
+                         if torch.cuda.is_initialized() else 0)
+print("JSON" + json.dumps(res))
+"""
+#: Phase 26c's backward collectives: qwen2-moe-a2.7b's presets (the
+#: expert-parallel MoE) at two layers, remat full layer by layer, its
+#: train_4k step and that step's forward (a prefill of the same batch) on
+#: the production (16, 16) mesh, each traced on the fake tensors' device
+#: and again on the CPU's; prints one JSON line.
+DRYRUN_BWD = """
+import dataclasses, json, math
+from repro_torch.configs import get_optimized_config
+from repro_torch.distributed.ctx import axis_rules
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_production_mesh, production_shape
+from repro_torch.models.config import SHAPES_BY_NAME
+cfg = dataclasses.replace(
+    get_optimized_config("qwen2-moe-a2.7b", kernel_impl="torch"),
+    num_layers=2, remat="full", remat_block=1)
+args = D.parser().parse_args(["--arch", cfg.name, "--shape", "train_4k",
+                              "--microbatches", "1"])
+train = SHAPES_BY_NAME["train_4k"]
+res = {"devices": [D.TRACE_DEVICE, "cpu"], "layers": cfg.num_layers}
+with D.fake_world(math.prod(production_shape()[0])):
+    mesh = make_production_mesh()
+    res["mesh_shape"] = dict(mesh.shape)
+    with axis_rules(mesh, D._rules_for(mesh, args)):
+        for dev in res["devices"]:
+            D.TRACE_DEVICE = dev
+            for kind in ("train", "prefill"):
+                trace, info = D.lower_cell(
+                    cfg, dataclasses.replace(train, kind=kind), mesh, args)
+                res[f"{dev}/{kind}"] = {
+                    "by_site": D.analyze(trace)["collectives_by_site"],
+                    "trace_s": info["trace_s"]}
+print("JSON" + json.dumps(res))
+"""
+#: Phase 26b's production cells: (CLI arguments, the roofline's --mesh).
+#: The train cell traces its 256 x 4,096 batch as one microbatch where the
+#: reference's cell takes 8 (tagged mb1): the trace costs host time by
+#: the op, and 8 microbatches took 138 s on the card's host with the other
+#: cells beside it.  The products are the same; the temp bytes are a
+#: one-microbatch step's.
+DRYRUN_CELLS = (
+    (["--arch", "tinyllama-1.1b", "--shape", "train_4k", "--mesh", "single",
+      "--mode", "both", "--microbatches", "1", "--tag", "mb1"], "single"),
+    (["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k", "--mesh",
+      "single", "--mode", "both", "--optimized"], "single"),
+    (["--arch", "tinyllama-1.1b", "--shape", "decode_32k", "--mesh", "multi",
+      "--mode", "full"], "multi"),
+)
+DRYRUN_TIMEOUT = 600
+
+
+def run_dryruns(batch: int, seq: int) -> dict:
+    """Phase 26's subprocesses, all started at once: 26a's trace of a
+    ``batch`` x ``seq`` tinyllama-1.1b step on a 1 x 1 mesh, and 26b's
+    CLI cells (production meshes: the test hooks are cleared) into
+    ``build/dryrun_torch``, then the roofline CLI over them.  Fails on
+    any non-zero exit."""
+    out = os.path.join(ROOT, "build", "dryrun_torch")
+    shutil.rmtree(out, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("REPRO_MESH_SHAPE", "REPRO_MESH_SHAPE_MULTI",
+                        "REPRO_DRYRUN_DEVICES")}
+    # a fake trace computes nothing: one thread a process, four processes
+    env.update(PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, *argv], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for script, argv in ((DRYRUN_18, [str(batch), str(seq)]),
+                             (DRYRUN_BWD, []))]
+    procs += [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
+         out], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=ROOT) for argv, _ in DRYRUN_CELLS]
+    texts = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"phase 26: a dry run ran past {DRYRUN_TIMEOUT} s")
+        check(p.returncode == 0, f"phase 26: {p.args[1:]} exited "
+                                 f"{p.returncode}: {se[-3000:]}")
+        texts.append(so)
+    wall = time.perf_counter() - t
+    got = []
+    for name, text in (("26a", texts[0]), ("26c", texts[1])):
+        line = [x for x in text.splitlines() if x.startswith("JSON")]
+        check(len(line) == 1, f"phase {name} printed no result: "
+                              f"{text[-2000:]}")
+        got.append(json.loads(line[0][4:]))
+    cells = []
+    for argv, _ in DRYRUN_CELLS:
+        arch, shape, mesh = argv[1], argv[3], argv[5]
+        tag = f".{argv[argv.index('--tag') + 1]}" if "--tag" in argv else ""
+        with open(os.path.join(out, f"{arch}_{shape}_{mesh}{tag}.json")) as f:
+            cells.append(json.load(f))
+    rows = {}
+    for mesh in ("single", "multi"):
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.roofline", "--in",
+             out, "--mesh", mesh, "--csv",
+             os.path.join(out, f"roofline_{mesh}.csv")],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+        check(r.returncode == 0, f"phase 26: the roofline CLI exited "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+        rows[mesh] = r.stdout.strip().splitlines()
+    return {"a": got[0], "c": got[1], "cells": cells, "rows": rows,
+            "cli": [t.strip().splitlines()[-1] for t in texts[2:]],
+            "wall_s": wall}
+
+
+def phase26c(card: str, c: dict) -> None:
+    """Phase 26c: the backward's collectives are recorded on the fake
+    tensors' device as on the CPU (the autograd engine runs a CUDA
+    tensor's backward on a thread of its own), and they are what the
+    forward implies: each layer's forward runs twice (step, recompute) and
+    its backward reverses each all-to-all and psum once more, so the body
+    holds three times the forward's; the boundary's all-reduces (a cut's
+    cotangent) exist only in the backward."""
+    first, cpu = c["devices"]
+    check(first == "cuda", f"phase 26c: the dry run traces on {first!r} "
+                           f"fake tensors on the card's host")
+    for kind in ("train", "prefill"):
+        check(c[f"{first}/{kind}"]["by_site"] == c[f"cpu/{kind}"]["by_site"],
+              f"phase 26c: {kind}'s collectives on {first} fake tensors "
+              f"{c[f'{first}/{kind}']['by_site']} differ from the CPU's "
+              f"{c[f'cpu/{kind}']['by_site']}")
+    tb = c[f"{first}/train"]["by_site"]["body"]
+    fb = c[f"{first}/prefill"]["by_site"]["body"]
+    check(fb["count"]["all-to-all"] == 2 * c["layers"],
+          f"phase 26c: the forward's all-to-alls {fb['count']}")
+    for key in ("count", "result_bytes"):
+        check(tb[key] == {k: 3 * v for k, v in fb[key].items()},
+              f"phase 26c: the train step's body {key} {tb[key]} is not "
+              f"3 x the forward's {fb[key]}")
+    te = c[f"{first}/train"]["by_site"]["boundary"]
+    fe = c[f"{first}/prefill"]["by_site"]["boundary"]
+    check(fe["count"]["all-reduce"] == 0 < te["count"]["all-reduce"],
+          f"phase 26c: boundary all-reduces train {te['count']} forward "
+          f"{fe['count']}")
+    print(f"[26c] ({card}) qwen2-moe-a2.7b presets, {c['layers']} layers, "
+          f"train_4k on {c['mesh_shape']}: body collectives of the step "
+          f"{tb['count']} ({sum(tb['result_bytes'].values()):,.0f} result "
+          f"bytes) = 3 x the forward's {fb['count']}; boundary of the step "
+          f"{te['count']} ({sum(te['result_bytes'].values()):,.0f} B), of "
+          f"the forward {fe['count']}; equal on {first} and cpu fake "
+          f"tensors (traces {first} "
+          f"{c[f'{first}/train']['trace_s']:.2f} + "
+          f"{c[f'{first}/prefill']['trace_s']:.2f} s, cpu "
+          f"{c['cpu/train']['trace_s']:.2f} + "
+          f"{c['cpu/prefill']['trace_s']:.2f} s)")
+
+
+def phase26(card: str, p18: dict) -> dict:
+    """Phase 26: the dry run of phase 18's step held against phase 18's
+    measurements (``p18``: the state's leaf bytes by path, the batch's
+    bytes, the step's ms and the peak bytes), then the production cells
+    and the roofline."""
+    from repro_torch.launch import roofline
+    t = time.perf_counter()
+    got = run_dryruns(p18["batch"], p18["seq"])
+    a = got["a"]
+    mem, row = a["full"]["memory"], a["row"]
+    # 26a: the argument bytes are phase 18's state on the card, leaf for
+    # leaf, plus the batch and the step counter (a 0-d int32 in the
+    # spec, a Python int in the port's TrainState)
+    check(a["leaves"] == p18["leaves"],
+          "phase 26a: the dry run's state leaves differ from phase 18's: "
+          + str(sorted(set(a["leaves"].items())
+                       ^ set(p18["leaves"].items()))[:6]))
+    state = sum(p18["leaves"].values())
+    want = state + p18["batch_bytes"] + a["step_bytes"]
+    check(mem["argument_bytes"] == want,
+          f"phase 26a: argument_bytes {mem['argument_bytes']}, phase 18's "
+          f"state {state} + batch {p18['batch_bytes']} + step "
+          f"{a['step_bytes']} = {want}")
+    check(mem["sharded_argument_bytes"] == mem["argument_bytes"],
+          f"phase 26a: on a 1 x 1 mesh the sharded argument bytes "
+          f"{mem['sharded_argument_bytes']} differ from "
+          f"{mem['argument_bytes']}")
+    check(a["cuda_allocated"] == 0,
+          f"phase 26a: the trace allocated {a['cuda_allocated']} bytes")
+    step_s = p18["step_ms"] / 1e3
+    check(row["t_compute_s"] <= step_s,
+          f"phase 26a: the compute term {row['t_compute_s']:.4f} s exceeds "
+          f"phase 18's measured step {step_s:.4f} s")
+    peak = mem["argument_bytes"] + mem["temp_bytes"]
+    print(f"[26a] ({card}) phase 18's step traced on a 1 x 1 fake world "
+          f"({a['full']['trace_device']} fake tensors, "
+          f"{a['full']['trace_s']:.2f} s): argument_bytes "
+          f"{mem['argument_bytes']:,} = phase 18's state on the card "
+          f"{state:,} ({len(p18['leaves'])} leaves, params + m + v, equal "
+          f"leaf for leaf) + batch {p18['batch_bytes']:,} + step "
+          f"{a['step_bytes']}; sharded_argument_bytes "
+          f"{mem['sharded_argument_bytes']:,}; flops "
+          f"{a['full']['flops']:.4e}, bytes accessed "
+          f"{a['full']['bytes_accessed']:.4e}")
+    print(f"[26a] ({card}) roofline at {roofline.PEAK_FLOPS:.4g} FLOP/s, "
+          f"{roofline.HBM_BW:.4g} B/s: t_compute_s {row['t_compute_s']:.6f}"
+          f" <= phase 18's step {step_s:.6f} s (held); t_memory_s "
+          f"{row['t_memory_s']:.6f} (the plain attention writes the S^2 "
+          f"scores the kernel never writes, so this term may exceed the "
+          f"step); dominant {row['dominant']}; useful_flop_ratio "
+          f"{row['useful_flop_ratio']:.4f}; compute share of the measured "
+          f"step {row['t_compute_s'] / step_s:.4f}; traced peak "
+          f"(argument + temp) {peak / 1e9:.3f} GB against phase 18's "
+          f"max_memory_allocated {p18['peak_bytes'] / 1e9:.3f} GB "
+          f"(temp {mem['temp_bytes'] / 1e9:.3f} GB)")
+    for (argv, _), cell, cli in zip(DRYRUN_CELLS, got["cells"], got["cli"]):
+        check(cell["status"] == "ok", f"phase 26b: {cell['arch']} "
+                                      f"{cell['shape']} {cell['mesh']}: "
+                                      f"{cell.get('error')}")
+        m = cell["full"]["memory"]
+        r = roofline.roofline_row(cell)
+        print(f"[26b] ({card}) {cell['arch']} {cell['shape']} "
+              f"{cell['mesh']} {cell['mesh_shape']}: {cell['status']}, "
+              f"trace {cell['full']['trace_s']:.2f} s, argument_bytes "
+              f"{m['argument_bytes']:,} (held by a rank) against "
+              f"sharded_argument_bytes {m['sharded_argument_bytes']:,} (a "
+              f"device's under the shardings), temp {m['temp_bytes']:,}; "
+              f"collectives {cell['full']['collectives']['count']}; "
+              f"roofline ({r['source']}): compute {r['t_compute_s']:.4e} s, "
+              f"memory {r['t_memory_s']:.4e} s, collective "
+              f"{r['t_collective_s']:.4e} s, {r['dominant']}, useful "
+              f"{r['useful_flop_ratio']:.4e}")
+        print(f"[26b] ({card}) {cli}")
+        if "--tag" in argv:
+            print(f"[26b] ({card}) {cell['arch']} {cell['shape']} is tagged "
+                  f"{argv[argv.index('--tag') + 1]}: traced as "
+                  f"{argv[argv.index('--microbatches') + 1]} microbatch, "
+                  f"not the reference's 8, so its temp bytes and the "
+                  f"roofline's mem_gib_per_dev are that step's")
+    for mesh, lines in got["rows"].items():
+        check(len(lines) == 1 + sum(m == mesh for _, m in DRYRUN_CELLS),
+              f"phase 26b: the roofline CLI's {mesh} rows: {lines}")
+        for line in lines:
+            print(f"[26b] ({card}) roofline --mesh {mesh}: {line}")
+    phase26c(card, got["c"])
+    wall = time.perf_counter() - t
+    print(f"[26] ({card}) phase 26 took {wall:.1f} s (subprocesses "
+          f"{got['wall_s']:.1f} s)")
+    return {"row": row, "memory": mem, "wall_s": wall}
 
 
 def main() -> int:
@@ -3292,6 +3603,15 @@ def main() -> int:
     report18 = dict(step_ms=min(step_ms), tokens_per_s=tok_s, peak_gb=peak18,
                     losses=losses18, idle=max(0.0, 1 - busy / wall_p),
                     attn_bwd_share=attn_share, groups=groups)
+    # what phase 26a's dry run of this step is held against
+    p18 = dict(batch=4, seq=2048, step_ms=min(step_ms),
+               peak_bytes=peak18 * 1e9,
+               batch_bytes=sum(torch.as_tensor(v).nbytes
+                               for v in batch18.values()),
+               leaves={path: leaf.nbytes for name, tree in (
+                   ("params", state18.params.param_tree()),
+                   ("m", state18.opt["m"]), ("v", state18.opt["v"]))
+                   for path, leaf in _leaf_paths(tree, name)})
     del res18, state18, step18
     torch.cuda.empty_cache()
 
@@ -4192,6 +4512,9 @@ def main() -> int:
     for k, v in got25.items():
         launches[k] += v
     phase_counts["25"] = got25
+
+    # -- phase 26: the dry run and its roofline -------------------------------
+    phase26(card, p18)
 
     # -- report -----------------------------------------------------------------
     sources = {

@@ -10,8 +10,8 @@ CONFIG = ModelConfig(
     name="llama3-405b", family="dense",
     num_layers=126, d_model=16384, num_heads=128, num_kv_heads=8,
     head_dim=128, d_ff=53248, vocab_size=128256, rope_theta=500_000.0,
-    # bf16 master weights + f32 Adam moments (10 B/param): the only way
-    # 405B params + optimizer state fit 512 x 16 GiB v5e HBM.
+    # bf16 master weights + f32 Adam moments (10 B/param), as the
+    # reference's config sets them.
     param_dtype="bfloat16",
 )
 

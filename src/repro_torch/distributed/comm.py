@@ -16,7 +16,8 @@ cancel out of the result.
 Every exchange is one ``all_to_all_single`` (ppermute: each rank's split
 is its whole block, sent to one peer) and every reduction one
 ``all_reduce``: the two collectives, with ``all_gather``, that ``gloo``
-runs on CUDA tensors.
+runs on CUDA tensors.  Each counts in :mod:`repro_torch.utils.comm_stats`
+as its semantic kind (a ``ppermute`` as a collective-permute).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.utils import comm_stats
 from .mesh import Mesh, all_reduce, axis_index
 
 
@@ -41,6 +43,7 @@ def _exchange(mesh: Mesh, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
     if src:
         recv[order[src[0]]] = 1
     out = flat.new_empty((len(src), flat.shape[1]))
+    comm_stats.note("collective-permute", x.nbytes, len(order))
     dist.all_to_all_single(out, flat[:len(dst)], recv, send, group=pg)
     return out.view(x.shape) if src else torch.zeros_like(x)
 
@@ -113,6 +116,7 @@ def _tiled(mesh: Mesh, x: torch.Tensor, axis: str, split_axis: int,
         by_rank[r] = chunks[j]
     send = torch.stack(by_rank)
     recv = torch.empty_like(send)
+    comm_stats.note("all-to-all", send.nbytes, n)
     dist.all_to_all_single(recv, send, group=pg)
     return torch.cat([recv[r] for r in order], dim=concat_axis)
 

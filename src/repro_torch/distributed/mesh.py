@@ -31,8 +31,13 @@ around a collective or around what feeds one.
 The backend is an explicit argument.  NCCL takes one GPU a rank, so a
 mesh with more ranks than GPUs raises on it; ranks that share a card run
 on ``gloo``, which takes CUDA tensors in ``all_reduce``, ``all_gather``
-and ``all_to_all_single`` and stages them through the host.  Nothing
-here switches backend.
+and ``all_to_all_single`` and stages them through the host.  The dry
+run (:mod:`repro_torch.launch.dryrun`) builds meshes on torch's ``fake``
+backend, whose collectives move nothing.  Nothing here switches backend.
+
+Every collective here and in :mod:`repro_torch.distributed.comm` is
+reported to :mod:`repro_torch.utils.comm_stats` (recorded only inside its
+``record_collectives``).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.utils import comm_stats
 from .sharding import PartitionSpec
 
 
@@ -92,9 +98,10 @@ def check_backend(backend: str, world_size: int, device) -> None:
                 f"backend='nccl' takes one GPU a rank: {world_size} ranks, "
                 f"{torch.cuda.device_count()} GPU(s); ranks that share a "
                 f"card run on backend='gloo'")
-    elif backend != "gloo":
+    elif backend not in ("gloo", "fake"):
         raise ValueError(f"unknown backend {backend!r}; expected 'gloo' or "
-                         f"'nccl'")
+                         f"'nccl' ('fake' is the dry run's: "
+                         f"repro_torch.launch.dryrun)")
 
 
 class Mesh(AbstractMesh):
@@ -188,20 +195,25 @@ def _local(mesh: Mesh, x: torch.Tensor, spec) -> torch.Tensor:
     return x
 
 
-def all_gather_dim(mesh: Mesh, x: torch.Tensor, axes, dim: int):
+def all_gather_dim(mesh: Mesh, x: torch.Tensor, axes, dim: int, *,
+                   site: str = "body"):
     """The blocks of ``x`` held along ``axes``, concatenated on ``dim`` in
-    linear-index order."""
+    linear-index order.  ``site``: what :mod:`repro_torch.utils.comm_stats`
+    records it as."""
     pg, order = mesh.group(axes)
     x = x.contiguous()
+    comm_stats.note("all-gather", x.nbytes * len(order), len(order), site)
     parts = [torch.empty_like(x) for _ in order]
     dist.all_gather(parts, x, group=pg)
     return torch.cat([parts[r] for r in order], dim=dim)
 
 
-def all_reduce(mesh: Mesh, x: torch.Tensor, axes, op=dist.ReduceOp.SUM):
+def all_reduce(mesh: Mesh, x: torch.Tensor, axes, op=dist.ReduceOp.SUM, *,
+               site: str = "body"):
     """``x`` reduced over ``axes`` (a new tensor)."""
-    pg, _ = mesh.group(axes)
+    pg, order = mesh.group(axes)
     out = x.contiguous().clone()
+    comm_stats.note("all-reduce", out.nbytes, len(order), site)
     dist.all_reduce(out, op=op, group=pg)
     return out
 
@@ -209,7 +221,7 @@ def all_reduce(mesh: Mesh, x: torch.Tensor, axes, op=dist.ReduceOp.SUM):
 def _global(mesh: Mesh, x: torch.Tensor, spec) -> torch.Tensor:
     for dim, axes in enumerate(spec):
         if axes is not None:
-            x = all_gather_dim(mesh, x, axes, dim)
+            x = all_gather_dim(mesh, x, axes, dim, site="boundary")
     return x
 
 
@@ -223,7 +235,7 @@ class _Cut(torch.autograd.Function):
     def backward(ctx, g):
         rest = _unmentioned(ctx.mesh, ctx.spec)
         if rest:
-            g = all_reduce(ctx.mesh, g, rest)
+            g = all_reduce(ctx.mesh, g, rest, site="boundary")
         return _global(ctx.mesh, g, ctx.spec), None, None
 
 

@@ -5,13 +5,13 @@ from .config import (  # noqa: F401
     ModelConfig, ShapeConfig, shapes_for,
 )
 from .convert import (  # noqa: F401
-    params_from_reference, params_to_reference, train_state_from_reference,
-    train_state_to_reference,
+    model_from_tree, params_from_reference, params_to_reference,
+    train_state_from_reference, train_state_to_reference,
 )
 from .model import (  # noqa: F401
-    bind_grads, cache_logical_axes, count_active_params, count_params,
-    decode_step, forward, init_cache, init_params, logical_axes, loss_fn,
-    model_flops, model_spec, prefill, train_forward,
+    bind_grads, cache_logical_axes, cache_spec, count_active_params,
+    count_params, decode_step, forward, init_cache, init_params,
+    logical_axes, loss_fn, model_flops, model_spec, prefill, train_forward,
 )
 from .mamba2 import Mamba2  # noqa: F401
 from .rglru import RecurrentGemma  # noqa: F401

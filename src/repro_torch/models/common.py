@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._guards import detect_fake_mode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
@@ -163,13 +164,29 @@ def rmsnorm(cfg: ModelConfig, w, x):
 
 
 @functools.lru_cache(maxsize=None)
-def _rope_freqs(dh: int, theta: float, device: torch.device) -> torch.Tensor:
-    """The reference's float32 RoPE frequencies (computed in numpy), on
-    ``device``.  Kept per device: a host-to-device copy on every call
-    waits for the stream and stalls the launch queue twice a layer."""
+def _rope_freqs_np(dh: int, theta: float) -> np.ndarray:
+    """The reference's float32 RoPE frequencies, computed in numpy."""
     half = dh // 2
-    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / dh))
-    return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+    return np.asarray(
+        1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / dh)),
+        np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(dh: int, theta: float,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_rope_freqs_np(dh, theta)).to(device)
+
+
+def _rope_freqs(dh: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The RoPE frequencies on ``device``.  Real tensors are kept per
+    device: a host-to-device copy on every call waits for the stream and
+    stalls the launch queue twice a layer.  Under a fake mode (the dry
+    run's trace) the tensor is made anew: a fake tensor kept past its
+    trace would poison every later call, real or fake."""
+    if detect_fake_mode() is not None:
+        return torch.from_numpy(_rope_freqs_np(dh, theta)).to(device)
+    return _rope_freqs_on(dh, theta, device)
 
 
 def rope(x, positions, theta: float):
@@ -414,12 +431,29 @@ def _remat_on(cfg: ModelConfig) -> bool:
     return remat_policy(cfg) is not None and torch.is_grad_enabled()
 
 
+def _checkpoint(fn, *args):
+    """``torch.utils.checkpoint`` of ``fn(*args)`` whose recompute runs
+    under the forward's sharding context: the autograd engine recomputes
+    a CUDA tensor's region on a device thread of its own, which starts
+    with an empty Python context (no :func:`axis_rules`, so no ring
+    attention or expert parallelism, and other shapes)."""
+    from repro_torch.distributed import ctx as dctx
+    c = dctx.current()
+    if c is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def under_rules(*a):
+        with dctx.axis_rules(*c):
+            return fn(*a)
+    return checkpoint(under_rules, *args, use_reentrant=False)
+
+
 def maybe_checkpoint(cfg: ModelConfig, fn):
     """``fn`` checkpointed (recomputed in the backward) when remat is on
     and a gradient is being recorded, else ``fn`` itself."""
     if not _remat_on(cfg):
         return fn
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(_checkpoint, fn)
 
 
 def stacked_apply(cfg: ModelConfig, body, x, layers):
@@ -449,8 +483,7 @@ def stacked_apply(cfg: ModelConfig, body, x, layers):
         return run(inner, x, layers)
     ys = []
     for i0 in range(0, n, block):
-        x, yb = checkpoint(run, inner, x, layers[i0:i0 + block],
-                           use_reentrant=False)
+        x, yb = _checkpoint(run, inner, x, layers[i0:i0 + block])
         ys.extend(yb)
     return x, ys
 

@@ -57,9 +57,16 @@ def params_from_reference(cfg: ModelConfig, tree, *, device=DEFAULT_DEVICE):
         for key in path[:-1]:
             dst = dst.setdefault(key, {})
         dst[path[-1]] = _tensor(node, dev)
+    return model_from_tree(cfg, out)
+
+
+def model_from_tree(cfg: ModelConfig, tree: dict):
+    """The family's module (:class:`Transformer`, :class:`Mamba2` or
+    :class:`RecurrentGemma`) over a reference-layout tree of tensors; its
+    parameters are views of the tree's leaves, no copy."""
     if cfg.family not in _CLASSES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    return _CLASSES[cfg.family](cfg, out)
+    return _CLASSES[cfg.family](cfg, tree)
 
 
 def _tree(cfg: ModelConfig, tree, dev) -> dict:

@@ -8,6 +8,7 @@
     loss_fn(cfg, params, batch)           -> (loss, {"nll", "aux"})
     bind_grads(cfg, params)               -> stacked gradient buffers
     init_cache / prefill / decode_step    -> serving entry points
+    cache_spec(cfg, batch, max_seq)       -> init_cache's tree on "meta"
     count_params(cfg)                     -> exact (spec tree, no alloc)
     logical_axes / cache_logical_axes     -> the trees' logical axis
                                              tuples (distributed.sharding)
@@ -127,6 +128,12 @@ def bind_grads(cfg: ModelConfig, params) -> dict:
     for p, g in pairs:
         p.grad = g.detach()
     return grads
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int):
+    """The decode cache's shapes and dtypes, shaped as ``init_cache``'s
+    tree: tensors on the ``meta`` device (nothing is allocated)."""
+    return _module(cfg).cache_spec(cfg, batch, max_seq)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

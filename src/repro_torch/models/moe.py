@@ -87,6 +87,15 @@ def route(cfg: ModelConfig, p, xf) -> tuple:
                         _capacity(cfg, xf.shape[0]))
 
 
+def _count(idx, n: int):
+    """How often each of ``0 .. n - 1`` occurs in ``idx`` (int64), as
+    ``torch.bincount(idx, minlength=n)`` for indices below ``n``, but with
+    a shape that does not depend on the values, so that a fake-tensor
+    trace (the dry run) can follow it."""
+    return torch.zeros(n, dtype=torch.long, device=idx.device).scatter_add_(
+        0, idx.long(), torch.ones_like(idx, dtype=torch.long))
+
+
 def route_logits(cfg: ModelConfig, logits, cap: int) -> tuple:
     """Top-k, aux loss and sort-based dispatch of T tokens' router
     ``logits`` (T, E) into ``cap`` slots an expert: ``(Routing, aux)``."""
@@ -102,13 +111,13 @@ def route_logits(cfg: ModelConfig, logits, cap: int) -> tuple:
 
     # Aux load-balancing loss (Switch-style): E * sum_e f_e * p_e.
     me = probs.mean(0)                                         # (E,)
-    fe = torch.bincount(expert_idx[:, 0], minlength=E).float() / T
+    fe = _count(expert_idx[:, 0], E).float() / T
     aux = E * torch.sum(me * fe)
 
     flat_e = expert_idx.reshape(-1)                            # (T*k,)
     order = torch.argsort(flat_e, stable=True)
     e_s = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)               # (E,)
+    counts = _count(flat_e, E)                                 # (E,)
     starts = torch.cumsum(counts, 0) - counts                  # exclusive
     rank = torch.arange(T * k, device=logits.device) - starts[e_s]
     Et = E + cfg.moe_expert_pad

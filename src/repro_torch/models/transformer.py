@@ -238,6 +238,12 @@ def cache_logical_axes(cfg: ModelConfig):
     return {"k": axes, "v": axes}
 
 
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """:func:`init_cache`'s shapes and dtypes with no allocation: the same
+    tree of tensors on the ``meta`` device."""
+    return init_cache(cfg, batch, max_seq, device="meta")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device=DEFAULT_DEVICE) -> dict:
     """Zero KV cache ``{"k", "v"}``, each (L, B, K, S, Dh) in ``cfg.dtype``."""

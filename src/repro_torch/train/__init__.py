@@ -1,2 +1,4 @@
 """Training: the port of ``repro.train`` (the train step and its state)."""
-from .step import TrainState, make_train_step  # noqa: F401
+from .step import (  # noqa: F401
+    TrainState, make_train_step, state_logical_axes, state_spec,
+)

@@ -13,9 +13,10 @@ and ``opt`` in place; it returns the state with ``step + 1`` and the
 metrics ``loss``, ``nll``, ``aux``, ``grad_norm`` and ``lr`` (0-d
 tensors).  On a card every family's gradient runs hand-written backward
 kernels: attention (D 16-256, with windows) and RMSNorm, and for the
-ssm and hybrid families the SSD scan's and the linear recurrence's.  The
-reference's ``state_spec`` / ``state_logical_axes`` (shardings for the
-dry run) wait for ROADMAP queue 1, item 9.
+ssm and hybrid families the SSD scan's and the linear recurrence's.
+:func:`state_spec` and :func:`state_logical_axes` give the state's
+shapes (on the ``meta`` device) and logical axes in the reference's
+stacked layout, for the dry run (:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch import nn
 
 from repro_torch import models as M
 from repro_torch.core.torch_device import DEFAULT_DEVICE
+from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.utils.tree import tree_flatten, tree_leaves
@@ -84,6 +86,35 @@ class TrainState:
         numpy int32)."""
         return {"params": self.params.param_tree(), "opt": self.opt,
                 "step": np.asarray(self.step, np.int32)}
+
+
+def _spec_tree(cfg: ModelConfig, dtype: torch.dtype) -> dict:
+    out: dict = {}
+    for path, p in cm.spec_leaves(M.model_spec(cfg)):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.empty(p.shape, dtype=dtype, device="meta")
+    return out
+
+
+def state_spec(cfg: ModelConfig) -> TrainState:
+    """The :class:`TrainState`'s shapes and dtypes with no allocation:
+    ``params`` (in ``cfg.param_dtype``) and ``opt = {"m", "v"}`` (float32)
+    as trees of tensors on the ``meta`` device in the reference's stacked
+    layout (not a module), and ``step`` a 0-d int32 meta tensor, as the
+    reference's ``ShapeDtypeStruct`` skeleton."""
+    return TrainState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        params=_spec_tree(cfg, cm.torch_dtype(cfg.param_dtype)),
+        opt={"m": _spec_tree(cfg, torch.float32),
+             "v": _spec_tree(cfg, torch.float32)})
+
+
+def state_logical_axes(cfg: ModelConfig) -> TrainState:
+    """The logical axes of :func:`state_spec`'s trees (``step`` None)."""
+    axes = M.logical_axes(cfg)
+    return TrainState(step=None, params=axes, opt={"m": axes, "v": axes})
 
 
 def _device_batch(batch: dict, device) -> dict:
