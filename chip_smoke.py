@@ -199,8 +199,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    (3 layers: 2 layers would hold no attention block) on 2,304 tokens;
 25. ``repro_torch.distributed`` on four ranks that share the card: four
    processes (``spawn``) on ``gloo`` with CUDA tensors (NCCL takes one
-   GPU a rank), float32 with TF32 off unless stated; each rank holds the
-   global tensors and cuts its block (``distributed.mesh.shard_map``).
+   GPU a rank), float32 with TF32 off unless stated; in 25a-25f each
+   rank holds the global tensors and cuts its block
+   (``distributed.mesh.shard_map``), in 25h only its blocks of the state.
    25a ring attention at qwen3-4b's attention shape (2 x 32/8 heads x
    4,096, D 128, causal) on meshes (1, 4) and (2, 2) ("data", "model")
    against the plain attention (``kernels.ref``) at 1e-4 on rank 0, its
@@ -219,8 +220,20 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    against the sequential stack's autograd on rank 0; 25f the
    error-feedback compressed psum (bf16, int8) over a pod axis of 4 on
    tinyllama-1.1b's embedding and one decoder layer's leaves against
-   ``compressed_psum_reference``, and 30 int8 steps' drift; then 25g a
-   world of one rank on NCCL (in a process of its own): 25a's shape on
+   ``compressed_psum_reference``, and 30 int8 steps' drift; 25h
+   tinyllama-1.1b at full width and depth trained three steps on (2, 2)
+   with rank-local state (``distributed.rank_local``: each rank holds only
+   its blocks of params, ``m`` and ``v``, 3,369,627,648 B, and gathers a
+   layer's weights where the step reads them) as phase 18 trains it (seed
+   0, N(0, 0.02), bfloat16 activations, remat full, 4 x 2,048 tokens
+   from ``TokenPipeline``, lr 3e-3 with 2 warmup steps), each step's
+   loss and gradient norm against phase 18's within ``RL_LOSS_REL`` and
+   ``RL_NORM_REL`` (step 3 is the first whose weights an update moved),
+   each rank's state bytes equal to its blocks', its launches exact, the
+   all-gathers' count and result bytes equal to
+   ``rank_local.forward_gathers``' arithmetic; it prints each rank's
+   state bytes and peak memory and the wall (gloo's host staging); then
+   25g a world of one rank on NCCL (in a process of its own): 25a's shape on
    a (1, 1) mesh and 25c's, against the plain results.  Each sub-phase
    prints its mesh, shapes, max error and tolerance, the largest peak
    memory of a rank and its wall time, which is gloo's on one shared
@@ -240,7 +253,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    traced peak against phase 18's, the useful-flop ratio and the step's
    compute share.  26b runs the CLI on tinyllama-1.1b train_4k (single,
    the (16, 16) mesh, one microbatch where the reference's cell takes 8:
-   its report is tagged ``mb1``), qwen2-moe-a2.7b decode_32k through its
+   its report is tagged ``mb1``; a rank holds its blocks of params, ``m``
+   and ``v`` and the global batch, ``TRAIN_4K_HELD`` bytes, held),
+   qwen2-moe-a2.7b decode_32k through its
    presets (``--optimized``) and tinyllama-1.1b decode_32k on the (2, 16,
    16) multi-pod mesh (512 ranks), under ``build/dryrun_torch``, and the
    roofline CLI over their reports; each cell's status, trace seconds,
@@ -477,6 +492,22 @@ EP_AUX_REL = 1e-5
 #: summation bound of its three bfloat16 additions, (n-1) u sum_i |q_i| / n
 #: with u = 2^-8 (plus 1e-6): gloo rounds each partial sum to bfloat16.
 EF_INT8_ATOL = 1e-4
+#: Phase 25h: tinyllama-1.1b's rank-local training on (2, 2) against phase
+#: 18's one-rank steps from the same seed, weights and batches, three steps.
+#: Step 1 runs at lr 0 (the warmup's first) and leaves the weights where
+#: they were, so steps 1 and 2 read phase 18's weights gathered, the same
+#: numbers: their losses are expected bit-equal, their gradient norms equal
+#: but for the order of the sum.  Step 3 reads the weights that step 2's
+#: update of the blocks moved (AdamW on the m and v blocks, written in
+#: place through the gradient blocks, the clip scale from
+#: rank_local.global_norm).  The card read all three losses bit-equal and
+#: the norms within 8.2e-08 (NVIDIA H100 80GB HBM3, 700 W): every step is
+#: held to these
+RL_STEPS = 3
+RL_LOSS_REL = 1e-6
+RL_NORM_REL = 1e-6
+#: 25h's batch (phase 18's): global batch, sequence length
+RL_BATCH = (4, 2048)
 
 
 def fail(msg: str) -> None:
@@ -791,9 +822,10 @@ def _decode_inputs():
             for shape in ((b, k, rep, d), (b, k, s, d), (b, k, s, d))]
 
 
-def phase25_rank(rank, report):
-    """One of phase 25's four gloo ranks on the shared card (25a-25f);
-    returns its kernel launches and rank 0 its numbers."""
+def phase25_rank(rank, report, p18):
+    """One of phase 25's four gloo ranks on the shared card (25a-25f, and
+    25h against phase 18's numbers ``p18``); returns its kernel launches
+    and rank 0 its numbers."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1030,7 +1062,8 @@ def phase25_rank(rank, report):
     rows["25d"] = dict(err=err, dropped=drop_ep, aux_ep=float(aux_ep),
                        aux_halves=aux_halves, aux_err=aux_err,
                        aux=float(aux_gs), wall_s=wall, peak_gb=peak_gb())
-    del params, l_gs, l_ep
+    # the loop's last layer views the stacked weights of both layers
+    del params, layer, l_gs, l_ep
     free()
 
     # -- 25e: GPipe over 4 stages of qwen3-4b's decoder block -----------------
@@ -1097,7 +1130,8 @@ def phase25_rank(rank, report):
             worst = max(worst, (e / max(gs, 1e-30), path))
         errs.append(f"gradients: largest err / max |grad| {worst[0]:.3e} "
                     f"({worst[1]})")
-        del flat, seq_leaves, outs, want
+        # h's graph holds the sequential stack's leaves and their grads
+        del flat, seq_leaves, outs, want, h, mb, got, ref_, g_want
     say(f"[25e] GPipe, mesh (4,) (pipe), 4 stages x 2 qwen3-4b decoder "
         f"layers at full width, float32, M 4 microbatches of 1 x 1,024: "
         f"{'; '.join(errs)} vs the sequential stack's autograd (tol "
@@ -1165,7 +1199,158 @@ def phase25_rank(rank, report):
     say(f"[25f] 30 int8 steps at scale 0.01 on a {tuple(d)} leaf: the "
         f"accumulated update's drift {rel:.4f} relative (< 0.2)")
     rows["25f drift"] = dict(rel=rel)
+    del steps, err, acc, true
+    free()
+
+    # -- 25h: tinyllama-1.1b training with rank-local state ------------------
+    rows["25h"] = phase25h(rank, say, run_counted, meshes[(2, 2)], rules,
+                           p18)
     return dict(launches=launched, rows=rows if rank == 0 else None)
+
+
+def phase25h(rank, say, run_counted, mesh, rules, p18) -> dict:
+    """Phase 25h on one of phase 25's ranks: tinyllama-1.1b at full width
+    and depth trained with rank-local state on ``mesh`` (each rank holds
+    its blocks of params, m and v, gathers a layer's weights where the
+    step reads them), as phase 18 trains it (seed 0, N(0, 0.02), bfloat16
+    activations, remat full, 4 x 2,048 tokens from TokenPipeline, lr 3e-3,
+    2 warmup steps of 8), ``RL_STEPS`` steps held against phase 18's
+    losses and gradient norms (``p18``), with exact kernel launches, each
+    rank's state bytes and peak, and the all-gather bytes against their
+    arithmetic."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import rank_local
+    from repro_torch.launch.dryrun import _sharded_bytes
+    from repro_torch.models import common as cm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (
+        make_train_step, state_logical_axes, state_spec)
+    from repro_torch.utils.comm_stats import record_collectives
+    from repro_torch.utils.tree import tree_leaves
+
+    cuda = torch.device(DIST_DEVICE)
+    cfg = get_config("tinyllama-1.1b")
+    L = cfg.num_layers
+    runs = cm.layer_forward_runs(cfg, L)
+    layout = rank_local.layout_for(cfg, mesh, rules)
+
+    def each_rank(x: float) -> list:
+        t = torch.tensor([x], device=cuda)
+        parts = [torch.empty_like(t) for _ in range(mesh.size)]
+        dist.all_gather(parts, t)
+        return [float(p) for p in parts]
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    # what a rank still holds from the sub-phases before (none expected)
+    held_before = each_rank(torch.cuda.memory_allocated() / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = rank_local.init_state(cfg, layout,
+                                  torch.Generator(cuda).manual_seed(0),
+                                  device=cuda, weight_std=INIT_STD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peaks = each_rank(torch.cuda.max_memory_allocated() / 1e9)
+    held = {}
+    for tensor in (list(state.params.parameters())
+                   + tree_leaves({"p": state.params.param_tree(),
+                                  "o": state.opt})):
+        st = tensor.untyped_storage()
+        held[st._cdata] = st.nbytes()
+    spec, axes = state_spec(cfg), state_logical_axes(cfg)
+    want_bytes = sum(_sharded_bytes(getattr(spec, k), getattr(axes, k),
+                                    mesh, rules) for k in ("params", "opt"))
+    state_bytes = each_rank(sum(held.values()))
+    _dist_need(all(b == want_bytes for b in state_bytes),
+               f"25h: state bytes a rank {state_bytes}, the blocks' "
+               f"{want_bytes}")
+    data = TokenPipeline(DataConfig(cfg.vocab_size, RL_BATCH[1],
+                                    RL_BATCH[0]))
+    step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=2,
+                                            total_steps=8))
+    per_step = {"rmsnorm": 2 * runs + 1, "rmsnorm_bwd": 2 * L + 1,
+                "flash_attention": runs, "flash_attention_bwd": L}
+    n_steps = RL_STEPS
+
+    def train():
+        nonlocal state
+        out = []
+        with record_collectives() as rec:
+            for _ in range(n_steps):
+                state, m = step(state, next(data))
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+        return out, rec.stats("state").as_dict()
+
+    (metrics, stats), wall = run_counted(
+        "25h", train, {k: n_steps * v for k, v in per_step.items()})
+    peaks = each_rank(torch.cuda.max_memory_allocated() / 1e9)
+    fwd = rank_local.forward_gathers(cfg, layout)
+    n_gather = runs * fwd["unit"][0] + fwd["rest"][0]
+    gather_bytes = runs * fwd["unit"][1] + fwd["rest"][1]
+    got_n = stats["count"]["all-gather"]
+    got_b = stats["result_bytes"]["all-gather"]
+    _dist_need(got_n == n_steps * n_gather and got_b == n_steps * gather_bytes,
+               f"25h: all-gathers {got_n} of {got_b:,.0f} B, the arithmetic "
+               f"{n_steps} x ({n_gather} of {gather_bytes:,} B)")
+    _dist_need(stats["count"]["all-reduce"] == n_steps,
+               f"25h: the norm's all-reduces {stats['count']}")
+    tols = [(RL_LOSS_REL, RL_NORM_REL)] * n_steps
+    errs = []
+    for i, (loss, norm) in enumerate(metrics):
+        want_l, want_n = p18["losses"][i], p18["grad_norms"][i]
+        errs.append(dict(loss=loss, loss18=want_l,
+                         loss_rel=abs(loss - want_l) / abs(want_l),
+                         norm=norm, norm18=want_n,
+                         norm_rel=abs(norm - want_n) / abs(want_n)))
+    gib = want_bytes / 1e9
+    say(f"[25h] tinyllama-1.1b at full width and depth "
+        f"({M.count_params(cfg):,} float32 parameters, seed 0, N(0, {INIT_STD})), "
+        f"bfloat16 activations, remat full, {RL_BATCH[0]} x "
+        f"{RL_BATCH[1]:,} tokens, rank-local state on mesh "
+        f"{tuple(mesh.shape.values())} (data, model): each rank holds "
+        f"{int(state_bytes[0]):,} B of params, m and v blocks ({gib:.3f} "
+        f"GB; every rank {[int(b) for b in state_bytes]}; the blocks' bytes "
+        f"from the specs {want_bytes:,}); init {init_s:.2f} s, init peaks "
+        f"{[round(p, 2) for p in init_peaks]} GB (the global parameters "
+        f"drawn on each rank, then cut), of which held from 25a-25f "
+        f"{[round(p, 3) for p in held_before]} GB")
+    for i, (e, (tol_l, tol_n)) in enumerate(zip(errs, tols)):
+        say(f"[25h] step {i + 1}{' (weights moved)' if i >= 2 else ''}: "
+            f"loss {e['loss']!r} vs phase 18's {e['loss18']!r} (rel "
+            f"{e['loss_rel']:.3e}, tol {tol_l}); grad norm {e['norm']!r} "
+            f"vs {e['norm18']!r} (rel {e['norm_rel']:.3e}, tol {tol_n})")
+    say(f"[25h] {n_steps} steps: peak memory a rank "
+        f"{[round(p, 2) for p in peaks]} GB (phase 18, one rank with the "
+        f"whole state: {p18['peak_gb']:.2f} GB); all-gathers {got_n} of "
+        f"{got_b:,.0f} result bytes a rank, the arithmetic {n_steps} x "
+        f"({n_gather} of {gather_bytes:,} B: each layer's sharded leaves "
+        f"once a layer forward, {runs} a step with the recomputes, and the "
+        f"embedding, final norm and head once) (held); the norm's "
+        f"all-reduces {stats['count']['all-reduce']}; launches a rank "
+        f"{n_steps} x {per_step} (held); wall {wall:.2f} s (gloo's host "
+        f"staging of the gathers on one shared card, not the link)")
+    for i, (e, (tol_l, tol_n)) in enumerate(zip(errs, tols)):
+        _dist_need(np.isfinite(e["loss"]) and e["loss_rel"] <= tol_l,
+                   f"25h: step {i + 1} loss {e['loss']!r} against phase "
+                   f"18's {e['loss18']!r}: rel {e['loss_rel']:.3e} > {tol_l}")
+        _dist_need(e["norm_rel"] <= tol_n,
+                   f"25h: step {i + 1} grad norm {e['norm']!r} against "
+                   f"phase 18's {e['norm18']!r}: rel {e['norm_rel']:.3e} > "
+                   f"{tol_n}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=errs, wall_s=wall, init_s=init_s, peaks_gb=peaks,
+                init_peaks_gb=init_peaks, held_before_gb=held_before,
+                state_bytes=state_bytes,
+                gathers=got_n, gather_bytes=got_b)
 
 
 def _leaf_paths(tree, prefix=""):
@@ -1219,11 +1404,12 @@ def phase25g_rank(rank, report):
     return dict(ring_err=err, decode_err=err_d)
 
 
-def phase25():
-    """Phase 25 from the parent: the four gloo ranks (25a-25f), then the
-    NCCL world of one (25g); returns the kernel launches of the ranks'
-    distributed runs, summed.  Fails the script when a rank fails, a
-    world hangs or a kernel of the path was never launched."""
+def phase25(p18: dict):
+    """Phase 25 from the parent: the four gloo ranks (25a-25f and 25h,
+    held against phase 18's numbers ``p18``), then the NCCL world of one
+    (25g); returns the kernel launches of the ranks' distributed runs,
+    summed.  Fails the script when a rank fails, a world hangs or a
+    kernel of the path was never launched."""
     from repro_torch.distributed import launch as dlaunch
     t = time.perf_counter()
 
@@ -1234,7 +1420,7 @@ def phase25():
     try:
         res = dlaunch.run(phase25_rank, 4, backend="gloo",
                           device=DIST_DEVICE, timeout=DIST_TIMEOUT,
-                          on_message=show)
+                          args=(p18,), on_message=show)
         dlaunch.run(phase25g_rank, 1, backend="nccl", device=DIST_DEVICE,
                     timeout=DIST_TIMEOUT, on_message=show)
     except (RuntimeError, TimeoutError) as e:
@@ -1345,6 +1531,14 @@ DRYRUN_CELLS = (
       "--mode", "full"], "multi"),
 )
 DRYRUN_TIMEOUT = 600
+#: Phase 26b: tinyllama-1.1b train_4k on (16, 16).  A rank holds its
+#: blocks of params (22,616,576 B) and of m and v (45,233,152 B), the
+#: 4-byte step and the global batch (256 x 4,096 int32, 4,194,304 B): a
+#: device's share under the shardings (XLA's argument_bytes) plus the
+#: batch's global bytes less its 1/16 share (3,932,160 B); the batch is
+#: not cut yet
+TRAIN_4K_HELD = 72_044_036
+TRAIN_4K_SHARDED = 68_111_876
 
 
 def run_dryruns(batch: int, seq: int) -> dict:
@@ -1511,6 +1705,21 @@ def phase26(card: str, p18: dict) -> dict:
                                       f"{cell['shape']} {cell['mesh']}: "
                                       f"{cell.get('error')}")
         m = cell["full"]["memory"]
+        if cell["shape"] == "train_4k":
+            check(m["argument_bytes"] == TRAIN_4K_HELD
+                  and m["sharded_argument_bytes"] == TRAIN_4K_SHARDED,
+                  f"phase 26b: {cell['arch']} train_4k argument_bytes "
+                  f"{m['argument_bytes']:,} (want {TRAIN_4K_HELD:,}), "
+                  f"sharded {m['sharded_argument_bytes']:,} (want "
+                  f"{TRAIN_4K_SHARDED:,})")
+            print(f"[26b] ({card}) {cell['arch']} train_4k on "
+                  f"{cell['mesh_shape']}: a rank holds {m['argument_bytes']:,}"
+                  f" B = its blocks of params, m and v 67,849,728 + the step "
+                  f"4 + the global 256 x 4,096 int32 batch 4,194,304 (held), "
+                  f"{m['argument_bytes'] / m['sharded_argument_bytes']:.4f}x "
+                  f"a device's share under the shardings "
+                  f"{m['sharded_argument_bytes']:,} (193.87x when every rank "
+                  f"held the whole state)")
         r = roofline.roofline_row(cell)
         print(f"[26b] ({card}) {cell['arch']} {cell['shape']} "
               f"{cell['mesh']} {cell['mesh_shape']}: {cell['status']}, "
@@ -3558,7 +3767,7 @@ def main() -> int:
         want = 8 * per_step18.get(k, 0)
         check(v == want, f"phase 18: {k} launched {v} times in 8 steps, "
                          f"want {want} ({per_step18} a step)")
-    losses18 = res18["losses"]
+    losses18, grad_norms18 = res18["losses"], res18["grad_norms"]
     check(len(losses18) == 8 and bool(np.isfinite(losses18).all()),
           f"phase 18: losses {losses18}")
     check(np.mean(losses18[-2:]) < np.mean(losses18[:2]),
@@ -4508,7 +4717,8 @@ def main() -> int:
     # -- phase 25: distributed/ on four ranks that share the card ------------
     gc.collect()
     torch.cuda.empty_cache()
-    got25 = phase25()
+    got25 = phase25(dict(losses=losses18[:RL_STEPS],
+                         grad_norms=grad_norms18[:RL_STEPS], peak_gb=peak18))
     for k, v in got25.items():
         launches[k] += v
     phase_counts["25"] = got25

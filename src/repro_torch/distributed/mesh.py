@@ -8,10 +8,15 @@ every set of its axes.  :func:`shard_map` runs a body the way
 ``jax.experimental.shard_map.shard_map`` does, with ranks in place of
 devices:
 
-* every rank holds the global (replicated) inputs, as the reference's
-  functions take global arrays;
+* the body's inputs are global tensors, as the reference's functions
+  take global arrays (a rank-local train state,
+  :mod:`repro_torch.distributed.rank_local`, stores only its blocks and
+  gathers a weight where the step reads it, so a body is handed the
+  gathered tensor);
 * each rank cuts its own block from them by its mesh coordinates and the
-  ``in_specs`` (:func:`cut`: a view, not a copy);
+  ``in_specs`` (:func:`cut`: a view, not a copy: it keeps the global
+  storage alive, so storing by blocks needs a copy,
+  :func:`repro_torch.distributed.rank_local.cut_block`);
 * the body runs on the blocks with the explicit collectives of
   :mod:`repro_torch.distributed.comm`;
 * each rank rebuilds the global outputs from the ``out_specs``

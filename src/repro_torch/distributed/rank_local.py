@@ -1,0 +1,363 @@
+"""Rank-local training state: each rank stores only its blocks.
+
+The reference trains on a mesh by handing ``jax.jit`` the state's
+shardings (``in_shardings`` / ``out_shardings`` from
+``tree_shardings_for(state_spec(cfg), state_logical_axes(cfg), mesh,
+rules)``): each device then stores only its block of every leaf of
+``params``, ``m`` and ``v``, and GSPMD inserts the all-gathers where a
+weight is used.  This module has no counterpart in ``repro``; it is that
+partitioner's work, written out for ``torch.distributed`` ranks:
+
+* :func:`shard_state` and :func:`init_state` give a
+  :class:`repro_torch.train.TrainState` whose parameter module, ``m`` and
+  ``v`` hold this rank's blocks under the specs (:class:`Layout`) as
+  contiguous copies that own their memory (:func:`cut_block`; a
+  ``mesh.cut`` view would keep the global storage alive).  The layers'
+  parameters stay views of the stacked blocks (``block[i]``: the
+  ``layers`` and ``layer_groups`` axes map to no mesh axis).  A leaf
+  whose spec is replicated is held whole.
+* Every parameter whose block is not the whole tensor reads as the
+  global tensor (``torch.nn.utils.parametrize``): each attribute access
+  runs :class:`_GatherBlock`, one all-gather over each sharded dim
+  (:func:`repro_torch.distributed.mesh.all_gather_dim`, recorded at the
+  ``"state"`` site of :mod:`repro_torch.utils.comm_stats`).  The model
+  code is unchanged: a layer's weights are gathered where its forward
+  reads them, inside its checkpointed region, so a remat recompute
+  gathers them again and the backward holds no gathered weight past its
+  layer (ZeRO-3's schedule); the ``embed`` group's where the forward
+  uses it (a tied embedding, read twice, is gathered twice).  Expert
+  parallelism and ring attention receive the gathered global tensor and
+  cut it in their ``shard_map`` as before.
+* The gather's backward is this rank's block of the cotangent, with no
+  collective: every rank computes the same global step on the same
+  global batch (cutting the batch over the data axes, and summing the
+  gradient over them, is not done yet), so every rank holds the same
+  cotangent.  The gather holds its mesh and spec itself and reads no
+  ambient context: a remat recompute may run on the autograd engine's
+  device thread, where no :func:`repro_torch.distributed.ctx.axis_rules`
+  is set.
+* :func:`global_norm` sums each element of the gradient once: each
+  leaf's sum of squares over its block, divided by the number of ranks
+  holding that block (a power of two, so the division is exact), summed
+  over leaves and all-reduced once over the world.
+* :func:`save` writes a checkpoint leaf by leaf through host memory:
+  each rank's block goes to rank 0's host, which assembles the global
+  leaf and writes the reference's layout, so a checkpoint from any world
+  restores into any other; :meth:`TrainState.load` cuts each rank's
+  block from a restored tree as a copy.
+
+Every rank calls these functions, and runs the step, in the same order:
+the gathers are collectives.  On a mesh where a spec spans no axis of
+more than one rank, nothing is parametrized and nothing is gathered: a
+1 x 1 mesh runs the one-rank step as it is.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.utils import parametrize
+
+from . import sharding as sh
+from .mesh import _axes, _local, all_gather_dim, all_reduce
+from .sharding import PartitionSpec
+
+
+@dataclasses.dataclass
+class Layout:
+    """Where a rank-local state's blocks lie: the mesh and the state's
+    spec tree (a :class:`repro_torch.train.TrainState` of
+    PartitionSpecs, as :func:`specs_for` gives it)."""
+
+    mesh: object
+    specs: object
+
+    def replicas(self, spec) -> int:
+        """The number of ranks holding the same block under ``spec``."""
+        return self.mesh.size // math.prod(
+            self.mesh.extent(e) for e in spec if e is not None)
+
+
+def specs_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES):
+    """The train state's specs, as the reference's ``in_shardings``
+    (``tree_shardings_for(state_spec(cfg), state_logical_axes(cfg), mesh,
+    rules)``, its registered dataclass mapped field by field): a
+    :class:`repro_torch.train.TrainState` of PartitionSpecs, the step
+    replicated."""
+    from repro_torch.train import TrainState, state_logical_axes, state_spec
+    spec, axes = state_spec(cfg), state_logical_axes(cfg)
+    return TrainState(step=PartitionSpec(), **{
+        k: sh.tree_shardings_for(getattr(spec, k), getattr(axes, k), mesh,
+                                 rules) for k in ("params", "opt")})
+
+
+def layout_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES) -> Layout:
+    return Layout(mesh, specs_for(cfg, mesh, rules))
+
+
+def layout_of(params) -> Optional[Layout]:
+    """The :class:`Layout` of a rank-local parameter module, None for a
+    module that holds the global tensors."""
+    return getattr(params, "rank_local_layout", None)
+
+
+def _pairs(tree, specs, prefix=()):
+    """``(path, leaf, spec)`` over a tree of dicts and its spec tree, in
+    :func:`repro_torch.utils.tree.tree_flatten`'s (sorted-key) order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _pairs(tree[k], specs[k], prefix + (k,))
+    else:
+        yield prefix, tree, specs
+
+
+def spec_leaves(tree, specs) -> list:
+    """The specs of ``tree``'s leaves, in
+    :func:`repro_torch.utils.tree.tree_leaves`' order."""
+    return [spec for _, _, spec in _pairs(tree, specs)]
+
+
+def _map(fn, tree, specs):
+    """``fn(leaf, spec)`` over the tree, leaf by leaf in sorted-key order
+    (every rank the same)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k], specs[k]) for k in sorted(tree)}
+    return fn(tree, specs)
+
+
+def _gathers(mesh, spec) -> bool:
+    return any(e is not None and mesh.extent(e) > 1 for e in spec)
+
+
+def block_shape(mesh, shape, spec) -> tuple:
+    """The shape of one rank's block of a ``shape`` tensor under
+    ``spec``."""
+    out = list(shape)
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            n = mesh.extent(axes)
+            if out[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                                 f"divide by mesh axes {_axes(axes)}")
+            out[dim] //= n
+    return tuple(out)
+
+
+def forward_gathers(cfg, layout: Layout) -> dict:
+    """The all-gathers one forward over a batch of tokens takes on a
+    rank-local state of ``cfg``, and their result bytes: ``{"unit": (n,
+    bytes), "rest": (n, bytes)}``, ``unit`` for one read of a layer's (or
+    a pattern group's) leaves, ``rest`` for the other leaves' reads.  A
+    read of a leaf gathers its block over each dim sharded over more than
+    one rank, in dim order, each result the block grown by the dims
+    gathered so far.  A forward reads each leaf once, but the tied
+    embedding (the table and the head: twice), the audio model's extra
+    codebook tables (once a codebook) and the VLM's patch projection
+    (read only with frontend inputs: never here).  A step reads a unit
+    once a unit forward, the remat recomputes included
+    (:func:`repro_torch.models.common.layer_forward_runs`)."""
+    from repro_torch.train import state_spec
+    mesh = layout.mesh
+    reads = {("embed", "embedding"): 2 if cfg.tie_embeddings else 1,
+             ("embed", "codebook_embed"): cfg.num_codebooks - 1,
+             ("embed", "patch_proj"): 0}
+    out = {"unit": [0, 0], "rest": [0, 0]}
+    for path, t, spec in _pairs(state_spec(cfg).params, layout.specs.params):
+        unit = path[0] in ("layers", "groups")
+        shape, spec = (t.shape[1:], spec[1:]) if unit else (t.shape, spec)
+        n = reads.get(path, 1)
+        block = list(block_shape(mesh, shape, spec))
+        tally = out["unit" if unit else "rest"]
+        for dim, axes in enumerate(spec):
+            if axes is not None and mesh.extent(axes) > 1:
+                block[dim] *= mesh.extent(axes)
+                tally[0] += n
+                tally[1] += n * math.prod(block) * t.element_size()
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def block_spec(tree, specs, mesh):
+    """``tree``'s tensors (meta or real) as ``meta`` tensors of their
+    blocks' shapes and dtypes: a rank's state with nothing allocated."""
+    return _map(lambda t, s: torch.empty(block_shape(mesh, t.shape, s),
+                                         dtype=t.dtype, device="meta"),
+                tree, specs)
+
+
+def cut_block(mesh, x: torch.Tensor, spec) -> torch.Tensor:
+    """This rank's block of the global ``x``, a contiguous copy that owns
+    its memory (a view would keep the global storage alive)."""
+    return _local(mesh, x.detach(), spec).clone(
+        memory_format=torch.contiguous_format)
+
+
+def cut_tree(tree, specs, mesh) -> dict:
+    """Every leaf's block (:func:`cut_block`), leaf by leaf: ``tree``'s
+    leaves are popped as they are cut, so a caller that holds no other
+    reference frees each global leaf before the next is cut."""
+    out = {}
+    for k in sorted(tree):
+        v = tree.pop(k)
+        out[k] = (cut_tree(v, specs[k], mesh) if isinstance(v, dict)
+                  else cut_block(mesh, v, specs[k]))
+        del v
+    return out
+
+
+class _GatherBlock(torch.autograd.Function):
+    """A block to its global tensor; the backward is this rank's block
+    of the cotangent (every rank holds the same one), no collective."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        x = block
+        for dim, axes in enumerate(spec):
+            if axes is not None and mesh.extent(axes) > 1:
+                x = all_gather_dim(mesh, x, axes, dim, site="state")
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _local(ctx.mesh, g, ctx.spec), None, None
+
+
+class _Gathered(nn.Module):
+    """The parametrization: a parameter's block read as the global
+    tensor."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        super().__init__()
+        self.mesh, self.spec = mesh, spec
+
+    def forward(self, block):
+        return _GatherBlock.apply(block, self.mesh, self.spec)
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+def model_from_blocks(cfg, blocks: dict, layout: Layout) -> nn.Module:
+    """The family's module over a tree of blocks (the parameters' part of
+    ``layout.specs``): its parameters are views of the blocks, and every
+    one whose spec spans more than one rank reads as the global tensor,
+    gathered at each access."""
+    from repro_torch import models as M
+    model = M.model_from_tree(cfg, blocks)
+    mesh = layout.mesh
+    leaf_spec = {_storage_key(leaf): (leaf, spec) for _, leaf, spec in
+                 _pairs(blocks, layout.specs.params)}
+    for mod in list(model.modules()):
+        for name, p in list(mod.named_parameters(recurse=False)):
+            leaf, spec = leaf_spec[_storage_key(p)]
+            if p.dim() < leaf.dim():        # a layer's view of the stack
+                spec = PartitionSpec(*spec[1:])
+            if _gathers(mesh, spec):
+                parametrize.register_parametrization(
+                    mod, name, _Gathered(mesh, spec), unsafe=True)
+    model.rank_local_layout = layout
+    return model
+
+
+def init_state(cfg, layout: Layout, generator=None, *, device,
+               weight_std: Optional[float] = None):
+    """A rank-local :class:`repro_torch.train.TrainState` at step 0: the
+    global parameters drawn from ``generator`` as
+    :func:`repro_torch.models.init_params` draws them (the same values
+    on every rank), cut to this rank's blocks leaf by leaf and freed;
+    ``m`` and ``v`` zero blocks."""
+    from repro_torch import models as M
+    from repro_torch.train import TrainState
+    tree = M.init_params(cfg, generator, device=device,
+                         weight_std=weight_std).param_tree()
+    blocks = cut_tree(tree, layout.specs.params, layout.mesh)
+    return TrainState.of(model_from_blocks(cfg, blocks, layout))
+
+
+def shard_state(cfg, state, layout: Layout):
+    """``state`` (global tensors) as a rank-local state: this rank's
+    blocks of the parameters, ``m`` and ``v`` as contiguous copies, the
+    same step.  The global tensors are freed once the caller drops
+    ``state``."""
+    from repro_torch.train import TrainState
+    mesh, specs = layout.mesh, layout.specs
+    blocks = _map(lambda t, s: cut_block(mesh, t, s),
+                  state.params.param_tree(), specs.params)
+    opt = {k: _map(lambda t, s: cut_block(mesh, t, s), state.opt[k],
+                   specs.opt[k]) for k in ("m", "v")}
+    return TrainState.of(model_from_blocks(cfg, blocks, layout),
+                         step=state.step, opt=opt)
+
+
+def global_norm(grads: dict, layout: Layout) -> torch.Tensor:
+    """The global norm of the gradient whose blocks ``grads`` holds
+    (the parameters' spec tree's shape): each element counted once."""
+    sums = [torch.sum(torch.square(g.float())) / layout.replicas(spec)
+            for _, g, spec in _pairs(grads, layout.specs.params)]
+    total = all_reduce(layout.mesh, torch.sum(torch.stack(sums)),
+                       layout.mesh.axis_names, site="state")
+    return torch.sqrt(total)
+
+
+def _gather_leaf(mesh, block: torch.Tensor, spec):
+    """The global leaf on rank 0's host from every rank's block; None on
+    the others."""
+    local = block.detach().cpu().contiguous()
+    parts = ([torch.empty_like(local) for _ in range(mesh.size)]
+             if mesh.rank == 0 else None)
+    dist.gather(local, parts, dst=0)
+    if mesh.rank != 0:
+        return None
+    shape = list(local.shape)
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            shape[dim] *= mesh.extent(axes)
+    out = torch.empty(shape, dtype=local.dtype)
+    for r, part in enumerate(parts):
+        coords = dict(zip(mesh.axis_names,
+                          np.unravel_index(r, mesh.ranks.shape)))
+        view = out
+        for dim, axes in enumerate(spec):
+            if axes is not None:
+                i = 0
+                for a in _axes(axes):
+                    i = i * mesh.shape[a] + int(coords[a])
+                view = view.narrow(dim, i * part.shape[dim], part.shape[dim])
+        view.copy_(part)
+    return out
+
+
+def host_tree(state) -> Optional[dict]:
+    """The rank-local ``state`` as a one-rank state holds it: ``{"params",
+    "opt", "step"}`` of global host tensors on rank 0 (None on the
+    others), gathered leaf by leaf through host memory, so that no leaf
+    is ever whole on a device.  Every rank calls it, in a world on
+    ``gloo`` (the host tensors' backend: ranks that share a card, or the
+    CPU's)."""
+    layout = layout_of(state.params)
+    mesh, specs = layout.mesh, layout.specs
+    gather = lambda t, s: _gather_leaf(mesh, t, s)             # noqa: E731
+    params = _map(gather, state.params.param_tree(), specs.params)
+    opt = {k: _map(gather, state.opt[k], specs.opt[k]) for k in ("m", "v")}
+    if mesh.rank != 0:
+        return None
+    return {"params": params, "opt": opt,
+            "step": np.asarray(state.step, np.int32)}
+
+
+def save(store, step: int, state):
+    """Save a rank-local ``state`` to ``store``
+    (:class:`repro_torch.runtime.ZonedCheckpointStore`): rank 0 writes the
+    files a one-rank save of the same state writes; returns its
+    ``store.save`` result there, None on the other ranks.  Every rank
+    calls it."""
+    tree = host_tree(state)
+    out = store.save(step, tree) if tree is not None else None
+    dist.barrier()
+    return out

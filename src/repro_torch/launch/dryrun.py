@@ -23,19 +23,25 @@ What :func:`analyze` reports, all of it from rank 0's trace:
 * ``bytes_accessed``: the sum over the trace's ops of their input and
   output bytes (views, allocations and collectives move none);
 * ``memory.argument_bytes``: the bytes rank 0 holds as the step's inputs.
-  Every rank of the port holds the global tensors, so this is the whole
-  state; ``memory.sharded_argument_bytes`` is what a device holds under
-  the cell's shardings (``tree_shardings_for``), which is XLA's
-  ``argument_bytes``.  The gap is the memory that rank-local storage
-  has to cut;
+  The parameters (and a train step's ``m`` and ``v``) are rank 0's
+  blocks under the cell's shardings
+  (:mod:`repro_torch.distributed.rank_local`: fake blocks, each weight
+  gathered where the step reads it); the batch, and a decode cell's
+  cache, tokens and position, are held whole: a rank computes the
+  global step.  ``memory.sharded_argument_bytes`` is what a device
+  holds under the shardings (``tree_shardings_for``), which is XLA's
+  ``argument_bytes``; the gap is the inputs' global bytes less their
+  share;
 * ``memory.temp_bytes``: the traced peak of live bytes less those held
-  at entry; ``output_bytes`` and ``alias_bytes`` (outputs that share an
-  input's storage: the state updated in place);
+  at entry, the gathered weights among them; ``output_bytes`` and
+  ``alias_bytes`` (outputs that share an input's storage: the state
+  updated in place);
 * ``collectives``: :mod:`repro_torch.utils.comm_stats`, fed by the
   port's collective layer.
 
-Since every rank computes the global step outside ``shard_map`` bodies,
-rank 0's flops and bytes are the global step's, not a 1/chips share.
+Since every rank computes the global step on the global batch outside
+``shard_map`` bodies, rank 0's flops and bytes are the global step's,
+not a 1/chips share.
 
 ``--mode fit`` keeps the reference's affine extrapolation in depth
 (:func:`run_fit`).  torch traces the layer loop whole, so ``full`` is
@@ -76,6 +82,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch import models as M
 from repro_torch.configs import get_config
+from repro_torch.distributed import rank_local
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.ctx import axis_rules
 from repro_torch.launch import specs as SP
@@ -87,6 +94,7 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.serve import make_prefill_step, make_serve_step
 from repro_torch.train import (
     TrainState, make_train_step, state_logical_axes, state_spec)
+from repro_torch.utils import comm_stats
 from repro_torch.utils.comm_stats import record_collectives
 
 #: Where the fake tensors claim to live: the card where torch is built
@@ -238,7 +246,7 @@ def _fake(tree, dev):
 def _inputs(cfg, shape, st):
     """``(meta trees, their logical axes)`` of the cell's step inputs, as
     pairs (for the argument bytes), in the step's argument order; ``st``
-    is :func:`state_spec`'s."""
+    is :func:`state_spec`'s (global shapes)."""
     st_ax = state_logical_axes(cfg)
     if shape.kind == "train":
         return [(st.params, st_ax.params), (st.opt, st_ax.opt),
@@ -250,6 +258,15 @@ def _inputs(cfg, shape, st):
     d, d_ax = SP.decode_specs(cfg, shape), SP.decode_logical_axes(cfg)
     return [(st.params, st_ax.params), (d["cache"], d_ax["cache"]),
             (d["tokens"], d_ax["tokens"]), (d["pos"], None)]
+
+
+def _held_bytes(cfg, shape, st, blocks) -> int:
+    """The bytes rank 0 holds as the step's inputs: the state's blocks
+    (``blocks``, :func:`rank_local.block_spec`'s ``TrainState``), the
+    rest whole."""
+    held = [blocks.params] + ([blocks.opt] if shape.kind == "train" else [])
+    held += [tree for tree, _ in _inputs(cfg, shape, st)[len(held):]]
+    return sum(t.nbytes for tree in held for t in _leaves(tree))
 
 
 def _check_recorded(rec, meter) -> None:
@@ -271,15 +288,22 @@ def lower_cell(cfg, shape, mesh, args):
     from torch._subclasses.fake_tensor import FakeTensorMode
     rules = _rules_for(mesh, args)
     st = state_spec(cfg)
+    layout = rank_local.layout_for(cfg, mesh, rules)
+    blocks = TrainState(
+        step=st.step,
+        params=rank_local.block_spec(st.params, layout.specs.params, mesh),
+        opt={k: rank_local.block_spec(st.opt[k], layout.specs.opt[k], mesh)
+             for k in ("m", "v")})
     pairs = _inputs(cfg, shape, st)
-    arg_bytes = sum(t.nbytes for tree, _ in pairs for t in _leaves(tree))
+    arg_bytes = _held_bytes(cfg, shape, st, blocks)
     sharded = sum(_sharded_bytes(tree, ax, mesh, rules) for tree, ax in pairs)
     dev = TRACE_DEVICE
     t0 = time.perf_counter()
     with FakeTensorMode():
-        params = M.model_from_tree(cfg, _fake(st.params, dev))
+        params = rank_local.model_from_blocks(
+            cfg, _fake(blocks.params, dev), layout)
         if shape.kind == "train":
-            state = TrainState.of(params, opt=_fake(st.opt, dev))
+            state = TrainState.of(params, opt=_fake(blocks.opt, dev))
             batch = _fake(SP.batch_specs(cfg, shape), dev)
             step = make_train_step(cfg, AdamWConfig(),
                                    microbatches=args.microbatches)
@@ -344,7 +368,7 @@ def analyze(trace: Trace) -> dict:
         "bytes_accessed": trace.bytes_accessed,
         "collectives": rec.stats().as_dict(),
         "collectives_by_site": {s: rec.stats(s).as_dict()
-                                for s in ("body", "boundary")},
+                                for s in comm_stats.SITES},
         "trace_device": TRACE_DEVICE,
     }
 
@@ -517,8 +541,9 @@ def main(argv=None) -> dict:
         held, sharded = mem["argument_bytes"], mem["sharded_argument_bytes"]
         per_dev = (held + mem["temp_bytes"]) / 2**30
         extra = (f" mem/dev={per_dev:.2f}GiB trace={res['full']['trace_s']:.1f}s"
-                 f" argument_bytes={held} (held by a rank: the global"
-                 f" inputs) sharded_argument_bytes={sharded} (a device's"
+                 f" argument_bytes={held} (held by a rank: its state"
+                 f" blocks, the other inputs whole)"
+                 f" sharded_argument_bytes={sharded} (a device's"
                  f" under the shardings) gap={held - sharded}"
                  f" ({held / max(sharded, 1):.2f}x)")
     print(f"[dryrun] {args.arch} {args.shape} {args.mesh}: {status}{extra}")

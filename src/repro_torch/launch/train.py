@@ -57,8 +57,9 @@ def build(args):
 
 
 def main(argv=None) -> dict:
-    """Runs the driver; returns ``{"state", "losses", "steps",
-    "seconds"}`` (``steps``: those run here, after any restore)."""
+    """Runs the driver; returns ``{"state", "losses", "grad_norms",
+    "steps", "seconds"}`` (``steps``: those run here, after any
+    restore)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true")
@@ -104,11 +105,12 @@ def main(argv=None) -> dict:
 
     budget = RestartBudget()      # noqa: F841 (the reference's policy)
     t0 = t_start = time.time()
-    losses = []
+    losses, grad_norms = [], []
     start_step = state.step
     for i in range(start_step, args.steps):
         state, metrics = step_fn(state, next(data))
         losses.append(float(metrics["loss"]))
+        grad_norms.append(float(metrics["grad_norm"]))
         if (i + 1) % args.log_every == 0:
             tps = dcfg.seq_len * dcfg.global_batch * args.log_every \
                 / (time.time() - t0)
@@ -126,8 +128,8 @@ def main(argv=None) -> dict:
     if losses:
         print(f"[train] done: first-5 loss {np.mean(losses[:5]):.4f} -> "
               f"last-5 {np.mean(losses[-5:]):.4f}")
-    return {"state": state, "losses": losses, "steps": len(losses),
-            "seconds": seconds}
+    return {"state": state, "losses": losses, "grad_norms": grad_norms,
+            "steps": len(losses), "seconds": seconds}
 
 
 if __name__ == "__main__":

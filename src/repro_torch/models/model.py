@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.torch_device import DEFAULT_DEVICE
+from repro_torch.utils.tree import tree_leaves
 from . import common as cm
 from . import mamba2, rglru, specs, transformer
 from .config import ModelConfig
@@ -113,20 +114,29 @@ def bind_grads(cfg: ModelConfig, params) -> dict:
     in the parameters' dtypes), with every parameter's ``.grad`` a view of
     them: a backward then accumulates each layer's gradient in place into
     its slice, and the tree is the gradient tree of
-    ``params.param_tree()`` with no copy."""
+    ``params.param_tree()`` with no copy.  A parameter is paired with the
+    leaf whose storage it views (a rank-local module's parameters are its
+    blocks' views, :mod:`repro_torch.distributed.rank_local`, so its
+    buffers are block-sized)."""
+    del cfg
+    tree = params.param_tree()
+
     def zeros(node):
         return {k: zeros(v) if isinstance(v, dict) else torch.zeros_like(v)
                 for k, v in node.items()}
 
-    grads = zeros(params.param_tree())
-    twin = type(params)(cfg, grads)      # parameters that alias the buffers
-    pairs = list(zip(params.parameters(), twin.parameters()))
-    if len(pairs) != len(list(twin.parameters())) or any(
-            p.shape != g.shape for p, g in pairs):
-        raise ValueError("bind_grads: the gradient tree does not mirror the "
-                         "model's parameters")
-    for p, g in pairs:
-        p.grad = g.detach()
+    grads = zeros(tree)
+    leaves, bufs = tree_leaves(tree), tree_leaves(grads)
+    by_storage = {leaf.untyped_storage()._cdata: (leaf, g)
+                  for leaf, g in zip(leaves, bufs)}
+    for p in params.parameters():
+        pair = by_storage.get(p.untyped_storage()._cdata)
+        if pair is None:
+            raise ValueError("bind_grads: a parameter views no leaf of the "
+                             "model's parameter tree")
+        leaf, g = pair
+        p.grad = g.as_strided(p.shape, p.stride(), g.storage_offset()
+                              + p.storage_offset() - leaf.storage_offset())
     return grads
 
 

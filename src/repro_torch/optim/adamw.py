@@ -87,12 +87,17 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step):
+def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step, *,
+                 gnorm=None):
     """One AdamW step: clips ``grads`` by global norm, updates ``params``
     and ``opt_state`` (``{"m", "v"}``) in place and returns ``(params,
     opt_state, {"grad_norm", "lr"})``.  ``step`` is the number of steps
-    taken before this one."""
-    gnorm = global_norm(grads)
+    taken before this one.  ``gnorm``: the gradients' global norm when
+    the caller computed it (the blocks of a rank-local state sum across
+    ranks: :func:`repro_torch.distributed.rank_local.global_norm`); the
+    update itself is elementwise, so blocks update as the whole would."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     lr = schedule_lr(cfg, step)
     t = _f32(int(step) + 1)

@@ -17,6 +17,10 @@ ssm and hybrid families the SSD scan's and the linear recurrence's.
 :func:`state_spec` and :func:`state_logical_axes` give the state's
 shapes (on the ``meta`` device) and logical axes in the reference's
 stacked layout, for the dry run (:mod:`repro_torch.launch.dryrun`).
+A rank-local state (:mod:`repro_torch.distributed.rank_local`: each rank
+holds its blocks of ``params``, ``m`` and ``v``) runs the same step: its
+parameters read as the gathered global tensors, its gradients land in
+block-sized buffers, and its global norm sums across ranks.
 """
 from __future__ import annotations
 
@@ -64,26 +68,37 @@ class TrainState:
     def load(self, tree) -> "TrainState":
         """Copies a restored checkpoint tree (``{"params", "opt",
         "step"}`` of numpy arrays, bfloat16 leaves as 2-byte words) into
-        this state's tensors in place; returns the state."""
+        this state's tensors in place; returns the state.  A rank-local
+        state takes its blocks of the global leaves (copies)."""
+        from repro_torch.distributed import rank_local
+        from repro_torch.distributed.mesh import cut
         dst, _ = tree_flatten({"params": self.params.param_tree(),
                                "opt": self.opt})
         src, _ = tree_flatten({"params": tree["params"], "opt": tree["opt"]})
         if len(src) != len(dst):
             raise ValueError(f"checkpoint has {len(src)} leaves, the state "
                              f"{len(dst)}")
+        layout = rank_local.layout_of(self.params)
+        specs = ([None] * len(dst) if layout is None else
+                 rank_local.spec_leaves(
+                     {"params": self.params.param_tree(), "opt": self.opt},
+                     {"params": layout.specs.params,
+                      "opt": layout.specs.opt}))
         with torch.no_grad():
-            for d, s in zip(dst, src):
+            for d, s, spec in zip(dst, src, specs):
                 a = np.asarray(s)
                 t = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
                      if a.dtype.kind == "V" else torch.from_numpy(a))
-                d.copy_(t.reshape(d.shape))
+                d.copy_(t.reshape(d.shape) if spec is None else
+                        cut(layout.mesh, t, spec))
         self.step = int(np.asarray(tree["step"]))
         return self
 
     def tree(self) -> dict:
         """``{"params", "opt", "step"}`` as the reference's checkpoints
         hold them (the parameter and state tensors themselves, the step a
-        numpy int32)."""
+        numpy int32).  A rank-local state's tensors are its blocks: save
+        it with :func:`repro_torch.distributed.rank_local.save`."""
         return {"params": self.params.param_tree(), "opt": self.opt,
                 "step": np.asarray(self.step, np.int32)}
 
@@ -133,6 +148,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     last slice's metrics and the mean loss, as the reference's
     ``lax.scan`` does.
     """
+    from repro_torch.distributed import rank_local
+
     def train_step(state: TrainState, batch):
         model = state.params
         device = next(model.parameters()).device
@@ -159,11 +176,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             else:
                 loss, metrics = M.loss_fn(cfg, model, batch)
                 loss.backward()
+            layout = rank_local.layout_of(model)
+            gnorm = (None if layout is None
+                     else rank_local.global_norm(grads, layout))
             _, opt, opt_metrics = adamw_update(opt_cfg, model.param_tree(),
-                                               grads, state.opt, state.step)
+                                               grads, state.opt, state.step,
+                                               gnorm=gnorm)
         finally:
             for p in model.parameters():      # free the buffers
                 p.grad = None
+            # and at once, even where something keeps this frame alive
+            del grads
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(opt_metrics)
         metrics["loss"] = loss.detach()

@@ -29,7 +29,11 @@ Each record also carries its *site*: ``"body"`` for a collective of a
 ``shard_map`` body, ``"boundary"`` for the all-gathers and all-reduces
 at :func:`~repro_torch.distributed.mesh.shard_map`'s boundary, which
 exist because every rank holds the global tensors (an XLA program keeps
-its arrays sharded there and has no such collective).
+its arrays sharded there and has no such collective), and ``"state"``
+for those of a rank-local train state
+(:mod:`repro_torch.distributed.rank_local`: a weight's all-gathers where
+the step reads it, and the gradient norm's all-reduce), which GSPMD
+inserts into an XLA program of sharded state.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from typing import Optional
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
-SITES = ("body", "boundary")
+SITES = ("body", "boundary", "state")
 
 _WIRE_FACTOR = {
     "all-gather": 1.0,

@@ -42,23 +42,40 @@ def _keys(node: dict) -> list:
         else sorted(node)
 
 
+def _walk(node, leaves: list) -> TreeDef:
+    if node is None:
+        return TreeDef("none")
+    if isinstance(node, dict):
+        keys = _keys(node)
+        return TreeDef(type(node), tuple(keys),
+                       tuple(_walk(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return TreeDef(type(node), (), tuple(_walk(c, leaves) for c in node))
+    leaves.append(node)
+    return _LEAF
+
+
 def tree_flatten(tree) -> tuple:
-    """``(leaves, treedef)`` in ``jax.tree.flatten``'s leaf order."""
+    """``(leaves, treedef)`` in ``jax.tree.flatten``'s leaf order.  The
+    walk is a module-level function, not a closure that calls itself: such
+    a closure is a reference cycle, which would keep the leaves alive until
+    the garbage collector runs (a training step's gradient buffers past
+    the step's end)."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node) -> TreeDef:
-        if node is None:
-            return TreeDef("none")
-        if isinstance(node, dict):
-            keys = _keys(node)
-            return TreeDef(type(node), tuple(keys),
-                           tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return TreeDef(type(node), (), tuple(walk(c) for c in node))
-        leaves.append(node)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _build(d: TreeDef, it):
+    if d.kind == "leaf":
+        return next(it)
+    if d.kind == "none":
+        return None
+    vals = [_build(c, it) for c in d.children]
+    if issubclass(d.kind, dict):
+        return d.kind(zip(d.keys, vals))
+    if hasattr(d.kind, "_fields"):                     # a namedtuple
+        return d.kind(*vals)
+    return d.kind(vals)
 
 
 def tree_unflatten(treedef: TreeDef, leaves):
@@ -67,21 +84,7 @@ def tree_unflatten(treedef: TreeDef, leaves):
     if len(leaves) != treedef.num_leaves:
         raise ValueError(f"{len(leaves)} leaves for a tree of "
                          f"{treedef.num_leaves}")
-    it = iter(leaves)
-
-    def build(d: TreeDef):
-        if d.kind == "leaf":
-            return next(it)
-        if d.kind == "none":
-            return None
-        vals = [build(c) for c in d.children]
-        if issubclass(d.kind, dict):
-            return d.kind(zip(d.keys, vals))
-        if hasattr(d.kind, "_fields"):                 # a namedtuple
-            return d.kind(*vals)
-        return d.kind(vals)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> list:

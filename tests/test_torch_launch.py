@@ -435,6 +435,31 @@ def test_sharded_argument_bytes_equal_xla(ref):
         == DECODE_ARG_BYTES
 
 
+@pytest.mark.parametrize("name", [n for n, _, shp in SMALL
+                                  if shp[1] == "train"])
+def test_rank_local_argument_bytes_are_xla_s_and_the_batch_gap(ref, name):
+    """Rank 0 holds its blocks of params, m and v
+    (``distributed.rank_local``) and the whole batch (a rank computes the
+    global step): XLA's argument_bytes plus the batch's global bytes less
+    its share, to the byte; the blocks' gathers are recorded at the
+    "state" site, and nothing else gathers."""
+    from repro_torch.distributed.mesh import AbstractMesh
+    _, arch, shp = next(c for c in SMALL if c[0] == name)
+    cfg, sc = get_smoke_config(arch, kernel_impl="torch"), ShapeConfig(*shp)
+    got = _trace_small([(cfg, sc)])[0]
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    batch = SP.batch_specs(cfg, sc)
+    gap = sum(t.nbytes for t in batch.values()) - D._sharded_bytes(
+        batch, SP.batch_logical_axes(cfg), mesh, D._rules_for(mesh, _args()))
+    assert gap > 0
+    assert got["memory"]["argument_bytes"] == \
+        ref["memory"][name]["argument_bytes"] + gap
+    by_site = got["collectives_by_site"]
+    assert by_site["state"]["count"]["all-gather"] > 0
+    assert by_site["body"]["count"]["all-gather"] == 0
+    assert by_site["boundary"]["count"]["all-gather"] == 0
+
+
 def test_dryrun_cli_matches_reference(ref, tmp_path):
     """The acceptance command, on a CPU-only machine: 8 fake ranks, 2x4."""
     out = subprocess.run(
@@ -469,8 +494,16 @@ def test_dryrun_cli_matches_reference(ref, tmp_path):
           f"{got['full']['flops'] / (want['full']['flops'] * 8):.4f}")
     _model_ratio("tinyllama-1.1b", get_config("tinyllama-1.1b"),
                  SHAPES_BY_NAME["decode_32k"], got["full"]["flops"])
+    # the parameters are rank 0's blocks (distributed.rank_local), each
+    # gathered where the step reads it, at the "state" site, as XLA's
+    # program gathers its sharded weights; nothing else is collective
+    by_site = got["full"]["collectives_by_site"]
+    assert by_site["state"]["count"]["all-gather"] > 0
     for kind in COLLECTIVES:
-        assert got["full"]["collectives"]["count"][kind] == 0
+        assert by_site["body"]["count"][kind] == 0
+        assert by_site["boundary"]["count"][kind] == 0
+        if kind != "all-gather":
+            assert got["full"]["collectives"]["count"][kind] == 0
     long = D.run_cell("tinyllama-1.1b", "long_500k", "single", _args())
     assert long == ref["cells"]["long_500k"]
 
