@@ -80,27 +80,33 @@ def ppermute(mesh: Mesh, x: torch.Tensor, axis: str,
 
 class _PSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
-        return all_reduce(mesh, x, axes)
+    def forward(ctx, x, mesh, axes, site):
+        ctx.mesh, ctx.axes, ctx.site = mesh, axes, site
+        return all_reduce(mesh, x, axes, site=site)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(ctx.mesh, g, ctx.axes), None, None
+        return all_reduce(ctx.mesh, g, ctx.axes, site=ctx.site), None, None, \
+            None
 
 
-def psum(mesh: Mesh, x: torch.Tensor, axes) -> torch.Tensor:
-    """The sum of ``x`` over ``axes`` (a name or a tuple), on each rank."""
-    return _PSum.apply(x, mesh, axes)
+def psum(mesh: Mesh, x: torch.Tensor, axes, *,
+         site: str = "body") -> torch.Tensor:
+    """The sum of ``x`` over ``axes`` (a name or a tuple), on each rank.
+    ``site``: what :mod:`repro_torch.utils.comm_stats` records it as."""
+    return _PSum.apply(x, mesh, axes, site)
 
 
-def pmean(mesh: Mesh, x: torch.Tensor, axes) -> torch.Tensor:
-    return psum(mesh, x, axes) / mesh.extent(axes)
+def pmean(mesh: Mesh, x: torch.Tensor, axes, *,
+          site: str = "body") -> torch.Tensor:
+    return psum(mesh, x, axes, site=site) / mesh.extent(axes)
 
 
-def pmax(mesh: Mesh, x: torch.Tensor, axes) -> torch.Tensor:
+def pmax(mesh: Mesh, x: torch.Tensor, axes, *,
+         site: str = "body") -> torch.Tensor:
     """The maximum of ``x`` over ``axes``; carries no gradient."""
-    return all_reduce(mesh, x.detach(), axes, op=dist.ReduceOp.MAX)
+    return all_reduce(mesh, x.detach(), axes, op=dist.ReduceOp.MAX,
+                      site=site)
 
 
 def _tiled(mesh: Mesh, x: torch.Tensor, axis: str, split_axis: int,

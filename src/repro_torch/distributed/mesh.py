@@ -187,9 +187,26 @@ def _block(mesh: Mesh, dim_size: int, axes, what) -> tuple:
     return axis_index(mesh, axes) * size, size
 
 
-def _unmentioned(mesh: Mesh, spec) -> tuple:
-    used = {a for e in spec for a in _axes(e)}
+def _unmentioned(mesh: Mesh, spec, local=()) -> tuple:
+    used = {a for e in spec for a in _axes(e)} | set(local)
     return tuple(a for a in mesh.axis_names if a not in used)
+
+
+def _drop_local(spec, local) -> PartitionSpec:
+    """``spec`` without the entries over ``local``: the axes along which a
+    tensor is already this rank's block.  An entry that mixes local axes
+    with others is refused."""
+    out = []
+    for e in spec:
+        ax = set(_axes(e))
+        if ax and ax <= set(local):
+            out.append(None)
+        elif ax & set(local):
+            raise ValueError(f"spec entry {e!r} mixes the local axes "
+                             f"{tuple(local)} with others")
+        else:
+            out.append(e)
+    return PartitionSpec(*out)
 
 
 def _local(mesh: Mesh, x: torch.Tensor, spec) -> torch.Tensor:
@@ -213,6 +230,35 @@ def all_gather_dim(mesh: Mesh, x: torch.Tensor, axes, dim: int, *,
     return torch.cat([parts[r] for r in order], dim=dim)
 
 
+#: ``reduce_scatter_single`` where torch has it (it replaces the
+#: deprecated ``reduce_scatter_tensor``, the same collective)
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def reduce_scatter_dim(mesh: Mesh, x: torch.Tensor, axes, dim: int, *,
+                       site: str = "body"):
+    """``x`` summed over the ranks along ``axes`` and cut on ``dim``: this
+    rank's block of the sum, the block of its linear index along ``axes``
+    (the inverse of :func:`all_gather_dim`).  ``site``: what
+    :mod:`repro_torch.utils.comm_stats` records it as."""
+    pg, order = mesh.group(axes)
+    n = len(order)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce-scatter over {_axes(axes)} ({n} ranks): "
+                         f"dim {dim} of {tuple(x.shape)} does not divide")
+    # gloo takes the blocks concatenated on dim 0, in group-rank order
+    chunks = x.movedim(dim, 0).chunk(n, dim=0)
+    by_rank = [None] * n
+    for j, r in enumerate(order):
+        by_rank[r] = chunks[j]
+    send = torch.cat(by_rank)
+    out = torch.empty_like(by_rank[0], memory_format=torch.contiguous_format)
+    comm_stats.note("reduce-scatter", out.nbytes, n, site)
+    _reduce_scatter(out, send, group=pg)
+    return out.movedim(0, dim)
+
+
 def all_reduce(mesh: Mesh, x: torch.Tensor, axes, op=dist.ReduceOp.SUM, *,
                site: str = "body"):
     """``x`` reduced over ``axes`` (a new tensor)."""
@@ -232,66 +278,79 @@ def _global(mesh: Mesh, x: torch.Tensor, spec) -> torch.Tensor:
 
 class _Cut(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, spec):
-        ctx.mesh, ctx.spec = mesh, spec
+    def forward(ctx, x, mesh, spec, local):
+        ctx.mesh, ctx.spec, ctx.local = mesh, spec, local
         return _local(mesh, x, spec)
 
     @staticmethod
     def backward(ctx, g):
-        rest = _unmentioned(ctx.mesh, ctx.spec)
+        rest = _unmentioned(ctx.mesh, ctx.spec, ctx.local)
         if rest:
             g = all_reduce(ctx.mesh, g, rest, site="boundary")
-        return _global(ctx.mesh, g, ctx.spec), None, None
+        return _global(ctx.mesh, g, ctx.spec), None, None, None
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, spec):
-        ctx.mesh, ctx.spec = mesh, spec
+    def forward(ctx, x, mesh, spec, local):
+        ctx.mesh, ctx.spec, ctx.local = mesh, spec, local
         return _global(mesh, x, spec)
 
     @staticmethod
     def backward(ctx, g):
-        n = ctx.mesh.extent(_unmentioned(ctx.mesh, ctx.spec))
+        n = ctx.mesh.extent(_unmentioned(ctx.mesh, ctx.spec, ctx.local))
         g = _local(ctx.mesh, g, ctx.spec)
-        return (g / n if n > 1 else g), None, None
+        return (g / n if n > 1 else g), None, None, None
 
 
 def _spec(spec) -> PartitionSpec:
     return spec if isinstance(spec, PartitionSpec) else PartitionSpec(*spec)
 
 
-def cut(mesh: Mesh, x: torch.Tensor, spec) -> torch.Tensor:
-    """This rank's block of the global ``x`` under ``spec`` (a view)."""
+def cut(mesh: Mesh, x: torch.Tensor, spec, local=()) -> torch.Tensor:
+    """This rank's block of the global ``x`` under ``spec`` (a view).
+    ``local``: mesh axes along which ``x`` is this rank's block already
+    (its rows of a batch cut over them): not cut again, and its gradient
+    not summed over them."""
     spec = _spec(spec)
     if len(spec) > x.dim():
         raise ValueError(f"spec {spec} has more entries than x has dims "
                          f"({tuple(x.shape)})")
-    return _Cut.apply(x, mesh, spec)
+    local = tuple(local)
+    return _Cut.apply(x, mesh, _drop_local(spec, local), local)
 
 
-def gather(mesh: Mesh, x: torch.Tensor, spec) -> torch.Tensor:
-    """The global tensor whose blocks under ``spec`` the ranks hold."""
-    return _Gather.apply(x, mesh, _spec(spec))
+def gather(mesh: Mesh, x: torch.Tensor, spec, local=()) -> torch.Tensor:
+    """The global tensor whose blocks under ``spec`` the ranks hold; along
+    the ``local`` axes each rank keeps its own block (see :func:`cut`)."""
+    local = tuple(local)
+    return _Gather.apply(x, mesh, _drop_local(_spec(spec), local), local)
 
 
-def shard_map(body, mesh: Mesh, in_specs, out_specs):
+def shard_map(body, mesh: Mesh, in_specs, out_specs, *, local=()):
     """``body`` over this rank's blocks of global inputs, giving global
     outputs.  ``in_specs`` has one spec an argument (an argument that is
     not a tensor, such as a Python int, passes as it is); ``out_specs``
-    is one spec, or a tuple of them for a body returning a tuple."""
+    is one spec, or a tuple of them for a body returning a tuple.
+    ``local``: mesh axes along which the arguments and the outputs are
+    this rank's blocks already (a rank that holds only its rows of the
+    batch, :class:`repro_torch.distributed.ctx.RowCut`): the specs'
+    entries over them neither cut nor gather, and no gradient sums over
+    them."""
     def run(*args):
         if len(args) != len(in_specs):
             raise ValueError(f"{len(args)} arguments, {len(in_specs)} "
                              f"in_specs")
-        local = [cut(mesh, a, s) if isinstance(a, torch.Tensor) else a
-                 for a, s in zip(args, in_specs)]
-        out = body(*local)
+        local_args = [cut(mesh, a, s, local)
+                      if isinstance(a, torch.Tensor) else a
+                      for a, s in zip(args, in_specs)]
+        out = body(*local_args)
         if isinstance(out_specs, PartitionSpec):
-            return gather(mesh, out, out_specs)
+            return gather(mesh, out, out_specs, local)
         if len(out) != len(out_specs):
             raise ValueError(f"body returned {len(out)} outputs, "
                              f"{len(out_specs)} out_specs")
-        return tuple(gather(mesh, o, s) for o, s in zip(out, out_specs))
+        return tuple(gather(mesh, o, s, local)
+                     for o, s in zip(out, out_specs))
 
     return run

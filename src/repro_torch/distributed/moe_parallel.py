@@ -43,8 +43,15 @@ def moe_ffn_ep(cfg: ModelConfig, mesh: Mesh, p, x, *,
     sharded over ``data_axes`` and the experts (``p['w_*']``'s leading
     dim) over ``model_axis``.  Returns (y, aux) like
     :func:`repro_torch.models.moe.moe_ffn`; ``record``, when a list,
-    receives this rank's routing of its local tokens.
+    receives this rank's routing of its local tokens.  Where this rank
+    holds only its rows of the batch already (a
+    :class:`repro_torch.distributed.ctx.RowCut` on ``mesh``), x and y are
+    those rows: not cut again, not gathered back; the capacity a rank is
+    the same, its tokens' (the reference's per-shard capacity), and aux
+    still the mean over the data ranks.
     """
+    from .ctx import local_axes
+    local = local_axes(mesh)
     b, s, d = x.shape
     m = mesh.shape[model_axis]
     e = cfg.moe_num_experts
@@ -53,11 +60,12 @@ def moe_ffn_ep(cfg: ModelConfig, mesh: Mesh, p, x, *,
         raise ValueError(f"experts {e} + pad {cfg.moe_expert_pad} must "
                          f"divide EP degree {m}: set moe_expert_pad")
     ba = tuple(a for a in data_axes if a in mesh.axis_names)
-    n_data = math.prod(mesh.shape[a] for a in ba)
-    t_local = b * s // n_data
+    cut_here = tuple(a for a in ba if a not in local)
+    t_local = b * s // math.prod(mesh.shape[a] for a in cut_here)
     cap_local = max(int(math.ceil(t_local * cfg.moe_top_k / e
                                   * cfg.moe_capacity_factor)), 8)
-    b_spec = ba[0] if len(ba) == 1 else (ba if ba else None)
+    b_spec = (cut_here[0] if len(cut_here) == 1 else
+              (cut_here if cut_here else None))
 
     def body(x_l, router_l, wg_l, wu_l, wd_l):
         bl, sl, dl = x_l.shape
@@ -80,5 +88,5 @@ def moe_ffn_ep(cfg: ModelConfig, mesh: Mesh, p, x, *,
         body, mesh,
         in_specs=(PS(b_spec), PS(), PS(model_axis), PS(model_axis),
                   PS(model_axis)),
-        out_specs=(PS(b_spec), PS()),
+        out_specs=(PS(b_spec), PS()), local=local,
     )(x, p["router"].float(), p["w_gate"], p["w_up"], p["w_down"])

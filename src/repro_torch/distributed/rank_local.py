@@ -28,14 +28,33 @@ partitioner's work, written out for ``torch.distributed`` ranks:
   uses it (a tied embedding, read twice, is gathered twice).  Expert
   parallelism and ring attention receive the gathered global tensor and
   cut it in their ``shard_map`` as before.
-* The gather's backward is this rank's block of the cotangent, with no
-  collective: every rank computes the same global step on the same
-  global batch (cutting the batch over the data axes, and summing the
-  gradient over them, is not done yet), so every rank holds the same
-  cotangent.  The gather holds its mesh and spec itself and reads no
-  ambient context: a remat recompute may run on the autograd engine's
+* A rank computes only its rows of the batch, as GSPMD partitions the
+  reference's step with the batch on ``"data"``: :meth:`Layout.row_cut`
+  resolves the batch's specs (``tree_shardings_for`` of its shapes and
+  ``batch_logical_axes``, sanitized, so a batch that does not divide an
+  axis stays whole over it) and gives the mesh axes of more than one
+  rank that cut its rows (a :class:`repro_torch.distributed.ctx
+  .RowCut`); the train step cuts the rows before the copy to the device
+  and runs under it.  The loss is a mean over equal row blocks, so the
+  global gradient is the sum of the ranks' gradients over those axes
+  divided by their extent.
+* The gather's backward makes that sum (``"grad"`` site): it reads the
+  row axes from the current cut when the gather runs, then cuts the
+  dims sharded over axes where the rows are replicated (every rank there
+  holds the same cotangent), all-reduces over the row axes the weight is
+  not sharded on, and reduce-scatters each dim sharded over row axes
+  (:func:`repro_torch.distributed.mesh.reduce_scatter_dim`), so that
+  each rank keeps its block of the sum (:func:`_sum_plan`).  It sums
+  over exactly the row axes, never over an axis where the rows are
+  replicated, which would count those rows twice.  Outside a cut it is
+  this rank's block of the cotangent, with no collective.  The gather
+  holds its mesh, spec and row axes itself and reads no ambient context
+  in its backward: a remat recompute may run on the autograd engine's
   device thread, where no :func:`repro_torch.distributed.ctx.axis_rules`
   is set.
+* A leaf that is held whole (not parametrized) gathers nothing, so
+  :func:`sum_rows` all-reduces its gradient over the row axes after the
+  backward, leaf by leaf in the tree's order on every rank.
 * :func:`global_norm` sums each element of the gradient once: each
   leaf's sum of squares over its block, divided by the number of ranks
   holding that block (a power of two, so the division is exact), summed
@@ -64,7 +83,9 @@ from torch import nn
 from torch.nn.utils import parametrize
 
 from . import sharding as sh
-from .mesh import _axes, _local, all_gather_dim, all_reduce
+from .ctx import RowCut, local_axes, spanning
+from .mesh import (
+    _axes, _block, _local, all_gather_dim, all_reduce, reduce_scatter_dim)
 from .sharding import PartitionSpec
 
 
@@ -76,11 +97,48 @@ class Layout:
 
     mesh: object
     specs: object
+    rules: sh.Rules = sh.DEFAULT_RULES
 
     def replicas(self, spec) -> int:
         """The number of ranks holding the same block under ``spec``."""
         return self.mesh.size // math.prod(
             self.mesh.extent(e) for e in spec if e is not None)
+
+    def batch_specs(self, cfg, batch: dict, microbatches: int = 1) -> dict:
+        """The specs of a microbatch of the global ``batch`` (a dict of
+        arrays, as the train step takes it, split into ``microbatches``
+        slices of rows): ``tree_shardings_for`` of its shapes and the
+        reference's ``batch_logical_axes``, sanitized against them."""
+        from repro_torch.launch.specs import batch_logical_axes
+        axes = batch_logical_axes(cfg)
+        extra = set(batch) - set(axes)
+        if extra:
+            raise ValueError(f"batch keys {sorted(extra)} have no logical "
+                             f"axes (batch_logical_axes: {sorted(axes)})")
+        shapes = {}
+        for k, v in batch.items():
+            b = v.shape[0]
+            if b % microbatches:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{microbatches} microbatches")
+            shapes[k] = (b // microbatches,) + tuple(v.shape[1:])
+        return sh.tree_shardings_for(shapes, {k: axes[k] for k in batch},
+                                     self.mesh, self.rules)
+
+    def row_cut(self, cfg, batch: dict,
+                microbatches: int = 1) -> Optional[RowCut]:
+        """The rows this rank computes of each microbatch of the global
+        ``batch``: the mesh axes of more than one rank over which
+        :meth:`batch_specs` cuts every leaf's dim 0; None when none
+        does."""
+        specs = self.batch_specs(cfg, batch, microbatches)
+        rows = {spanning(self.mesh, s[0] if len(s) else None)
+                for s in specs.values()}
+        if len(rows) != 1:
+            raise ValueError(f"the batch's leaves cut their rows over "
+                             f"different axes: {specs}")
+        rows = rows.pop()
+        return RowCut(self.mesh, rows) if rows else None
 
 
 def specs_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES):
@@ -97,7 +155,7 @@ def specs_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES):
 
 
 def layout_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES) -> Layout:
-    return Layout(mesh, specs_for(cfg, mesh, rules))
+    return Layout(mesh, specs_for(cfg, mesh, rules), rules)
 
 
 def layout_of(params) -> Optional[Layout]:
@@ -148,6 +206,33 @@ def block_shape(mesh, shape, spec) -> tuple:
     return tuple(out)
 
 
+def _reads(cfg) -> dict:
+    """How often a forward reads a leaf, where not once: the tied
+    embedding (the table and the head: twice), the audio model's extra
+    codebook tables (once a codebook) and the VLM's patch projection (read
+    only with frontend inputs: never here)."""
+    return {("embed", "embedding"): 2 if cfg.tie_embeddings else 1,
+            ("embed", "codebook_embed"): cfg.num_codebooks - 1,
+            ("embed", "patch_proj"): 0}
+
+
+def _tally(cfg, layout: Layout, count) -> dict:
+    """``count(shape, spec, element size) -> (n, bytes)`` of one read of
+    each leaf (a unit's leaves without their stacked dim), times its
+    reads, summed as ``{"unit": (n, bytes), "rest": (n, bytes)}``."""
+    from repro_torch.train import state_spec
+    reads = _reads(cfg)
+    out = {"unit": [0, 0], "rest": [0, 0]}
+    for path, t, spec in _pairs(state_spec(cfg).params, layout.specs.params):
+        unit = path[0] in ("layers", "groups")
+        shape, spec = (t.shape[1:], spec[1:]) if unit else (t.shape, spec)
+        n, nbytes = count(tuple(shape), spec, t.element_size())
+        tally = out["unit" if unit else "rest"]
+        tally[0] += reads.get(path, 1) * n
+        tally[1] += reads.get(path, 1) * nbytes
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def forward_gathers(cfg, layout: Layout) -> dict:
     """The all-gathers one forward over a batch of tokens takes on a
     rank-local state of ``cfg``, and their result bytes: ``{"unit": (n,
@@ -155,30 +240,53 @@ def forward_gathers(cfg, layout: Layout) -> dict:
     a pattern group's) leaves, ``rest`` for the other leaves' reads.  A
     read of a leaf gathers its block over each dim sharded over more than
     one rank, in dim order, each result the block grown by the dims
-    gathered so far.  A forward reads each leaf once, but the tied
-    embedding (the table and the head: twice), the audio model's extra
-    codebook tables (once a codebook) and the VLM's patch projection
-    (read only with frontend inputs: never here).  A step reads a unit
-    once a unit forward, the remat recomputes included
+    gathered so far.  A forward reads each leaf once, but those of
+    :func:`_reads`.  A step reads a unit once a unit forward, the remat
+    recomputes included
     (:func:`repro_torch.models.common.layer_forward_runs`)."""
-    from repro_torch.train import state_spec
     mesh = layout.mesh
-    reads = {("embed", "embedding"): 2 if cfg.tie_embeddings else 1,
-             ("embed", "codebook_embed"): cfg.num_codebooks - 1,
-             ("embed", "patch_proj"): 0}
-    out = {"unit": [0, 0], "rest": [0, 0]}
-    for path, t, spec in _pairs(state_spec(cfg).params, layout.specs.params):
-        unit = path[0] in ("layers", "groups")
-        shape, spec = (t.shape[1:], spec[1:]) if unit else (t.shape, spec)
-        n = reads.get(path, 1)
+
+    def count(shape, spec, size):
         block = list(block_shape(mesh, shape, spec))
-        tally = out["unit" if unit else "rest"]
+        n = nbytes = 0
         for dim, axes in enumerate(spec):
             if axes is not None and mesh.extent(axes) > 1:
                 block[dim] *= mesh.extent(axes)
-                tally[0] += n
-                tally[1] += n * math.prod(block) * t.element_size()
-    return {k: tuple(v) for k, v in out.items()}
+                n += 1
+                nbytes += math.prod(block) * size
+        return n, nbytes
+    return _tally(cfg, layout, count)
+
+
+def backward_sums(cfg, layout: Layout, rows) -> dict:
+    """The gradient's sums over the row axes ``rows`` (``"grad"`` site)
+    that one backward over a forward of a rank-local state takes, and
+    their result bytes: ``{"unit": (n, bytes), "rest": (n, bytes)}`` of
+    the gathers' backwards, as :func:`forward_gathers` counts reads (a
+    read's backward runs once, the recomputes' none), and ``"whole"``:
+    :func:`sum_rows`' all-reduces of the leaves held whole, once a step.
+    A reduce-scatter's bytes are its result's, the block; an
+    all-reduce's its operand's."""
+    from repro_torch.train import state_spec
+    mesh = layout.mesh
+
+    def count(shape, spec, size):
+        if not _gathers(mesh, spec):
+            return 0, 0
+        shape, n, nbytes = list(shape), 0, 0
+        for kind, dim, axes in _sum_plan(mesh, spec, rows):
+            if kind != "all-reduce":
+                shape[dim] //= mesh.extent(axes)
+            if kind != "cut":
+                n += 1
+                nbytes += math.prod(shape) * size
+        return n, nbytes
+    out = _tally(cfg, layout, count)
+    whole = [t.nbytes for _, t, spec in _pairs(state_spec(cfg).params,
+                                               layout.specs.params)
+             if rows and not _gathers(mesh, spec)]
+    out["whole"] = (len(whole), sum(whole))
+    return out
 
 
 def block_spec(tree, specs, mesh):
@@ -209,13 +317,58 @@ def cut_tree(tree, specs, mesh) -> dict:
     return out
 
 
+def _sum_plan(mesh, spec, rows) -> list:
+    """The steps that turn a gathered weight's cotangent (the gradient of
+    this rank's rows) into this rank's block of its sum over the row axes
+    ``rows``: ``(kind, dim, axes)``, in order.  First ``"cut"`` each dim
+    sharded over axes where the rows are replicated (every rank along
+    them holds the same cotangent); then ``"all-reduce"`` over the row
+    axes the weight is not sharded on; then each dim sharded over row
+    axes: a ``"reduce-scatter"``, or, where its entry mixes row axes with
+    others, an all-reduce over its row axes and a cut.  Axes of one rank
+    take no step."""
+    rows = set(rows)
+    dims = [(dim, tuple(a for a in _axes(e) if mesh.shape[a] > 1))
+            for dim, e in enumerate(spec)]
+    steps = [("cut", dim, ax) for dim, ax in dims if ax and not rows & set(ax)]
+    used = {a for _, ax in dims for a in ax}
+    rest = tuple(a for a in mesh.axis_names if a in rows and a not in used)
+    if rest:
+        steps.append(("all-reduce", None, rest))
+    for dim, ax in dims:
+        if not rows & set(ax):
+            continue
+        if set(ax) <= rows:
+            steps.append(("reduce-scatter", dim, ax))
+        else:
+            steps += [("all-reduce", None,
+                       tuple(a for a in ax if a in rows)), ("cut", dim, ax)]
+    return steps
+
+
+def _sum_block(mesh, g, spec, rows):
+    """:func:`_sum_plan` run on the cotangent ``g``, divided by the row
+    blocks' number: this rank's block of the global gradient."""
+    for kind, dim, axes in _sum_plan(mesh, spec, rows):
+        if kind == "cut":
+            start, size = _block(mesh, g.shape[dim], axes, "cut")
+            g = g.narrow(dim, start, size)
+        elif kind == "all-reduce":
+            g = all_reduce(mesh, g, axes, site="grad")
+        else:
+            g = reduce_scatter_dim(mesh, g, axes, dim, site="grad")
+    return g / mesh.extent(tuple(rows))
+
+
 class _GatherBlock(torch.autograd.Function):
-    """A block to its global tensor; the backward is this rank's block
-    of the cotangent (every rank holds the same one), no collective."""
+    """A block to its global tensor; the backward is this rank's block of
+    the cotangent summed over the row axes ``rows`` (:func:`_sum_block`),
+    or with no row axes the block itself (every rank holds the same
+    cotangent), no collective."""
 
     @staticmethod
-    def forward(ctx, block, mesh, spec):
-        ctx.mesh, ctx.spec = mesh, spec
+    def forward(ctx, block, mesh, spec, rows):
+        ctx.mesh, ctx.spec, ctx.rows = mesh, spec, rows
         x = block
         for dim, axes in enumerate(spec):
             if axes is not None and mesh.extent(axes) > 1:
@@ -224,19 +377,23 @@ class _GatherBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _local(ctx.mesh, g, ctx.spec), None, None
+        if ctx.rows:
+            return _sum_block(ctx.mesh, g, ctx.spec, ctx.rows), None, None, \
+                None
+        return _local(ctx.mesh, g, ctx.spec), None, None, None
 
 
 class _Gathered(nn.Module):
     """The parametrization: a parameter's block read as the global
-    tensor."""
+    tensor, under the row cut current where it is read."""
 
     def __init__(self, mesh, spec: PartitionSpec):
         super().__init__()
         self.mesh, self.spec = mesh, spec
 
     def forward(self, block):
-        return _GatherBlock.apply(block, self.mesh, self.spec)
+        return _GatherBlock.apply(block, self.mesh, self.spec,
+                                  local_axes(self.mesh))
 
 
 def _storage_key(t: torch.Tensor) -> int:
@@ -293,6 +450,19 @@ def shard_state(cfg, state, layout: Layout):
                    specs.opt[k]) for k in ("m", "v")}
     return TrainState.of(model_from_blocks(cfg, blocks, layout),
                          step=state.step, opt=opt)
+
+
+def sum_rows(grads: dict, layout: Layout, cut: Optional[RowCut]) -> None:
+    """After the backward of a step on ``cut``'s rows: each gradient leaf
+    held whole (its parameter gathers nothing, so no backward summed it)
+    all-reduced over the row axes and divided by the row blocks' number,
+    in place, leaf by leaf in the tree's order on every rank."""
+    if cut is None or not cut.rows:
+        return
+    for _, g, spec in _pairs(grads, layout.specs.params):
+        if not _gathers(layout.mesh, spec):
+            g.copy_(all_reduce(layout.mesh, g, cut.rows, site="grad")
+                    / cut.n_rows)
 
 
 def global_norm(grads: dict, layout: Layout) -> torch.Tensor:

@@ -50,12 +50,18 @@ def ring_attention(mesh: Mesh, q, k, v, *, causal: bool = True,
                    batch_axes=("data",)):
     """q: (B, Hq, S, D), k/v: (B, Hkv, S, D), global.  Returns the global
     (B, Hq, S, D), computed with S sharded over ``seq_axis`` and B over
-    the ``batch_axes`` present in the mesh."""
+    the ``batch_axes`` present in the mesh.  Where this rank holds only
+    its rows of the batch already (a
+    :class:`repro_torch.distributed.ctx.RowCut` on ``mesh``), q, k, v and
+    the output are those rows: not cut again, not gathered back."""
+    from .ctx import local_axes
+    local = local_axes(mesh)
     n = mesh.shape[seq_axis]
     hq, d = q.shape[1], q.shape[3]
     rep = hq // k.shape[1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
-    ba = tuple(a for a in batch_axes if a in mesh.axis_names)
+    ba = tuple(a for a in batch_axes if a in mesh.axis_names
+               and a not in local)
     b_spec = ba[0] if len(ba) == 1 else (ba if ba else None)
 
     def body(q_l, k_l, v_l):
@@ -95,4 +101,4 @@ def ring_attention(mesh: Mesh, q, k, v, *, causal: bool = True,
 
     spec = PS(b_spec, None, seq_axis, None)
     return shard_map(body, mesh, in_specs=(spec, spec, spec),
-                     out_specs=spec)(q, k, v)
+                     out_specs=spec, local=local)(q, k, v)

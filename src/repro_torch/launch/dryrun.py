@@ -22,16 +22,18 @@ What :func:`analyze` reports, all of it from rank 0's trace:
   only; XLA also counts elementwise work);
 * ``bytes_accessed``: the sum over the trace's ops of their input and
   output bytes (views, allocations and collectives move none);
-* ``memory.argument_bytes``: the bytes rank 0 holds as the step's inputs.
-  The parameters (and a train step's ``m`` and ``v``) are rank 0's
-  blocks under the cell's shardings
+* ``memory.argument_bytes``: the bytes rank 0 holds on its device as
+  the step's inputs.  The parameters (and a train step's ``m`` and
+  ``v``) are rank 0's blocks under the cell's shardings
   (:mod:`repro_torch.distributed.rank_local`: fake blocks, each weight
-  gathered where the step reads it); the batch, and a decode cell's
-  cache, tokens and position, are held whole: a rank computes the
-  global step.  ``memory.sharded_argument_bytes`` is what a device
-  holds under the shardings (``tree_shardings_for``), which is XLA's
-  ``argument_bytes``; the gap is the inputs' global bytes less their
-  share;
+  gathered where the step reads it); a decode cell's cache is rank 0's
+  block (``cache_logical_axes``: rows over the data axes, slots over
+  ``cache_seq``'s); the batch and a decode cell's tokens are handed to
+  the step whole, as the reference's ``jit`` takes them, and the step
+  copies only rank 0's rows to the device, which is what counts; the
+  position is held whole.  ``memory.sharded_argument_bytes`` is what a
+  device holds under the shardings (``tree_shardings_for``), which is
+  XLA's ``argument_bytes``: the two are equal;
 * ``memory.temp_bytes``: the traced peak of live bytes less those held
   at entry, the gathered weights among them; ``output_bytes`` and
   ``alias_bytes`` (outputs that share an input's storage: the state
@@ -39,9 +41,12 @@ What :func:`analyze` reports, all of it from rank 0's trace:
 * ``collectives``: :mod:`repro_torch.utils.comm_stats`, fed by the
   port's collective layer.
 
-Since every rank computes the global step on the global batch outside
-``shard_map`` bodies, rank 0's flops and bytes are the global step's,
-not a 1/chips share.
+A rank computes only its rows of the batch (the train step's
+``Layout.row_cut``, the serve steps' ``serving_cut``), so rank 0's flops
+and bytes are the global step's divided by the data axes' extent where
+the batch divides them; the ranks along the ``model`` axis still compute
+the same rows (with the whole weights gathered), so they are not a
+1/chips share.
 
 ``--mode fit`` keeps the reference's affine extrapolation in depth
 (:func:`run_fit`).  torch traces the layer loop whole, so ``full`` is
@@ -92,6 +97,7 @@ from repro_torch.models.common import _auto_block
 from repro_torch.models.config import SHAPES_BY_NAME, shapes_for
 from repro_torch.optim import AdamWConfig
 from repro_torch.serve import make_prefill_step, make_serve_step
+from repro_torch.serve.step import cache_specs, serving_cut
 from repro_torch.train import (
     TrainState, make_train_step, state_logical_axes, state_spec)
 from repro_torch.utils import comm_stats
@@ -115,6 +121,7 @@ _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
 #: the c10d op that carries each kind the port's collective layer records
 _TRANSPORT = {"all-gather": "c10d.allgather_.default",
               "all-reduce": "c10d.allreduce_.default",
+              "reduce-scatter": "c10d._reduce_scatter_base_.default",
               "all-to-all": "c10d.alltoall_base_.default",
               "collective-permute": "c10d.alltoall_base_.default"}
 
@@ -143,6 +150,14 @@ def _world_for(shape) -> int:
         raise RuntimeError(f"need {n} ranks for mesh {shape}, "
                            f"REPRO_DRYRUN_DEVICES={pool}")
     return n
+
+
+def _on_a_device(tree) -> list:
+    """The tensors of ``tree`` but those on the ``meta`` device: a step's
+    shape specs (the serve steps' ``M.cache_spec``) hold and move no
+    bytes."""
+    return [t for t in pytree.tree_leaves(tree)
+            if isinstance(t, torch.Tensor) and t.device.type != "meta"]
 
 
 class _StepMeter(TorchDispatchMode):
@@ -176,12 +191,10 @@ class _StepMeter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if func.namespace in _COLLECTIVE_NAMESPACES:
             self.collective_ops[str(func)] += 1
-        outs = [t for t in pytree.tree_leaves(out)
-                if isinstance(t, torch.Tensor)]
+        outs = _on_a_device(out)
         if outs and not (func.is_view or func in _NO_BYTES
                          or func.namespace in _NO_BYTES_NAMESPACES):
-            ins = [t for t in pytree.tree_leaves((args, kwargs))
-                   if isinstance(t, torch.Tensor)]
+            ins = _on_a_device((args, kwargs))
             self.bytes_accessed += sum(t.nbytes for t in ins) \
                 + sum(t.nbytes for t in outs)
         for t in outs:
@@ -260,13 +273,39 @@ def _inputs(cfg, shape, st):
             (d["tokens"], d_ax["tokens"]), (d["pos"], None)]
 
 
-def _held_bytes(cfg, shape, st, blocks) -> int:
-    """The bytes rank 0 holds as the step's inputs: the state's blocks
-    (``blocks``, :func:`rank_local.block_spec`'s ``TrainState``), the
-    rest whole."""
-    held = [blocks.params] + ([blocks.opt] if shape.kind == "train" else [])
-    held += [tree for tree, _ in _inputs(cfg, shape, st)[len(held):]]
-    return sum(t.nbytes for tree in held for t in _leaves(tree))
+def _cache_blocks(cfg, shape, mesh, rules) -> dict:
+    """A decode cell's cache as meta tensors of rank 0's blocks
+    (:func:`repro_torch.serve.step.cache_specs`)."""
+    return rank_local.block_spec(
+        SP.decode_specs(cfg, shape)["cache"],
+        cache_specs(cfg, shape.global_batch, shape.seq_len, mesh, rules),
+        mesh)
+
+
+def _held_bytes(cfg, shape, st, blocks, layout, microbatches) -> int:
+    """The bytes rank 0 holds on its device as the step's inputs: the
+    state's blocks (``blocks``, :func:`rank_local.block_spec`'s
+    ``TrainState``), a decode cell's cache block, the rows of the batch
+    or tokens that the step copies to the device (the train step's
+    ``Layout.row_cut``, the serve steps' ``serving_cut``), and the
+    position."""
+    held = _leaves(blocks.params)
+    if shape.kind == "train":
+        held += _leaves(blocks.opt) + [st.step]
+        rows = SP.batch_specs(cfg, shape)
+        cut = layout.row_cut(cfg, rows, microbatches)
+    else:
+        cut = serving_cut(cfg, shape.global_batch, shape.seq_len)
+        if shape.kind == "prefill":
+            rows = SP.batch_specs(cfg, shape)
+        else:
+            d = SP.decode_specs(cfg, shape)
+            held += _leaves(_cache_blocks(cfg, shape, layout.mesh,
+                                          layout.rules)) + [d["pos"]]
+            rows = {"tokens": d["tokens"]}
+    n = cut.n_rows if cut is not None else 1
+    return sum(t.nbytes for t in held) + sum(t.nbytes // n
+                                             for t in _leaves(rows))
 
 
 def _check_recorded(rec, meter) -> None:
@@ -295,7 +334,8 @@ def lower_cell(cfg, shape, mesh, args):
         opt={k: rank_local.block_spec(st.opt[k], layout.specs.opt[k], mesh)
              for k in ("m", "v")})
     pairs = _inputs(cfg, shape, st)
-    arg_bytes = _held_bytes(cfg, shape, st, blocks)
+    arg_bytes = _held_bytes(cfg, shape, st, blocks, layout,
+                            args.microbatches)
     sharded = sum(_sharded_bytes(tree, ax, mesh, rules) for tree, ax in pairs)
     dev = TRACE_DEVICE
     t0 = time.perf_counter()
@@ -317,9 +357,9 @@ def lower_cell(cfg, shape, mesh, args):
                                 batch.get("frontend_inputs"))
         else:
             d = SP.decode_specs(cfg, shape)
-            cache = _fake(d["cache"], dev)
+            cache = _fake(_cache_blocks(cfg, shape, mesh, rules), dev)
             tokens = _fake(d["tokens"], dev)
-            sstep = make_serve_step(cfg)
+            sstep = make_serve_step(cfg, shape.seq_len)
             inputs = [params.param_tree(), cache, tokens]
             # the cache is read whole under a mask: the position changes
             # no shape and no cost
@@ -542,7 +582,7 @@ def main(argv=None) -> dict:
         per_dev = (held + mem["temp_bytes"]) / 2**30
         extra = (f" mem/dev={per_dev:.2f}GiB trace={res['full']['trace_s']:.1f}s"
                  f" argument_bytes={held} (held by a rank: its state"
-                 f" blocks, the other inputs whole)"
+                 f" and cache blocks, its rows of the batch)"
                  f" sharded_argument_bytes={sharded} (a device's"
                  f" under the shardings) gap={held - sharded}"
                  f" ({held / max(sharded, 1):.2f}x)")

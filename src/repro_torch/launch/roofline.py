@@ -8,15 +8,16 @@ HBM3).  Terms (seconds per step, per card):
   collective = collective wire bytes / LINK_BW
 
 The port's dry run (:mod:`repro_torch.launch.dryrun`) traces rank 0's
-step, and every rank of the port computes the global step outside
-``shard_map`` bodies, so its flops and bytes are the global step's.
-``FlopCounterMode`` counts products only, where XLA's cost analysis also
-counts elementwise work.
+step.  A rank computes only its rows of the batch, so its flops and
+bytes are the global step's divided by the data axes' extent (where the
+batch divides them); the ranks along the ``model`` axis compute the same
+rows, so they are not a 1/chips share.  ``FlopCounterMode`` counts
+products only, where XLA's cost analysis also counts elementwise work.
 
 MODEL_FLOPS = 6·N_active·D (train) or 2·N_active·D (serve forward); the
 ratio MODEL_FLOPS / (FLOPs x chips) measures how much traced compute is
-useful (remat recompute, the plain attention's masked scores, and every
-rank computing the global step push it below 1).
+useful (remat recompute, the plain attention's masked scores, and the
+``model`` axis's ranks computing the same rows push it below 1).
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.roofline \\
        --in reports/dryrun_torch [--csv out.csv]

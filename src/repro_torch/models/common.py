@@ -275,33 +275,54 @@ def attention_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos: int, *,
     reference donates the cache buffer to the same effect).  Windowed
     attention keeps a rolling buffer: the slot is ``pos % window`` and key
     positions are reconstructed for the mask.
+
+    Under a :class:`repro_torch.distributed.ctx.RowCut` whose ``seq``
+    cuts the cache's slots (the reference's seq-sharded cache, as GSPMD
+    partitions it), the cache is this rank's block of slots: the new key
+    and value go only to the rank that owns the slot, and the attention
+    is flash-decoding's partial softmax over the block, combined over
+    ``seq`` (:func:`repro_torch.distributed.flash_decode.combine`).
     """
+    from repro_torch.distributed.ctx import current_cut
+    cut = current_cut()
+    seq = cut.seq if cut is not None else ()
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = attn_qkv(cfg, p, x, positions)
-    s = cache_k.shape[2]
+    s_loc = cache_k.shape[2]
+    first, s = 0, s_loc
+    if seq:
+        from repro_torch.distributed.mesh import axis_index
+        first = axis_index(cut.mesh, seq) * s_loc
+        s = s_loc * cut.mesh.extent(seq)
     slot = pos % s if window is not None else pos
     slot_w = min(max(slot, 0), s - 1)  # lax.dynamic_update_slice clamps
-    cache_k[:, :, slot_w] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, :, slot_w] = v[:, 0].to(cache_v.dtype)
+    if first <= slot_w < first + s_loc:       # this rank's slot
+        cache_k[:, :, slot_w - first] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, :, slot_w - first] = v[:, 0].to(cache_v.dtype)
     # Grouped-query attention without repeating the KV heads: q heads as
     # (B, K, rep, Dh) against the (B, K, S, Dh) cache; float32 logits and
     # accumulation (the reference's preferred_element_type).
     rep = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, cfg.num_kv_heads, rep, cfg.head_dim)
-    logits = torch.einsum("bkrd,bksd->bkrs", qg.float(), cache_k.float())
-    logits = logits / math.sqrt(cfg.head_dim)
-    kpos = torch.arange(s, device=x.device)
+    kpos = first + torch.arange(s_loc, device=x.device)
     if window is None:
         valid = kpos <= pos
     else:
         age = (slot - kpos) % s
         abs_pos = pos - age
         valid = (abs_pos >= 0) & (abs_pos > pos - window)
-    logits = torch.where(valid, logits, -1e30)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkrs,bksd->bkrd", w.to(cache_v.dtype).float(),
-                       cache_v.float())
+    if seq:
+        from repro_torch.distributed.flash_decode import combine
+        out = combine(cut.mesh, qg, cache_k, cache_v, valid[None], seq,
+                      site="rows")
+    else:
+        logits = torch.einsum("bkrd,bksd->bkrs", qg.float(), cache_k.float())
+        logits = logits / math.sqrt(cfg.head_dim)
+        logits = torch.where(valid, logits, -1e30)
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkrs,bksd->bkrd", w.to(cache_v.dtype).float(),
+                           cache_v.float())
     out = out.reshape(b, 1, cfg.num_heads, cfg.head_dim).to(x.dtype)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, cache_k, cache_v
@@ -433,17 +454,18 @@ def _remat_on(cfg: ModelConfig) -> bool:
 
 def _checkpoint(fn, *args):
     """``torch.utils.checkpoint`` of ``fn(*args)`` whose recompute runs
-    under the forward's sharding context: the autograd engine recomputes
-    a CUDA tensor's region on a device thread of its own, which starts
-    with an empty Python context (no :func:`axis_rules`, so no ring
-    attention or expert parallelism, and other shapes)."""
+    under the forward's sharding context and row cut: the autograd engine
+    recomputes a CUDA tensor's region on a device thread of its own, which
+    starts with an empty Python context (no :func:`axis_rules`, so no
+    ring attention or expert parallelism, and other shapes; no
+    :func:`row_cut`, so a local routing)."""
     from repro_torch.distributed import ctx as dctx
-    c = dctx.current()
-    if c is None:
+    snap = dctx.snapshot()
+    if snap == (None, None):
         return checkpoint(fn, *args, use_reentrant=False)
 
     def under_rules(*a):
-        with dctx.axis_rules(*c):
+        with dctx.restored(snap):
             return fn(*a)
     return checkpoint(under_rules, *args, use_reentrant=False)
 

@@ -30,6 +30,19 @@ an always-on shared expert, ``moe_shared_d_ff``).  With
 the expert-parallel schedule of
 :func:`repro_torch.distributed.moe_parallel.moe_ffn_ep` on the context's
 mesh instead; without one it runs :func:`moe_ffn`, as the reference does.
+
+Where a rank holds only its rows of the batch (a
+:class:`repro_torch.distributed.ctx.RowCut`), :func:`moe_ffn` routes
+over the global token order, as GSPMD partitions the reference's
+routing: the capacity comes from the global number of tokens, an entry's
+rank within its expert is offset by the entries of that expert on the
+ranks before this one (one all-gather of the E counts over the row
+axes), so its slot is the global routing's, and ``aux`` is built from
+the probabilities and top-1 counts summed over the global batch (one
+``psum``, whose backward is a ``psum``: every rank's loss holds the same
+``aux``, and the gradient's sum over the ranks divided by their number
+gives its gradient once).  A rank's buffer keeps the global slots; the
+other ranks' rows of it stay zero.
 """
 from __future__ import annotations
 
@@ -80,11 +93,14 @@ class Routing:
     cap: int
 
 
-def route(cfg: ModelConfig, p, xf) -> tuple:
+def route(cfg: ModelConfig, p, xf, cut=None) -> tuple:
     """Router, top-k, aux loss and sort-based dispatch of ``xf`` (T, D):
-    returns ``(Routing, aux)``."""
+    returns ``(Routing, aux)``.  ``cut``: the rank's
+    :class:`repro_torch.distributed.ctx.RowCut`, whose rows ``xf`` holds;
+    the routing is then the global batch's (see the module docstring)."""
+    n = cut.n_rows if cut is not None else 1
     return route_logits(cfg, xf.float() @ p["router"].float(),
-                        _capacity(cfg, xf.shape[0]))
+                        _capacity(cfg, xf.shape[0] * n), cut=cut)
 
 
 def _count(idx, n: int):
@@ -96,9 +112,11 @@ def _count(idx, n: int):
         0, idx.long(), torch.ones_like(idx, dtype=torch.long))
 
 
-def route_logits(cfg: ModelConfig, logits, cap: int) -> tuple:
+def route_logits(cfg: ModelConfig, logits, cap: int, *, cut=None) -> tuple:
     """Top-k, aux loss and sort-based dispatch of T tokens' router
-    ``logits`` (T, E) into ``cap`` slots an expert: ``(Routing, aux)``."""
+    ``logits`` (T, E) into ``cap`` slots an expert: ``(Routing, aux)``.
+    ``cut``: a :class:`repro_torch.distributed.ctx.RowCut` whose rows the
+    T tokens are; ``aux`` and the slots are then the global batch's."""
     T = logits.shape[0]
     k, E = cfg.moe_top_k, cfg.moe_num_experts
     probs = torch.softmax(logits.float(), dim=-1)              # (T, E)
@@ -110,15 +128,27 @@ def route_logits(cfg: ModelConfig, logits, cap: int) -> tuple:
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
 
     # Aux load-balancing loss (Switch-style): E * sum_e f_e * p_e.
-    me = probs.mean(0)                                         # (E,)
-    fe = _count(expert_idx[:, 0], E).float() / T
+    top1 = _count(expert_idx[:, 0], E).float()
+    flat_e = expert_idx.reshape(-1)                            # (T*k,)
+    counts = _count(flat_e, E)                                 # (E,)
+    if cut is not None and cut.rows:
+        from repro_torch.distributed import comm
+        from repro_torch.distributed.mesh import axis_index
+        t_all = T * cut.n_rows
+        sums = comm.psum(cut.mesh, torch.cat([probs.sum(0), top1]),
+                         cut.rows, site="rows")
+        me, fe = sums[:E] / t_all, sums[E:] / t_all
+        # the entries of each expert on the ranks before this one
+        every = cut.gather(counts.int()).view(cut.n_rows, E)
+        before = every[:axis_index(cut.mesh, cut.rows)].sum(0).long()
+    else:
+        me, fe = probs.mean(0), top1 / T                       # (E,)
+        before = torch.zeros_like(counts)
     aux = E * torch.sum(me * fe)
 
-    flat_e = expert_idx.reshape(-1)                            # (T*k,)
     order = torch.argsort(flat_e, stable=True)
     e_s = flat_e[order]
-    counts = _count(flat_e, E)                                 # (E,)
-    starts = torch.cumsum(counts, 0) - counts                  # exclusive
+    starts = torch.cumsum(counts, 0) - counts - before         # exclusive
     rank = torch.arange(T * k, device=logits.device) - starts[e_s]
     Et = E + cfg.moe_expert_pad
     valid = rank < cap
@@ -130,10 +160,11 @@ def route_logits(cfg: ModelConfig, logits, cap: int) -> tuple:
 def moe_ffn(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
     """x: (B, S, D) -> (y, aux).  ``record``, when a list, receives this
     call's :class:`Routing`."""
+    from repro_torch.distributed.ctx import current_cut
     B, S, D = x.shape
     Et = cfg.moe_num_experts + cfg.moe_expert_pad
     xf = x.reshape(B * S, D)
-    r, aux = route(cfg, p, xf)
+    r, aux = route(cfg, p, xf, current_cut())
     if record is not None:
         record.append(r)
     out = experts(p, dispatch(r, xf, Et))

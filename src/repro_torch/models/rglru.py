@@ -195,16 +195,22 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               device=DEFAULT_DEVICE) -> dict:
+               device=DEFAULT_DEVICE, seq_blocks: int = 1) -> dict:
     """Zero decode state, the reference's layout: ``rec_h`` (groups, rec
     blocks, B, di) and ``tail_rec_h`` in float32; ``conv`` / ``tail_conv``
     conv tails and ``k`` / ``v`` rolling windows of ``min(window,
-    max_seq)`` slots in ``cfg.dtype``."""
+    max_seq)`` slots in ``cfg.dtype`` (``seq_blocks``: the number of
+    blocks the window's slots are cut into, a rank's block of a
+    seq-sharded cache)."""
     di, _, _ = _rec_dims(cfg)
     _, groups, tail = _pattern_counts(cfg)
     n_rec = sum(1 for k in cfg.block_pattern if k == "rec")
     n_att = len(cfg.block_pattern) - n_rec
     w = min(cfg.window or max_seq, max_seq)
+    if w % seq_blocks:
+        raise ValueError(f"{w} cache slots do not cut into {seq_blocks} "
+                         f"blocks")
+    w //= seq_blocks
     dev = resolve_device(device)
     dt = cm.torch_dtype(cfg.dtype)
     f32 = torch.float32
@@ -226,12 +232,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 def prefill(cfg: ModelConfig, params: RecurrentGemma, tokens, max_seq: int,
             frontend_inputs=None):
     """Run the prompt; returns (last logits (B, 1, V), the reference's
-    zeroed cache ``init_cache(cfg, B, S)``)."""
+    zeroed cache ``init_cache(cfg, B, S)``; under a
+    :class:`repro_torch.distributed.ctx.RowCut` whose ``seq`` cuts the
+    attention window's slots, this rank's block of it)."""
+    from repro_torch.distributed.ctx import current_cut
+    cut = current_cut()
+    blocks = cut.mesh.extent(cut.seq) if cut is not None else 1
     with torch.inference_mode():
         x = _hidden(cfg, params, tokens)
         return (cm.lm_logits(cfg, params.embed, x[:, -1:]),
                 init_cache(cfg, tokens.shape[0], tokens.shape[1],
-                           device=tokens.device))
+                           device=tokens.device, seq_blocks=blocks))
 
 
 def _rec_block_decode(cfg: ModelConfig, p, x, h_prev, conv_st):

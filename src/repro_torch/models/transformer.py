@@ -245,9 +245,15 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               device=DEFAULT_DEVICE) -> dict:
-    """Zero KV cache ``{"k", "v"}``, each (L, B, K, S, Dh) in ``cfg.dtype``."""
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, cache_len(cfg, max_seq),
+               device=DEFAULT_DEVICE, seq_blocks: int = 1) -> dict:
+    """Zero KV cache ``{"k", "v"}``, each (L, B, K, S, Dh) in
+    ``cfg.dtype``; ``seq_blocks``: the number of blocks its slots are cut
+    into (a rank's block of a seq-sharded cache: S / seq_blocks slots)."""
+    n = cache_len(cfg, max_seq)
+    if n % seq_blocks:
+        raise ValueError(f"{n} cache slots do not cut into {seq_blocks} "
+                         f"blocks")
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, n // seq_blocks,
              cfg.head_dim)
     dev = resolve_device(device)
     dtype = cm.torch_dtype(cfg.dtype)
@@ -261,19 +267,33 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens, max_seq: int,
     VLM's ``frontend_inputs``); returns (last logits (B, 1, V), or (B, 1,
     Cb, V) for audio, cache).  Each layer's keys and values fill the
     first S cache slots (zeros after), or, when the cache is shorter than
-    the prompt, it keeps the last ones."""
+    the prompt, it keeps the last ones.  Under a
+    :class:`repro_torch.distributed.ctx.RowCut` whose ``seq`` cuts the
+    slots, the cache returned is this rank's block of them."""
+    from repro_torch.distributed.ctx import current_cut
+    from repro_torch.distributed.mesh import axis_index
+    cut = current_cut()
+    seq = cut.seq if cut is not None else ()
     with torch.inference_mode():
         x = cm.embed_tokens(cfg, params.embed, tokens,
                             cm.torch_dtype(cfg.dtype))
         x = cm.apply_frontend(cfg, params.embed, x, frontend_inputs)
         b, s = x.shape[0], x.shape[1]
         positions = _positions(b, s, x.device)
-        cache = init_cache(cfg, b, max_seq, device=x.device)
+        blocks = cut.mesh.extent(seq) if seq else 1
+        cache = init_cache(cfg, b, max_seq, device=x.device,
+                           seq_blocks=blocks)
         n = min(cache_len(cfg, max_seq), s)
+        # the global slots [lo, hi) of this rank's block that the prompt
+        # fills: slot j holds the key of position s - n + j
+        s_loc = cache["k"].shape[3]
+        first = axis_index(cut.mesh, seq) * s_loc if seq else 0
+        lo, hi = first, min(first + s_loc, n)
         for i, layer in enumerate(params.layers):
             x, kh, vh = layer.prefill(cfg, x, positions)
-            cache["k"][i, :, :, :n] = kh[:, :, s - n:]
-            cache["v"][i, :, :, :n] = vh[:, :, s - n:]
+            if lo < hi:
+                cache["k"][i, :, :, :hi - lo] = kh[:, :, s - n + lo:s - n + hi]
+                cache["v"][i, :, :, :hi - lo] = vh[:, :, s - n + lo:s - n + hi]
         x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
         return cm.lm_logits(cfg, params.embed, x[:, -1:]), cache
 

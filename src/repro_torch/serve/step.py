@@ -4,33 +4,120 @@ The port of ``repro.serve.step``.  The steps run under
 ``torch.inference_mode`` and return the cache the next step takes: the
 dense and MoE families update their KV cache in place (the reference donates the
 cache buffer), the recurrent families return new states.
+
+Under a sharding context (:func:`repro_torch.distributed.ctx.axis_rules`)
+the steps serve as GSPMD partitions the reference's steps with the cache
+sharded by ``cache_logical_axes``: :func:`serving_cut` resolves the
+cache's specs (``tree_shardings_for``, sanitized against the global
+batch and cache length) into a :class:`repro_torch.distributed.ctx
+.RowCut`, the rows the batch dim is cut over and the slots' blocks over
+``cache_seq``'s axes.  A step takes the global tokens, cuts this rank's
+rows, runs under the cut (the cache it takes and returns is this rank's
+block, ``(B / data, K, S / model, Dh)`` at the default rules; the decode
+attention combines the blocks of slots over the seq axes) and gathers
+the next tokens back to the global batch.  The decode step needs the
+cache's global length for that: ``make_serve_step(cfg, max_seq)``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch import models as M
+from repro_torch.distributed import ctx as dctx
+from repro_torch.distributed import sharding as sh
 from repro_torch.models.config import ModelConfig
+
+
+#: The cache's logical axes a rank's block is cut on: its rows and its
+#: slots.  The others (a recurrent state's ``rnn`` / ``ssm_inner``) stay
+#: whole: a rank computes whole heads.
+_CUT_AXES = ("batch", "cache_seq")
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int, mesh,
+                rules) -> dict:
+    """The specs of a rank's block of the ``batch``-row, ``max_seq``
+    cache: ``tree_shardings_for`` of its shapes and
+    ``cache_logical_axes`` (sanitized), kept on the ``batch`` and
+    ``cache_seq`` dims only."""
+    axes = M.cache_logical_axes(cfg)
+    specs = sh.tree_shardings_for(M.cache_spec(cfg, batch, max_seq), axes,
+                                  mesh, rules)
+    return {k: sh.PartitionSpec(*(e if name in _CUT_AXES else None
+                                  for name, e in zip(axes[k], specs[k])))
+            for k in axes}
+
+
+def serving_cut(cfg: ModelConfig, batch: int,
+                max_seq: int) -> Optional[dctx.RowCut]:
+    """The cut of a ``batch``-row serving batch and its ``max_seq`` cache
+    under the current sharding context: the mesh axes of more than one
+    rank over which :func:`cache_specs` cuts the cache's ``batch`` dims
+    and its ``cache_seq`` dims (every leaf the same); None outside a
+    context, or where neither is cut."""
+    c = dctx.current()
+    if c is None:
+        return None
+    mesh, rules = c
+    axes = M.cache_logical_axes(cfg)
+    specs = cache_specs(cfg, batch, max_seq, mesh, rules)
+    found = {name: set() for name in _CUT_AXES}
+    for key, names in axes.items():
+        for name, entry in zip(names, specs[key]):
+            if name in found:
+                found[name].add(dctx.spanning(mesh, entry))
+    rows, seq = (found[k] or {()} for k in _CUT_AXES)
+    if len(rows) != 1 or len(seq) != 1:
+        raise ValueError(f"the cache's leaves cut their rows or slots over "
+                         f"different axes: {specs}")
+    rows, seq = rows.pop(), seq.pop()
+    return dctx.RowCut(mesh, rows, seq) if rows or seq else None
+
+
+def _take(cut, x):
+    return x if cut is None or x is None else cut.take(x)
+
+
+def _give(cut, tokens):
+    return tokens if cut is None else cut.gather(tokens)
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
     """prefill_step(params, tokens, frontend_inputs=None) -> (next tokens
-    (B,), or (B, Cb) for audio, cache)."""
+    (B,), or (B, Cb) for audio, cache).  Under a sharding context the
+    tokens are the global batch and the cache this rank's block (see the
+    module docstring)."""
     @torch.inference_mode()
     def prefill_step(params, tokens, frontend_inputs=None):
-        logits, cache = M.prefill(cfg, params, tokens, max_seq,
-                                  frontend_inputs)
-        return torch.argmax(logits[:, -1], dim=-1), cache
+        cut = serving_cut(cfg, tokens.shape[0], max_seq)
+        with dctx.row_cut(cut):
+            logits, cache = M.prefill(cfg, params, _take(cut, tokens),
+                                      max_seq, _take(cut, frontend_inputs))
+        return _give(cut, torch.argmax(logits[:, -1], dim=-1)), cache
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, max_seq: Optional[int] = None):
     """serve_step(params, cache, tokens, pos) -> (next tokens, cache): one
-    new token per sequence against the existing KV or recurrent cache."""
+    new token per sequence against the existing KV or recurrent cache.
+    Under a sharding context the tokens are the global batch and the
+    cache this rank's block of a ``max_seq`` cache, which must be
+    given."""
     @torch.inference_mode()
     def serve_step(params, cache, tokens, pos):
-        logits, cache = M.decode_step(cfg, params, cache, tokens, pos)
-        return torch.argmax(logits, dim=-1), cache
+        cut = None
+        if dctx.current() is not None:
+            if max_seq is None:
+                raise ValueError("under a sharding context the serve step "
+                                 "takes this rank's block of the cache: "
+                                 "give make_serve_step the cache's max_seq")
+            cut = serving_cut(cfg, tokens.shape[0], max_seq)
+        with dctx.row_cut(cut):
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          _take(cut, tokens), pos)
+        return _give(cut, torch.argmax(logits, dim=-1)), cache
     return serve_step
 
 
@@ -41,7 +128,7 @@ def greedy_generate(cfg: ModelConfig, params, prompt, *, steps: int,
     1`` decode steps; returns the (B, steps), or (B, steps, Cb), greedy
     tokens."""
     prefill = make_prefill_step(cfg, max_seq)
-    step = make_serve_step(cfg)
+    step = make_serve_step(cfg, max_seq)
     tok, cache = prefill(params, prompt)
     toks = [tok]
     pos = prompt.shape[1]

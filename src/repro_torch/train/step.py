@@ -20,7 +20,20 @@ stacked layout, for the dry run (:mod:`repro_torch.launch.dryrun`).
 A rank-local state (:mod:`repro_torch.distributed.rank_local`: each rank
 holds its blocks of ``params``, ``m`` and ``v``) runs the same step: its
 parameters read as the gathered global tensors, its gradients land in
-block-sized buffers, and its global norm sums across ranks.
+block-sized buffers, and its global norm sums across ranks.  It also
+computes only its rows of the batch: the step takes the global batch, as
+the reference's ``jit`` does, cuts this rank's rows on the host before
+the copy to the device (``Layout.row_cut``: a microbatch's sanitized
+specs over the mesh's data axes), runs the forward and backward under
+that :func:`repro_torch.distributed.ctx.row_cut` (the gathers' backwards
+sum the gradient over the row axes, ``rank_local.sum_rows`` the leaves
+held whole), and returns ``loss``, ``nll`` and ``aux`` as the global
+means.  Microbatches split the rank's rows: the rank takes its block of
+each of the reference's microbatches (the global batch's consecutive
+slices), so slice i of every rank makes up the reference's microbatch i
+and an MoE routes each one over the same tokens.  A one-rank state, or
+one whose microbatches no axis of more than one rank cuts, runs as on
+one card.
 """
 from __future__ import annotations
 
@@ -132,8 +145,81 @@ def state_logical_axes(cfg: ModelConfig) -> TrainState:
     return TrainState(step=None, params=axes, opt={"m": axes, "v": axes})
 
 
-def _device_batch(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+def _device_batch(batch: dict, device, cut=None,
+                  microbatches: int = 1) -> dict:
+    """The batch on ``device``; under a row cut only this rank's rows of
+    each of the ``microbatches`` slices, in slice order, cut where the
+    batch lies (on the host for numpy arrays) before the copy."""
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        if cut is not None:
+            # (microbatches, rows, ...): this rank's block of each slice
+            v = v.reshape((microbatches, -1) + tuple(v.shape[1:]))
+            v = cut.take(v.movedim(1, 0)).movedim(0, 1)
+            v = v.reshape((-1,) + tuple(v.shape[2:]))
+        out[k] = v.to(device)
+    return out
+
+
+def gradients(cfg: ModelConfig, state: TrainState, batch, *,
+              microbatches: int = 1) -> tuple:
+    """The step's backward: ``(metrics, grads)``, ``grads`` the gradient
+    of :func:`repro_torch.models.loss_fn` in stacked buffers
+    (:func:`repro_torch.models.bind_grads`: blocks for a rank-local
+    state, summed over the row axes), ``metrics`` its ``loss``, ``nll``
+    and ``aux`` (the global means); the parameters' ``.grad`` are freed.
+    ``batch`` and ``microbatches`` as :func:`make_train_step` takes
+    them."""
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.distributed import rank_local
+    model = state.params
+    device = next(model.parameters()).device
+    layout = rank_local.layout_of(model)
+    cut = (None if layout is None
+           else layout.row_cut(cfg, batch, microbatches))
+    batch = _device_batch(batch, device, cut, microbatches)
+    grads = M.bind_grads(cfg, model)
+    try:
+        with dctx.row_cut(cut):
+            loss, metrics = _backward(cfg, model, batch, grads, microbatches)
+        rank_local.sum_rows(grads, layout, cut)
+    finally:
+        for p in model.parameters():      # the buffers stay in grads
+            p.grad = None
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["loss"] = loss.detach()
+    if cut is not None:
+        # the global means: one all-reduce of the three over the rows
+        keys = ("loss", "nll", "aux")
+        means = cut.mean(torch.stack([metrics[k] for k in keys]))
+        metrics.update(zip(keys, means.unbind()))
+    return metrics, grads
+
+
+def _backward(cfg, model, batch, grads, microbatches: int) -> tuple:
+    """The loss's backward into ``grads``: ``(loss, metrics)``, the
+    microbatches' gradients accumulated and scaled."""
+    if microbatches > 1:
+        b = next(iter(batch.values())).shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} does not split into "
+                             f"{microbatches} microbatches")
+        n = b // microbatches
+        loss_sum = 0.0
+        for i in range(microbatches):
+            loss, metrics = M.loss_fn(
+                cfg, model,
+                {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+        inv = 1.0 / microbatches
+        for g in tree_leaves(grads):
+            g.mul_(inv)
+        return loss_sum * inv, metrics
+    loss, metrics = M.loss_fn(cfg, model, batch)
+    loss.backward()
+    return loss, metrics
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -141,56 +227,32 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` is ``{"tokens": (B, S)}`` (numpy or tensors; moved to the
-    model's device).  ``microbatches > 1`` splits the batch dim into that
-    many slices (it must divide evenly), runs a backward for each,
-    accumulating the gradients (float32 for float32 parameters) in the
-    stacked buffers, scales them by ``1 / microbatches`` and keeps the
-    last slice's metrics and the mean loss, as the reference's
-    ``lax.scan`` does.
+    model's device), the global batch; a rank-local state computes its
+    rows of it (see the module docstring).  ``microbatches > 1`` splits
+    the (rank's) batch dim into that many slices (it must divide evenly),
+    runs a backward for each, accumulating the gradients (float32 for
+    float32 parameters) in the stacked buffers, scales them by ``1 /
+    microbatches`` and keeps the last slice's metrics and the mean loss,
+    as the reference's ``lax.scan`` does (:func:`gradients`).
     """
     from repro_torch.distributed import rank_local
 
     def train_step(state: TrainState, batch):
-        model = state.params
-        device = next(model.parameters()).device
-        batch = _device_batch(batch, device)
-        grads = M.bind_grads(cfg, model)
+        metrics, grads = gradients(cfg, state, batch,
+                                   microbatches=microbatches)
         try:
-            if microbatches > 1:
-                b = next(iter(batch.values())).shape[0]
-                if b % microbatches:
-                    raise ValueError(f"batch {b} does not split into "
-                                     f"{microbatches} microbatches")
-                n = b // microbatches
-                loss_sum = 0.0
-                for i in range(microbatches):
-                    loss, metrics = M.loss_fn(
-                        cfg, model,
-                        {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
-                    loss.backward()
-                    loss_sum = loss_sum + loss.detach()
-                inv = 1.0 / microbatches
-                for g in tree_leaves(grads):
-                    g.mul_(inv)
-                loss = loss_sum * inv
-            else:
-                loss, metrics = M.loss_fn(cfg, model, batch)
-                loss.backward()
-            layout = rank_local.layout_of(model)
+            layout = rank_local.layout_of(state.params)
             gnorm = (None if layout is None
                      else rank_local.global_norm(grads, layout))
-            _, opt, opt_metrics = adamw_update(opt_cfg, model.param_tree(),
-                                               grads, state.opt, state.step,
-                                               gnorm=gnorm)
+            _, opt, opt_metrics = adamw_update(
+                opt_cfg, state.params.param_tree(), grads, state.opt,
+                state.step, gnorm=gnorm)
         finally:
-            for p in model.parameters():      # free the buffers
-                p.grad = None
-            # and at once, even where something keeps this frame alive
+            # free the buffers at once, even where something keeps this
+            # frame alive
             del grads
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(opt_metrics)
-        metrics["loss"] = loss.detach()
-        return TrainState(step=state.step + 1, params=model, opt=opt), \
-            metrics
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt=opt), metrics
 
     return train_step

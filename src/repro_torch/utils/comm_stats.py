@@ -29,11 +29,18 @@ Each record also carries its *site*: ``"body"`` for a collective of a
 ``shard_map`` body, ``"boundary"`` for the all-gathers and all-reduces
 at :func:`~repro_torch.distributed.mesh.shard_map`'s boundary, which
 exist because every rank holds the global tensors (an XLA program keeps
-its arrays sharded there and has no such collective), and ``"state"``
+its arrays sharded there and has no such collective), ``"state"``
 for those of a rank-local train state
 (:mod:`repro_torch.distributed.rank_local`: a weight's all-gathers where
 the step reads it, and the gradient norm's all-reduce), which GSPMD
-inserts into an XLA program of sharded state.
+inserts into an XLA program of sharded state, ``"grad"`` for the
+gradient's sums over the batch axes where a rank computes only its rows
+of the batch (a gathered weight's reduce-scatter or all-reduce in the
+backward, a whole leaf's all-reduce after it), and ``"rows"`` for the
+other collectives that cutting the rows brings (the step's metrics
+averaged over the batch axes, the MoE routing's counts and load sums
+over the global batch, the decode's softmax combined over the cache's
+blocks of slots, the next tokens gathered back to the global batch).
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ from typing import Optional
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
-SITES = ("body", "boundary", "state")
+SITES = ("body", "boundary", "state", "grad", "rows")
 
 _WIRE_FACTOR = {
     "all-gather": 1.0,

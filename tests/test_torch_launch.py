@@ -402,12 +402,31 @@ def _trace_small(cells, microbatches=8):
     return out
 
 
-def _model_ratio(name, cfg, sc, flops) -> None:
-    """Records the traced flops against 6 N D (train) or 2 N D: remat
-    and the plain attention's masked scores put a training step with
-    remat full above 1."""
+def _row_blocks(cfg, sc, microbatches) -> int:
+    """The blocks the (2, 4) mesh's data axis cuts the cell's rows into,
+    as the steps cut them (a train step a microbatch's rows, the serve
+    steps the batch); 1 where they do not divide it."""
+    from repro_torch.distributed import rank_local
+    from repro_torch.distributed.mesh import AbstractMesh
+    from repro_torch.serve.step import serving_cut
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    rules = D._rules_for(mesh, _args())
+    if sc.kind == "train":
+        c = rank_local.layout_for(cfg, mesh, rules).row_cut(
+            cfg, SP.batch_specs(cfg, sc), microbatches)
+    else:
+        with axis_rules(mesh, rules):
+            c = serving_cut(cfg, sc.global_batch, sc.seq_len)
+    return c.n_rows if c is not None else 1
+
+
+def _model_ratio(name, cfg, sc, flops, rows=1) -> None:
+    """Records the traced flops of a rank against its ``rows`` share
+    (:func:`_row_blocks`) of 6 N D (train) or 2 N D: remat and the plain
+    attention's masked scores put a training step with remat full above
+    1."""
     model = M.model_flops(cfg, sc.tokens if sc.kind != "decode"
-                          else sc.global_batch, sc.kind)
+                          else sc.global_batch, sc.kind) / rows
     ratio = flops / model
     print(f"{name} {sc.kind}: traced flops / model flops {ratio:.4f}")
     if sc.kind == "train" and cfg.remat == "full":
@@ -430,7 +449,7 @@ def test_sharded_argument_bytes_equal_xla(ref):
         print(f"{name}: traced flops / (XLA's flops x 8 devices) "
               f"{ratio:.4f}")
         assert ratio > 0
-        _model_ratio(name, cfg, sc, got["flops"])
+        _model_ratio(name, cfg, sc, got["flops"], _row_blocks(cfg, sc, 8))
     assert ref["cells"]["decode_32k"]["full"]["memory"]["argument_bytes"] \
         == DECODE_ARG_BYTES
 
@@ -460,6 +479,35 @@ def test_rank_local_argument_bytes_are_xla_s_and_the_batch_gap(ref, name):
     assert by_site["boundary"]["count"]["all-gather"] == 0
 
 
+def test_rows_cut_argument_bytes_and_flops_are_a_rank_s(ref):
+    """Two microbatches of 4 rows divide the data axis: rank 0 holds
+    exactly XLA's argument_bytes (its rows of the batch, no gap), traces
+    half the products of the same step whose microbatches of one row
+    stay whole (8 microbatches), within 0.5%, and sums the gradient over
+    "data" at the "grad" site as ``rank_local.backward_sums`` counts."""
+    from repro_torch.distributed import rank_local
+    from repro_torch.distributed.mesh import AbstractMesh
+    _, arch, shp = SMALL[0]
+    cfg, sc = get_smoke_config(arch, kernel_impl="torch"), ShapeConfig(*shp)
+    whole = _trace_small([(cfg, sc)], microbatches=8)[0]
+    rows = _trace_small([(cfg, sc)], microbatches=2)[0]
+    assert (_row_blocks(cfg, sc, 8), _row_blocks(cfg, sc, 2)) == (1, 2)
+    assert rows["memory"]["argument_bytes"] == \
+        rows["memory"]["sharded_argument_bytes"] == \
+        ref["memory"]["train"]["argument_bytes"]
+    assert whole["memory"]["argument_bytes"] > \
+        rows["memory"]["argument_bytes"]
+    assert abs(whole["flops"] / rows["flops"] - 2) <= 2 * 0.005
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    layout = rank_local.Layout(mesh, rank_local.specs_for(
+        cfg, mesh, D._rules_for(mesh, _args())))
+    n = rank_local.backward_sums(cfg, layout, ("data",))
+    grad = rows["collectives_by_site"]["grad"]
+    assert sum(grad["count"].values()) == \
+        2 * (cfg.num_layers * n["unit"][0] + n["rest"][0]) + n["whole"][0]
+    assert whole["collectives_by_site"]["grad"]["total_result_bytes"] == 0
+
+
 def test_dryrun_cli_matches_reference(ref, tmp_path):
     """The acceptance command, on a CPU-only machine: 8 fake ranks, 2x4."""
     out = subprocess.run(
@@ -485,24 +533,34 @@ def test_dryrun_cli_matches_reference(ref, tmp_path):
         assert got[k] == want[k], k
     mem = got["full"]["memory"]
     assert mem["sharded_argument_bytes"] == DECODE_ARG_BYTES
-    # the KV cache is updated in place: it aliases its input
-    assert mem["alias_bytes"] >= \
-        sum(t.nbytes for t in M.cache_spec(get_config("tinyllama-1.1b"),
-                                           128, 32768).values())
-    assert got["full"]["flops"] > got["model_flops"]
+    # a rank holds what a device holds under the shardings: its block of
+    # the cache (rows over data, slots over model) and of the tokens
+    assert mem["argument_bytes"] == DECODE_ARG_BYTES
+    # the KV cache block is updated in place: it aliases its input
+    cache = M.cache_spec(get_config("tinyllama-1.1b"), 128, 32768)
+    assert mem["alias_bytes"] >= sum(t.nbytes for t in cache.values()) // 8
+    # the rank's 64 of the 128 rows, attending over its 8,192 slots
+    assert got["full"]["flops"] > got["model_flops"] / 2
     print(f"decode_32k: traced flops / (XLA's flops x 8 devices) "
           f"{got['full']['flops'] / (want['full']['flops'] * 8):.4f}")
-    _model_ratio("tinyllama-1.1b", get_config("tinyllama-1.1b"),
-                 SHAPES_BY_NAME["decode_32k"], got["full"]["flops"])
+    cfg, sc = get_config("tinyllama-1.1b"), SHAPES_BY_NAME["decode_32k"]
+    _model_ratio("tinyllama-1.1b", cfg, sc, got["full"]["flops"],
+                 _row_blocks(cfg, sc, 1))
     # the parameters are rank 0's blocks (distributed.rank_local), each
     # gathered where the step reads it, at the "state" site, as XLA's
-    # program gathers its sharded weights; nothing else is collective
+    # program gathers its sharded weights; the cut's collectives at the
+    # "rows" site: each layer's softmax combined over the slots' blocks
+    # (a pmax and two psums) and the next tokens gathered; nothing else
     by_site = got["full"]["collectives_by_site"]
     assert by_site["state"]["count"]["all-gather"] > 0
+    rows = by_site["rows"]["count"]
+    assert rows["all-reduce"] == 3 * get_config("tinyllama-1.1b").num_layers
+    assert rows["all-gather"] == 1
     for kind in COLLECTIVES:
         assert by_site["body"]["count"][kind] == 0
         assert by_site["boundary"]["count"][kind] == 0
-        if kind != "all-gather":
+        assert by_site["grad"]["count"][kind] == 0
+        if kind not in ("all-gather", "all-reduce"):
             assert got["full"]["collectives"]["count"][kind] == 0
     long = D.run_cell("tinyllama-1.1b", "long_500k", "single", _args())
     assert long == ref["cells"]["long_500k"]
@@ -534,7 +592,8 @@ def test_fit_equals_full_trace(arch, over, shape, depths):
     assert fit["depths"] == list(depths)
     for key in ("flops", "bytes_accessed"):
         assert abs(fit[key] - full[key]) <= FIT_REL * full[key], key
-    _model_ratio(f"{arch} {over}", cfg, sc, full["flops"])
+    _model_ratio(f"{arch} {over}", cfg, sc, full["flops"],
+                 _row_blocks(cfg, sc, 1))
 
 
 def test_moe_train_step_traces_and_two_families_in_a_row():
@@ -548,7 +607,7 @@ def test_moe_train_step_traces_and_two_families_in_a_row():
               sc)]
     for (cfg, sc), got in zip(cells, _trace_small(cells, microbatches=2)):
         assert got["flops"] > 0 and got["memory"]["temp_bytes"] > 0
-        _model_ratio(cfg.name, cfg, sc, got["flops"])
+        _model_ratio(cfg.name, cfg, sc, got["flops"], _row_blocks(cfg, sc, 2))
         # the train step updates the state in place
         assert got["memory"]["alias_bytes"] > 0
 
@@ -661,10 +720,13 @@ def test_step_meter_counts_bytes_and_peak():
             w = z + 1                                         # +1 KiB
             del z, w
             v = x.sum()
+            # a shape spec on the meta device (the serve steps' cache
+            # spec) holds and moves nothing
+            spec = torch.zeros((1 << 20,), device="meta")
     assert meter.peak - 1024 == 2048
     # mul, add: 2 x (1 KiB in + 1 KiB out); sum: 1 KiB in + 4 B out
     assert meter.bytes_accessed == 2 * 2048 + 1024 + 4
-    del v
+    del v, spec
 
 
 # -- the roofline --------------------------------------------------------------

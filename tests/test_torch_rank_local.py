@@ -3,7 +3,7 @@
 
 Each rank holds only its blocks of ``params``, ``m`` and ``v`` under
 ``tree_shardings_for(state_spec(cfg), state_logical_axes(cfg), mesh,
-rules)`` on a (2, 4) ("data", "model") mesh with
+rules)`` on a ("data", "model") mesh with
 ``make_rules(data_axes=("data",))``, gathers a weight where the step
 reads it, and gets its gradient back as blocks.  Held here:
 
@@ -11,25 +11,29 @@ reads it, and gets its gradient back as blocks.  Held here:
   step): the reference runs as that test runs it, in a subprocess with
   eight virtual devices, tinyllama-1.1b's smoke config with
   ``remat="none"``, a batch of 8 x 32, ``AdamWConfig(warmup_steps=0)``,
-  under ``jax.jit`` with the state's shardings; the port runs the same
-  step rank-local on the same weights (carried across with
+  under ``jax.jit`` with the state's shardings and the batch on
+  ``"data"``; the port runs the same step rank-local on the (2, 4) mesh,
+  each rank on its 4 rows of the batch (the gradient summed over
+  ``"data"``), on the same weights (carried across with
   ``models.convert``) and tokens; the loss within 5e-3 relative and the
   first parameter leaf within atol 2e-3, that test's own tolerances;
-* port against port: every smoke family's rank-local step against the
-  port's one-rank step on the same weights and tokens, on each rank: the
-  loss and every gradient block bit-equal (the gathered weights are the
-  same numbers), params, ``m`` and ``v`` after the step within 1e-6 of
-  each leaf's largest magnitude (the global norm sums in another order);
-  tinyllama also with
-  ``remat="none"`` and with two microbatches;
+* port against port on the (1, 8) mesh, whose data axis of one rank
+  cuts no rows: every smoke family's rank-local step against the port's
+  one-rank step on the same weights and tokens, on each rank: the loss
+  and every gradient block bit-equal (the gathered weights are the same
+  numbers), params, ``m`` and ``v`` after the step within 1e-6 of each
+  leaf's largest magnitude (the global norm sums in another order);
+  tinyllama also with ``remat="none"`` and with two microbatches (the
+  same steps with the rows cut on (2, 4): ``test_torch_batch_cut.py``);
 * the memory: the storages a rank's state holds sum to its blocks'
   bytes (the dry run's ``_sharded_bytes``), so no global storage is
   kept alive;
 * the gathers: a remat step all-gathers each layer's sharded leaves once
   a layer forward (``layer_forward_runs``), the recompute included;
-* checkpoints: three steps in a row against two steps, a save, a fresh
-  world that restores, and one step, bit for bit; a save at step 0 writes
-  the bytes (the manifest's sha256) of the one-rank save of that state.
+* checkpoints: on (2, 4), the rows cut, three steps in a row against two
+  steps, a save, a fresh world that restores, and one step, bit for
+  bit; a save at step 0 writes the bytes (the manifest's sha256) of the
+  one-rank save of that state.
 
 The reference's subprocess and the port's first world start at once in a
 module-scoped fixture; the restoring world follows.  This module imports
@@ -62,6 +66,8 @@ from repro_torch.utils.tree import tree_leaves
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 8
 MESH = (2, 4)
+#: the strict cases' mesh: a data axis of one rank, so no rows are cut
+STRICT_MESH = (1, 8)
 #: Seconds either side may go without progress before it is killed.
 TIMEOUT = 240
 #: The reference's gate (tests/test_multidevice.py): bfloat16
@@ -164,8 +170,9 @@ def _strict_case(mesh, name, arch, over, microbatches) -> dict:
                bool(torch.equal(cut(mesh, a, s), b))
                for a, b, s in zip(tree_leaves(g1), tree_leaves(g2), gspecs)],
            "gathers": rec.stats("state").count["all-gather"],
-           "other_collectives": rec.stats("body").total_result_bytes
-           + rec.stats("boundary").total_result_bytes}
+           "other_collectives": sum(rec.stats(site).total_result_bytes
+                                    for site in ("body", "boundary", "grad",
+                                                 "rows"))}
     step = make_train_step(cfg, OPT, microbatches=microbatches)
     one, m1 = step(one, {"tokens": tokens})
     local, m2 = step(local, {"tokens": tokens})
@@ -246,9 +253,11 @@ def _port_rank(rank, report, inpath, root):
     torch.set_num_threads(1)
     x = dict(np.load(inpath))
     mesh = Mesh(MESH, ("data", "model"), backend="gloo", device="cpu")
+    strict = Mesh(STRICT_MESH, ("data", "model"), backend="gloo",
+                  device="cpu")
     out = {"gate": _gate(mesh, x), "cases": {}}
     for name, arch, over, mb in CASES:
-        out["cases"][name] = _strict_case(mesh, name, arch, over, mb)
+        out["cases"][name] = _strict_case(strict, name, arch, over, mb)
         report(f"rank {rank}: {name}")
     # checkpoints: a save at step 0; three steps in a row; two and a save
     cfg = _restart_config()
@@ -425,6 +434,7 @@ def test_a_step_gathers_each_layer_once_a_layer_forward(sides, name):
     runs = cm.layer_forward_runs(cfg, units)
     assert case["gathers"] == mb * (case["forward_gathers"]
                                     + (runs - units) * n["unit"])
+    # a data axis of one rank cuts no rows: no gradient sum either
     assert case["other_collectives"] == 0
 
 
