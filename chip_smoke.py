@@ -201,8 +201,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    processes (``spawn``) on ``gloo`` with CUDA tensors (NCCL takes one
    GPU a rank), float32 with TF32 off unless stated; in 25a-25f each
    rank holds the global tensors and cuts its block
-   (``distributed.mesh.shard_map``), in 25h and 25j only its blocks of
-   the state, in 25h-25j only its rows of the batch.
+   (``distributed.mesh.shard_map``), in 25h, 25k and 25j only its
+   blocks of the state, in 25h-25l only its rows of the batch, in 25k,
+   25i, 25l and 25j only its blocks of the heads, MLP columns and
+   vocabulary (and in 25l of the RG-LRU's channels).
    25a ring attention at qwen3-4b's attention shape (2 x 32/8 heads x
    4,096, D 128, causal) on meshes (1, 4) and (2, 2) ("data", "model")
    against the plain attention (``kernels.ref``) at 1e-4 on rank 0, its
@@ -223,10 +225,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    tinyllama-1.1b's embedding and one decoder layer's leaves against
    ``compressed_psum_reference``, and 30 int8 steps' drift; 25h
    tinyllama-1.1b at full width and depth trained three steps on (2, 2)
-   with rank-local state (``distributed.rank_local``: each rank holds only
-   its blocks of params, ``m`` and ``v``, 3,369,627,648 B, gathers a
-   layer's weights where the step reads them, computes its 2 of the 4
-   rows and sums the gradient over "data") as phase 18 trains it (seed
+   with rank-local state under ``RL_RULES`` (FSDP over both axes, nothing
+   on "model"; ``distributed.rank_local``: each rank holds only its
+   blocks of params, ``m`` and ``v``, gathers a layer's weights whole
+   where the step reads them, computes its 2 of the 4 rows and sums the
+   gradient over "data") as phase 18 trains it (seed
    0, N(0, 0.02), bfloat16 activations, remat full, 4 x 2,048 tokens
    from ``TokenPipeline``, lr 3e-3 with 2 warmup steps), the losses of
    steps 1-2 and every gradient norm against phase 18's within
@@ -239,13 +242,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    all-gathers' and the gradient sums' count and result bytes equal to
    ``rank_local.forward_gathers``' and ``backward_sums``' arithmetic; it
    prints each rank's state bytes and peak memory and the wall (gloo's
-   host staging); 25i qwen3-4b's serving at full width cut to 8 layers
-   (float32, N(0, 0.02) weights on every rank) through the serve steps
-   under ``axis_rules`` with the cache cut (None, "data", None,
-   "model"), each rank its 2 of 4 rows and 1,024 of the 2,048 slots: a
-   1,024-token prefill, 4 decode steps and the next logits against rank
-   0's one-rank replicated run (tokens equal, logits within
-   ``CUT_DECODE_ATOL``); 25j qwen2-moe-a2.7b's expert-parallel and
+   host staging); 25k the same three steps tensor-parallel under the
+   default rules (``distributed.tensor_parallel``: each rank its 16 of
+   32 query heads, half the MLP columns and vocabulary, its 2 rows),
+   the losses of steps 1-2 and every norm against 25h's within
+   ``TP_LOSS_REL`` and ``TP_NORM_REL`` (step 3's loss printed), the "tp"
+   collectives, all-gathers and gradient sums
+   equal to their arithmetic, launches as 25h's; 25i qwen3-4b's serving
+   at full width cut to 8 layers (float32, N(0, 0.02)) on each rank's
+   ``model`` blocks under ``SERVE_RULES`` (the reference's --no-fsdp:
+   no weight gathered) through the serve steps under ``axis_rules`` with
+   the cache cut (None, "data", None, "model"), each rank its 2 of 4
+   rows and 1,024 of the 2,048 slots: a 1,024-token prefill, 4 decode
+   steps and the next logits against rank 0's one-rank run (tokens
+   equal, logits within ``CUT_DECODE_ATOL``); 25l recurrentgemma-9b's
+   the same at full width cut to its first pattern group (rec, rec,
+   attn), the recurrence on each rank's half of the channels; 25j
+   qwen2-moe-a2.7b's expert-parallel and
    qwen3-4b's ring train steps at full width and 2 layers (bfloat16
    weights, 4 x 1,024 tokens, rows cut), remat full bit-equal to remat
    none, the all-to-alls and permutes of the recompute counted; then
@@ -271,8 +284,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    the (16, 16) mesh, one microbatch where the reference's cell takes 8:
    its report is tagged ``mb1``; a rank holds its blocks of params, ``m``
    and ``v`` and its 16 of the 256 rows, ``TRAIN_4K_HELD`` bytes, held;
-   its flops 1/16 of the global step's traced on a 1 x 1 world, within
-   ``FLOPS_CUT_REL``; its gradient sums as ``rank_local.backward_sums``
+   its flops ``tensor_parallel.train_flops`` of its rows and its 1/16 of
+   the heads, MLP columns and vocabulary, its "tp" collectives
+   ``step_collectives``; its gradient sums as ``rank_local.backward_sums``
    counts them), qwen2-moe-a2.7b decode_32k through its
    presets (``--optimized``) and tinyllama-1.1b decode_32k on the (2, 16,
    16) multi-pod mesh (512 ranks), under ``build/dryrun_torch``, and the
@@ -541,6 +555,36 @@ RL_MB2_LOSS_REL = 1e-4
 RL_MB2_NORM_REL = 1e-4
 #: 25h's batch (phase 18's): global batch, sequence length
 RL_BATCH = (4, 2048)
+#: 25h's rules: FSDP over both axes and nothing on "model" (the
+#: reference's make_rules with its model axis one the mesh lacks), so
+#: every weight is gathered whole and a rank's rows are computed as phase
+#: 18 computes them
+RL_RULES = dict(data_axes=("data",), fsdp_axes=("data", "model"),
+                model_axis="tp")
+#: Phase 25k: tinyllama-1.1b's tensor-parallel training on (2, 2) under
+#: the default rules (heads, MLP columns and vocabulary on "model", rows
+#: on "data"), three steps on 25h's weights and batches, each step's loss
+#: and gradient norm against 25h's.  The one difference is the row
+#: products: each rank's bfloat16 partial sum (wo, w_down) is rounded
+#: before the all-reduce adds the two (gloo adds bfloat16 in bfloat16),
+#: where 25h rounds the whole product once, and the column products'
+#: input gradients likewise.  On the card (NVIDIA H100 80GB HBM3, 700 W)
+#: the losses read 4.2e-05, 2.1e-06 and 2.98e-04 from 25h's and the norms
+#: 2.2e-04, 1.3e-04 and 5.9e-05.  Step 3 reads weights that step 2's
+#: updates moved, and as in 25h against phase 18 (2.179e-04) an update
+#: near lr * sign(g) takes the other sign where the two roundings of a
+#: nearly cancelling gradient disagree.  So the losses of steps 1-2,
+#: which read the same weights, are held at TP_LOSS_REL, every norm at
+#: TP_NORM_REL, and step 3's loss is printed.
+TP_LOSS_REL = 2e-4
+TP_NORM_REL = 5e-3
+#: Phases 25i and 25l: the reference's --no-fsdp rules (a rank holds only
+#: its "model" blocks and gathers nothing a token)
+SERVE_RULES = dict(fsdp=False, data_axes=("data",))
+#: Phase 25l: recurrentgemma-9b at full width cut to its first pattern
+#: group (rec, rec, attn): (batch, prompt, max_seq, decode steps)
+RG_CUT_LAYERS = 3
+RG_DECODE = (2, 1024, 2048, 4)
 #: Phase 25i: qwen3-4b's decode at full width cut to 8 of its 36 layers
 #: (every rank a replica of the weights, as the reference test's
 #: ``in_shardings=None``: ~4.8 GB of float32 a rank), N(0, 0.02), the
@@ -553,9 +597,10 @@ CUT_DECODE_ATOL = 2e-3
 #: Phase 25j: qwen2-moe-a2.7b's expert-parallel and qwen3-4b's ring train
 #: steps at full width and 2 layers, rows cut on (2, 2), remat full held
 #: bit-equal to remat none; bfloat16 weights (gloo stages every gather
-#: through the host, its wall by the byte); the batch
+#: through the host, its wall by the byte); the batch (4 x 1,024 until
+#: 25k and 25l were added: halved to keep the script's wall)
 REMAT_LAYERS = 2
-REMAT_BATCH = (4, 1024)
+REMAT_BATCH = (4, 512)
 
 
 def fail(msg: str) -> None:
@@ -890,6 +935,7 @@ def phase25_rank(rank, report, p18):
         gpipe, stack_stage_fn, stages_from_stack)
     from repro_torch.distributed.ring_attention import ring_attention
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import linear_recurrence as klr
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import rmsnorm as krms
     from repro_torch.models import common as cm
@@ -908,7 +954,8 @@ def phase25_rank(rank, report, p18):
     rules = sh.make_rules(data_axes=("data",))
     counters = {"flash_attention": kfa.flash_attention,
                 "flash_attention_bwd": kfa.flash_attention_bwd,
-                "rmsnorm": krms.rmsnorm, "rmsnorm_bwd": krms.rmsnorm_bwd}
+                "rmsnorm": krms.rmsnorm, "rmsnorm_bwd": krms.rmsnorm_bwd,
+                "linear_recurrence": klr.linear_recurrence}
     launched = {}
 
     def run_counted(sub, fn, want):
@@ -1251,75 +1298,105 @@ def phase25_rank(rank, report, p18):
     free()
 
     # -- 25h: tinyllama-1.1b training with rank-local state ------------------
-    rows["25h"] = phase25h(rank, say, run_counted, meshes[(2, 2)], rules,
-                           p18)
-    # -- 25i: qwen3-4b's decode with the cache cut by rows and slots --------
+    rows["25h"] = phase25h(rank, say, run_counted, meshes[(2, 2)],
+                           sh.make_rules(**RL_RULES), p18)
+    # -- 25k: the same steps tensor-parallel over model ----------------------
+    rows["25k"] = phase25k(rank, say, run_counted, meshes[(2, 2)], rules,
+                           rows["25h"])
+    # -- 25i: qwen3-4b's decode on a rank's model blocks, the cache cut ------
+    serve_rules = sh.make_rules(**SERVE_RULES)
     rows["25i"] = phase25i(rank, say, run, run_counted, peak_gb,
-                           meshes[(2, 2)], sh.DEFAULT_RULES, norms)
+                           meshes[(2, 2)], serve_rules, norms)
+    # -- 25l: recurrentgemma-9b's prefill and decode on its channels ---------
+    rows["25l"] = phase25l(rank, say, run, run_counted, peak_gb,
+                           meshes[(2, 2)], serve_rules)
     # -- 25j: the EP and ring train steps on their rows, remat ---------------
     rows["25j"] = phase25j(rank, say, run_counted, meshes[(2, 2)], rules,
                            norms)
     return dict(launches=launched, rows=rows if rank == 0 else None)
 
 
-def phase25i(rank, say, run, run_counted, peak_gb, mesh, rules,
-             norms) -> dict:
-    """Phase 25i on one of phase 25's ranks: qwen3-4b's serving at full
-    width, ``CUT_DECODE_LAYERS`` layers, float32, N(0, 0.02) weights
-    replicated on every rank, through the serve steps under
-    ``axis_rules(mesh, rules)``: the cache cut (None, "data", None,
-    "model"), each rank its rows of the batch and its block of the slots
-    (``serve.step.serving_cut``); a prefill and ``CUT_DECODE[3]`` decode
-    steps, then the logits of one more decode step, against rank 0's
-    one-rank replicated run of the same steps: the greedy tokens equal,
-    the logits within ``CUT_DECODE_ATOL``; launches exact."""
+def serve_on_blocks(rank, run, run_counted, peak_gb, mesh, rules, cfg,
+                    shape, sub, want) -> dict:
+    """Serving on a rank's ``model`` blocks (phases 25i and 25l): the
+    global weights drawn on every rank (seed 0, N(0, 0.02)), rank 0's
+    one-rank run of the serve steps, then each rank's blocks under
+    ``rules`` (``rank_local.serve_blocks``; the global weights freed) run
+    through the same steps under ``axis_rules(mesh, rules)``: a prefill of
+    ``shape`` = (batch, prompt, max_seq, decode steps), the decode steps,
+    and the next logits (gathered over the vocabulary's blocks and the
+    rows).  The tokens equal and the logits within ``CUT_DECODE_ATOL`` of
+    the one-rank run's, no weight gathered (``"state"``), the ``"tp"``
+    collectives of the serve steps ``tensor_parallel.serve_collectives``,
+    the launches ``want``."""
     import torch
 
     from repro_torch import models as M
-    from repro_torch.configs import get_config
     from repro_torch.distributed import ctx as dctx
+    from repro_torch.distributed import rank_local
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.mesh import all_gather_dim
     from repro_torch.serve import make_prefill_step, make_serve_step
     from repro_torch.serve.step import serving_cut
+    from repro_torch.utils.comm_stats import record_collectives
 
     cuda = torch.device(DIST_DEVICE)
-    cfg = dataclasses.replace(get_config("qwen3-4b"),
-                              num_layers=CUT_DECODE_LAYERS, dtype="float32")
-    b, s, max_seq, n_dec = CUT_DECODE
+    b, s, max_seq, n_dec = shape
     params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
                            device=cuda, weight_std=INIT_STD)
     prompt = torch.randint(0, cfg.vocab_size, (b, s),
                            generator=torch.Generator().manual_seed(4)).to(cuda)
+    layout = rank_local.layout_for(cfg, mesh, rules)
+    tp = layout.model_cut()
 
-    def serve():
-        tok, cache = make_prefill_step(cfg, max_seq)(params, prompt)
-        toks = [tok]
-        step = make_serve_step(cfg, max_seq)
-        for i in range(n_dec):
-            tok, cache = step(params, cache, tok, s + i)
-            toks.append(tok)
+    def serve(p, model_cut):
+        with record_collectives() as rec:
+            tok, cache = make_prefill_step(cfg, max_seq)(p, prompt)
+            toks = [tok]
+            step = make_serve_step(cfg, max_seq)
+            for i in range(n_dec):
+                tok, cache = step(p, cache, tok, s + i)
+                toks.append(tok)
         c = serving_cut(cfg, b, max_seq)
-        with dctx.row_cut(c):
-            logits, _ = M.decode_step(cfg, params, cache,
+        with dctx.row_cut(c), dctx.model_cut(model_cut):
+            logits, _ = M.decode_step(cfg, p, cache,
                                       tok if c is None else c.take(tok),
                                       s + n_dec)
+        if model_cut is not None:
+            logits = all_gather_dim(mesh, logits, model_cut.axes,
+                                    logits.dim() - 1, site="tp")
         if c is not None:
             logits = c.gather(logits)
+        sites = {k: (sum(rec.stats(k).count.values()),
+                     int(rec.stats(k).total_result_bytes))
+                 for k in ("state", "tp")}
         return (torch.stack(toks, 1), logits,
                 None if c is None else (c.rows, c.seq),
-                tuple(cache["k"].shape))
+                {k: tuple(v.shape) for k, v in cache.items()}, sites)
 
-    L = cfg.num_layers
     with torch.no_grad():
-        one, wall_one = run(lambda: serve() if rank == 0 else None)
+        one, wall_one = run(lambda: serve(params, None) if rank == 0
+                            else None)
+        blocks = rank_local.serve_blocks(cfg, params, layout)
+        whole = sum(t.nbytes for t in params.parameters())
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = sum(t.nbytes for t in blocks.parameters())
         with dctx.axis_rules(mesh, rules):
-            got, wall = run_counted(
-                "25i", serve, {"flash_attention": L,
-                               "rmsnorm": (norms(cfg) * L + 1) * (n_dec + 2)})
-    toks, logits, cut, cache = got
-    _dist_need(cut == (("data",), ("model",)) and cache == (
-        L, b // mesh.shape["data"], cfg.num_kv_heads,
-        max_seq // mesh.shape["model"], cfg.head_dim),
-        f"25i: cut {cut}, cache block {cache}")
+            got, wall = run_counted(sub, lambda: serve(blocks, tp), want)
+    peak = peak_gb()
+    toks, logits, cut, cache, sites = got
+    rows = b // mesh.extent(cut[0]) if cut else b
+    names = tpar.local_names(cfg, mesh, rules)
+    n = tp.n if tp is not None else 1
+    pre = tpar.serve_collectives(cfg, names, n, rows, s, "prefill")
+    dec = tpar.serve_collectives(cfg, names, n, rows, 1, "decode",
+                                 seq_cut=bool(cut and cut[1]))
+    want_tp = (pre[0] + n_dec * dec[0], pre[1] + n_dec * dec[1])
+    _dist_need(sites["state"] == (0, 0) and sites["tp"] == want_tp,
+               f"{sub}: collectives {sites}, want no gather and tp "
+               f"{want_tp}")
     err, scale, same = 0.0, 0.0, True
     if rank == 0:
         err = _max_err(logits, one[1])
@@ -1327,23 +1404,99 @@ def phase25i(rank, say, run, run_counted, peak_gb, mesh, rules,
         same = bool(torch.equal(toks, one[0]))
     _dist_need(bool(torch.isfinite(logits).all()) and same
                and err <= CUT_DECODE_ATOL,
-               f"25i: logits max abs err {err:.3e} (tol {CUT_DECODE_ATOL}), "
-               f"tokens equal {same}")
-    say(f"[25i] qwen3-4b at full width, {L} of 36 layers, float32, N(0, "
-        f"{INIT_STD}) weights on every rank, {b} x {s:,}-token prompts, "
-        f"{max_seq:,}-slot cache cut (None, data, None, model) on "
-        f"{tuple(mesh.shape.values())}: a rank's cache block {cache}; "
-        f"prefill, {n_dec} decode steps and the next logits through the "
-        f"serve steps against rank 0's one-rank replicated run: greedy "
-        f"tokens equal {same}, logits max abs err {err:.3e} (max |logit| "
-        f"{scale:.3f}; tol {CUT_DECODE_ATOL}); launches exact; peak "
-        f"{peak_gb():.2f} GB a rank; wall {wall:.2f} s (rank 0 alone, no "
-        f"cut, {wall_one:.2f} s)")
-    del params, one, got, logits
+               f"{sub}: logits max abs err {err:.3e} (tol "
+               f"{CUT_DECODE_ATOL}), tokens equal {same}")
+    del blocks, one, got, logits
     gc.collect()
     torch.cuda.empty_cache()
     return dict(err=err, max_logit=scale, tokens_equal=same, wall_s=wall,
-                one_rank_wall_s=wall_one, cache_block=cache)
+                wall_one_s=wall_one, peak_gb=peak, cut=cut, cache=cache,
+                tp=sites["tp"], model_cut=tp.axes if tp else (),
+                held_bytes=held, whole_bytes=whole)
+
+
+def phase25i(rank, say, run, run_counted, peak_gb, mesh, rules,
+             norms) -> dict:
+    """Phase 25i on one of phase 25's ranks: qwen3-4b's serving at full
+    width, ``CUT_DECODE_LAYERS`` layers, float32, each rank its
+    ``model`` blocks under the --no-fsdp ``rules`` (:func:`serve_on_blocks`):
+    its query heads, MLP columns and vocabulary block, the cache cut
+    (None, "data", None, "model"), its rows of the batch; held against
+    rank 0's one-rank run; launches exact."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              num_layers=CUT_DECODE_LAYERS, dtype="float32")
+    b, s, max_seq, n_dec = CUT_DECODE
+    L = cfg.num_layers
+    r = serve_on_blocks(rank, run, run_counted, peak_gb, mesh, rules, cfg,
+                        CUT_DECODE, "25i",
+                        {"flash_attention": L,
+                         "rmsnorm": (norms(cfg) * L + 1) * (n_dec + 2)})
+    _dist_need(r["cut"] == (("data",), ("model",))
+               and r["model_cut"] == ("model",) and r["cache"]["k"] == (
+                   L, b // mesh.shape["data"], cfg.num_kv_heads,
+                   max_seq // mesh.shape["model"], cfg.head_dim),
+               f"25i: cut {r['cut']}, model cut {r['model_cut']}, cache "
+               f"block {r['cache']['k']}")
+    say(f"[25i] qwen3-4b at full width, {L} of 36 layers, float32, N(0, "
+        f"{INIT_STD}), {b} x {s:,}-token prompts, {max_seq:,}-slot cache "
+        f"cut (None, data, None, model) on {tuple(mesh.shape.values())} "
+        f"under make_rules(fsdp=False, data_axes=('data',)): a rank holds "
+        f"its model blocks, {r['held_bytes']:,} B of the "
+        f"{r['whole_bytes']:,} B of weights (its {cfg.num_heads // 2} of "
+        f"{cfg.num_heads} query heads, half the MLP columns and the "
+        f"vocabulary, k and v whole), no weight gathered (held); cache "
+        f"block {r['cache']['k']}; prefill, {n_dec} decode steps and the "
+        f"next logits through the serve steps against rank 0's one-rank "
+        f"run: greedy tokens equal {r['tokens_equal']}, logits max abs err "
+        f"{r['err']:.3e} (max |logit| {r['max_logit']:.3f}; tol "
+        f"{CUT_DECODE_ATOL}); tp collectives {r['tp']} (count, result "
+        f"bytes) = serve_collectives (held); launches exact; peak "
+        f"{r['peak_gb']:.2f} GB a rank (a whole replica on each rank took "
+        f"7.40); wall {r['wall_s']:.2f} s (rank 0 alone, whole, "
+        f"{r['wall_one_s']:.2f} s)")
+    return r
+
+
+def phase25l(rank, say, run, run_counted, peak_gb, mesh, rules) -> dict:
+    """Phase 25l on one of phase 25's ranks: recurrentgemma-9b's prefill
+    and decode at full width, cut to its first pattern group (rec, rec,
+    attn), float32, each rank its ``model`` blocks under the --no-fsdp
+    ``rules`` (:func:`serve_on_blocks`): its half of the RG-LRU's
+    channels (the recurrence on (B, S, di / 2)), of the query heads, the
+    MLP columns and the vocabulary; held against rank 0's one-rank run of
+    the same cut; launches exact."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              num_layers=RG_CUT_LAYERS, dtype="float32")
+    b, s, max_seq, n_dec = RG_DECODE
+    per_forward = 2 * RG_CUT_LAYERS + 1
+    r = serve_on_blocks(rank, run, run_counted, peak_gb, mesh, rules, cfg,
+                        RG_DECODE, "25l",
+                        {"linear_recurrence": 2, "flash_attention": 1,
+                         "rmsnorm": per_forward * (n_dec + 2)})
+    di = cfg.d_model
+    _dist_need(r["model_cut"] == ("model",)
+               and r["cache"]["rec_h"][-1] == di // mesh.shape["model"],
+               f"25l: model cut {r['model_cut']}, recurrent state "
+               f"{r['cache']['rec_h']}")
+    say(f"[25l] recurrentgemma-9b at full width, its first pattern group "
+        f"(rec, rec, attn), float32, N(0, {INIT_STD}), {b} x {s:,}-token "
+        f"prompts, max_seq {max_seq:,}, on {tuple(mesh.shape.values())} "
+        f"under make_rules(fsdp=False, data_axes=('data',)): a rank holds "
+        f"{r['held_bytes']:,} B of the {r['whole_bytes']:,} B of weights; "
+        f"the recurrence on {di // mesh.shape['model']:,} of {di:,} "
+        f"channels (recurrent state {r['cache']['rec_h']}), "
+        f"{cfg.num_heads // mesh.shape['model']} of {cfg.num_heads} query "
+        f"heads; prefill, {n_dec} decode steps and the next logits against "
+        f"rank 0's one-rank run: greedy tokens equal {r['tokens_equal']}, "
+        f"logits max abs err {r['err']:.3e} (max |logit| "
+        f"{r['max_logit']:.3f}; tol {CUT_DECODE_ATOL}); tp collectives "
+        f"{r['tp']} = serve_collectives (held); launches exact "
+        f"(linear_recurrence 2 a rank, on its channels); peak "
+        f"{r['peak_gb']:.2f} GB a rank; wall {r['wall_s']:.2f} s (rank 0 "
+        f"alone, whole, {r['wall_one_s']:.2f} s)")
+    return r
 
 
 def phase25j(rank, say, run_counted, mesh, rules, norms) -> dict:
@@ -1444,11 +1597,12 @@ def phase25j(rank, say, run_counted, mesh, rules, norms) -> dict:
 
 def phase25h(rank, say, run_counted, mesh, rules, p18) -> dict:
     """Phase 25h on one of phase 25's ranks: tinyllama-1.1b at full width
-    and depth trained with rank-local state on ``mesh`` (each rank holds
-    its blocks of params, m and v, gathers a layer's weights where the
-    step reads them, computes its rows of the batch and sums the gradient
-    over the data axis), as phase 18 trains it (seed 0, N(0, 0.02),
-    bfloat16 activations, remat full, 4 x 2,048 tokens from
+    and depth trained with rank-local state on ``mesh`` under ``rules``
+    (``RL_RULES``: FSDP over both axes, nothing on "model": each rank
+    holds its blocks of params, m and v, gathers a layer's weights whole
+    where the step reads them, computes its rows of the batch and sums
+    the gradient over the data axis), as phase 18 trains it (seed 0,
+    N(0, 0.02), bfloat16 activations, remat full, 4 x 2,048 tokens from
     TokenPipeline, lr 3e-3, 2 warmup steps of 8), ``RL_STEPS`` steps held
     against phase 18's losses and gradient norms (``p18``), with exact
     kernel launches, each rank's state bytes and peak, and the
@@ -1572,7 +1726,9 @@ def phase25h(rank, say, run_counted, mesh, rules, p18) -> dict:
         f"bfloat16 activations, remat full, {RL_BATCH[0]} x "
         f"{RL_BATCH[1]:,} tokens, each rank its "
         f"{RL_BATCH[0] // mesh.shape['data']} rows, rank-local state on mesh "
-        f"{tuple(mesh.shape.values())} (data, model): each rank holds "
+        f"{tuple(mesh.shape.values())} (data, model) under FSDP over both "
+        f"axes and nothing on model (every weight gathered whole): each "
+        f"rank holds "
         f"{int(state_bytes[0]):,} B of params, m and v blocks ({gib:.3f} "
         f"GB; every rank {[int(b) for b in state_bytes]}; the blocks' bytes "
         f"from the specs {want_bytes:,}); init {init_s:.2f} s, init peaks "
@@ -1628,6 +1784,138 @@ def phase25h(rank, say, run_counted, mesh, rules, p18) -> dict:
                 state_bytes=state_bytes,
                 gathers=got_n, gather_bytes=got_b, sums=grad["count"],
                 sum_bytes=got_sb)
+
+
+def phase25k(rank, say, run_counted, mesh, rules, h) -> dict:
+    """Phase 25k on one of phase 25's ranks: 25h's three steps (the same
+    seed, weights and batches) tensor-parallel over ``model`` under
+    ``rules`` (the default: heads, MLP columns and vocabulary on
+    "model", rows on "data"): each rank computes its 2 of the 4 rows and
+    its 16 of the 32 query heads, 2,816 of the 5,632 MLP columns and
+    16,000 of the 32,000 vocabulary rows.  Each step's loss and norm
+    against 25h's ``h`` within ``TP_LOSS_REL`` (steps 1-2, which read
+    25h's weights; step 3's printed) and ``TP_NORM_REL``; the
+    ``"tp"`` collectives, the weights' all-gathers over "data" and the
+    gradient's sums held to ``tensor_parallel.step_collectives``,
+    ``rank_local.forward_gathers`` and ``backward_sums``; launches as
+    25h's (each attention and RMSNorm launch on the rank's heads)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import rank_local
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.models import common as cm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.utils.comm_stats import record_collectives
+
+    cuda = torch.device(DIST_DEVICE)
+    cfg = get_config("tinyllama-1.1b")
+    L = cfg.num_layers
+    runs = cm.layer_forward_runs(cfg, L)
+    layout = rank_local.layout_for(cfg, mesh, rules)
+    tp = layout.model_cut()
+    names = tpar.local_names(cfg, mesh, rules)
+    _dist_need(tp is not None and tp.axes == ("model",)
+               and names == {"heads", "mlp", "vocab"},
+               f"25k: model cut {tp}, local names {sorted(names)}")
+    state = rank_local.init_state(cfg, layout,
+                                  torch.Generator(cuda).manual_seed(0),
+                                  device=cuda, weight_std=INIT_STD)
+    data = TokenPipeline(DataConfig(cfg.vocab_size, RL_BATCH[1],
+                                    RL_BATCH[0]))
+    step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=2,
+                                            total_steps=8))
+    per_step = {"rmsnorm": 2 * runs + 1, "rmsnorm_bwd": 2 * L + 1,
+                "flash_attention": runs, "flash_attention_bwd": L}
+    n_steps = RL_STEPS
+
+    def train():
+        nonlocal state
+        out = []
+        with record_collectives() as rec:
+            for _ in range(n_steps):
+                state, m = step(state, next(data))
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+        return out, {site: (sum(rec.stats(site).count.values()),
+                            int(rec.stats(site).total_result_bytes))
+                     for site in ("tp", "state", "grad")}
+
+    (metrics, sites), wall = run_counted(
+        "25k", train, {k: n_steps * v for k, v in per_step.items()})
+    t = torch.tensor([torch.cuda.max_memory_allocated() / 1e9], device=cuda)
+    parts = [torch.empty_like(t) for _ in range(mesh.size)]
+    dist.all_gather(parts, t)
+    peaks = [round(float(p), 2) for p in parts]
+    rows = RL_BATCH[0] // mesh.shape["data"]
+    fwd = rank_local.forward_gathers(cfg, layout)
+    sums = rank_local.backward_sums(cfg, layout, ("data",))
+    tp_n, tp_b = tpar.step_collectives(cfg, names, tp.n, rows, RL_BATCH[1])
+    want = {"tp": (n_steps * tp_n, n_steps * tp_b),
+            # the gathers, and the norm's all-reduce once a step
+            "state": (n_steps * (runs * fwd["unit"][0] + fwd["rest"][0] + 1),
+                      None),
+            "grad": (n_steps * (L * sums["unit"][0] + sums["rest"][0]
+                                + sums["whole"][0]),
+                     n_steps * (L * sums["unit"][1] + sums["rest"][1]
+                                + sums["whole"][1]))}
+    gather_bytes = n_steps * (runs * fwd["unit"][1] + fwd["rest"][1])
+    for site, (n, nbytes) in want.items():
+        got_n, got_b = sites[site]
+        if site == "state":
+            # the norm's all-reduce is 4 bytes a step
+            got_b -= n_steps * 4
+            nbytes = gather_bytes
+        _dist_need((got_n, got_b) == (n, nbytes),
+                   f"25k: {site} collectives {sites[site]}, the arithmetic "
+                   f"{(n, nbytes)}")
+    errs = []
+    for i, (loss, norm) in enumerate(metrics):
+        ref = h["steps"][i]
+        errs.append(dict(loss=loss, norm=norm, h_loss=ref["loss"],
+                         h_norm=ref["norm"],
+                         loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                         norm_rel=abs(norm - ref["norm"]) / abs(ref["norm"])))
+    say(f"[25k] tinyllama-1.1b at full width and depth, 25h's seed, "
+        f"weights and batches, tensor-parallel on "
+        f"{tuple(mesh.shape.values())} under make_rules(data_axes="
+        f"('data',)): each rank its {rows} of {RL_BATCH[0]} rows, "
+        f"{cfg.num_heads // tp.n} of {cfg.num_heads} query heads (k and v "
+        f"whole), {cfg.d_ff // tp.n:,} of {cfg.d_ff:,} MLP columns, "
+        f"{cfg.vocab_size // tp.n:,} of {cfg.vocab_size:,} vocabulary rows; "
+        f"tp collectives {sites['tp'][0]} of {sites['tp'][1]:,} result "
+        f"bytes, the arithmetic (held); all-gathers over data "
+        f"{sites['state'][0] - n_steps} of {gather_bytes:,} B (held; 25h "
+        f"{h['gathers']} of {h['gather_bytes']:,.0f} B); gradient sums "
+        f"{sites['grad'][0]} of {sites['grad'][1]:,} B (held); launches "
+        f"{n_steps} x {per_step}, 25h's (held); peak a rank {peaks} GB "
+        f"(25h {[round(p, 2) for p in h['peaks_gb']]}); wall {wall:.2f} s "
+        f"(25h {h['wall_s']:.2f} s; gloo's host staging)")
+    # the losses of the steps that read 25h's weights (None: printed, not
+    # held: step 3 reads weights step 2's updates moved) and every norm
+    tol_l = [TP_LOSS_REL if i < 2 else None for i in range(n_steps)]
+    for i, e in enumerate(errs):
+        say(f"[25k] step {i + 1}{' (weights moved)' if i >= 2 else ''}: "
+            f"loss {e['loss']!r}, grad norm {e['norm']!r}; 25h's "
+            f"{e['h_loss']!r}, {e['h_norm']!r} (rel {e['loss_rel']:.3e}, "
+            f"tol {tol_l[i] if tol_l[i] is not None else 'none: printed'}; "
+            f"{e['norm_rel']:.3e}, tol {TP_NORM_REL})")
+    for i, e in enumerate(errs):
+        _dist_need(bool(np.isfinite(e["loss"]))
+                   and (tol_l[i] is None or e["loss_rel"] <= tol_l[i])
+                   and e["norm_rel"] <= TP_NORM_REL,
+                   f"25k: step {i + 1} loss {e['loss']!r} / norm "
+                   f"{e['norm']!r} against 25h's {e['h_loss']!r} / "
+                   f"{e['h_norm']!r}: rel {e['loss_rel']:.3e} (tol "
+                   f"{tol_l[i]}), {e['norm_rel']:.3e} (tol {TP_NORM_REL})")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=errs, wall_s=wall, peaks_gb=peaks, tp=sites["tp"],
+                state=sites["state"], grad=sites["grad"])
 
 
 def _leaf_paths(tree, prefix=""):
@@ -1729,6 +2017,10 @@ def phase25(p18: dict):
     for k in ("flash_attention", "flash_attention_bwd", "rmsnorm",
               "rmsnorm_bwd"):
         check(subs["25e"][k] > 0, f"phase 25: GPipe never launched {k}")
+        check(subs["25k"][k] > 0, f"phase 25: 25k's tensor-parallel step "
+                                  f"never launched {k}")
+    check(subs["25l"]["linear_recurrence"] > 0,
+          "phase 25: 25l never launched linear_recurrence")
     print(f"[25] rank 0's numbers {json.dumps(res[0]['rows'])}")
     print(f"[25] phase 25 took {time.perf_counter() - t:.1f} s")
     return got
@@ -1832,13 +2124,11 @@ DRYRUN_TIMEOUT = 600
 #: argument_bytes (PR 31's rank held the global batch, 72,044,036 B)
 TRAIN_4K_HELD = 68_111_876
 TRAIN_4K_SHARDED = 68_111_876
-#: Phase 26b: the global train_4k step (256 x 4,096 on a 1 x 1 fake
-#: world, one microbatch), whose products every rank traced before the
-#: batch was cut; a rank of (16, 16) now traces 1/16 of them, the data
-#: axis's extent, within this fraction (products scale with rows)
-TRAIN_4K_GLOBAL = (256, 4096)
-TRAIN_4K_DATA = 16
-FLOPS_CUT_REL = 5e-3
+#: Phase 26b: a rank of train_4k on (16, 16) traces the products of its
+#: 16 of the 256 rows (4,096 tokens each) and of its blocks of the heads,
+#: MLP columns and vocabulary (``tensor_parallel.train_flops``; k and v
+#: whole), exactly: an integer sum
+TRAIN_4K_ROWS = (16, 4096)
 #: Phase 26b: PR 31's temp bytes of the train_4k cell, a rank computing
 #: the global step (NVIDIA H100 80GB HBM3's host, PR 31's chip call 1)
 TRAIN_4K_TEMP_PR31 = 1_974_505_937_424
@@ -1846,9 +2136,8 @@ TRAIN_4K_TEMP_PR31 = 1_974_505_937_424
 
 def run_dryruns(batch: int, seq: int) -> dict:
     """Phase 26's subprocesses, all started at once: 26a's trace of a
-    ``batch`` x ``seq`` tinyllama-1.1b step on a 1 x 1 mesh, 26c's, the
-    global train_4k step on a 1 x 1 mesh (``TRAIN_4K_GLOBAL``), and 26b's
-    CLI cells (production meshes: the test hooks are cleared) into
+    ``batch`` x ``seq`` tinyllama-1.1b step on a 1 x 1 mesh, 26c's, and
+    26b's CLI cells (production meshes: the test hooks are cleared) into
     ``build/dryrun_torch``, then the roofline CLI over them.  Fails on
     any non-zero exit."""
     out = os.path.join(ROOT, "build", "dryrun_torch")
@@ -1863,8 +2152,7 @@ def run_dryruns(batch: int, seq: int) -> dict:
         [sys.executable, "-c", script, *argv], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
         for script, argv in ((DRYRUN_18, [str(batch), str(seq)]),
-                             (DRYRUN_BWD, []),
-                             (DRYRUN_18, [str(n) for n in TRAIN_4K_GLOBAL]))]
+                             (DRYRUN_BWD, []))]
     procs += [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
          out], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -1882,8 +2170,7 @@ def run_dryruns(batch: int, seq: int) -> dict:
         texts.append(so)
     wall = time.perf_counter() - t
     got = []
-    for name, text in (("26a", texts[0]), ("26c", texts[1]),
-                       ("26b global", texts[2])):
+    for name, text in (("26a", texts[0]), ("26c", texts[1])):
         line = [x for x in text.splitlines() if x.startswith("JSON")]
         check(len(line) == 1, f"phase {name} printed no result: "
                               f"{text[-2000:]}")
@@ -1904,9 +2191,8 @@ def run_dryruns(batch: int, seq: int) -> dict:
         check(r.returncode == 0, f"phase 26: the roofline CLI exited "
                                  f"{r.returncode}: {r.stderr[-2000:]}")
         rows[mesh] = r.stdout.strip().splitlines()
-    return {"a": got[0], "c": got[1], "global": got[2], "cells": cells,
-            "rows": rows,
-            "cli": [t.strip().splitlines()[-1] for t in texts[3:]],
+    return {"a": got[0], "c": got[1], "cells": cells, "rows": rows,
+            "cli": [t.strip().splitlines()[-1] for t in texts[2:]],
             "wall_s": wall}
 
 
@@ -1952,23 +2238,38 @@ def phase26c(card: str, c: dict) -> None:
           f"{c['cpu/prefill']['trace_s']:.2f} s)")
 
 
-def train4k_sums(cell: dict) -> tuple:
-    """``(count, result bytes)`` of the gradient sums one train_4k step
-    (one microbatch) takes on ``cell``'s mesh, from
-    ``rank_local.backward_sums``: a layer's reads once, the rest's, the
-    leaves held whole."""
+def train4k_arithmetic(cell: dict) -> dict:
+    """What one train_4k step (one microbatch of ``TRAIN_4K_ROWS`` a
+    rank) takes on ``cell``'s mesh, by the helpers: ``"sums"`` the
+    gradient sums' (count, result bytes) from ``rank_local.backward_sums``
+    (a layer's reads once, the rest's, the leaves that gather nothing);
+    ``"flops"`` the products a rank traces and ``"flops_whole"`` those of
+    the same rows with every weight whole
+    (``tensor_parallel.train_flops``); ``"tp"`` the (count, result bytes)
+    of ``tensor_parallel.step_collectives``."""
+    from repro_torch.configs import get_config
     from repro_torch.distributed import rank_local
+    from repro_torch.distributed import tensor_parallel as tpar
     from repro_torch.distributed.mesh import AbstractMesh
     from repro_torch.launch import dryrun as D
-    from repro_torch.configs import get_config
-    cfg = get_config(cell["arch"])
+    cfg = get_config(cell["arch"], kernel_impl="torch")
     mesh = AbstractMesh(tuple(cell["mesh_shape"].values()),
                         tuple(cell["mesh_shape"]))
     args = D.parser().parse_args(["--arch", cell["arch"], "--shape", "-"])
-    layout = rank_local.layout_for(cfg, mesh, D._rules_for(mesh, args))
+    rules = D._rules_for(mesh, args)
+    layout = rank_local.layout_for(cfg, mesh, rules)
     n = rank_local.backward_sums(cfg, layout, D.data_axes(mesh))
-    return (cfg.num_layers * n["unit"][0] + n["rest"][0] + n["whole"][0],
-            cfg.num_layers * n["unit"][1] + n["rest"][1] + n["whole"][1])
+    names = tpar.local_names(cfg, mesh, rules)
+    tp = layout.model_cut()
+    rows, seq = TRAIN_4K_ROWS
+    return {"sums": (cfg.num_layers * n["unit"][0] + n["rest"][0]
+                     + n["whole"][0],
+                     cfg.num_layers * n["unit"][1] + n["rest"][1]
+                     + n["whole"][1]),
+            "flops": tpar.train_flops(cfg, names, tp.n, rows, seq),
+            "flops_whole": tpar.train_flops(cfg, frozenset(), 1, rows, seq),
+            "tp": tpar.step_collectives(cfg, names, tp.n, rows, seq),
+            "n": tp.n}
 
 
 def phase26(card: str, p18: dict) -> dict:
@@ -2042,19 +2343,24 @@ def phase26(card: str, p18: dict) -> dict:
                   f"{m['argument_bytes']:,} (want {TRAIN_4K_HELD:,}), "
                   f"sharded {m['sharded_argument_bytes']:,} (want "
                   f"{TRAIN_4K_SHARDED:,})")
-            whole = got["global"]["full"]["flops"]
-            rel = abs(cell["full"]["flops"] * TRAIN_4K_DATA - whole) / whole
-            check(rel <= FLOPS_CUT_REL,
-                  f"phase 26b: train_4k traces {cell['full']['flops']:.6e} "
-                  f"flops a rank, the global step {whole:.6e} / "
-                  f"{TRAIN_4K_DATA}: rel {rel:.3e} > {FLOPS_CUT_REL}")
-            sums = train4k_sums(cell)
+            ar = train4k_arithmetic(cell)
+            flops = cell["full"]["flops"]
+            check(flops == ar["flops"],
+                  f"phase 26b: train_4k traces {flops:.6e} flops a rank, "
+                  f"the TP arithmetic {ar['flops']:.6e}")
+            sums = ar["sums"]
             grad = cell["full"]["collectives_by_site"]["grad"]
             check((sum(grad["count"].values()),
                    sum(grad["result_bytes"].values())) == sums,
                   f"phase 26b: train_4k's gradient sums {grad['count']} of "
                   f"{sum(grad['result_bytes'].values()):,.0f} B, the "
                   f"arithmetic {sums}")
+            tps = cell["full"]["collectives_by_site"]["tp"]
+            got_tp = (sum(tps["count"].values()),
+                      int(sum(tps["result_bytes"].values())))
+            check(got_tp == tuple(ar["tp"]),
+                  f"phase 26b: train_4k's tp collectives {got_tp}, the "
+                  f"arithmetic {ar['tp']}")
             print(f"[26b] ({card}) {cell['arch']} train_4k on "
                   f"{cell['mesh_shape']}: a rank holds {m['argument_bytes']:,}"
                   f" B = its blocks of params, m and v 67,849,728 + the step "
@@ -2063,10 +2369,13 @@ def phase26(card: str, p18: dict) -> dict:
                   f"a device's share under the shardings "
                   f"{m['sharded_argument_bytes']:,} (1.0577x when every rank "
                   f"held the global batch, PR 31); flops a rank "
-                  f"{cell['full']['flops']:.6e} x {TRAIN_4K_DATA} = the "
-                  f"global step's {whole:.6e} (1 x 1 trace, the flops a rank "
-                  f"traced before the cut) within {rel:.3e} (held, tol "
-                  f"{FLOPS_CUT_REL}); temp {m['temp_bytes']:,} B against "
+                  f"{flops:.6e} = the TP arithmetic of its rows and its "
+                  f"1/{ar['n']} of the heads, MLP columns and vocabulary "
+                  f"(held; {ar['flops_whole'] / flops:.2f}x less than its "
+                  f"rows with every weight whole, {ar['flops_whole']:.6e}); "
+                  f"tp collectives {got_tp} (count, result bytes) = "
+                  f"step_collectives (held); temp {m['temp_bytes']:,} B "
+                  f"against "
                   f"PR 31's {TRAIN_4K_TEMP_PR31:,} "
                   f"({TRAIN_4K_TEMP_PR31 / m['temp_bytes']:.2f}x less); "
                   f"gradient sums over data {grad['count']} of "

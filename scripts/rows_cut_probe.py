@@ -39,7 +39,9 @@ def rank_fn(rank, report, cpu: bool):
 
     dev = torch.device("cpu" if cpu else "cuda")
     mesh = Mesh((2, 2), ("data", "model"), backend="gloo", device=dev)
-    rules = sh.make_rules(data_axes=("data",))
+    # phase 25h's rules: nothing on "model", every weight gathered whole
+    rules = sh.make_rules(data_axes=("data",), fsdp_axes=("data", "model"),
+                          model_axis="tp")
     cfg = (get_smoke_config("tinyllama-1.1b") if cpu
            else get_config("tinyllama-1.1b"))
     layout = rank_local.layout_for(cfg, mesh, rules)

@@ -20,8 +20,17 @@ steps where a sharding context cuts the batch and the decode cache.
 Model code reads it through :func:`current_cut`: the MoE routes over the
 global batch, expert parallelism and ring attention take the rows as
 they are, and the decode attention combines its cache's blocks of slots.
-:func:`snapshot` and :func:`restored` carry both contexts into a remat
-recompute, which may run on a thread that has neither.
+
+A third context, :func:`model_cut`, says that this rank holds only its
+blocks of the weights that the rules cut over the ``model`` axis (a
+:class:`ModelCut`: the mesh axes and this rank's index along them): the
+train step enters it for a rank-local state whose layout cuts such
+leaves, the serve steps for parameters held as such blocks.  Model code
+reads it through :func:`current_model_cut` where a weight's shape is a
+block of its width (:mod:`repro_torch.distributed.tensor_parallel`).
+:func:`snapshot` and :func:`restored` carry all three contexts into a
+remat recompute, which may run on a thread that has none of them, so
+that it computes the same blocks.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from . import sharding as sh
 
 _CTX = contextvars.ContextVar("repro_torch_sharding_ctx", default=None)
 _CUT = contextvars.ContextVar("repro_torch_row_cut", default=None)
+_MODEL = contextvars.ContextVar("repro_torch_model_cut", default=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +89,28 @@ class RowCut:
                           site="rows") / self.n_rows
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelCut:
+    """The weights a rank holds of the ``model`` axis on ``mesh``: the
+    block of its linear index along the mesh axes ``axes`` (of more than
+    one rank) of every width the rules cut over them: attention heads,
+    MLP columns, the vocabulary, the RG-LRU's channels."""
+
+    mesh: object
+    axes: tuple
+
+    @property
+    def n(self) -> int:
+        """The number of blocks: the extent of ``axes``."""
+        return self.mesh.extent(self.axes)
+
+    @property
+    def index(self) -> int:
+        """This rank's block: its linear index along ``axes``."""
+        from .mesh import axis_index
+        return axis_index(self.mesh, self.axes)
+
+
 def spanning(mesh, axes) -> tuple:
     """The axes of ``axes`` (a spec entry: a name, a tuple or None) that
     span more than one rank of ``mesh``."""
@@ -104,6 +136,22 @@ def current_cut() -> Optional[RowCut]:
     return _CUT.get()
 
 
+@contextlib.contextmanager
+def model_cut(cut: Optional[ModelCut]):
+    """Run the block with ``cut`` as the rank's :class:`ModelCut` (None:
+    the rank holds its weights whole)."""
+    token = _MODEL.set(cut)
+    try:
+        yield
+    finally:
+        _MODEL.reset(token)
+
+
+def current_model_cut() -> Optional[ModelCut]:
+    """The innermost :func:`model_cut`'s :class:`ModelCut`, or None."""
+    return _MODEL.get()
+
+
 def local_axes(mesh) -> tuple:
     """The axes along which the tensors of a body on ``mesh`` are this
     rank's rows already (a ``shard_map``'s ``local``): the current cut's
@@ -119,17 +167,19 @@ def local_axes(mesh) -> tuple:
 
 
 def snapshot() -> tuple:
-    """Both contexts as they stand: ``(axis rules, row cut)``."""
-    return _CTX.get(), _CUT.get()
+    """The three contexts as they stand: ``(axis rules, row cut, model
+    cut)``."""
+    return _CTX.get(), _CUT.get(), _MODEL.get()
 
 
 @contextlib.contextmanager
 def restored(snap: tuple):
     """Run the block under a :func:`snapshot`'s contexts."""
-    t1, t2 = _CTX.set(snap[0]), _CUT.set(snap[1])
+    t1, t2, t3 = _CTX.set(snap[0]), _CUT.set(snap[1]), _MODEL.set(snap[2])
     try:
         yield
     finally:
+        _MODEL.reset(t3)
         _CUT.reset(t2)
         _CTX.reset(t1)
 

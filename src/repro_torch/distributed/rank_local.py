@@ -16,18 +16,26 @@ partitioner's work, written out for ``torch.distributed`` ranks:
   parameters stay views of the stacked blocks (``block[i]``: the
   ``layers`` and ``layer_groups`` axes map to no mesh axis).  A leaf
   whose spec is replicated is held whole.
-* Every parameter whose block is not the whole tensor reads as the
-  global tensor (``torch.nn.utils.parametrize``): each attribute access
-  runs :class:`_GatherBlock`, one all-gather over each sharded dim
+* Every parameter whose block is not the whole tensor is gathered where
+  it is read (``torch.nn.utils.parametrize``): each attribute access runs
+  :class:`_GatherBlock`, one all-gather over each sharded dim that the
+  rank does not compute a block of
   (:func:`repro_torch.distributed.mesh.all_gather_dim`, recorded at the
-  ``"state"`` site of :mod:`repro_torch.utils.comm_stats`).  The model
-  code is unchanged: a layer's weights are gathered where its forward
-  reads them, inside its checkpointed region, so a remat recompute
-  gathers them again and the backward holds no gathered weight past its
-  layer (ZeRO-3's schedule); the ``embed`` group's where the forward
-  uses it (a tied embedding, read twice, is gathered twice).  Expert
-  parallelism and ring attention receive the gathered global tensor and
-  cut it in their ``shard_map`` as before.
+  ``"state"`` site of :mod:`repro_torch.utils.comm_stats`).  A dim that
+  the rules cut over ``model`` and that the rank computes a block of
+  (:func:`repro_torch.distributed.tensor_parallel.local_names`: attention
+  heads, MLP columns, the vocabulary, the RG-LRU's channels) is not
+  gathered: the leaf reads as its ``model`` block, whole over its other
+  axes (:attr:`Layout.gathered`: the specs it is gathered by), and the
+  step runs under :meth:`Layout.model_cut`, on which the model code
+  computes its blocks.  A leaf sharded over nothing else reads as its
+  block with no collective.  A layer's weights are gathered where its
+  forward reads them, inside its checkpointed region, so a remat
+  recompute gathers them again and the backward holds no gathered
+  weight past its layer (ZeRO-3's schedule); the ``embed`` group's
+  where the forward uses it (a tied embedding, read twice, is gathered
+  twice).  Expert parallelism and ring attention receive the gathered
+  global tensor and cut it in their ``shard_map`` as before.
 * A rank computes only its rows of the batch, as GSPMD partitions the
   reference's step with the batch on ``"data"``: :meth:`Layout.row_cut`
   resolves the batch's specs (``tree_shardings_for`` of its shapes and
@@ -40,9 +48,10 @@ partitioner's work, written out for ``torch.distributed`` ranks:
   divided by their extent.
 * The gather's backward makes that sum (``"grad"`` site): it reads the
   row axes from the current cut when the gather runs, then cuts the
-  dims sharded over axes where the rows are replicated (every rank there
-  holds the same cotangent), all-reduces over the row axes the weight is
-  not sharded on, and reduce-scatters each dim sharded over row axes
+  dims it gathered over axes where the rows are replicated (every rank
+  there holds the same cotangent; a dim the rank computes a block of is
+  its block already), all-reduces over the row axes the weight is not
+  sharded on, and reduce-scatters each dim sharded over row axes
   (:func:`repro_torch.distributed.mesh.reduce_scatter_dim`), so that
   each rank keeps its block of the sum (:func:`_sum_plan`).  It sums
   over exactly the row axes, never over an axis where the rows are
@@ -52,9 +61,10 @@ partitioner's work, written out for ``torch.distributed`` ranks:
   in its backward: a remat recompute may run on the autograd engine's
   device thread, where no :func:`repro_torch.distributed.ctx.axis_rules`
   is set.
-* A leaf that is held whole (not parametrized) gathers nothing, so
-  :func:`sum_rows` all-reduces its gradient over the row axes after the
-  backward, leaf by leaf in the tree's order on every rank.
+* A leaf that gathers nothing (held whole, or cut over ``model`` only)
+  is not parametrized, so :func:`sum_rows` all-reduces its gradient
+  over the row axes after the backward, leaf by leaf in the tree's order
+  on every rank.
 * :func:`global_norm` sums each element of the gradient once: each
   leaf's sum of squares over its block, divided by the number of ranks
   holding that block (a power of two, so the division is exact), summed
@@ -68,7 +78,10 @@ partitioner's work, written out for ``torch.distributed`` ranks:
 Every rank calls these functions, and runs the step, in the same order:
 the gathers are collectives.  On a mesh where a spec spans no axis of
 more than one rank, nothing is parametrized and nothing is gathered: a
-1 x 1 mesh runs the one-rank step as it is.
+1 x 1 mesh runs the one-rank step as it is.  The serve steps take a
+rank's blocks too (:func:`serve_blocks`): under rules that shard no
+weight over the data axes (the reference's ``--no-fsdp``), a rank holds
+only its ``model`` blocks and gathers nothing a token.
 """
 from __future__ import annotations
 
@@ -83,7 +96,7 @@ from torch import nn
 from torch.nn.utils import parametrize
 
 from . import sharding as sh
-from .ctx import RowCut, local_axes, spanning
+from .ctx import ModelCut, RowCut, local_axes, spanning
 from .mesh import (
     _axes, _block, _local, all_gather_dim, all_reduce, reduce_scatter_dim)
 from .sharding import PartitionSpec
@@ -98,6 +111,29 @@ class Layout:
     mesh: object
     specs: object
     rules: sh.Rules = sh.DEFAULT_RULES
+    #: the specs each parameter leaf is gathered by: ``specs.params``
+    #: less the dims the rank computes a block of (None: all gathered)
+    gathered: object = None
+
+    def gather_specs(self):
+        """:attr:`gathered`, or the parameters' specs where it is None."""
+        return self.specs.params if self.gathered is None \
+            else self.gathered
+
+    def model_cut(self) -> Optional[ModelCut]:
+        """The :class:`repro_torch.distributed.ctx.ModelCut` the model
+        computes its blocks on: the axes of the dims that are not
+        gathered; None where every leaf is gathered whole."""
+        found = set()
+        for _, spec, g in _pairs(self.specs.params, self.gather_specs()):
+            for dim, e in enumerate(spec):
+                if (len(g) <= dim or g[dim] is None) and \
+                        spanning(self.mesh, e):
+                    found.add(spanning(self.mesh, e))
+        if len(found) > 1:
+            raise ValueError(f"the leaves cut over model are cut over "
+                             f"different axes: {sorted(found)}")
+        return ModelCut(self.mesh, found.pop()) if found else None
 
     def replicas(self, spec) -> int:
         """The number of ranks holding the same block under ``spec``."""
@@ -154,8 +190,25 @@ def specs_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES):
                                  rules) for k in ("params", "opt")})
 
 
+def gathered_specs(cfg, specs, mesh, rules) -> dict:
+    """The parameters' specs ``specs`` less each dim whose logical axis
+    the rank computes a block of
+    (:func:`repro_torch.distributed.tensor_parallel.local_names`): the
+    specs the leaves are gathered by."""
+    from repro_torch import models as M
+    from .tensor_parallel import local_names
+    names = local_names(cfg, mesh, rules)
+
+    def drop(spec, axes):
+        return PartitionSpec(*(None if name in names else e
+                               for e, name in zip(spec, axes)))
+    return _map(drop, specs, M.logical_axes(cfg))
+
+
 def layout_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES) -> Layout:
-    return Layout(mesh, specs_for(cfg, mesh, rules), rules)
+    specs = specs_for(cfg, mesh, rules)
+    return Layout(mesh, specs, rules,
+                  gathered_specs(cfg, specs.params, mesh, rules))
 
 
 def layout_of(params) -> Optional[Layout]:
@@ -216,21 +269,41 @@ def _reads(cfg) -> dict:
             ("embed", "patch_proj"): 0}
 
 
+def _local_shape(mesh, shape, spec, gspec) -> tuple:
+    """``shape`` with each dim the rank computes a block of (sharded in
+    ``spec``, not in ``gspec``) cut to its block."""
+    out = list(shape)
+    for dim, e in enumerate(spec):
+        if e is not None and (len(gspec) <= dim or gspec[dim] is None):
+            out[dim] //= mesh.extent(e)
+    return tuple(out)
+
+
 def _tally(cfg, layout: Layout, count) -> dict:
     """``count(shape, spec, element size) -> (n, bytes)`` of one read of
-    each leaf (a unit's leaves without their stacked dim), times its
-    reads, summed as ``{"unit": (n, bytes), "rest": (n, bytes)}``."""
+    each leaf (a unit's leaves without their stacked dim; ``shape`` the
+    leaf's as it reads, its ``model`` blocks cut; ``spec`` the one it is
+    gathered by), times its reads, summed as ``{"unit": (n, bytes),
+    "rest": (n, bytes)}``."""
     from repro_torch.train import state_spec
     reads = _reads(cfg)
     out = {"unit": [0, 0], "rest": [0, 0]}
     for path, t, spec in _pairs(state_spec(cfg).params, layout.specs.params):
+        gspec = _leaf(layout.gather_specs(), path)
         unit = path[0] in ("layers", "groups")
-        shape, spec = (t.shape[1:], spec[1:]) if unit else (t.shape, spec)
-        n, nbytes = count(tuple(shape), spec, t.element_size())
+        shape = _local_shape(layout.mesh, t.shape, spec, gspec)
+        shape, gspec = (shape[1:], gspec[1:]) if unit else (shape, gspec)
+        n, nbytes = count(tuple(shape), gspec, t.element_size())
         tally = out["unit" if unit else "rest"]
         tally[0] += reads.get(path, 1) * n
         tally[1] += reads.get(path, 1) * nbytes
     return {k: tuple(v) for k, v in out.items()}
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def forward_gathers(cfg, layout: Layout) -> dict:
@@ -239,8 +312,9 @@ def forward_gathers(cfg, layout: Layout) -> dict:
     bytes), "rest": (n, bytes)}``, ``unit`` for one read of a layer's (or
     a pattern group's) leaves, ``rest`` for the other leaves' reads.  A
     read of a leaf gathers its block over each dim sharded over more than
-    one rank, in dim order, each result the block grown by the dims
-    gathered so far.  A forward reads each leaf once, but those of
+    one rank that the rank does not compute a block of
+    (:attr:`Layout.gathered`), in dim order, each result the block grown
+    by the dims gathered so far.  A forward reads each leaf once, but those of
     :func:`_reads`.  A step reads a unit once a unit forward, the remat
     recomputes included
     (:func:`repro_torch.models.common.layer_forward_runs`)."""
@@ -264,7 +338,8 @@ def backward_sums(cfg, layout: Layout, rows) -> dict:
     their result bytes: ``{"unit": (n, bytes), "rest": (n, bytes)}`` of
     the gathers' backwards, as :func:`forward_gathers` counts reads (a
     read's backward runs once, the recomputes' none), and ``"whole"``:
-    :func:`sum_rows`' all-reduces of the leaves held whole, once a step.
+    :func:`sum_rows`' all-reduces of the leaves that gather nothing, once
+    a step.
     A reduce-scatter's bytes are its result's, the block; an
     all-reduce's its operand's."""
     from repro_torch.train import state_spec
@@ -282,9 +357,12 @@ def backward_sums(cfg, layout: Layout, rows) -> dict:
                 nbytes += math.prod(shape) * size
         return n, nbytes
     out = _tally(cfg, layout, count)
-    whole = [t.nbytes for _, t, spec in _pairs(state_spec(cfg).params,
-                                               layout.specs.params)
-             if rows and not _gathers(mesh, spec)]
+    whole = [math.prod(_local_shape(mesh, t.shape, spec, g))
+             * t.element_size()
+             for (_, t, spec), g in zip(
+                 _pairs(state_spec(cfg).params, layout.specs.params),
+                 spec_leaves(layout.specs.params, layout.gather_specs()))
+             if rows and not _gathers(mesh, g)]
     out["whole"] = (len(whole), sum(whole))
     return out
 
@@ -326,7 +404,9 @@ def _sum_plan(mesh, spec, rows) -> list:
     axes the weight is not sharded on; then each dim sharded over row
     axes: a ``"reduce-scatter"``, or, where its entry mixes row axes with
     others, an all-reduce over its row axes and a cut.  Axes of one rank
-    take no step."""
+    take no step.  ``spec`` is the one the weight is gathered by
+    (:attr:`Layout.gathered`): a dim the rank computes a block of is None
+    there, and its cotangent is that block already, so it is not cut."""
     rows = set(rows)
     dims = [(dim, tuple(a for a in _axes(e) if mesh.shape[a] > 1))
             for dim, e in enumerate(spec)]
@@ -361,7 +441,9 @@ def _sum_block(mesh, g, spec, rows):
 
 
 class _GatherBlock(torch.autograd.Function):
-    """A block to its global tensor; the backward is this rank's block of
+    """A block to the tensor whole over ``spec``'s axes (the global
+    tensor, or its ``model`` block where the spec leaves that dim
+    out); the backward is this rank's block of
     the cotangent summed over the row axes ``rows`` (:func:`_sum_block`),
     or with no row axes the block itself (every rank holds the same
     cotangent), no collective."""
@@ -384,8 +466,8 @@ class _GatherBlock(torch.autograd.Function):
 
 
 class _Gathered(nn.Module):
-    """The parametrization: a parameter's block read as the global
-    tensor, under the row cut current where it is read."""
+    """The parametrization: a parameter's block read whole over its
+    gathered spec's axes, under the row cut current where it is read."""
 
     def __init__(self, mesh, spec: PartitionSpec):
         super().__init__()
@@ -403,13 +485,13 @@ def _storage_key(t: torch.Tensor) -> int:
 def model_from_blocks(cfg, blocks: dict, layout: Layout) -> nn.Module:
     """The family's module over a tree of blocks (the parameters' part of
     ``layout.specs``): its parameters are views of the blocks, and every
-    one whose spec spans more than one rank reads as the global tensor,
-    gathered at each access."""
+    one whose gathered spec (:attr:`Layout.gathered`) spans more than
+    one rank is gathered at each access."""
     from repro_torch import models as M
     model = M.model_from_tree(cfg, blocks)
     mesh = layout.mesh
     leaf_spec = {_storage_key(leaf): (leaf, spec) for _, leaf, spec in
-                 _pairs(blocks, layout.specs.params)}
+                 _pairs(blocks, layout.gather_specs())}
     for mod in list(model.modules()):
         for name, p in list(mod.named_parameters(recurse=False)):
             leaf, spec = leaf_spec[_storage_key(p)]
@@ -420,6 +502,18 @@ def model_from_blocks(cfg, blocks: dict, layout: Layout) -> nn.Module:
                     mod, name, _Gathered(mesh, spec), unsafe=True)
     model.rank_local_layout = layout
     return model
+
+
+def serve_blocks(cfg, params, layout: Layout) -> nn.Module:
+    """A serving model of this rank's blocks of ``params`` (a model of
+    global tensors, freed once the caller drops it) under ``layout``
+    (:func:`layout_for`: only its parameters' part is read): frozen
+    parameters, gathered where :attr:`Layout.gathered` shards them, the
+    rest the rank's ``model`` blocks.  The serve steps run it under
+    :meth:`Layout.model_cut`."""
+    blocks = _map(lambda t, s: cut_block(layout.mesh, t, s),
+                  params.param_tree(), layout.specs.params)
+    return model_from_blocks(cfg, blocks, layout).requires_grad_(False)
 
 
 def init_state(cfg, layout: Layout, generator=None, *, device,
@@ -454,12 +548,13 @@ def shard_state(cfg, state, layout: Layout):
 
 def sum_rows(grads: dict, layout: Layout, cut: Optional[RowCut]) -> None:
     """After the backward of a step on ``cut``'s rows: each gradient leaf
-    held whole (its parameter gathers nothing, so no backward summed it)
+    that gathers nothing (held whole or cut over ``model`` only, so no
+    backward summed it)
     all-reduced over the row axes and divided by the row blocks' number,
     in place, leaf by leaf in the tree's order on every rank."""
     if cut is None or not cut.rows:
         return
-    for _, g, spec in _pairs(grads, layout.specs.params):
+    for _, g, spec in _pairs(grads, layout.gather_specs()):
         if not _gathers(layout.mesh, spec):
             g.copy_(all_reduce(layout.mesh, g, cut.rows, site="grad")
                     / cut.n_rows)

@@ -1,0 +1,416 @@
+"""Tensor parallelism over the ``model`` axis: Megatron's column and row
+products, as GSPMD partitions the reference's step with its rules.
+
+The reference's rules put the vocabulary, the attention's query heads,
+the MLP's hidden columns and the RG-LRU's channels on ``"model"``
+(``repro.distributed.sharding.make_rules``); GSPMD then computes each
+device's heads and columns.  Here a rank holds the same blocks
+(:mod:`repro_torch.distributed.rank_local` gathers such a leaf over its
+other axes only, or the serve steps take the blocks as they are), runs
+under a :class:`repro_torch.distributed.ctx.ModelCut`, and the model code
+computes on the blocks it is given:
+
+* a *column* product (``wq``, ``w_gate`` / ``w_up``, ``proj_x``, the LM
+  head) takes its input through :func:`copy_in`: the identity forward,
+  an all-reduce over the cut's axes backward (each rank's gradient of
+  the input is a partial sum over its columns);
+* a *row* product (``wo``, ``w_down``, ``out_proj``) gives its partial
+  sum through :func:`reduce_out`: an all-reduce forward, the identity
+  backward;
+* a weight the rules leave whole but that a rank applies to its block
+  only (``wk`` / ``wv``, whose ``kv_heads`` map to no mesh axis; the
+  query and key norms; the RG-LRU's gate blocks) goes through
+  :func:`copy_in` too: each rank's gradient of it is a partial sum;
+* the vocabulary-parallel pieces: :func:`embed` (a lookup of the tokens
+  in this rank's rows of the table, the others zero; the caller
+  reduces out), :func:`cross_entropy` (the row maximum by an all-reduce
+  MAX, detached; the sum of exponentials and the target logit by one
+  all-reduce SUM) and :func:`argmax` (ties to the lowest global index,
+  as ``torch.argmax`` breaks them).
+
+Which widths are cut is the rules' decision, resolved once
+(:func:`local_names`): a leaf the rules leave whole over ``model``, or
+that ``sanitize`` keeps whole, is computed whole.  The model code reads
+it from the shapes it is given (:func:`split`).  What stays whole by
+design: Mamba2 (its ``in_proj`` is one ``(D, 2 di + 2 N + H)`` matrix on
+``"ssm_inner"`` whose contiguous ``model`` blocks of the concatenated z |
+xBC | dt columns do not line up with its heads), the MoE's routed experts
+(gathered whole, as before), attention under ring attention (which takes
+the ``model`` axis for the sequence) and every weight under
+``cfg.seq_parallel`` (Megatron-SP's reduce-scatter / all-gather form is
+not ported).
+
+Every collective here goes through :mod:`repro_torch.distributed.mesh`
+and is recorded at :mod:`repro_torch.utils.comm_stats`' ``"tp"`` site;
+:func:`collectives` is their arithmetic and :func:`train_flops` the
+products a rank traces.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from .ctx import ModelCut, current_model_cut, spanning
+from .mesh import all_gather_dim, all_reduce
+
+#: The logical axes whose widths a rank computes a block of, when the
+#: rules cut them over the mesh (the reference's "TP over model").
+TP_NAMES = ("vocab", "heads", "mlp", "rnn")
+
+SITE = "tp"
+
+
+def local_names(cfg, mesh, rules) -> frozenset:
+    """The logical axes of ``cfg``'s parameters that a rank computes a
+    block of on ``mesh`` under ``rules``: :data:`TP_NAMES` where the
+    rules cut them over axes of more than one rank, less what stays
+    whole by design (see the module docstring).  The RG-LRU's channels
+    are cut only where its gate blocks divide too."""
+    from . import sharding as sh
+    if cfg.family == "ssm" or cfg.seq_parallel:
+        return frozenset()
+    out = set()
+    for name in TP_NAMES:
+        entry = sh.spec_from_axes((name,), rules, mesh)
+        ax = spanning(mesh, entry[0] if len(entry) else None)
+        if not ax:
+            continue
+        if name == "heads" and cfg.ring_attention:
+            continue
+        if name == "rnn" and (cfg.family != "hybrid"
+                              or cfg.num_heads % mesh.extent(ax)):
+            continue
+        out.add(name)
+    return frozenset(out)
+
+
+def split(local: int, width: int) -> Optional[ModelCut]:
+    """The :class:`ModelCut` a product over ``width`` computes on, where
+    the weight holds a block of ``local`` of it; None where it holds the
+    whole width."""
+    if local == width:
+        return None
+    tp = current_model_cut()
+    if tp is None or local * tp.n != width:
+        raise ValueError(
+            f"a weight holds {local} of {width} columns, but the rank's "
+            f"model cut is {tp}: run under ctx.model_cut with the "
+            f"layout's cut (rank_local.Layout.model_cut)")
+    return tp
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(ctx.tp.mesh, g, ctx.tp.axes, site=SITE), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return all_reduce(tp.mesh, x, tp.axes, site=SITE)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_in(tp: Optional[ModelCut], x: torch.Tensor) -> torch.Tensor:
+    """``x`` into a region of blocks: the identity; its gradient summed
+    over the cut's axes."""
+    if tp is None or not torch.is_grad_enabled():
+        return x
+    return _CopyIn.apply(x, tp)
+
+
+def reduce_out(tp: Optional[ModelCut], x: torch.Tensor) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over the cut's axes; its
+    gradient is the identity."""
+    if tp is None:
+        return x
+    return _ReduceOut.apply(x, tp)
+
+
+def gather_heads(tp: Optional[ModelCut], x: torch.Tensor,
+                 dim: int) -> torch.Tensor:
+    """Every rank's block of ``x`` concatenated on ``dim`` (no gradient:
+    the decode step's query heads)."""
+    if tp is None:
+        return x
+    return all_gather_dim(tp.mesh, x, tp.axes, dim, site=SITE)
+
+
+def kv_heads(x: torch.Tensor, tp: Optional[ModelCut], hl: int, rep: int,
+             dim: int = 1) -> torch.Tensor:
+    """The key or value heads (on ``dim``) that this rank's ``hl`` query
+    heads use, in the order that
+    :func:`repro_torch.kernels.ops.attention` maps query head ``h`` to
+    key head ``h // (hl / kv)``: the group's slice where the local heads
+    are whole groups (``hl % rep == 0``) or lie in one group (``rep %
+    hl == 0``), else one key head a query head."""
+    if tp is None:
+        return x
+    h0 = tp.index * hl
+    if hl % rep == 0:
+        return x.narrow(dim, h0 // rep, hl // rep)
+    if rep % hl == 0:
+        return x.narrow(dim, h0 // rep, 1)
+    idx = torch.arange(h0, h0 + hl, device=x.device) // rep
+    return x.index_select(dim, idx)
+
+
+def embed(tp: ModelCut, table: torch.Tensor, tokens) -> torch.Tensor:
+    """This rank's part of the lookup of ``tokens`` in the vocabulary
+    table whose rows ``table`` holds a block of: the rows of the tokens
+    in its block, zero for the others (the sum over the ranks, by
+    :func:`reduce_out`, is the lookup)."""
+    vl = table.shape[0]
+    t = tokens.long() - tp.index * vl
+    inside = (t >= 0) & (t < vl)
+    rows = table[torch.where(inside, t, torch.zeros_like(t))]
+    return torch.where(inside[..., None], rows, rows.new_zeros(()))
+
+
+def cross_entropy(tp: ModelCut, logits: torch.Tensor,
+                  targets) -> torch.Tensor:
+    """``logsumexp(logits) - logits[target]`` of each row over the
+    vocabulary whose block of columns ``logits`` holds: the row maximum
+    by an all-reduce MAX (detached, as the one-rank loss detaches it),
+    the sum of exponentials and the target's logit by one all-reduce
+    SUM (:func:`reduce_out`, so each rank's block gets its gradient)."""
+    mesh, axes = tp.mesh, tp.axes
+    lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lmax = all_reduce(mesh, lmax, axes, op=dist.ReduceOp.MAX, site=SITE)
+    sumexp = torch.sum(torch.exp(logits - lmax), dim=-1)
+    vl = logits.shape[-1]
+    t = targets.long() - tp.index * vl
+    inside = (t >= 0) & (t < vl)
+    tgt = torch.gather(logits, -1,
+                       torch.where(inside, t, torch.zeros_like(t))[..., None])
+    tgt = torch.where(inside, tgt[..., 0], tgt.new_zeros(()))
+    sumexp, tgt = reduce_out(tp, torch.stack([sumexp, tgt])).unbind(0)
+    return torch.log(sumexp) + lmax[..., 0] - tgt
+
+
+def argmax(tp: Optional[ModelCut], logits: torch.Tensor) -> torch.Tensor:
+    """``torch.argmax(logits, -1)`` of the vocabulary whose block of
+    columns ``logits`` holds: each rank's largest logit and its global
+    index (the first in the block), all-gathered once; the first rank
+    holding the largest wins, so a tie goes to the lowest global index."""
+    if tp is None:
+        return torch.argmax(logits, dim=-1)
+    val, idx = torch.max(logits, dim=-1)
+    idx = idx + tp.index * logits.shape[-1]
+    # a float32 index is exact below 2**24 (a vocabulary of 16.7M)
+    pair = torch.stack([val, idx.to(val.dtype)], dim=-1)[None]
+    every = all_gather_dim(tp.mesh, pair, tp.axes, 0, site=SITE)
+    win = torch.argmax(every[..., 0], dim=0, keepdim=True)
+    return torch.gather(every[..., 1], 0, win)[0].long()
+
+
+# ---------------------------------------------------------------------------
+# Arithmetic
+# ---------------------------------------------------------------------------
+def _cut(cfg, names, n: int) -> dict:
+    """The width each product computes on a rank, given the logical axes
+    ``names`` that are cut ``n`` ways: heads, MLP columns (and the MoE's
+    shared expert's), vocabulary, RG-LRU channels, and whether each is
+    cut."""
+    def w(name, width):
+        return width // n if name in names and width % n == 0 else width
+    di = cfg.d_model
+    return {"heads": w("heads", cfg.num_heads),
+            "mlp": w("mlp", cfg.d_ff),
+            "shared": (w("mlp", cfg.moe_shared_d_ff)
+                       if cfg.moe_shared_d_ff else 0),
+            "vocab": w("vocab", cfg.vocab_size),
+            "rnn": w("rnn", di)}
+
+
+def collectives(cfg, names, n: int, rows: int, seq: int,
+                kind: str = "train", seq_cut: bool = False) -> dict:
+    """The ``"tp"`` site's collectives of one microbatch of ``rows`` x
+    ``seq`` tokens on a rank whose widths ``names`` (:func:`local_names`)
+    are cut ``n`` ways, each a ``(count, result bytes)``: ``"unit"`` one
+    layer's (or pattern group's), ``"tail"`` one of the hybrid's
+    trailing rec blocks (run outside the remat regions), ``"rest"`` the
+    embedding's, the head's and the loss's, each as ``{"fwd", "bwd"}``:
+    one forward run (a remat recompute runs a unit's again:
+    :func:`step_collectives`) and one backward; and the unit's
+    ``"last"``, the forward's collectives after its last product (a
+    unit's own recompute stops before it).  ``kind``: ``"train"`` (the
+    loss's too), ``"prefill"`` / ``"decode"`` (the greedy argmax's, no
+    backward; a decode step's ``seq`` is 1, and its query heads are
+    all-gathered where the cache's slots are cut, ``seq_cut``).  Result
+    bytes: an all-reduce's operand, an all-gather's result."""
+    w = _cut(cfg, names, n)
+    act = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    par = torch.empty((), dtype=getattr(torch, cfg.param_dtype)
+                      ).element_size()
+    lg = 8 if cfg.dtype == "float64" else 4         # the logits' dtype
+    tok, d = rows * seq, cfg.d_model
+    resid = tok * d * act                           # a (rows, seq, D)
+    gather = kind == "decode" and seq_cut
+
+    def tally():
+        return {"fwd": [0, 0], "bwd": [0, 0]}
+
+    def add(t, way, count, nbytes):
+        t[way][0] += count
+        t[way][1] += count * nbytes
+
+    def attention(t):
+        if w["heads"] == cfg.num_heads:
+            return
+        add(t, "fwd", 1, resid)                     # wo's reduce-out
+        if gather:
+            add(t, "fwd", 1, rows * cfg.num_heads * cfg.head_dim * act)
+        # copy-in of the input, of wk and wv, of the q/k norms
+        add(t, "bwd", 1, resid)
+        add(t, "bwd", 2, d * cfg.num_kv_heads * cfg.head_dim * par)
+        if cfg.qk_norm:
+            add(t, "bwd", 2, cfg.head_dim * par)
+
+    def rec(t):
+        if w["rnn"] == d:
+            return
+        add(t, "fwd", 1, resid)                     # out_proj's sum
+        add(t, "bwd", 1, resid)                     # the input's
+        bs = d // cfg.num_heads
+        add(t, "bwd", 2, cfg.num_heads * bs * bs * par)   # w_a, w_i
+
+    def mlp(t, width, local):
+        if width and local != width:
+            add(t, "fwd", 1, resid)
+            add(t, "bwd", 1, resid)
+
+    unit, tail = tally(), tally()
+    if cfg.family == "hybrid":
+        for b in cfg.block_pattern:
+            (rec if b == "rec" else attention)(unit)
+            mlp(unit, cfg.d_ff, w["mlp"])
+        rec(tail)
+        mlp(tail, cfg.d_ff, w["mlp"])
+    else:
+        attention(unit)
+        if cfg.moe_num_experts:
+            mlp(unit, cfg.moe_shared_d_ff, w["shared"])
+            if cfg.moe_dense_parallel:
+                mlp(unit, cfg.d_ff, w["mlp"])
+        else:
+            mlp(unit, cfg.d_ff, w["mlp"])
+    # the unit's last product: its last MLP's down product, whose sum
+    # follows it where that MLP is cut
+    if cfg.moe_num_experts and not cfg.moe_dense_parallel:
+        last = cfg.moe_shared_d_ff and w["shared"] != cfg.moe_shared_d_ff
+    else:
+        last = w["mlp"] != cfg.d_ff
+    unit["last"] = [1, resid] if last else [0, 0]
+
+    rest = tally()
+    if w["vocab"] != cfg.vocab_size:
+        add(rest, "fwd", 1, tok * d * par)          # the lookup
+        cb = max(cfg.num_codebooks, 1)
+        if kind == "train":
+            add(rest, "bwd", 1, resid)              # the head's input
+            pos = rows * (seq - 1) * cb
+            add(rest, "fwd", 1, pos * lg)           # the row maximum
+            add(rest, "fwd", 1, 2 * pos * lg)       # sumexp, target
+        else:
+            add(rest, "fwd", 1, n * 2 * rows * cb * lg)  # the argmax
+    return {k: {way: tuple(v) for way, v in t.items()}
+            for k, t in (("unit", unit), ("tail", tail), ("rest", rest))}
+
+
+def _units(cfg) -> tuple:
+    """``(stacked units, tail rec blocks)``."""
+    if cfg.family == "hybrid":
+        plen = len(cfg.block_pattern)
+        groups = cfg.num_layers // plen
+        return groups, cfg.num_layers - groups * plen
+    return cfg.num_layers, 0
+
+
+def step_collectives(cfg, names, n: int, rows: int, seq: int,
+                     microbatches: int = 1) -> tuple:
+    """``(count, result bytes)`` of the ``"tp"`` collectives of a train
+    step of ``microbatches`` microbatches of ``rows`` x ``seq`` tokens a
+    rank: a unit's forward once a unit forward, the remat recomputes
+    included (:func:`repro_torch.models.common.layer_forward_runs`), less
+    what follows its last product in each unit's own recompute
+    (``torch.utils.checkpoint`` stops once it holds every tensor the
+    backward saved); its backward once a unit; the tail's and the
+    rest's once each."""
+    from repro_torch.models.common import layer_forward_runs
+    units, tail = _units(cfg)
+    c = collectives(cfg, names, n, rows, seq)
+    runs = layer_forward_runs(cfg, units)
+    own = units if cfg.remat != "none" else 0
+    u, t, r = c["unit"], c["tail"], c["rest"]
+    return tuple(microbatches * (
+        runs * u["fwd"][i] - own * u["last"][i] + units * u["bwd"][i]
+        + tail * (t["fwd"][i] + t["bwd"][i]) + r["fwd"][i] + r["bwd"][i])
+        for i in (0, 1))
+
+
+def serve_collectives(cfg, names, n: int, rows: int, seq: int,
+                      kind: str, seq_cut: bool = False) -> tuple:
+    """``(count, result bytes)`` of the ``"tp"`` collectives of a serve
+    step (``kind`` ``"prefill"`` or ``"decode"``, ``seq`` 1 for a decode;
+    ``seq_cut``: the cache's slots cut) on a rank's ``rows``: every
+    unit's and tail block's forward once, the lookup and the argmax."""
+    units, tail = _units(cfg)
+    c = collectives(cfg, names, n, rows, seq, kind, seq_cut)
+    return tuple(units * c["unit"]["fwd"][i] + tail * c["tail"]["fwd"][i]
+                 + c["rest"]["fwd"][i] for i in (0, 1))
+
+
+def _layer_products(cfg, names, n: int, rows: int, seq: int) -> list:
+    """The products of one dense decoder layer's forward on a rank, in
+    the order they run, as multiply-adds: ``[(name, MACs), ...]``; the
+    plain attention's masked scores count whole (the trace's
+    ``torch.einsum`` computes every score)."""
+    w = _cut(cfg, names, n)
+    tok, d, dh = rows * seq, cfg.d_model, cfg.head_dim
+    hl, kv = w["heads"], cfg.num_kv_heads
+    return [("q", tok * d * hl * dh), ("k", tok * d * kv * dh),
+            ("v", tok * d * kv * dh),
+            ("scores", rows * hl * seq * seq * dh),
+            ("pv", rows * hl * seq * seq * dh),
+            ("o", tok * hl * dh * d),
+            ("gate", tok * d * w["mlp"]), ("up", tok * d * w["mlp"]),
+            ("down", tok * w["mlp"] * d)]
+
+
+def train_flops(cfg, names, n: int, rows: int, seq: int,
+                microbatches: int = 1) -> float:
+    """The product flops (2 a multiply-add) a rank traces in one train
+    step of a dense transformer (``torch.utils.flop_counter``, the plain
+    attention): each product forward once a layer forward
+    (``layer_forward_runs``) and twice more in the backward (its two
+    operands' gradients), the head's likewise.  A layer's own recompute
+    stops before its last product (``torch.utils.checkpoint`` stops
+    once it holds every tensor the backward saved, and ``w_down``'s
+    inputs are saved before it runs), so with remat each layer's
+    ``down`` runs once less than its other products."""
+    from repro_torch.models.common import layer_forward_runs
+    if cfg.family != "dense":
+        raise ValueError(f"train_flops counts the dense family, not "
+                         f"{cfg.family!r}")
+    w = _cut(cfg, names, n)
+    L = cfg.num_layers
+    runs = layer_forward_runs(cfg, L)
+    prods = _layer_products(cfg, names, n, rows, seq)
+    per = sum(m for _, m in prods)
+    macs = (runs + 2 * L) * per
+    if cfg.remat != "none":
+        macs -= L * prods[-1][1]
+    macs += 3 * rows * seq * cfg.d_model * w["vocab"]
+    return 2.0 * microbatches * macs

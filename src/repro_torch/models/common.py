@@ -13,7 +13,10 @@ and full-sequence attention through
 :func:`stacked_apply` runs a stack of layers with the reference's
 two-level rematerialisation (``torch.utils.checkpoint``) when a gradient
 is being recorded.  A float64 model (the arbiter of the kernels' float32
-gradients) computes RoPE and its logits in float64.
+gradients) computes RoPE and its logits in float64.  Where a weight
+holds a rank's block of its heads, columns or vocabulary (a rank-local
+model under a :class:`repro_torch.distributed.ctx.ModelCut`), the layer
+computes that block (:mod:`repro_torch.distributed.tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -217,15 +220,26 @@ def attn_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-def attn_qkv(cfg: ModelConfig, p, x, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+def attn_qkv(cfg: ModelConfig, p, x, positions, tp=None, wq=None):
+    """q, k, v (B, S, heads, Dh) of ``x``, q on the heads ``p["wq"]``
+    holds (``wq``: that tensor, where the caller has read it already: a
+    rank-local weight is gathered at each read).  Under a model cut
+    ``tp`` (the heads cut, :mod:`repro_torch.distributed.tensor_parallel`)
+    the input and the weights the rank applies whole (``wk``, ``wv``,
+    the norms) come in through ``copy_in``: each rank's gradient of them
+    is a partial sum over its heads."""
+    x = tpar.copy_in(tp, x)
+    wq = p["wq"] if wq is None else wq
+    q = torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x,
+                     tpar.copy_in(tp, p["wk"]).to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x,
+                     tpar.copy_in(tp, p["wv"]).to(x.dtype))
     if cfg.qk_norm:
         # The reference pins its plain op here (impl="xla"); the port runs
         # the RMSNorm kernel on the (B*S*H, Dh) rows, the same function.
-        q = rmsnorm(cfg, p["q_norm"], q)
-        k = rmsnorm(cfg, p["k_norm"], k)
+        q = rmsnorm(cfg, tpar.copy_in(tp, p["q_norm"]), q)
+        k = rmsnorm(cfg, tpar.copy_in(tp, p["k_norm"]), k)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -256,13 +270,30 @@ def full_attention(cfg: ModelConfig, qh, kh, vh, *, window=None):
                           impl=kernel_impl(cfg))
 
 
+def attend(cfg: ModelConfig, p, x, positions, *, window=None):
+    """Full-sequence attention of ``x`` (B, S, D) on the query heads
+    ``p["wq"]`` holds: ``(out (B, S, D), keys, values)``, the keys and
+    values head-major ``(B, K, S, Dh)``, every key head.  Under a model
+    cut (the heads cut over ``model``) the rank attends with its query
+    heads and the key heads they use, and ``wo``'s row product is summed
+    over the cut (``reduce_out``)."""
+    wq = p["wq"]
+    hl = wq.shape[1]
+    tp = tpar.split(hl, cfg.num_heads)
+    q, k, v = attn_qkv(cfg, p, x, positions, tp, wq)
+    kh, vh = k.movedim(2, 1), v.movedim(2, 1)
+    rep = cfg.num_heads // cfg.num_kv_heads
+    out = full_attention(cfg, q.movedim(2, 1),
+                         tpar.kv_heads(kh, tp, hl, rep),
+                         tpar.kv_heads(vh, tp, hl, rep), window=window)
+    out = out.movedim(1, 2)                   # (B, S, H, Dh)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return tpar.reduce_out(tp, out), kh, vh
+
+
 def attention(cfg: ModelConfig, p, x, positions, *, window=None):
     """Full-sequence (prefill/forward) attention.  x: (B, S, D)."""
-    q, k, v = attn_qkv(cfg, p, x, positions)
-    out = full_attention(cfg, q.movedim(2, 1), k.movedim(2, 1),
-                         v.movedim(2, 1), window=window)
-    out = out.movedim(1, 2)                   # (B, S, H, Dh)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return attend(cfg, p, x, positions, window=window)[0]
 
 
 def attention_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos: int, *,
@@ -282,13 +313,26 @@ def attention_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos: int, *,
     and value go only to the rank that owns the slot, and the attention
     is flash-decoding's partial softmax over the block, combined over
     ``seq`` (:func:`repro_torch.distributed.flash_decode.combine`).
+
+    Under a model cut (the query heads cut over ``model``), the rank
+    computes its query heads and every key and value head (the cache
+    holds them all).  With the slots cut too, each rank needs every
+    query head against its block of slots: the query heads are
+    all-gathered over the cut, combined over ``seq``, and the rank keeps
+    its heads' rows of the result; without, it attends its heads over
+    the whole cache.  ``wo``'s row product is summed over the cut.
     """
     from repro_torch.distributed.ctx import current_cut
     cut = current_cut()
     seq = cut.seq if cut is not None else ()
     b = x.shape[0]
+    H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wq = p["wq"]
+    hl = wq.shape[1]
+    tp = tpar.split(hl, H)
+    rep = H // K
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = attn_qkv(cfg, p, x, positions)
+    q, k, v = attn_qkv(cfg, p, x, positions, tp, wq)
     s_loc = cache_k.shape[2]
     first, s = 0, s_loc
     if seq:
@@ -300,11 +344,6 @@ def attention_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos: int, *,
     if first <= slot_w < first + s_loc:       # this rank's slot
         cache_k[:, :, slot_w - first] = k[:, 0].to(cache_k.dtype)
         cache_v[:, :, slot_w - first] = v[:, 0].to(cache_v.dtype)
-    # Grouped-query attention without repeating the KV heads: q heads as
-    # (B, K, rep, Dh) against the (B, K, S, Dh) cache; float32 logits and
-    # accumulation (the reference's preferred_element_type).
-    rep = cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(b, cfg.num_kv_heads, rep, cfg.head_dim)
     kpos = first + torch.arange(s_loc, device=x.device)
     if window is None:
         valid = kpos <= pos
@@ -312,20 +351,31 @@ def attention_decode(cfg: ModelConfig, p, x, cache_k, cache_v, pos: int, *,
         age = (slot - kpos) % s
         abs_pos = pos - age
         valid = (abs_pos >= 0) & (abs_pos > pos - window)
+    # Grouped-query attention without repeating the KV heads: q heads as
+    # (B, K, rep, Dh) against the (B, K, S, Dh) cache; float32 logits and
+    # accumulation (the reference's preferred_element_type).
     if seq:
         from repro_torch.distributed.flash_decode import combine
+        qg = tpar.gather_heads(tp, q, 2).reshape(b, K, rep, Dh)
         out = combine(cut.mesh, qg, cache_k, cache_v, valid[None], seq,
                       site="rows")
+        out = out.reshape(b, 1, H, Dh).narrow(
+            2, tp.index * hl if tp is not None else 0, hl)
     else:
-        logits = torch.einsum("bkrd,bksd->bkrs", qg.float(), cache_k.float())
+        ck = tpar.kv_heads(cache_k, tp, hl, rep)
+        cv = tpar.kv_heads(cache_v, tp, hl, rep)
+        kl = ck.shape[1]
+        qg = q.reshape(b, kl, hl // kl, Dh)
+        logits = torch.einsum("bkrd,bksd->bkrs", qg.float(), ck.float())
         logits = logits / math.sqrt(cfg.head_dim)
         logits = torch.where(valid, logits, -1e30)
         w = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bkrs,bksd->bkrd", w.to(cache_v.dtype).float(),
-                           cache_v.float())
-    out = out.reshape(b, 1, cfg.num_heads, cfg.head_dim).to(x.dtype)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return out, cache_k, cache_v
+        out = torch.einsum("bkrs,bksd->bkrd", w.to(cv.dtype).float(),
+                           cv.float())
+        out = out.reshape(b, 1, hl, Dh)
+    out = torch.einsum("bshk,hkd->bsd", out.to(x.dtype),
+                       p["wo"].to(x.dtype))
+    return tpar.reduce_out(tp, out), cache_k, cache_v
 
 
 # -- MLP ---------------------------------------------------------------------
@@ -339,10 +389,18 @@ def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     }
 
 
-def mlp(p, x):
-    g = x @ p["w_gate"].to(x.dtype)
+def mlp(p, x, width: Optional[int] = None):
+    """The SwiGLU MLP of ``x``.  ``width``: its hidden width; where
+    ``p`` holds a block of its columns (the ``mlp`` axis cut over
+    ``model``) the input comes in through ``copy_in`` and the down
+    product is summed over the cut.  None: the width ``p`` holds."""
+    w_gate = p["w_gate"]
+    tp = tpar.split(w_gate.shape[1],
+                    w_gate.shape[1] if width is None else width)
+    x = tpar.copy_in(tp, x)
+    g = x @ w_gate.to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
-    return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+    return tpar.reduce_out(tp, (F.silu(g) * u) @ p["w_down"].to(x.dtype))
 
 
 # -- embeddings / head -------------------------------------------------------
@@ -371,21 +429,38 @@ def embed_tokens(cfg: ModelConfig, p, tokens, dtype):
     """tokens: (B, S), or (B, S, Cb) for audio -> (B, S, D).  Audio sums
     the first codebook's embedding and each further codebook's, in
     codebook order and in the parameters' dtype, then casts, as the
-    reference does."""
+    reference does.  Where the table holds a block of the vocabulary's
+    rows (cut over ``model``), each rank looks up the tokens in its
+    block, sums its codebooks' rows, and the sum over the cut is the
+    lookup (``reduce_out``)."""
+    table = p["embedding"]
+    tp = tpar.split(table.shape[0], cfg.vocab_size)
+    if tp is not None:
+        if cfg.num_codebooks > 1:
+            x = tpar.embed(tp, table, tokens[..., 0])
+            extra = p["codebook_embed"]
+            for c in range(cfg.num_codebooks - 1):
+                x = x + tpar.embed(tp, extra[c], tokens[..., c + 1])
+        else:
+            x = tpar.embed(tp, table, tokens)
+        return tpar.reduce_out(tp, x).to(dtype)
     if cfg.num_codebooks > 1:
-        x = p["embedding"][tokens[..., 0]]
+        x = table[tokens[..., 0]]
         for c in range(cfg.num_codebooks - 1):
             x = x + p["codebook_embed"][c][tokens[..., c + 1]]
     else:
-        x = p["embedding"][tokens]
+        x = table[tokens]
     return x.to(dtype)
 
 
 def lm_logits(cfg: ModelConfig, p, x):
     """x: (B, S, D) -> float32 (B, S, V), or (B, S, Cb, V) for audio: the
     main head's logits, then each codebook head's (float64 for a float64
-    x)."""
+    x).  Where the head holds a block of the vocabulary's columns (cut
+    over ``model``), the logits are this rank's block of them, its input
+    in through ``copy_in``."""
     head = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    x = tpar.copy_in(tpar.split(head.shape[-1], cfg.vocab_size), x)
     logits = x @ head.to(x.dtype)
     if cfg.num_codebooks > 1:
         extra = torch.einsum("bsd,cdv->bscv", x,
@@ -419,7 +494,13 @@ def constrain_act(x, cfg: "ModelConfig | None" = None):
     ``cfg.seq_parallel`` the sequence dim over the model axis
     (Megatron-SP).  A hint, resolved under a sharding context
     (:func:`repro_torch.distributed.ctx.constrain`); the values pass
-    unchanged."""
+    unchanged.  What cuts the compute is elsewhere: a rank holds only its
+    rows of the batch under a :class:`repro_torch.distributed.ctx
+    .RowCut`, and the residual stream is whole over ``model`` between the
+    layers' column and row products
+    (:mod:`repro_torch.distributed.tensor_parallel`); with
+    ``cfg.seq_parallel`` no weight is cut over ``model`` (Megatron-SP's
+    reduce-scatter form is not ported)."""
     from repro_torch.distributed.ctx import constrain
     seq_axis = "seq_sp" if (cfg is not None and cfg.seq_parallel) else "seq"
     return constrain(x, ("batch", seq_axis, "act_embed"))
@@ -454,14 +535,15 @@ def _remat_on(cfg: ModelConfig) -> bool:
 
 def _checkpoint(fn, *args):
     """``torch.utils.checkpoint`` of ``fn(*args)`` whose recompute runs
-    under the forward's sharding context and row cut: the autograd engine
-    recomputes a CUDA tensor's region on a device thread of its own, which
-    starts with an empty Python context (no :func:`axis_rules`, so no
-    ring attention or expert parallelism, and other shapes; no
-    :func:`row_cut`, so a local routing)."""
+    under the forward's sharding context, row cut and model cut: the
+    autograd engine recomputes a CUDA tensor's region on a device thread
+    of its own, which starts with an empty Python context (no
+    :func:`axis_rules`, so no ring attention or expert parallelism, and
+    other shapes; no :func:`row_cut`, so a local routing; no
+    :func:`model_cut`, so no block of the weights to compute on)."""
     from repro_torch.distributed import ctx as dctx
     snap = dctx.snapshot()
-    if snap == (None, None):
+    if all(c is None for c in snap):
         return checkpoint(fn, *args, use_reentrant=False)
 
     def under_rules(*a):
@@ -524,3 +606,8 @@ def layer_forward_runs(cfg: ModelConfig, n_layers: int) -> int:
     if block <= 1 or n_layers % block:
         return 2 * n_layers
     return 3 * n_layers - n_layers // block
+
+
+# Last: the distributed package imports the models (expert parallelism),
+# which import this module.
+from repro_torch.distributed import tensor_parallel as tpar  # noqa: E402

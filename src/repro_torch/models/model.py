@@ -92,19 +92,27 @@ def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01):
     (float64 for a float64 model); the row maximum is detached, the loss
     is ``mean(logsumexp - target logit) + aux_weight * aux``.  The target
     logit is gathered: the reference's one-hot contraction adds exact
-    zeros to it, so the values are the same.
+    zeros to it, so the values are the same.  Where the logits are a
+    rank's block of the vocabulary (cut over ``model``), the
+    logsumexp and the target logit are reduced over the cut
+    (:func:`repro_torch.distributed.tensor_parallel.cross_entropy`).
     Returns ``(loss, {"nll", "aux"})``.
     """
+    from repro_torch.distributed import tensor_parallel as tpar
     tokens = batch["tokens"]
     logits, aux = train_forward(cfg, params, tokens,
                                 batch.get("frontend_inputs"))
     targets = tokens[:, 1:]
     logits = logits[:, :-1]
-    lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(logits - lmax), dim=-1)) \
-        + lmax[..., 0]
-    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    loss = torch.mean(lse - tgt)
+    tp = tpar.split(logits.shape[-1], cfg.vocab_size)
+    if tp is not None:
+        loss = torch.mean(tpar.cross_entropy(tp, logits, targets))
+    else:
+        lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.sum(torch.exp(logits - lmax), dim=-1)) \
+            + lmax[..., 0]
+        tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        loss = torch.mean(lse - tgt)
     aux = torch.as_tensor(aux, dtype=loss.dtype, device=loss.device)
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 

@@ -221,7 +221,10 @@ def combine(contrib, r: Routing):
 
 def moe_block(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
     """The full FFN half of an MoE layer (routed + shared/dense paths).
-    ``p`` maps ``"moe"`` (and ``"dense_mlp"``) to the layer's parameters.
+    The routed experts compute whole on every rank along ``model`` (their
+    weights gathered whole); the shared expert and the parallel dense MLP
+    are :func:`repro_torch.models.common.mlp`, on the rank's block of
+    their columns where the rules cut ``mlp`` over ``model``.  ``p`` maps ``"moe"`` (and ``"dense_mlp"``) to the layer's parameters.
     ``record``, when a list, receives the call's routing (this rank's
     local one on the expert-parallel path)."""
     c = None
@@ -237,7 +240,7 @@ def moe_block(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
     else:
         y, aux = moe_ffn(cfg, p["moe"], x, record=record)
     if cfg.moe_shared_d_ff:
-        y = y + cm.mlp(p["moe"]["shared"], x)
+        y = y + cm.mlp(p["moe"]["shared"], x, cfg.moe_shared_d_ff)
     if cfg.moe_dense_parallel:
-        y = y + cm.mlp(p["dense_mlp"], x)
+        y = y + cm.mlp(p["dense_mlp"], x, cfg.d_ff)
     return y, aux

@@ -16,6 +16,8 @@ reference's per-step form; local attention keeps a rolling window cache
 ``decode_step`` returns the cache with new recurrent states.
 ``prefill`` returns the reference's zeroed cache sized for the prompt
 (``init_cache(cfg, B, S)``), as ``repro.models.model.prefill`` does.
+Where the rules cut ``rnn`` over ``model``, a rank runs its block of the
+recurrent channels (:func:`rec_block`) and its cache holds their state.
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
 from repro_torch.core.torch_device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed import tensor_parallel as tpar
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from . import common as cm
@@ -115,14 +119,41 @@ def rglru(cfg: ModelConfig, p, u):
     return h.to(u.dtype)
 
 
+def _rec_cut(cfg: ModelConfig, p, proj_x):
+    """``(model cut, gates)`` of a rec block: where ``proj_x`` (read by
+    the caller: a rank-local weight is gathered at each read) holds a
+    block of the channels (``rnn`` cut over ``model``), the cut and the
+    rank's gate parameters: its channels of ``b_a``, ``b_i`` and ``lam``
+    (held as blocks) and its ``nb / n`` blocks of ``w_a`` / ``w_i``
+    (held whole, ``rnn_blocks`` maps to no axis; in through ``copy_in``,
+    as each rank's gradient of them is a partial sum); else (None,
+    ``p``)."""
+    di, nb, _ = _rec_dims(cfg)
+    tp = tpar.split(proj_x.shape[1], di)
+    if tp is None:
+        return None, p
+    nl = nb // tp.n
+    gates = {k: tpar.copy_in(tp, p[k]).narrow(0, tp.index * nl, nl)
+             for k in ("w_a", "w_i")}
+    gates.update({k: p[k] for k in ("b_a", "b_i", "lam")})
+    return tp, gates
+
+
 def rec_block(cfg: ModelConfig, p, x):
+    """A recurrent block and its MLP.  Under a model cut the rank runs
+    its block of the ``rnn`` channels: ``proj_x`` / ``proj_gate`` are
+    column products, the conv, the gates and the recurrence run on
+    ``(B, S, di / n)``, ``out_proj`` is a row product summed over the
+    cut."""
     x = cm.constrain_act(x, cfg)
-    xn = cm.rmsnorm(cfg, p["ln"], x)
-    u = causal_conv(xn @ p["proj_x"].to(x.dtype), p["conv_w"], p["conv_b"])
-    h = rglru(cfg, p, u)
+    proj_x = p["proj_x"]
+    tp, gates = _rec_cut(cfg, p, proj_x)
+    xn = tpar.copy_in(tp, cm.rmsnorm(cfg, p["ln"], x))
+    u = causal_conv(xn @ proj_x.to(x.dtype), p["conv_w"], p["conv_b"])
+    h = rglru(cfg, gates, u)
     gate = F.gelu(xn @ p["proj_gate"].to(x.dtype), approximate="tanh")
-    x = x + (h * gate) @ p["out_proj"].to(x.dtype)
-    return x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x))
+    x = x + tpar.reduce_out(tp, (h * gate) @ p["out_proj"].to(x.dtype))
+    return x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x), cfg.d_ff)
 
 
 def attn_block(cfg: ModelConfig, p, x, positions):
@@ -130,7 +161,7 @@ def attn_block(cfg: ModelConfig, p, x, positions):
     h = cm.attention(cfg, p["attn"], cm.rmsnorm(cfg, p["ln"], x), positions,
                      window=cfg.window)
     x = x + h
-    return x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x))
+    return x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x), cfg.d_ff)
 
 
 def _hidden(cfg: ModelConfig, params: RecurrentGemma, tokens):
@@ -195,14 +226,17 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               device=DEFAULT_DEVICE, seq_blocks: int = 1) -> dict:
+               device=DEFAULT_DEVICE, seq_blocks: int = 1,
+               rnn_blocks: int = 1) -> dict:
     """Zero decode state, the reference's layout: ``rec_h`` (groups, rec
     blocks, B, di) and ``tail_rec_h`` in float32; ``conv`` / ``tail_conv``
     conv tails and ``k`` / ``v`` rolling windows of ``min(window,
     max_seq)`` slots in ``cfg.dtype`` (``seq_blocks``: the number of
     blocks the window's slots are cut into, a rank's block of a
-    seq-sharded cache)."""
+    seq-sharded cache; ``rnn_blocks``: the number of blocks the
+    recurrent channels are cut into, a rank's of a model cut)."""
     di, _, _ = _rec_dims(cfg)
+    di //= rnn_blocks
     _, groups, tail = _pattern_counts(cfg)
     n_rec = sum(1 for k in cfg.block_pattern if k == "rec")
     n_att = len(cfg.block_pattern) - n_rec
@@ -242,23 +276,52 @@ def prefill(cfg: ModelConfig, params: RecurrentGemma, tokens, max_seq: int,
         x = _hidden(cfg, params, tokens)
         return (cm.lm_logits(cfg, params.embed, x[:, -1:]),
                 init_cache(cfg, tokens.shape[0], tokens.shape[1],
-                           device=tokens.device, seq_blocks=blocks))
+                           device=tokens.device, seq_blocks=blocks,
+                           rnn_blocks=rnn_blocks(cfg, params)))
+
+
+def rnn_blocks(cfg: ModelConfig, params: RecurrentGemma) -> int:
+    """The number of blocks a rank's ``rnn`` channels are of the whole:
+    1, or the model cut's extent where the rec blocks hold a block of
+    them."""
+    di, _, _ = _rec_dims(cfg)
+    rec = [gp[f"b{i}_rec"] for gp in params.groups[:1]
+           for i, k in enumerate(cfg.block_pattern) if k == "rec"]
+    rec += list(params.tail[:1])
+    if not rec:
+        return 1
+    # the width a read gives, from the block: a read would gather it
+    mod = rec[0]
+    if parametrize.is_parametrized(mod, "proj_x"):
+        g = mod.parametrizations.proj_x
+        spec = g[0].spec
+        width = g.original.shape[1] * (
+            g[0].mesh.extent(spec[1]) if len(spec) > 1 and spec[1] else 1)
+    else:
+        width = mod["proj_x"].shape[1]
+    tp = tpar.split(width, di)
+    return 1 if tp is None else tp.n
 
 
 def _rec_block_decode(cfg: ModelConfig, p, x, h_prev, conv_st):
-    """x: (B, 1, D); h_prev: (B, di); conv_st: (B, W - 1, di)."""
+    """x: (B, 1, D); h_prev: (B, di); conv_st: (B, W - 1, di); under a
+    model cut the rank's channels of the state (B, di / n), as
+    :func:`rec_block` computes them."""
+    proj_x = p["proj_x"]
+    tp, gates = _rec_cut(cfg, p, proj_x)
     xn = cm.rmsnorm(cfg, p["ln"], x)
-    u = (xn @ p["proj_x"].to(x.dtype))[:, 0]
+    u = (xn @ proj_x.to(x.dtype))[:, 0]
     hist = torch.cat([conv_st, u[:, None, :]], dim=1)
     u = (torch.einsum("bwc,wc->bc", hist, p["conv_w"].to(x.dtype))
          + p["conv_b"].to(x.dtype))
-    a, i = _gates(cfg, p, u)
+    a, i = _gates(cfg, gates, u)
     h = a * h_prev + torch.sqrt(torch.clamp_min(1 - a * a, 1e-12)) * (
         i * u).float()
     gate = F.gelu(xn @ p["proj_gate"].to(x.dtype), approximate="tanh")[:, 0]
-    y = (h.to(x.dtype) * gate) @ p["out_proj"].to(x.dtype)
+    y = tpar.reduce_out(tp, (h.to(x.dtype) * gate)
+                        @ p["out_proj"].to(x.dtype))
     x = x + y[:, None, :]
-    x = x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x))
+    x = x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x), cfg.d_ff)
     return x, h, hist[:, 1:]
 
 
@@ -288,7 +351,8 @@ def decode_step(cfg: ModelConfig, params: RecurrentGemma, cache: dict,
                         cache["k"][g, ai], cache["v"][g, ai], pos,
                         window=cfg.window)
                     x = x + att
-                    x = x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x))
+                    x = x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x),
+                                   cfg.d_ff)
                     ai += 1
         new = dict(cache,
                    rec_h=torch.stack(rec_h).view(cache["rec_h"].shape),

@@ -97,7 +97,7 @@ class DecoderLayer(nn.Module):
                                    "dense_mlp": getattr(self, "dense_mlp",
                                                         None)},
                              x, record=self.routing)
-        return cm.mlp(self.mlp, x), None
+        return cm.mlp(self.mlp, x, cfg.d_ff), None
 
     def forward(self, cfg: ModelConfig, x, positions):
         """``(x, aux)``: the layer's output and its MoE aux loss (None for
@@ -111,14 +111,11 @@ class DecoderLayer(nn.Module):
 
     def prefill(self, cfg: ModelConfig, x, positions):
         """:meth:`forward` that also returns the layer's keys and values,
-        head-major ``(B, K, S, Dh)``."""
-        q, k, v = cm.attn_qkv(cfg, self.attn, cm.rmsnorm(cfg, self.ln1, x),
-                              positions)
-        kh, vh = k.movedim(2, 1), v.movedim(2, 1)
-        att = cm.full_attention(cfg, q.movedim(2, 1), kh, vh,
-                                window=cfg.window).movedim(1, 2)
-        x = x + torch.einsum("bshk,hkd->bsd", att,
-                             self.attn["wo"].to(x.dtype))
+        head-major ``(B, K, S, Dh)``, every key head (the cache holds them
+        all)."""
+        h, kh, vh = cm.attend(cfg, self.attn, cm.rmsnorm(cfg, self.ln1, x),
+                              positions, window=cfg.window)
+        x = x + h
         x = x + self.ffn(cfg, cm.rmsnorm(cfg, self.ln2, x))[0]
         return x, kh, vh
 

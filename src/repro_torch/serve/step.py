@@ -17,6 +17,15 @@ block, ``(B / data, K, S / model, Dh)`` at the default rules; the decode
 attention combines the blocks of slots over the seq axes) and gathers
 the next tokens back to the global batch.  The decode step needs the
 cache's global length for that: ``make_serve_step(cfg, max_seq)``.
+
+The steps also take a rank's blocks of the parameters
+(:func:`repro_torch.distributed.rank_local.serve_blocks`): they run
+under the layout's :class:`repro_torch.distributed.ctx.ModelCut`, a rank
+computes its attention heads, MLP columns, vocabulary block and RG-LRU
+channels (:mod:`repro_torch.distributed.tensor_parallel`; the recurrent
+cache holds its channels' state, the KV cache every key head of its
+block of slots), and the next token is the argmax over the vocabulary's
+blocks.
 """
 from __future__ import annotations
 
@@ -31,8 +40,9 @@ from repro_torch.models.config import ModelConfig
 
 
 #: The cache's logical axes a rank's block is cut on: its rows and its
-#: slots.  The others (a recurrent state's ``rnn`` / ``ssm_inner``) stay
-#: whole: a rank computes whole heads.
+#: slots, and the widths a rank computes a block of
+#: (``tensor_parallel.local_names``: the RG-LRU's ``rnn``).  The others
+#: (Mamba2's ``ssm_inner``) stay whole: a rank computes them whole.
 _CUT_AXES = ("batch", "cache_seq")
 
 
@@ -41,11 +51,14 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int, mesh,
     """The specs of a rank's block of the ``batch``-row, ``max_seq``
     cache: ``tree_shardings_for`` of its shapes and
     ``cache_logical_axes`` (sanitized), kept on the ``batch`` and
-    ``cache_seq`` dims only."""
+    ``cache_seq`` dims and on those whose width the rank computes a
+    block of."""
+    from repro_torch.distributed.tensor_parallel import local_names
     axes = M.cache_logical_axes(cfg)
+    keep = set(_CUT_AXES) | local_names(cfg, mesh, rules)
     specs = sh.tree_shardings_for(M.cache_spec(cfg, batch, max_seq), axes,
                                   mesh, rules)
-    return {k: sh.PartitionSpec(*(e if name in _CUT_AXES else None
+    return {k: sh.PartitionSpec(*(e if name in keep else None
                                   for name, e in zip(axes[k], specs[k])))
             for k in axes}
 
@@ -84,6 +97,21 @@ def _give(cut, tokens):
     return tokens if cut is None else cut.gather(tokens)
 
 
+def _model_cut(params):
+    """The :class:`repro_torch.distributed.ctx.ModelCut` of a rank's
+    blocks of the parameters, None for whole parameters."""
+    from repro_torch.distributed import rank_local
+    layout = rank_local.layout_of(params)
+    return None if layout is None else layout.model_cut()
+
+
+def _next(cfg: ModelConfig, logits):
+    """The greedy tokens: the argmax over the vocabulary, or over its
+    blocks where the logits are a rank's block of it."""
+    from repro_torch.distributed import tensor_parallel as tpar
+    return tpar.argmax(tpar.split(logits.shape[-1], cfg.vocab_size), logits)
+
+
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
     """prefill_step(params, tokens, frontend_inputs=None) -> (next tokens
     (B,), or (B, Cb) for audio, cache).  Under a sharding context the
@@ -92,10 +120,11 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
     @torch.inference_mode()
     def prefill_step(params, tokens, frontend_inputs=None):
         cut = serving_cut(cfg, tokens.shape[0], max_seq)
-        with dctx.row_cut(cut):
+        with dctx.row_cut(cut), dctx.model_cut(_model_cut(params)):
             logits, cache = M.prefill(cfg, params, _take(cut, tokens),
                                       max_seq, _take(cut, frontend_inputs))
-        return _give(cut, torch.argmax(logits[:, -1], dim=-1)), cache
+            tok = _next(cfg, logits[:, -1])
+        return _give(cut, tok), cache
     return prefill_step
 
 
@@ -114,10 +143,11 @@ def make_serve_step(cfg: ModelConfig, max_seq: Optional[int] = None):
                                  "takes this rank's block of the cache: "
                                  "give make_serve_step the cache's max_seq")
             cut = serving_cut(cfg, tokens.shape[0], max_seq)
-        with dctx.row_cut(cut):
+        with dctx.row_cut(cut), dctx.model_cut(_model_cut(params)):
             logits, cache = M.decode_step(cfg, params, cache,
                                           _take(cut, tokens), pos)
-        return _give(cut, torch.argmax(logits, dim=-1)), cache
+            tok = _next(cfg, logits)
+        return _give(cut, tok), cache
     return serve_step
 
 

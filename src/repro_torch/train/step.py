@@ -31,9 +31,15 @@ held whole), and returns ``loss``, ``nll`` and ``aux`` as the global
 means.  Microbatches split the rank's rows: the rank takes its block of
 each of the reference's microbatches (the global batch's consecutive
 slices), so slice i of every rank makes up the reference's microbatch i
-and an MoE routes each one over the same tokens.  A one-rank state, or
-one whose microbatches no axis of more than one rank cuts, runs as on
-one card.
+and an MoE routes each one over the same tokens.  Where the layout cuts
+weights over ``model`` (attention heads, MLP columns, the vocabulary,
+the RG-LRU's channels: ``Layout.model_cut``), the step also runs under
+that :func:`repro_torch.distributed.ctx.model_cut`, and a rank computes
+only its blocks of those products
+(:mod:`repro_torch.distributed.tensor_parallel`), its rows still cut
+over the data axes.  A one-rank state, or one whose microbatches no axis
+of more than one rank cuts and whose layout cuts nothing over
+``model``, runs as on one card.
 """
 from __future__ import annotations
 
@@ -178,10 +184,15 @@ def gradients(cfg: ModelConfig, state: TrainState, batch, *,
     layout = rank_local.layout_of(model)
     cut = (None if layout is None
            else layout.row_cut(cfg, batch, microbatches))
+    tp = None if layout is None else layout.model_cut()
+    if cut is not None and tp is not None and set(cut.rows) & set(tp.axes):
+        raise ValueError(f"the rows are cut over {cut.rows} and the "
+                         f"weights over {tp.axes}: a model cut's ranks "
+                         f"must share their rows")
     batch = _device_batch(batch, device, cut, microbatches)
     grads = M.bind_grads(cfg, model)
     try:
-        with dctx.row_cut(cut):
+        with dctx.row_cut(cut), dctx.model_cut(tp):
             loss, metrics = _backward(cfg, model, batch, grads, microbatches)
         rank_local.sum_rows(grads, layout, cut)
     finally:

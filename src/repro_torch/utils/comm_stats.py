@@ -51,7 +51,7 @@ from typing import Optional
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
-SITES = ("body", "boundary", "state", "grad", "rows")
+SITES = ("body", "boundary", "state", "grad", "rows", "tp")
 
 _WIRE_FACTOR = {
     "all-gather": 1.0,

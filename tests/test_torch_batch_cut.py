@@ -8,7 +8,9 @@ and, meanwhile, the port on eight gloo CPU ranks; every rank reports its
 own numbers.  Held here:
 
 * port against port on the (2, 4) ("data", "model") mesh, each rank on
-  its 4 rows of the batch of 8: every smoke family's rank-local step
+  its 4 rows of the batch of 8, under rules that cut the rows over
+  ``data`` and put nothing on ``model``: every smoke family's rank-local
+  step
   against the port's one-rank step on the same weights and tokens, in
   float32 (in bfloat16 a weight's gradient over a rank's rows is rounded
   to bfloat16 before the sum over the ranks, one rounding more than the
@@ -102,7 +104,13 @@ OPT = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=10)
 
 
 def _rules():
-    return sh.make_rules(data_axes=("data",))
+    """The rows cut over ``data`` and nothing on ``model`` (the
+    reference's ``make_rules`` with its model axis one the mesh lacks):
+    every weight is gathered whole, so a rank's rows are computed as the
+    one-rank step computes them; the ranks along ``model`` computing
+    blocks of the heads and columns are
+    ``tests/test_torch_tensor_parallel.py``'s."""
+    return sh.make_rules(data_axes=("data",), model_axis="tp")
 
 
 def _config(arch, **over):
@@ -279,7 +287,7 @@ def _replicated_rows(world_mesh3, mesh, rules) -> dict:
     out = {}
     for name, m, r, b in (("3 rows on (2, 4)", mesh, rules, 3),
                           ("2 rows on (2, 2, 2)", world_mesh3,
-                           sh.make_rules(), 2)):
+                           sh.make_rules(model_axis="tp"), 2)):
         out[name] = _cut_case(m, r, cfg, _tokens(cfg, 5, batch=b), 1)
     return out
 

@@ -420,13 +420,26 @@ def _row_blocks(cfg, sc, microbatches) -> int:
     return c.n_rows if c is not None else 1
 
 
+def _model_blocks(cfg) -> int:
+    """The blocks the (2, 4) mesh's model axis cuts the cell's heads,
+    MLP columns and vocabulary into (``tensor_parallel.local_names``): 4,
+    or 1 where the family computes them whole."""
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.mesh import AbstractMesh
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    return 4 if tpar.local_names(cfg, mesh, D._rules_for(mesh, _args())) \
+        else 1
+
+
 def _model_ratio(name, cfg, sc, flops, rows=1) -> None:
-    """Records the traced flops of a rank against its ``rows`` share
-    (:func:`_row_blocks`) of 6 N D (train) or 2 N D: remat and the plain
-    attention's masked scores put a training step with remat full above
-    1."""
+    """Records the traced flops of a rank against its share of 6 N D
+    (train) or 2 N D: its ``rows`` (:func:`_row_blocks`) and its blocks
+    of the model axis (:func:`_model_blocks`).  Remat, the plain
+    attention's masked scores and the key and value products (whole on
+    every rank) put a training step with remat full above 1."""
     model = M.model_flops(cfg, sc.tokens if sc.kind != "decode"
-                          else sc.global_batch, sc.kind) / rows
+                          else sc.global_batch, sc.kind) / (
+        rows * _model_blocks(cfg))
     ratio = flops / model
     print(f"{name} {sc.kind}: traced flops / model flops {ratio:.4f}")
     if sc.kind == "train" and cfg.remat == "full":
@@ -499,8 +512,7 @@ def test_rows_cut_argument_bytes_and_flops_are_a_rank_s(ref):
         rows["memory"]["argument_bytes"]
     assert abs(whole["flops"] / rows["flops"] - 2) <= 2 * 0.005
     mesh = AbstractMesh((2, 4), ("data", "model"))
-    layout = rank_local.Layout(mesh, rank_local.specs_for(
-        cfg, mesh, D._rules_for(mesh, _args())))
+    layout = rank_local.layout_for(cfg, mesh, D._rules_for(mesh, _args()))
     n = rank_local.backward_sums(cfg, layout, ("data",))
     grad = rows["collectives_by_site"]["grad"]
     assert sum(grad["count"].values()) == \
@@ -539,8 +551,11 @@ def test_dryrun_cli_matches_reference(ref, tmp_path):
     # the KV cache block is updated in place: it aliases its input
     cache = M.cache_spec(get_config("tinyllama-1.1b"), 128, 32768)
     assert mem["alias_bytes"] >= sum(t.nbytes for t in cache.values()) // 8
-    # the rank's 64 of the 128 rows, attending over its 8,192 slots
-    assert got["full"]["flops"] > got["model_flops"] / 2
+    # the rank's 64 of the 128 rows and its quarter of the heads, MLP
+    # columns and vocabulary, every query head attending over its 8,192
+    # slots
+    assert got["full"]["flops"] > got["model_flops"] / (
+        2 * _model_blocks(get_config("tinyllama-1.1b")))
     print(f"decode_32k: traced flops / (XLA's flops x 8 devices) "
           f"{got['full']['flops'] / (want['full']['flops'] * 8):.4f}")
     cfg, sc = get_config("tinyllama-1.1b"), SHAPES_BY_NAME["decode_32k"]

@@ -4,8 +4,9 @@
 Each rank holds only its blocks of ``params``, ``m`` and ``v`` under
 ``tree_shardings_for(state_spec(cfg), state_logical_axes(cfg), mesh,
 rules)`` on a ("data", "model") mesh with
-``make_rules(data_axes=("data",))``, gathers a weight where the step
-reads it, and gets its gradient back as blocks.  Held here:
+``make_rules(data_axes=("data",))`` (the strict cases below: another
+rule set), gathers a weight where the step reads it, and gets its
+gradient back as blocks.  Held here:
 
 * the reference's gate (``tests/test_multidevice.py``'s sharded train
   step): the reference runs as that test runs it, in a subprocess with
@@ -18,7 +19,9 @@ reads it, and gets its gradient back as blocks.  Held here:
   ``models.convert``) and tokens; the loss within 5e-3 relative and the
   first parameter leaf within atol 2e-3, that test's own tolerances;
 * port against port on the (1, 8) mesh, whose data axis of one rank
-  cuts no rows: every smoke family's rank-local step against the port's
+  cuts no rows, under rules that shard every weight over both axes and
+  nothing over ``model`` (so no rank computes a block of the heads or
+  columns): every smoke family's rank-local step against the port's
   one-rank step on the same weights and tokens, on each rank: the loss
   and every gradient block bit-equal (the gathered weights are the same
   numbers), params, ``m`` and ``v`` after the step within 1e-6 of each
@@ -96,6 +99,17 @@ def _rules():
     return sh.make_rules(data_axes=("data",))
 
 
+def _strict_rules():
+    """The strict cases' rules: FSDP over both axes and nothing on
+    ``model`` (the reference's ``make_rules`` with its model axis one the
+    mesh lacks), so every weight is gathered whole and the gathered
+    weights are the one-rank step's numbers; under ``_rules()`` the ranks
+    along ``model`` compute blocks of the heads and columns
+    (``tests/test_torch_tensor_parallel.py``)."""
+    return sh.make_rules(data_axes=("data",), fsdp_axes=("data", "model"),
+                         model_axis="tp")
+
+
 def _gate_config():
     return dataclasses.replace(get_smoke_config("tinyllama-1.1b"),
                                remat="none")
@@ -157,7 +171,7 @@ def _storages_bytes(state) -> int:
 
 def _strict_case(mesh, name, arch, over, microbatches) -> dict:
     cfg = dataclasses.replace(get_smoke_config(arch), **over)
-    layout = rank_local.layout_for(cfg, mesh, _rules())
+    layout = rank_local.layout_for(cfg, mesh, _strict_rules())
     tokens = _tokens(cfg, seed=len(name))
     one = _state(cfg)
     local = rank_local.shard_state(cfg, _state(cfg), layout)
@@ -192,7 +206,8 @@ def _strict_case(mesh, name, arch, over, microbatches) -> dict:
     spec, axes = state_spec(cfg), state_logical_axes(cfg)
     out["held_bytes"] = _storages_bytes(local)
     out["block_bytes"] = sum(
-        _sharded_bytes(getattr(spec, k), getattr(axes, k), mesh, _rules())
+        _sharded_bytes(getattr(spec, k), getattr(axes, k), mesh,
+                       _strict_rules())
         for k in ("params", "opt"))
     out["global_bytes"] = sum(t.nbytes for t in tree_leaves(
         {"params": spec.params, "opt": spec.opt}))
