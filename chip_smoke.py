@@ -204,7 +204,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    (``distributed.mesh.shard_map``), in 25h, 25k and 25j only its
    blocks of the state, in 25h-25l only its rows of the batch, in 25k,
    25i, 25l and 25j only its blocks of the heads, MLP columns and
-   vocabulary (and in 25l of the RG-LRU's channels).
+   vocabulary (and in 25l of the RG-LRU's channels, in 25j of the
+   experts).
    25a ring attention at qwen3-4b's attention shape (2 x 32/8 heads x
    4,096, D 128, causal) on meshes (1, 4) and (2, 2) ("data", "model")
    against the plain attention (``kernels.ref``) at 1e-4 on rank 0, its
@@ -258,10 +259,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    equal, logits within ``CUT_DECODE_ATOL``); 25l recurrentgemma-9b's
    the same at full width cut to its first pattern group (rec, rec,
    attn), the recurrence on each rank's half of the channels; 25j
-   qwen2-moe-a2.7b's expert-parallel and
-   qwen3-4b's ring train steps at full width and 2 layers (bfloat16
-   weights, 4 x 1,024 tokens, rows cut), remat full bit-equal to remat
-   none, the all-to-alls and permutes of the recompute counted; then
+   qwen2-moe-a2.7b's expert-parallel and qwen3-4b's ring train steps at
+   full width and 2 layers (bfloat16 weights, 4 x 512 tokens, rows cut)
+   on a rank's blocks: EP reads its 30 of the 60 experts and the ring
+   its 16 of 32 query heads (traded for a sequence block by an
+   all-to-all and back; every K/V block read from the rank's own copy,
+   no permute), neither gathered over "model"; remat full bit-equal to
+   remat none, the all-to-alls and permutes of the recompute counted, the "state" gathers and "tp" collectives equal to
+   the helpers' arithmetic; and one step on the layout that gathers the
+   experts or the heads whole: EP's bit-equal, the ring's loss and norm
+   within ``RING_HEADS_LOSS_REL`` and ``RING_HEADS_NORM_REL``; then
    25g a world of one rank on NCCL (in a process of its own): 25a's shape on
    a (1, 1) mesh and 25c's, against the plain results.  Each sub-phase
    prints its mesh, shapes, max error and tolerance, the largest peak
@@ -288,7 +295,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    the heads, MLP columns and vocabulary, its "tp" collectives
    ``step_collectives``; its gradient sums as ``rank_local.backward_sums``
    counts them), qwen2-moe-a2.7b decode_32k through its
-   presets (``--optimized``) and tinyllama-1.1b decode_32k on the (2, 16,
+   presets (``--optimized``; expert parallelism on a rank's experts: a
+   decode step's "state" gathers held to ``rank_local.forward_gathers``)
+   and tinyllama-1.1b decode_32k on the (2, 16,
    16) multi-pod mesh (512 ranks), under ``build/dryrun_torch``, and the
    roofline CLI over their reports; every cell holds exactly a device's
    share under the shardings (held); each cell's status, trace seconds,
@@ -297,7 +306,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    forward on the (16, 16) mesh, on CUDA fake tensors and on CPU ones,
    and holds the backward's collectives: equal on both devices (the
    backward runs on the autograd engine's CUDA thread), and the body's
-   three times the forward's (step, recompute, backward).
+   three times the forward's (step, recompute, backward); then
+   qwen3-4b's train_4k step with ring attention at 2 layers on CUDA
+   fake tensors: its flops a rank ``tensor_parallel.train_flops``, its
+   "state" gathers ``forward_gathers``, its "tp" collectives (the ring's
+   exchanges of heads for sequence blocks) ``step_collectives``, and no
+   all-gather at the boundary.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``),
 and fails if ptxas serialised any kernel's ``wgmma`` (warning C7518 in a
@@ -601,6 +615,18 @@ CUT_DECODE_ATOL = 2e-3
 #: 25k and 25l were added: halved to keep the script's wall)
 REMAT_LAYERS = 2
 REMAT_BATCH = (4, 512)
+#: Phase 25j: the logical axis each case computes on blocks, which its
+#: comparison step gathers whole over "model" instead (EP then cuts the
+#: global experts in its shard_map, the ring runs on every head)
+J_WHOLE = {"ep": "experts", "ring": "heads"}
+#: Phase 25j: the ring on a rank's query heads against the ring on every
+#: head (remat none, the same init and rows): the products are the same
+#: but wo's row product, which sums each rank's bfloat16 partial in
+#: bfloat16 (gloo), and the q, k and v input gradients' partial sums.
+#: The card read 6.966e-06 (loss) and 8.574e-06 (norm) on an H100 80GB
+#: HBM3 at 700 W (PERF.md); these leave some 7x and 12x above them
+RING_HEADS_LOSS_REL = 5e-5
+RING_HEADS_NORM_REL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1311,8 +1337,8 @@ def phase25_rank(rank, report, p18):
     rows["25l"] = phase25l(rank, say, run, run_counted, peak_gb,
                            meshes[(2, 2)], serve_rules)
     # -- 25j: the EP and ring train steps on their rows, remat ---------------
-    rows["25j"] = phase25j(rank, say, run_counted, meshes[(2, 2)], rules,
-                           norms)
+    rows["25j"] = phase25j(rank, say, run_counted, peak_gb, meshes[(2, 2)],
+                           rules, norms)
     return dict(launches=launched, rows=rows if rank == 0 else None)
 
 
@@ -1499,22 +1525,36 @@ def phase25l(rank, say, run, run_counted, peak_gb, mesh, rules) -> dict:
     return r
 
 
-def phase25j(rank, say, run_counted, mesh, rules, norms) -> dict:
+def phase25j(rank, say, run_counted, peak_gb, mesh, rules, norms) -> dict:
     """Phase 25j on one of phase 25's ranks: qwen2-moe-a2.7b's
     expert-parallel train step (``moe_impl="ep"``) and qwen3-4b's ring
     train step (``ring_attention=True``), each at full width and
     ``REMAT_LAYERS`` layers with bfloat16 weights, rank-local state and
-    the rows cut on ``mesh``, under ``axis_rules``: one step with
-    ``remat="full"`` and one with ``remat="none"`` from the same init,
-    held bit-equal (loss, gradient norm, every updated parameter block),
-    their body collectives (EP's all-to-alls, the ring's permutes) as the
-    recompute implies, launches exact."""
+    the rows cut on ``mesh``, under ``axis_rules`` and ``rules``, which
+    cut the experts and the query heads over "model": EP reads its block
+    of the experts and the ring its query heads, neither gathered over
+    "model".  From the same init: one step with ``remat="full"`` and one
+    with ``remat="none"``, held bit-equal (loss, gradient norm, every
+    updated parameter block), their body collectives as the recompute
+    implies (EP's all-to-alls; the ring on heads reads every K/V block
+    from its own copy and permutes none); then one step (remat
+    none) on the layout that gathers the experts or the heads whole over
+    "model" (``J_WHOLE``; the ring on every head permutes K/V, n - 1 a
+    layer pass): EP's bit-equal to the step on blocks, the ring's loss
+    and norm within ``RING_HEADS_LOSS_REL`` and ``RING_HEADS_NORM_REL``
+    (``wo``'s row product is a sum of the ranks' bfloat16 partials on
+    heads, and K/V's gradients are summed in another order).  Every step's "state" gathers and "tp"
+    collectives (the ring's exchanges of heads for sequence blocks) equal
+    the helpers' arithmetic (``rank_local.forward_gathers`` and the
+    norm's all-reduce, ``tensor_parallel.step_collectives``); launches
+    exact."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import ctx as dctx
     from repro_torch.distributed import rank_local
+    from repro_torch.distributed import tensor_parallel as tpar
     from repro_torch.models import common as cm
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step
@@ -1526,19 +1566,36 @@ def phase25j(rank, say, run_counted, mesh, rules, norms) -> dict:
         ("ep", dataclasses.replace(
             get_config("qwen2-moe-a2.7b"), num_layers=REMAT_LAYERS,
             moe_impl="ep", moe_expert_pad=0, param_dtype="bfloat16"),
-         "all-to-all", 2),
+         "all-to-all", {"blocks": 2, "whole": 2}),
+        # the ring on heads reads every K/V block from its own copy
         ("ring", dataclasses.replace(
             get_config("qwen3-4b"), num_layers=REMAT_LAYERS,
             ring_attention=True, param_dtype="bfloat16"),
-         "collective-permute", 1))
+         "collective-permute",
+         {"blocks": 0, "whole": mesh.shape["model"] - 1}))
+    rows = REMAT_BATCH[0] // mesh.shape["data"]
     out = {}
     for name, base, kind, per_layer in cases:
         batch = {"tokens": np.random.default_rng(5).integers(
             0, base.vocab_size, REMAT_BATCH)}
-        layout = rank_local.layout_for(base, mesh, rules)
+        names = tpar.local_names(base, mesh, rules)
+        _dist_need(J_WHOLE[name] in names,
+                   f"25j {name}: the rules compute {sorted(names)}, not "
+                   f"{J_WHOLE[name]} on blocks")
+        specs = rank_local.specs_for(base, mesh, rules)
+        layouts = {
+            "blocks": (rank_local.layout_for(base, mesh, rules), names),
+            "whole": (rank_local.Layout(
+                mesh, specs, rules, rank_local.gathered_specs(
+                    base, specs.params, mesh, rules,
+                    names - {J_WHOLE[name]})), names - {J_WHOLE[name]})}
         res = {}
-        for remat in ("full", "none"):
+        for run_name, form, remat in (("full", "blocks", "full"),
+                                      ("none", "blocks", "none"),
+                                      ("whole", "whole", "none")):
             cfg = dataclasses.replace(base, remat=remat)
+            layout, lnames = layouts[form]
+            tp = layout.model_cut()
             L = cfg.num_layers
             runs = cm.layer_forward_runs(cfg, L)
             state = rank_local.init_state(
@@ -1557,38 +1614,82 @@ def phase25j(rank, say, run_counted, mesh, rules, norms) -> dict:
                         record_collectives() as rec:
                     _, m = step(state, batch)
                 return ((float(m["loss"]), float(m["grad_norm"])),
-                        rec.stats("body").count[kind])
+                        rec.stats("body").count[kind],
+                        {site: (sum(rec.stats(site).count.values()),
+                                int(rec.stats(site).total_result_bytes))
+                         for site in ("state", "tp")})
 
-            (metrics, n_coll), wall = run_counted(f"25j {name} {remat}",
-                                                  train, want)
-            _dist_need(n_coll == per_layer * (runs + L),
-                       f"25j {name} remat {remat}: {n_coll} {kind}s, want "
-                       f"{per_layer} x ({runs} layer forwards + {L} "
+            (metrics, n_coll, sites), wall = run_counted(
+                f"25j {name} {run_name}", train, want)
+            peak = peak_gb()
+            _dist_need(n_coll == per_layer[form] * (runs + L),
+                       f"25j {name} {run_name}: {n_coll} {kind}s, want "
+                       f"{per_layer[form]} x ({runs} layer forwards + {L} "
                        f"backwards)")
-            res[remat] = dict(metrics=metrics, coll=n_coll, wall_s=wall,
-                              blocks=[t.detach().clone() for t in
-                                      tree_leaves(state.params.param_tree())])
+            arith = {"state": rank_local.step_gathers(cfg, layout),
+                     "tp": tpar.step_collectives(
+                         cfg, lnames, tp.n, rows, REMAT_BATCH[1])}
+            for site, got in sites.items():
+                _dist_need(got == tuple(arith[site]),
+                           f"25j {name} {run_name}: {site} collectives "
+                           f"{got}, the arithmetic {arith[site]}")
+            res[run_name] = dict(
+                metrics=metrics, coll=n_coll, wall_s=wall, peak_gb=peak,
+                state=sites["state"], tp=sites["tp"],
+                blocks=[t.detach().clone() for t in
+                        tree_leaves(state.params.param_tree())])
             del state, step
             gc.collect()
             torch.cuda.empty_cache()
-        same = (res["full"]["metrics"] == res["none"]["metrics"]
-                and all(torch.equal(a, b) for a, b in
-                        zip(res["full"]["blocks"], res["none"]["blocks"])))
-        _dist_need(same, f"25j {name}: remat full {res['full']['metrics']} "
-                         f"differs from remat none {res['none']['metrics']}")
-        say(f"[25j] {base.name} {name} train step at full width, {L} "
-            f"layers, bfloat16 weights and activations, {REMAT_BATCH[0]} x "
-            f"{REMAT_BATCH[1]:,} tokens, each rank its "
-            f"{REMAT_BATCH[0] // mesh.shape['data']} rows on "
-            f"{tuple(mesh.shape.values())}: remat full (loss, grad norm) "
+
+        def same(a, b):
+            return (res[a]["metrics"] == res[b]["metrics"]
+                    and all(torch.equal(x, y) for x, y in
+                            zip(res[a]["blocks"], res[b]["blocks"])))
+        _dist_need(same("full", "none"),
+                   f"25j {name}: remat full {res['full']['metrics']} "
+                   f"differs from remat none {res['none']['metrics']}")
+        (loss, norm), (w_loss, w_norm) = (res["none"]["metrics"],
+                                          res["whole"]["metrics"])
+        loss_rel = abs(loss - w_loss) / abs(w_loss)
+        norm_rel = abs(norm - w_norm) / abs(w_norm)
+        if name == "ep":
+            _dist_need(same("none", "whole"),
+                       f"25j ep: on its expert blocks {res['none']['metrics']}"
+                       f" differs from the whole experts' step "
+                       f"{res['whole']['metrics']}")
+            against = "bit-equal, every updated block too (held)"
+        else:
+            _dist_need(loss_rel <= RING_HEADS_LOSS_REL
+                       and norm_rel <= RING_HEADS_NORM_REL,
+                       f"25j ring: on heads (loss, norm) {(loss, norm)}, "
+                       f"on whole heads {(w_loss, w_norm)}: rel "
+                       f"{loss_rel:.3e} / {norm_rel:.3e}")
+            against = (f"loss rel {loss_rel:.3e} (tol "
+                       f"{RING_HEADS_LOSS_REL}), norm rel {norm_rel:.3e} "
+                       f"(tol {RING_HEADS_NORM_REL}) (held)")
+        say(f"[25j] {base.name} {name} train step at full width, "
+            f"{base.num_layers} layers, bfloat16 weights and activations, "
+            f"{REMAT_BATCH[0]} x {REMAT_BATCH[1]:,} tokens, each rank its "
+            f"{rows} rows on {tuple(mesh.shape.values())}, its "
+            f"{J_WHOLE[name]} on blocks: remat full (loss, grad norm) "
             f"{res['full']['metrics']} bit-equal to remat none "
             f"{res['none']['metrics']}, every updated block too (held); "
             f"{kind}s {res['full']['coll']} with the recompute / "
-            f"{res['none']['coll']} without (held); launches exact; "
-            f"wall full {res['full']['wall_s']:.2f} s, none "
-            f"{res['none']['wall_s']:.2f} s (gloo)")
-        out[name] = {k: {"metrics": v["metrics"], "coll": v["coll"],
-                         "wall_s": v["wall_s"]} for k, v in res.items()}
+            f"{res['none']['coll']} without / {res['whole']['coll']} on "
+            f"the whole layout (held); against the layout "
+            f"that gathers the {J_WHOLE[name]} whole "
+            f"{res['whole']['metrics']}: {against}; launches exact")
+        for run_name, r in res.items():
+            say(f"[25j] {name} {run_name}: state gathers (count, result "
+                f"bytes, the norm's 4-byte all-reduce among them) "
+                f"{r['state']}, tp {r['tp']} (both the arithmetic, held); "
+                f"peak {r['peak_gb']:.2f} GB a rank; wall "
+                f"{r['wall_s']:.2f} s (gloo)")
+        out[name] = {k: {kk: v[kk] for kk in ("metrics", "coll", "wall_s",
+                                              "peak_gb", "state", "tp")}
+                     for k, v in res.items()}
+        out[name]["rel_to_whole"] = (loss_rel, norm_rel)
         del res
         gc.collect()
         torch.cuda.empty_cache()
@@ -1854,10 +1955,9 @@ def phase25k(rank, say, run_counted, mesh, rules, h) -> dict:
     fwd = rank_local.forward_gathers(cfg, layout)
     sums = rank_local.backward_sums(cfg, layout, ("data",))
     tp_n, tp_b = tpar.step_collectives(cfg, names, tp.n, rows, RL_BATCH[1])
+    st_n, st_b = rank_local.step_gathers(cfg, layout)
     want = {"tp": (n_steps * tp_n, n_steps * tp_b),
-            # the gathers, and the norm's all-reduce once a step
-            "state": (n_steps * (runs * fwd["unit"][0] + fwd["rest"][0] + 1),
-                      None),
+            "state": (n_steps * st_n, n_steps * st_b),
             "grad": (n_steps * (L * sums["unit"][0] + sums["rest"][0]
                                 + sums["whole"][0]),
                      n_steps * (L * sums["unit"][1] + sums["rest"][1]
@@ -1865,10 +1965,6 @@ def phase25k(rank, say, run_counted, mesh, rules, h) -> dict:
     gather_bytes = n_steps * (runs * fwd["unit"][1] + fwd["rest"][1])
     for site, (n, nbytes) in want.items():
         got_n, got_b = sites[site]
-        if site == "state":
-            # the norm's all-reduce is 4 bytes a step
-            got_b -= n_steps * 4
-            nbytes = gather_bytes
         _dist_need((got_n, got_b) == (n, nbytes),
                    f"25k: {site} collectives {sites[site]}, the arithmetic "
                    f"{(n, nbytes)}")
@@ -2073,10 +2169,12 @@ print("JSON" + json.dumps(res))
 #: expert-parallel MoE) at two layers, remat full layer by layer, its
 #: train_4k step and that step's forward (a prefill of the same batch) on
 #: the production (16, 16) mesh, each traced on the fake tensors' device
-#: and again on the CPU's; prints one JSON line.
+#: and again on the CPU's; then qwen3-4b's train_4k step with ring
+#: attention (``--ring``) at ``RING_26C_LAYERS`` layers on the fake
+#: tensors' device only; prints one JSON line.
 DRYRUN_BWD = """
-import dataclasses, json, math
-from repro_torch.configs import get_optimized_config
+import dataclasses, json, math, sys
+from repro_torch.configs import get_config, get_optimized_config
 from repro_torch.distributed.ctx import axis_rules
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_production_mesh, production_shape
@@ -2086,6 +2184,9 @@ cfg = dataclasses.replace(
     num_layers=2, remat="full", remat_block=1)
 args = D.parser().parse_args(["--arch", cfg.name, "--shape", "train_4k",
                               "--microbatches", "1"])
+ring = dataclasses.replace(
+    get_config("qwen3-4b", kernel_impl="torch", ring_attention=True),
+    num_layers=int(sys.argv[1]))
 train = SHAPES_BY_NAME["train_4k"]
 res = {"devices": [D.TRACE_DEVICE, "cpu"], "layers": cfg.num_layers}
 with D.fake_world(math.prod(production_shape()[0])):
@@ -2100,8 +2201,14 @@ with D.fake_world(math.prod(production_shape()[0])):
                 res[f"{dev}/{kind}"] = {
                     "by_site": D.analyze(trace)["collectives_by_site"],
                     "trace_s": info["trace_s"]}
+        D.TRACE_DEVICE = res["devices"][0]
+        trace, info = D.lower_cell(ring, train, mesh, args)
+        res["ring"] = {**D.analyze(trace), "trace_s": info["trace_s"],
+                       "device": D.TRACE_DEVICE}
 print("JSON" + json.dumps(res))
 """
+#: Phase 26c: qwen3-4b's ring train_4k trace, cut to 2 of its 36 layers
+RING_26C_LAYERS = 2
 #: Phase 26b's production cells: (CLI arguments, the roofline's --mesh).
 #: The train cell traces its 256 x 4,096 batch as one microbatch where the
 #: reference's cell takes 8 (tagged mb1): the trace costs host time by
@@ -2129,6 +2236,11 @@ TRAIN_4K_SHARDED = 68_111_876
 #: MLP columns and vocabulary (``tensor_parallel.train_flops``; k and v
 #: whole), exactly: an integer sum
 TRAIN_4K_ROWS = (16, 4096)
+#: Phase 26b: qwen2-moe-a2.7b decode_32k's (presets) "state" gathers a
+#: decode step on (16, 16), (count, result bytes), when the expert leaves
+#: were gathered whole over "model" (the dry run's trace of that layout
+#: on the CPU)
+MOE_DECODE_STATE_WHOLE = (387, 57_703_145_472)
 #: Phase 26b: PR 31's temp bytes of the train_4k cell, a rank computing
 #: the global step (NVIDIA H100 80GB HBM3's host, PR 31's chip call 1)
 TRAIN_4K_TEMP_PR31 = 1_974_505_937_424
@@ -2152,7 +2264,7 @@ def run_dryruns(batch: int, seq: int) -> dict:
         [sys.executable, "-c", script, *argv], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
         for script, argv in ((DRYRUN_18, [str(batch), str(seq)]),
-                             (DRYRUN_BWD, []))]
+                             (DRYRUN_BWD, [str(RING_26C_LAYERS)]))]
     procs += [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
          out], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -2203,7 +2315,8 @@ def phase26c(card: str, c: dict) -> None:
     forward implies: each layer's forward runs twice (step, recompute) and
     its backward reverses each all-to-all and psum once more, so the body
     holds three times the forward's; the boundary's all-reduces (a cut's
-    cotangent) exist only in the backward."""
+    cotangent) exist only in the backward.  Then the ring's train_4k
+    trace against :func:`ring26c_arithmetic`."""
     first, cpu = c["devices"]
     check(first == "cuda", f"phase 26c: the dry run traces on {first!r} "
                            f"fake tensors on the card's host")
@@ -2225,6 +2338,33 @@ def phase26c(card: str, c: dict) -> None:
     check(fe["count"]["all-reduce"] == 0 < te["count"]["all-reduce"],
           f"phase 26c: boundary all-reduces train {te['count']} forward "
           f"{fe['count']}")
+    r = c["ring"]
+    ar = ring26c_arithmetic(c["mesh_shape"])
+    by = r["collectives_by_site"]
+    got = {site: (sum(by[site]["count"].values()),
+                  int(sum(by[site]["result_bytes"].values())))
+           for site in ("state", "tp")}
+    check(r["device"] == first and r["flops"] == ar["flops"],
+          f"phase 26c: the ring's train_4k traces {r['flops']:.6e} flops a "
+          f"rank on {r['device']}, train_flops {ar['flops']:.6e}")
+    for site, want in (("state", ar["state"]), ("tp", ar["tp"])):
+        check(got[site] == tuple(want),
+              f"phase 26c: the ring's {site} collectives {got[site]}, the "
+              f"arithmetic {want}")
+    check(by["boundary"]["count"]["all-gather"] == 0,
+          f"phase 26c: the ring's step gathers at the boundary "
+          f"{by['boundary']['count']}")
+    print(f"[26c] ({card}) qwen3-4b with ring attention, "
+          f"{RING_26C_LAYERS} layers, train_4k on {c['mesh_shape']} "
+          f"({first} fake tensors, trace {r['trace_s']:.2f} s): a rank "
+          f"computes {ar['names']} on 1/{ar['n']} blocks; flops a rank "
+          f"{r['flops']:.6e} = train_flops (held); state gathers "
+          f"{got['state']} (count, result bytes, the norm's all-reduce "
+          f"among them) = forward_gathers (held); tp {got['tp']} = "
+          f"step_collectives, the ring's head exchanges "
+          f"{by['tp']['count']['all-to-all']} all-to-alls among them "
+          f"(held); boundary {by['boundary']['count']}: no all-gather "
+          f"(held); body {by['body']['count']}")
     print(f"[26c] ({card}) qwen2-moe-a2.7b presets, {c['layers']} layers, "
           f"train_4k on {c['mesh_shape']}: body collectives of the step "
           f"{tb['count']} ({sum(tb['result_bytes'].values()):,.0f} result "
@@ -2270,6 +2410,59 @@ def train4k_arithmetic(cell: dict) -> dict:
             "flops_whole": tpar.train_flops(cfg, frozenset(), 1, rows, seq),
             "tp": tpar.step_collectives(cfg, names, tp.n, rows, seq),
             "n": tp.n}
+
+
+def ring26c_arithmetic(mesh_shape: dict) -> dict:
+    """What 26c's qwen3-4b ring train_4k step (one microbatch of
+    ``TRAIN_4K_ROWS`` a rank, ``RING_26C_LAYERS`` layers) takes on a rank
+    of ``mesh_shape``, by the helpers: ``"flops"``
+    (``tensor_parallel.train_flops`` of its rows and heads: the ring's
+    blocks on every head of its sequence block), ``"state"``
+    (``rank_local.step_gathers``: the gathers and the norm's 4-byte
+    all-reduce) and ``"tp"`` (``step_collectives``: the
+    ring's exchanges of heads for sequence blocks among them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import rank_local
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.mesh import AbstractMesh
+    from repro_torch.launch import dryrun as D
+    cfg = dataclasses.replace(
+        get_config("qwen3-4b", kernel_impl="torch", ring_attention=True),
+        num_layers=RING_26C_LAYERS)
+    mesh = AbstractMesh(tuple(mesh_shape.values()), tuple(mesh_shape))
+    args = D.parser().parse_args(["--arch", cfg.name, "--shape", "-"])
+    rules = D._rules_for(mesh, args)
+    layout = rank_local.layout_for(cfg, mesh, rules)
+    names = tpar.local_names(cfg, mesh, rules)
+    tp = layout.model_cut()
+    rows, seq = TRAIN_4K_ROWS
+    return {"flops": tpar.train_flops(cfg, names, tp.n, rows, seq),
+            "state": rank_local.step_gathers(cfg, layout),
+            "tp": tpar.step_collectives(cfg, names, tp.n, rows, seq),
+            "names": sorted(names), "n": tp.n}
+
+
+def moe_decode_arithmetic(cell: dict) -> tuple:
+    """26b's qwen2-moe-a2.7b decode_32k cell (``--optimized``): the
+    ``"state"`` gathers (count, result bytes) of one decode step on a
+    rank, each layer's leaves read once and the rest's
+    (``rank_local.forward_gathers`` under the cell's rules)."""
+    import argparse
+    from repro_torch.configs import step_settings
+    from repro_torch.distributed import rank_local
+    from repro_torch.distributed.mesh import AbstractMesh
+    from repro_torch.launch import dryrun as D
+    args = D.parser().parse_args(["--arch", cell["arch"], "--shape",
+                                  cell["shape"], "--optimized"])
+    args = argparse.Namespace(**{**vars(args),
+                                 **step_settings(cell["arch"])})
+    cfg = D.cell_config(cell["arch"], args)
+    mesh = AbstractMesh(tuple(cell["mesh_shape"].values()),
+                        tuple(cell["mesh_shape"]))
+    layout = rank_local.layout_for(cfg, mesh, D._rules_for(mesh, args))
+    g = rank_local.forward_gathers(cfg, layout)
+    return (cfg.num_layers * g["unit"][0] + g["rest"][0],
+            cfg.num_layers * g["unit"][1] + g["rest"][1])
 
 
 def phase26(card: str, p18: dict) -> dict:
@@ -2381,6 +2574,22 @@ def phase26(card: str, p18: dict) -> dict:
                   f"gradient sums over data {grad['count']} of "
                   f"{sum(grad['result_bytes'].values()):,.0f} B, "
                   f"rank_local.backward_sums' arithmetic (held)")
+        if cell["arch"] == "qwen2-moe-a2.7b":
+            st = cell["full"]["collectives_by_site"]["state"]
+            got_st = (sum(st["count"].values()),
+                      int(sum(st["result_bytes"].values())))
+            want_st = moe_decode_arithmetic(cell)
+            check(got_st == want_st,
+                  f"phase 26b: {cell['arch']} {cell['shape']}'s state "
+                  f"gathers {got_st}, the arithmetic {want_st}")
+            print(f"[26b] ({card}) {cell['arch']} {cell['shape']} "
+                  f"(presets, expert parallelism on a rank's experts): a "
+                  f"decode step gathers {got_st[0]} leaves of "
+                  f"{got_st[1]:,} B = rank_local.forward_gathers (held), "
+                  f"{MOE_DECODE_STATE_WHOLE[1] / got_st[1]:.2f}x less "
+                  f"than with the experts gathered whole over model "
+                  f"({MOE_DECODE_STATE_WHOLE[0]} of "
+                  f"{MOE_DECODE_STATE_WHOLE[1]:,} B)")
         r = roofline.roofline_row(cell)
         print(f"[26b] ({card}) {cell['arch']} {cell['shape']} "
               f"{cell['mesh']} {cell['mesh_shape']}: {cell['status']}, "

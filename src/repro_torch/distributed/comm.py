@@ -110,7 +110,7 @@ def pmax(mesh: Mesh, x: torch.Tensor, axes, *,
 
 
 def _tiled(mesh: Mesh, x: torch.Tensor, axis: str, split_axis: int,
-           concat_axis: int) -> torch.Tensor:
+           concat_axis: int, site: str) -> torch.Tensor:
     pg, order = mesh.group(axis)
     n = len(order)
     if x.shape[split_axis] % n:
@@ -122,28 +122,30 @@ def _tiled(mesh: Mesh, x: torch.Tensor, axis: str, split_axis: int,
         by_rank[r] = chunks[j]
     send = torch.stack(by_rank)
     recv = torch.empty_like(send)
-    comm_stats.note("all-to-all", send.nbytes, n)
+    comm_stats.note("all-to-all", send.nbytes, n, site)
     dist.all_to_all_single(recv, send, group=pg)
     return torch.cat([recv[r] for r in order], dim=concat_axis)
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
-        ctx.args = (mesh, axis, split_axis, concat_axis)
-        return _tiled(mesh, x, axis, split_axis, concat_axis)
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis, site):
+        ctx.args = (mesh, axis, split_axis, concat_axis, site)
+        return _tiled(mesh, x, axis, split_axis, concat_axis, site)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, axis, split_axis, concat_axis = ctx.args
-        return (_tiled(mesh, g, axis, concat_axis, split_axis),
-                None, None, None, None)
+        mesh, axis, split_axis, concat_axis, site = ctx.args
+        return (_tiled(mesh, g, axis, concat_axis, split_axis, site),
+                None, None, None, None, None)
 
 
 def all_to_all(mesh: Mesh, x: torch.Tensor, axis: str, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
+               concat_axis: int, *, site: str = "body") -> torch.Tensor:
     """Tiled all-to-all: ``x``'s ``split_axis`` in as many chunks as
     ``axis`` has ranks, chunk j to the rank of index j, and the chunks
     received concatenated on ``concat_axis`` in the senders' order
-    (``jax.lax.all_to_all(..., tiled=True)``)."""
-    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+    (``jax.lax.all_to_all(..., tiled=True)``).  ``site``: what
+    :mod:`repro_torch.utils.comm_stats` records it as (its backward's
+    exchange too)."""
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis, site)

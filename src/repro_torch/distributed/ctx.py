@@ -27,7 +27,9 @@ blocks of the weights that the rules cut over the ``model`` axis (a
 train step enters it for a rank-local state whose layout cuts such
 leaves, the serve steps for parameters held as such blocks.  Model code
 reads it through :func:`current_model_cut` where a weight's shape is a
-block of its width (:mod:`repro_torch.distributed.tensor_parallel`).
+block of its width (:mod:`repro_torch.distributed.tensor_parallel`):
+ring attention on a rank's query heads and expert parallelism on its
+experts among them.
 :func:`snapshot` and :func:`restored` carry all three contexts into a
 remat recompute, which may run on a thread that has none of them, so
 that it computes the same blocks.
@@ -94,7 +96,7 @@ class ModelCut:
     """The weights a rank holds of the ``model`` axis on ``mesh``: the
     block of its linear index along the mesh axes ``axes`` (of more than
     one rank) of every width the rules cut over them: attention heads,
-    MLP columns, the vocabulary, the RG-LRU's channels."""
+    MLP columns, the vocabulary, the RG-LRU's channels, the experts."""
 
     mesh: object
     axes: tuple

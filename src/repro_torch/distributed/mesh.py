@@ -12,7 +12,9 @@ devices:
   take global arrays (a rank-local train state,
   :mod:`repro_torch.distributed.rank_local`, stores only its blocks and
   gathers a weight where the step reads it, so a body is handed the
-  gathered tensor);
+  gathered tensor), or, along the axes a caller names (``local``,
+  ``held``), this rank's block already: its rows of the batch, its
+  block of the experts or of the query heads;
 * each rank cuts its own block from them by its mesh coordinates and the
   ``in_specs`` (:func:`cut`: a view, not a copy: it keeps the global
   storage alive, so storing by blocks needs a copy,
@@ -327,23 +329,35 @@ def gather(mesh: Mesh, x: torch.Tensor, spec, local=()) -> torch.Tensor:
     return _Gather.apply(x, mesh, _drop_local(_spec(spec), local), local)
 
 
-def shard_map(body, mesh: Mesh, in_specs, out_specs, *, local=()):
+def shard_map(body, mesh: Mesh, in_specs, out_specs, *, local=(),
+              held=None):
     """``body`` over this rank's blocks of global inputs, giving global
     outputs.  ``in_specs`` has one spec an argument (an argument that is
     not a tensor, such as a Python int, passes as it is); ``out_specs``
     is one spec, or a tuple of them for a body returning a tuple.
     ``local``: mesh axes along which the arguments and the outputs are
     this rank's blocks already (a rank that holds only its rows of the
-    batch, :class:`repro_torch.distributed.ctx.RowCut`): the specs'
-    entries over them neither cut nor gather, and no gradient sums over
+    batch, :class:`repro_torch.distributed.ctx.RowCut`, or its query
+    heads): the specs' entries over them neither cut nor gather, and no
+    gradient sums over them.  ``held`` (one tuple of mesh axes an
+    argument): more such axes for one argument alone, along which it is
+    this rank's own already (its block of the experts on ``model``,
+    :class:`repro_torch.distributed.ctx.ModelCut`): it is neither cut
+    nor gathered along them, and its gradient is not summed over
     them."""
+    held = tuple(map(_axes, held)) if held is not None \
+        else ((),) * len(in_specs)
+    if len(held) != len(in_specs):
+        raise ValueError(f"held {held}: one entry an argument")
+    local = tuple(local)
+
     def run(*args):
         if len(args) != len(in_specs):
             raise ValueError(f"{len(args)} arguments, {len(in_specs)} "
                              f"in_specs")
-        local_args = [cut(mesh, a, s, local)
+        local_args = [cut(mesh, a, s, local + h)
                       if isinstance(a, torch.Tensor) else a
-                      for a, s in zip(args, in_specs)]
+                      for a, s, h in zip(args, in_specs, held)]
         out = body(*local_args)
         if isinstance(out_specs, PartitionSpec):
             return gather(mesh, out, out_specs, local)

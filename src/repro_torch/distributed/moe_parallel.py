@@ -10,6 +10,14 @@ rank holds only its experts' tokens, the expert FFN runs locally, and
 the reverse all-to-all returns outputs to their source rank, where the
 combine adds each token's contributions.
 
+The expert weights come in either of two forms, told apart by their
+leading dim: the global tensors (every expert), which the ``shard_map``
+cuts to the rank's experts, or the rank's own block of ``(E/m, ...)``
+rows, as a rank-local state holds them where the rules cut ``experts``
+over ``model`` (:func:`repro_torch.distributed.tensor_parallel
+.local_names`): computed on as they are, and their gradient is that
+block's, neither gathered nor summed over ``model``.
+
 Wire bytes a layer = 2 x tokens_exchanged x D, independent of E.
 """
 from __future__ import annotations
@@ -23,6 +31,7 @@ from repro_torch.models.config import ModelConfig
 from . import comm
 from .mesh import Mesh, shard_map
 from .sharding import PartitionSpec as PS
+from .tensor_parallel import split
 
 
 def _local_dispatch(cfg: ModelConfig, router_logits, xf, cap: int):
@@ -41,7 +50,10 @@ def moe_ffn_ep(cfg: ModelConfig, mesh: Mesh, p, x, *,
                record: Optional[list] = None):
     """Expert-parallel MoE FFN.  x: (B, S, D), global, computed with B
     sharded over ``data_axes`` and the experts (``p['w_*']``'s leading
-    dim) over ``model_axis``.  Returns (y, aux) like
+    dim) over ``model_axis``: ``p['w_*']`` global, or this rank's block
+    of ``(E + pad) / m`` experts under a
+    :class:`repro_torch.distributed.ctx.ModelCut` over ``model_axis``.
+    Returns (y, aux) like
     :func:`repro_torch.models.moe.moe_ffn`; ``record``, when a list,
     receives this rank's routing of its local tokens.  Where this rank
     holds only its rows of the batch already (a
@@ -59,6 +71,17 @@ def moe_ffn_ep(cfg: ModelConfig, mesh: Mesh, p, x, *,
     if et % m:
         raise ValueError(f"experts {e} + pad {cfg.moe_expert_pad} must "
                          f"divide EP degree {m}: set moe_expert_pad")
+    # each read of a rank-local weight gathers it: read each once
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
+    rows = w_gate.shape[0]
+    if rows == et:
+        held = ()
+    else:
+        tp = split(rows, et)
+        if tp.axes != (model_axis,):
+            raise ValueError(f"the experts are a block over {tp.axes}, "
+                             f"expert parallelism runs over {model_axis!r}")
+        held = (model_axis,)
     ba = tuple(a for a in data_axes if a in mesh.axis_names)
     cut_here = tuple(a for a in ba if a not in local)
     t_local = b * s // math.prod(mesh.shape[a] for a in cut_here)
@@ -89,4 +112,5 @@ def moe_ffn_ep(cfg: ModelConfig, mesh: Mesh, p, x, *,
         in_specs=(PS(b_spec), PS(), PS(model_axis), PS(model_axis),
                   PS(model_axis)),
         out_specs=(PS(b_spec), PS()), local=local,
-    )(x, p["router"].float(), p["w_gate"], p["w_up"], p["w_down"])
+        held=((), (), held, held, held),
+    )(x, p["router"].float(), w_gate, w_up, w_down)

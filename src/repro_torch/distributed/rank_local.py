@@ -24,9 +24,10 @@ partitioner's work, written out for ``torch.distributed`` ranks:
   ``"state"`` site of :mod:`repro_torch.utils.comm_stats`).  A dim that
   the rules cut over ``model`` and that the rank computes a block of
   (:func:`repro_torch.distributed.tensor_parallel.local_names`: attention
-  heads, MLP columns, the vocabulary, the RG-LRU's channels) is not
-  gathered: the leaf reads as its ``model`` block, whole over its other
-  axes (:attr:`Layout.gathered`: the specs it is gathered by), and the
+  heads, MLP columns, the vocabulary, the RG-LRU's channels, the MoE's
+  experts under expert parallelism) is not gathered: the leaf reads as
+  its ``model`` block, whole over its other axes
+  (:attr:`Layout.gathered`: the specs it is gathered by), and the
   step runs under :meth:`Layout.model_cut`, on which the model code
   computes its blocks.  A leaf sharded over nothing else reads as its
   block with no collective.  A layer's weights are gathered where its
@@ -34,8 +35,12 @@ partitioner's work, written out for ``torch.distributed`` ranks:
   recompute gathers them again and the backward holds no gathered
   weight past its layer (ZeRO-3's schedule); the ``embed`` group's
   where the forward uses it (a tied embedding, read twice, is gathered
-  twice).  Expert parallelism and ring attention receive the gathered
-  global tensor and cut it in their ``shard_map`` as before.
+  twice).  Expert parallelism reads its block of the experts and
+  computes on it as it is (its ``shard_map`` neither cuts it nor sums
+  its gradient over ``model``); ring attention computes the rank's
+  query heads and trades them for a sequence block
+  (:func:`repro_torch.distributed.ring_attention.ring_attention_heads`):
+  neither gathers a weight over ``model``.
 * A rank computes only its rows of the batch, as GSPMD partitions the
   reference's step with the batch on ``"data"``: :meth:`Layout.row_cut`
   resolves the batch's specs (``tree_shardings_for`` of its shapes and
@@ -190,14 +195,17 @@ def specs_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES):
                                  rules) for k in ("params", "opt")})
 
 
-def gathered_specs(cfg, specs, mesh, rules) -> dict:
+def gathered_specs(cfg, specs, mesh, rules, names=None) -> dict:
     """The parameters' specs ``specs`` less each dim whose logical axis
-    the rank computes a block of
-    (:func:`repro_torch.distributed.tensor_parallel.local_names`): the
-    specs the leaves are gathered by."""
+    the rank computes a block of (``names``; None:
+    :func:`repro_torch.distributed.tensor_parallel.local_names`): the
+    specs the leaves are gathered by.  A ``names`` without some of them
+    gives a layout that gathers those dims whole too (``Layout(mesh,
+    specs, rules, gathered)``)."""
     from repro_torch import models as M
     from .tensor_parallel import local_names
-    names = local_names(cfg, mesh, rules)
+    if names is None:
+        names = local_names(cfg, mesh, rules)
 
     def drop(spec, axes):
         return PartitionSpec(*(None if name in names else e
@@ -330,6 +338,21 @@ def forward_gathers(cfg, layout: Layout) -> dict:
                 nbytes += math.prod(block) * size
         return n, nbytes
     return _tally(cfg, layout, count)
+
+
+def step_gathers(cfg, layout: Layout) -> tuple:
+    """``(count, result bytes)`` of the ``"state"`` site of one train
+    step on a rank-local state of ``cfg``: a unit's reads once a unit
+    forward, the remat recomputes included, the other leaves' once
+    (:func:`forward_gathers`), and :func:`global_norm`'s all-reduce of a
+    float32 scalar."""
+    from repro_torch.models.common import layer_forward_runs
+
+    from .tensor_parallel import _units
+    runs = layer_forward_runs(cfg, _units(cfg)[0])
+    g = forward_gathers(cfg, layout)
+    return (runs * g["unit"][0] + g["rest"][0] + 1,
+            runs * g["unit"][1] + g["rest"][1] + 4)
 
 
 def backward_sums(cfg, layout: Layout, rows) -> dict:

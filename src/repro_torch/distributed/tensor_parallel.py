@@ -2,13 +2,13 @@
 products, as GSPMD partitions the reference's step with its rules.
 
 The reference's rules put the vocabulary, the attention's query heads,
-the MLP's hidden columns and the RG-LRU's channels on ``"model"``
-(``repro.distributed.sharding.make_rules``); GSPMD then computes each
-device's heads and columns.  Here a rank holds the same blocks
-(:mod:`repro_torch.distributed.rank_local` gathers such a leaf over its
-other axes only, or the serve steps take the blocks as they are), runs
-under a :class:`repro_torch.distributed.ctx.ModelCut`, and the model code
-computes on the blocks it is given:
+the MLP's hidden columns, the RG-LRU's channels and the MoE's experts
+on ``"model"`` (``repro.distributed.sharding.make_rules``); GSPMD then
+computes each device's heads, columns and experts.  Here a rank holds
+the same blocks (:mod:`repro_torch.distributed.rank_local` gathers such
+a leaf over its other axes only, or the serve steps take the blocks as
+they are), runs under a :class:`repro_torch.distributed.ctx.ModelCut`,
+and the model code computes on the blocks it is given:
 
 * a *column* product (``wq``, ``w_gate`` / ``w_up``, ``proj_x``, the LM
   head) takes its input through :func:`copy_in`: the identity forward,
@@ -26,7 +26,14 @@ computes on the blocks it is given:
   reduces out), :func:`cross_entropy` (the row maximum by an all-reduce
   MAX, detached; the sum of exponentials and the target logit by one
   all-reduce SUM) and :func:`argmax` (ties to the lowest global index,
-  as ``torch.argmax`` breaks them).
+  as ``torch.argmax`` breaks them);
+* under ring attention, the query heads' block is traded for a
+  sequence block by a tiled all-to-all over ``model`` and back
+  (:func:`repro_torch.distributed.ring_attention.ring_attention_heads`,
+  GSPMD's reshard of the heads for the reference's ring);
+* under expert parallelism (``moe_impl="ep"``) the experts' block is
+  the rank's experts: :func:`repro_torch.distributed.moe_parallel
+  .moe_ffn_ep` computes on it as it is.
 
 Which widths are cut is the rules' decision, resolved once
 (:func:`local_names`): a leaf the rules leave whole over ``model``, or
@@ -34,9 +41,9 @@ that ``sanitize`` keeps whole, is computed whole.  The model code reads
 it from the shapes it is given (:func:`split`).  What stays whole by
 design: Mamba2 (its ``in_proj`` is one ``(D, 2 di + 2 N + H)`` matrix on
 ``"ssm_inner"`` whose contiguous ``model`` blocks of the concatenated z |
-xBC | dt columns do not line up with its heads), the MoE's routed experts
-(gathered whole, as before), attention under ring attention (which takes
-the ``model`` axis for the sequence) and every weight under
+xBC | dt columns do not line up with its heads), the MoE's routed
+experts under ``moe_impl="gspmd"`` (gathered whole: the sort-based
+dispatch runs on every expert), and every weight under
 ``cfg.seq_parallel`` (Megatron-SP's reduce-scatter / all-gather form is
 not ported).
 
@@ -56,8 +63,9 @@ from .ctx import ModelCut, current_model_cut, spanning
 from .mesh import all_gather_dim, all_reduce
 
 #: The logical axes whose widths a rank computes a block of, when the
-#: rules cut them over the mesh (the reference's "TP over model").
-TP_NAMES = ("vocab", "heads", "mlp", "rnn")
+#: rules cut them over the mesh (the reference's "TP over model", and
+#: its expert parallelism).
+TP_NAMES = ("vocab", "heads", "mlp", "rnn", "experts")
 
 SITE = "tp"
 
@@ -67,7 +75,10 @@ def local_names(cfg, mesh, rules) -> frozenset:
     block of on ``mesh`` under ``rules``: :data:`TP_NAMES` where the
     rules cut them over axes of more than one rank, less what stays
     whole by design (see the module docstring).  The RG-LRU's channels
-    are cut only where its gate blocks divide too."""
+    are cut only where its gate blocks divide too, the experts only
+    under expert parallelism (``moe_impl="ep"``, whose
+    :func:`repro_torch.distributed.moe_parallel.moe_ffn_ep` raises
+    unless the experts with their pad divide the axis)."""
     from . import sharding as sh
     if cfg.family == "ssm" or cfg.seq_parallel:
         return frozenset()
@@ -77,7 +88,7 @@ def local_names(cfg, mesh, rules) -> frozenset:
         ax = spanning(mesh, entry[0] if len(entry) else None)
         if not ax:
             continue
-        if name == "heads" and cfg.ring_attention:
+        if name == "experts" and cfg.moe_impl != "ep":
             continue
         if name == "rnn" and (cfg.family != "hybrid"
                               or cfg.num_heads % mesh.extent(ax)):
@@ -248,8 +259,12 @@ def collectives(cfg, names, n: int, rows: int, seq: int,
     unit's own recompute stops before it).  ``kind``: ``"train"`` (the
     loss's too), ``"prefill"`` / ``"decode"`` (the greedy argmax's, no
     backward; a decode step's ``seq`` is 1, and its query heads are
-    all-gathered where the cache's slots are cut, ``seq_cut``).  Result
-    bytes: an all-reduce's operand, an all-gather's result."""
+    all-gathered where the cache's slots are cut, ``seq_cut``).  Under
+    ring attention (no window, ``seq`` dividing by ``n``, not a decode)
+    a unit's attention trades its query heads for a sequence block and
+    back, two tiled all-to-alls a forward and two a backward.  Result
+    bytes: an all-reduce's operand, an all-gather's result, an
+    all-to-all's operand."""
     w = _cut(cfg, names, n)
     act = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     par = torch.empty((), dtype=getattr(torch, cfg.param_dtype)
@@ -258,6 +273,8 @@ def collectives(cfg, names, n: int, rows: int, seq: int,
     tok, d = rows * seq, cfg.d_model
     resid = tok * d * act                           # a (rows, seq, D)
     gather = kind == "decode" and seq_cut
+    ring = (cfg.ring_attention and cfg.window is None and kind != "decode"
+            and seq % n == 0)
 
     def tally():
         return {"fwd": [0, 0], "bwd": [0, 0]}
@@ -270,6 +287,11 @@ def collectives(cfg, names, n: int, rows: int, seq: int,
         if w["heads"] == cfg.num_heads:
             return
         add(t, "fwd", 1, resid)                     # wo's reduce-out
+        if ring:
+            # q to sequence blocks, the output back to heads
+            heads = rows * w["heads"] * seq * cfg.head_dim * act
+            add(t, "fwd", 2, heads)
+            add(t, "bwd", 2, heads)
         if gather:
             add(t, "fwd", 1, rows * cfg.num_heads * cfg.head_dim * act)
         # copy-in of the input, of wk and wv, of the q/k norms
@@ -399,7 +421,11 @@ def train_flops(cfg, names, n: int, rows: int, seq: int,
     stops before its last product (``torch.utils.checkpoint`` stops
     once it holds every tensor the backward saved, and ``w_down``'s
     inputs are saved before it runs), so with remat each layer's
-    ``down`` runs once less than its other products."""
+    ``down`` runs once less than its other products.  Under ring
+    attention on a rank's heads the ring's blocks take every head on the
+    rank's block of S / n queries against every key, masked blocks
+    included: ``H x S / n x S``, the count of the rank's H / n heads
+    over the whole sequence."""
     from repro_torch.models.common import layer_forward_runs
     if cfg.family != "dense":
         raise ValueError(f"train_flops counts the dense family, not "

@@ -44,13 +44,16 @@ What :func:`analyze` reports, all of it from rank 0's trace:
 A rank computes only its rows of the batch (the train step's
 ``Layout.row_cut``, the serve steps' ``serving_cut``) and only its
 blocks of the products the rules cut over ``model`` (attention heads,
-MLP columns, the vocabulary, the RG-LRU's channels:
-:mod:`repro_torch.distributed.tensor_parallel`, whose collectives are
-recorded at the ``"tp"`` site and whose ``train_flops`` is a dense
-rank's traced products), so rank 0's flops are its rows' share of the
-global step's less what the ``model`` axis cuts; the key and value
+under ring attention too, MLP columns, the vocabulary, the RG-LRU's
+channels: :mod:`repro_torch.distributed.tensor_parallel`, whose
+collectives, the ring's exchanges of heads for sequence blocks among
+them, are recorded at the ``"tp"`` site and whose ``train_flops`` is a
+dense rank's traced products), so rank 0's flops are its rows' share of
+the global step's less what the ``model`` axis cuts; the key and value
 products (``kv_heads`` map to no axis), Mamba2 and the MoE's routed
-experts stay whole on every rank along ``model``.
+experts under ``moe_impl="gspmd"`` stay whole on every rank along
+``model`` (under expert parallelism a rank holds and computes its
+experts' block).
 
 ``--mode fit`` keeps the reference's affine extrapolation in depth
 (:func:`run_fit`).  torch traces the layer loop whole, so ``full`` is

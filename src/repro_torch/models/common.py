@@ -245,29 +245,52 @@ def attn_qkv(cfg: ModelConfig, p, x, positions, tp=None, wq=None):
     return q, k, v
 
 
-def full_attention(cfg: ModelConfig, qh, kh, vh, *, window=None):
-    """Head-major full-sequence attention core: (B, H/K, S, Dh) -> (B, H,
-    S, Dh).
+def _ring_mesh(cfg: ModelConfig, seq: int, window):
+    """The mesh that ring attention runs on, as the reference dispatches
+    it: ``cfg.ring_attention`` set, no window, a sharding context current
+    with a ``"model"`` axis, and ``seq`` dividing by it; else None."""
+    if not cfg.ring_attention or window is not None:
+        return None
+    from repro_torch.distributed import ctx as dctx
+    c = dctx.current()
+    if c is None or "model" not in c[0].axis_names \
+            or seq % c[0].shape["model"]:
+        return None
+    return c[0]
 
-    Dispatch, as the reference's: ring attention
-    (:func:`repro_torch.distributed.ring_attention.ring_attention`,
-    sequence-parallel over the context mesh's ``"model"`` axis) when
-    ``cfg.ring_attention`` is set, there is no window, a sharding context
-    is current with a ``"model"`` axis and S divides by it; otherwise the
-    flash-attention kernel (on a card) or its plain version."""
-    if cfg.ring_attention and window is None:
-        from repro_torch.distributed import ctx as dctx
-        c = dctx.current()
-        if c is not None and "model" in c[0].axis_names \
-                and qh.shape[2] % c[0].shape["model"] == 0:
-            from repro_torch.distributed.ring_attention import ring_attention
-            mesh = c[0]
-            data_axes = tuple(a for a in ("pod", "data")
-                              if a in mesh.axis_names)
-            return ring_attention(mesh, qh, kh, vh, causal=True,
-                                  batch_axes=data_axes)
-    return kops.attention(qh, kh, vh, causal=True, window=window,
-                          impl=kernel_impl(cfg))
+
+def full_attention(cfg: ModelConfig, qh, kh, vh, *, window=None):
+    """Head-major full-sequence attention core: the query heads ``qh``
+    (B, Hl, S, Dh), every head (Hl = H) or, under a model cut, this
+    rank's block of them, against every key and value head ``kh`` /
+    ``vh`` (B, K, S, Dh) -> (B, Hl, S, Dh).
+
+    Dispatch, as the reference's: ring attention (sequence-parallel over
+    the context mesh's ``"model"`` axis, :func:`_ring_mesh`): on global
+    heads :func:`repro_torch.distributed.ring_attention.ring_attention`,
+    on a block of them ``ring_attention_heads``, which trades the heads
+    for sequence blocks and back; otherwise the flash-attention kernel
+    (on a card) or its plain version, on the key heads the query heads
+    use (:func:`repro_torch.distributed.tensor_parallel.kv_heads`)."""
+    hl = qh.shape[1]
+    tp = tpar.split(hl, cfg.num_heads)
+    mesh = _ring_mesh(cfg, qh.shape[2], window)
+    if mesh is not None:
+        from repro_torch.distributed import ring_attention as ra
+        data_axes = tuple(a for a in ("pod", "data")
+                          if a in mesh.axis_names)
+        if tp is None:
+            return ra.ring_attention(mesh, qh, kh, vh, causal=True,
+                                     batch_axes=data_axes)
+        if tp.axes != ("model",):
+            raise ValueError(f"ring attention runs over 'model', the query "
+                             f"heads are cut over {tp.axes}")
+        return ra.ring_attention_heads(mesh, qh, kh, vh, causal=True,
+                                       batch_axes=data_axes)
+    rep = cfg.num_heads // cfg.num_kv_heads
+    return kops.attention(qh, tpar.kv_heads(kh, tp, hl, rep),
+                          tpar.kv_heads(vh, tp, hl, rep), causal=True,
+                          window=window, impl=kernel_impl(cfg))
 
 
 def attend(cfg: ModelConfig, p, x, positions, *, window=None):
@@ -275,17 +298,14 @@ def attend(cfg: ModelConfig, p, x, positions, *, window=None):
     ``p["wq"]`` holds: ``(out (B, S, D), keys, values)``, the keys and
     values head-major ``(B, K, S, Dh)``, every key head.  Under a model
     cut (the heads cut over ``model``) the rank attends with its query
-    heads and the key heads they use, and ``wo``'s row product is summed
-    over the cut (``reduce_out``)."""
+    heads (:func:`full_attention`: the key heads they use, or under ring
+    attention every head on its sequence block), and ``wo``'s row
+    product is summed over the cut (``reduce_out``)."""
     wq = p["wq"]
-    hl = wq.shape[1]
-    tp = tpar.split(hl, cfg.num_heads)
+    tp = tpar.split(wq.shape[1], cfg.num_heads)
     q, k, v = attn_qkv(cfg, p, x, positions, tp, wq)
     kh, vh = k.movedim(2, 1), v.movedim(2, 1)
-    rep = cfg.num_heads // cfg.num_kv_heads
-    out = full_attention(cfg, q.movedim(2, 1),
-                         tpar.kv_heads(kh, tp, hl, rep),
-                         tpar.kv_heads(vh, tp, hl, rep), window=window)
+    out = full_attention(cfg, q.movedim(2, 1), kh, vh, window=window)
     out = out.movedim(1, 2)                   # (B, S, H, Dh)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return tpar.reduce_out(tp, out), kh, vh

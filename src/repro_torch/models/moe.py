@@ -221,12 +221,17 @@ def combine(contrib, r: Routing):
 
 def moe_block(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
     """The full FFN half of an MoE layer (routed + shared/dense paths).
-    The routed experts compute whole on every rank along ``model`` (their
-    weights gathered whole); the shared expert and the parallel dense MLP
-    are :func:`repro_torch.models.common.mlp`, on the rank's block of
-    their columns where the rules cut ``mlp`` over ``model``.  ``p`` maps ``"moe"`` (and ``"dense_mlp"``) to the layer's parameters.
-    ``record``, when a list, receives the call's routing (this rank's
-    local one on the expert-parallel path)."""
+    Under expert parallelism the routed experts are the rank's block of
+    them where the rules cut ``experts`` over ``model`` (passed to
+    :func:`repro_torch.distributed.moe_parallel.moe_ffn_ep` as they are),
+    else every expert, which that function cuts; without it
+    (:func:`moe_ffn`) every rank along ``model`` computes every expert on
+    its weights gathered whole.  The shared expert and the parallel
+    dense MLP are :func:`repro_torch.models.common.mlp`, on the rank's
+    block of their columns where the rules cut ``mlp`` over ``model``.
+    ``p`` maps ``"moe"`` (and ``"dense_mlp"``) to the layer's
+    parameters.  ``record``, when a list, receives the call's routing
+    (this rank's local one on the expert-parallel path)."""
     c = None
     if cfg.moe_impl == "ep":
         from repro_torch.distributed import ctx as dctx

@@ -676,8 +676,9 @@ def test_dry_run_flops_are_the_tp_arithmetic(over, mb):
 def test_local_names_follow_the_rules():
     """Heads, MLP columns, the vocabulary and the RG-LRU's channels are
     computed as blocks where the rules cut them over an axis of more than
-    one rank; a rule set with no model entries, Mamba2, ring attention
-    (the heads) and sequence parallelism keep them whole."""
+    one rank, the heads under ring attention too (the ring trades a
+    rank's heads for a sequence block); a rule set with no model
+    entries, Mamba2 and sequence parallelism keep them whole."""
     mesh = AbstractMesh(MESH, ("data", "model"))
     dense = get_smoke_config("tinyllama-1.1b")
     hybrid = get_smoke_config("recurrentgemma-9b")
@@ -690,7 +691,7 @@ def test_local_names_follow_the_rules():
     assert tpar.local_names(get_smoke_config("mamba2-370m"), mesh,
                             _rules()) == frozenset()
     assert tpar.local_names(dataclasses.replace(dense, ring_attention=True),
-                            mesh, _rules()) == {"mlp", "vocab"}
+                            mesh, _rules()) == {"heads", "mlp", "vocab"}
     assert tpar.local_names(dataclasses.replace(dense, seq_parallel=True),
                             mesh, _rules()) == frozenset()
     assert tpar.local_names(dense, AbstractMesh((8, 1), ("data", "model")),
