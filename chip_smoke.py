@@ -312,6 +312,28 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    "state" gathers ``forward_gathers``, its "tp" collectives (the ring's
    exchanges of heads for sequence blocks) ``step_collectives``, and no
    all-gather at the boundary.
+27. the port's examples and scripts as users run them: each of
+   ``examples/{zns_checkpointing,failover_demo,quickstart,serve_batch,
+   train_small}_torch.py`` and ``scripts/{zns_hillclimb,inspect_collectives,
+   make_experiments_tables}_torch.py`` as ``python3 <file>`` in a process
+   of its own on the card, all at once (``EXAMPLES27``): train_small at
+   ``--full-100m`` (12 layers x 768, vocabulary 16,384, 100.7e6
+   parameters, 300 steps of 8 x 128 tokens with a ZNS checkpoint at step
+   150, a restore into a fresh state and the resume), inspect_collectives
+   on tinyllama-1.1b train_4k at depth 2, make_experiments_tables over
+   phase 26's ``build/dryrun_torch``, and the two ZNS files also with
+   ``--device cpu``.  Each must exit with 0 within ``EXAMPLES27_TIMEOUT``
+   and end on its expected line; each writes its kernels' launches at
+   exit (``REPRO_TORCH_LAUNCH_LOG``, :func:`repro_torch.kernels
+   .launch_counts`), held to ``LAUNCHES27`` (the CPU runs launch
+   nothing); the ZNS files' printed numbers on the card equal the CPU's
+   within ``ZNS27_REL``.  Meanwhile, in this process, quickstart's body
+   runs on ``kernel_impl="auto"`` (the kernels) and on ``"xla"`` (the
+   plain versions, no launch): its 20 losses within ``QS_LOSS_REL`` and
+   its 8 greedy tokens equal; and the ZNS files' bodies on the card and
+   on the CPU, every number unrounded within ``ZNS27_REL`` and the text
+   equal.  The card runs' launches and the in-process kernel runs' are
+   added to the kernels line.
 
 Phase 1 prints each built kernel's registers and spills (``ptxas -v``),
 and fails if ptxas serialised any kernel's ``wgmma`` (warning C7518 in a
@@ -391,10 +413,12 @@ drops and shared expert) at the block tolerance; and the MoE block
 kernels vs plain on every token both runs route alike (the others are
 counted).  Every kernel's
 launch counter is set to 0 just before each of the runs of phases 3-24
-and read just after (phase 25's ranks, each its own, around each
+and 27 and read just after, all of them through
+``repro_torch.kernels.reset_launch_counts`` and ``launch_counts`` (phase 25's ranks, each its own, around each
 distributed run of the model path, 25b's ring forward, 25d's EP forward
 and 25e's GPipe step, and hold them to the counts those runs make; the
-parent adds them up, and no rank-0 baseline or oracle counts); a kernel
+parent adds them up, and no rank-0 baseline or oracle counts; phase 27's
+processes count from 0 and write their counts at exit); a kernel
 of the path that was never launched fails the script, and phase 9 fails
 unless all 48 SSD launches of the bfloat16 prefill took the tensor-core
 instance (``ssd_chunk_scan.mma_launches``).  The line
@@ -412,6 +436,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -949,6 +974,7 @@ def phase25_rank(rank, report, p18):
     import torch
     import torch.distributed as dist
 
+    from repro_torch import kernels as K
     from repro_torch import models as M
     from repro_torch.configs import get_config
     from repro_torch.distributed import ctx as dctx
@@ -961,9 +987,7 @@ def phase25_rank(rank, report, p18):
         gpipe, stack_stage_fn, stages_from_stack)
     from repro_torch.distributed.ring_attention import ring_attention
     from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import linear_recurrence as klr
     from repro_torch.kernels import ref as kref
-    from repro_torch.kernels import rmsnorm as krms
     from repro_torch.models import common as cm
     from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
@@ -978,10 +1002,8 @@ def phase25_rank(rank, report, p18):
     pipe = Mesh((4,), ("pipe",), backend="gloo", device=cuda)
     pod = Mesh((4,), ("pod",), backend="gloo", device=cuda)
     rules = sh.make_rules(data_axes=("data",))
-    counters = {"flash_attention": kfa.flash_attention,
-                "flash_attention_bwd": kfa.flash_attention_bwd,
-                "rmsnorm": krms.rmsnorm, "rmsnorm_bwd": krms.rmsnorm_bwd,
-                "linear_recurrence": klr.linear_recurrence}
+    counted = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+               "rmsnorm_bwd", "linear_recurrence")
     launched = {}
 
     def run_counted(sub, fn, want):
@@ -989,11 +1011,10 @@ def phase25_rank(rank, report, p18):
         launches counted from 0 and held against ``want`` (this rank's
         launches, by kernel); the rank-0 baselines and oracles run
         outside it and count nowhere."""
-        for c in counters.values():
-            c.launches = 0
+        K.reset_launch_counts()
         out = run(fn)
-        launched[sub] = got = {k: c.launches for k, c in counters.items()}
-        _dist_need(got == {k: want.get(k, 0) for k in counters},
+        launched[sub] = got = {k: K.launch_counts()[k] for k in counted}
+        _dist_need(got == {k: want.get(k, 0) for k in counted},
                    f"{sub}: kernel launches {got} on rank {rank}, want "
                    f"{want}")
         return out
@@ -2194,17 +2215,17 @@ with D.fake_world(math.prod(production_shape()[0])):
     res["mesh_shape"] = dict(mesh.shape)
     with axis_rules(mesh, D._rules_for(mesh, args)):
         for dev in res["devices"]:
-            D.TRACE_DEVICE = dev
             for kind in ("train", "prefill"):
                 trace, info = D.lower_cell(
-                    cfg, dataclasses.replace(train, kind=kind), mesh, args)
+                    cfg, dataclasses.replace(train, kind=kind), mesh, args,
+                    device=dev)
+                a = D.analyze(trace)
                 res[f"{dev}/{kind}"] = {
-                    "by_site": D.analyze(trace)["collectives_by_site"],
+                    "by_site": a["collectives_by_site"],
+                    "trace_device": a["trace_device"],
                     "trace_s": info["trace_s"]}
-        D.TRACE_DEVICE = res["devices"][0]
         trace, info = D.lower_cell(ring, train, mesh, args)
-        res["ring"] = {**D.analyze(trace), "trace_s": info["trace_s"],
-                       "device": D.TRACE_DEVICE}
+        res["ring"] = {**D.analyze(trace), "trace_s": info["trace_s"]}
 print("JSON" + json.dumps(res))
 """
 #: Phase 26c: qwen3-4b's ring train_4k trace, cut to 2 of its 36 layers
@@ -2321,6 +2342,10 @@ def phase26c(card: str, c: dict) -> None:
     check(first == "cuda", f"phase 26c: the dry run traces on {first!r} "
                            f"fake tensors on the card's host")
     for kind in ("train", "prefill"):
+        for dev in (first, cpu):
+            got = c[f"{dev}/{kind}"]["trace_device"]
+            check(got == dev, f"phase 26c: {kind} traced on {dev} is "
+                              f"labelled {got}")
         check(c[f"{first}/{kind}"]["by_site"] == c[f"cpu/{kind}"]["by_site"],
               f"phase 26c: {kind}'s collectives on {first} fake tensors "
               f"{c[f'{first}/{kind}']['by_site']} differ from the CPU's "
@@ -2344,9 +2369,9 @@ def phase26c(card: str, c: dict) -> None:
     got = {site: (sum(by[site]["count"].values()),
                   int(sum(by[site]["result_bytes"].values())))
            for site in ("state", "tp")}
-    check(r["device"] == first and r["flops"] == ar["flops"],
+    check(r["trace_device"] == first and r["flops"] == ar["flops"],
           f"phase 26c: the ring's train_4k traces {r['flops']:.6e} flops a "
-          f"rank on {r['device']}, train_flops {ar['flops']:.6e}")
+          f"rank on {r['trace_device']}, train_flops {ar['flops']:.6e}")
     for site, want in (("state", ar["state"]), ("tp", ar["tp"])):
         check(got[site] == tuple(want),
               f"phase 26c: the ring's {site} collectives {got[site]}, the "
@@ -2621,6 +2646,285 @@ def phase26(card: str, p18: dict) -> dict:
     return {"row": row, "memory": mem, "wall_s": wall}
 
 
+# -- phase 27: the examples and scripts, run as users run them ---------------
+#: Phase 27's runs, all started at once, each ``python3 <file> [args]`` in
+#: a process of its own from the root of the checkout: (name, argv, a
+#: pattern the last line of its output must match).  The ZNS files also
+#: run on the CPU, to be held against the card's numbers.
+EXAMPLES27 = (
+    ("zns_checkpointing", ["examples/zns_checkpointing_torch.py"],
+     r"^  -> training-data reads next to checkpoint writes need ZNS-class "
+     r"isolation$"),
+    ("zns_checkpointing_cpu",
+     ["examples/zns_checkpointing_torch.py", "--device", "cpu"],
+     r"^  -> training-data reads .* isolation$"),
+    ("zns_hillclimb", ["scripts/zns_hillclimb_torch.py"],
+     r"^naive -> best: [\d.]+s -> [\d.]+s \([\d.]+x\)$"),
+    ("zns_hillclimb_cpu", ["scripts/zns_hillclimb_torch.py", "--device",
+                           "cpu"],
+     r"^naive -> best: [\d.]+s -> [\d.]+s \([\d.]+x\)$"),
+    ("failover_demo", ["examples/failover_demo_torch.py"],
+     r"^failover demo complete$"),
+    ("quickstart", ["examples/quickstart_torch.py"], r"^ \[[\d ]+\]\]$"),
+    ("serve_batch", ["examples/serve_batch_torch.py"],
+     r"^  req \d+: \d+ tokens \[[\d, ]+\]\.\.\.$"),
+    ("train_small", ["examples/train_small_torch.py", "--full-100m"],
+     r"^loss: [\d.]+ -> [\d.]+ \(OK\)$"),
+    ("inspect_collectives",
+     ["scripts/inspect_collectives_torch.py", "--arch", "tinyllama-1.1b",
+      "--shape", "train_4k", "--depth", "2"],
+     r"^ +[\d.]+ MiB  [a-z-]+ +site=\w+ group=\d+$"),
+    ("make_experiments_tables",
+     ["scripts/make_experiments_tables_torch.py", "--in",
+      "build/dryrun_torch"],
+     r"^\| [\w.-]+ \| \w+ \| .* \|$"),
+)
+#: Phase 27: the longest a run may take (train_small at --full-100m,
+#: 300 steps, is the longest)
+EXAMPLES27_TIMEOUT = 400
+#: Phase 27: the kernels each run on the card must launch (and how often,
+#: where a run's count is fixed: one scan a payload write, one batched
+#: scan a store save); the CPU runs, failover_demo, the dry run and the
+#: tables launch none
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "rmsnorm_bwd")
+LAUNCHES27 = {
+    "zns_checkpointing": {"zns_event_scan": 4},
+    "zns_hillclimb": {"zns_event_scan": 6},
+    "quickstart": {k: None for k in TRAIN_KERNELS},
+    "serve_batch": {"rmsnorm": None},
+    "train_small": {"zns_event_scan_batched": 1,
+                    **{k: None for k in TRAIN_KERNELS}},
+}
+#: Phase 27: the ZNS files' numbers on the card against the CPU's (the
+#: float64 scans agree to ~1e-16; see phase 17)
+ZNS27_REL = 1e-9
+#: Phase 27: quickstart's 20 losses, kernels (``"auto"``) against plain
+#: versions (``"xla"``) on the card, bfloat16 activations: the largest
+#: relative difference of a step's loss (1.957e-04 read on an NVIDIA H100
+#: 80GB HBM3 at 700.00 W)
+QS_LOSS_REL = 1e-3
+_NUM27 = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
+
+
+def _load27(name: str, path: str):
+    """An example or script of the checkout as a module (its
+    ``__main__`` block does not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its standard output captured: ``(result,
+    text)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def _rel27(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def phase27(card: str) -> dict:
+    """Phase 27: the eight example and script files of the port run as a
+    user runs them, each ``python3 <file>`` in a subprocess on the card
+    (all at once; each writes its kernels' launches at exit through
+    ``REPRO_TORCH_LAUNCH_LOG``), the ZNS files also on the CPU; meanwhile
+    quickstart's body in this process on the kernels and on the plain
+    versions, and the ZNS files' bodies on the card and on the CPU, their
+    numbers unrounded.  Returns ``{"launches", "wall_s"}``: the runs on
+    the card, summed by kernel."""
+    t = time.perf_counter()
+    logdir = os.path.join(ROOT, "build", "phase27")
+    shutil.rmtree(logdir, ignore_errors=True)
+    os.makedirs(os.path.join(logdir, "tmp"))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("REPRO_MESH_SHAPE", "REPRO_MESH_SHAPE_MULTI",
+                        "REPRO_DRYRUN_DEVICES")}
+    # train_small's checkpoint directory (tempfile.mkdtemp) under build/
+    env.update(PYTHONPATH=SRC, OMP_NUM_THREADS="2",
+               TMPDIR=os.path.join(logdir, "tmp"))
+    runs = {}
+    try:
+        for name, argv, _ in EXAMPLES27:
+            runs[name] = _start27(name, argv, logdir, env)
+        return _check27(card, t, logdir, runs)
+    finally:
+        # a failed check or an error leaves no run behind on the card
+        for r in runs.values():
+            if r["proc"].poll() is None:
+                r["proc"].kill()
+                r["proc"].wait()
+
+
+def _start27(name: str, argv: list, logdir: str, env: dict) -> dict:
+    """Starts ``python3 <argv>`` (phase 27's run ``name``), its output
+    and its launch log under ``logdir``; a thread records its end."""
+    def waiter(r):
+        r["proc"].wait()
+        r["end"] = time.perf_counter()
+
+    out = open(os.path.join(logdir, f"{name}.out"), "w")
+    err = open(os.path.join(logdir, f"{name}.err"), "w")
+    r = dict(start=time.perf_counter(), out=out, err=err,
+             proc=subprocess.Popen(
+                 [sys.executable, *argv], stdout=out, stderr=err, cwd=ROOT,
+                 env=dict(env, REPRO_TORCH_LAUNCH_LOG=os.path.join(
+                     logdir, f"{name}.json"))))
+    r["thread"] = threading.Thread(target=waiter, args=(r,), daemon=True)
+    r["thread"].start()
+    return r
+
+
+def _check27(card: str, t: float, logdir: str, runs: dict) -> dict:
+    """Phase 27's holds while and after ``runs`` run: see :func:`phase27`
+    (which started ``t`` and the runs)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    # meanwhile, in this process: quickstart's body on the kernels and on
+    # the plain versions, from the same init and batches
+    qs = _load27("quickstart_torch",
+                 os.path.join(ROOT, "examples", "quickstart_torch.py"))
+    cuda = torch.device("cuda")
+    K.reset_launch_counts()
+    auto, _ = _quiet(qs.run, qs.config("auto"), device=cuda)
+    got = K.launch_counts()
+    for k in TRAIN_KERNELS:
+        check(got[k] > 0, f"phase 27: quickstart on 'auto' never launched "
+                          f"{k}: {got}")
+    own = dict(got)
+    K.reset_launch_counts()
+    plain, _ = _quiet(qs.run, qs.config("xla"), device=cuda)
+    check(not any(K.launch_counts().values()),
+          f"phase 27: quickstart on 'xla' launched {K.launch_counts()}")
+    del auto["state"], plain["state"]
+    rel = max(_rel27(a, b) for a, b in zip(auto["losses"], plain["losses"]))
+    print(f"[27] ({card}) quickstart in-process, kernels vs plain "
+          f"versions: 20 losses {[round(x, 4) for x in auto['losses']]}, "
+          f"largest relative difference {rel:.3e} (limit {QS_LOSS_REL}); "
+          f"greedy tokens {auto['tokens'].tolist()} and "
+          f"{plain['tokens'].tolist()}; launches {own}")
+    check(all(np.isfinite(auto["losses"])) and rel <= QS_LOSS_REL,
+          f"phase 27: quickstart's losses {auto['losses']} on the kernels, "
+          f"{plain['losses']} on the plain versions")
+    check(np.array_equal(auto["tokens"], plain["tokens"]),
+          f"phase 27: quickstart's greedy tokens {auto['tokens'].tolist()} "
+          f"on the kernels, {plain['tokens'].tolist()} on the plain versions")
+
+    # the ZNS files' bodies, unrounded, on the card against the CPU
+    zc = _load27("zns_checkpointing_torch",
+                 os.path.join(ROOT, "examples", "zns_checkpointing_torch.py"))
+    hc = _load27("zns_hillclimb_torch",
+                 os.path.join(ROOT, "scripts", "zns_hillclimb_torch.py"))
+    K.reset_launch_counts()
+    zg, zg_text = _quiet(zc.run, device=cuda)
+    hg, hg_text = _quiet(hc.run, device=cuda)
+    zns_launches = K.launch_counts()["zns_event_scan"]
+    check(zns_launches == 4 + 6, f"phase 27: the ZNS files' bodies launched "
+                                 f"the scan {zns_launches} times")
+    own["zns_event_scan"] += zns_launches
+    zw, zw_text = _quiet(zc.run, device="cpu")
+    hw, hw_text = _quiet(hc.run, device="cpu")
+    check(zg_text == zw_text and hg_text == hw_text,
+          "phase 27: the ZNS files print other text on the card than on "
+          "the CPU")
+    pairs = [(f"{n} seconds", zg["policies"][n][0], zw["policies"][n][0])
+             for n in zg["policies"]]
+    pairs += [("gc_s", zg["gc_s"], zw["gc_s"]),
+              ("zns write_cv", zg["zns"].write_cv, zw["zns"].write_cv),
+              ("zns read p95", zg["zns"].read_lat_p95_us,
+               zw["zns"].read_lat_p95_us)]
+    pairs += [(f"{n} {k}", hg["rows"][n][k], hw["rows"][n][k])
+              for n in hg["rows"] for k in ("host_s", "wall", "med", "bw")]
+    worst = max(_rel27(a, b) for _, a, b in pairs)
+    check(all(zg["policies"][n][1] == zw["policies"][n][1]
+              for n in zg["policies"])
+          and all(hg["rows"][n]["req"] == hw["rows"][n]["req"]
+                  for n in hg["rows"]),
+          "phase 27: appends or requests differ between the card and CPU")
+    check(worst <= ZNS27_REL, f"phase 27: the ZNS files' numbers on the "
+          f"card against the CPU's: {[(w, a, b) for w, a, b in pairs if _rel27(a, b) > ZNS27_REL]}")
+    print(f"[27] ({card}) the ZNS files in-process: {len(pairs)} numbers "
+          f"on the card within {worst:.3e} relative of the CPU's (limit "
+          f"{ZNS27_REL}), the text equal, {zns_launches} scan launches; "
+          f"naive -> best {hg['base']!r} s -> {hg['best']!r} s")
+
+    # the subprocesses
+    deadline = time.perf_counter() + EXAMPLES27_TIMEOUT
+    for r in runs.values():
+        r["thread"].join(timeout=max(deadline - time.perf_counter(), 0.1))
+    late = [n for n, r in runs.items() if r["proc"].poll() is None]
+    if late:
+        for r in runs.values():
+            r["proc"].kill()
+        fail(f"phase 27: {late} ran past {EXAMPLES27_TIMEOUT} s")
+    texts, summed = {}, {k: 0 for k in K.launch_counts()}
+    for name, argv, last in EXAMPLES27:
+        r = runs[name]
+        r["thread"].join()
+        r["out"].close()
+        r["err"].close()
+        with open(os.path.join(logdir, f"{name}.out")) as f:
+            text = f.read()
+        with open(os.path.join(logdir, f"{name}.err")) as f:
+            err = f.read()
+        check(r["proc"].returncode == 0,
+              f"phase 27: python3 {' '.join(argv)} exited "
+              f"{r['proc'].returncode}: {err[-3000:]}")
+        lines = text.rstrip("\n").splitlines()
+        check(bool(lines) and re.match(last, lines[-1]) is not None,
+              f"phase 27: {name}'s last line {lines[-1:]} does not match "
+              f"{last!r}")
+        log = os.path.join(logdir, f"{name}.json")
+        # no log: the run never imported the kernels, so launched none
+        got = {k: 0 for k in summed}
+        if os.path.exists(log):
+            with open(log) as f:
+                got = json.load(f)
+        want = LAUNCHES27.get(name, {})
+        for k, n in got.items():
+            if k not in want:
+                check(n == 0, f"phase 27: {name} launched {k} {n} times")
+            else:
+                check(n > 0 if want[k] is None else n == want[k],
+                      f"phase 27: {name} launched {k} {n} times, not "
+                      f"{want[k] or 'at least once'}")
+            if not name.endswith("_cpu"):
+                summed[k] += n
+        texts[name] = text
+        print(f"[27] ({card}) python3 {' '.join(argv)}: exit 0 in "
+              f"{r['end'] - r['start']:.1f} s; last line {lines[-1]!r}; "
+              f"launches {({k: n for k, n in got.items() if n})}")
+    for name in ("zns_checkpointing", "zns_hillclimb"):
+        card_nums = [float(x) for x in _NUM27.findall(texts[name])]
+        cpu_nums = [float(x) for x in _NUM27.findall(texts[f"{name}_cpu"])]
+        check(len(card_nums) == len(cpu_nums) and all(
+            _rel27(a, b) <= ZNS27_REL for a, b in zip(card_nums, cpu_nums)),
+            f"phase 27: {name}'s printed numbers on the card differ from "
+            f"the CPU's")
+    for pat in (r"^served 12/12 requests in \d+ decode steps",
+                r"^# \d+ collectives, total result bytes/rank",
+                r"^### §Roofline"):
+        check(any(re.search(pat, t, re.M) for t in texts.values()),
+              f"phase 27: no output line matches {pat!r}")
+    print("[27] train_small --full-100m:\n" + texts["train_small"].rstrip())
+    for k, n in own.items():
+        summed[k] += n
+    for k in TRAIN_KERNELS + ("zns_event_scan", "zns_event_scan_batched"):
+        check(summed[k] > 0, f"phase 27 never launched {k}")
+    wall = time.perf_counter() - t
+    print(f"[27] ({card}) phase 27 took {wall:.1f} s; launches {summed}")
+    return {"launches": summed, "wall_s": wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -2643,6 +2947,7 @@ def main() -> int:
     from repro_torch.core import shard as pshard
     import torch.nn.functional as F
 
+    from repro_torch import kernels as K
     from repro_torch import models as M
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.experiments import ExperimentRunner
@@ -2686,40 +2991,13 @@ def main() -> int:
         check(not serial, f"{name}: ptxas serialised wgmma (C7518): "
                           + " | ".join(serial))
 
-    counters = {
-        "zns_event_scan": kscan.zns_event_scan,
-        "zns_event_scan_batched": kscan.zns_event_scan_batched,
-        "zns_fixpoint": kfix.zns_fixpoint,
-        "zns_fixpoint_sharded": kfix.zns_fixpoint_sharded,
-        "flash_attention": kfa.flash_attention,
-        "flash_attention_bwd": kfa.flash_attention_bwd,
-        "rmsnorm": krms.rmsnorm,
-        "rmsnorm_bwd": krms.rmsnorm_bwd,
-        "ssd_chunk_scan": kssd.ssd_chunk_scan,
-        "ssd_chunk_scan_bwd": kssd.ssd_chunk_scan_bwd,
-        "linear_recurrence": klr.linear_recurrence,
-        "linear_recurrence_bwd": klr.linear_recurrence_bwd,
-    }
-    launches = {k: 0 for k in counters}
-    launches["flash_attention_bwd_d256"] = 0
+    launches = {k: 0 for k in K.launch_counts()}
     phase_counts = {}
 
-    def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
-        kssd.ssd_chunk_scan.mma_launches = 0
-        kssd.ssd_chunk_scan_bwd.mma_launches = 0
-        kfa.flash_attention_bwd.d256_launches = 0
-
     def read_counts(phase: str, need):
-        got = {k: fn.launches for k, fn in counters.items()}
+        got = K.launch_counts()
         for k, v in got.items():
             launches[k] += v
-        got["ssd_chunk_scan.mma"] = kssd.ssd_chunk_scan.mma_launches
-        got["ssd_chunk_scan_bwd.mma"] = kssd.ssd_chunk_scan_bwd.mma_launches
-        got["flash_attention_bwd.d256"] = \
-            kfa.flash_attention_bwd.d256_launches
-        launches["flash_attention_bwd_d256"] += got["flash_attention_bwd.d256"]
         phase_counts[phase] = got
         print(f"[{phase}] launches {got}")
         for k in need:
@@ -3593,7 +3871,7 @@ def main() -> int:
 
     # -- phases 3-5: vectorized runs through the public entry points -------
     def run_phase(phase, run, ref_run, *, fleet):
-        zero_counts()
+        K.reset_launch_counts()
         t = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
@@ -3665,7 +3943,7 @@ def main() -> int:
     lens = [int(x) for x in rng.integers(1_000, 20_000, 16)]
     rows = [(np.sort(rng.uniform(0, 1e5, k)), rng.uniform(1, 30, k),
              rng.uniform(size=k) < 0.01) for k in lens]
-    zero_counts()
+    K.reset_launch_counts()
     got6 = dev.sequential_completions(issue6, svc6, seg6)
     got6b = fleet16.sequential_completions([r[0] for r in rows],
                                            [r[1] for r in rows],
@@ -3725,7 +4003,7 @@ def main() -> int:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t
         prompt = tokens(cfg, batch, plen)
-        zero_counts()
+        K.reset_launch_counts()
         t = time.perf_counter()
         toks = greedy_generate(cfg, params, prompt, steps=16,
                                max_seq=max_seq)
@@ -3833,7 +4111,7 @@ def main() -> int:
                      ["flash_attention", "rmsnorm"], LOGITS_ATOL, None)
 
     # -- phase 8: the continuous-batching driver on qwen3-4b -----------------
-    zero_counts()
+    K.reset_launch_counts()
     stats = lserve.main(["--arch", "qwen3-4b", "--requests", "16",
                          "--batch", "4", "--max-seq", "128", "--max-new",
                          "32", "--seed", "0"])
@@ -3851,9 +4129,9 @@ def main() -> int:
     # the bfloat16 prefill's SSD launches (one a layer) all took the
     # tensor-core instance
     got9 = phase_counts["9"]
-    check(got9["ssd_chunk_scan"] == 48 and got9["ssd_chunk_scan.mma"] == 48,
+    check(got9["ssd_chunk_scan"] == 48 and got9["ssd_chunk_scan_mma"] == 48,
           f"phase 9: ssd_chunk_scan launches {got9['ssd_chunk_scan']}, "
-          f"tensor-core instance {got9['ssd_chunk_scan.mma']} (want 48, 48)")
+          f"tensor-core instance {got9['ssd_chunk_scan_mma']} (want 48, 48)")
 
     # -- phase 10: greedy_generate on recurrentgemma-9b -----------------------
     def attn_half64(cfg, attn, ln, x, pos):
@@ -3993,7 +4271,7 @@ def main() -> int:
           f"held)")
 
     # -- phase 11: the continuous-batching driver on mamba2-370m -------------
-    zero_counts()
+    K.reset_launch_counts()
     stats = lserve.main(["--arch", "mamba2-370m", "--requests", "16",
                          "--batch", "4", "--max-seq", "128", "--max-new",
                          "32", "--seed", "0"])
@@ -4007,7 +4285,7 @@ def main() -> int:
 
     # -- phase 12: the exactness matrix on the cuda driver -------------------
     cells = exactness.cells()
-    zero_counts()
+    K.reset_launch_counts()
     worst = 0.0
     for cell in cells:
         comp, used, conv = cell.solve("cuda", device=cuda)
@@ -4034,7 +4312,7 @@ def main() -> int:
             data = json.load(f)
         fixtures[data["name"]] = data
     check(len(fixtures) == 15, f"phase 13: {len(fixtures)} fixtures")
-    zero_counts()
+    K.reset_launch_counts()
     t = time.perf_counter()
     results13 = runner13.run()
     torch.cuda.synchronize()
@@ -4140,7 +4418,7 @@ def main() -> int:
     # -- phase 14: host scenarios x placement policies on the card -----------
     from repro_torch.host import (HOST_SCENARIO_SPEC, build_scenario,
                                   compare_policies, rank_policies)
-    zero_counts()
+    K.reset_launch_counts()
     t = time.perf_counter()
     rows14 = compare_policies(device=cuda)
     torch.cuda.synchronize()
@@ -4232,7 +4510,7 @@ def main() -> int:
     wp15 = pshard.window_program(prog15, window_events=WINDOW_EVENTS)
     window15_ms = (time.perf_counter() - t) * 1e3
     check(wp15.n_windows == 8, f"phase 15: {wp15.n_windows} windows")
-    zero_counts()
+    K.reset_launch_counts()
     sharded15 = {label: P.solve_program(prog, svcp, sweeps=budget,
                                         fixpoint="sharded", device=cuda)
                  for label, prog, svcp, budget in (
@@ -4492,7 +4770,7 @@ def main() -> int:
           f"{res16['logits_err']:.3e} (bfloat16), {res16['f32_err']:.3e} "
           f"(float32), not held; (token, expert) choices that differ "
           f"{sum(flips16['flips_bf16'])} / {sum(flips16['flips_f32'])}")
-    zero_counts()
+    K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     stats = lserve.main(["--arch", "qwen2-moe-a2.7b", "--requests", "16",
                          "--batch", "4", "--max-seq", "128", "--max-new",
@@ -4513,7 +4791,7 @@ def main() -> int:
     from repro_torch.runtime import ZnsHostDevice, ZonedCheckpointStore
     from repro_torch.utils import tree_bytes, tree_leaves
     shard17 = 4 * 1024 * MiB
-    zero_counts()
+    K.reset_launch_counts()
     for name, kw in (("R2: 1 MiB appends @ QD4", dict(stripe_bytes=1 * MiB,
                                                       append_qd=4)),
                      ("4 KiB appends @ QD1", dict(stripe_bytes=4 * KiB,
@@ -4624,7 +4902,7 @@ def main() -> int:
     train_args = ["--arch", "tinyllama-1.1b", "--batch", "4", "--seq-len",
                   "2048", "--lr", "3e-3", "--warmup", "2", "--log-every",
                   "1", "--init-std", str(INIT_STD)]
-    zero_counts()
+    K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     res18 = ltrain.main(train_args + ["--steps", "8", "--seed", "0"])
@@ -4724,7 +5002,7 @@ def main() -> int:
                 for k, v in tree.items()}
 
     f32_18 = dataclasses.replace(cfg18, dtype="float32")
-    zero_counts()
+    K.reset_launch_counts()
     l_k, g_k = grads18(f32_18, tree18)
     check(kfa.flash_attention_bwd.launches == L18
           and krms.rmsnorm_bwd.launches == 2 * L18 + 1,
@@ -4791,7 +5069,7 @@ def main() -> int:
     two = train_args + ["--d-model", "2048", "--d-ff", "5632", "--layers",
                         "2"]
     whole = ltrain.main(two + ["--steps", "6", "--seed", "0"])
-    zero_counts()
+    K.reset_launch_counts()
     first = ltrain.main(two + ["--steps", "3", "--seed", "0", "--ckpt-dir",
                                root18, "--ckpt-every", "3"])
     check(kscan.zns_event_scan_batched.launches == 1
@@ -4866,7 +5144,7 @@ def main() -> int:
     def plan19(name, device, **kw):
         """One plan_capacity call; its wall, solves and solve time."""
         reset_solves19()
-        zero_counts()
+        K.reset_launch_counts()
         t = time.perf_counter()
         out = C.plan_capacity(configs19, [4, 8], device=device, **kw19,
                               **kw)
@@ -5014,7 +5292,7 @@ def main() -> int:
     # one config on the loop driver: the batched scan around the host loop
     spec19l = dataclasses.replace(spec19, scheme=configs19[0].scheme,
                                   placement=configs19[0].placement)
-    zero_counts()
+    K.reset_launch_counts()
     reset_solves19()
     t = time.perf_counter()
     loop19 = C.Cluster(spec19l, device=cuda).run(wl19, fixpoint="loop")
@@ -5113,7 +5391,7 @@ def main() -> int:
             (b, cfg.num_patches, cfg.d_model)), dtype=torch.float32).to(
                 cuda, torch.bfloat16)
         prefill, step = make_prefill_step(cfg, 2048), make_serve_step(cfg)
-        zero_counts()
+        K.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         tok, cache = prefill(params, prompt, patches)
@@ -5227,7 +5505,7 @@ def main() -> int:
           f"(kernels held within plain + {LOGITS_ATOL})")
     # the serving driver takes the published config: give it the bfloat16
     # weights for this call
-    zero_counts()
+    K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     published = lserve.get_config
     lserve.get_config = lambda arch: get_config(arch, **bf16_params)
@@ -5259,7 +5537,7 @@ def main() -> int:
                   "flash_attention": runs22, "flash_attention_bwd": L22}
     data22 = DataConfig(cfg22.vocab_size, 2048, 4,
                         num_codebooks=cfg22.num_codebooks)
-    zero_counts()
+    K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     res22 = ltrain.main(["--arch", "musicgen-large", "--batch", "4",
@@ -5325,7 +5603,7 @@ def main() -> int:
                            device=cuda, weight_std=INIT_STD).param_tree()
     first22 = {"tokens": torch.as_tensor(
         TokenPipeline(data22).batch_at(0)["tokens"], device=cuda)}
-    zero_counts()
+    K.reset_launch_counts()
     l_k, g_k = first_step_grads(two22, tree22, first22)
     check(kfa.flash_attention_bwd.launches == 2
           and krms.rmsnorm_bwd.launches == 5,
@@ -5363,7 +5641,7 @@ def main() -> int:
         """Four steps through launch.train at RECURRENT_LR (launches
         exactly per_step a step, losses finite and falling), two timed
         steps and a profiled one; returns the report row."""
-        zero_counts()
+        K.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         res = ltrain.main(["--arch", arch, "--batch", str(batch),
@@ -5443,14 +5721,14 @@ def main() -> int:
         tree = M.init_params(cfg, torch.Generator(cuda).manual_seed(0),
                              device=cuda, weight_std=INIT_STD).param_tree()
         f32 = dataclasses.replace(cfg, dtype="float32")
-        zero_counts()
+        K.reset_launch_counts()
         l_k, g_k = first_step_grads(f32, tree, batch)
-        got = {k: counters[k].launches for k in need}
+        got = {k: K.launch_counts()[k] for k in need}
         check(got == need, f"phase {phase}: the float32 kernel step "
                            f"launched {got}, want {need}")
         l_p, g_p = first_step_grads(dataclasses.replace(
             f32, kernel_impl="torch"), tree, batch)
-        check(all(counters[k].launches == need[k] for k in need),
+        check(all(K.launch_counts()[k] == need[k] for k in need),
               f"phase {phase}: the plain step launched a kernel")
         leaves_k, leaves_p = tree_leaves(g_k), tree_leaves(g_p)
         tree64 = tree_as(tree, torch.float64)
@@ -5525,8 +5803,8 @@ def main() -> int:
     runs23 = mc.layer_forward_runs(cfg23, L23)
     per_step23 = {"rmsnorm": 2 * runs23 + 1, "rmsnorm_bwd": 2 * L23 + 1,
                   "ssd_chunk_scan": runs23, "ssd_chunk_scan_bwd": L23,
-                  "ssd_chunk_scan.mma": runs23,
-                  "ssd_chunk_scan_bwd.mma": L23}
+                  "ssd_chunk_scan_mma": runs23,
+                  "ssd_chunk_scan_bwd_mma": L23}
     report23 = train_phase("23", "mamba2-370m", [], cfg23, per_step23, 4,
                            2048, ("ssd_chunk_scan", "ssd_chunk_scan_bwd",
                                   "rmsnorm", "rmsnorm_bwd"),
@@ -5565,7 +5843,7 @@ def main() -> int:
                   "linear_recurrence": 2 * runs24,
                   "linear_recurrence_bwd": 2 * G24,
                   "flash_attention": runs24, "flash_attention_bwd": G24,
-                  "flash_attention_bwd.d256": G24}
+                  "flash_attention_bwd_d256": G24}
     report24 = train_phase("24", "recurrentgemma-9b", argv24, cfg24,
                            per_step24, 1, 4096,
                            ("linear_recurrence", "linear_recurrence_bwd",
@@ -5596,6 +5874,12 @@ def main() -> int:
 
     # -- phase 26: the dry run and its roofline -------------------------------
     phase26(card, p18)
+
+    # -- phase 27: the examples and scripts, run as users run them ----------
+    got27 = phase27(card)
+    for k, v in got27["launches"].items():
+        launches[k] += v
+    phase_counts["27"] = got27["launches"]
 
     # -- report -----------------------------------------------------------------
     sources = {

@@ -220,6 +220,7 @@ class Trace:
     output_bytes: int
     alias_bytes: int
     collectives: object          # comm_stats.CollectiveRecorder
+    device: str                  # the device the fake tensors claimed
 
 
 def _rules_for(mesh, args):
@@ -327,10 +328,11 @@ def _check_recorded(rec, meter) -> None:
             f"dispatched {dict(meter.collective_ops)}")
 
 
-def lower_cell(cfg, shape, mesh, args):
+def lower_cell(cfg, shape, mesh, args, device=None):
     """Trace rank 0's step of one cell under ``FakeTensorMode`` (inside
     the caller's ``axis_rules``); returns ``(Trace, {"trace_s",
-    "compile_s"})``.  ``shape`` is a :class:`ShapeConfig`."""
+    "compile_s"})``.  ``shape`` is a :class:`ShapeConfig`; the fake
+    tensors claim ``device`` (default :data:`TRACE_DEVICE`)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     rules = _rules_for(mesh, args)
     st = state_spec(cfg)
@@ -344,7 +346,7 @@ def lower_cell(cfg, shape, mesh, args):
     arg_bytes = _held_bytes(cfg, shape, st, blocks, layout,
                             args.microbatches)
     sharded = sum(_sharded_bytes(tree, ax, mesh, rules) for tree, ax in pairs)
-    dev = TRACE_DEVICE
+    dev = TRACE_DEVICE if device is None else device
     t0 = time.perf_counter()
     with FakeTensorMode():
         params = rank_local.model_from_blocks(
@@ -395,7 +397,7 @@ def lower_cell(cfg, shape, mesh, args):
             output_bytes=int(sum(s.nbytes() for s in seen.values())),
             alias_bytes=int(sum(s.nbytes() for k, s in seen.items()
                                 if k in entry)),
-            collectives=rec)
+            collectives=rec, device=str(dev))
         del out, outs, held, inputs, run, entry, seen
     return trace, {"trace_s": time.perf_counter() - t0, "compile_s": 0.0}
 
@@ -416,7 +418,7 @@ def analyze(trace: Trace) -> dict:
         "collectives": rec.stats().as_dict(),
         "collectives_by_site": {s: rec.stats(s).as_dict()
                                 for s in comm_stats.SITES},
-        "trace_device": TRACE_DEVICE,
+        "trace_device": trace.device,
     }
 
 

@@ -651,6 +651,21 @@ def test_backward_collectives_are_recorded(monkeypatch, device):
     assert fe["count"]["all-reduce"] == 0 < te["count"]["all-reduce"]
 
 
+def test_analyze_names_the_device_a_trace_claimed(monkeypatch):
+    """``lower_cell(device=)`` traces on that device whatever the module's
+    default, and ``analyze`` labels the trace with it."""
+    monkeypatch.setattr(D, "TRACE_DEVICE", "meta")
+    cfg = dataclasses.replace(get_smoke_config("tinyllama-1.1b"),
+                              kernel_impl="torch", num_layers=1)
+    args = _args(microbatches=1)
+    with D.fake_world(8):
+        mesh = make_mesh((2, 4), ("data", "model"))
+        with axis_rules(mesh, D._rules_for(mesh, args)):
+            trace, _ = D.lower_cell(cfg, ShapeConfig("t", "prefill", 32, 4),
+                                    mesh, args, device="cpu")
+    assert trace.device == D.analyze(trace)["trace_device"] == "cpu"
+
+
 def test_remat_recompute_keeps_the_sharding_context_off_thread():
     """The autograd engine recomputes a CUDA tensor's remat region on a
     device thread of its own, which starts with an empty Python context.
