@@ -268,7 +268,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    remat none, the all-to-alls and permutes of the recompute counted, the "state" gathers and "tp" collectives equal to
    the helpers' arithmetic; and one step on the layout that gathers the
    experts or the heads whole: EP's bit-equal, the ring's loss and norm
-   within ``RING_HEADS_LOSS_REL`` and ``RING_HEADS_NORM_REL``; then
+   within ``RING_HEADS_LOSS_REL`` and ``RING_HEADS_NORM_REL``; 25n
+   25k's first step under ``seq_parallel`` (Megatron's sequence
+   parallelism: a rank's 1,024 of the 2,048 positions between the
+   sublayers), its loss and norm against 25k's step 1 within
+   ``TP_LOSS_REL`` / ``TP_NORM_REL``, its collectives equal to their
+   arithmetic, its peak beside 25k's; 25m mamba2-370m at full width and
+   depth on a rank's 16 of 32 heads (the gated norm summed over "model"
+   by the ``rmsnorm_cut`` kernels), ``MAMBA_STEPS`` steps against phase
+   23's within ``TP_LOSS_REL`` / ``TP_NORM_REL``, collectives equal to
+   their arithmetic, the SSD and cut-norm kernels launched on every rank
+   (held by count), then a float32 prefill and decode steps on the
+   rank's heads (``MAMBA_DECODE``, the cache its heads' state) against
+   rank 0's one-rank run; then
    25g a world of one rank on NCCL (in a process of its own): 25a's shape on
    a (1, 1) mesh and 25c's, against the plain results.  Each sub-phase
    prints its mesh, shapes, max error and tolerance, the largest peak
@@ -296,8 +308,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    ``step_collectives``; its gradient sums as ``rank_local.backward_sums``
    counts them), qwen2-moe-a2.7b decode_32k through its
    presets (``--optimized``; expert parallelism on a rank's experts: a
-   decode step's "state" gathers held to ``rank_local.forward_gathers``)
-   and tinyllama-1.1b decode_32k on the (2, 16,
+   decode step's "state" gathers held to ``rank_local.forward_gathers``),
+   mamba2-370m train_4k (one microbatch, on a rank's 2 of 32 heads: its
+   flops the arithmetic and at least ``MAMBA_TRAIN4K_CUT`` times fewer
+   than its rows' with every weight whole; its trace is the longest, so
+   it starts before phase 25, ``DRYRUN_EARLY``), tinyllama-1.1b
+   train_4k ``--sp`` (its flops those of the cell without ``--sp``, its
+   temp bytes below them, its collectives the arithmetic) and
+   tinyllama-1.1b decode_32k on the (2, 16,
    16) multi-pod mesh (512 ranks), under ``build/dryrun_torch``, and the
    roofline CLI over their reports; every cell holds exactly a device's
    share under the shardings (held); each cell's status, trace seconds,
@@ -357,7 +375,11 @@ without ``lse``; and counts the ``HGMMA`` (``wgmma``) instructions in
 each function of the built flash-attention library (``cuobjdump
 -sass``): none in the forward, or
 in any instance of the bfloat16 backward's dK/dV or dQ kernel, fails the
-script; likewise flash attention at recurrentgemma-9b's prefill
+script; the RMSNorm of rows cut over ranks (``rmsnorm_cut`` and its
+backward, Mamba2's gated norm on a rank's heads) at 8,192 rows of 1,024
+and of 128 of 2,048 columns in both dtypes, the other ranks' sums given,
+against its plain versions and the whole rows' norm; likewise flash
+attention at recurrentgemma-9b's prefill
 shape (head dim 256, window 2,048), at musicgen-large's (2 x 32/32
 heads x 1,024, D 64) and internvl2-26b's (2 x 48/8 x 1,024, D 128),
 the SSD chunk scan at mamba2-370m's prefill shape and at batch 1 (y and
@@ -426,6 +448,7 @@ before the last is a JSON object with every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
 CUDA device or without the repository's ``src/`` beside this file.
 """
+import atexit
 import dataclasses
 import gc
 import glob
@@ -617,6 +640,18 @@ RL_RULES = dict(data_axes=("data",), fsdp_axes=("data", "model"),
 #: TP_NORM_REL, and step 3's loss is printed.
 TP_LOSS_REL = 2e-4
 TP_NORM_REL = 5e-3
+#: Phase 25m: mamba2-370m at full width and depth on a rank's heads,
+#: (2, 2), phase 23's seed, weights, batches and learning rate: its first
+#: ``MAMBA_STEPS`` steps held against phase 23's at ``TP_LOSS_REL`` /
+#: ``TP_NORM_REL``; then a prefill and decode steps on its heads' blocks
+#: under the --no-fsdp rules, (batch, prompt, max_seq, decode steps),
+#: against rank 0's one-rank run at ``CUT_DECODE_ATOL``
+MAMBA_STEPS = 2
+MAMBA_DECODE = (2, 512, 1024, 2)
+#: Phase 2's rows cut over ranks: mamba2-370m's gated norm at its training
+#: shape (4 x 2,048 rows of d_inner 2,048), a rank's 1,024 or 128 columns
+CUT_NORM_ROWS = 8192
+CUT_NORM_WIDTH = 2048
 #: Phases 25i and 25l: the reference's --no-fsdp rules (a rank holds only
 #: its "model" blocks and gathers nothing a token)
 SERVE_RULES = dict(fsdp=False, data_axes=("data",))
@@ -966,10 +1001,11 @@ def _decode_inputs():
             for shape in ((b, k, rep, d), (b, k, s, d), (b, k, s, d))]
 
 
-def phase25_rank(rank, report, p18):
+def phase25_rank(rank, report, p18, p23):
     """One of phase 25's four gloo ranks on the shared card (25a-25f, 25h
-    against phase 18's numbers ``p18``, 25i and 25j); returns its kernel
-    launches and rank 0 its numbers."""
+    against phase 18's numbers ``p18``, 25k and 25n against 25h's, 25i,
+    25l, 25m against phase 23's numbers ``p23``, and 25j); returns its
+    kernel launches and rank 0 its numbers."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1003,7 +1039,8 @@ def phase25_rank(rank, report, p18):
     pod = Mesh((4,), ("pod",), backend="gloo", device=cuda)
     rules = sh.make_rules(data_axes=("data",))
     counted = ("flash_attention", "flash_attention_bwd", "rmsnorm",
-               "rmsnorm_bwd", "linear_recurrence")
+               "rmsnorm_bwd", "linear_recurrence", "ssd_chunk_scan",
+               "ssd_chunk_scan_bwd", "rmsnorm_cut", "rmsnorm_cut_bwd")
     launched = {}
 
     def run_counted(sub, fn, want):
@@ -1350,6 +1387,9 @@ def phase25_rank(rank, report, p18):
     # -- 25k: the same steps tensor-parallel over model ----------------------
     rows["25k"] = phase25k(rank, say, run_counted, meshes[(2, 2)], rules,
                            rows["25h"])
+    # -- 25n: 25k's step 1 under Megatron's sequence parallelism -----------
+    rows["25n"] = phase25n(rank, say, run_counted, meshes[(2, 2)], rules,
+                           rows["25k"])
     # -- 25i: qwen3-4b's decode on a rank's model blocks, the cache cut ------
     serve_rules = sh.make_rules(**SERVE_RULES)
     rows["25i"] = phase25i(rank, say, run, run_counted, peak_gb,
@@ -1357,6 +1397,9 @@ def phase25_rank(rank, report, p18):
     # -- 25l: recurrentgemma-9b's prefill and decode on its channels ---------
     rows["25l"] = phase25l(rank, say, run, run_counted, peak_gb,
                            meshes[(2, 2)], serve_rules)
+    # -- 25m: mamba2-370m's training and serving on a rank's heads ---------
+    rows["25m"] = phase25m(rank, say, run, run_counted, peak_gb,
+                           meshes[(2, 2)], rules, serve_rules, p23)
     # -- 25j: the EP and ring train steps on their rows, remat ---------------
     rows["25j"] = phase25j(rank, say, run_counted, peak_gb, meshes[(2, 2)],
                            rules, norms)
@@ -1373,9 +1416,11 @@ def serve_on_blocks(rank, run, run_counted, peak_gb, mesh, rules, cfg,
     ``shape`` = (batch, prompt, max_seq, decode steps), the decode steps,
     and the next logits (gathered over the vocabulary's blocks and the
     rows).  The tokens equal and the logits within ``CUT_DECODE_ATOL`` of
-    the one-rank run's, no weight gathered (``"state"``), the ``"tp"``
-    collectives of the serve steps ``tensor_parallel.serve_collectives``,
-    the launches ``want``."""
+    the one-rank run's, the weights' gathers (``"state"``) those of
+    ``rank_local.forward_gathers`` a forward (none but Mamba2's
+    ``in_proj`` and conv, gathered over "model" on its heads), the
+    ``"tp"`` collectives of the serve steps
+    ``tensor_parallel.serve_collectives``, the launches ``want``."""
     import torch
 
     from repro_torch import models as M
@@ -1441,8 +1486,12 @@ def serve_on_blocks(rank, run, run_counted, peak_gb, mesh, rules, cfg,
     dec = tpar.serve_collectives(cfg, names, n, rows, 1, "decode",
                                  seq_cut=bool(cut and cut[1]))
     want_tp = (pre[0] + n_dec * dec[0], pre[1] + n_dec * dec[1])
-    _dist_need(sites["state"] == (0, 0) and sites["tp"] == want_tp,
-               f"{sub}: collectives {sites}, want no gather and tp "
+    g = rank_local.forward_gathers(cfg, layout)
+    units = tpar._units(cfg)[0]
+    want_st = tuple((n_dec + 1) * (units * g["unit"][i] + g["rest"][i])
+                    for i in (0, 1))
+    _dist_need(sites["state"] == want_st and sites["tp"] == want_tp,
+               f"{sub}: collectives {sites}, want state {want_st} and tp "
                f"{want_tp}")
     err, scale, same = 0.0, 0.0, True
     if rank == 0:
@@ -1458,7 +1507,8 @@ def serve_on_blocks(rank, run, run_counted, peak_gb, mesh, rules, cfg,
     torch.cuda.empty_cache()
     return dict(err=err, max_logit=scale, tokens_equal=same, wall_s=wall,
                 wall_one_s=wall_one, peak_gb=peak, cut=cut, cache=cache,
-                tp=sites["tp"], model_cut=tp.axes if tp else (),
+                tp=sites["tp"], state=sites["state"],
+                model_cut=tp.axes if tp else (),
                 held_bytes=held, whole_bytes=whole)
 
 
@@ -1921,11 +1971,59 @@ def phase25k(rank, say, run_counted, mesh, rules, h) -> dict:
     gradient's sums held to ``tensor_parallel.step_collectives``,
     ``rank_local.forward_gathers`` and ``backward_sums``; launches as
     25h's (each attention and RMSNorm launch on the rank's heads)."""
-    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import rank_local
+    from repro_torch.models import common as cm
+
+    cfg = get_config("tinyllama-1.1b")
+    L = cfg.num_layers
+    runs = cm.layer_forward_runs(cfg, L)
+    layout = rank_local.layout_for(cfg, mesh, rules)
+    per_step = {"rmsnorm": 2 * runs + 1, "rmsnorm_bwd": 2 * L + 1,
+                "flash_attention": runs, "flash_attention_bwd": L}
+    r = _tp_train(rank, run_counted, mesh, cfg, layout, "25k", per_step,
+                  RL_STEPS, RL_BATCH,
+                  dict(lr=3e-3, warmup_steps=2, total_steps=8))
+    tp, sites, n_steps = r["tp"], r["sites"], RL_STEPS
+    _dist_need(tp is not None and tp.axes == ("model",)
+               and r["names"] == ["heads", "mlp", "vocab"],
+               f"25k: model cut {tp}, local names {r['names']}")
+    say(f"[25k] tinyllama-1.1b at full width and depth, 25h's seed, "
+        f"weights and batches, tensor-parallel on "
+        f"{tuple(mesh.shape.values())} under make_rules(data_axes="
+        f"('data',)): each rank its {r['rows']} of {RL_BATCH[0]} rows, "
+        f"{cfg.num_heads // tp.n} of {cfg.num_heads} query heads (k and v "
+        f"whole), {cfg.d_ff // tp.n:,} of {cfg.d_ff:,} MLP columns, "
+        f"{cfg.vocab_size // tp.n:,} of {cfg.vocab_size:,} vocabulary rows; "
+        f"tp collectives {sites['tp'][0]} of {sites['tp'][1]:,} result "
+        f"bytes, the arithmetic (held); all-gathers over data "
+        f"{r['gathers'][0]} of {r['gathers'][1]:,} B (held; 25h "
+        f"{h['gathers']} of {h['gather_bytes']:,.0f} B); gradient sums "
+        f"{sites['grad'][0]} of {sites['grad'][1]:,} B (held); launches "
+        f"{n_steps} x {per_step}, 25h's (held); peak a rank "
+        f"{r['peaks_gb']} GB (25h {[round(p, 2) for p in h['peaks_gb']]}); "
+        f"wall {r['wall_s']:.2f} s (25h {h['wall_s']:.2f} s; gloo's host "
+        f"staging)")
+    # the losses of the steps that read 25h's weights are held, step 3's
+    # printed (it reads weights step 2's updates moved); every norm held
+    errs = _hold_steps(say, "25k", r["metrics"],
+                       ([e["loss"] for e in h["steps"]],
+                        [e["norm"] for e in h["steps"]]), "25h's", held=2)
+    return dict(steps=errs, wall_s=r["wall_s"], peaks_gb=r["peaks_gb"],
+                tp=sites["tp"], state=sites["state"], grad=sites["grad"])
+
+
+def _tp_train(rank, run_counted, mesh, cfg, layout, sub, per_step, n_steps,
+              batch, lr_cfg) -> dict:
+    """``n_steps`` train steps of ``cfg`` on a rank-local state of
+    ``layout`` (seed 0, N(0, ``INIT_STD``), batches of
+    ``TokenPipeline(batch)``, AdamW ``lr_cfg``), counted as ``sub``
+    (``per_step`` launches a step, held); returns the steps' (loss, norm),
+    the sites' collectives, their arithmetic, the wall and each rank's
+    peak."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.distributed import rank_local
     from repro_torch.distributed import tensor_parallel as tpar
@@ -1935,25 +2033,12 @@ def phase25k(rank, say, run_counted, mesh, rules, h) -> dict:
     from repro_torch.utils.comm_stats import record_collectives
 
     cuda = torch.device(DIST_DEVICE)
-    cfg = get_config("tinyllama-1.1b")
-    L = cfg.num_layers
-    runs = cm.layer_forward_runs(cfg, L)
-    layout = rank_local.layout_for(cfg, mesh, rules)
-    tp = layout.model_cut()
-    names = tpar.local_names(cfg, mesh, rules)
-    _dist_need(tp is not None and tp.axes == ("model",)
-               and names == {"heads", "mlp", "vocab"},
-               f"25k: model cut {tp}, local names {sorted(names)}")
+    torch.cuda.reset_peak_memory_stats()
     state = rank_local.init_state(cfg, layout,
                                   torch.Generator(cuda).manual_seed(0),
                                   device=cuda, weight_std=INIT_STD)
-    data = TokenPipeline(DataConfig(cfg.vocab_size, RL_BATCH[1],
-                                    RL_BATCH[0]))
-    step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=2,
-                                            total_steps=8))
-    per_step = {"rmsnorm": 2 * runs + 1, "rmsnorm_bwd": 2 * L + 1,
-                "flash_attention": runs, "flash_attention_bwd": L}
-    n_steps = RL_STEPS
+    data = TokenPipeline(DataConfig(cfg.vocab_size, batch[1], batch[0]))
+    step = make_train_step(cfg, AdamWConfig(**lr_cfg))
 
     def train():
         nonlocal state
@@ -1967,72 +2052,200 @@ def phase25k(rank, say, run_counted, mesh, rules, h) -> dict:
                      for site in ("tp", "state", "grad")}
 
     (metrics, sites), wall = run_counted(
-        "25k", train, {k: n_steps * v for k, v in per_step.items()})
+        sub, train, {k: n_steps * v for k, v in per_step.items()})
     t = torch.tensor([torch.cuda.max_memory_allocated() / 1e9], device=cuda)
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
     dist.all_gather(parts, t)
-    peaks = [round(float(p), 2) for p in parts]
-    rows = RL_BATCH[0] // mesh.shape["data"]
+    units = tpar._units(cfg)[0]
+    runs = cm.layer_forward_runs(cfg, units)
+    tp = layout.model_cut()
+    names = tpar.local_names(cfg, mesh, layout.rules)
+    rows = batch[0] // mesh.shape["data"]
     fwd = rank_local.forward_gathers(cfg, layout)
     sums = rank_local.backward_sums(cfg, layout, ("data",))
-    tp_n, tp_b = tpar.step_collectives(cfg, names, tp.n, rows, RL_BATCH[1])
+    tp_n, tp_b = tpar.step_collectives(cfg, names, tp.n, rows, batch[1])
     st_n, st_b = rank_local.step_gathers(cfg, layout)
     want = {"tp": (n_steps * tp_n, n_steps * tp_b),
             "state": (n_steps * st_n, n_steps * st_b),
-            "grad": (n_steps * (L * sums["unit"][0] + sums["rest"][0]
+            "grad": (n_steps * (units * sums["unit"][0] + sums["rest"][0]
                                 + sums["whole"][0]),
-                     n_steps * (L * sums["unit"][1] + sums["rest"][1]
+                     n_steps * (units * sums["unit"][1] + sums["rest"][1]
                                 + sums["whole"][1]))}
-    gather_bytes = n_steps * (runs * fwd["unit"][1] + fwd["rest"][1])
     for site, (n, nbytes) in want.items():
-        got_n, got_b = sites[site]
-        _dist_need((got_n, got_b) == (n, nbytes),
-                   f"25k: {site} collectives {sites[site]}, the arithmetic "
-                   f"{(n, nbytes)}")
-    errs = []
-    for i, (loss, norm) in enumerate(metrics):
-        ref = h["steps"][i]
-        errs.append(dict(loss=loss, norm=norm, h_loss=ref["loss"],
-                         h_norm=ref["norm"],
-                         loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
-                         norm_rel=abs(norm - ref["norm"]) / abs(ref["norm"])))
-    say(f"[25k] tinyllama-1.1b at full width and depth, 25h's seed, "
-        f"weights and batches, tensor-parallel on "
-        f"{tuple(mesh.shape.values())} under make_rules(data_axes="
-        f"('data',)): each rank its {rows} of {RL_BATCH[0]} rows, "
-        f"{cfg.num_heads // tp.n} of {cfg.num_heads} query heads (k and v "
-        f"whole), {cfg.d_ff // tp.n:,} of {cfg.d_ff:,} MLP columns, "
-        f"{cfg.vocab_size // tp.n:,} of {cfg.vocab_size:,} vocabulary rows; "
-        f"tp collectives {sites['tp'][0]} of {sites['tp'][1]:,} result "
-        f"bytes, the arithmetic (held); all-gathers over data "
-        f"{sites['state'][0] - n_steps} of {gather_bytes:,} B (held; 25h "
-        f"{h['gathers']} of {h['gather_bytes']:,.0f} B); gradient sums "
-        f"{sites['grad'][0]} of {sites['grad'][1]:,} B (held); launches "
-        f"{n_steps} x {per_step}, 25h's (held); peak a rank {peaks} GB "
-        f"(25h {[round(p, 2) for p in h['peaks_gb']]}); wall {wall:.2f} s "
-        f"(25h {h['wall_s']:.2f} s; gloo's host staging)")
-    # the losses of the steps that read 25h's weights (None: printed, not
-    # held: step 3 reads weights step 2's updates moved) and every norm
-    tol_l = [TP_LOSS_REL if i < 2 else None for i in range(n_steps)]
-    for i, e in enumerate(errs):
-        say(f"[25k] step {i + 1}{' (weights moved)' if i >= 2 else ''}: "
-            f"loss {e['loss']!r}, grad norm {e['norm']!r}; 25h's "
-            f"{e['h_loss']!r}, {e['h_norm']!r} (rel {e['loss_rel']:.3e}, "
-            f"tol {tol_l[i] if tol_l[i] is not None else 'none: printed'}; "
-            f"{e['norm_rel']:.3e}, tol {TP_NORM_REL})")
-    for i, e in enumerate(errs):
-        _dist_need(bool(np.isfinite(e["loss"]))
-                   and (tol_l[i] is None or e["loss_rel"] <= tol_l[i])
-                   and e["norm_rel"] <= TP_NORM_REL,
-                   f"25k: step {i + 1} loss {e['loss']!r} / norm "
-                   f"{e['norm']!r} against 25h's {e['h_loss']!r} / "
-                   f"{e['h_norm']!r}: rel {e['loss_rel']:.3e} (tol "
-                   f"{tol_l[i]}), {e['norm_rel']:.3e} (tol {TP_NORM_REL})")
+        _dist_need(sites[site] == (n, nbytes),
+                   f"{sub}: {site} collectives {sites[site]}, the "
+                   f"arithmetic {(n, nbytes)}")
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(steps=errs, wall_s=wall, peaks_gb=peaks, tp=sites["tp"],
-                state=sites["state"], grad=sites["grad"])
+    return dict(metrics=metrics, sites=sites, wall_s=wall, rows=rows,
+                peaks_gb=[round(float(p), 2) for p in parts],
+                names=sorted(names), tp=tp,
+                gathers=(n_steps * (runs * fwd["unit"][0] + fwd["rest"][0]),
+                         n_steps * (runs * fwd["unit"][1] + fwd["rest"][1])))
+
+
+def _hold_steps(say, sub, metrics, ref, what, held=None) -> list:
+    """Each step's loss and norm against ``ref``'s ``(losses, norms)``,
+    printed and held within ``TP_LOSS_REL`` and ``TP_NORM_REL``; past the
+    first ``held`` steps (None: all) the loss is printed, not held (those
+    steps read weights that earlier updates moved)."""
+    import numpy as np
+    errs = []
+    for i, (loss, norm) in enumerate(metrics):
+        rl, rn = ref[0][i], ref[1][i]
+        tol = TP_LOSS_REL if held is None or i < held else None
+        e = dict(loss=loss, norm=norm, ref_loss=rl, ref_norm=rn,
+                 loss_rel=abs(loss - rl) / abs(rl),
+                 norm_rel=abs(norm - rn) / abs(rn))
+        errs.append(e)
+        say(f"[{sub}] step {i + 1}{'' if tol else ' (weights moved)'}: "
+            f"loss {loss!r}, grad norm {norm!r}; {what} {rl!r}, {rn!r} (rel "
+            f"{e['loss_rel']:.3e}, tol {tol or 'none: printed'}; "
+            f"{e['norm_rel']:.3e}, tol {TP_NORM_REL})")
+        _dist_need(bool(np.isfinite(loss))
+                   and (tol is None or e["loss_rel"] <= tol)
+                   and e["norm_rel"] <= TP_NORM_REL,
+                   f"{sub}: step {i + 1} loss {loss!r} / norm {norm!r} "
+                   f"against {what} {rl!r} / {rn!r}: rel "
+                   f"{e['loss_rel']:.3e} (tol {tol}), {e['norm_rel']:.3e} "
+                   f"(tol {TP_NORM_REL})")
+    return errs
+
+
+def phase25n(rank, say, run_counted, mesh, rules, k) -> dict:
+    """Phase 25n on one of phase 25's ranks: 25k's first step (the same
+    seed, weights, batch and rules) under Megatron's sequence parallelism
+    (``seq_parallel``): between the sublayers a rank holds its 1,024 of
+    the 2,048 positions, all-gathered into each sublayer and
+    reduce-scattered out.  Its loss and norm against 25k's step 1 within
+    ``TP_LOSS_REL`` / ``TP_NORM_REL``; the ``"tp"`` collectives (the
+    sequence's all-gathers and reduce-scatters among them), the gathers
+    over "data" and the gradient sums held to their arithmetic; launches
+    as 25k's; the peak a rank printed beside 25k's."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import rank_local
+    from repro_torch.models import common as cm
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              seq_parallel=True)
+    L = cfg.num_layers
+    runs = cm.layer_forward_runs(cfg, L)
+    layout = rank_local.layout_for(cfg, mesh, rules)
+    per_step = {"rmsnorm": 2 * runs + 1, "rmsnorm_bwd": 2 * L + 1,
+                "flash_attention": runs, "flash_attention_bwd": L}
+    r = _tp_train(rank, run_counted, mesh, cfg, layout, "25n", per_step, 1,
+                  RL_BATCH, dict(lr=3e-3, warmup_steps=2, total_steps=8))
+    sites = r["sites"]
+    say(f"[25n] tinyllama-1.1b at full width and depth, 25k's seed, "
+        f"weights, batch and rules, with seq_parallel: each rank its "
+        f"{r['rows']} of {RL_BATCH[0]} rows and 25k's blocks of the heads, "
+        f"MLP columns and vocabulary, and between the sublayers its "
+        f"{RL_BATCH[1] // r['tp'].n:,} of {RL_BATCH[1]:,} positions; tp "
+        f"collectives {sites['tp'][0]} of {sites['tp'][1]:,} result bytes "
+        f"= step_collectives with the sequence's all-gathers and "
+        f"reduce-scatters (held; 25k's a step {k['tp'][0] // RL_STEPS} of "
+        f"{k['tp'][1] // RL_STEPS:,}); all-gathers over data "
+        f"{sites['state'][0]} of {sites['state'][1]:,} B, gradient sums "
+        f"{sites['grad'][0]} of {sites['grad'][1]:,} B (held); launches "
+        f"{per_step}, 25k's a step (held); peak a rank {r['peaks_gb']} GB "
+        f"(25k {k['peaks_gb']}); wall {r['wall_s']:.2f} s (one step; 25k "
+        f"{k['wall_s']:.2f} s for {RL_STEPS})")
+    step1 = k["steps"][0]
+    errs = _hold_steps(say, "25n", r["metrics"],
+                       ([step1["loss"]], [step1["norm"]]), "25k step 1's")
+    return dict(steps=errs, wall_s=r["wall_s"], peaks_gb=r["peaks_gb"],
+                tp=sites["tp"], state=sites["state"], grad=sites["grad"])
+
+
+def phase25m(rank, say, run, run_counted, peak_gb, mesh, rules,
+             serve_rules, p23) -> dict:
+    """Phase 25m on one of phase 25's ranks: mamba2-370m at full width
+    and depth on a rank's heads.  Training under ``rules`` (the
+    default: "ssm_inner" and the vocabulary on "model", rows on "data"):
+    each rank its 2 of the 4 rows and its 16 of the 32 heads (``in_proj``
+    and the conv gathered whole and its columns sliced, ``out_proj`` and
+    the gated norm's weight read as its blocks, the gated norm's squares
+    and dot products summed over "model" by the ``rmsnorm_cut`` kernels),
+    ``MAMBA_STEPS`` steps of phase 23's seed, weights, batches and
+    learning rate held against phase 23's (``p23``) within
+    ``TP_LOSS_REL`` / ``TP_NORM_REL``, the collectives held to their
+    arithmetic, launches exact (the SSD and cut-norm kernels on every
+    rank).  Then serving under ``serve_rules``
+    (:func:`serve_on_blocks`): a prefill and decode steps of
+    ``MAMBA_DECODE`` in float32 on the rank's heads, the cache its heads'
+    state, against rank 0's one-rank run."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import rank_local
+    from repro_torch.models import common as cm
+
+    t = time.perf_counter()
+    cfg = get_config("mamba2-370m")
+    L = cfg.num_layers
+    runs = cm.layer_forward_runs(cfg, L)
+    layout = rank_local.layout_for(cfg, mesh, rules)
+    per_step = {"rmsnorm": runs + 1, "rmsnorm_bwd": L + 1,
+                "rmsnorm_cut": runs, "rmsnorm_cut_bwd": L,
+                "ssd_chunk_scan": runs, "ssd_chunk_scan_bwd": L}
+    r = _tp_train(rank, run_counted, mesh, cfg, layout, "25m", per_step,
+                  MAMBA_STEPS, (4, 2048),
+                  dict(lr=RECURRENT_LR["23"], warmup_steps=2,
+                       total_steps=4))
+    tp, sites = r["tp"], r["sites"]
+    _dist_need(tp is not None and tp.axes == ("model",)
+               and "ssm_inner" in r["names"],
+               f"25m: model cut {tp}, local names {r['names']}")
+    hl = cfg.ssm_heads // tp.n
+    say(f"[25m] mamba2-370m at full width and depth ({L} layers), phase "
+        f"23's seed, weights, batches and lr {RECURRENT_LR['23']}, on "
+        f"{tuple(mesh.shape.values())} under make_rules(data_axes="
+        f"('data',)): each rank its {r['rows']} of 4 rows, {hl} of "
+        f"{cfg.ssm_heads} heads ({hl * cfg.ssm_headdim:,} of "
+        f"{cfg.d_inner:,} gated-norm columns, summed over model by "
+        f"rmsnorm_cut), local names {r['names']}; tp collectives "
+        f"{sites['tp'][0]} of {sites['tp'][1]:,} result bytes (held); "
+        f"gathers {sites['state'][0]} of {sites['state'][1]:,} B (held: "
+        f"in_proj and the conv over data and model); gradient sums "
+        f"{sites['grad'][0]} of {sites['grad'][1]:,} B (held); launches "
+        f"{MAMBA_STEPS} x {per_step} (held); peak a rank {r['peaks_gb']} "
+        f"GB; wall {r['wall_s']:.2f} s (gloo's host staging)")
+    errs = _hold_steps(say, "25m", r["metrics"],
+                       (p23["losses"][:MAMBA_STEPS],
+                        p23["grad_norms"][:MAMBA_STEPS]), "phase 23's")
+    scfg = dataclasses.replace(cfg, dtype="float32")
+    b, s, max_seq, n_dec = MAMBA_DECODE
+    fwd = n_dec + 2
+    sv = serve_on_blocks(rank, run, run_counted, peak_gb, mesh, serve_rules,
+                         scfg, MAMBA_DECODE, "25m serve",
+                         {"ssd_chunk_scan": L, "rmsnorm": (L + 1) * fwd,
+                          "rmsnorm_cut": L * fwd})
+    conv = hl * cfg.ssm_headdim + 2 * cfg.ssm_groups * cfg.ssm_state
+    want_cache = {"ssm": (L, b // mesh.shape["data"], hl, cfg.ssm_headdim,
+                          cfg.ssm_state),
+                  "conv": (L, b // mesh.shape["data"], cfg.conv_width - 1,
+                           conv)}
+    _dist_need(sv["model_cut"] == ("model",) and sv["cache"] == want_cache,
+               f"25m serve: model cut {sv['model_cut']}, cache {sv['cache']}"
+               f", want {want_cache}")
+    say(f"[25m] serving, float32, N(0, {INIT_STD}), {b} x {s:,}-token "
+        f"prompts, max_seq {max_seq:,}, under make_rules(fsdp=False, "
+        f"data_axes=('data',)): a rank holds {sv['held_bytes']:,} B of the "
+        f"{sv['whole_bytes']:,} B of weights; cache block {sv['cache']} "
+        f"(its heads' state and conv tail, B and C whole: the port's own "
+        f"cut); prefill, {n_dec} decode steps and the next logits against "
+        f"rank 0's one-rank run: greedy tokens equal {sv['tokens_equal']}, "
+        f"logits max abs err {sv['err']:.3e} (max |logit| "
+        f"{sv['max_logit']:.3f}; tol {CUT_DECODE_ATOL}); tp collectives "
+        f"{sv['tp']} = serve_collectives, in_proj and conv gathers "
+        f"{sv['state']} = forward_gathers (held); launches exact; peak "
+        f"{sv['peak_gb']:.2f} GB a rank; wall {sv['wall_s']:.2f} s (rank 0 "
+        f"alone, whole, {sv['wall_one_s']:.2f} s)")
+    wall = time.perf_counter() - t
+    say(f"[25m] 25m took {wall:.1f} s")
+    return dict(steps=errs, wall_s=r["wall_s"], peaks_gb=r["peaks_gb"],
+                tp=sites["tp"], state=sites["state"], grad=sites["grad"],
+                serve={k: v for k, v in sv.items() if k != "cut"},
+                phase_wall_s=wall)
 
 
 def _leaf_paths(tree, prefix=""):
@@ -2086,6 +2299,15 @@ def phase25g_rank(rank, report):
     return dict(ring_err=err, decode_err=err_d)
 
 
+def recurrent_argv(phase: str, arch: str, batch: int, seq: int) -> list:
+    """``launch.train``'s arguments of phases 23-24's four steps (seed 0,
+    N(0, ``INIT_STD``), ``RECURRENT_LR``, two warmup steps)."""
+    return ["--arch", arch, "--batch", str(batch), "--seq-len", str(seq),
+            "--lr", str(RECURRENT_LR[phase]), "--warmup", "2",
+            "--log-every", "1", "--init-std", str(INIT_STD), "--steps", "4",
+            "--seed", "0"]
+
+
 def rl_reference(train_args: list) -> dict:
     """25h's exact reference: phase 18's run (``train_args``, 8 steps,
     seed 0) with its batch in ``RL_MB2`` microbatches, slice i the rows
@@ -2103,12 +2325,13 @@ def rl_reference(train_args: list) -> dict:
     return out
 
 
-def phase25(p18: dict):
+def phase25(p18: dict, p23: dict):
     """Phase 25 from the parent: the four gloo ranks (25a-25f, 25h held
-    against phase 18's numbers ``p18``, 25i, 25j), then the NCCL world of one
-    (25g); returns the kernel launches of the ranks' distributed runs,
-    summed.  Fails the script when a rank fails, a world hangs or a
-    kernel of the path was never launched."""
+    against phase 18's numbers ``p18``, 25i, 25j, 25k-25n, 25m against
+    phase 23's ``p23``), then the NCCL world of one (25g); returns the
+    kernel launches of the ranks' distributed runs, summed.  Fails the
+    script when a rank fails, a world hangs or a kernel of the path was
+    never launched."""
     from repro_torch.distributed import launch as dlaunch
     t = time.perf_counter()
 
@@ -2119,7 +2342,7 @@ def phase25(p18: dict):
     try:
         res = dlaunch.run(phase25_rank, 4, backend="gloo",
                           device=DIST_DEVICE, timeout=DIST_TIMEOUT,
-                          args=(p18,), on_message=show)
+                          args=(p18, p23), on_message=show)
         dlaunch.run(phase25g_rank, 1, backend="nccl", device=DIST_DEVICE,
                     timeout=DIST_TIMEOUT, on_message=show)
     except (RuntimeError, TimeoutError) as e:
@@ -2138,6 +2361,12 @@ def phase25(p18: dict):
                                   f"never launched {k}")
     check(subs["25l"]["linear_recurrence"] > 0,
           "phase 25: 25l never launched linear_recurrence")
+    for k in ("ssd_chunk_scan", "ssd_chunk_scan_bwd", "rmsnorm_cut",
+              "rmsnorm_cut_bwd"):
+        check(subs["25m"][k] > 0, f"phase 25: 25m never launched {k}")
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+              "rmsnorm_bwd"):
+        check(subs["25n"][k] > 0, f"phase 25: 25n never launched {k}")
     print(f"[25] rank 0's numbers {json.dumps(res[0]['rows'])}")
     print(f"[25] phase 25 took {time.perf_counter() - t:.1f} s")
     return got
@@ -2243,6 +2472,11 @@ DRYRUN_CELLS = (
       "single", "--mode", "both", "--optimized"], "single"),
     (["--arch", "tinyllama-1.1b", "--shape", "decode_32k", "--mesh", "multi",
       "--mode", "full"], "multi"),
+    (["--arch", "mamba2-370m", "--shape", "train_4k", "--mesh", "single",
+      "--mode", "full", "--microbatches", "1", "--tag", "mb1"], "single"),
+    (["--arch", "tinyllama-1.1b", "--shape", "train_4k", "--mesh", "single",
+      "--mode", "full", "--sp", "--microbatches", "1", "--tag", "sp.mb1"],
+     "single"),
 )
 DRYRUN_TIMEOUT = 600
 #: Phase 26b: tinyllama-1.1b train_4k on (16, 16).  A rank holds its
@@ -2265,39 +2499,100 @@ MOE_DECODE_STATE_WHOLE = (387, 57_703_145_472)
 #: Phase 26b: PR 31's temp bytes of the train_4k cell, a rank computing
 #: the global step (NVIDIA H100 80GB HBM3's host, PR 31's chip call 1)
 TRAIN_4K_TEMP_PR31 = 1_974_505_937_424
+#: Phase 26b: mamba2-370m train_4k on (16, 16) computes its 2 of the 32
+#: heads; the tied 50,280-row head stays whole (16 does not divide it).
+#: Its flops a rank are held at least this many times fewer than its
+#: rows' with every weight whole, as the parent traced them
+MAMBA_TRAIN4K_CUT = 4.0
 
 
-def run_dryruns(batch: int, seq: int) -> dict:
-    """Phase 26's subprocesses, all started at once: 26a's trace of a
-    ``batch`` x ``seq`` tinyllama-1.1b step on a 1 x 1 mesh, 26c's, and
-    26b's CLI cells (production meshes: the test hooks are cleared) into
-    ``build/dryrun_torch``, then the roofline CLI over them.  Fails on
-    any non-zero exit."""
+#: Phase 26b's cells whose trace is long, started before phase 25 and
+#: collected by phase 26: mamba2-370m's plain SSD scan loops over its 32
+#: chunks a layer, ~4-5 s of trace a layer on one host core (214-261 s
+#: for its 48 layers on an H100 machine's host, PERF.md)
+DRYRUN_EARLY = ("mamba2-370m",)
+_EARLY = {}
+
+
+def _dryrun_env():
+    """``(out, env)`` of phase 26's subprocesses: the reports' directory
+    and an environment without the test hooks (production meshes), one
+    thread a process (a fake trace computes nothing)."""
     out = os.path.join(ROOT, "build", "dryrun_torch")
-    shutil.rmtree(out, ignore_errors=True)
     env = {k: v for k, v in os.environ.items()
            if k not in ("REPRO_MESH_SHAPE", "REPRO_MESH_SHAPE_MULTI",
                         "REPRO_DRYRUN_DEVICES")}
-    # a fake trace computes nothing: one thread a process, four processes
     env.update(PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    return out, env
+
+
+def _dryrun_cell(argv, out, env, logs=None):
+    """A dry-run CLI cell's process; ``logs``: its stdout and stderr go to
+    these files (a process left running a long time fills no pipe)."""
+    so, se = logs if logs else (subprocess.PIPE, subprocess.PIPE)
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
+         out], stdout=so, stderr=se, text=True, env=env, cwd=ROOT)
+
+
+def _stop_early() -> None:
+    for p in _EARLY.values():
+        if isinstance(p, subprocess.Popen) and p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_early_dryruns() -> None:
+    """Start the ``DRYRUN_EARLY`` cells of phase 26b in the background
+    (into an emptied ``build/dryrun_torch``, their output to files there);
+    :func:`run_dryruns` collects them, and the script's exit kills any
+    still running."""
+    out, env = _dryrun_env()
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    _EARLY["t"] = time.perf_counter()
+    for i, (argv, _) in enumerate(DRYRUN_CELLS):
+        if argv[1] in DRYRUN_EARLY:
+            logs = tuple(open(os.path.join(out, f"early{i}.{k}"), "w")
+                         for k in ("out", "err"))
+            _EARLY[i] = _dryrun_cell(argv, out, env, logs)
+            for f in logs:
+                f.close()
+    if not _EARLY.get("registered"):
+        atexit.register(_stop_early)
+        _EARLY["registered"] = True
+
+
+def run_dryruns(batch: int, seq: int) -> dict:
+    """Phase 26's subprocesses, all started at once (but those of
+    ``DRYRUN_EARLY``, started by :func:`start_early_dryruns`, here if it
+    was not called): 26a's trace of a ``batch`` x ``seq`` tinyllama-1.1b
+    step on a 1 x 1 mesh, 26c's, and 26b's CLI cells (production meshes:
+    the test hooks are cleared) into ``build/dryrun_torch``, then the
+    roofline CLI over them.  Fails on any non-zero exit."""
+    if "t" not in _EARLY:
+        start_early_dryruns()
+    out, env = _dryrun_env()
     t = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-c", script, *argv], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
         for script, argv in ((DRYRUN_18, [str(batch), str(seq)]),
                              (DRYRUN_BWD, [str(RING_26C_LAYERS)]))]
-    procs += [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
-         out], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=env, cwd=ROOT) for argv, _ in DRYRUN_CELLS]
+    procs += [_EARLY[i] if i in _EARLY else _dryrun_cell(argv, out, env)
+              for i, (argv, _) in enumerate(DRYRUN_CELLS)]
+    early_s = t - _EARLY["t"]
     texts = []
-    for p in procs:
+    for i, p in enumerate(procs):
         try:
             so, se = p.communicate(timeout=DRYRUN_TIMEOUT)
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
             fail(f"phase 26: a dry run ran past {DRYRUN_TIMEOUT} s")
+        if so is None:          # an early cell: its output is in files
+            so, se = (open(os.path.join(out, f"early{i - 2}.{k}")).read()
+                      for k in ("out", "err"))
         check(p.returncode == 0, f"phase 26: {p.args[1:]} exited "
                                  f"{p.returncode}: {se[-3000:]}")
         texts.append(so)
@@ -2324,9 +2619,11 @@ def run_dryruns(batch: int, seq: int) -> dict:
         check(r.returncode == 0, f"phase 26: the roofline CLI exited "
                                  f"{r.returncode}: {r.stderr[-2000:]}")
         rows[mesh] = r.stdout.strip().splitlines()
+    for k in [k for k in _EARLY if k != "registered"]:
+        del _EARLY[k]
     return {"a": got[0], "c": got[1], "cells": cells, "rows": rows,
             "cli": [t.strip().splitlines()[-1] for t in texts[2:]],
-            "wall_s": wall}
+            "wall_s": wall, "early_s": early_s}
 
 
 def phase26c(card: str, c: dict) -> None:
@@ -2403,24 +2700,24 @@ def phase26c(card: str, c: dict) -> None:
           f"{c['cpu/prefill']['trace_s']:.2f} s)")
 
 
-def train4k_arithmetic(cell: dict) -> dict:
+def train4k_arithmetic(cell: dict, argv: list) -> dict:
     """What one train_4k step (one microbatch of ``TRAIN_4K_ROWS`` a
-    rank) takes on ``cell``'s mesh, by the helpers: ``"sums"`` the
+    rank) of the cell that ``argv`` traced takes on ``cell``'s mesh, by
+    the helpers: ``"sums"`` the
     gradient sums' (count, result bytes) from ``rank_local.backward_sums``
     (a layer's reads once, the rest's, the leaves that gather nothing);
     ``"flops"`` the products a rank traces and ``"flops_whole"`` those of
     the same rows with every weight whole
     (``tensor_parallel.train_flops``); ``"tp"`` the (count, result bytes)
     of ``tensor_parallel.step_collectives``."""
-    from repro_torch.configs import get_config
     from repro_torch.distributed import rank_local
     from repro_torch.distributed import tensor_parallel as tpar
     from repro_torch.distributed.mesh import AbstractMesh
     from repro_torch.launch import dryrun as D
-    cfg = get_config(cell["arch"], kernel_impl="torch")
+    args = D.parser().parse_args(argv)
+    cfg = D.cell_config(cell["arch"], args)
     mesh = AbstractMesh(tuple(cell["mesh_shape"].values()),
                         tuple(cell["mesh_shape"]))
-    args = D.parser().parse_args(["--arch", cell["arch"], "--shape", "-"])
     rules = D._rules_for(mesh, args)
     layout = rank_local.layout_for(cfg, mesh, rules)
     n = rank_local.backward_sums(cfg, layout, D.data_axes(mesh))
@@ -2545,6 +2842,9 @@ def phase26(card: str, p18: dict) -> dict:
           f"(argument + temp) {peak / 1e9:.3f} GB against phase 18's "
           f"max_memory_allocated {p18['peak_bytes'] / 1e9:.3f} GB "
           f"(temp {mem['temp_bytes'] / 1e9:.3f} GB)")
+    plain4k = [cell for (argv, _), cell in zip(DRYRUN_CELLS, got["cells"])
+               if cell["arch"] == "tinyllama-1.1b"
+               and cell["shape"] == "train_4k" and "--sp" not in argv][0]
     for (argv, _), cell, cli in zip(DRYRUN_CELLS, got["cells"], got["cli"]):
         check(cell["status"] == "ok", f"phase 26b: {cell['arch']} "
                                       f"{cell['shape']} {cell['mesh']}: "
@@ -2555,13 +2855,15 @@ def phase26(card: str, p18: dict) -> dict:
               f"{m['argument_bytes']:,} B a rank, a device's share under "
               f"the shardings {m['sharded_argument_bytes']:,}")
         if cell["shape"] == "train_4k":
-            check(m["argument_bytes"] == TRAIN_4K_HELD
-                  and m["sharded_argument_bytes"] == TRAIN_4K_SHARDED,
+            tiny = cell["arch"] == "tinyllama-1.1b"
+            check(not tiny or (m["argument_bytes"] == TRAIN_4K_HELD
+                               and m["sharded_argument_bytes"]
+                               == TRAIN_4K_SHARDED),
                   f"phase 26b: {cell['arch']} train_4k argument_bytes "
                   f"{m['argument_bytes']:,} (want {TRAIN_4K_HELD:,}), "
                   f"sharded {m['sharded_argument_bytes']:,} (want "
                   f"{TRAIN_4K_SHARDED:,})")
-            ar = train4k_arithmetic(cell)
+            ar = train4k_arithmetic(cell, argv)
             flops = cell["full"]["flops"]
             check(flops == ar["flops"],
                   f"phase 26b: train_4k traces {flops:.6e} flops a rank, "
@@ -2579,6 +2881,43 @@ def phase26(card: str, p18: dict) -> dict:
             check(got_tp == tuple(ar["tp"]),
                   f"phase 26b: train_4k's tp collectives {got_tp}, the "
                   f"arithmetic {ar['tp']}")
+        if cell["shape"] == "train_4k" and not tiny:
+            cut = ar["flops_whole"] / flops
+            check(cut >= MAMBA_TRAIN4K_CUT,
+                  f"phase 26b: {cell['arch']} train_4k traces {flops:.6e} "
+                  f"flops a rank, only {cut:.2f}x fewer than with every "
+                  f"weight whole (want >= {MAMBA_TRAIN4K_CUT})")
+            print(f"[26b] ({card}) {cell['arch']} train_4k on "
+                  f"{cell['mesh_shape']} (one microbatch): a rank holds "
+                  f"{m['argument_bytes']:,} B (a device's share under the "
+                  f"shardings, held); flops a rank {flops:.6e} = the "
+                  f"arithmetic of its rows and its {ar['n']}-way cut of the "
+                  f"heads (held; the tied vocabulary whole), {cut:.2f}x "
+                  f"fewer than its rows with every weight whole "
+                  f"{ar['flops_whole']:.6e}, the parent's trace (held >= "
+                  f"{MAMBA_TRAIN4K_CUT}); tp collectives {got_tp} = "
+                  f"step_collectives (held); gradient sums {grad['count']} "
+                  f"= backward_sums (held); temp {m['temp_bytes']:,} B")
+        elif cell["shape"] == "train_4k" and "--sp" in argv:
+            pm = plain4k["full"]["memory"]
+            check(flops == plain4k["full"]["flops"]
+                  and m["temp_bytes"] < pm["temp_bytes"],
+                  f"phase 26b: train_4k --sp traces {flops:.6e} flops and "
+                  f"{m['temp_bytes']:,} temp bytes a rank; without --sp "
+                  f"{plain4k['full']['flops']:.6e} and "
+                  f"{pm['temp_bytes']:,}")
+            print(f"[26b] ({card}) {cell['arch']} train_4k --sp on "
+                  f"{cell['mesh_shape']} (one microbatch): flops a rank "
+                  f"{flops:.6e}, equal to the cell without --sp (held: "
+                  f"sequence parallelism moves no product) and to the "
+                  f"arithmetic (held); temp {m['temp_bytes']:,} B against "
+                  f"{pm['temp_bytes']:,} without --sp "
+                  f"({pm['temp_bytes'] / m['temp_bytes']:.2f}x less, held "
+                  f"below); tp collectives {got_tp} = step_collectives with "
+                  f"the sequence's all-gathers and reduce-scatters (held; "
+                  f"by kind {tps['count']}); gradient sums "
+                  f"{grad['count']} = backward_sums (held)")
+        elif cell["shape"] == "train_4k":
             print(f"[26b] ({card}) {cell['arch']} train_4k on "
                   f"{cell['mesh_shape']}: a rank holds {m['argument_bytes']:,}"
                   f" B = its blocks of params, m and v 67,849,728 + the step "
@@ -2635,14 +2974,17 @@ def phase26(card: str, p18: dict) -> dict:
                   f"not the reference's 8, so its temp bytes and the "
                   f"roofline's mem_gib_per_dev are that step's")
     for mesh, lines in got["rows"].items():
-        check(len(lines) == 1 + sum(m == mesh for _, m in DRYRUN_CELLS),
+        # one row an (arch, shape): the --sp cell shares its row
+        check(len(lines) == 1 + len({(a[1], a[3]) for a, m in DRYRUN_CELLS
+                                     if m == mesh}),
               f"phase 26b: the roofline CLI's {mesh} rows: {lines}")
         for line in lines:
             print(f"[26b] ({card}) roofline --mesh {mesh}: {line}")
     phase26c(card, got["c"])
     wall = time.perf_counter() - t
     print(f"[26] ({card}) phase 26 took {wall:.1f} s (subprocesses "
-          f"{got['wall_s']:.1f} s)")
+          f"{got['wall_s']:.1f} s; {', '.join(DRYRUN_EARLY)} started "
+          f"{got['early_s']:.1f} s before them)")
     return {"row": row, "memory": mem, "wall_s": wall}
 
 
@@ -3598,6 +3940,90 @@ def main() -> int:
         f"{kern} {regs} registers, {spill}" for kern, regs, spill
         in ptxas["rmsnorm"] if kern.startswith(("rmsnorm_bwd",
                                                 "rmsnorm_dw"))))
+
+    # -- phase 2, rows cut over ranks: Mamba2's gated norm on its heads -----
+    # A rank's d of the rows' 2,048 columns (1,024 on 25m's model 2, 128
+    # on a model axis of 16); the other ranks' sums come from ``reduce``,
+    # here the sums of random columns standing for theirs.
+    width, rows = CUT_NORM_WIDTH, CUT_NORM_ROWS
+    for d in (width // 2, width // 16):
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            x, dy = randn((rows, d), dtype), randn((rows, d), dtype)
+            w = randn((d,), torch.float32, 0.1)
+            xo, go = (randn((rows, width - d), dtype) for _ in range(2))
+            wo = randn((width - d,), torch.float32, 0.1)
+            ss_o = (xo.float() ** 2).sum(-1)
+            dot_o = (go.float() * (1 + wo) * xo.float()).sum(-1)
+
+            def red_ss(t):
+                return t + ss_o
+
+            def red_dot(t):
+                return t + dot_o
+
+            got = krms.rmsnorm_cut(x, w, red_ss, width=width)
+            want = krms.rmsnorm_cut_torch(x, w, red_ss, width=width)
+            whole = ops.rmsnorm(torch.cat([x, xo], -1), torch.cat([w, wo]),
+                                impl="torch")[:, :d]
+            torch.cuda.synchronize()
+            what = f"rmsnorm_cut ({rows}, {d} of {width}) {dname}"
+            err = close(got.float().cpu().numpy(),
+                        want.float().cpu().numpy(), RMS_TOL[dname], what)
+            err_whole = close(got.float().cpu().numpy(),
+                              whole.float().cpu().numpy(), RMS_TOL[dname],
+                              what + " against the whole rows")
+            ms = time_ms(lambda: krms.rmsnorm_cut(x, w, red_ss, width=width),
+                         flush=flush)
+            pms = time_ms(lambda: krms.rmsnorm_cut_torch(
+                x, w, red_ss, width=width), reps=3, flush=flush)
+            # x and w read once, y written, the summed squares read
+            nbytes = 2.0 * x.numel() * x.element_size() + 4 * d + 4 * rows
+            bnd, by = bound_ms(nbytes, 4.0 * x.numel(), dname)
+            ss = red_ss((x.float() ** 2).sum(-1))
+            dx, dw = krms.rmsnorm_cut_bwd(x, w, dy, ss, red_dot, width=width)
+            dx_p, dw_p = krms.rmsnorm_cut_bwd_torch(x, w, dy, ss, red_dot,
+                                                    width=width)
+            torch.cuda.synchronize()
+            err_b = bwd_close(dx, dx_p, dname, what + " backward dx")
+            err_w = close(dw.cpu().numpy(), dw_p.cpu().numpy(),
+                          dict(rtol=1e-3, atol=1e-4 * rows ** 0.5),
+                          what + " backward dw")
+            again = krms.rmsnorm_cut_bwd(x, w, dy, ss, red_dot, width=width)
+            check(torch.equal(again[0], dx) and torch.equal(again[1], dw),
+                  f"{what} backward: two runs differ")
+            bms = time_ms(lambda: krms.rmsnorm_cut_bwd(
+                x, w, dy, ss, red_dot, width=width), flush=flush)
+            bpms = time_ms(lambda: krms.rmsnorm_cut_bwd_torch(
+                x, w, dy, ss, red_dot, width=width), reps=3, flush=flush)
+            # x, dy and w read once, dx and dw written, the summed squares
+            # and dot products read
+            bbytes = 3.0 * x.numel() * x.element_size() + 8 * d + 8 * rows
+            bbnd, bby = bound_ms(bbytes, 8.0 * x.numel(), dname)
+            print(f"[2] {what}: max abs err {err:.3e} vs its plain version, "
+                  f"{err_whole:.3e} vs the whole rows' norm; kernel {ms:.4f} "
+                  f"ms ({nbytes / ms / 1e6:.0f} GB/s), plain {pms:.4f} ms, "
+                  f"library none, bound {bnd:.4f} ms ({by}); backward: max "
+                  f"abs err dx {err_b:.3e}, dw {err_w:.3e}, two runs "
+                  f"bit-equal, kernel {bms:.4f} ms ({bbytes / bms / 1e6:.0f} "
+                  f"GB/s), plain {bpms:.4f} ms, bound {bbnd:.4f} ms ({bby})")
+            fwd_row = dict(max_abs_err=max(err, err_whole), ms=ms,
+                           plain_ms=pms, bound_ms=bnd, bound_by=by,
+                           library_ms=None, gbps=nbytes / ms / 1e6,
+                           shape=[rows, d, width], dtype=dname)
+            bwd_row = dict(max_abs_err=max(err_b, err_w), ms=bms,
+                           plain_ms=bpms, bound_ms=bbnd, bound_by=bby,
+                           library_ms=None, gbps=bbytes / bms / 1e6,
+                           shape=[rows, d, width], dtype=dname)
+            sub = f"{dname}_{d}"
+            if d == width // 2 and dname == "bfloat16":
+                report["rmsnorm_cut"], report["rmsnorm_cut_bwd"] = \
+                    fwd_row, bwd_row
+            else:
+                report["rmsnorm_cut"][sub] = fwd_row
+                report["rmsnorm_cut_bwd"][sub] = bwd_row
+            del x, dy, w, xo, go, wo, got, want, whole, dx, dw, dx_p, dw_p
+            del again, ss, ss_o, dot_o
 
     report["flash_attention"]["d256"] = d256
     report["flash_attention"]["moe"] = moe_attn
@@ -5644,12 +6070,7 @@ def main() -> int:
         K.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        res = ltrain.main(["--arch", arch, "--batch", str(batch),
-                           "--seq-len", str(seq), "--lr",
-                           str(RECURRENT_LR[phase]),
-                           "--warmup", "2", "--log-every", "1",
-                           "--init-std", str(INIT_STD), "--steps", "4",
-                           "--seed", "0"] + argv)
+        res = ltrain.main(recurrent_argv(phase, arch, batch, seq) + argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -5699,7 +6120,8 @@ def main() -> int:
               f"{max(0.0, 1 - busy / wall_p):.1%}; " + ", ".join(
                   f"{g} {ms:.2f} ms" for g, ms in grp))
         row = dict(step_ms=min(step_ms), tokens_per_s=tok_s, peak_gb=peak,
-                   losses=losses, idle=max(0.0, 1 - busy / wall_p),
+                   losses=losses, grad_norms=res["grad_norms"],
+                   idle=max(0.0, 1 - busy / wall_p),
                    groups=grp, layers=cfg.num_layers)
         del res, state, step
         torch.cuda.empty_cache()
@@ -5863,11 +6285,13 @@ def main() -> int:
     report["linear_recurrence_bwd"]["training"] = report24
 
     # -- phase 25: distributed/ on four ranks that share the card ------------
+    start_early_dryruns()      # phase 26's long traces, on the host's cores
     gc.collect()
     torch.cuda.empty_cache()
+    p23 = dict(losses=report23["losses"], grad_norms=report23["grad_norms"])
     got25 = phase25(dict(losses=losses18[:RL_STEPS],
                          grad_norms=grad_norms18[:RL_STEPS], peak_gb=peak18,
-                         mb2=rl_reference(train_args)))
+                         mb2=rl_reference(train_args)), p23)
     for k, v in got25.items():
         launches[k] += v
     phase_counts["25"] = got25
@@ -5899,6 +6323,10 @@ def main() -> int:
                     "src/repro/kernels/rmsnorm.py:28"),
         "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
                         "src/repro/kernels/rmsnorm.py:28"),
+        "rmsnorm_cut": ("src/repro_torch/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm.py:28"),
+        "rmsnorm_cut_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                            "src/repro/kernels/rmsnorm.py:28"),
         "ssd_chunk_scan": ("src/repro_torch/csrc/ssd_chunk_scan.cu",
                            "src/repro/kernels/ssd_chunk_scan.py:76"),
         "linear_recurrence": ("src/repro_torch/csrc/linear_recurrence.cu",

@@ -8,7 +8,8 @@ distributed sub-phases (25a-25l) and the dry run on a CUDA card.
 It builds the kernels (``kernels._build.build()``), runs what the phases
 are held against as ``chip_smoke.py`` runs it (phase 18's eight steps of
 tinyllama-1.1b through ``launch.train``, its two timed steps and its
-state's leaves; 25h's two-microbatch reference), then
+state's leaves; 25h's two-microbatch reference; phase 23's four steps of
+mamba2-370m, which 25m is held against), then
 ``chip_smoke.phase25`` and ``chip_smoke.phase26``, which print their
 lines and exit non-zero on a failed hold.  The kernels' launch counts
 and the JSON lines of the full script are not printed.  Needs a CUDA
@@ -76,6 +77,22 @@ def phase18_reference() -> dict:
     return p18, p25
 
 
+def phase23_reference() -> dict:
+    """Phase 23's four mamba2-370m steps: their losses and norms."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.launch import train as ltrain
+    res = ltrain.main(cs.recurrent_argv("23", "mamba2-370m", 4, 2048))
+    p23 = dict(losses=res["losses"], grad_norms=res["grad_norms"])
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[23] losses {p23['losses']}, grad norms {p23['grad_norms']}",
+          flush=True)
+    return p23
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("25", "26"), default=None,
@@ -97,8 +114,11 @@ def main() -> int:
     ).stdout.strip()
     print(card, flush=True)
     p18, p25 = phase18_reference()
+    if args.only is None:
+        cs.start_early_dryruns()
     if args.only in (None, "25"):
-        print(f"[25] launches {cs.phase25(p25)}", flush=True)
+        print(f"[25] launches {cs.phase25(p25, phase23_reference())}",
+              flush=True)
     if args.only in (None, "26"):
         cs.phase26(card, p18)
     print(f"[total] {time.perf_counter() - t:.1f} s")

@@ -936,3 +936,298 @@ extern "C" int rmsnorm_bwd_bf16(const void* x, const void* w, const void* dy,
   return launch_bwd<__nv_bfloat16>(x, w, dy, dx, part, dw, rows, d, eps,
                                    stream);
 }
+
+// ---------------------------------------------------------------------------
+// Rows cut over ranks.  Under tensor parallelism a rank holds d of each row's
+// D columns (Mamba2's gated norm on a rank's heads), and the row's mean of
+// squares needs the other ranks' sums.  Three entries, a warp a row, with
+// 16-byte vectors where d fills whole vectors and every base is 16-byte
+// aligned, scalars otherwise:
+//   rmsnorm_row_sums_*: each row's partial sum over the rank's columns,
+//     sum x^2 (dy null) or sum dy (1 + w) x: one float32 a row, which the
+//     caller all-reduces over the ranks;
+//   rmsnorm_cut_*: y = x * rsqrt(ss / D + eps) * (1 + w) from each row's
+//     all-reduced ss;
+//   rmsnorm_cut_bwd_*: dx = r (1 + w) dy - x r^3 / D * dot from each row's
+//     all-reduced ss and dot; dw through per-block partial rows (each warp
+//     adds its rows into its own row of shared memory, the block then sums
+//     its warps' rows in order), then rmsnorm_dw_sum.  No atomics, and the
+//     grids depend on the shape only: the same inputs give the same bits.
+// Bound on the card: memory, as the whole-row kernels' (the sums add 4 bytes
+// a row).
+
+namespace {
+
+// A warp's sum over the d columns of one row: x^2, or with g, g (1 + w) x.
+template <typename T, bool VEC>
+__device__ __forceinline__ float row_part(const T* __restrict__ xr,
+                                          const T* __restrict__ gr,
+                                          const float* __restrict__ w, int d,
+                                          int lane) {
+  float s = 0.f;
+  if constexpr (VEC) {
+    constexpr int N = Vec<T>::N;
+    for (int v = lane; v < d / N; v += 32) {
+      float xf[N];
+      Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(xr + v * N)), xf);
+      if (gr == nullptr) {
+#pragma unroll
+        for (int e = 0; e < N; ++e) s = fmaf(xf[e], xf[e], s);
+      } else {
+        float gf[N], w1[N];
+        Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(gr + v * N)), gf);
+        load_w1<T>(w, v, w1);
+#pragma unroll
+        for (int e = 0; e < N; ++e) s = fmaf(gf[e] * w1[e], xf[e], s);
+      }
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) {
+      const float xv = to_f32(xr[c]);
+      s = gr == nullptr ? fmaf(xv, xv, s)
+                        : fmaf(to_f32(gr[c]) * (1.f + w[c]), xv, s);
+    }
+  }
+  return warp_sum(s);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS)
+    rmsnorm_row_sums(const T* __restrict__ x, const float* __restrict__ w,
+                     const T* __restrict__ dy, float* __restrict__ out,
+                     long long rows, int d) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * (BWD_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp leaves together
+  const float s = row_part<T, VEC>(
+      x + row * d, dy == nullptr ? nullptr : dy + row * d, w, d, lane);
+  if (lane == 0) out[row] = s;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS)
+    rmsnorm_cut_rows(const T* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ ss, T* __restrict__ out,
+                     long long rows, int d, float width, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * (BWD_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float r = rsqrtf(ss[row] / width + eps);
+  const T* xr = x + row * d;
+  T* yr = out + row * d;
+  if constexpr (VEC) {
+    constexpr int N = Vec<T>::N;
+    for (int v = lane; v < d / N; v += 32) {
+      Weights<T> wv;
+      wv.load(w, v);
+      normalise_store<T>(__ldg(reinterpret_cast<const uint4*>(xr + v * N)),
+                         wv, v, yr, r);
+    }
+  } else {
+    for (int c = lane; c < d; c += 32)
+      store(yr + c, to_f32(xr[c]) * r * (1.f + w[c]));
+  }
+}
+
+// WARPS warps a block (blockDim.x / 32), a warp a row at a time over the rows
+// blockIdx.x * warps + warp + k * gridDim.x * warps.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS)
+    rmsnorm_cut_bwd_rows(const T* __restrict__ x, const float* __restrict__ w,
+                         const T* __restrict__ dy,
+                         const float* __restrict__ ss,
+                         const float* __restrict__ dot, T* __restrict__ dx,
+                         float* __restrict__ part, long long rows, int d,
+                         float width, float eps) {
+  extern __shared__ float sdw_cut[];  // warps x d
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  float* mine = sdw_cut + (long long)warp * d;
+  for (int c = lane; c < d; c += 32) mine[c] = 0.f;
+  const long long stride = (long long)gridDim.x * warps;
+  for (long long row = (long long)blockIdx.x * warps + warp; row < rows;
+       row += stride) {
+    const float r = rsqrtf(ss[row] / width + eps);
+    const float k = dot[row] * r * r * r / width;
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    T* dr = dx + row * d;
+    if constexpr (VEC) {
+      constexpr int N = Vec<T>::N;
+      for (int v = lane; v < d / N; v += 32) {
+        float w1[N], acc[N];
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc[e] = 0.f;
+        load_w1<T>(w, v, w1);
+        dx_store<T>(__ldg(reinterpret_cast<const uint4*>(xr + v * N)),
+                    __ldg(reinterpret_cast<const uint4*>(gr + v * N)), w1, r,
+                    k, dr, v, acc);
+#pragma unroll
+        for (int e = 0; e < N; ++e) mine[v * N + e] += acc[e];
+      }
+    } else {
+      for (int c = lane; c < d; c += 32) {
+        const float xv = to_f32(xr[c]), gv = to_f32(gr[c]);
+        store(dr + c, r * (1.f + w[c]) * gv - xv * k);
+        mine[c] += gv * xv * r;
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float t = 0.f;
+    for (int i = 0; i < warps; ++i) t += sdw_cut[i * d + c];
+    part[(long long)blockIdx.x * d + c] = t;
+  }
+}
+
+// Opts a kernel in to BWD_SMEM of dynamic shared memory, once a device.
+template <typename K>
+int cut_opt_in(K kernel, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 0 && dev < 64 && done[dev]) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           BWD_SMEM);
+  if (e == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
+  return (int)e;
+}
+
+template <typename T>
+bool cut_vec(int d, uintptr_t bases) {
+  return d % Vec<T>::N == 0 && bases % 16 == 0;
+}
+
+inline unsigned warp_blocks(long long rows) {
+  return (unsigned)((rows + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32));
+}
+
+template <typename T>
+int launch_row_sums(const void* x, const void* w, const void* dy, float* out,
+                    long long rows, int d, void* stream) {
+  if (rows <= 0) return 0;
+  if (d <= 0 || (rows + 7) / 8 > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(dy) |
+                          reinterpret_cast<uintptr_t>(w);
+  if (cut_vec<T>(d, bases))
+    rmsnorm_row_sums<T, true><<<warp_blocks(rows), BWD_THREADS, 0, s>>>(
+        (const T*)x, (const float*)w, (const T*)dy, out, rows, d);
+  else
+    rmsnorm_row_sums<T, false><<<warp_blocks(rows), BWD_THREADS, 0, s>>>(
+        (const T*)x, (const float*)w, (const T*)dy, out, rows, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cut(const void* x, const void* w, const float* ss, void* out,
+               long long rows, int d, float width, float eps, void* stream) {
+  if (rows <= 0) return 0;
+  if (d <= 0 || (rows + 7) / 8 > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(w) |
+                          reinterpret_cast<uintptr_t>(out);
+  if (cut_vec<T>(d, bases))
+    rmsnorm_cut_rows<T, true><<<warp_blocks(rows), BWD_THREADS, 0, s>>>(
+        (const T*)x, (const float*)w, ss, (T*)out, rows, d, width, eps);
+  else
+    rmsnorm_cut_rows<T, false><<<warp_blocks(rows), BWD_THREADS, 0, s>>>(
+        (const T*)x, (const float*)w, ss, (T*)out, rows, d, width, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+int cut_bwd(const void* x, const void* w, const void* dy, const float* ss,
+            const float* dot, void* dx, float* part, long long rows, int d,
+            float width, float eps, cudaStream_t s, long long nparts,
+            int warps) {
+  static bool done[64] = {};
+  const int rc = cut_opt_in(rmsnorm_cut_bwd_rows<T, VEC>, done);
+  if (rc != 0) return rc;
+  rmsnorm_cut_bwd_rows<T, VEC><<<(unsigned)nparts, warps * 32,
+                                 (size_t)warps * d * 4, s>>>(
+      (const T*)x, (const float*)w, (const T*)dy, ss, dot, (T*)dx, part, rows,
+      d, width, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cut_bwd(const void* x, const void* w, const void* dy,
+                   const float* ss, const float* dot, void* dx, float* part,
+                   float* dw, long long rows, int d, float width, float eps,
+                   void* stream) {
+  if (d <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  long long nparts = 0;
+  if (rows > 0) {
+    const int warps = scalar_warps(d);
+    if (warps == 0) return (int)cudaErrorInvalidValue;
+    nparts = scalar_grid(rows, d);
+    const uintptr_t bases =
+        reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx);
+    const int rc =
+        cut_vec<T>(d, bases)
+            ? cut_bwd<T, true>(x, w, dy, ss, dot, dx, part, rows, d, width,
+                               eps, s, nparts, warps)
+            : cut_bwd<T, false>(x, w, dy, ss, dot, dx, part, rows, d, width,
+                                eps, s, nparts, warps);
+    if (rc != 0) return rc;
+  }
+  return launch_dw_sum(part, dw, (int)nparts, d, s);
+}
+
+}  // namespace
+
+// x, dy: contiguous (rows, d) of one dtype (dy null: sum x^2); w: float32
+// (d,); out: float32 (rows,).
+extern "C" int rmsnorm_row_sums_f32(const void* x, const void* w,
+                                    const void* dy, float* out,
+                                    long long rows, int d, void* stream) {
+  return launch_row_sums<float>(x, w, dy, out, rows, d, stream);
+}
+
+extern "C" int rmsnorm_row_sums_bf16(const void* x, const void* w,
+                                     const void* dy, float* out,
+                                     long long rows, int d, void* stream) {
+  return launch_row_sums<__nv_bfloat16>(x, w, dy, out, rows, d, stream);
+}
+
+// ss: float32 (rows,), each row's sum of squares over its whole width.
+extern "C" int rmsnorm_cut_f32(const void* x, const void* w, const float* ss,
+                               void* out, long long rows, int d, float width,
+                               float eps, void* stream) {
+  return launch_cut<float>(x, w, ss, out, rows, d, width, eps, stream);
+}
+
+extern "C" int rmsnorm_cut_bf16(const void* x, const void* w,
+                                const float* ss, void* out, long long rows,
+                                int d, float width, float eps, void* stream) {
+  return launch_cut<__nv_bfloat16>(x, w, ss, out, rows, d, width, eps,
+                                   stream);
+}
+
+// ss, dot: float32 (rows,), each row's sums over its whole width; part:
+// float32 (rmsnorm_bwd_parts(rows, d), d) scratch; dw: float32 (d,).
+extern "C" int rmsnorm_cut_bwd_f32(const void* x, const void* w,
+                                   const void* dy, const float* ss,
+                                   const float* dot, void* dx, float* part,
+                                   float* dw, long long rows, int d,
+                                   float width, float eps, void* stream) {
+  return launch_cut_bwd<float>(x, w, dy, ss, dot, dx, part, dw, rows, d,
+                               width, eps, stream);
+}
+
+extern "C" int rmsnorm_cut_bwd_bf16(const void* x, const void* w,
+                                    const void* dy, const float* ss,
+                                    const float* dot, void* dx, float* part,
+                                    float* dw, long long rows, int d,
+                                    float width, float eps, void* stream) {
+  return launch_cut_bwd<__nv_bfloat16>(x, w, dy, ss, dot, dx, part, dw, rows,
+                                       d, width, eps, stream);
+}

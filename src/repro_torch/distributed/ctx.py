@@ -96,10 +96,15 @@ class ModelCut:
     """The weights a rank holds of the ``model`` axis on ``mesh``: the
     block of its linear index along the mesh axes ``axes`` (of more than
     one rank) of every width the rules cut over them: attention heads,
-    MLP columns, the vocabulary, the RG-LRU's channels, the experts."""
+    MLP columns, the vocabulary, the RG-LRU's channels, Mamba2's heads,
+    the experts.  ``seq``: Megatron's sequence parallelism is on, and
+    the residual stream between the sublayers is the rank's block of the
+    sequence along the same axes
+    (:func:`repro_torch.distributed.tensor_parallel.sequence_parallel`)."""
 
     mesh: object
     axes: tuple
+    seq: bool = False
 
     @property
     def n(self) -> int:

@@ -24,8 +24,10 @@ partitioner's work, written out for ``torch.distributed`` ranks:
   ``"state"`` site of :mod:`repro_torch.utils.comm_stats`).  A dim that
   the rules cut over ``model`` and that the rank computes a block of
   (:func:`repro_torch.distributed.tensor_parallel.local_names`: attention
-  heads, MLP columns, the vocabulary, the RG-LRU's channels, the MoE's
-  experts under expert parallelism) is not gathered: the leaf reads as
+  heads, MLP columns, the vocabulary, the RG-LRU's channels, Mamba2's
+  heads (but its ``in_proj`` and conv, whose blocks are not whole heads),
+  the MoE's experts under expert parallelism) is not gathered: the leaf
+  reads as
   its ``model`` block, whole over its other axes
   (:attr:`Layout.gathered`: the specs it is gathered by), and the
   step runs under :meth:`Layout.model_cut`, on which the model code
@@ -198,19 +200,27 @@ def specs_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES):
 def gathered_specs(cfg, specs, mesh, rules, names=None) -> dict:
     """The parameters' specs ``specs`` less each dim whose logical axis
     the rank computes a block of (``names``; None:
-    :func:`repro_torch.distributed.tensor_parallel.local_names`): the
-    specs the leaves are gathered by.  A ``names`` without some of them
-    gives a layout that gathers those dims whole too (``Layout(mesh,
-    specs, rules, gathered)``)."""
+    :func:`repro_torch.distributed.tensor_parallel.local_names`; a leaf
+    by leaf decision, :func:`repro_torch.distributed.tensor_parallel
+    .computes_block`: Mamba2's ``in_proj`` and conv are gathered whole
+    on its cut heads): the specs the leaves are gathered by.  A ``names``
+    without some of them gives a layout that gathers those dims whole too
+    (``Layout(mesh, specs, rules, gathered)``)."""
     from repro_torch import models as M
-    from .tensor_parallel import local_names
+    from .tensor_parallel import computes_block, local_names
     if names is None:
         names = local_names(cfg, mesh, rules)
 
-    def drop(spec, axes):
-        return PartitionSpec(*(None if name in names else e
-                               for e, name in zip(spec, axes)))
-    return _map(drop, specs, M.logical_axes(cfg))
+    def drop(spec, axes, path):
+        return PartitionSpec(*(None if computes_block(path, name, names)
+                               else e for e, name in zip(spec, axes)))
+
+    def walk(tree, axes, path):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], axes[k], path + (k,))
+                    for k in sorted(tree)}
+        return drop(tree, axes, path)
+    return walk(specs, M.logical_axes(cfg), ())
 
 
 def layout_for(cfg, mesh, rules: sh.Rules = sh.DEFAULT_RULES) -> Layout:

@@ -35,17 +35,35 @@ and the model code computes on the blocks it is given:
   the rank's experts: :func:`repro_torch.distributed.moe_parallel
   .moe_ffn_ep` computes on it as it is.
 
+* Mamba2 on a rank's heads (``"ssm_inner"`` cut over ``model``, the
+  model extent dividing ``ssm_heads``): ``in_proj``, ``conv_w`` and
+  ``conv_b`` hold contiguous blocks of ``"ssm_inner"`` that mix z, x, B,
+  C and dt, so they are gathered whole where they are read
+  (:func:`computes_block` says which leaves; the rank's head columns are
+  sliced from them, B and C whole, through :func:`copy_in`), while
+  ``out_proj`` and the gated norm's weight are read as their blocks
+  (their rows are whole heads).  The gated norm's mean of squares is
+  summed over the cut (:func:`repro_torch.kernels.ops.rmsnorm_cut`, one
+  float32 a row all-reduced forward and one backward).
+* Megatron's sequence parallelism (``cfg.seq_parallel``,
+  :func:`sequence_parallel`): the residual stream between the sublayers
+  is the rank's block of S / n positions; a sublayer's input is
+  all-gathered over the sequence (:func:`enter`, whose backward is a
+  reduce-scatter) and its row product's partial sums reduce-scattered
+  back (:func:`leave`, whose backward is an all-gather), in place of
+  :func:`copy_in` / :func:`reduce_out`; the norms on the block take their
+  weights through :func:`copy_in` over :func:`seq_cut` (each rank's
+  gradient of them is a partial sum over its positions).  A sublayer whose width stays whole
+  computes the whole sequence on every rank, as it does without SP.
+
 Which widths are cut is the rules' decision, resolved once
 (:func:`local_names`): a leaf the rules leave whole over ``model``, or
-that ``sanitize`` keeps whole, is computed whole.  The model code reads
-it from the shapes it is given (:func:`split`).  What stays whole by
-design: Mamba2 (its ``in_proj`` is one ``(D, 2 di + 2 N + H)`` matrix on
-``"ssm_inner"`` whose contiguous ``model`` blocks of the concatenated z |
-xBC | dt columns do not line up with its heads), the MoE's routed
-experts under ``moe_impl="gspmd"`` (gathered whole: the sort-based
-dispatch runs on every expert), and every weight under
-``cfg.seq_parallel`` (Megatron-SP's reduce-scatter / all-gather form is
-not ported).
+that ``sanitize`` keeps whole, is computed whole, and so is a width that
+the model extent does not divide.  The model code reads it from the
+shapes it is given (:func:`split`).  What stays whole by design: the
+MoE's routed experts under ``moe_impl="gspmd"`` (gathered whole: the
+sort-based dispatch runs on every expert).  Sequence parallelism does
+not combine with ring attention or expert parallelism: those raise.
 
 Every collective here goes through :mod:`repro_torch.distributed.mesh`
 and is recorded at :mod:`repro_torch.utils.comm_stats`' ``"tp"`` site;
@@ -54,18 +72,25 @@ products a rank traces.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from .ctx import ModelCut, current_model_cut, spanning
-from .mesh import all_gather_dim, all_reduce
+from .ctx import ModelCut, current_model_cut, model_cut, spanning
+from .mesh import all_gather_dim, all_reduce, reduce_scatter_dim
 
 #: The logical axes whose widths a rank computes a block of, when the
 #: rules cut them over the mesh (the reference's "TP over model", and
 #: its expert parallelism).
-TP_NAMES = ("vocab", "heads", "mlp", "rnn", "experts")
+TP_NAMES = ("vocab", "heads", "mlp", "rnn", "ssm_inner", "experts")
+
+#: Mamba2's leaves on ``"ssm_inner"`` whose contiguous blocks mix z, x,
+#: B, C and dt: gathered whole where they are read, the rank's head
+#: columns sliced from them.
+MIXED = ("in_proj", "conv_w", "conv_b")
 
 SITE = "tp"
 
@@ -78,12 +103,22 @@ def local_names(cfg, mesh, rules) -> frozenset:
     are cut only where its gate blocks divide too, the experts only
     under expert parallelism (``moe_impl="ep"``, whose
     :func:`repro_torch.distributed.moe_parallel.moe_ffn_ep` raises
-    unless the experts with their pad divide the axis)."""
+    unless the experts with their pad divide the axis), Mamba2's
+    ``"ssm_inner"`` only where the extent divides its heads (the rank
+    computes whole heads); names no parameter of ``cfg`` carries are
+    left out.  ``cfg.seq_parallel`` changes none of them."""
+    from repro_torch import models as M
     from . import sharding as sh
-    if cfg.family == "ssm" or cfg.seq_parallel:
-        return frozenset()
+
+    def carried(tree):
+        if isinstance(tree, dict):
+            return set().union(*(carried(v) for v in tree.values()))
+        return set(tree)
+    present = carried(M.logical_axes(cfg))
     out = set()
     for name in TP_NAMES:
+        if name not in present:
+            continue
         entry = sh.spec_from_axes((name,), rules, mesh)
         ax = spanning(mesh, entry[0] if len(entry) else None)
         if not ax:
@@ -93,8 +128,21 @@ def local_names(cfg, mesh, rules) -> frozenset:
         if name == "rnn" and (cfg.family != "hybrid"
                               or cfg.num_heads % mesh.extent(ax)):
             continue
+        if name == "ssm_inner" and (cfg.family != "ssm"
+                                    or cfg.ssm_heads % mesh.extent(ax)):
+            continue
         out.add(name)
     return frozenset(out)
+
+
+def computes_block(path: tuple, name: str, names) -> bool:
+    """Whether a rank reads the leaf at ``path`` as its block along the
+    dim of logical axis ``name`` (the rank computes on that block), given
+    the cut names ``names``; else it gathers that dim whole.  Mamba2's
+    :data:`MIXED` leaves are gathered whole: their blocks are not whole
+    heads."""
+    return name in names and not (name == "ssm_inner" and path
+                                  and path[-1] in MIXED)
 
 
 def split(local: int, width: int) -> Optional[ModelCut]:
@@ -110,6 +158,132 @@ def split(local: int, width: int) -> Optional[ModelCut]:
             f"model cut is {tp}: run under ctx.model_cut with the "
             f"layout's cut (rank_local.Layout.model_cut)")
     return tp
+
+
+# ---------------------------------------------------------------------------
+# Megatron's sequence parallelism
+# ---------------------------------------------------------------------------
+def seq_cut() -> Optional[ModelCut]:
+    """The current model cut where sequence parallelism is on, else
+    None."""
+    tp = current_model_cut()
+    return tp if tp is not None and tp.seq else None
+
+
+def applies(cfg, seq: int) -> bool:
+    """Whether a forward over ``seq`` positions runs sequence-parallel
+    under the current model cut: ``cfg.seq_parallel``, a cut, and a
+    sequence of more than one position that divides by its extent (a
+    decode step, or a sequence that does not divide, runs as TP alone,
+    as the reference's ``sanitize`` drops the axis)."""
+    tp = current_model_cut()
+    return bool(cfg.seq_parallel and tp is not None and seq > 1
+                and seq % tp.n == 0)
+
+
+@contextlib.contextmanager
+def sequence_parallel(cfg, seq: int):
+    """Run the block with the current model cut's sequence parallelism on
+    where :func:`applies` (the residual stream is then the rank's block of
+    ``seq / n`` positions); yields whether it is.  Ring attention and
+    expert parallelism do not combine with it: they raise."""
+    on = applies(cfg, seq)
+    if on and cfg.ring_attention:
+        raise ValueError("seq_parallel with ring_attention: the ring "
+                         "shards the sequence over 'model' itself; set one")
+    if on and cfg.moe_num_experts and cfg.moe_impl == "ep":
+        raise ValueError("seq_parallel with moe_impl='ep': expert "
+                         "parallelism takes the whole sequence of a rank's "
+                         "rows; use moe_impl='gspmd'")
+    if not on:
+        yield False
+        return
+    with model_cut(dataclasses.replace(current_model_cut(), seq=True)):
+        yield True
+
+
+def _seq_block(sp: ModelCut, x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[1] // sp.n
+    return x.narrow(1, sp.index * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
+class _SeqGather(torch.autograd.Function):
+    """The whole sequence from the ranks' blocks (dim 1); backward: the
+    sum of the ranks' partial gradients cut to this rank's block (a
+    reduce-scatter), or, where every rank computed the same gradient
+    (``summed`` False), this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, sp, summed):
+        ctx.sp, ctx.summed = sp, summed
+        return all_gather_dim(sp.mesh, x, sp.axes, 1, site=SITE)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            return reduce_scatter_dim(ctx.sp.mesh, g, ctx.sp.axes, 1,
+                                      site=SITE), None, None
+        return _seq_block(ctx.sp, g), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """The ranks' partial sums over the whole sequence, reduce-scattered
+    to this rank's block; backward: the all-gather of the blocks'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return reduce_scatter_dim(sp.mesh, x, sp.axes, 1, site=SITE)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(ctx.sp.mesh, g, ctx.sp.axes, 1,
+                              site=SITE), None
+
+
+class _SeqTake(torch.autograd.Function):
+    """This rank's block of a sequence every rank computed whole;
+    backward: the all-gather of the blocks' gradients (every rank then
+    runs the whole backward, as it ran the whole forward)."""
+
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return _seq_block(sp, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(ctx.sp.mesh, g, ctx.sp.axes, 1,
+                              site=SITE), None
+
+
+def enter(tp: Optional[ModelCut], x: torch.Tensor) -> torch.Tensor:
+    """A sublayer's input ``x`` (B, S, ...) into its region: without
+    sequence parallelism :func:`copy_in` (``tp``: the sublayer's cut, None
+    where its width is whole); with it the all-gather of the sequence,
+    whose backward reduce-scatters the partial gradients (or, where the
+    width is whole and every rank computes alike, takes the rank's
+    block)."""
+    sp = seq_cut()
+    if sp is None:
+        return copy_in(tp, x)
+    return _SeqGather.apply(x, sp, tp is not None)
+
+
+def leave(tp: Optional[ModelCut], x: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output ``x`` (B, S, ...) back to the residual stream:
+    without sequence parallelism :func:`reduce_out`; with it the
+    reduce-scatter of the partial sums to the rank's block of the
+    sequence (where the width is whole, the rank's block of the whole
+    output); the backward all-gathers the gradient."""
+    sp = seq_cut()
+    if sp is None:
+        return reduce_out(tp, x)
+    if tp is None:
+        return _SeqTake.apply(x, sp)
+    return _SeqScatter.apply(x, sp)
 
 
 class _CopyIn(torch.autograd.Function):
@@ -232,8 +406,8 @@ def argmax(tp: Optional[ModelCut], logits: torch.Tensor) -> torch.Tensor:
 def _cut(cfg, names, n: int) -> dict:
     """The width each product computes on a rank, given the logical axes
     ``names`` that are cut ``n`` ways: heads, MLP columns (and the MoE's
-    shared expert's), vocabulary, RG-LRU channels, and whether each is
-    cut."""
+    shared expert's), vocabulary, RG-LRU channels, Mamba2's heads, and
+    whether each is cut."""
     def w(name, width):
         return width // n if name in names and width % n == 0 else width
     di = cfg.d_model
@@ -242,7 +416,16 @@ def _cut(cfg, names, n: int) -> dict:
             "shared": (w("mlp", cfg.moe_shared_d_ff)
                        if cfg.moe_shared_d_ff else 0),
             "vocab": w("vocab", cfg.vocab_size),
-            "rnn": w("rnn", di)}
+            "rnn": w("rnn", di),
+            "ssm": w("ssm_inner", cfg.ssm_heads) if cfg.ssm_heads else 0}
+
+
+def seq_parallel_on(cfg, names, n: int, seq: int, kind: str) -> bool:
+    """Whether a step of ``kind`` over ``seq`` positions runs
+    sequence-parallel (:func:`applies`, from the arithmetic's side: a
+    width is cut, so the step runs under a model cut)."""
+    return bool(cfg.seq_parallel and names and n > 1 and kind != "decode"
+                and seq > 1 and seq % n == 0)
 
 
 def collectives(cfg, names, n: int, rows: int, seq: int,
@@ -252,9 +435,9 @@ def collectives(cfg, names, n: int, rows: int, seq: int,
     are cut ``n`` ways, each a ``(count, result bytes)``: ``"unit"`` one
     layer's (or pattern group's), ``"tail"`` one of the hybrid's
     trailing rec blocks (run outside the remat regions), ``"rest"`` the
-    embedding's, the head's and the loss's, each as ``{"fwd", "bwd"}``:
-    one forward run (a remat recompute runs a unit's again:
-    :func:`step_collectives`) and one backward; and the unit's
+    embedding's, the final norm's, the head's and the loss's, each as
+    ``{"fwd", "bwd"}``: one forward run (a remat recompute runs a unit's
+    again: :func:`step_collectives`) and one backward; and the unit's
     ``"last"``, the forward's collectives after its last product (a
     unit's own recompute stops before it).  ``kind``: ``"train"`` (the
     loss's too), ``"prefill"`` / ``"decode"`` (the greedy argmax's, no
@@ -262,9 +445,19 @@ def collectives(cfg, names, n: int, rows: int, seq: int,
     all-gathered where the cache's slots are cut, ``seq_cut``).  Under
     ring attention (no window, ``seq`` dividing by ``n``, not a decode)
     a unit's attention trades its query heads for a sequence block and
-    back, two tiled all-to-alls a forward and two a backward.  Result
-    bytes: an all-reduce's operand, an all-gather's result, an
-    all-to-all's operand."""
+    back, two tiled all-to-alls a forward and two a backward.  Under
+    sequence parallelism (:func:`seq_parallel_on`) each sublayer's input
+    is all-gathered over the sequence and its output reduce-scattered
+    (a whole width's output is the rank's block, no collective), the
+    backward the other way round, and each norm on the residual stream
+    sums its weight's gradient; a prefill gathers the last hidden
+    states before the head.  Mamba2 on a rank's heads sums its gated
+    norm's squares forward and its rows' dot products backward (one
+    value of the compute dtype a row), and the gradients of the weights
+    it reads whole (``in_proj``, ``conv_w``, ``conv_b``, ``a_log``,
+    ``d_skip``, ``dt_bias``).  Result bytes: an all-reduce's operand, an
+    all-gather's result, an all-to-all's operand, a reduce-scatter's
+    result.  The VLM's frontend inputs are not counted."""
     w = _cut(cfg, names, n)
     act = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     par = torch.empty((), dtype=getattr(torch, cfg.param_dtype)
@@ -275,6 +468,7 @@ def collectives(cfg, names, n: int, rows: int, seq: int,
     gather = kind == "decode" and seq_cut
     ring = (cfg.ring_attention and cfg.window is None and kind != "decode"
             and seq % n == 0)
+    sp = seq_parallel_on(cfg, names, n, seq, kind)
 
     def tally():
         return {"fwd": [0, 0], "bwd": [0, 0]}
@@ -283,10 +477,33 @@ def collectives(cfg, names, n: int, rows: int, seq: int,
         t[way][0] += count
         t[way][1] += count * nbytes
 
+    def enter(t, cut):
+        if sp:
+            add(t, "fwd", 1, resid)                 # the sequence gathered
+            if cut:
+                add(t, "bwd", 1, resid // n)        # its reduce-scatter
+        elif cut:
+            add(t, "bwd", 1, resid)                 # copy-in's all-reduce
+
+    def leave(t, cut):
+        if sp:
+            if cut:
+                add(t, "fwd", 1, resid // n)        # the reduce-scatter
+            add(t, "bwd", 1, resid)                 # the gradient gathered
+        elif cut:
+            add(t, "fwd", 1, resid)                 # reduce-out
+
+    def norm(t):
+        if sp:
+            add(t, "bwd", 1, d * par)
+
     def attention(t):
-        if w["heads"] == cfg.num_heads:
+        cut = w["heads"] != cfg.num_heads
+        norm(t)
+        enter(t, cut)
+        leave(t, cut)                               # wo's sum
+        if not cut:
             return
-        add(t, "fwd", 1, resid)                     # wo's reduce-out
         if ring:
             # q to sequence blocks, the output back to heads
             heads = rows * w["heads"] * seq * cfg.head_dim * act
@@ -294,58 +511,95 @@ def collectives(cfg, names, n: int, rows: int, seq: int,
             add(t, "bwd", 2, heads)
         if gather:
             add(t, "fwd", 1, rows * cfg.num_heads * cfg.head_dim * act)
-        # copy-in of the input, of wk and wv, of the q/k norms
-        add(t, "bwd", 1, resid)
+        # copy-in of wk and wv, of the q/k norms
         add(t, "bwd", 2, d * cfg.num_kv_heads * cfg.head_dim * par)
         if cfg.qk_norm:
             add(t, "bwd", 2, cfg.head_dim * par)
 
     def rec(t):
-        if w["rnn"] == d:
+        cut = w["rnn"] != d
+        norm(t)
+        enter(t, cut)
+        leave(t, cut)                               # out_proj's sum
+        if cut:
+            bs = d // cfg.num_heads
+            add(t, "bwd", 2, cfg.num_heads * bs * bs * par)   # w_a, w_i
+
+    def mamba(t):
+        nh = cfg.ssm_heads
+        cut = w["ssm"] != nh
+        norm(t)
+        enter(t, cut)
+        leave(t, cut)                               # out_proj's sum
+        if not cut:
             return
-        add(t, "fwd", 1, resid)                     # out_proj's sum
-        add(t, "bwd", 1, resid)                     # the input's
-        bs = d // cfg.num_heads
-        add(t, "bwd", 2, cfg.num_heads * bs * bs * par)   # w_a, w_i
+        ct = 8 if cfg.dtype == "float64" else 4
+        add(t, "fwd", 1, tok * ct)                  # the gated norm's squares
+        add(t, "bwd", 1, tok * ct)                  # its rows' dot products
+        conv = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        for width in (d * (conv + cfg.d_inner + nh),     # in_proj
+                      cfg.conv_width * conv, conv,       # conv_w, conv_b
+                      nh, nh, nh):                  # a_log, d_skip, dt_bias
+            add(t, "bwd", 1, width * par)
 
     def mlp(t, width, local):
-        if width and local != width:
-            add(t, "fwd", 1, resid)
-            add(t, "bwd", 1, resid)
+        if width:
+            enter(t, local != width)
+            leave(t, local != width)
 
     unit, tail = tally(), tally()
     if cfg.family == "hybrid":
         for b in cfg.block_pattern:
             (rec if b == "rec" else attention)(unit)
+            norm(unit)
             mlp(unit, cfg.d_ff, w["mlp"])
         rec(tail)
+        norm(tail)
         mlp(tail, cfg.d_ff, w["mlp"])
+    elif cfg.family == "ssm":
+        mamba(unit)
     else:
         attention(unit)
+        norm(unit)
         if cfg.moe_num_experts:
+            enter(unit, False)                      # the routed experts,
+            leave(unit, False)                      # whole on every rank
             mlp(unit, cfg.moe_shared_d_ff, w["shared"])
             if cfg.moe_dense_parallel:
                 mlp(unit, cfg.d_ff, w["mlp"])
         else:
             mlp(unit, cfg.d_ff, w["mlp"])
-    # the unit's last product: its last MLP's down product, whose sum
-    # follows it where that MLP is cut
-    if cfg.moe_num_experts and not cfg.moe_dense_parallel:
+    # the unit's last product: its last sublayer's row product, whose sum
+    # follows it where that width is cut
+    if cfg.family == "ssm":
+        last = w["ssm"] != cfg.ssm_heads
+    elif cfg.moe_num_experts and not cfg.moe_dense_parallel:
         last = cfg.moe_shared_d_ff and w["shared"] != cfg.moe_shared_d_ff
     else:
         last = w["mlp"] != cfg.d_ff
-    unit["last"] = [1, resid] if last else [0, 0]
+    unit["last"] = ([1, resid // n if sp else resid] if last else [0, 0])
 
     rest = tally()
-    if w["vocab"] != cfg.vocab_size:
-        add(rest, "fwd", 1, tok * d * par)          # the lookup
-        cb = max(cfg.num_codebooks, 1)
-        if kind == "train":
-            add(rest, "bwd", 1, resid)              # the head's input
+    vcut = w["vocab"] != cfg.vocab_size
+    lookup = tok * d * par
+    if sp:
+        if vcut:
+            add(rest, "fwd", 1, lookup // n)        # the lookup scattered
+        add(rest, "bwd", 1, lookup)                 # its gradient gathered
+    elif vcut:
+        add(rest, "fwd", 1, lookup)                 # the lookup
+    norm(rest)                                      # the final norm
+    cb = max(cfg.num_codebooks, 1)
+    if kind == "train":
+        enter(rest, vcut)                           # the head's input
+        if vcut:
             pos = rows * (seq - 1) * cb
             add(rest, "fwd", 1, pos * lg)           # the row maximum
             add(rest, "fwd", 1, 2 * pos * lg)       # sumexp, target
-        else:
+    else:
+        if sp:
+            add(rest, "fwd", 1, resid)              # the hidden gathered
+        if vcut:
             add(rest, "fwd", 1, n * 2 * rows * cb * lg)  # the argmax
     return {k: {way: tuple(v) for way, v in t.items()}
             for k, t in (("unit", unit), ("tail", tail), ("rest", rest))}
@@ -395,12 +649,23 @@ def serve_collectives(cfg, names, n: int, rows: int, seq: int,
 
 
 def _layer_products(cfg, names, n: int, rows: int, seq: int) -> list:
-    """The products of one dense decoder layer's forward on a rank, in
-    the order they run, as multiply-adds: ``[(name, MACs), ...]``; the
-    plain attention's masked scores count whole (the trace's
-    ``torch.einsum`` computes every score)."""
+    """The products of one layer's forward on a rank, in the order they
+    run, as multiply-adds: ``[(name, MACs), ...]``.  A dense decoder
+    layer's, the plain attention's masked scores counted whole (the
+    trace's ``torch.einsum`` computes every score); a Mamba2 layer's,
+    its plain SSD scan's products chunk by chunk (:func:`_ssd_products`)
+    as one entry."""
     w = _cut(cfg, names, n)
-    tok, d, dh = rows * seq, cfg.d_model, cfg.head_dim
+    tok, d = rows * seq, cfg.d_model
+    if cfg.family == "ssm":
+        hl, p = w["ssm"], cfg.ssm_headdim
+        gn = cfg.ssm_groups * cfg.ssm_state
+        if hl != cfg.ssm_heads:     # the rank's groups: one, or whole ones
+            gn = max(gn * hl // cfg.ssm_heads, cfg.ssm_state)
+        return [("in_proj", tok * d * (2 * hl * p + 2 * gn + hl)),
+                ("ssd", _ssd_products(cfg, rows, seq, hl)[0]),
+                ("out_proj", tok * hl * p * d)]
+    dh = cfg.head_dim
     hl, kv = w["heads"], cfg.num_kv_heads
     return [("q", tok * d * hl * dh), ("k", tok * d * kv * dh),
             ("v", tok * d * kv * dh),
@@ -411,31 +676,53 @@ def _layer_products(cfg, names, n: int, rows: int, seq: int) -> list:
             ("down", tok * w["mlp"] * d)]
 
 
+def _ssd_products(cfg, rows: int, seq: int, heads: int) -> tuple:
+    """``(forward, backward)`` MACs of the plain SSD scan
+    (:func:`repro_torch.kernels.ssd_chunk_scan.ssd_torch`) on ``heads``
+    heads of ``rows`` x ``seq``: per chunk of L the scores ``C B^T`` (L L
+    N), their product with x (L L P), the inter-chunk output ``C S^T`` (L
+    N P) and the state's update ``(x w)^T B`` (P L N).  Autograd takes
+    each product's two operand gradients, but the first chunk's ``C S^T``
+    (S is zero there, with no gradient) only one, and the last chunk's
+    state update none (the final state is not used)."""
+    L, N, P = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_headdim
+    nc = -(-seq // L)
+    bh = rows * heads
+    fwd = bh * nc * (L * L * N + L * L * P + 2 * L * N * P)
+    bwd = bh * (nc * 2 * (L * L * N + L * L * P) + (2 * nc - 1) * L * N * P
+                + 2 * (nc - 1) * L * N * P)
+    return fwd, bwd
+
+
 def train_flops(cfg, names, n: int, rows: int, seq: int,
                 microbatches: int = 1) -> float:
     """The product flops (2 a multiply-add) a rank traces in one train
-    step of a dense transformer (``torch.utils.flop_counter``, the plain
-    attention): each product forward once a layer forward
-    (``layer_forward_runs``) and twice more in the backward (its two
-    operands' gradients), the head's likewise.  A layer's own recompute
-    stops before its last product (``torch.utils.checkpoint`` stops
-    once it holds every tensor the backward saved, and ``w_down``'s
-    inputs are saved before it runs), so with remat each layer's
-    ``down`` runs once less than its other products.  Under ring
-    attention on a rank's heads the ring's blocks take every head on the
-    rank's block of S / n queries against every key, masked blocks
-    included: ``H x S / n x S``, the count of the rank's H / n heads
-    over the whole sequence."""
+    step of a dense transformer or of Mamba2 (``torch.utils
+    .flop_counter``, the plain attention and SSD scan): each product
+    forward once a layer forward (``layer_forward_runs``) and twice more
+    in the backward (its two operands' gradients; the SSD scan's as
+    :func:`_ssd_products` counts), the head's likewise.  A layer's own
+    recompute stops before its last product (``torch.utils.checkpoint``
+    stops once it holds every tensor the backward saved, and ``w_down``'s
+    or ``out_proj``'s inputs are saved before it runs), so with remat
+    each layer's last product runs once less than its others.  Under
+    ring attention on a rank's heads the ring's blocks take every head on
+    the rank's block of S / n queries against every key, masked blocks
+    included: ``H x S / n x S``, the count of the rank's H / n heads over
+    the whole sequence.  Sequence parallelism moves no product."""
     from repro_torch.models.common import layer_forward_runs
-    if cfg.family != "dense":
-        raise ValueError(f"train_flops counts the dense family, not "
-                         f"{cfg.family!r}")
+    if cfg.family not in ("dense", "ssm"):
+        raise ValueError(f"train_flops counts the dense and ssm families, "
+                         f"not {cfg.family!r}")
     w = _cut(cfg, names, n)
     L = cfg.num_layers
     runs = layer_forward_runs(cfg, L)
     prods = _layer_products(cfg, names, n, rows, seq)
     per = sum(m for _, m in prods)
     macs = (runs + 2 * L) * per
+    if cfg.family == "ssm":
+        fwd, bwd = _ssd_products(cfg, rows, seq, w["ssm"])
+        macs += L * (bwd - 2 * fwd)
     if cfg.remat != "none":
         macs -= L * prods[-1][1]
     macs += 3 * rows * seq * cfg.d_model * w["vocab"]

@@ -44,6 +44,8 @@ _COUNTERS = {
                                  "d256_launches"),
     "rmsnorm": (rmsnorm, "rmsnorm", "launches"),
     "rmsnorm_bwd": (rmsnorm, "rmsnorm_bwd", "launches"),
+    "rmsnorm_cut": (rmsnorm, "rmsnorm_cut", "launches"),
+    "rmsnorm_cut_bwd": (rmsnorm, "rmsnorm_cut_bwd", "launches"),
     "ssd_chunk_scan": (ssd_chunk_scan, "ssd_chunk_scan", "launches"),
     "ssd_chunk_scan_mma": (ssd_chunk_scan, "ssd_chunk_scan", "mma_launches"),
     "ssd_chunk_scan_bwd": (ssd_chunk_scan, "ssd_chunk_scan_bwd", "launches"),

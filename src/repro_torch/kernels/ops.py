@@ -11,8 +11,8 @@ oracles of :mod:`repro_torch.kernels.ref`, as the reference's
 that fails to build or launch raises.
 
 Gradients: ``impl="torch"`` is plain autograd through the plain
-versions.  On ``impl="cuda"``, :func:`rmsnorm`, :func:`attention`,
-:func:`linear_recurrence` and :func:`ssd_scan` go through
+versions.  On ``impl="cuda"``, :func:`rmsnorm`, :func:`rmsnorm_cut`,
+:func:`attention`, :func:`linear_recurrence` and :func:`ssd_scan` go through
 ``torch.autograd.Function`` objects whose backward launches the backward
 kernels whenever an input requires a gradient (the plain kernel call
 otherwise, as in serving).  A float64 call runs the plain versions only,
@@ -164,6 +164,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     if _wants_grad(x, w):
         return _rms.RMSNormFunction.apply(x, w, eps)
     return _rms.rmsnorm(x, w, eps=eps)
+
+
+def rmsnorm_cut(x: torch.Tensor, w: torch.Tensor, reduce, *, width: int,
+                eps: float = 1e-6, impl: Optional[str] = None) -> torch.Tensor:
+    """RMSNorm of rows whose ``width`` columns are cut over ranks: ``x``
+    (..., d) and ``w`` (d,) this rank's columns, ``reduce`` the sum of a
+    tensor of the rows' partial sums over the ranks (an all-reduce; on
+    the plain version it carries the gradient, a ``psum``)."""
+    _rms.check_inputs(x, w, plain=impl == "torch")
+    if _resolve(impl, x) == "torch":
+        return _ref.rmsnorm_cut_ref(x, w, reduce, width=width, eps=eps)
+    if _wants_grad(x, w):
+        return _rms.RMSNormCutFunction.apply(x, w, reduce, width, eps)
+    return _rms.rmsnorm_cut(x, w, reduce, width=width, eps=eps)
 
 
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor, *,

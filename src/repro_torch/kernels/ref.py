@@ -114,6 +114,19 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-6):
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.to(ct))).to(x.dtype)
 
 
+def rmsnorm_cut_ref(x, w, reduce, *, width: int, eps: float = 1e-6):
+    """:func:`rmsnorm_ref` of rows whose ``width`` columns are cut over
+    ranks: ``x`` (..., d) and ``w`` (d,) are this rank's columns, and
+    ``reduce`` sums each row's partial sum of squares (a (rows...)
+    tensor in the compute dtype) over the ranks.  With ``reduce`` the
+    identity and ``width`` d it is :func:`rmsnorm_ref`."""
+    ct = compute_dtype(x)
+    xf = x.to(ct)
+    ss = reduce(torch.sum(xf * xf, dim=-1))
+    r = torch.rsqrt(ss[..., None] / width + eps)
+    return (xf * r * (1.0 + w.to(ct))).to(x.dtype)
+
+
 def linear_recurrence_ref(a, b, h0=None):
     """``h_t = a_t * h_{t-1} + b_t`` over ``(B, T, D)``, one time step at a
     time from ``h0`` (zeros by default), in float32; returned in b's

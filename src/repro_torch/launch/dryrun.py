@@ -45,12 +45,13 @@ A rank computes only its rows of the batch (the train step's
 ``Layout.row_cut``, the serve steps' ``serving_cut``) and only its
 blocks of the products the rules cut over ``model`` (attention heads,
 under ring attention too, MLP columns, the vocabulary, the RG-LRU's
-channels: :mod:`repro_torch.distributed.tensor_parallel`, whose
-collectives, the ring's exchanges of heads for sequence blocks among
-them, are recorded at the ``"tp"`` site and whose ``train_flops`` is a
-dense rank's traced products), so rank 0's flops are its rows' share of
-the global step's less what the ``model`` axis cuts; the key and value
-products (``kv_heads`` map to no axis), Mamba2 and the MoE's routed
+channels, Mamba2's heads: :mod:`repro_torch.distributed.tensor_parallel`,
+whose collectives, the ring's exchanges of heads for sequence blocks
+and ``--sp``'s gathers and reduce-scatters of the sequence among them,
+are recorded at the ``"tp"`` site and whose ``train_flops`` is a dense
+or Mamba2 rank's traced products), so rank 0's flops are its rows'
+share of the global step's less what the ``model`` axis cuts; the key
+and value products (``kv_heads`` map to no axis) and the MoE's routed
 experts under ``moe_impl="gspmd"`` stay whole on every rank along
 ``model`` (under expert parallelism a rank holds and computes its
 experts' block).
@@ -104,7 +105,7 @@ from repro_torch.models.common import _auto_block
 from repro_torch.models.config import SHAPES_BY_NAME, shapes_for
 from repro_torch.optim import AdamWConfig
 from repro_torch.serve import make_prefill_step, make_serve_step
-from repro_torch.serve.step import cache_specs, serving_cut
+from repro_torch.serve.step import cache_block, serving_cut
 from repro_torch.train import (
     TrainState, make_train_step, state_logical_axes, state_spec)
 from repro_torch.utils import comm_stats
@@ -283,11 +284,8 @@ def _inputs(cfg, shape, st):
 
 def _cache_blocks(cfg, shape, mesh, rules) -> dict:
     """A decode cell's cache as meta tensors of rank 0's blocks
-    (:func:`repro_torch.serve.step.cache_specs`)."""
-    return rank_local.block_spec(
-        SP.decode_specs(cfg, shape)["cache"],
-        cache_specs(cfg, shape.global_batch, shape.seq_len, mesh, rules),
-        mesh)
+    (:func:`repro_torch.serve.step.cache_block`)."""
+    return cache_block(cfg, shape.global_batch, shape.seq_len, mesh, rules)
 
 
 def _held_bytes(cfg, shape, st, blocks, layout, microbatches) -> int:

@@ -16,7 +16,12 @@ is being recorded.  A float64 model (the arbiter of the kernels' float32
 gradients) computes RoPE and its logits in float64.  Where a weight
 holds a rank's block of its heads, columns or vocabulary (a rank-local
 model under a :class:`repro_torch.distributed.ctx.ModelCut`), the layer
-computes that block (:mod:`repro_torch.distributed.tensor_parallel`).
+computes that block (:mod:`repro_torch.distributed.tensor_parallel`),
+and under Megatron's sequence parallelism the residual stream is the
+rank's block of the sequence: each sublayer enters through
+``tensor_parallel.enter`` and leaves through ``tensor_parallel.leave``,
+and the norms on the stream (:func:`block_norm`) take their weights
+through ``copy_in``.
 """
 from __future__ import annotations
 
@@ -166,6 +171,45 @@ def rmsnorm(cfg: ModelConfig, w, x):
     return kops.rmsnorm(x, w, eps=cfg.rms_eps, impl=kernel_impl(cfg))
 
 
+def block_norm(cfg: ModelConfig, w, x):
+    """A norm on the residual stream: :func:`rmsnorm`; under sequence
+    parallelism the rank normalises its block of positions, so its
+    gradient of the weight is a partial sum (``copy_in`` over the
+    sequence's cut)."""
+    return rmsnorm(cfg, tpar.copy_in(tpar.seq_cut(), w), x)
+
+
+def rmsnorm_cut(cfg: ModelConfig, tp, w, x, width: int):
+    """:func:`rmsnorm` of rows whose ``width`` columns are cut over the
+    model cut ``tp`` (``x`` and ``w`` the rank's columns): each row's sum
+    of squares summed over the cut (a ``psum`` at the ``"tp"`` site),
+    :func:`repro_torch.kernels.ops.rmsnorm_cut`; ``tp`` None: the whole
+    row's :func:`rmsnorm`."""
+    if tp is None:
+        return rmsnorm(cfg, w, x)
+    from repro_torch.distributed.comm import psum
+
+    def reduce(t):
+        return psum(tp.mesh, t, tp.axes, site=tpar.SITE)
+    return kops.rmsnorm_cut(x, w, reduce, width=width, eps=cfg.rms_eps,
+                            impl=kernel_impl(cfg))
+
+
+def held_width(mod, name: str, dim: int) -> int:
+    """The width along ``dim`` that a read of ``mod``'s parameter
+    ``name`` gives, without reading it (a read of a rank-local parameter
+    gathers it): its block grown by the axes its parametrization gathers
+    that dim over."""
+    from torch.nn.utils import parametrize
+    if not parametrize.is_parametrized(mod, name):
+        return mod[name].shape[dim]
+    g = getattr(mod.parametrizations, name)
+    spec = g[0].spec
+    grow = g[0].mesh.extent(spec[dim]) if len(spec) > dim and spec[dim] \
+        else 1
+    return g.original.shape[dim] * grow
+
+
 @functools.lru_cache(maxsize=None)
 def _rope_freqs_np(dh: int, theta: float) -> np.ndarray:
     """The reference's float32 RoPE frequencies, computed in numpy."""
@@ -227,8 +271,10 @@ def attn_qkv(cfg: ModelConfig, p, x, positions, tp=None, wq=None):
     ``tp`` (the heads cut, :mod:`repro_torch.distributed.tensor_parallel`)
     the input and the weights the rank applies whole (``wk``, ``wv``,
     the norms) come in through ``copy_in``: each rank's gradient of them
-    is a partial sum over its heads."""
-    x = tpar.copy_in(tp, x)
+    is a partial sum over its heads.  Under sequence parallelism the
+    input is the rank's block of the sequence, gathered here
+    (``tensor_parallel.enter``)."""
+    x = tpar.enter(tp, x)
     wq = p["wq"] if wq is None else wq
     q = torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x,
@@ -308,7 +354,7 @@ def attend(cfg: ModelConfig, p, x, positions, *, window=None):
     out = full_attention(cfg, q.movedim(2, 1), kh, vh, window=window)
     out = out.movedim(1, 2)                   # (B, S, H, Dh)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return tpar.reduce_out(tp, out), kh, vh
+    return tpar.leave(tp, out), kh, vh
 
 
 def attention(cfg: ModelConfig, p, x, positions, *, window=None):
@@ -413,14 +459,16 @@ def mlp(p, x, width: Optional[int] = None):
     """The SwiGLU MLP of ``x``.  ``width``: its hidden width; where
     ``p`` holds a block of its columns (the ``mlp`` axis cut over
     ``model``) the input comes in through ``copy_in`` and the down
-    product is summed over the cut.  None: the width ``p`` holds."""
+    product is summed over the cut (under sequence parallelism ``x`` is
+    the rank's block of the sequence: ``tensor_parallel.enter`` /
+    ``leave``).  None: the width ``p`` holds."""
     w_gate = p["w_gate"]
     tp = tpar.split(w_gate.shape[1],
                     w_gate.shape[1] if width is None else width)
-    x = tpar.copy_in(tp, x)
+    x = tpar.enter(tp, x)
     g = x @ w_gate.to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
-    return tpar.reduce_out(tp, (F.silu(g) * u) @ p["w_down"].to(x.dtype))
+    return tpar.leave(tp, (F.silu(g) * u) @ p["w_down"].to(x.dtype))
 
 
 # -- embeddings / head -------------------------------------------------------
@@ -452,7 +500,10 @@ def embed_tokens(cfg: ModelConfig, p, tokens, dtype):
     reference does.  Where the table holds a block of the vocabulary's
     rows (cut over ``model``), each rank looks up the tokens in its
     block, sums its codebooks' rows, and the sum over the cut is the
-    lookup (``reduce_out``)."""
+    lookup (``reduce_out``).  Under sequence parallelism the result is
+    the rank's block of the sequence: the ranks' lookups
+    reduce-scattered, or, with the vocabulary whole, the block of the
+    lookup (``tensor_parallel.leave``)."""
     table = p["embedding"]
     tp = tpar.split(table.shape[0], cfg.vocab_size)
     if tp is not None:
@@ -463,14 +514,14 @@ def embed_tokens(cfg: ModelConfig, p, tokens, dtype):
                 x = x + tpar.embed(tp, extra[c], tokens[..., c + 1])
         else:
             x = tpar.embed(tp, table, tokens)
-        return tpar.reduce_out(tp, x).to(dtype)
+        return tpar.leave(tp, x).to(dtype)
     if cfg.num_codebooks > 1:
         x = table[tokens[..., 0]]
         for c in range(cfg.num_codebooks - 1):
             x = x + p["codebook_embed"][c][tokens[..., c + 1]]
     else:
         x = table[tokens]
-    return x.to(dtype)
+    return tpar.leave(None, x).to(dtype)
 
 
 def lm_logits(cfg: ModelConfig, p, x):
@@ -478,9 +529,11 @@ def lm_logits(cfg: ModelConfig, p, x):
     main head's logits, then each codebook head's (float64 for a float64
     x).  Where the head holds a block of the vocabulary's columns (cut
     over ``model``), the logits are this rank's block of them, its input
-    in through ``copy_in``."""
+    in through ``copy_in``; under sequence parallelism ``x`` is the
+    rank's block of the sequence, gathered first
+    (``tensor_parallel.enter``)."""
     head = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
-    x = tpar.copy_in(tpar.split(head.shape[-1], cfg.vocab_size), x)
+    x = tpar.enter(tpar.split(head.shape[-1], cfg.vocab_size), x)
     logits = x @ head.to(x.dtype)
     if cfg.num_codebooks > 1:
         extra = torch.einsum("bsd,cdv->bscv", x,
@@ -500,12 +553,16 @@ def apply_frontend(cfg: ModelConfig, p, x, frontend_inputs):
     ``x.dtype`` and overwrite the first ``num_patches`` positions, as the
     reference's concatenate does (a prompt shorter than the patches comes
     out as long as the patches, as there).  Other frontends, or no
-    inputs, leave ``x`` as it is.
+    inputs, leave ``x`` as it is.  Under sequence parallelism ``x`` is
+    the rank's block of the sequence: the whole is gathered, spliced and
+    cut again.
     """
     if cfg.frontend == "vision_stub" and frontend_inputs is not None:
+        x = tpar.enter(None, x)
         patches = torch.einsum("bpe,ed->bpd", frontend_inputs.to(x.dtype),
                                p["patch_proj"].to(x.dtype))
         x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+        x = tpar.leave(None, x)
     return x
 
 
@@ -516,11 +573,11 @@ def constrain_act(x, cfg: "ModelConfig | None" = None):
     (:func:`repro_torch.distributed.ctx.constrain`); the values pass
     unchanged.  What cuts the compute is elsewhere: a rank holds only its
     rows of the batch under a :class:`repro_torch.distributed.ctx
-    .RowCut`, and the residual stream is whole over ``model`` between the
-    layers' column and row products
-    (:mod:`repro_torch.distributed.tensor_parallel`); with
-    ``cfg.seq_parallel`` no weight is cut over ``model`` (Megatron-SP's
-    reduce-scatter form is not ported)."""
+    .RowCut`; between the layers' column and row products the residual
+    stream is whole over ``model``, or, with ``cfg.seq_parallel`` under a
+    model cut (``tensor_parallel.sequence_parallel``), the rank's block
+    of the sequence, gathered into each sublayer and reduce-scattered
+    out of it (:mod:`repro_torch.distributed.tensor_parallel`)."""
     from repro_torch.distributed.ctx import constrain
     seq_axis = "seq_sp" if (cfg is not None and cfg.seq_parallel) else "seq"
     return constrain(x, ("batch", seq_axis, "act_embed"))

@@ -13,6 +13,19 @@ kernel but the norms).  ``decode_step`` returns a new cache; it does not
 write the given one.  ``prefill`` returns the reference's zeroed cache
 (``repro.models.model.prefill``), so decoding after a prompt starts from
 a blank state, as in the reference.
+
+Where the rules cut ``"ssm_inner"`` over ``model`` and the extent divides
+the heads (:func:`repro_torch.distributed.tensor_parallel.local_names`),
+a rank computes its ``H / n`` heads (:func:`mamba_layer`): ``out_proj``
+and the gated norm's weight are read as its blocks (whole heads), while
+``in_proj`` and the conv, whose blocks mix z, x, B, C and dt, are read
+whole and the rank's columns sliced from them (its heads' z, x and dt,
+B and C of its groups); the gated norm sums its squares over the cut
+(:func:`repro_torch.models.common.rmsnorm_cut`) and ``out_proj`` is a row
+product summed over it.  Its decode cache holds its heads' state and its
+heads' conv tail, B's and C's channels whole.  Under Megatron's sequence
+parallelism the residual stream between the layers is the rank's block
+of the sequence.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.torch_device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed import tensor_parallel as tpar
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from . import common as cm
@@ -83,28 +97,99 @@ def causal_conv(xbc, w, b):
     return out + b.to(xbc.dtype)
 
 
-def _split_proj(cfg: ModelConfig, proj):
-    di, nh, g, n, _ = _dims(cfg)
-    return torch.split(proj, [di, di, g * n, g * n, nh], dim=-1)
+def _groups(cfg: ModelConfig, h0: int, hl: int) -> tuple:
+    """``(first group, groups)`` that the heads ``h0 .. h0 + hl`` read B
+    and C of: whole groups, or the one group they lie in."""
+    nh, g = cfg.ssm_heads, cfg.ssm_groups
+    hpg = nh // g
+    if hl % hpg == 0:
+        return h0 // hpg, hl // hpg
+    if hpg % hl == 0:
+        return h0 // hpg, 1
+    raise ValueError(f"{hl} heads a rank of {nh} in {g} groups: neither "
+                     f"whole groups nor within one")
+
+
+class Heads:
+    """The heads a rank computes: ``tp`` (the model cut, None for every
+    head), the first head ``h0`` and ``hl`` heads, the first group ``g0``
+    and ``gl`` groups of B and C."""
+
+    def __init__(self, cfg: ModelConfig, tp, hl: int):
+        self.cfg, self.tp, self.hl = cfg, tp, hl
+        self.h0 = tp.index * hl if tp is not None else 0
+        self.g0, self.gl = _groups(cfg, self.h0, hl)
+
+    def proj_columns(self) -> list:
+        """``(start, width)`` of ``in_proj``'s columns of these heads: z,
+        x, B, C, dt."""
+        cfg, p, n = self.cfg, self.cfg.ssm_headdim, self.cfg.ssm_state
+        di, gn = cfg.d_inner, cfg.ssm_groups * n
+        return [(self.h0 * p, self.hl * p), (di + self.h0 * p, self.hl * p),
+                (2 * di + self.g0 * n, self.gl * n),
+                (2 * di + gn + self.g0 * n, self.gl * n),
+                (2 * di + 2 * gn + self.h0, self.hl)]
+
+    def conv_columns(self) -> list:
+        """``(start, width)`` of the conv's channels of these heads: x, B,
+        C."""
+        cfg, p, n = self.cfg, self.cfg.ssm_headdim, self.cfg.ssm_state
+        di, gn = cfg.d_inner, cfg.ssm_groups * n
+        return [(self.h0 * p, self.hl * p), (di + self.g0 * n, self.gl * n),
+                (di + gn + self.g0 * n, self.gl * n)]
+
+    def take(self, w, cols=None):
+        """This rank's part of a weight it reads whole (in through
+        ``copy_in``: its gradient is a partial sum): the columns ``cols``
+        of its last dim, or its heads of a ``(H,)`` vector."""
+        if self.tp is None:
+            return w
+        w = tpar.copy_in(self.tp, w)
+        if cols is None:
+            return w.narrow(0, self.h0, self.hl)
+        return torch.cat([w.narrow(-1, a, k) for a, k in cols], dim=-1)
+
+    def widths(self) -> list:
+        """The widths of z, x, B, C and dt on these heads."""
+        p, n = self.cfg.ssm_headdim, self.cfg.ssm_state
+        return [self.hl * p, self.hl * p, self.gl * n, self.gl * n, self.hl]
+
+
+def heads_of(cfg: ModelConfig, out_proj) -> Heads:
+    """The heads a rank computes from ``out_proj`` as it reads (its rows
+    whole heads: the rank's block where the rules cut them)."""
+    local = out_proj.shape[0]
+    return Heads(cfg, tpar.split(local, cfg.d_inner),
+                 local // cfg.ssm_headdim)
 
 
 def mamba_layer(cfg: ModelConfig, p, x):
-    """x: (B, S, D) -> (B, S, D)."""
-    b, s, _ = x.shape
-    di, nh, g, n, _ = _dims(cfg)
+    """x: (B, S, D) -> (B, S, D), on the rank's heads (:class:`Heads`):
+    under a model cut the input comes in through
+    ``tensor_parallel.enter`` and ``out_proj``'s row product leaves
+    through ``tensor_parallel.leave``; under sequence parallelism ``x``
+    is the rank's block of the sequence."""
+    n = cfg.ssm_state
     x = cm.constrain_act(x, cfg)
-    xn = cm.rmsnorm(cfg, p["ln"], x)
-    proj = xn @ p["in_proj"].to(x.dtype)
-    z, xs, bmat, cmat, dt_raw = _split_proj(cfg, proj)
+    out_proj = p["out_proj"]
+    hd = heads_of(cfg, out_proj)
+    hl, gl = hd.hl, hd.gl
+    xn = tpar.enter(hd.tp, cm.block_norm(cfg, p["ln"], x))
+    b, s, _ = xn.shape
+    proj = xn @ hd.take(p["in_proj"], hd.proj_columns()).to(x.dtype)
+    z, xs, bmat, cmat, dt_raw = torch.split(proj, hd.widths(), dim=-1)
     xbc = torch.cat([xs, bmat, cmat], dim=-1)
-    xbc = F.silu(causal_conv(xbc, p["conv_w"], p["conv_b"]))
-    xs, bmat, cmat = torch.split(xbc, [di, g * n, g * n], dim=-1)
-    xh = xs.reshape(b, s, nh, cfg.ssm_headdim)
-    bh = bmat.reshape(b, s, g, n)
-    ch = cmat.reshape(b, s, g, n)
+    cols = hd.conv_columns()
+    xbc = F.silu(causal_conv(xbc, hd.take(p["conv_w"], cols),
+                             hd.take(p["conv_b"], cols)))
+    xs, bmat, cmat = torch.split(xbc, [hl * cfg.ssm_headdim, gl * n, gl * n],
+                                 dim=-1)
+    xh = xs.reshape(b, s, hl, cfg.ssm_headdim)
+    bh = bmat.reshape(b, s, gl, n)
+    ch = cmat.reshape(b, s, gl, n)
     ct = kref.compute_dtype(x)       # float32; float64 for a float64 model
-    dt = F.softplus(dt_raw.to(ct) + p["dt_bias"].to(ct))
-    a = -torch.exp(p["a_log"].to(ct))
+    dt = F.softplus(dt_raw.to(ct) + hd.take(p["dt_bias"]).to(ct))
+    a = -torch.exp(hd.take(p["a_log"]).to(ct))
     # Pad S to a chunk multiple with zero steps (the reference pads for its
     # kernel only; dt = 0 leaves the state as it is, so no value changes).
     pad = (-s) % cfg.ssm_chunk
@@ -118,17 +203,17 @@ def mamba_layer(cfg: ModelConfig, p, x):
     y, _ = kops.ssd_scan(xh_p, dt, a, bh, ch, chunk=cfg.ssm_chunk,
                          impl=cm.kernel_impl(cfg))
     y = y[:, :s]
-    y = y + xh * p["d_skip"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(b, s, di)
-    y = cm.rmsnorm(cfg, p["norm"], y * F.silu(z))
-    return x + y @ p["out_proj"].to(x.dtype)
+    y = y + xh * hd.take(p["d_skip"]).to(y.dtype)[None, None, :, None]
+    y = y.reshape(b, s, hl * cfg.ssm_headdim)
+    y = cm.rmsnorm_cut(cfg, hd.tp, p["norm"], y * F.silu(z), cfg.d_inner)
+    return x + tpar.leave(hd.tp, y @ out_proj.to(x.dtype))
 
 
 def _hidden(cfg: ModelConfig, params: Mamba2, tokens):
     x = cm.embed_tokens(cfg, params.embed, tokens, cm.torch_dtype(cfg.dtype))
     x, _ = cm.stacked_apply(cfg, lambda x, p: (mamba_layer(cfg, p, x), None),
                             x, params.layers)
-    return cm.rmsnorm(cfg, params.embed["final_norm"], x)
+    return cm.block_norm(cfg, params.embed["final_norm"], x)
 
 
 def train_forward(cfg: ModelConfig, params: Mamba2, tokens,
@@ -138,7 +223,9 @@ def train_forward(cfg: ModelConfig, params: Mamba2, tokens,
     ``ssd_chunk_scan`` backward kernels (``ops.ssd_scan``'s Function), the
     norms' the RMSNorm backward kernel; the padded steps' gradients stop
     at ``F.pad`` (dt = 0 there, so they add nothing to dA)."""
-    return cm.lm_logits(cfg, params.embed, _hidden(cfg, params, tokens)), 0.0
+    with tpar.sequence_parallel(cfg, tokens.shape[1]):
+        return cm.lm_logits(cfg, params.embed,
+                            _hidden(cfg, params, tokens)), 0.0
 
 
 def forward(cfg: ModelConfig, params: Mamba2, tokens, frontend_inputs=None):
@@ -168,10 +255,19 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               device=DEFAULT_DEVICE) -> dict:
+               device=DEFAULT_DEVICE, heads_blocks: int = 1) -> dict:
     """Zero decode state: ``conv`` (L, B, W - 1, conv_dim) in ``cfg.dtype``
-    and ``ssm`` (L, B, H, P, N) in float32 (``max_seq`` is unused)."""
-    di, nh, g, n, conv_dim = _dims(cfg)
+    and ``ssm`` (L, B, H, P, N) in float32 (``max_seq`` is unused).
+    ``heads_blocks``: the number of blocks the heads are cut into (a
+    rank's heads under a model cut): ``ssm`` (L, B, H / n, P, N) and
+    ``conv`` the tail of its heads' x channels and of its groups' B and C
+    channels, a cut of the port's own (the reference keeps the heads
+    whole)."""
+    _, nh, _, n, conv_dim = _dims(cfg)
+    if heads_blocks > 1:
+        hl = nh // heads_blocks
+        gl = _groups(cfg, 0, hl)[1]
+        nh, conv_dim = hl, hl * cfg.ssm_headdim + 2 * gl * n
     dev = resolve_device(device)
     L = cfg.num_layers
     return {
@@ -182,42 +278,62 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     }
 
 
+def heads_blocks(cfg: ModelConfig, params: Mamba2) -> int:
+    """The number of blocks a rank's heads are of the whole: 1, or the
+    model cut's extent where ``out_proj`` holds a block of them (read
+    without gathering it)."""
+    tp = tpar.split(cm.held_width(params.layers[0], "out_proj", 0),
+                    cfg.d_inner)
+    return 1 if tp is None else tp.n
+
+
 def prefill(cfg: ModelConfig, params: Mamba2, tokens, max_seq: int,
             frontend_inputs=None):
     """Run the prompt; returns (last logits (B, 1, V), the reference's
-    zeroed cache ``init_cache(cfg, B, S)``)."""
+    zeroed cache ``init_cache(cfg, B, S)``, of the rank's heads under a
+    model cut)."""
     with torch.inference_mode():
-        x = _hidden(cfg, params, tokens)
+        with tpar.sequence_parallel(cfg, tokens.shape[1]):
+            x = tpar.enter(None, _hidden(cfg, params, tokens))
         return (cm.lm_logits(cfg, params.embed, x[:, -1:]),
                 init_cache(cfg, tokens.shape[0], tokens.shape[1],
-                           device=tokens.device))
+                           device=tokens.device,
+                           heads_blocks=heads_blocks(cfg, params)))
 
 
 def _layer_decode(cfg: ModelConfig, p, h, conv_st, ssm_st):
-    di, nh, g, n, _ = _dims(cfg)
+    """One token through a layer on the rank's heads (:class:`Heads`):
+    ``conv_st`` and ``ssm_st`` hold their conv tail and state."""
+    n = cfg.ssm_state
     b = h.shape[0]
+    out_proj = p["out_proj"]
+    hd = heads_of(cfg, out_proj)
+    hl, gl = hd.hl, hd.gl
     xn = cm.rmsnorm(cfg, p["ln"], h)
-    proj = xn @ p["in_proj"].to(h.dtype)
-    z, xs, bmat, cmat, dt_raw = _split_proj(cfg, proj)
+    proj = xn @ hd.take(p["in_proj"], hd.proj_columns()).to(h.dtype)
+    z, xs, bmat, cmat, dt_raw = torch.split(proj, hd.widths(), dim=-1)
     xbc = torch.cat([xs, bmat, cmat], dim=-1)[:, 0]          # (B, C)
     hist = torch.cat([conv_st, xbc[:, None, :]], dim=1)
-    conv_out = (torch.einsum("bwc,wc->bc", hist, p["conv_w"].to(h.dtype))
-                + p["conv_b"].to(h.dtype))
+    cols = hd.conv_columns()
+    conv_out = (torch.einsum("bwc,wc->bc", hist,
+                             hd.take(p["conv_w"], cols).to(h.dtype))
+                + hd.take(p["conv_b"], cols).to(h.dtype))
     conv_out = F.silu(conv_out)
-    x1, b1, c1 = torch.split(conv_out, [di, g * n, g * n], dim=-1)
-    xh = x1.reshape(b, nh, cfg.ssm_headdim)
-    bh = b1.reshape(b, g, n).repeat_interleave(nh // g, dim=1)
-    ch = c1.reshape(b, g, n).repeat_interleave(nh // g, dim=1)
-    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())
+    x1, b1, c1 = torch.split(conv_out, [hl * cfg.ssm_headdim, gl * n,
+                                        gl * n], dim=-1)
+    xh = x1.reshape(b, hl, cfg.ssm_headdim)
+    bh = b1.reshape(b, gl, n).repeat_interleave(hl // gl, dim=1)
+    ch = c1.reshape(b, gl, n).repeat_interleave(hl // gl, dim=1)
+    dt = F.softplus(dt_raw[:, 0].float() + hd.take(p["dt_bias"]).float())
+    a = -torch.exp(hd.take(p["a_log"]).float())
     decay = torch.exp(dt * a)[..., None, None]
     ssm_new = ssm_st * decay + torch.einsum(
         "bhp,bhn->bhpn", (xh * dt[..., None]).float(), bh.float())
     y = torch.einsum("bhpn,bhn->bhp", ssm_new, ch.float())
-    y = y.to(h.dtype) + xh * p["d_skip"].to(h.dtype)[None, :, None]
-    y = y.reshape(b, 1, di)
-    y = cm.rmsnorm(cfg, p["norm"], y * F.silu(z))
-    h = h + y @ p["out_proj"].to(h.dtype)
+    y = y.to(h.dtype) + xh * hd.take(p["d_skip"]).to(h.dtype)[None, :, None]
+    y = y.reshape(b, 1, hl * cfg.ssm_headdim)
+    y = cm.rmsnorm_cut(cfg, hd.tp, p["norm"], y * F.silu(z), cfg.d_inner)
+    h = h + tpar.reduce_out(hd.tp, y @ out_proj.to(h.dtype))
     return h, hist[:, 1:].to(conv_st.dtype), ssm_new
 
 

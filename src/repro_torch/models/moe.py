@@ -226,7 +226,8 @@ def moe_block(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
     :func:`repro_torch.distributed.moe_parallel.moe_ffn_ep` as they are),
     else every expert, which that function cuts; without it
     (:func:`moe_ffn`) every rank along ``model`` computes every expert on
-    its weights gathered whole.  The shared expert and the parallel
+    its weights gathered whole (under sequence parallelism on the whole
+    sequence).  The shared expert and the parallel
     dense MLP are :func:`repro_torch.models.common.mlp`, on the rank's
     block of their columns where the rules cut ``mlp`` over ``model``.
     ``p`` maps ``"moe"`` (and ``"dense_mlp"``) to the layer's
@@ -243,7 +244,11 @@ def moe_block(cfg: ModelConfig, p, x, *, record: Optional[list] = None):
         y, aux = moe_ffn_ep(cfg, mesh, p["moe"], x, data_axes=data_axes,
                             record=record)
     else:
-        y, aux = moe_ffn(cfg, p["moe"], x, record=record)
+        # under sequence parallelism the routed experts, whole on every
+        # rank, take the whole sequence and give back the rank's block
+        from repro_torch.distributed import tensor_parallel as tpar
+        y, aux = moe_ffn(cfg, p["moe"], tpar.enter(None, x), record=record)
+        y = tpar.leave(None, y)
     if cfg.moe_shared_d_ff:
         y = y + cm.mlp(p["moe"]["shared"], x, cfg.moe_shared_d_ff)
     if cfg.moe_dense_parallel:

@@ -18,6 +18,9 @@ reference's per-step form; local attention keeps a rolling window cache
 (``init_cache(cfg, B, S)``), as ``repro.models.model.prefill`` does.
 Where the rules cut ``rnn`` over ``model``, a rank runs its block of the
 recurrent channels (:func:`rec_block`) and its cache holds their state.
+Under Megatron's sequence parallelism the residual stream between the
+blocks is the rank's block of the sequence (the recurrence runs over
+the whole sequence inside each block).
 """
 from __future__ import annotations
 
@@ -26,7 +29,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.utils import parametrize
 
 from repro_torch.core.torch_device import DEFAULT_DEVICE, resolve_device
 from repro_torch.distributed import tensor_parallel as tpar
@@ -144,29 +146,31 @@ def rec_block(cfg: ModelConfig, p, x):
     its block of the ``rnn`` channels: ``proj_x`` / ``proj_gate`` are
     column products, the conv, the gates and the recurrence run on
     ``(B, S, di / n)``, ``out_proj`` is a row product summed over the
-    cut."""
+    cut (``tensor_parallel.enter`` / ``leave``: under sequence
+    parallelism the block's input is gathered over the sequence and its
+    output reduce-scattered)."""
     x = cm.constrain_act(x, cfg)
     proj_x = p["proj_x"]
     tp, gates = _rec_cut(cfg, p, proj_x)
-    xn = tpar.copy_in(tp, cm.rmsnorm(cfg, p["ln"], x))
+    xn = tpar.enter(tp, cm.block_norm(cfg, p["ln"], x))
     u = causal_conv(xn @ proj_x.to(x.dtype), p["conv_w"], p["conv_b"])
     h = rglru(cfg, gates, u)
     gate = F.gelu(xn @ p["proj_gate"].to(x.dtype), approximate="tanh")
-    x = x + tpar.reduce_out(tp, (h * gate) @ p["out_proj"].to(x.dtype))
-    return x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x), cfg.d_ff)
+    x = x + tpar.leave(tp, (h * gate) @ p["out_proj"].to(x.dtype))
+    return x + cm.mlp(p["mlp"], cm.block_norm(cfg, p["ln2"], x), cfg.d_ff)
 
 
 def attn_block(cfg: ModelConfig, p, x, positions):
     x = cm.constrain_act(x, cfg)
-    h = cm.attention(cfg, p["attn"], cm.rmsnorm(cfg, p["ln"], x), positions,
-                     window=cfg.window)
+    h = cm.attention(cfg, p["attn"], cm.block_norm(cfg, p["ln"], x),
+                     positions, window=cfg.window)
     x = x + h
-    return x + cm.mlp(p["mlp"], cm.rmsnorm(cfg, p["ln2"], x), cfg.d_ff)
+    return x + cm.mlp(p["mlp"], cm.block_norm(cfg, p["ln2"], x), cfg.d_ff)
 
 
 def _hidden(cfg: ModelConfig, params: RecurrentGemma, tokens):
     x = cm.embed_tokens(cfg, params.embed, tokens, cm.torch_dtype(cfg.dtype))
-    b, s = x.shape[0], x.shape[1]
+    b, s = tokens.shape[0], tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
 
@@ -180,7 +184,7 @@ def _hidden(cfg: ModelConfig, params: RecurrentGemma, tokens):
     x, _ = cm.stacked_apply(cfg, group, x, params.groups)
     for p in params.tail:
         x = rec_block(cfg, p, x)
-    return cm.rmsnorm(cfg, params.embed["final_norm"], x)
+    return cm.block_norm(cfg, params.embed["final_norm"], x)
 
 
 def train_forward(cfg: ModelConfig, params: RecurrentGemma, tokens,
@@ -189,7 +193,9 @@ def train_forward(cfg: ModelConfig, params: RecurrentGemma, tokens,
     rematerialised per ``cfg.remat``).  On a card the gradients run the
     ``linear_recurrence`` backward kernel, the attention backward at D 256
     with the window, and the RMSNorm backward (the ops' Functions)."""
-    return cm.lm_logits(cfg, params.embed, _hidden(cfg, params, tokens)), 0.0
+    with tpar.sequence_parallel(cfg, tokens.shape[1]):
+        return cm.lm_logits(cfg, params.embed,
+                            _hidden(cfg, params, tokens)), 0.0
 
 
 def forward(cfg: ModelConfig, params: RecurrentGemma, tokens,
@@ -273,7 +279,8 @@ def prefill(cfg: ModelConfig, params: RecurrentGemma, tokens, max_seq: int,
     cut = current_cut()
     blocks = cut.mesh.extent(cut.seq) if cut is not None else 1
     with torch.inference_mode():
-        x = _hidden(cfg, params, tokens)
+        with tpar.sequence_parallel(cfg, tokens.shape[1]):
+            x = tpar.enter(None, _hidden(cfg, params, tokens))
         return (cm.lm_logits(cfg, params.embed, x[:, -1:]),
                 init_cache(cfg, tokens.shape[0], tokens.shape[1],
                            device=tokens.device, seq_blocks=blocks,
@@ -291,15 +298,7 @@ def rnn_blocks(cfg: ModelConfig, params: RecurrentGemma) -> int:
     if not rec:
         return 1
     # the width a read gives, from the block: a read would gather it
-    mod = rec[0]
-    if parametrize.is_parametrized(mod, "proj_x"):
-        g = mod.parametrizations.proj_x
-        spec = g[0].spec
-        width = g.original.shape[1] * (
-            g[0].mesh.extent(spec[1]) if len(spec) > 1 and spec[1] else 1)
-    else:
-        width = mod["proj_x"].shape[1]
-    tp = tpar.split(width, di)
+    tp = tpar.split(cm.held_width(rec[0], "proj_x", 1), di)
     return 1 if tp is None else tp.n
 
 

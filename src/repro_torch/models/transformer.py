@@ -15,6 +15,10 @@ rematerialisation when a gradient is recorded).  The functions
 :func:`forward`, :func:`train_forward`, :func:`prefill` and
 :func:`decode_step` take the config explicitly, so one set of weights
 serves configs that differ only in ``kernel_impl`` or ``dtype``.
+Under Megatron's sequence parallelism (``cfg.seq_parallel`` under a
+model cut, :func:`repro_torch.distributed.tensor_parallel
+.sequence_parallel`) the residual stream between the sublayers is the
+rank's block of the sequence; a decode step runs without it.
 Decoding writes the KV cache in place.  Parameters are frozen
 (``requires_grad=False``) for serving; ``params.requires_grad_(True)``
 makes them trainable (``repro_torch.train.TrainState`` does), and their
@@ -103,20 +107,21 @@ class DecoderLayer(nn.Module):
         """``(x, aux)``: the layer's output and its MoE aux loss (None for
         a dense layer)."""
         x = cm.constrain_act(x, cfg)
-        h = cm.attention(cfg, self.attn, cm.rmsnorm(cfg, self.ln1, x),
+        h = cm.attention(cfg, self.attn, cm.block_norm(cfg, self.ln1, x),
                          positions, window=cfg.window)
         x = x + h
-        h, aux = self.ffn(cfg, cm.rmsnorm(cfg, self.ln2, x))
+        h, aux = self.ffn(cfg, cm.block_norm(cfg, self.ln2, x))
         return x + h, aux
 
     def prefill(self, cfg: ModelConfig, x, positions):
         """:meth:`forward` that also returns the layer's keys and values,
         head-major ``(B, K, S, Dh)``, every key head (the cache holds them
         all)."""
-        h, kh, vh = cm.attend(cfg, self.attn, cm.rmsnorm(cfg, self.ln1, x),
-                              positions, window=cfg.window)
+        h, kh, vh = cm.attend(cfg, self.attn,
+                              cm.block_norm(cfg, self.ln1, x), positions,
+                              window=cfg.window)
         x = x + h
-        x = x + self.ffn(cfg, cm.rmsnorm(cfg, self.ln2, x))[0]
+        x = x + self.ffn(cfg, cm.block_norm(cfg, self.ln2, x))[0]
         return x, kh, vh
 
     def decode(self, cfg: ModelConfig, x, cache_k, cache_v, pos: int):
@@ -176,19 +181,34 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
+def _hidden(cfg: ModelConfig, params: Transformer, tokens, frontend_inputs,
+            layer_fn):
+    """The final-normed hidden states of the layers run by ``layer_fn(x,
+    layer, positions) -> (x, y)``, and the ys: the rank's block of the
+    sequence under sequence parallelism."""
+    from repro_torch.distributed import tensor_parallel as tpar
+    x = cm.embed_tokens(cfg, params.embed, tokens, cm.torch_dtype(cfg.dtype))
+    x = cm.apply_frontend(cfg, params.embed, x, frontend_inputs)
+    sp = tpar.seq_cut()
+    s = x.shape[1] * (sp.n if sp is not None else 1)
+    positions = _positions(x.shape[0], s, x.device)
+    x, ys = cm.stacked_apply(
+        cfg, lambda x, layer: layer_fn(x, layer, positions), x,
+        params.layers)
+    return cm.block_norm(cfg, params.embed["final_norm"], x), ys
+
+
 def train_forward(cfg: ModelConfig, params: Transformer, tokens,
                   frontend_inputs=None):
     """:func:`forward` that autograd records (the same maths; the layers
     rematerialised per ``cfg.remat`` when a gradient is recorded)."""
-    x = cm.embed_tokens(cfg, params.embed, tokens, cm.torch_dtype(cfg.dtype))
-    x = cm.apply_frontend(cfg, params.embed, x, frontend_inputs)
-    positions = _positions(x.shape[0], x.shape[1], x.device)
-    x, auxs = cm.stacked_apply(
-        cfg, lambda x, layer: layer(cfg, x, positions), x, params.layers)
-    auxs = [a for a in auxs if a is not None]
-    x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
-    aux = torch.stack(auxs).sum() if auxs else 0.0
-    return cm.lm_logits(cfg, params.embed, x), aux
+    from repro_torch.distributed import tensor_parallel as tpar
+    with tpar.sequence_parallel(cfg, tokens.shape[1]):
+        x, auxs = _hidden(cfg, params, tokens, frontend_inputs,
+                          lambda x, layer, pos: layer(cfg, x, pos))
+        auxs = [a for a in auxs if a is not None]
+        aux = torch.stack(auxs).sum() if auxs else 0.0
+        return cm.lm_logits(cfg, params.embed, x), aux
 
 
 def forward(cfg: ModelConfig, params: Transformer, tokens,
@@ -266,32 +286,38 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens, max_seq: int,
     first S cache slots (zeros after), or, when the cache is shorter than
     the prompt, it keeps the last ones.  Under a
     :class:`repro_torch.distributed.ctx.RowCut` whose ``seq`` cuts the
-    slots, the cache returned is this rank's block of them."""
+    slots, the cache returned is this rank's block of them.  Under
+    sequence parallelism the hidden states are gathered before the
+    head."""
+    from repro_torch.distributed import tensor_parallel as tpar
     from repro_torch.distributed.ctx import current_cut
     from repro_torch.distributed.mesh import axis_index
     cut = current_cut()
     seq = cut.seq if cut is not None else ()
+    layers = iter(range(cfg.num_layers))
     with torch.inference_mode():
-        x = cm.embed_tokens(cfg, params.embed, tokens,
-                            cm.torch_dtype(cfg.dtype))
-        x = cm.apply_frontend(cfg, params.embed, x, frontend_inputs)
-        b, s = x.shape[0], x.shape[1]
-        positions = _positions(b, s, x.device)
+        b = tokens.shape[0]
         blocks = cut.mesh.extent(seq) if seq else 1
-        cache = init_cache(cfg, b, max_seq, device=x.device,
+        cache = init_cache(cfg, b, max_seq, device=tokens.device,
                            seq_blocks=blocks)
-        n = min(cache_len(cfg, max_seq), s)
-        # the global slots [lo, hi) of this rank's block that the prompt
-        # fills: slot j holds the key of position s - n + j
         s_loc = cache["k"].shape[3]
         first = axis_index(cut.mesh, seq) * s_loc if seq else 0
-        lo, hi = first, min(first + s_loc, n)
-        for i, layer in enumerate(params.layers):
+
+        def layer_fn(x, layer, positions):
+            # the global slots [lo, hi) of this rank's block that the
+            # prompt fills: slot j holds the key of position s - n + j
+            i, s = next(layers), positions.shape[1]
+            n = min(cache_len(cfg, max_seq), s)
+            lo, hi = first, min(first + s_loc, n)
             x, kh, vh = layer.prefill(cfg, x, positions)
             if lo < hi:
                 cache["k"][i, :, :, :hi - lo] = kh[:, :, s - n + lo:s - n + hi]
                 cache["v"][i, :, :, :hi - lo] = vh[:, :, s - n + lo:s - n + hi]
-        x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
+            return x, None
+
+        with tpar.sequence_parallel(cfg, tokens.shape[1]):
+            x, _ = _hidden(cfg, params, tokens, frontend_inputs, layer_fn)
+            x = tpar.enter(None, x)
         return cm.lm_logits(cfg, params.embed, x[:, -1:]), cache
 
 
@@ -306,5 +332,5 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict, tokens,
                             cm.torch_dtype(cfg.dtype))
         for i, layer in enumerate(params.layers):
             x = layer.decode(cfg, x, cache["k"][i], cache["v"][i], pos)
-        x = cm.rmsnorm(cfg, params.embed["final_norm"], x)
+        x = cm.block_norm(cfg, params.embed["final_norm"], x)
         return cm.lm_logits(cfg, params.embed, x)[:, 0], cache

@@ -21,11 +21,11 @@ cache's global length for that: ``make_serve_step(cfg, max_seq)``.
 The steps also take a rank's blocks of the parameters
 (:func:`repro_torch.distributed.rank_local.serve_blocks`): they run
 under the layout's :class:`repro_torch.distributed.ctx.ModelCut`, a rank
-computes its attention heads, MLP columns, vocabulary block and RG-LRU
-channels (:mod:`repro_torch.distributed.tensor_parallel`; the recurrent
-cache holds its channels' state, the KV cache every key head of its
-block of slots), and the next token is the argmax over the vocabulary's
-blocks.
+computes its attention heads, MLP columns, vocabulary block, RG-LRU
+channels and Mamba2 heads (:mod:`repro_torch.distributed.tensor_parallel`;
+the recurrent cache holds its channels' or heads' state, the KV cache
+every key head of its block of slots), and the next token is the argmax
+over the vocabulary's blocks.
 """
 from __future__ import annotations
 
@@ -41,8 +41,8 @@ from repro_torch.models.config import ModelConfig
 
 #: The cache's logical axes a rank's block is cut on: its rows and its
 #: slots, and the widths a rank computes a block of
-#: (``tensor_parallel.local_names``: the RG-LRU's ``rnn``).  The others
-#: (Mamba2's ``ssm_inner``) stay whole: a rank computes them whole.
+#: (``tensor_parallel.local_names``: the RG-LRU's ``rnn``).  Mamba2's
+#: heads are cut by :func:`cache_block`, not by a spec.
 _CUT_AXES = ("batch", "cache_seq")
 
 
@@ -52,15 +52,39 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int, mesh,
     cache: ``tree_shardings_for`` of its shapes and
     ``cache_logical_axes`` (sanitized), kept on the ``batch`` and
     ``cache_seq`` dims and on those whose width the rank computes a
-    block of."""
+    block of.  Mamba2's ``"ssm_inner"`` is whole here: a rank on its
+    heads holds their state ``(L, B, H / n, P, N)`` and their conv tail,
+    the tail of its heads' x channels with B's and C's whole, which is
+    no block of ``"ssm_inner"`` (nor is the state's ``"ssm_heads"`` cut
+    by the rules: the reference keeps it whole).  That cut is the port's
+    own: :func:`cache_block` gives its shapes."""
     from repro_torch.distributed.tensor_parallel import local_names
     axes = M.cache_logical_axes(cfg)
-    keep = set(_CUT_AXES) | local_names(cfg, mesh, rules)
+    keep = set(_CUT_AXES) | (local_names(cfg, mesh, rules) - {"ssm_inner"})
     specs = sh.tree_shardings_for(M.cache_spec(cfg, batch, max_seq), axes,
                                   mesh, rules)
     return {k: sh.PartitionSpec(*(e if name in keep else None
                                   for name, e in zip(axes[k], specs[k])))
             for k in axes}
+
+
+def cache_block(cfg: ModelConfig, batch: int, max_seq: int, mesh,
+                rules) -> dict:
+    """A rank's block of the ``batch``-row, ``max_seq`` cache as
+    ``meta`` tensors: :func:`cache_specs`' blocks, and where a rank
+    computes Mamba2's heads (``"ssm_inner"`` in ``local_names``) its
+    heads' state and conv tail (:func:`repro_torch.models.mamba2
+    .init_cache`'s ``heads_blocks``)."""
+    from repro_torch.distributed import rank_local
+    from repro_torch.distributed.tensor_parallel import local_names
+    specs = cache_specs(cfg, batch, max_seq, mesh, rules)
+    full = M.cache_spec(cfg, batch, max_seq)
+    if "ssm_inner" in local_names(cfg, mesh, rules):
+        from repro_torch.models import mamba2
+        n = mesh.extent(sh.spec_from_axes(("ssm_inner",), rules, mesh)[0])
+        full = mamba2.init_cache(cfg, batch, max_seq, device="meta",
+                                 heads_blocks=n)
+    return rank_local.block_spec(full, specs, mesh)
 
 
 def serving_cut(cfg: ModelConfig, batch: int,

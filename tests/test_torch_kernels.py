@@ -371,6 +371,65 @@ def test_rmsnorm_bwd_plain_matches_autograd_and_jax(shape, dtype):
                                rtol=1e-4, atol=5e-3)
 
 
+@pytest.mark.parametrize("shape,n", [((6, 64), 4), ((2, 5, 48), 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_cut_plain_matches_whole_rows(shape, n, dtype):
+    """Rows cut into ``n`` blocks of columns, each block's partial sums
+    completed by the others' (the all-reduce's result): the cut norm's
+    plain forward and backward (and ``RMSNormCutFunction`` on CPU
+    tensors, which runs them) against the whole-row ``rmsnorm_torch`` and
+    ``rmsnorm_bwd_torch``, block by block."""
+    rng = np.random.default_rng(sum(shape) + n)
+    d = shape[-1]
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                        ).to(dtype)
+    w = torch.as_tensor((rng.standard_normal(d) * 0.1).astype(np.float32))
+    dy = torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                         ).to(dtype)
+    b = d // n
+    cols = [slice(i * b, (i + 1) * b) for i in range(n)]
+    xf, gf = x.float(), dy.float()
+    sq = [torch.sum(xf[..., c] ** 2, -1) for c in cols]
+    dots = [torch.sum(gf[..., c] * (1 + w[c]) * xf[..., c], -1)
+            for c in cols]
+
+    def adding(parts, i):
+        others = sum(p for j, p in enumerate(parts) if j != i)
+        return lambda t: t + others.reshape(t.shape)
+
+    want = prms.rmsnorm_torch(x, w)
+    want_dx, want_dw = prms.rmsnorm_bwd_torch(x, w, dy)
+    tol = BWD_AUTOGRAD[dtype]
+    for i, c in enumerate(cols):
+        y = prms.rmsnorm_cut_torch(x[..., c], w[c], adding(sq, i), width=d)
+        np.testing.assert_allclose(y.float().numpy(),
+                                   want[..., c].float().numpy(), **tol)
+        ss = sum(sq).reshape(-1)
+        dx, dw = prms.rmsnorm_cut_bwd_torch(x[..., c], w[c], dy[..., c], ss,
+                                            adding(dots, i), width=d)
+        assert dx.dtype == dtype and dw.dtype == torch.float32
+        np.testing.assert_allclose(dx.float().numpy(),
+                                   want_dx[..., c].float().numpy(), **tol)
+        np.testing.assert_allclose(dw.numpy(), want_dw[c].numpy(),
+                                   rtol=1e-5, atol=1e-4)
+        xc = x[..., c].clone().requires_grad_(True)
+        wc = w[c].clone().requires_grad_(True)
+        launches = (prms.rmsnorm_cut.launches, prms.rmsnorm_cut_bwd.launches)
+        # the Function sums the squares forward, the dot products backward
+        others = iter([adding(sq, i), adding(dots, i)])
+        z = prms.RMSNormCutFunction.apply(
+            xc, wc, lambda t: next(others)(t), d, 1e-6)
+        got = torch.autograd.grad(z, (xc, wc), dy[..., c])
+        np.testing.assert_allclose(z.detach().float().numpy(),
+                                   y.float().numpy(), **tol)
+        np.testing.assert_allclose(got[0].float().numpy(),
+                                   dx.float().numpy(), **tol)
+        np.testing.assert_allclose(got[1].numpy(), dw.numpy(), rtol=1e-5,
+                                   atol=1e-4)
+        assert launches == (prms.rmsnorm_cut.launches,
+                            prms.rmsnorm_cut_bwd.launches)
+
+
 def test_autograd_functions_run_plain_versions_on_cpu():
     """The Functions that ``ops`` uses on ``impl="cuda"`` take CPU tensors
     too (their wrappers then run the plain versions), and give plain

@@ -1,7 +1,8 @@
 """Tensor parallelism over the ``model`` axis: a rank computes only its
-attention heads, MLP columns, vocabulary block and RG-LRU channels
-(``repro_torch.distributed.tensor_parallel``, ``rank_local``'s gathered
-specs, ``ctx.ModelCut``).
+attention heads, MLP columns, vocabulary block, RG-LRU channels and
+Mamba2 heads, and under ``seq_parallel`` holds its block of the sequence
+between the sublayers (``repro_torch.distributed.tensor_parallel``,
+``rank_local``'s gathered specs, ``ctx.ModelCut``).
 
 One module fixture runs the reference in a subprocess (eight virtual CPU
 devices) and, meanwhile, the port on eight gloo CPU ranks of the (2, 4)
@@ -15,6 +16,11 @@ rows cut over ``data``, heads, MLP columns, vocabulary and channels over
   batch's shardings): the loss within ``LOSS_REL``, the gradient blocks
   at ``tests/test_torch_train.py``'s float32 tolerance between the
   frameworks (``F32``);
+* tinyllama-1.1b, qwen2-moe-a2.7b, recurrentgemma-9b and mamba2-370m
+  with ``seq_parallel`` (Megatron's sequence parallelism) on the port's
+  side, held against the same reference entries (its ``constrain`` is a
+  no-op outside ``axis_rules``, and sequence parallelism changes no
+  value) and against the one-rank step, as below;
 * every family's step against the port's one-rank step on each rank, in
   float64, so that only a wrong term can exceed the constants: the loss
   within ``LOSS_REL``, each gradient block within ``GRAD_REL`` of its
@@ -35,12 +41,14 @@ rows cut over ``data``, heads, MLP columns, vocabulary and channels over
   argmax (a tie across blocks) against plain autograd on one rank;
 * serving under ``make_rules(fsdp=False, data_axes=("data",))``: a
   rank holds its ``model`` blocks (``rank_local.serve_blocks``) and
-  gathers nothing a token; qwen3-4b, qwen2-moe-a2.7b and
-  recurrentgemma-9b through the serve steps against the one-rank steps
-  in float64, tokens equal and logits within ``SERVE_REL``;
+  gathers nothing a token; qwen3-4b, qwen2-moe-a2.7b,
+  recurrentgemma-9b and mamba2-370m (on its heads, the cache its heads'
+  state) through the serve steps against the one-rank steps in float64,
+  tokens equal and logits within ``SERVE_REL``;
 * a remat recompute run on a fresh thread computes the same blocks;
 * the dry run: a smoke train cell's flops a rank equal
-  ``tensor_parallel.train_flops``.
+  ``tensor_parallel.train_flops`` (tinyllama and mamba2, with and
+  without ``seq_parallel``).
 """
 import dataclasses
 import os
@@ -54,7 +62,7 @@ import pytest
 import torch
 
 from repro_torch import models as M
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.distributed import ctx as dctx
 from repro_torch.distributed import launch, rank_local
 from repro_torch.distributed import sharding as sh
@@ -90,13 +98,17 @@ SERVE_REL = 1e-5
 F32 = dict(rtol=1e-4, scale_atol=1e-4)
 ARCHS = ["tinyllama-1.1b", "qwen3-4b", "qwen2-moe-a2.7b", "mamba2-370m",
          "recurrentgemma-9b", "internvl2-26b", "musicgen-large"]
+#: the families run again with seq_parallel (case "<arch>-sp")
+SP_ARCHS = ["tinyllama-1.1b", "qwen2-moe-a2.7b", "recurrentgemma-9b",
+            "mamba2-370m"]
+CASES = ARCHS + [f"{arch}-sp" for arch in SP_ARCHS]
 #: local query heads against a key head's group on model 4: (name, heads,
 #: key heads) with the heads a rank holds fewer than, as many as, more
 #: than rep, and neither a multiple nor a divisor of it
 GQA = [("fewer", 4, 1), ("equal", 8, 4), ("more", 16, 8), ("neither", 24, 6)]
 #: (arch, prompt length, max_seq)
 SERVE = [("qwen3-4b", 10, 64), ("qwen2-moe-a2.7b", 10, 64),
-         ("recurrentgemma-9b", 40, 64)]
+         ("recurrentgemma-9b", 40, 64), ("mamba2-370m", 10, 64)]
 OPT = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=10)
 BATCH, SEQ = 8, 16
 
@@ -110,6 +122,10 @@ def _serve_rules():
 
 
 def _config(arch, dtype="float32", **over):
+    """``arch``'s smoke config; a case ``"<arch>-sp"`` with
+    ``seq_parallel``."""
+    if arch.endswith("-sp"):
+        arch, over = arch[:-3], dict(over, seq_parallel=True)
     return dataclasses.replace(get_smoke_config(arch), dtype=dtype,
                                param_dtype=("float64" if dtype == "float64"
                                             else "float32"), **over)
@@ -355,10 +371,10 @@ def _port_rank(rank, report):
     torch.set_num_threads(1)
     mesh = Mesh(MESH, ("data", "model"), backend="gloo", device="cpu")
     out = {"f32": {}, "f64": {}, "gqa": {}}
-    for arch in ARCHS:
-        out["f32"][arch] = _f32_case(mesh, arch)
-        out["f64"][arch] = _f64_case(mesh, _config(arch, "float64"))
-        report(f"rank {rank}: {arch}")
+    for case in CASES:
+        out["f32"][case] = _f32_case(mesh, case)
+        out["f64"][case] = _f64_case(mesh, _config(case, "float64"))
+        report(f"rank {rank}: {case}")
     for name, h, k in GQA:
         out["gqa"][name] = _f64_case(mesh, _config(
             "tinyllama-1.1b", "float64", num_heads=h, num_kv_heads=k),
@@ -469,26 +485,27 @@ def _block(a: np.ndarray, spec, rank: int) -> np.ndarray:
 
 
 # -- the train step -----------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CASES)
 def test_tp_step_matches_the_reference_sharded_step(sides, arch):
     """Each rank's loss and gradient blocks against the reference's
-    sharded value_and_grad on the same mesh, float32."""
+    sharded value_and_grad on the same mesh, float32 (a ``-sp`` case
+    against the same entries as its arch's)."""
     ref, port = sides
     cfg = _config(arch)
+    name = arch.removesuffix("-sp")
     layout = rank_local.layout_for(cfg, AbstractMesh(MESH, ("data",
                                                             "model")),
                                    _rules())
     specs = rank_local.spec_leaves(layout.specs.params,
                                    layout.specs.params)
-    want_loss = float(ref[f"{arch}/loss"])
+    want_loss = float(ref[f"{name}/loss"])
     worst = 0.0
     for rank, got in enumerate(port):
         case = got["f32"][arch]
-        assert case["model_cut"] == ((() if arch == "mamba2-370m"
-                                      else ("model",)))
+        assert case["model_cut"] == ("model",)
         assert abs(case["loss"] - want_loss) <= LOSS_REL * want_loss
         for i, (g, spec) in enumerate(zip(case["grads"], specs)):
-            want = _block(ref[f"{arch}/g{i}"], spec, rank)
+            want = _block(ref[f"{name}/g{i}"], spec, rank)
             scale = float(np.abs(want).max())
             if scale > 0:
                 worst = max(worst, float(np.abs(g - want).max()) / scale)
@@ -502,7 +519,7 @@ def test_tp_step_matches_the_reference_sharded_step(sides, arch):
           f"of its leaf's largest magnitude")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CASES)
 def test_tp_step_matches_one_rank(sides, arch):
     """Float64: every rank's loss, gradient blocks and state after the
     step against the one-rank step's."""
@@ -514,14 +531,16 @@ def test_tp_step_matches_one_rank(sides, arch):
         assert case["state_err"] <= STATE_ATOL, (rank, case["state_err"])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CASES)
 def test_collectives_are_the_arithmetic(sides, arch):
     """The step's ``"tp"`` collectives (row products' sums, column
-    products' input gradients, the lookup and the loss) are
+    products' input gradients, the lookup and the loss; under
+    ``seq_parallel`` the sequence's all-gathers and reduce-scatters) are
     ``step_collectives``; the weights' all-gathers over ``data`` only
-    are ``forward_gathers`` a unit forward (the recomputes included);
-    the gradient's sums over the rows are ``backward_sums``; nothing at
-    the body or the boundary."""
+    (Mamba2's ``in_proj`` and conv over ``model`` too) are
+    ``forward_gathers`` a unit forward (the recomputes included); the
+    gradient's sums over the rows are ``backward_sums``; nothing at the
+    body or the boundary."""
     cfg = _config(arch)
     mesh = AbstractMesh(MESH, ("data", "model"))
     layout = rank_local.layout_for(cfg, mesh, _rules())
@@ -540,7 +559,7 @@ def test_collectives_are_the_arithmetic(sides, arch):
         for site in ("tp", "state", "grad"):
             assert case[site] == tuple(want[site]), (rank, site)
         assert case["body"] == 0
-    assert (want["tp"][0] > 0) == (arch != "mamba2-370m")
+    assert want["tp"][0] > 0
 
 
 @pytest.mark.parametrize("name", [c[0] for c in GQA])
@@ -602,11 +621,21 @@ def test_remat_recompute_on_a_fresh_thread_computes_the_same_blocks(sides):
 def test_serve_steps_on_model_blocks_match_one_rank(sides, arch):
     """A rank's ``model`` blocks under the no-FSDP rules: prefill and
     decode give the one-rank tokens and logits, and no weight is gathered
-    (the MoE smoke's 6 routed experts do not divide model 4: held
-    whole)."""
+    over data (the MoE smoke's 6 routed experts do not divide model 4:
+    held whole); Mamba2 on its heads, its ``in_proj`` and conv gathered
+    over ``model``."""
     cfg = _config(arch)
     mesh = AbstractMesh(MESH, ("data", "model"))
     names = tpar.local_names(cfg, mesh, _serve_rules())
+    # four forwards (the prefill, two decode steps, the last logits), each
+    # reading every weight once: gathers of Mamba2's in_proj and conv
+    # only
+    f64 = _config(arch, "float64")
+    g = rank_local.forward_gathers(
+        f64, rank_local.layout_for(f64, mesh, _serve_rules()))
+    want_state = tuple(4 * (_units(f64) * g["unit"][i] + g["rest"][i])
+                       for i in (0, 1))
+    assert (want_state[0] > 0) == (arch == "mamba2-370m")
     print(arch, "logits rel", [got["serve"][arch]["logits_rel"]
                                for got in sides[1]])
     for rank, got in enumerate(sides[1]):
@@ -615,9 +644,10 @@ def test_serve_steps_on_model_blocks_match_one_rank(sides, arch):
         assert s["tokens_equal"], rank
         assert s["logits_rel"] <= SERVE_REL, (rank, s["logits_rel"])
         assert s["held"] < s["whole"]
-        assert s["state"] == (0, 0), rank
+        assert s["state"] == want_state, rank
         assert s["tp"][0] > 0
-    assert {"heads", "mlp", "vocab"} <= names
+    assert ({"ssm_inner", "vocab"} if arch == "mamba2-370m"
+            else {"heads", "mlp", "vocab"}) <= names
 
 
 def test_serve_collectives_are_the_arithmetic():
@@ -643,17 +673,22 @@ def test_serve_collectives_are_the_arithmetic():
 
 
 # -- the dry run, rules and layouts -------------------------------------------
-@pytest.mark.parametrize("over,mb", [({}, 1), ({"remat": "none"}, 1),
-                                     ({"num_layers": 4}, 2)])
+@pytest.mark.parametrize("over,mb", [
+    ({}, 1), ({"remat": "none"}, 1), ({"num_layers": 4}, 2),
+    ({"arch": "mamba2-370m"}, 1), ({"seq_parallel": True}, 1),
+    ({"arch": "mamba2-370m", "seq_parallel": True, "remat": "none"}, 1)])
 def test_dry_run_flops_are_the_tp_arithmetic(over, mb):
     """A smoke train cell on (2, 4): the products a rank traces are
     ``train_flops`` of its heads, columns and vocabulary block (k and v
-    whole), and its ``"tp"`` collectives ``step_collectives``."""
+    whole; Mamba2's heads, B and C whole), and its ``"tp"`` collectives
+    ``step_collectives``; ``seq_parallel`` moves no product."""
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.config import ShapeConfig
+    over = dict(over)
     cfg = dataclasses.replace(
-        get_smoke_config("tinyllama-1.1b", kernel_impl="torch"), **over)
+        get_smoke_config(over.pop("arch", "tinyllama-1.1b"),
+                         kernel_impl="torch"), **over)
     args = D.parser().parse_args(["--arch", "-", "--shape", "-",
                                   "--microbatches", str(mb)])
     sc = ShapeConfig("t", "train", 32, 8)
@@ -671,14 +706,23 @@ def test_dry_run_flops_are_the_tp_arithmetic(over, mb):
     tp = got["collectives_by_site"]["tp"]
     assert (sum(tp["count"].values()), sum(tp["result_bytes"].values())) \
         == tpar.step_collectives(cfg, names, 4, rows, 32, mb)
+    if cfg.seq_parallel:
+        assert got["flops"] == tpar.train_flops(
+            dataclasses.replace(cfg, seq_parallel=False), names, 4, rows,
+            32, mb)
+        assert tp["count"].get("reduce-scatter", 0) > 0
 
 
 def test_local_names_follow_the_rules():
-    """Heads, MLP columns, the vocabulary and the RG-LRU's channels are
-    computed as blocks where the rules cut them over an axis of more than
-    one rank, the heads under ring attention too (the ring trades a
-    rank's heads for a sequence block); a rule set with no model
-    entries, Mamba2 and sequence parallelism keep them whole."""
+    """Heads, MLP columns, the vocabulary, the RG-LRU's channels and
+    Mamba2's heads are computed as blocks where the rules cut them over
+    an axis of more than one rank, the heads under ring attention too
+    (the ring trades a rank's heads for a sequence block) and under
+    sequence parallelism (the same names); a rule set with no model
+    entries keeps them whole, and so does an extent that does not divide
+    the width (Mamba2's heads, its vocabulary).  Mamba2 reads
+    ``out_proj`` and its norm as their blocks, ``in_proj`` and the conv
+    whole."""
     mesh = AbstractMesh(MESH, ("data", "model"))
     dense = get_smoke_config("tinyllama-1.1b")
     hybrid = get_smoke_config("recurrentgemma-9b")
@@ -688,14 +732,58 @@ def test_local_names_follow_the_rules():
         "heads", "mlp", "vocab", "rnn"}
     none = sh.make_rules(fsdp_axes=("data", "model"), model_axis="tp")
     assert tpar.local_names(dense, mesh, none) == frozenset()
-    assert tpar.local_names(get_smoke_config("mamba2-370m"), mesh,
-                            _rules()) == frozenset()
+    ssm = get_smoke_config("mamba2-370m")
+    assert tpar.local_names(ssm, mesh, _rules()) == {"ssm_inner", "vocab"}
     assert tpar.local_names(dataclasses.replace(dense, ring_attention=True),
                             mesh, _rules()) == {"heads", "mlp", "vocab"}
-    assert tpar.local_names(dataclasses.replace(dense, seq_parallel=True),
-                            mesh, _rules()) == frozenset()
+    for cfg in (dense, hybrid, ssm):
+        sp = dataclasses.replace(cfg, seq_parallel=True)
+        assert tpar.local_names(sp, mesh, _rules()) == \
+            tpar.local_names(cfg, mesh, _rules())
+    big = AbstractMesh((16, 16), ("data", "model"))
+    full = get_config("mamba2-370m")
+    # 32 heads on 16: 2 a rank; the tied 50,280 rows do not divide by 16,
+    # so sanitize keeps the vocabulary whole
+    names = tpar.local_names(full, big, _rules())
+    assert names == {"ssm_inner", "vocab"}
+    assert tpar._cut(full, names, 16)["ssm"] == 2
+    assert tpar._cut(full, names, 16)["vocab"] == full.vocab_size
+    assert tpar.local_names(dataclasses.replace(ssm, ssm_headdim=64),
+                            mesh, _rules()) == {"vocab"}     # 2 heads
+    g = rank_local.layout_for(ssm, mesh, _rules()).gather_specs()["layers"]
+    PS = sh.PartitionSpec
+    assert g["out_proj"] == PS(None, None, "data")
+    assert g["norm"] == PS(None, None)
+    assert g["in_proj"] == PS(None, "data", "model")
+    assert g["conv_b"] == PS(None, "model")
     assert tpar.local_names(dense, AbstractMesh((8, 1), ("data", "model")),
                             _rules()) == frozenset()
+
+
+def test_sequence_parallelism_applies_where_the_sequence_divides():
+    """``seq_parallel`` under a model cut of 4: a sequence of 16 runs
+    sequence-parallel; a decode step (1 position) or 18 positions run as
+    TP alone (the reference's sanitize drops the axis); with ring
+    attention or expert parallelism it raises, naming them."""
+    mesh = AbstractMesh(MESH, ("data", "model"))
+    dense = dataclasses.replace(get_smoke_config("tinyllama-1.1b"),
+                                seq_parallel=True)
+    moe = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                              seq_parallel=True)
+    with dctx.model_cut(dctx.ModelCut(mesh, ("model",))):
+        for cfg, seq, want in ((dense, 16, True), (dense, 1, False),
+                               (dense, 18, False), (moe, 16, True)):
+            with tpar.sequence_parallel(cfg, seq) as on:
+                assert on == want
+                assert (tpar.seq_cut() is not None) == want
+        for over, name in (({"ring_attention": True}, "ring_attention"),
+                           ({"moe_impl": "ep"}, "moe_impl='ep'")):
+            with pytest.raises(ValueError, match=name):
+                with tpar.sequence_parallel(
+                        dataclasses.replace(moe, **over), 16):
+                    pass
+    with tpar.sequence_parallel(dense, 16) as on:      # no model cut
+        assert not on
 
 
 def test_a_model_leaf_is_gathered_over_its_other_axes_only():
